@@ -1,0 +1,26 @@
+"""Core of the port: topologies, consensus mixing, optimizers, the step engine
+and the stacked-simulation trainer (see :mod:`repro.core` for the reference).
+"""
+
+from repro_torch.core.topology import Topology, make_topology
+from repro_torch.core.engine import StepProgram
+from repro_torch.core.optim import (
+    CDSGD,
+    CDMSGD,
+    CommOps,
+    make_optimizer,
+    stacked_comm_ops,
+)
+from repro_torch.core import schedules
+
+__all__ = [
+    "Topology",
+    "make_topology",
+    "StepProgram",
+    "CDSGD",
+    "CDMSGD",
+    "CommOps",
+    "make_optimizer",
+    "stacked_comm_ops",
+    "schedules",
+]

@@ -1,0 +1,181 @@
+"""Multi-agent collaborative trainer (stacked simulation execution mode).
+
+Simulates the paper's N-agent fixed-topology network on one device: every
+parameter leaf carries a leading agent axis and the step is assembled from
+the :class:`repro_torch.core.engine.StepProgram` phases, as in
+:mod:`repro.core.trainer`.  An optimizer built with ``fused=True`` runs the
+whole-model flat-buffer update: one consensus-update kernel launch per
+parameter dtype bucket per step.
+
+The trainer runs on ``device`` — the CUDA card unless the caller passes
+``device="cpu"``; with no card and no device given it raises.  Batches are
+numpy dicts (:class:`repro_torch.data.AgentPartitioner`) moved to the
+device each step.
+
+Knobs of the JAX trainer outside this slice raise ``NotImplementedError``
+naming their ROADMAP item: quantized exchanges, the overlap schedule,
+microbatches, and every non-default mixing-program setting.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.func import vmap
+
+from repro_torch.core import engine, flatbuf
+from repro_torch.core.consensus import (
+    check_exchange,
+    consensus_error_pytree,
+    exchange_bytes_per_step,
+)
+from repro_torch.core.optim import CommOps, DistributedOptimizer, stacked_comm_ops
+from repro_torch.core.topology import Topology
+from repro_torch.device import resolve_device
+from repro_torch.utils.metrics import MetricHistory
+from repro_torch.utils.tree import tree_map
+
+PyTree = Any
+LossFn = Callable[[PyTree, Dict[str, torch.Tensor]],
+                  Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+
+
+def broadcast_to_agents(params: PyTree, n_agents: int) -> PyTree:
+    """Replicate a single parameter set to all agents (common init)."""
+    return tree_map(
+        lambda x: x[None].expand((n_agents,) + tuple(x.shape)).clone(), params)
+
+
+def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+# the JAX trainer's mixing-program knobs: name -> (default, ROADMAP item)
+_UNPORTED_KNOBS = {
+    "mixing_strategy": ("static", "A13 (time-varying / multi-round mixing)"),
+    "consensus_rounds": (1, "A13 (multi-round mixing)"),
+    "topology_schedule": (None, "A13 (TopologySchedule)"),
+    "error_feedback": (False, "A11 (error-feedback residual)"),
+    "momentum_mixing": ("none", "A12 (momentum mixing)"),
+    "staleness": (1, "A13 (bounded-staleness wire ring)"),
+    "fault_schedule": (None, "A13 (fault schedules)"),
+    "compressor": ("none", "A14 (compressor axis)"),
+    "sparse_update": (None, "A14 (sparse update kernels)"),
+}
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: PyTree            # stacked (A, ...)
+    opt_state: Any
+    step: int = 0
+
+
+class CollaborativeTrainer:
+    """Drives N collaborating agents through a DistributedOptimizer."""
+
+    def __init__(
+        self,
+        loss_fn: LossFn,
+        params: PyTree,                   # single-agent params (will be stacked)
+        topology: Topology,
+        optimizer: DistributedOptimizer,
+        *,
+        device=None,
+        exchange: str = "f32",
+        schedule: str = "sync",
+        microbatches: int = 1,
+        **program_knobs,
+    ):
+        for name, value in program_knobs.items():
+            if name not in _UNPORTED_KNOBS:
+                raise TypeError(f"unexpected keyword argument {name!r}")
+            default, item = _UNPORTED_KNOBS[name]
+            if value != default:
+                raise NotImplementedError(
+                    f"{name}={value!r} is not ported yet: ROADMAP {item}")
+        check_exchange(exchange)
+        self.device = resolve_device(device)
+        self.loss_fn = loss_fn
+        self.topology = topology
+        self.optimizer = optimizer
+        self.comm: CommOps = stacked_comm_ops(topology, exchange=exchange,
+                                              device=self.device)
+        params = tree_map(lambda x: torch.as_tensor(x).to(self.device), params)
+        stacked = broadcast_to_agents(params, topology.n_agents)
+        self._program = engine.StepProgram(
+            optimizer=optimizer,
+            comm=self.comm,
+            grad_phase=engine.make_grad_phase(loss_fn, microbatches),
+            update_phase=engine.make_update_phase(optimizer, self.comm, schedule),
+            extra_metrics=lambda p: {"consensus_error": consensus_error_pytree(p)},
+        )
+        self.state = TrainState(params=stacked,
+                                opt_state=self._program.init_state(stacked))
+        self.history = MetricHistory()
+        # per-step neighbor-exchange bytes of the fused flat path (estimate)
+        self.wire_bytes_per_step = exchange_bytes_per_step(
+            flatbuf.make_flat_spec(stacked, lead=1), topology,
+            exchange)["per_step_bytes"]
+
+    # ------------------------------------------------------------------
+    def step(self, batch: Dict[str, np.ndarray]) -> Dict[str, float]:
+        p, o, metrics = self._program.step_fn(
+            self.state.params, self.state.opt_state,
+            _to_device(batch, self.device))
+        self.state = TrainState(params=p, opt_state=o, step=self.state.step + 1)
+        out = {k: float(v) for k, v in metrics.items()}
+        self.history.log(self.state.step, **out)
+        return out
+
+    @torch.no_grad()
+    def evaluate(self, batch: Dict[str, np.ndarray]) -> Dict[str, float]:
+        """Every agent evaluated on the same (global) eval batch."""
+        losses, metrics = vmap(self.loss_fn, in_dims=(0, None))(
+            self.state.params, _to_device(batch, self.device))
+        out = {"loss_mean": losses.mean(), "loss_var": losses.var(correction=0)}
+        for k, v in metrics.items():
+            out[f"{k}_mean"] = v.mean()
+            out[f"{k}_var"] = v.var(correction=0)
+        return {k: float(v) for k, v in out.items()}
+
+    def mean_params(self) -> PyTree:
+        """The consensus (agent-averaged) model."""
+        return tree_map(lambda x: x.mean(dim=0), self.state.params)
+
+    def agent_params(self, j: int) -> PyTree:
+        return tree_map(lambda x: x[j], self.state.params)
+
+
+def train_loop(
+    trainer: CollaborativeTrainer,
+    batches,
+    n_steps: int,
+    *,
+    eval_batch: Optional[Dict[str, np.ndarray]] = None,
+    eval_every: int = 0,
+    log_every: int = 0,
+    printer: Optional[Callable[[str], None]] = None,
+) -> MetricHistory:
+    printer = printer or (lambda s: None)
+    wire_per_step = getattr(trainer, "wire_bytes_per_step", 0)
+    t0 = time.time()
+    for i in range(n_steps):
+        m = trainer.step(next(batches))
+        if log_every and (i + 1) % log_every == 0:
+            dt = time.time() - t0
+            sps = (i + 1) / dt if dt > 0 else float("inf")
+            wire = ""
+            if wire_per_step:
+                wire = f" wire={wire_per_step * (i + 1) / 1e6:.1f}MB"
+            printer(f"step {i+1}/{n_steps} loss={m['loss']:.4f} "
+                    f"cons={m['consensus_error']:.3e} {sps:.2f} steps/s"
+                    f"{wire} ({dt:.1f}s)")
+        if eval_batch is not None and eval_every and (i + 1) % eval_every == 0:
+            em = trainer.evaluate(eval_batch)
+            trainer.history.log(trainer.state.step, **{f"eval_{k}": v for k, v in em.items()})
+    return trainer.history

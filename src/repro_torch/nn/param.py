@@ -1,0 +1,106 @@
+"""Parameter templates: shapes + init in one tree, plus the weight carry-over.
+
+A model is described by a **template** tree whose leaves are
+:class:`ParamDef` (shape, logical axes, initializer, dtype), as in
+:mod:`repro.nn.param`.  :func:`init_params` materializes it from a seeded
+``torch.Generator``; its values cannot match JAX's threefry bits, so a
+comparison between the packages starts from the JAX package's parameters
+carried over with :func:`params_from_numpy` (a dtype/device move: the port
+keeps JAX's layouts, HWIO conv kernels and ``(in, out)`` dense weights).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
+
+PyTree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    """A single parameter: shape, logical axes, initializer."""
+
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]      # logical axis name per dim
+    init: str = "normal"                 # normal|zeros|ones|embed|scaled|conv_scaled
+    scale: float = 1.0                   # fan-in override for "scaled"
+    dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes} rank mismatch")
+
+
+def _init_leaf(pd: ParamDef, gen: torch.Generator) -> torch.Tensor:
+    if pd.init == "zeros":
+        return torch.zeros(pd.shape, dtype=pd.dtype)
+    if pd.init == "ones":
+        return torch.ones(pd.shape, dtype=pd.dtype)
+    if pd.init == "normal":
+        std = 0.02
+    elif pd.init == "embed":
+        std = 0.05
+    elif pd.init == "scaled":           # variance scaling on fan-in (2nd-to-last dim)
+        fan_in = pd.shape[-2] if len(pd.shape) >= 2 else pd.shape[-1]
+        std = pd.scale / math.sqrt(max(fan_in, 1))
+    elif pd.init == "conv_scaled":      # HWIO conv kernels: fan-in = H*W*I
+        std = pd.scale / math.sqrt(max(math.prod(pd.shape[:-1]), 1))
+    else:
+        raise ValueError(f"unknown init {pd.init!r}")
+    x = torch.randn(pd.shape, generator=gen, dtype=torch.float32)
+    return (std * x).to(pd.dtype)
+
+
+def init_params(template: PyTree, seed: Union[int, torch.Generator] = 0,
+                device=None) -> PyTree:
+    """Materialize ``template``; leaves drawn in tree order from one generator.
+
+    The draws happen on the CPU and the result is moved to ``device``, so a
+    seed gives the same values on every device.
+    """
+    gen = seed if isinstance(seed, torch.Generator) else \
+        torch.Generator().manual_seed(int(seed))
+    defs, treedef = tree_flatten(template)
+    leaves = [_init_leaf(pd, gen).to(device) for pd in defs]
+    return tree_unflatten(treedef, leaves)
+
+
+def count_params(template: PyTree) -> int:
+    return sum(math.prod(pd.shape) for pd in tree_flatten(template)[0])
+
+
+def params_from_numpy(tree: PyTree, device=None) -> PyTree:
+    """numpy arrays (e.g. the JAX package's parameters) -> tensors on ``device``.
+
+    bfloat16 arrays (numpy dtype name ``bfloat16``) are moved bit for bit
+    through a 16-bit integer view.
+    """
+
+    def leaf(x):
+        x = np.asarray(x)
+        if x.dtype.name == "bfloat16":
+            t = torch.from_numpy(x.view(np.uint16).copy()).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(x.copy())
+        return t.to(device)
+
+    return tree_map(leaf, tree)
+
+
+def params_to_numpy(tree: PyTree) -> PyTree:
+    """Tensors -> numpy arrays on the host (bfloat16 widens to float32)."""
+
+    def leaf(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
+
+    return tree_map(leaf, tree)

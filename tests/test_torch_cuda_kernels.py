@@ -1,0 +1,86 @@
+"""The CUDA consensus-update kernels on the card, against their plain versions.
+
+Card-only: every test carries the ``cuda`` marker and skips when no CUDA
+device is present (decided inside the test).  This file imports no JAX,
+so it also runs on a machine with PyTorch alone:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda_kernels.py
+
+Tolerance 1e-6 abs: kernel and plain version do the same float32
+operations in the same order (no FMA contraction in the kernel), so they
+are expected to agree exactly.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.consensus_update import consensus_update as cu  # noqa: E402
+from repro_torch.kernels.consensus_update import ops  # noqa: E402
+from repro_torch.kernels.consensus_update import ref  # noqa: E402
+
+ATOL = 1e-6
+ALPHA, MU = 0.05, 0.9
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _operands(dev, a_out, s, rows, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.rand((a_out, s), generator=gen, device=dev)
+    w = (w / w.sum(dim=1, keepdim=True)).contiguous()
+    x = torch.randn((s, rows, 128), generator=gen, device=dev)
+    g = torch.randn((a_out, rows, 128), generator=gen, device=dev)
+    v = torch.randn((a_out, rows, 128), generator=gen, device=dev)
+    return w, x, g, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_out,s,rows", [(5, 5, 16941), (1, 3, 777), (8, 8, 1),
+                                          (3, 1, 2)])
+def test_kernels_match_plain_versions_in_place(a_out, s, rows):
+    dev = _card()
+    w, x, g, v = _operands(dev, a_out, s, rows, seed=rows)
+    want = ref.cdsgd_update_ref(w, x, g, ALPHA)
+    g1 = g.clone()
+    n = cu.cdsgd_update.launches
+    out = cu.cdsgd_update(w, x, g1, ALPHA)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == g1.data_ptr() and cu.cdsgd_update.launches == n + 1
+    assert float((out - want).abs().max()) <= ATOL
+    want_p, want_v = ref.cdmsgd_update_ref(w, x, g, v, ALPHA, MU)
+    g2, v2 = g.clone(), v.clone()
+    p, nv = cu.cdmsgd_update(w, x, g2, v2, ALPHA, MU)
+    torch.cuda.synchronize()
+    assert (p.data_ptr(), nv.data_ptr()) == (g2.data_ptr(), v2.data_ptr())
+    assert float((p - want_p).abs().max()) <= ATOL
+    assert float((nv - want_v).abs().max()) <= ATOL
+
+
+@pytest.mark.cuda
+def test_stencil_entry_point_on_card():
+    dev = _card()
+    w, x, g, v = _operands(dev, 1, 3, 300, seed=7)
+    want = ref.cdsgd_update_ref(w, x, g, ALPHA)[0]
+    out = ops.cdsgd_update_flat(x, w[0], g[0].clone(), ALPHA)
+    torch.cuda.synchronize()
+    assert float((out - want).abs().max()) <= ATOL
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_bad_operands_on_card():
+    dev = _card()
+    w, x, g, v = _operands(dev, 2, 2, 8)
+    with pytest.raises(TypeError, match="float32"):
+        cu.cdsgd_update(w, x, g.half(), ALPHA)
+    with pytest.raises(ValueError, match="on cpu"):
+        cu.cdsgd_update(w.cpu(), x, g, ALPHA)
+    with pytest.raises(ValueError, match="overlap"):
+        cu.cdmsgd_update(w, x, g, g, ALPHA, MU)
+    flat = torch.empty(2 * 8 * 128 + 1, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        cu.cdsgd_update(w, x, flat[1:].view(2, 8, 128), ALPHA)
