@@ -4,7 +4,8 @@ Logits, loss, accuracy and per-leaf gradients of the port against the JAX
 package on the same parameters and inputs, at small sizes (CNN hw=8).
 Tolerances: 1e-5 abs on logits/loss/grads — both sides run float32 on the
 CPU, but XLA and PyTorch sum convolutions and matmuls in different orders,
-so bitwise equality is not expected; the observed gaps are ~1e-7.
+so bitwise equality is not expected.  Measured gaps (printed with
+``pytest -s``): logits up to 2.4e-6, gradients up to 3.6e-7.
 """
 
 import functools
@@ -57,6 +58,7 @@ def test_logits_loss_acc_match(case):
     jp, tp, japply, tapply, x, y = _setup(case)
     jl = np.asarray(jax.jit(japply)(jp, jnp.asarray(x)))
     tl = tapply(tp, torch.from_numpy(x)).numpy()
+    print(f"{case}: max logit gap {np.max(np.abs(tl - jl)):.2e}")
     np.testing.assert_allclose(tl, jl, rtol=0, atol=ATOL)
     jloss, jm = jax.jit(functools.partial(jpm.classifier_loss, japply))(
         jp, {"x": jnp.asarray(x), "y": jnp.asarray(y)})
@@ -76,6 +78,8 @@ def test_per_leaf_grads_match(case):
         has_aux=True)(tp)
     jl, tl = jax.tree.leaves(jg), tree_leaves(tg)
     assert len(jl) == len(tl)
+    print(f"{case}: max grad gap "
+          f"{max(float(np.max(np.abs(b.numpy() - np.asarray(a)))) for a, b in zip(jl, tl)):.2e}")
     for a, b in zip(jl, tl):
         assert tuple(a.shape) == tuple(b.shape)
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0, atol=ATOL)

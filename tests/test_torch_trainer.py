@@ -7,9 +7,10 @@ batches: the JAX trainer with the Pallas kernels in interpret mode, the
 port's trainer on the CPU (plain kernel versions).
 
 Tolerance 1e-5 abs on every parameter after 20 steps.  Measured gap on
-this setup: 6.0e-7 (CDSGD) and 5.4e-7 (CDMSGD), from float32 matmul
-summation order inside the backward passes (XLA vs PyTorch); the bound
-leaves ~15x headroom for BLAS differences between machines.
+this setup (printed with ``pytest -s``): 6.0e-7 (CDSGD) and 5.4e-7
+(CDMSGD), from float32 matmul summation order inside the backward passes
+(XLA vs PyTorch); the bound leaves ~15x headroom for BLAS differences
+between machines.
 """
 
 import functools
@@ -72,6 +73,7 @@ def test_fused_trajectory_tracks_jax(setup, name, kw):
     gap = max(float(np.max(np.abs(np.asarray(a) - b.numpy())))
               for a, b in zip(jax.tree.leaves(jt.state.params),
                               tree_leaves(tt.state.params)))
+    print(f"{name}: max parameter gap after {STEPS} steps {gap:.2e}")
     assert gap <= TRAJ_ATOL, gap
     ev_j = jt.evaluate({"x": val.x, "y": val.y})
     ev_t = tt.evaluate({"x": val.x, "y": val.y})
