@@ -11,13 +11,14 @@ against its plain PyTorch version.  Phases, each printing its own lines:
 1. the card (``nvidia-smi`` name and power limit) and the versions;
 2. the build of every kernel from ``src/repro_torch/csrc`` and its time;
 3. each kernel against its plain version on the card, at the training
-   path's shape (W (5, 5), 16,941 rows), at a one-agent stencil shape
-   (W (1, 3)) and at a ragged row count, with CUDA-event times beside the
-   byte bound, the plain version's time and a one-call library yardstick;
+   path's shape (W (5, 5), 16,941 rows), with the ring's ``Pi`` (zero
+   weights) at that shape, at a one-agent stencil shape (W (1, 3)) and at
+   a ragged row count, with CUDA-event times beside the byte bound, the
+   plain version's time and a one-call library yardstick;
 4. training: 10 fused CDSGD and 10 fused CDMSGD steps of the full-width
-   CNN on 5 agents (fully connected); each kernel's launch count must rise
-   by exactly one per step (one f32 bucket) and losses stay finite; then
-   the ``kernels`` JSON line;
+   CNN on 5 agents (fully connected), then 3 fused CDMSGD steps on the
+   ring; each kernel's launch count must rise by exactly one per step (one
+   f32 bucket) and losses stay finite; then the ``kernels`` JSON line;
 5. parity: 3 CDMSGD steps on the card against the same 3 steps of the
    port on the CPU, from the same init and batches.
 
@@ -65,6 +66,7 @@ KERNEL_TOL = 1e-6              # abs; same f32 operations in the same order
 PARITY_TOL = 1e-4              # abs, 3 steps card vs CPU: conv sums differ in order
 LR = 0.01
 MU = 0.9
+RING_STEPS = 3                 # fused CDMSGD on the ring: a Pi with zero weights
 SOURCE = "src/repro_torch/csrc/consensus_update.cu"
 REPLACES = {
     "cdsgd_update": "src/repro/kernels/consensus_update/consensus_update.py:687",
@@ -105,17 +107,24 @@ def bound(name: str, a_out: int, s: int, rows: int):
 
 
 def check_kernels() -> dict:
-    """Phase 3: each kernel vs its plain version at three shapes, timed."""
+    """Phase 3: each kernel vs its plain version at four operand sets, timed."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    # the ring's Pi has zero weights: the kernel must still sum every term
+    ring_pi = torch.tensor(make_topology("ring", AGENTS).pi, dtype=torch.float32,
+                           device=dev)
     results = {}
     for name in ("cdsgd_update", "cdmsgd_update"):
         worst = 0.0
         for label, a_out, s, rows in (("path", AGENTS, AGENTS, PATH_ROWS),
+                                      ("ring", AGENTS, AGENTS, PATH_ROWS),
                                       ("stencil", 1, 3, PATH_ROWS),
                                       ("ragged", AGENTS, AGENTS, 1001)):
-            w = torch.rand((a_out, s), generator=gen, device=dev)
-            w = (w / w.sum(dim=1, keepdim=True)).contiguous()
+            if label == "ring":
+                w = ring_pi
+            else:
+                w = torch.rand((a_out, s), generator=gen, device=dev)
+                w = (w / w.sum(dim=1, keepdim=True)).contiguous()
             x = torch.randn((s, rows, 128), generator=gen, device=dev)
             g = torch.randn((a_out, rows, 128), generator=gen, device=dev)
             v = torch.randn((a_out, rows, 128), generator=gen, device=dev)
@@ -166,12 +175,16 @@ def check_kernels() -> dict:
 
 
 def train_main_path(params, train) -> dict:
-    """Phase 4: fused CDSGD then fused CDMSGD on the full-width CNN."""
+    """Phase 4: fused CDSGD then fused CDMSGD on the full-width CNN (fully
+    connected, 10 steps each), then fused CDMSGD on the ring (3 steps)."""
     loss = functools.partial(classifier_loss, cnn_classifier_apply)
-    topo = make_topology("fully_connected", AGENTS)
     cu.reset_launch_counts()
-    for name, kw in (("cdsgd", {}), ("cdmsgd", {"mu": MU})):
+    for topo_name, name, n_steps in (("fully_connected", "cdsgd", 10),
+                                     ("fully_connected", "cdmsgd", 10),
+                                     ("ring", "cdmsgd", RING_STEPS)):
         kernel = f"{name}_update"
+        kw = {"mu": MU} if name == "cdmsgd" else {}
+        topo = make_topology(topo_name, AGENTS)
         torch.cuda.reset_peak_memory_stats()
         tr = CollaborativeTrainer(loss, params, topo,
                                   make_optimizer(name, LR, fused=True, **kw))
@@ -182,7 +195,7 @@ def train_main_path(params, train) -> dict:
         before = cu.launch_counts()
         batches = AgentPartitioner(train, AGENTS, seed=0).batches(64)
         times, losses = [], []
-        for i in range(10):
+        for i in range(n_steps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             m = tr.step(next(batches))
@@ -202,7 +215,8 @@ def train_main_path(params, train) -> dict:
                 if t.shape[0] != AGENTS or not bool(torch.isfinite(t).all()):
                     raise AssertionError(f"{name}: bad parameter tensor {tuple(t.shape)}")
         steady = times[1:]
-        print(f"train {name} fused: 10 steps, cnn 32x32x3 {count_params(cnn_classifier_template(32, 3, 10))} "
+        print(f"train {name} fused on {topo_name}: {n_steps} steps, cnn 32x32x3 "
+              f"{count_params(cnn_classifier_template(32, 3, 10))} "
               f"params, {AGENTS} agents, batch 64/agent: loss {losses[0]:.4f} -> "
               f"{losses[-1]:.4f}, consensus_error {m['consensus_error']:.3e}, "
               f"first step {times[0]:.2f} ms, steady step median "
@@ -248,10 +262,9 @@ def main() -> None:
 
     t0 = time.perf_counter()
     cu.library()
-    info = build.BUILD_INFO.get("consensus_update", {})
     print(f"build consensus_update.cu (nvcc sm_90a) and load: "
           f"{time.perf_counter() - t0:.2f} s")
-    for line in info.get("log", "").splitlines():
+    for line in build.BUILD_LOGS.get("consensus_update", "").splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 

@@ -66,11 +66,10 @@ class FlatComm:
         return flatbuf.unpack(bufs, spec)
 
 
-def stacked_flat_comm(topology: Topology, *, exchange: str = "f32",
-                      device=None) -> FlatComm:
-    """FlatComm for agent-stacked trees (dense ``Pi``, any topology)."""
+def stacked_flat_comm(pi: torch.Tensor, *, exchange: str = "f32") -> FlatComm:
+    """FlatComm for agent-stacked trees: dense float32 ``Pi`` (A, A), any
+    topology, on the device of the buffers it will mix."""
     check_exchange(exchange)
-    pi = torch.tensor(topology.pi, dtype=torch.float32, device=device)
 
     def gather(bufs, seed):
         return list(bufs), pi
@@ -91,25 +90,27 @@ def mix_pytree_stacked(pi: torch.Tensor, tree: PyTree) -> PyTree:
 
 
 def exchange_bytes_per_step(spec: flatbuf.FlatSpec, topology: Topology,
-                            exchange: str = "f32", rounds: int = 1,
-                            payloads: int = 1) -> dict:
+                            exchange: str = "f32") -> dict:
     """Per-step bytes-on-wire of the fused consensus exchange (f32 wire).
 
     The paper's fixed-topology cost model (eq. 5/6): each agent sends and
-    receives ``degree`` whole-model transfers per step.
+    receives ``degree`` whole-model transfers per step, one round of one
+    payload (the parameters).  The keys are the JAX package's, so
+    ``rounds`` and ``payloads`` are the constant 1 and the native-precision
+    total equals ``per_step_bytes``.
     """
     check_exchange(exchange)
-    per_neighbor = int(spec.exchange_bytes(exchange) * payloads)
+    per_neighbor = spec.exchange_bytes("f32")
     degree = topology.degree()
+    per_step = per_neighbor * degree
     return {
         "exchange": exchange,
         "degree": degree,
-        "rounds": rounds,
-        "payloads": payloads,
+        "rounds": 1,
+        "payloads": 1,
         "per_neighbor_bytes": per_neighbor,
-        "per_step_bytes": int(per_neighbor * degree * rounds),
-        "native_per_step_bytes": int(spec.exchange_bytes("f32") * payloads
-                                     * degree * rounds),
+        "per_step_bytes": per_step,
+        "native_per_step_bytes": per_step,
     }
 
 

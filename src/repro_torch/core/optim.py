@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.core import consensus
 from repro_torch.core.schedules import Schedule, fixed
+from repro_torch.device import resolve_device
 from repro_torch.kernels.consensus_update import ops as kops
 from repro_torch.utils.tree import tree_map, tree_zeros_like
 
@@ -44,14 +45,16 @@ class CommOps:
 
 
 def stacked_comm_ops(topology, *, exchange: str = "f32", device=None) -> CommOps:
-    """CommOps for agent-stacked trees (leading axis = agent) on ``device``."""
-    pi = torch.tensor(topology.pi, dtype=torch.float32, device=device)
+    """CommOps for agent-stacked trees (leading axis = agent) on ``device``
+    (``cuda`` unless ``device`` says otherwise)."""
+    pi = torch.tensor(topology.pi, dtype=torch.float32,
+                      device=resolve_device(device))
 
     def mix(tree):
         return consensus.mix_pytree_stacked(pi, tree)
 
     return CommOps(mix=mix, flat=consensus.stacked_flat_comm(
-        topology, exchange=exchange, device=device))
+        pi, exchange=exchange))
 
 
 class OptState(NamedTuple):

@@ -238,20 +238,6 @@ class Topology:
         return int(max((np.abs(self.pi[j]) > 1e-12).sum() - 1 for j in range(self.n_agents)))
 
 
-def gossip_pair_pi(n: int, i: int, j: int) -> np.ndarray:
-    """Single-pair gossip matrix ``W = I - (e_i - e_j)(e_i - e_j)^T / 2``.
-
-    Doubly stochastic, symmetric, PSD; agents ``i`` and ``j`` average,
-    everyone else keeps their value.  One of these alone is *disconnected*
-    for ``n > 2`` — only the union over a schedule period mixes globally
-    (B-connectivity), which :meth:`TopologySchedule.validate` checks.
-    """
-    pi = np.eye(n)
-    pi[i, i] = pi[j, j] = 0.5
-    pi[i, j] = pi[j, i] = 0.5
-    return pi
-
-
 def make_topology(
     name: str,
     n_agents: int,

@@ -7,9 +7,9 @@ source is rebuilt and a stale library is never loaded.  Nothing is built or
 loaded at import time: the CPU tests import every module on a machine
 without ``nvcc``.
 
-:func:`build_all` starts one ``nvcc`` per source, all at once, and waits for
-every one; :func:`load` builds what is missing and returns the loaded
-library with its function signatures set.
+:func:`load` builds what is missing and returns the loaded library with its
+function signatures set; nvcc's output (``ptxas`` register and spill lines)
+is kept in :data:`BUILD_LOGS`.
 """
 
 from __future__ import annotations
@@ -19,9 +19,8 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
-from typing import Dict, Iterable, Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -35,8 +34,8 @@ NVCC_FLAGS = (
 Signatures = Dict[str, Tuple[object, Sequence[object]]]
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
-# name -> {"seconds": build wall time, "log": nvcc's output (register use)}
-BUILD_INFO: Dict[str, dict] = {}
+# name -> nvcc's output for the build made by this process
+BUILD_LOGS: Dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -59,48 +58,35 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build_all(names: Iterable[str]) -> Dict[str, Path]:
-    """Compile every source in ``names`` that has no current library.
+def _build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library is current.
 
-    All ``nvcc`` processes start together; each writes to a temporary file
-    renamed into place when it succeeds.  Raises with nvcc's output when
-    any build fails.
+    nvcc writes a temporary file that is renamed into place when it
+    succeeds; a failed build raises with nvcc's output.
     """
+    path = library_path(name)
+    if path.exists():
+        return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {n: library_path(n) for n in names}
-    todo = [n for n, p in paths.items() if not p.exists()]
-    if not todo:
-        return paths
-    nvcc = nvcc_path()
-    procs = {}
-    t0 = time.perf_counter()
-    for name in todo:
-        tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp)
-    failures = []
-    for name, (proc, tmp) in procs.items():
-        log, _ = proc.communicate()
-        BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "log": log}
-        if proc.returncode != 0:
-            failures.append(f"nvcc failed for {name}.cu "
-                            f"(exit {proc.returncode}):\n{log}")
-            tmp.unlink(missing_ok=True)
-            continue
-        os.replace(tmp, paths[name])
-    if failures:
-        raise RuntimeError("\n".join(failures))
-    return paths
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        check=False)
+    BUILD_LOGS[name] = proc.stdout
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name}.cu "
+                           f"(exit {proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, path)
+    return path
 
 
 def load(name: str, signatures: Signatures) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     lib = _LOADED.get(name)
     if lib is None:
-        path = build_all([name])[name]
-        lib = ctypes.CDLL(str(path))
+        lib = ctypes.CDLL(str(_build(name)))
         for fn, (restype, argtypes) in signatures.items():
             f = getattr(lib, fn)
             f.restype = restype

@@ -29,6 +29,7 @@ from repro.kernels.consensus_update.consensus_update import (  # noqa: E402
 from repro_torch.core import consensus as tcons  # noqa: E402
 from repro_torch.core import flatbuf as tfb  # noqa: E402
 from repro_torch.core import topology as ttopo  # noqa: E402
+from repro_torch.core.optim import stacked_comm_ops  # noqa: E402
 from repro_torch.kernels.consensus_update import consensus_update as cu  # noqa: E402
 from repro_torch.kernels.consensus_update import ops as tops  # noqa: E402
 from repro_torch.kernels.consensus_update import ref  # noqa: E402
@@ -154,13 +155,14 @@ def test_mixing_error_and_wire_bytes_match():
     with pytest.raises(NotImplementedError, match="A11"):
         tcons.exchange_bytes_per_step(ts, topo_t, "int8")
     with pytest.raises(ValueError, match="unknown exchange"):
-        tcons.stacked_flat_comm(topo_t, exchange="f16")
+        tcons.stacked_flat_comm(pi_t, exchange="f16")
 
 
 def test_stacked_flat_comm_gathers_legacy_operands():
     topo = ttopo.make_topology("fully_connected", 4)
-    fl = tcons.stacked_flat_comm(topo, device="cpu")
+    comm = stacked_comm_ops(topo, device="cpu")
     bufs = [torch.zeros(4, 3, 128)]
-    nbrs, w = fl.gather(bufs, 0)
+    nbrs, w = comm.flat.gather(bufs, 0)
     assert nbrs[0] is bufs[0]
+    assert w.device.type == "cpu" and w.dtype == torch.float32
     np.testing.assert_array_equal(w.numpy(), topo.pi.astype(np.float32))

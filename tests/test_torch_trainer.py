@@ -28,7 +28,7 @@ from repro.core.trainer import CollaborativeTrainer as JTrainer  # noqa: E402
 from repro.data import AgentPartitioner as JPartitioner  # noqa: E402
 from repro.nn import paper_models as jpm  # noqa: E402
 from repro.nn.param import init_params as jinit  # noqa: E402
-from repro_torch.core import make_optimizer, make_topology  # noqa: E402
+from repro_torch.core import make_optimizer, make_topology, stacked_comm_ops  # noqa: E402
 from repro_torch.core.trainer import CollaborativeTrainer, train_loop  # noqa: E402
 from repro_torch.data import AgentPartitioner, make_classification  # noqa: E402
 from repro_torch.nn import paper_models as tpm  # noqa: E402
@@ -111,6 +111,8 @@ def test_trainer_without_device_raises_without_cuda(setup, monkeypatch):
                                                tpm.mlp_classifier_apply),
                              tp, make_topology("ring", 5),
                              make_optimizer("cdsgd", 0.05, fused=True))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stacked_comm_ops(make_topology("ring", 5))
 
 
 @pytest.mark.parametrize("knob,item", [
