@@ -3,24 +3,38 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — N agents on a fixed topology training the
-paper's CIFAR CNN at full width with fused CDSGD / CDMSGD — through the
-entry points a user calls, and holds every CUDA kernel on that path
-against its plain PyTorch version.  Phases, each printing its own lines:
+Drives the port's main paths — N agents on a fixed topology training the
+paper's CIFAR CNN at full width with fused CDSGD / CDMSGD, on the f32 wire
+and on the quantized (bf16 / int8 / fp8) wire, with error feedback and the
+overlap schedule — through the entry points a user calls, and holds every
+CUDA kernel on those paths against its plain PyTorch version.  Phases,
+each printing its own lines:
 
 1. the card (``nvidia-smi`` name and power limit) and the versions;
-2. the build of every kernel from ``src/repro_torch/csrc`` and its time;
+2. the build of every kernel source in ``src/repro_torch/csrc`` (one
+   ``nvcc`` each, all started together), its time and ptxas's register and
+   spill lines;
 3. each kernel against its plain version on the card, at the training
-   path's shape (W (5, 5), 16,941 rows), with the ring's ``Pi`` (zero
-   weights) at that shape, at a one-agent stencil shape (W (1, 3)) and at
-   a ragged row count, with CUDA-event times beside the byte bound, the
-   plain version's time and a one-call library yardstick;
-4. training: 10 fused CDSGD and 10 fused CDMSGD steps of the full-width
-   CNN on 5 agents (fully connected), then 3 fused CDMSGD steps on the
-   ring; each kernel's launch count must rise by exactly one per step (one
-   f32 bucket) and losses stay finite; then the ``kernels`` JSON line;
-5. parity: 3 CDMSGD steps on the card against the same 3 steps of the
-   port on the CPU, from the same init and batches.
+   path's shape (A = S = 5, 16,941 rows), with the ring's ``Pi`` (zero
+   weights) at that shape, at a one-agent stencil shape and at a ragged row
+   count, every payload dtype of the wire, with an all-zero row (scale 1.0)
+   in every operand; CUDA-event times beside the byte bound, the plain
+   version's time and a one-call library yardstick where there is one,
+   and the kernel's own time from a ``torch.profiler`` trace.
+   ``sr_quantize`` is held bit for bit (both sides draw the same Philox
+   bits), and its int8 rounding to its error bound and, over 64 seeds, to
+   unbiasedness;
+4. training runs of the full-width CNN on 5 agents (table ``RUNS``): f32
+   sync CDSGD / CDMSGD (and CDMSGD on the ring), int8 sync CDMSGD, int8
+   overlap CDSGD with error feedback, fp8 and bf16 sync CDSGD, f32 overlap
+   CDMSGD and int8 overlap CDMSGD on the ring.  Every launch count is set
+   to 0 before a run and must rise by exactly the expected number per step
+   (one update per step, one ``sr_quantize`` per quantized step and one
+   more at overlap init); losses stay finite.  Then the ``kernels`` JSON
+   line, launches summed over the runs;
+5. parity, card against the port on the CPU from the same init and
+   batches: 3 f32 CDMSGD steps, 3 f32 overlap CDMSGD steps, and one int8
+   sync CDMSGD step whose wire (codes and scales) must be equal bit for bit.
 
 Any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -41,8 +55,11 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch.core import make_optimizer, make_topology  # noqa: E402
+from repro_torch.core.consensus import _self_separated_weights  # noqa: E402
 from repro_torch.core.flatbuf import make_flat_spec  # noqa: E402
 from repro_torch.core.trainer import CollaborativeTrainer  # noqa: E402
 from repro_torch.data import AgentPartitioner, make_classification  # noqa: E402
@@ -63,15 +80,34 @@ F32_FLOPS_PER_S = 67e12        # float32 outside the tensor cores
 AGENTS = 5
 PATH_ROWS = 16941              # one f32 bucket of the full-width CNN
 KERNEL_TOL = 1e-6              # abs; same f32 operations in the same order
-PARITY_TOL = 1e-4              # abs, 3 steps card vs CPU: conv sums differ in order
+PARITY_TOL = 1e-4              # abs, card vs CPU: conv sums differ in order
+SR_SEEDS = 64                  # int8 stochastic rounding: unbiasedness draws
 LR = 0.01
 MU = 0.9
-RING_STEPS = 3                 # fused CDMSGD on the ring: a Pi with zero weights
-SOURCE = "src/repro_torch/csrc/consensus_update.cu"
-REPLACES = {
-    "cdsgd_update": "src/repro/kernels/consensus_update/consensus_update.py:687",
-    "cdmsgd_update": "src/repro/kernels/consensus_update/consensus_update.py:729",
+SOURCES = {"consensus_update": "src/repro_torch/csrc/consensus_update.cu",
+           "sr_quantize": "src/repro_torch/csrc/sr_quantize.cu"}
+_TPU = "src/repro/kernels/consensus_update/consensus_update.py"
+KERNELS = {   # name -> (library, CUDA kernel symbol, the TPU kernel it replaces)
+    "cdsgd_update": ("consensus_update", "cdsgd_kernel", f"{_TPU}:687"),
+    "cdmsgd_update": ("consensus_update", "cdmsgd_kernel", f"{_TPU}:729"),
+    "sr_quantize": ("sr_quantize", "sr_quantize_kernel", f"{_TPU}:130"),
+    "cdsgd_update_q": ("consensus_update", "cdsgd_q_kernel", f"{_TPU}:257"),
+    "cdmsgd_update_q": ("consensus_update", "cdmsgd_q_kernel", f"{_TPU}:276"),
 }
+WIRE = {"int8": torch.int8, "fp8": torch.float8_e4m3fn,
+        "bf16": torch.bfloat16, "f32": torch.float32}
+# phase 4: (topology, optimizer, exchange, schedule, error_feedback, steps)
+RUNS = (
+    ("fully_connected", "cdsgd", "f32", "sync", False, 10),
+    ("fully_connected", "cdmsgd", "f32", "sync", False, 10),
+    ("ring", "cdmsgd", "f32", "sync", False, 3),
+    ("fully_connected", "cdmsgd", "int8", "sync", False, 10),
+    ("fully_connected", "cdsgd", "int8", "overlap", True, 10),
+    ("fully_connected", "cdsgd", "fp8", "sync", False, 3),
+    ("fully_connected", "cdsgd", "bf16", "sync", False, 3),
+    ("fully_connected", "cdmsgd", "f32", "overlap", False, 3),
+    ("ring", "cdmsgd", "int8", "overlap", False, 3),
+)
 
 
 def card_line() -> str:
@@ -96,36 +132,105 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(name: str, a_out: int, s: int, rows: int):
-    """(bound_ms, bound_by): least bytes over HBM rate vs flops over f32 peak."""
+def device_ms(fn, symbol: str, iters: int = 20):
+    """Mean device time per call of the kernels named ``symbol`` that ``fn``
+    launches, from a ``torch.profiler`` trace of ``iters`` calls: the
+    kernel alone, without the host time between launches that the
+    CUDA-event figure includes.  None when the trace shows no such kernel."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and symbol in e.name]
+    return sum(spans) / 1e3 / iters if spans else None
+
+
+def bound(name: str, a_out: int, s: int, rows: int,
+          dtype: torch.dtype = torch.float32):
+    """(bound_ms, bound_by): least bytes over HBM rate vs float32 operations
+    over the f32 peak.  ``dtype`` is the neighbour / payload / code type;
+    every other operand is float32.  For ``sr_quantize`` ``a_out`` is the
+    agent count (Philox's integer work is not counted: the table gives no
+    int32 rate, and the float work alone is far under the byte time)."""
     n = rows * 128
-    per_out = 2 if name == "cdsgd_update" else 4     # G (+V) read, out (+V') written
-    nbytes = 4 * (a_out * s + s * n + per_out * a_out * n)
-    flops = a_out * n * (2 * s + (2 if name == "cdsgd_update" else 4))
+    esize = torch.empty((), dtype=dtype).element_size()
+    state = 2 if name.startswith("cdsgd") else 4   # G (+V) read, out (+V') written
+    tail = 2 if name.startswith("cdsgd") else 4    # alpha g (+ mu v) and the sums
+    if name == "sr_quantize":
+        nbytes = a_out * (4 * n + esize * n + 4 * rows)
+        flops = a_out * n * 8      # |x|, max, divide, + u, floor, 2 clamps, cast
+    elif name.endswith("_q"):
+        nbytes = (4 * a_out * (s + 1) + 4 * a_out * n + esize * s * n
+                  + 4 * s * rows + 4 * state * a_out * n)
+        flops = a_out * n * (1 + 3 * s + tail)
+    else:
+        nbytes = 4 * a_out * s + esize * s * n + 4 * state * a_out * n
+        flops = a_out * n * (2 * s + tail)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_kernels() -> dict:
-    """Phase 3: each kernel vs its plain version at four operand sets, timed."""
+def _bucket(gen, a: int, rows: int) -> torch.Tensor:
+    """(a, rows, 128) float32 with row scales over six decades; row 0 of
+    every agent all zero (its scale is 1.0)."""
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((a, rows, 128), generator=gen, device=dev)
+    x = x * 10.0 ** (6 * torch.rand((a, rows, 1), generator=gen, device=dev) - 3)
+    x[:, 0] = 0.0
+    return x.contiguous()
+
+
+def _report(results: dict, name: str, label: str, shape: str, err: float,
+            kernel, plain, yardstick, b) -> None:
+    """Time one checked operand set and print its line; the ``path`` row of
+    each kernel is the one the ``kernels`` JSON line carries."""
+    ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+    lib_ms = cuda_ms(yardstick) if yardstick is not None else None
+    dev_ms = device_ms(kernel, KERNELS[name][1])
+    b_ms, b_by = b
+    print(f"kernel {name} [{label}] {shape}: max_abs_err={err:.3e} "
+          f"(tol {KERNEL_TOL:g}) ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms="
+          f"{'none' if lib_ms is None else f'{lib_ms:.5f}'} "
+          f"bound_ms={b_ms:.5f} ({b_by}) bound_share={b_ms / ms:.3f} "
+          f"kernel_only_ms={'not measured' if dev_ms is None else f'{dev_ms:.5f}'}")
+    entry = results.setdefault(name, {"max_abs_err": 0.0})
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    if label == "path":
+        entry.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=lib_ms)
+
+
+def _check(name: str, label: str, err: float, ok_ptr: bool = True) -> None:
+    if not ok_ptr:
+        raise AssertionError(f"{name} [{label}] did not write its outputs in place")
+    if not err <= KERNEL_TOL:
+        raise AssertionError(f"{name} [{label}] max abs err {err} > {KERNEL_TOL}")
+
+
+def check_dense(results: dict, gen) -> None:
+    """Phase 3, the dense form (f32 and bf16 neighbours)."""
+    dev = torch.device("cuda")
     # the ring's Pi has zero weights: the kernel must still sum every term
     ring_pi = torch.tensor(make_topology("ring", AGENTS).pi, dtype=torch.float32,
                            device=dev)
-    results = {}
     for name in ("cdsgd_update", "cdmsgd_update"):
-        worst = 0.0
-        for label, a_out, s, rows in (("path", AGENTS, AGENTS, PATH_ROWS),
-                                      ("ring", AGENTS, AGENTS, PATH_ROWS),
-                                      ("stencil", 1, 3, PATH_ROWS),
-                                      ("ragged", AGENTS, AGENTS, 1001)):
-            if label == "ring":
+        for label, a_out, s, rows, dtype in (
+                ("path", AGENTS, AGENTS, PATH_ROWS, torch.float32),
+                ("ring", AGENTS, AGENTS, PATH_ROWS, torch.float32),
+                ("stencil", 1, 3, PATH_ROWS, torch.float32),
+                ("ragged", AGENTS, AGENTS, 1001, torch.float32),
+                ("path-bf16", AGENTS, AGENTS, PATH_ROWS, torch.bfloat16),
+                ("ring-bf16", AGENTS, AGENTS, PATH_ROWS, torch.bfloat16),
+                ("stencil-bf16", 1, 3, 1001, torch.bfloat16)):
+            if label.startswith("ring"):
                 w = ring_pi
             else:
                 w = torch.rand((a_out, s), generator=gen, device=dev)
                 w = (w / w.sum(dim=1, keepdim=True)).contiguous()
-            x = torch.randn((s, rows, 128), generator=gen, device=dev)
+            x = _bucket(gen, s, rows).to(dtype)
             g = torch.randn((a_out, rows, 128), generator=gen, device=dev)
             v = torch.randn((a_out, rows, 128), generator=gen, device=dev)
             if name == "cdsgd_update":
@@ -138,8 +243,10 @@ def check_kernels() -> dict:
                 err = float((out - want).abs().max())
                 kernel = lambda: cu.cdsgd_update(w, x, g2, LR)
                 plain = lambda: ref.cdsgd_update_ref(w, x, g, LR)
-                gf, xf = g.view(a_out, -1), x.view(s, -1)
-                yardstick = lambda: torch.addmm(gf, w, xf, beta=-LR)
+                yardstick = None
+                if dtype == torch.float32:
+                    gf, xf = g.view(a_out, -1), x.view(s, -1)
+                    yardstick = lambda: torch.addmm(gf, w, xf, beta=-LR)
             else:
                 want, want_v = ref.cdmsgd_update_ref(w, x, g, v, LR, MU)
                 g2, v2 = g.clone(), v.clone()
@@ -152,47 +259,153 @@ def check_kernels() -> dict:
                 kernel = lambda: cu.cdmsgd_update(w, x, g2, v2, LR, MU)
                 plain = lambda: ref.cdmsgd_update_ref(w, x, g, v, LR, MU)
                 yardstick = None     # no one PyTorch call computes it
-            if not ok_ptr:
-                raise AssertionError(f"{name} did not write its outputs in place")
-            if not err <= KERNEL_TOL:
-                raise AssertionError(f"{name} [{label}] max abs err {err} > {KERNEL_TOL}")
-            worst = max(worst, err)
-            ms = cuda_ms(kernel)
-            plain_ms = cuda_ms(plain)
-            lib_ms = cuda_ms(yardstick) if yardstick is not None else None
-            b_ms, b_by = bound(name, a_out, s, rows)
-            print(f"kernel {name} [{label}] W=({a_out},{s}) rows={rows}: "
-                  f"max_abs_err={err:.3e} (tol {KERNEL_TOL:g}) ms={ms:.5f} "
-                  f"plain_ms={plain_ms:.5f} library_ms="
-                  f"{'none' if lib_ms is None else f'{lib_ms:.5f}'} "
-                  f"bound_ms={b_ms:.5f} ({b_by}) bound_share={b_ms / ms:.3f}")
-            if label == "path":
-                results[name] = {"ms": ms, "plain_ms": plain_ms,
-                                 "bound_ms": b_ms, "bound_by": b_by,
-                                 "library_ms": lib_ms}
-        results[name]["max_abs_err"] = worst
-    return results
+            _check(name, label, err, ok_ptr)
+            _report(results, name, label,
+                    f"W=({a_out},{s}) {str(dtype)[6:]} neighbours rows={rows}",
+                    err, kernel, plain, yardstick,
+                    bound(name, a_out, s, rows, dtype))
+
+
+def check_q(results: dict, gen) -> None:
+    """Phase 3, the self-separated form, every payload dtype of the wire."""
+    dev = torch.device("cuda")
+    path_w = torch.tensor(_self_separated_weights(
+        make_topology("fully_connected", AGENTS).pi), dtype=torch.float32,
+        device=dev)
+    ring_w = torch.tensor(_self_separated_weights(
+        make_topology("ring", AGENTS).pi), dtype=torch.float32, device=dev)
+    for name in ("cdsgd_update_q", "cdmsgd_update_q"):
+        for wire, dtype in WIRE.items():
+            for label, a_out, s, rows in (("path", AGENTS, AGENTS, PATH_ROWS),
+                                          ("ring", AGENTS, AGENTS, PATH_ROWS),
+                                          ("stencil", 1, 3, PATH_ROWS),
+                                          ("ragged", AGENTS, AGENTS, 1001)):
+                if label == "path":
+                    w = path_w
+                elif label == "ring":
+                    w = ring_w
+                else:
+                    w = torch.rand((a_out, s + 1), generator=gen, device=dev)
+                    w = (w / w.sum(dim=1, keepdim=True)).contiguous()
+                x = _bucket(gen, s, rows)
+                if wire in ("int8", "fp8"):
+                    q, sc = cu.sr_quantize(x, rows, wire)
+                else:
+                    q, sc = x.to(dtype), torch.ones((s, rows, 1), device=dev)
+                slf, g, v = (torch.randn((a_out, rows, 128), generator=gen,
+                                         device=dev) for _ in range(3))
+                if name == "cdsgd_update_q":
+                    want = ref.cdsgd_update_q_ref(w, slf, q, sc, g, LR)
+                    g2 = g.clone()
+                    ptr = g2.data_ptr()
+                    out = cu.cdsgd_update_q(w, slf, q, sc, g2, LR)
+                    ok_ptr = out.data_ptr() == ptr
+                    torch.cuda.synchronize()
+                    err = float((out - want).abs().max())
+                    kernel = lambda: cu.cdsgd_update_q(w, slf, q, sc, g2, LR)
+                    plain = lambda: ref.cdsgd_update_q_ref(w, slf, q, sc, g, LR)
+                else:
+                    want, want_v = ref.cdmsgd_update_q_ref(w, slf, q, sc, g, v,
+                                                           LR, MU)
+                    g2, v2 = g.clone(), v.clone()
+                    ptrs = (g2.data_ptr(), v2.data_ptr())
+                    out, out_v = cu.cdmsgd_update_q(w, slf, q, sc, g2, v2, LR, MU)
+                    ok_ptr = (out.data_ptr(), out_v.data_ptr()) == ptrs
+                    torch.cuda.synchronize()
+                    err = max(float((out - want).abs().max()),
+                              float((out_v - want_v).abs().max()))
+                    kernel = lambda: cu.cdmsgd_update_q(w, slf, q, sc, g2, v2,
+                                                        LR, MU)
+                    plain = lambda: ref.cdmsgd_update_q_ref(w, slf, q, sc, g, v,
+                                                            LR, MU)
+                _check(name, f"{label} {wire}", err, ok_ptr)
+                # the headline row is the int8 payload at the path shape
+                row = label if wire == "int8" else f"{label}-{wire}"
+                _report(results, name, row,
+                        f"W=({a_out},{s + 1}) {wire} payload rows={rows}", err,
+                        kernel, plain, None, bound(name, a_out, s, rows, dtype))
+
+
+def check_sr_quantize(results: dict, gen) -> None:
+    """Phase 3, the wire quantizer: bit for bit against the plain version,
+    the int8 error bound, and unbiased int8 rounding over 64 seeds."""
+    for exchange in ("int8", "fp8"):
+        for label, a, rows in (("path", AGENTS, PATH_ROWS),
+                               ("stencil", 1, PATH_ROWS),
+                               ("ragged", AGENTS, 1001)):
+            x = _bucket(gen, a, rows)
+            seed = -1 - rows                  # negative: the seed wraps to uint32
+            q, sc = cu.sr_quantize(x, seed, exchange, agent_stride=104729)
+            torch.cuda.synchronize()
+            want_q, want_sc = ref.sr_quantize_ref(x, seed, exchange, 104729)
+            same = (q.dtype == want_q.dtype
+                    and torch.equal(q.view(torch.uint8), want_q.view(torch.uint8))
+                    and torch.equal(sc, want_sc))
+            if not same or not bool((sc[:, 0] == 1.0).all()):
+                raise AssertionError(f"sr_quantize [{label} {exchange}] differs "
+                                     "from its plain version")
+            if exchange == "int8":
+                err = (q.float() * sc - x).abs()
+                if not bool((err <= sc * (1 + 1e-6)).all()):
+                    raise AssertionError(f"sr_quantize [{label}] int8 error above "
+                                         f"one scale: {float((err / sc).max())}")
+            row = label if exchange == "int8" else f"{label}-fp8"
+            _report(results, "sr_quantize", row, f"A={a} rows={rows} {exchange}",
+                    0.0, lambda: cu.sr_quantize(x, seed, exchange,
+                                                agent_stride=104729),
+                    lambda: ref.sr_quantize_ref(x, seed, exchange, 104729), None,
+                    bound("sr_quantize", a, 0, rows, WIRE[exchange]))
+    x = torch.randn((1, 64, 128), generator=gen, device="cuda")
+    bias = torch.zeros_like(x)
+    for seed in range(SR_SEEDS):
+        q, sc = cu.sr_quantize(x, seed, "int8")
+        bias += (q.float() * sc - x) / sc
+    bias /= SR_SEEDS
+    signed, mean_abs, worst = (float(bias.mean()), float(bias.abs().mean()),
+                               float(bias.abs().max()))
+    print(f"sr_quantize int8 over {SR_SEEDS} seeds, in units of the row scale: "
+          f"mean bias {signed:.2e} (bound 1e-2), mean |bias| {mean_abs:.4f} "
+          f"(bound 0.06; 0.039 expected of unbiased rounding), max |bias| "
+          f"{worst:.4f} (bound 0.4)")
+    if not (abs(signed) <= 1e-2 and mean_abs <= 0.06 and worst <= 0.4):
+        raise AssertionError("sr_quantize int8 rounding looks biased")
+
+
+def expected_launches(name: str, exchange: str, schedule: str) -> tuple:
+    """(at trainer init, per step) launch counts of one phase-4 run."""
+    quantized = exchange in ("int8", "fp8")
+    dense = schedule == "sync" and not quantized      # the legacy f32 / bf16 form
+    init = {k: 0 for k in cu.KERNELS}
+    step = dict(init)
+    step[f"{name}_update" if dense else f"{name}_update_q"] = 1
+    if quantized:
+        step["sr_quantize"] = 1
+        init["sr_quantize"] = 1 if schedule == "overlap" else 0
+    return init, step
 
 
 def train_main_path(params, train) -> dict:
-    """Phase 4: fused CDSGD then fused CDMSGD on the full-width CNN (fully
-    connected, 10 steps each), then fused CDMSGD on the ring (3 steps)."""
+    """Phase 4: every run of ``RUNS``, launch counts checked per step."""
     loss = functools.partial(classifier_loss, cnn_classifier_apply)
-    cu.reset_launch_counts()
-    for topo_name, name, n_steps in (("fully_connected", "cdsgd", 10),
-                                     ("fully_connected", "cdmsgd", 10),
-                                     ("ring", "cdmsgd", RING_STEPS)):
-        kernel = f"{name}_update"
+    total = {k: 0 for k in cu.KERNELS}
+    for topo_name, name, exchange, schedule, ef, n_steps in RUNS:
+        what = (f"{name} {exchange} {schedule}{' EF' if ef else ''} on "
+                f"{topo_name}")
         kw = {"mu": MU} if name == "cdmsgd" else {}
-        topo = make_topology(topo_name, AGENTS)
+        init, per_step = expected_launches(name, exchange, schedule)
         torch.cuda.reset_peak_memory_stats()
-        tr = CollaborativeTrainer(loss, params, topo,
-                                  make_optimizer(name, LR, fused=True, **kw))
+        cu.reset_launch_counts()
+        tr = CollaborativeTrainer(loss, params, make_topology(topo_name, AGENTS),
+                                  make_optimizer(name, LR, fused=True, **kw),
+                                  exchange=exchange, schedule=schedule,
+                                  error_feedback=ef)
         spec = make_flat_spec(tr.state.params, lead=1)
         if [b.rows for b in spec.buckets] != [PATH_ROWS]:
             raise AssertionError(f"expected one bucket of {PATH_ROWS} rows, got "
                                  f"{[b.rows for b in spec.buckets]}")
-        before = cu.launch_counts()
+        if cu.launch_counts() != init:
+            raise AssertionError(f"{what}: init launched {cu.launch_counts()}, "
+                                 f"expected {init}")
         batches = AgentPartitioner(train, AGENTS, seed=0).batches(64)
         times, losses = [], []
         for i in range(n_steps):
@@ -203,47 +416,73 @@ def train_main_path(params, train) -> dict:
             times.append(1e3 * (time.perf_counter() - t0))
             losses.append(m["loss"])
             counts = cu.launch_counts()
-            for k in counts:
-                want = before[k] + (i + 1 if k == kernel else 0)
-                if counts[k] != want:
-                    raise AssertionError(f"step {i}: {k} launched {counts[k]} "
-                                         f"times, expected {want}")
+            want = {k: init[k] + (i + 1) * per_step[k] for k in counts}
+            if counts != want:
+                raise AssertionError(f"{what} step {i}: launched {counts}, "
+                                     f"expected {want}")
             if not np.isfinite(m["loss"]):
-                raise AssertionError(f"{name} step {i}: loss {m['loss']}")
+                raise AssertionError(f"{what} step {i}: loss {m['loss']}")
         for leaf in tr.state.params.values():
             for t in leaf.values():
                 if t.shape[0] != AGENTS or not bool(torch.isfinite(t).all()):
-                    raise AssertionError(f"{name}: bad parameter tensor {tuple(t.shape)}")
+                    raise AssertionError(f"{what}: bad parameter tensor "
+                                         f"{tuple(t.shape)}")
+        for k in total:
+            total[k] += counts[k]
         steady = times[1:]
-        print(f"train {name} fused on {topo_name}: {n_steps} steps, cnn 32x32x3 "
+        launched = ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+        print(f"train {what}: {n_steps} steps, cnn 32x32x3 "
               f"{count_params(cnn_classifier_template(32, 3, 10))} "
               f"params, {AGENTS} agents, batch 64/agent: loss {losses[0]:.4f} -> "
               f"{losses[-1]:.4f}, consensus_error {m['consensus_error']:.3e}, "
-              f"first step {times[0]:.2f} ms, steady step median "
+              f"wire {tr.wire_bytes_per_step} B/step, first step "
+              f"{times[0]:.2f} ms, steady step median "
               f"{float(np.median(steady)):.3f} ms mean {float(np.mean(steady)):.3f} ms, "
               f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
-              f"{kernel} launches {counts[kernel] - before[kernel]}")
-    return cu.launch_counts()
+              f"launches: {launched}")
+        del tr                      # the next run's peak memory is its own
+    return total
 
 
-def parity(params, train) -> float:
-    """Phase 5: 3 CDMSGD steps on the card vs the port on the CPU."""
+def _max_param_diff(trainers) -> float:
+    gpu, cpu = (tr.state.params for tr in trainers)
+    return max(float((gpu[k][j].cpu() - cpu[k][j]).abs().max())
+               for k in gpu for j in gpu[k])
+
+
+def parity(params, train, steps: int, exchange: str = "f32",
+           schedule: str = "sync") -> float:
+    """Phase 5: ``steps`` CDMSGD steps on the card vs the port on the CPU.
+    A quantized wire is also compared bit for bit: the wire the first step
+    quantizes from the (shared) initial params at its seed."""
     loss = functools.partial(classifier_loss, cnn_classifier_apply)
     topo = make_topology("fully_connected", AGENTS)
     trainers = [CollaborativeTrainer(loss, params, topo,
                                      make_optimizer("cdmsgd", LR, fused=True, mu=MU),
-                                     device=d) for d in ("cuda", "cpu")]
+                                     device=d, exchange=exchange, schedule=schedule)
+                for d in ("cuda", "cpu")]
     streams = [AgentPartitioner(train, AGENTS, seed=1).batches(64) for _ in trainers]
-    for _ in range(3):
+    what = f"cdmsgd {exchange} {schedule} {steps} step(s)"
+    if exchange in ("int8", "fp8"):
+        wires = []
+        for tr in trainers:
+            fl, p = tr.comm.flat, tr.state.params
+            wires.append(fl.strategy.quantize_stage(fl.pack(p, fl.spec(p)),
+                                                    tr.state.opt_state.step))
+        for (qg, sg), (qc, sc) in zip(*wires):
+            if not (torch.equal(qg.cpu().view(torch.uint8), qc.view(torch.uint8))
+                    and torch.equal(sg.cpu(), sc)):
+                raise AssertionError(f"{what}: card and CPU wires differ")
+        print(f"parity {what}: the first step's wire codes and scales equal bit "
+              f"for bit ({sum(q.numel() for q, _ in wires[1])} codes)")
+    for _ in range(steps):
         for tr, batches in zip(trainers, streams):
             tr.step(next(batches))
-    gpu, cpu = (tr.state.params for tr in trainers)
-    diff = max(float((gpu[k][j].cpu() - cpu[k][j]).abs().max())
-               for k in gpu for j in gpu[k])
-    print(f"parity cdmsgd 3 steps card vs cpu: max param abs diff {diff:.3e} "
+    diff = _max_param_diff(trainers)
+    print(f"parity {what} card vs cpu: max param abs diff {diff:.3e} "
           f"(tol {PARITY_TOL:g})")
     if not diff <= PARITY_TOL:
-        raise AssertionError(f"card/CPU parity {diff} > {PARITY_TOL}")
+        raise AssertionError(f"card/CPU parity {what}: {diff} > {PARITY_TOL}")
     return diff
 
 
@@ -261,31 +500,40 @@ def main() -> None:
           "matmul and cuDNN (full float32)")
 
     t0 = time.perf_counter()
-    cu.library()
-    print(f"build consensus_update.cu (nvcc sm_90a) and load: "
+    cu.build_libraries()
+    print(f"build {', '.join(SOURCES)} (nvcc sm_90a, in parallel) and load: "
           f"{time.perf_counter() - t0:.2f} s")
-    for line in build.BUILD_LOGS.get("consensus_update", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    for lib in SOURCES:
+        if lib not in build.BUILD_LOGS:
+            print(f"  {lib}: library current, not rebuilt by this run")
+        for line in build.BUILD_LOGS.get(lib, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  ptxas {lib}: {line.strip()}")
 
-    measured = check_kernels()
+    measured = {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    check_dense(measured, gen)
+    check_sr_quantize(measured, gen)
+    check_q(measured, gen)
 
     train, _ = make_classification(4096, n_classes=10, image_hw=32, seed=0)
     params = init_params(cnn_classifier_template(32, 3, 10), seed=0)
     counts = train_main_path(params, train)
     kernels = []
-    for name in ("cdsgd_update", "cdmsgd_update"):
+    for name, (lib, _, replaces) in KERNELS.items():
         if counts[name] < 1:
             raise AssertionError(f"{name} never launched on the main path")
         m = measured[name]
-        kernels.append({"name": name, "route": "cuda", "source": SOURCE,
-                        "replaces": REPLACES[name], "launches": counts[name],
+        kernels.append({"name": name, "route": "cuda", "source": SOURCES[lib],
+                        "replaces": replaces, "launches": counts[name],
                         "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                         "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                         "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
     print(json.dumps({"kernels": kernels}))
 
-    parity(params, train)
+    parity(params, train, 3)
+    parity(params, train, 3, schedule="overlap")
+    parity(params, train, 1, exchange="int8")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
 

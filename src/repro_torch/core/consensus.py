@@ -1,60 +1,359 @@
-"""Consensus mixing ``w = Pi x`` over agent-stacked tensors (f32 wire).
+"""Consensus mixing ``w = Pi x`` over agent-stacked tensors, and its wire.
 
 The stacked-simulation slice of :mod:`repro.core.consensus`:
 
 * :func:`mix_stacked` / :func:`mix_pytree_stacked` — every leaf carries a
   leading agent axis ``(N, ...)``; mixing is a dense matmul with ``Pi``
   (the per-leaf reference path of the unfused optimizers);
-* :func:`stacked_flat_comm` — the fused path's :class:`FlatComm` for the
-  native-precision (``"f32"``) wire and the paper's fixed ``Pi``: its
-  ``gather`` hands the fused kernels the whole packed agent stack with the
-  dense ``Pi`` as ``(A, A)`` weights (the JAX package's ``legacy_gather``);
-* :func:`consensus_error_pytree` and the f32 wire-byte accounting.
+* :class:`MixingProgram` / :func:`make_mixing_program` — what the exchange
+  does each step: the static strategy over one fixed ``Pi``, a wire
+  precision (``exchange`` f32 | bf16 | int8 | fp8) and optional error
+  feedback, validated at config time;
+* :class:`StaticMixing` — the strategy's stages: ``quantize_stage``
+  (packed buckets to the wire state, one ``(payload, row scales)`` pair
+  per bucket), ``exchange_stage`` (wire state to the self-separated
+  kernel operands), ``continue_from_wire``, the one-shot ``gather``, the
+  overlap hooks ``initial_wire`` / ``advance_wire`` and the error-feedback
+  ``quantize_ef`` / ``residual_init``;
+* :func:`stacked_flat_comm` — the fused path's :class:`FlatComm`;
+* :func:`wire_seed` — the stochastic-rounding seed of one wire payload;
+* :func:`initial_wire_state` / :func:`initial_residual_state`, the wire
+  byte accounting and :func:`consensus_error_pytree`.
 
-Quantized wires, time-varying / multi-round / error-feedback programs and
-the sharded mode are later slices; asking for them raises
-``NotImplementedError`` naming the ROADMAP item.
+Quantized wires quantize each packed bucket once per step with
+:func:`repro_torch.kernels.consensus_update.sr_quantize` (one launch for
+all agents, per-agent seeds) and hand the fused ``_q`` kernels the native
+self stack with ``[diag(Pi) | zero-diag Pi]`` weights, so agent ``j``
+mixes its own exact parameters and the dequantized payloads of the others
+— what the sharded exchange delivers, where the self buffer never crosses
+the wire.  The f32 and bf16 wires keep the legacy dense form under the
+sync schedule: the whole stack (cast to bf16 for ``"bf16"``, self
+included) with the dense ``Pi``.
+
+Time-varying and multi-round strategies, momentum mixing, staleness
+rings, fault schedules, the top-k / rank compressors and the sharded mode
+are later slices; asking for them raises ``NotImplementedError`` naming
+the ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import flatbuf
 from repro_torch.core.topology import Topology
+from repro_torch.device import resolve_device
+from repro_torch.kernels.consensus_update import sr_quantize
+from repro_torch.kernels.consensus_update.ref import as_int32
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 PyTree = Any
 
+MIXING_STRATEGIES = ("static", "time_varying", "multi_round")
+MOMENTUM_MIXINGS = ("none", "mixed")
+COMPRESSOR_KINDS = ("none", "int8", "fp8", "topk", "rank")
 
-def check_exchange(exchange: str) -> str:
-    """Only the native-precision wire is ported; fail at construction."""
-    if exchange == "f32":
-        return exchange
-    if exchange in flatbuf.EXCHANGE_DTYPES:
+
+# --------------------------------------------------------------------------
+# MixingProgram: the configuration of the mixing-strategy layer
+# --------------------------------------------------------------------------
+
+
+def _check_exchange(exchange: str) -> str:
+    """Fail at construction, not inside the first update."""
+    if exchange not in flatbuf.EXCHANGE_DTYPES:
+        raise ValueError(f"unknown exchange precision {exchange!r}; "
+                         f"expected one of {flatbuf.EXCHANGE_DTYPES}")
+    return exchange
+
+
+def parse_compressor(spec: str) -> str:
+    """The kind of a compressor spec: ``"none"``, or the dense ``"int8"`` /
+    ``"fp8"`` aliases of the quantized exchange."""
+    if not isinstance(spec, str):
+        raise TypeError(f"compressor spec must be a str, got "
+                        f"{type(spec).__name__}")
+    kind, _, arg = spec.partition(":")
+    if kind not in COMPRESSOR_KINDS:
+        raise ValueError(
+            f"unknown compressor {spec!r}; expected one of "
+            f"{COMPRESSOR_KINDS[:3]} or 'topk:p' (0 < p <= 1) or "
+            "'rank:r' (int r >= 1)")
+    if kind in ("topk", "rank"):
         raise NotImplementedError(
-            f"exchange={exchange!r} is not ported yet: ROADMAP A11 "
-            "(quantized wire, with kernel B3 sr_quantize_2d)")
-    raise ValueError(f"unknown exchange precision {exchange!r}; "
-                     f"expected one of {flatbuf.EXCHANGE_DTYPES}")
+            f"compressor {spec!r} is not ported yet: ROADMAP A14 "
+            "(compressor axis, kernels B5/B6)")
+    if arg:
+        raise ValueError(f"compressor {kind!r} takes no parameter "
+                         f"(got {spec!r})")
+    return kind
+
+
+@dataclasses.dataclass(frozen=True)
+class MixingProgram:
+    """What the consensus exchange does each optimizer step.
+
+    The ported slice is the static strategy: one fixed ``Pi``, one round,
+    one payload tree (the parameters), on a wire of precision ``exchange``.
+    ``error_feedback`` quantizes ``residual + payload`` instead of the raw
+    payload and carries the quantization error in ``OptState.residual``
+    (it needs an int8 / fp8 wire).  Built by :func:`make_mixing_program`.
+    """
+
+    topology: Topology
+    exchange: str = "f32"
+    error_feedback: bool = False
+
+    @property
+    def is_trivial(self) -> bool:
+        """True iff this is the legacy single-round fixed-``Pi`` program."""
+        return not self.error_feedback
+
+
+def make_mixing_program(
+    topology: Topology,
+    *,
+    strategy: str = "static",
+    rounds: int = 1,
+    error_feedback: bool = False,
+    exchange: str = "f32",
+    momentum_mixing: str = "none",
+    staleness: int = 1,
+    faults=None,
+    compressor: str = "none",
+    sparse_update: Optional[bool] = None,
+) -> MixingProgram:
+    """Validate and build a :class:`MixingProgram` at config time.
+
+    The knobs are the JAX package's.  ``compressor="int8"|"fp8"`` are dense
+    aliases that set ``exchange``; ``strategy="multi_round"`` with
+    ``rounds=1`` is the static strategy.  Values outside the ported slice
+    raise ``NotImplementedError`` naming their ROADMAP item; bad values and
+    combinations raise the JAX package's ``ValueError``.
+    """
+    _check_exchange(exchange)
+    ckind = parse_compressor(compressor)
+    if sparse_update:
+        raise ValueError(
+            f"sparse_update=True needs --compressor topk:p / topk:auto:B "
+            f"(got {compressor!r}): only the top-k wire has the compact "
+            "gather-dequant-accumulate operand form — drop sparse_update "
+            "or switch to a top-k compressor")
+    if ckind in ("int8", "fp8"):
+        if exchange not in ("f32", ckind):
+            raise ValueError(
+                f"--compressor {ckind} conflicts with --exchange "
+                f"{exchange}: the dense compressor aliases ARE the "
+                f"quantized exchange — drop --exchange or set it to "
+                f"{ckind!r}")
+        exchange = ckind
+    if not isinstance(topology, Topology):
+        raise TypeError(f"expected a Topology, got {type(topology).__name__} "
+                        "(TopologySchedule is ROADMAP A13)")
+    if not isinstance(rounds, int) or rounds < 1:
+        raise ValueError(f"consensus rounds must be an int >= 1, got {rounds!r}")
+    if strategy not in MIXING_STRATEGIES:
+        raise ValueError(f"unknown mixing strategy {strategy!r}; expected one "
+                         f"of {MIXING_STRATEGIES}")
+    if strategy == "time_varying" or rounds > 1:
+        raise NotImplementedError(
+            f"mixing strategy {strategy!r} with rounds={rounds} is not "
+            "ported yet: ROADMAP A13 (time-varying / multi-round mixing)")
+    if error_feedback and exchange not in ("int8", "fp8"):
+        raise ValueError(
+            "--error-feedback needs a lossy wire to feed back: set "
+            "--exchange int8/fp8 (quantization error) or --compressor "
+            f"topk:p/rank:r (compression error); exchange={exchange!r} "
+            "with a dense compressor has no error to carry")
+    if momentum_mixing not in MOMENTUM_MIXINGS:
+        raise ValueError(f"unknown momentum_mixing {momentum_mixing!r}; "
+                         f"expected one of {MOMENTUM_MIXINGS}")
+    if momentum_mixing != "none":
+        raise NotImplementedError(
+            f"momentum_mixing={momentum_mixing!r} is not ported yet: "
+            "ROADMAP A12 (momentum mixing, the _qm kernel forms)")
+    if not isinstance(staleness, int) or staleness < 1:
+        raise ValueError(f"staleness must be an int >= 1, got {staleness!r}")
+    if staleness > 1 or faults is not None:
+        raise NotImplementedError(
+            "staleness > 1 and fault schedules are not ported yet: ROADMAP "
+            "A13 (bounded-staleness wire ring, fault schedules)")
+    return MixingProgram(topology=topology, exchange=exchange,
+                         error_feedback=bool(error_feedback))
+
+
+# --------------------------------------------------------------------------
+# wire seeds and payloads
+# --------------------------------------------------------------------------
+
+# distinct odd strides decorrelate the stochastic-rounding streams across
+# steps, buckets, agents, inner consensus rounds and wire payloads (the JAX
+# package's constants: the same seeds select each agent's stream)
+_SEED_STEP_STRIDE = 1000003
+_SEED_BUCKET_STRIDE = 7919
+_SEED_AGENT_STRIDE = 104729
+_SEED_ROUND_STRIDE = 611953
+_SEED_PAYLOAD_STRIDE = 2750161
+
+
+def wire_seed(step: int, agent: int = 0, bucket: int = 0, rnd: int = 0,
+              payload: int = 0) -> int:
+    """The stochastic-rounding seed of one quantized wire payload:
+
+        seed = STEP * (step + ROUND * rnd) + AGENT * agent
+             + BUCKET * bucket + PAYLOAD * payload      (mod 2^32)
+
+    as a signed int32, the JAX package's composition bit for bit (Python
+    ints are exact, so wrapping once at the end equals the reference's
+    int64 arithmetic cast to int32; ``STEP * step`` alone leaves int32 from
+    step 2148 on).
+    """
+    s = step + _SEED_ROUND_STRIDE * rnd
+    return as_int32(_SEED_STEP_STRIDE * s + _SEED_AGENT_STRIDE * agent
+                    + _SEED_BUCKET_STRIDE * bucket
+                    + _SEED_PAYLOAD_STRIDE * payload)
+
+
+def _wire_payload(buf: torch.Tensor, exchange: str) -> torch.Tensor:
+    """The unquantized wire payload of one packed bucket: itself (f32, the
+    native precision) or a bf16 cast."""
+    return buf.to(torch.bfloat16) if exchange == "bf16" else buf
+
+
+def _quantize_wire_stacked(bufs, seed: int, exchange: str, payload: int = 0):
+    """Quantize agent-stacked ``(A, rows, 128)`` buckets for the wire.
+
+    Returns the wire state: one ``(payload, (A, rows, 1) f32 scales)`` pair
+    per bucket.  int8 / fp8 run one :func:`sr_quantize` launch per bucket
+    for all agents, agent ``a`` of bucket ``bi`` seeded with
+    ``wire_seed(seed, agent=a, bucket=bi, payload=payload)``.  f32 / bf16
+    wires cast and carry unit scales (the ``_q`` kernels' dequant multiply
+    is then the identity), so every precision shares one wire layout.
+    """
+    if exchange in ("f32", "bf16"):
+        return tuple(
+            (_wire_payload(b, exchange),
+             torch.ones(b.shape[:-1] + (1,), dtype=torch.float32,
+                        device=b.device)) for b in bufs)
+    return tuple(
+        sr_quantize(b, wire_seed(seed, bucket=bi, payload=payload), exchange,
+                    agent_stride=_SEED_AGENT_STRIDE)
+        for bi, b in enumerate(bufs))
+
+
+def _self_separated_weights(pi: np.ndarray) -> np.ndarray:
+    """``[diag(Pi) | zero-diag Pi]`` — the quantized-form (A, A+1) weights."""
+    n = pi.shape[0]
+    pi = np.asarray(pi, np.float64)
+    return np.concatenate([np.diag(pi)[:, None],
+                           pi * (1.0 - np.eye(n))], axis=1)
+
+
+# --------------------------------------------------------------------------
+# the mixing strategy (stacked simulation)
+# --------------------------------------------------------------------------
+
+
+class MixingStrategy:
+    """One consensus round of a fixed ``Pi`` over the agent stack.
+
+    ``pi`` is the dense ``(A, A)`` float32 ``Pi`` and ``pi_q`` the
+    self-separated ``(A, A+1)`` weights, both on the device the buffers
+    live on.  The wire state is a tuple of ``(payload, scales)`` per
+    bucket with the leading agent axis kept.
+    """
+
+    name = "static"
+
+    def __init__(self, program: MixingProgram, pi: torch.Tensor,
+                 pi_q: torch.Tensor):
+        self.program = program
+        self.pi = pi
+        self.pi_q = pi_q
+
+    def quantize_stage(self, bufs, seed: int):
+        """Packed buckets -> the wire state (seed: the optimizer step)."""
+        return _quantize_wire_stacked(bufs, seed, self.program.exchange)
+
+    def exchange_stage(self, wire, step=None):
+        """Wire state -> ``(payloads, weights_q, scales)``: in the stacked
+        simulation every agent already sees the whole stack, so the
+        exchange hands the payloads to the kernels with the self-separated
+        weights."""
+        return [p for p, _ in wire], self.pi_q, [sc for _, sc in wire]
+
+    def advance_wire(self, bufs, old_wire, step: int):
+        """The wire state step ``step + 1`` consumes (overlap): the current
+        buckets, quantized; the old wire is dropped."""
+        return self.quantize_stage(bufs, step)
+
+    def initial_wire(self, bufs):
+        """The wire state priming step 0: ``x_{-1} := x_0``, seed ``-1``."""
+        return self.quantize_stage(bufs, -1)
+
+    def continue_from_wire(self, bufs, wire, step):
+        """The kernel operands ``(nbrs, weights, scales, selfs)`` of the
+        one round, from ``wire`` (fresh under sync, carried under
+        overlap); ``selfs`` are the fresh native buckets."""
+        nbrs, w, sc = self.exchange_stage(wire, step)
+        return nbrs, w, sc, list(bufs)
+
+    def gather(self, bufs, seed: int):
+        """One-shot sync form.  f32 / bf16: the legacy dense operands (the
+        whole stack, cast for bf16, with the dense ``Pi``; no scales, no
+        selfs).  int8 / fp8: quantize the current buckets and continue."""
+        exchange = self.program.exchange
+        if exchange in ("f32", "bf16"):
+            return ([_wire_payload(b, exchange) for b in bufs], self.pi,
+                    [None] * len(bufs), [None] * len(bufs))
+        return self.continue_from_wire(bufs, self.quantize_stage(bufs, seed),
+                                       seed)
+
+    def wire_to_bufs(self, wire):
+        """Local dequantization of a wire state, f32."""
+        return [p.float() * sc for p, sc in wire]
+
+    def quantize_ef(self, bufs, seed: int, residual):
+        """Error-feedback quantization ``Q(x + e)``: returns ``(wire,
+        new_residual)`` with ``new_residual = (x + e) - dequant(Q(x + e))``,
+        so the quantization error telescopes instead of accumulating."""
+        carried = [b.float() + e for b, e in zip(bufs, residual)]
+        wire = self.quantize_stage(carried, seed)
+        deq = self.wire_to_bufs(wire)
+        return wire, tuple(c - d for c, d in zip(carried, deq))
+
+    def residual_init(self, bufs):
+        """Zero f32 residuals, one per packed bucket (agent axis kept)."""
+        return tuple(torch.zeros(b.shape, dtype=torch.float32, device=b.device)
+                     for b in bufs)
+
+
+class StaticMixing(MixingStrategy):
+    """The paper's fixed ``Pi``, one round."""
+
+    name = "static"
 
 
 @dataclasses.dataclass(frozen=True)
 class FlatComm:
     """Whole-model fused-update support carried inside ``CommOps``.
 
-    ``gather(bufs, seed) -> (neighbor_stacks, weights)`` maps the packed
-    self-buffers to kernel-ready operands.  In the stacked f32 form it
-    returns the agent stack itself per bucket and the dense ``Pi`` as
-    ``(A, A)`` float32 weights (the unquantized operand form; ``seed``
-    drives the stochastic rounding of quantized wires, not ported yet).
+    ``gather(bufs, seed) -> (neighbor_stacks, weights, scales, selfs)`` maps
+    the packed self-buffers to kernel-ready operands (see
+    :meth:`MixingStrategy.gather`); ``strategy`` carries the same
+    computation as separately schedulable stages (``quantize_stage``,
+    ``exchange_stage``) and the overlap and error-feedback hooks the
+    :mod:`repro_torch.core.engine` schedules.
     """
 
     lead: int                     # leading replica axes excluded from packing
     gather: Callable
+    strategy: MixingStrategy
+    program: MixingProgram
 
     def spec(self, tree: PyTree) -> flatbuf.FlatSpec:
         return flatbuf.make_flat_spec(tree, lead=self.lead)
@@ -66,15 +365,52 @@ class FlatComm:
         return flatbuf.unpack(bufs, spec)
 
 
-def stacked_flat_comm(pi: torch.Tensor, *, exchange: str = "f32") -> FlatComm:
-    """FlatComm for agent-stacked trees: dense float32 ``Pi`` (A, A), any
-    topology, on the device of the buffers it will mix."""
-    check_exchange(exchange)
+def stacked_flat_comm(topology: Topology, *, exchange: str = "f32",
+                      program: Optional[MixingProgram] = None,
+                      device=None) -> FlatComm:
+    """FlatComm for agent-stacked trees (dense ``Pi``, any topology) on
+    ``device`` (``cuda`` unless ``device`` says otherwise).  ``program``
+    defaults to the trivial static program over ``topology``."""
+    if program is None:
+        program = make_mixing_program(topology, exchange=exchange)
+    dev = resolve_device(device)
+    pi = program.topology.pi
+    strategy = StaticMixing(
+        program,
+        torch.tensor(pi, dtype=torch.float32, device=dev),
+        torch.tensor(_self_separated_weights(pi), dtype=torch.float32,
+                     device=dev))
+    return FlatComm(lead=1, gather=strategy.gather, strategy=strategy,
+                    program=program)
 
-    def gather(bufs, seed):
-        return list(bufs), pi
 
-    return FlatComm(lead=1, gather=gather)
+def widen_with_momentum(fl: FlatComm, bufs, momentum_bufs=None):
+    """The strategy-facing bucket list: the params' buckets (momentum
+    mixing, which appends the momentum buckets, is ROADMAP A12)."""
+    if momentum_bufs is not None:
+        raise NotImplementedError("momentum payload on the wire: ROADMAP A12")
+    return list(bufs)
+
+
+def _packed(fl: FlatComm, params: PyTree):
+    return widen_with_momentum(
+        fl, flatbuf.pack(params, flatbuf.make_flat_spec(params, lead=fl.lead)))
+
+
+def initial_wire_state(fl: FlatComm, params: PyTree) -> tuple:
+    """Wire state priming the ``schedule="overlap"`` double buffer: the
+    initial params quantized with seed ``-1`` (``x_{-1} := x_0``)."""
+    return fl.strategy.initial_wire(_packed(fl, params))
+
+
+def initial_residual_state(fl: FlatComm, params: PyTree) -> tuple:
+    """Zero error-feedback residuals, one f32 buffer per packed bucket."""
+    return fl.strategy.residual_init(_packed(fl, params))
+
+
+# --------------------------------------------------------------------------
+# dense stacked mixing, wire accounting, diagnostics
+# --------------------------------------------------------------------------
 
 
 def mix_stacked(pi: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -89,28 +425,38 @@ def mix_pytree_stacked(pi: torch.Tensor, tree: PyTree) -> PyTree:
     return tree_map(lambda x: mix_stacked(pi, x), tree)
 
 
+def program_bytes_per_neighbor(spec: flatbuf.FlatSpec,
+                               program: MixingProgram) -> int:
+    """Bytes one whole-model transfer moves to ONE neighbor: the params on
+    the dense wire at the program's precision (int8 / fp8 add one f32 scale
+    per 128-lane row)."""
+    return int(spec.exchange_bytes(program.exchange))
+
+
 def exchange_bytes_per_step(spec: flatbuf.FlatSpec, topology: Topology,
-                            exchange: str = "f32") -> dict:
-    """Per-step bytes-on-wire of the fused consensus exchange (f32 wire).
+                            exchange: str = "f32",
+                            program: Optional[MixingProgram] = None) -> dict:
+    """Per-step bytes-on-wire of the fused consensus exchange.
 
     The paper's fixed-topology cost model (eq. 5/6): each agent sends and
-    receives ``degree`` whole-model transfers per step, one round of one
-    payload (the parameters).  The keys are the JAX package's, so
-    ``rounds`` and ``payloads`` are the constant 1 and the native-precision
-    total equals ``per_step_bytes``.
+    receives ``degree`` whole-model transfers per step, priced by
+    :func:`program_bytes_per_neighbor` (``program`` defaults to the static
+    program at wire ``exchange``).  The keys are the JAX package's;
+    ``rounds`` and ``payloads`` are the constant 1 of the ported static
+    strategy without momentum mixing.
     """
-    check_exchange(exchange)
-    per_neighbor = spec.exchange_bytes("f32")
+    if program is None:
+        program = make_mixing_program(topology, exchange=exchange)
+    per_neighbor = program_bytes_per_neighbor(spec, program)
     degree = topology.degree()
-    per_step = per_neighbor * degree
     return {
-        "exchange": exchange,
+        "exchange": program.exchange,
         "degree": degree,
         "rounds": 1,
         "payloads": 1,
         "per_neighbor_bytes": per_neighbor,
-        "per_step_bytes": per_step,
-        "native_per_step_bytes": per_step,
+        "per_step_bytes": int(per_neighbor * degree),
+        "native_per_step_bytes": int(spec.exchange_bytes("f32") * degree),
     }
 
 

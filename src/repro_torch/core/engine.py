@@ -1,16 +1,30 @@
-"""StepProgram: one collaborative training step from named phases (sync).
+"""StepProgram: one collaborative training step from named phases.
 
-The sync slice of :mod:`repro.core.engine`.  A step is
+The stacked-simulation slice of :mod:`repro.core.engine`.  A step is
 
 * ``grad``   — one per-agent value-and-grad over the leading agent axis of
   the stacked params (``torch.func.vmap`` of ``torch.func.grad_and_value``;
   :func:`make_grad_phase`);
-* ``update`` — the optimizer's update on the *current* params: for fused
-  optimizers that is pack, gather (dense ``Pi`` on the f32 wire) and one
-  consensus-update kernel launch per bucket (:func:`make_update_phase`).
+* ``update`` — pack, quantize, exchange and the fused consensus-update
+  kernel per bucket (:func:`make_update_phase`).
 
-``schedule="overlap"`` (the one-step-stale exchange, ROADMAP A11) and
-gradient accumulation over microbatches are not ported yet.
+Schedules
+---------
+``schedule="sync"`` quantizes and exchanges the *current* params inside the
+optimizer's ``comm.flat.gather``.  With error feedback the sync path is
+staged here instead, because the quantizer threads ``OptState.residual``.
+
+``schedule="overlap"`` pipelines the exchange one step deep: the quantized
+buckets and row scales live in ``OptState.wire``, so step ``t`` mixes the
+payload quantized at step ``t-1``:
+
+    x^i_{t+1} = pi_ii x^i_t + sum_{j != i} pi_ij q(x^j_{t-1}) - alpha g^i_t
+
+with the self term always fresh and native (it never crosses the wire), and
+``x_{-1} := x_0`` quantized at seed ``-1``.  The staleness rides entirely in
+which buffers feed the self-separated ``_q`` kernels.
+
+Gradient accumulation over microbatches is not ported yet (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -21,7 +35,13 @@ from typing import Any, Callable, Dict, Optional
 import torch
 from torch.func import grad_and_value, vmap
 
-from repro_torch.core.optim import CommOps, DistributedOptimizer, OptState
+from repro_torch.core import consensus
+from repro_torch.core.optim import (
+    CommOps,
+    DistributedOptimizer,
+    ExchangeResult,
+    OptState,
+)
 
 PyTree = Any
 
@@ -48,24 +68,95 @@ def make_grad_phase(agent_loss: Callable, microbatches: int = 1) -> Callable:
     return grad_phase
 
 
+def _check_fused_flat(optimizer: DistributedOptimizer, comm: CommOps,
+                      what: str) -> consensus.FlatComm:
+    """``what`` needs the staged flat-buffer path; fail with the reason."""
+    if not getattr(optimizer, "fused", False):
+        raise ValueError(
+            f"{what} needs a fused=True consensus optimizer; "
+            f"{type(optimizer).__name__}(fused="
+            f"{getattr(optimizer, 'fused', False)}) has no fused update to "
+            "feed the staged exchange into")
+    return comm.flat
+
+
+def check_overlap_support(optimizer: DistributedOptimizer,
+                          comm: CommOps) -> consensus.FlatComm:
+    """Overlap needs the staged flat-buffer path; fail with the reason."""
+    return _check_fused_flat(optimizer, comm, "schedule='overlap'")
+
+
+def check_program_support(optimizer: DistributedOptimizer,
+                          comm: CommOps) -> consensus.FlatComm:
+    """A non-trivial MixingProgram (error feedback) needs the fused path: the
+    reference path would silently mix the dense ``Pi`` instead."""
+    fl = comm.flat
+    if fl.program.is_trivial:
+        return fl
+    return _check_fused_flat(
+        optimizer, comm,
+        f"mixing strategy 'static' (error_feedback="
+        f"{fl.program.error_feedback})")
+
+
+def _pack(fl: consensus.FlatComm, params):
+    spec = fl.spec(params)
+    return spec, consensus.widen_with_momentum(fl, fl.pack(params, spec))
+
+
 def make_update_phase(optimizer: DistributedOptimizer, comm: CommOps,
                       schedule: str = "sync") -> Callable:
     """The update phase group: ``(params, grads, state) -> (params', state')``.
 
-    ``sync``: the optimizer gathers on the current params and updates.
+    ``sync``: the optimizer gathers on the current params (staged here with
+    error feedback, whose quantizer threads ``OptState.residual``).
+    ``overlap``: exchange the carried one-step-stale wire, update, then
+    quantize the current params (EF-compressed when the program asks) as
+    the wire of the next step.
     """
     if schedule not in SCHEDULES:
         raise ValueError(f"unknown schedule {schedule!r}; expected one of "
                          f"{SCHEDULES}")
-    if schedule != "sync":
-        raise NotImplementedError(
-            "schedule='overlap' (one-step-stale wire) is not ported yet: "
-            "ROADMAP A11")
+    fl = check_program_support(optimizer, comm)
+    error_feedback = fl.program.error_feedback
 
-    def update_sync(params, grads, state):
-        return optimizer.update(params, grads, state, comm)
+    if schedule == "sync" and not error_feedback:
+        def update_sync(params, grads, state):
+            return optimizer.update(params, grads, state, comm)
+        return update_sync
 
-    return update_sync
+    strategy = fl.strategy
+    if schedule == "sync":
+        def update_sync_staged(params, grads, state):
+            spec, bufs = _pack(fl, params)
+            wire, new_res = strategy.quantize_ef(bufs, state.step,
+                                                 state.residual)
+            ex = ExchangeResult(spec, *strategy.continue_from_wire(
+                bufs, wire, state.step))
+            new_params, new_state = optimizer.update(params, grads, state,
+                                                     comm, exchanged=ex)
+            return new_params, new_state._replace(residual=new_res)
+        return update_sync_staged
+
+    check_overlap_support(optimizer, comm)
+
+    def update_overlap(params, grads, state):
+        spec, bufs = _pack(fl, params)
+        ex = ExchangeResult(spec, *strategy.continue_from_wire(
+            bufs, state.wire, state.step))
+        new_params, new_state = optimizer.update(params, grads, state, comm,
+                                                 exchanged=ex)
+        # the fused kernels wrote the new params into the packed grads, so
+        # ``bufs`` still holds x_t: quantize it as the wire of step t + 1
+        if error_feedback:
+            new_wire, new_res = strategy.quantize_ef(bufs, state.step,
+                                                     state.residual)
+            return new_params, new_state._replace(wire=new_wire,
+                                                  residual=new_res)
+        return new_params, new_state._replace(
+            wire=strategy.advance_wire(bufs, state.wire, state.step))
+
+    return update_overlap
 
 
 @dataclasses.dataclass
@@ -80,10 +171,22 @@ class StepProgram:
     comm: CommOps
     grad_phase: Callable          # (gp, batch) -> ((losses, metrics), grads)
     update_phase: Callable        # (params, grads, state) -> (params', state')
+    schedule: str = "sync"
     extra_metrics: Optional[Callable[[PyTree], Dict[str, torch.Tensor]]] = None
 
     def init_state(self, params: PyTree) -> OptState:
-        return self.optimizer.init(params)
+        """The optimizer's state, with the overlap wire (``x_{-1} := x_0``
+        at seed -1) and the zero error-feedback residuals filled in."""
+        state = self.optimizer.init(params)
+        fl = self.comm.flat
+        if self.schedule == "overlap":
+            check_overlap_support(self.optimizer, self.comm)
+            state = state._replace(wire=consensus.initial_wire_state(fl, params))
+        if fl.program.error_feedback:
+            check_program_support(self.optimizer, self.comm)
+            state = state._replace(
+                residual=consensus.initial_residual_state(fl, params))
+        return state
 
     @torch.no_grad()
     def _update(self, params, grads, opt_state):
@@ -99,3 +202,15 @@ class StepProgram:
         for k, v in metrics.items():
             out[k] = torch.mean(v)
         return new_params, new_state, out
+
+
+def wire_bytes_per_neighbor(wire) -> int:
+    """Bytes ONE neighbor transfer of a carried wire state moves, per agent,
+    counted from the actual buffers: the payload, plus the row scales for
+    quantized (one-byte) payloads.  The unit scales of f32 / bf16 wires are
+    synthesized after the exchange, so they cost nothing."""
+    total = 0
+    for payload, scales in wire:
+        fields = [payload, scales] if payload.element_size() == 1 else [payload]
+        total += sum(x[0].numel() * x.element_size() for x in fields)
+    return total

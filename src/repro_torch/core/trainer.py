@@ -12,15 +12,20 @@ The trainer runs on ``device`` — the CUDA card unless the caller passes
 numpy dicts (:class:`repro_torch.data.AgentPartitioner`) moved to the
 device each step.
 
-Knobs of the JAX trainer outside this slice raise ``NotImplementedError``
-naming their ROADMAP item: quantized exchanges, the overlap schedule,
-microbatches, and every non-default mixing-program setting.
+The wire knobs are the JAX trainer's and go through
+:func:`repro_torch.core.consensus.make_mixing_program`: ``exchange`` (f32 |
+bf16 | int8 | fp8, or the ``compressor="int8"|"fp8"`` aliases),
+``error_feedback`` and ``schedule`` (sync | overlap).  Knobs outside this
+slice raise ``NotImplementedError`` naming their ROADMAP item:
+microbatches, time-varying and multi-round mixing, momentum mixing,
+staleness and faults, the top-k / rank compressors.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -29,9 +34,10 @@ from torch.func import vmap
 
 from repro_torch.core import engine, flatbuf
 from repro_torch.core.consensus import (
-    check_exchange,
+    MixingProgram,
     consensus_error_pytree,
     exchange_bytes_per_step,
+    make_mixing_program,
 )
 from repro_torch.core.optim import CommOps, DistributedOptimizer, stacked_comm_ops
 from repro_torch.core.topology import Topology
@@ -52,20 +58,6 @@ def broadcast_to_agents(params: PyTree, n_agents: int) -> PyTree:
 
 def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
-
-
-# the JAX trainer's mixing-program knobs: name -> (default, ROADMAP item)
-_UNPORTED_KNOBS = {
-    "mixing_strategy": ("static", "A13 (time-varying / multi-round mixing)"),
-    "consensus_rounds": (1, "A13 (multi-round mixing)"),
-    "topology_schedule": (None, "A13 (TopologySchedule)"),
-    "error_feedback": (False, "A11 (error-feedback residual)"),
-    "momentum_mixing": ("none", "A12 (momentum mixing)"),
-    "staleness": (1, "A13 (bounded-staleness wire ring)"),
-    "fault_schedule": (None, "A13 (fault schedules)"),
-    "compressor": ("none", "A14 (compressor axis)"),
-    "sparse_update": (None, "A14 (sparse update kernels)"),
-}
 
 
 @dataclasses.dataclass
@@ -89,22 +81,41 @@ class CollaborativeTrainer:
         exchange: str = "f32",
         schedule: str = "sync",
         microbatches: int = 1,
-        **program_knobs,
+        mixing_strategy: str = "static",
+        consensus_rounds: int = 1,
+        topology_schedule=None,
+        error_feedback: bool = False,
+        momentum_mixing: str = "none",
+        staleness: int = 1,
+        fault_schedule=None,
+        compressor: str = "none",
+        sparse_update: Optional[bool] = None,
     ):
-        for name, value in program_knobs.items():
-            if name not in _UNPORTED_KNOBS:
-                raise TypeError(f"unexpected keyword argument {name!r}")
-            default, item = _UNPORTED_KNOBS[name]
-            if value != default:
-                raise NotImplementedError(
-                    f"{name}={value!r} is not ported yet: ROADMAP {item}")
-        check_exchange(exchange)
+        if topology_schedule is not None:
+            raise NotImplementedError(
+                "topology_schedule is not ported yet: ROADMAP A13 "
+                "(TopologySchedule)")
+        self.program: MixingProgram = make_mixing_program(
+            topology, strategy=mixing_strategy, rounds=consensus_rounds,
+            error_feedback=error_feedback, exchange=exchange,
+            momentum_mixing=momentum_mixing, staleness=staleness,
+            faults=fault_schedule, compressor=compressor,
+            sparse_update=sparse_update)
+        self.exchange = self.program.exchange
+        self.schedule = schedule
+        if self.exchange != "f32" and not getattr(optimizer, "fused", False):
+            warnings.warn(
+                f"exchange={self.exchange!r} only affects fused optimizers; "
+                f"{type(optimizer).__name__}(fused=False) will mix in native "
+                "precision", stacklevel=2)
         self.device = resolve_device(device)
         self.loss_fn = loss_fn
         self.topology = topology
         self.optimizer = optimizer
-        self.comm: CommOps = stacked_comm_ops(topology, exchange=exchange,
+        self.comm: CommOps = stacked_comm_ops(topology, program=self.program,
                                               device=self.device)
+        # non-trivial programs live on the fused path only: fail here
+        engine.check_program_support(optimizer, self.comm)
         params = tree_map(lambda x: torch.as_tensor(x).to(self.device), params)
         stacked = broadcast_to_agents(params, topology.n_agents)
         self._program = engine.StepProgram(
@@ -112,6 +123,7 @@ class CollaborativeTrainer:
             comm=self.comm,
             grad_phase=engine.make_grad_phase(loss_fn, microbatches),
             update_phase=engine.make_update_phase(optimizer, self.comm, schedule),
+            schedule=schedule,
             extra_metrics=lambda p: {"consensus_error": consensus_error_pytree(p)},
         )
         self.state = TrainState(params=stacked,
@@ -120,7 +132,7 @@ class CollaborativeTrainer:
         # per-step neighbor-exchange bytes of the fused flat path (estimate)
         self.wire_bytes_per_step = exchange_bytes_per_step(
             flatbuf.make_flat_spec(stacked, lead=1), topology,
-            exchange)["per_step_bytes"]
+            program=self.program)["per_step_bytes"]
 
     # ------------------------------------------------------------------
     def step(self, batch: Dict[str, np.ndarray]) -> Dict[str, float]:

@@ -1,0 +1,163 @@
+// Per-row scaled quantization of packed float32 (rows, 128) buckets for the
+// consensus wire, for Hopper (sm_90a).
+//
+//   scale[r] = amax_r * (1/qmax)  (qmax 127 int8, 448 fp8; 1.0 if amax_r == 0)
+//   int8:  q = clip(floor(x / scale + u), -127, 127)   (stochastic rounding)
+//   fp8:   q = e4m3fn(x / scale)                       (nearest, saturating)
+//
+// x is (A, rows, 128): one bucket of every agent, one launch.  Agent a draws
+// its uniforms from the 32-bit seed  seed + agent_stride * a  (wrapping), so
+// the caller passes one seed per agent as a base and a stride.
+//
+// Replaces: src/repro/kernels/consensus_update/consensus_update.py
+//   sr_quantize_2d (line 130; pallas_call line 167; body _sr_quantize_kernel
+//   and _quantize_math, line 96).
+//
+// Random stream.  The TPU kernel draws pltpu.prng_random_bits, which no GPU
+// can reproduce.  This kernel defines the port's stream instead:
+// Philox4x32-10 keyed by (seed, 0), counter (p mod 2^32, p >> 32, 0, 0) for
+// the float4 index p within the agent's bucket; the four output words are
+// the uniforms of that float4's four elements, u = (bits >> 8) * 2^-24
+// (exact in float32, strictly below 1).  The bits depend on (seed, p) only,
+// not on the launch shape, and the plain version (ref.py: philox_uniforms)
+// computes the same words with int64 tensors, so the two agree bit for bit.
+// Nothing reads u from memory.
+//
+// Bound on an H100 SXM (3.35 TB/s): memory.  Per element the kernel reads 4
+// bytes and writes 1 (+4 bytes of scale per 128 elements) and does ~25
+// integer and float operations (Philox's 10 rounds amortized over 4
+// elements, the abs-max, a divide, an add and a floor), far below the
+// ridge.  At the training path's shape (A = 5, 16,941 rows): 43.37 MB read,
+// 11.18 MB written, ~16.3 us.
+//
+// Scale arithmetic.  The JAX source writes amax / qmax, but XLA, compiling
+// the JAX trainer's step, folds a division by a literal into a multiply by
+// its float32 reciprocal; this kernel follows the compiled arithmetic
+// (__fmul_rn by 1.0f/qmax, folded the same way), so its wire bits equal the
+// JAX trainer's.  x / scale divides by a value, which XLA keeps a true
+// division: __fdiv_rn here.
+//
+// Design: one warp per 128-lane row.  Each lane loads one float4 (16-byte
+// coalesced, 512 bytes per warp), the warp reduces |x| to the row's max
+// with __shfl_xor_sync (fabsf and fmaxf are exact, so the reduction order
+// does not matter), every lane divides by the same scale, rounds its four
+// elements and stores them as one 4-byte word; lane 0 writes the scale.  A
+// warp past the last row exits whole, so any row count works.
+
+#include <cuda_fp8.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kRowsPerBlock = kThreads / 32;
+constexpr int kKindInt8 = 2;      // the wrapper's payload kind codes
+constexpr int kKindFp8 = 3;
+
+constexpr unsigned kPhiloxM0 = 0xD2511F53u;
+constexpr unsigned kPhiloxM1 = 0xCD9E8D57u;
+constexpr unsigned kPhiloxW0 = 0x9E3779B9u;
+constexpr unsigned kPhiloxW1 = 0xBB67AE85u;
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0, unsigned k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += kPhiloxW0;
+      k1 += kPhiloxW1;
+    }
+    const unsigned hi0 = __umulhi(kPhiloxM0, c.x);
+    const unsigned lo0 = kPhiloxM0 * c.x;
+    const unsigned hi1 = __umulhi(kPhiloxM1, c.z);
+    const unsigned lo1 = kPhiloxM1 * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+  }
+  return c;
+}
+
+__device__ __forceinline__ float uniform24(unsigned bits) {
+  return __fmul_rn(__uint2float_rn(bits >> 8), 5.9604644775390625e-08f);  // 2^-24
+}
+
+// floor(y + u) clipped to [-127, 127], as one byte
+__device__ __forceinline__ uint32_t sr_int8(float y, unsigned bits) {
+  const float r = fminf(fmaxf(floorf(__fadd_rn(y, uniform24(bits))), -127.f), 127.f);
+  return static_cast<uint32_t>(static_cast<uint8_t>(static_cast<int8_t>(r)));
+}
+
+__device__ __forceinline__ uint32_t rn_fp8(float y) {
+  return static_cast<uint32_t>(__nv_cvt_float_to_fp8(y, __NV_SATFINITE, __NV_E4M3));
+}
+
+template <bool kStochastic>
+__global__ void __launch_bounds__(kThreads)
+sr_quantize_kernel(const float4* __restrict__ x, uint32_t* __restrict__ q,
+                   float* __restrict__ scales, long long total_rows,
+                   long long rows, unsigned seed, unsigned agent_stride) {
+  const long long grow =
+      static_cast<long long>(blockIdx.x) * kRowsPerBlock + (threadIdx.x >> 5);
+  if (grow >= total_rows) return;  // the whole warp leaves together
+  const int lane = threadIdx.x & 31;
+  const long long i = grow * 32 + lane;  // float4 index in the launch
+  const float4 v = x[i];
+  float amax = fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
+#pragma unroll
+  for (int off = 16; off; off >>= 1) {
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  }
+  const float inv_qmax = kStochastic ? 1.0f / 127.0f : 1.0f / 448.0f;
+  const float scale = amax > 0.f ? __fmul_rn(amax, inv_qmax) : 1.f;
+  const float y0 = __fdiv_rn(v.x, scale);
+  const float y1 = __fdiv_rn(v.y, scale);
+  const float y2 = __fdiv_rn(v.z, scale);
+  const float y3 = __fdiv_rn(v.w, scale);
+  uint32_t word;
+  if (kStochastic) {
+    const long long a = grow / rows;
+    const long long p = (grow - a * rows) * 32 + lane;  // float4 index in the agent's bucket
+    const unsigned key = seed + agent_stride * static_cast<unsigned>(a);
+    const uint4 bits = philox4x32_10(
+        make_uint4(static_cast<unsigned>(p), static_cast<unsigned>(p >> 32), 0u, 0u),
+        key, 0u);
+    word = sr_int8(y0, bits.x) | sr_int8(y1, bits.y) << 8 |
+           sr_int8(y2, bits.z) << 16 | sr_int8(y3, bits.w) << 24;
+  } else {
+    word = rn_fp8(y0) | rn_fp8(y1) << 8 | rn_fp8(y2) << 16 | rn_fp8(y3) << 24;
+  }
+  q[i] = word;
+  if (lane == 0) scales[grow] = scale;
+}
+
+}  // namespace
+
+// Plain C interface, loaded with ctypes.  x is (A, rows, 128) float32, q the
+// (A, rows, 128) one-byte output (kind 2 = int8, 3 = float8_e4m3fn),
+// scales the (A, rows, 1) float32 output; total_rows = A * rows.  device is
+// the CUDA device ordinal of the tensors (this library links its own CUDA
+// runtime and selects the device itself); stream is PyTorch's current
+// stream there.  x must be 16-byte aligned and q 4-byte aligned (the
+// wrapper checks).  Returns the CUDA error of the device selection or of
+// the launch (0 = launched); a call with nothing to do launches nothing.
+extern "C" int sr_quantize(const float* x, void* q, int kind, float* scales,
+                           long long total_rows, long long rows, unsigned seed,
+                           unsigned agent_stride, int device, void* stream) {
+  if (total_rows <= 0 || rows <= 0) return 0;
+  if (kind != kKindInt8 && kind != kKindFp8) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const unsigned blocks =
+      static_cast<unsigned>((total_rows + kRowsPerBlock - 1) / kRowsPerBlock);
+  const auto* x4 = reinterpret_cast<const float4*>(x);
+  auto* q4 = static_cast<uint32_t*>(q);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (kind == kKindInt8) {
+    sr_quantize_kernel<true><<<blocks, kThreads, 0, st>>>(x4, q4, scales, total_rows,
+                                                          rows, seed, agent_stride);
+  } else {
+    sr_quantize_kernel<false><<<blocks, kThreads, 0, st>>>(x4, q4, scales, total_rows,
+                                                           rows, seed, agent_stride);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -8,8 +8,9 @@ loaded at import time: the CPU tests import every module on a machine
 without ``nvcc``.
 
 :func:`load` builds what is missing and returns the loaded library with its
-function signatures set; nvcc's output (``ptxas`` register and spill lines)
-is kept in :data:`BUILD_LOGS`.
+function signatures set; :func:`build_all` compiles several sources at
+once, one ``nvcc`` process each.  nvcc's output (``ptxas`` register and
+spill lines) is kept in :data:`BUILD_LOGS`.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Iterable, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -58,35 +59,45 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def _build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is current.
+def build_all(names: Iterable[str]) -> None:
+    """Compile every ``csrc/<name>.cu`` whose library is not current.
 
-    nvcc writes a temporary file that is renamed into place when it
-    succeeds; a failed build raises with nvcc's output.
+    One nvcc process per source, all started together.  Each writes a
+    temporary file that is renamed into place when it succeeds; a failed
+    build raises with nvcc's output (after every process has ended).
     """
-    path = library_path(name)
-    if path.exists():
-        return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        check=False)
-    BUILD_LOGS[name] = proc.stdout
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu "
-                           f"(exit {proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, path)
-    return path
+    nvcc = None
+    running = []
+    for name in names:
+        path = library_path(name)
+        if path.exists():
+            continue
+        nvcc = nvcc or nvcc_path()
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((name, proc, tmp, path))
+    failed = []
+    for name, proc, tmp, path in running:
+        BUILD_LOGS[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):"
+                          f"\n{BUILD_LOGS[name]}")
+        else:
+            os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load(name: str, signatures: Signatures) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     lib = _LOADED.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(_build(name)))
+        build_all([name])
+        lib = ctypes.CDLL(str(library_path(name)))
         for fn, (restype, argtypes) in signatures.items():
             f = getattr(lib, fn)
             f.restype = restype

@@ -1,22 +1,29 @@
-"""Fused consensus-SGD update: CUDA kernels, plain versions, dispatch.
+"""Fused consensus-SGD update and wire quantization: CUDA kernels, plain
+versions, dispatch.
 
 * :mod:`.consensus_update` — the wrappers of the hand-written CUDA kernels
-  (``csrc/consensus_update.cu``) and their launch counts;
-* :mod:`.ref` — the plain PyTorch versions (CPU tensors, tests);
+  (``csrc/consensus_update.cu``, ``csrc/sr_quantize.cu``) and their launch
+  counts;
+* :mod:`.ref` — the plain PyTorch versions (CPU tensors, tests) and the
+  port's stochastic-rounding stream;
 * :mod:`.ops` — the bucket-level entry points the optimizers call.
 """
 
 from repro_torch.kernels.consensus_update.consensus_update import (
     KERNELS,
     cdmsgd_update,
+    cdmsgd_update_q,
     cdsgd_update,
+    cdsgd_update_q,
     launch_counts,
     reset_launch_counts,
+    sr_quantize,
 )
 from repro_torch.kernels.consensus_update.ops import (
     cdmsgd_update_flat,
     cdsgd_update_flat,
 )
 
-__all__ = ["KERNELS", "cdmsgd_update", "cdsgd_update", "launch_counts",
-           "reset_launch_counts", "cdmsgd_update_flat", "cdsgd_update_flat"]
+__all__ = ["KERNELS", "cdmsgd_update", "cdmsgd_update_q", "cdsgd_update",
+           "cdsgd_update_q", "launch_counts", "reset_launch_counts",
+           "sr_quantize", "cdmsgd_update_flat", "cdsgd_update_flat"]

@@ -1,4 +1,5 @@
-"""Wrappers of the fused consensus-update CUDA kernels, with launch counts.
+"""Wrappers of the consensus-update and wire-quantize CUDA kernels, with
+launch counts.
 
 Per optimization step every agent computes, over its whole packed
 parameter bucket (paper eq. 5, Algorithms 1-2),
@@ -6,17 +7,29 @@ parameter bucket (paper eq. 5, Algorithms 1-2),
     x' = sum_s w_s * neighbor_s  -  alpha * g                  (CDSGD)
     v' = mu v - alpha g ; x' = sum_s w_s * neighbor_s + v'     (CDMSGD)
 
-The kernels live in ``src/repro_torch/csrc/consensus_update.cu`` (Hopper,
-``sm_90a``) and replace the Pallas TPU kernels ``cdsgd_update_2d`` /
-``cdmsgd_update_2d`` of :mod:`repro.kernels.consensus_update` in their
-unquantized form.  Operand form: ``weights (A_out, S)``, ``neighbors
-(S, rows, 128)``, per-output ``grad`` / ``momentum (A_out, rows, 128)``,
-all float32 and contiguous on one device.  ``A_out = 1`` is one agent's
-stencil; ``A_out = S = A`` with ``weights = Pi`` is the whole stacked
-simulation in one launch.
+and, on a quantized wire, first quantizes its bucket for the neighbors.
+The kernels live in ``src/repro_torch/csrc/`` (Hopper, ``sm_90a``) and
+replace the Pallas TPU kernels of :mod:`repro.kernels.consensus_update`:
 
-Outputs are written **in place**: the new parameters into ``grad``'s
-storage and ``v'`` into ``momentum``'s (the JAX kernels'
+* :func:`cdsgd_update` / :func:`cdmsgd_update` — ``cdsgd_update_2d`` /
+  ``cdmsgd_update_2d`` in their dense form: ``weights (A_out, S)``,
+  ``neighbors (S, rows, 128)`` in float32 or bfloat16 (the bf16 legacy
+  wire casts the whole stack, self included);
+* :func:`cdsgd_update_q` / :func:`cdmsgd_update_q` — their self-separated
+  (``_q``) form: ``weights (A_out, S+1)``, the native ``self (A_out, rows,
+  128)`` at ``weights[:, 0]``, the wire ``payload (S, rows, 128)`` in
+  int8, float8_e4m3fn, bfloat16 or float32 with ``scales (S, rows, 1)``;
+* :func:`sr_quantize` — ``sr_quantize_2d``: ``x (A, rows, 128)`` to int8
+  (stochastic rounding) or float8_e4m3fn (nearest) codes and per-row
+  scales, one launch for all agents of a bucket.
+
+Gradient, momentum and self buffers are float32 (bf16 parameter buckets
+are not ported yet); every operand is contiguous and on one device.
+``A_out = 1`` is one agent's stencil; ``A_out = S = A`` is the whole
+stacked simulation in one launch.
+
+Update outputs are written **in place**: the new parameters into
+``grad``'s storage and ``v'`` into ``momentum``'s (the JAX kernels'
 ``input_output_aliases``); the wrappers return those same tensors.
 
 Dispatch is by the tensors' device: CUDA tensors launch the kernel (a
@@ -37,21 +50,41 @@ from repro_torch.kernels.consensus_update import ref
 
 LANE = 128
 
+#: payload / neighbor dtype -> the kernels' kind code
+KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+         torch.float8_e4m3fn: 3}
+NEIGHBOR_DTYPES = (torch.float32, torch.bfloat16)
+F32 = (torch.float32,)
+
 _P = ctypes.c_void_p
-_SIGNATURES = {
-    "cdsgd_update_f32": (ctypes.c_int, (_P, _P, _P, ctypes.c_int, ctypes.c_int,
-                                        ctypes.c_longlong, ctypes.c_float,
-                                        ctypes.c_int, _P)),
-    "cdmsgd_update_f32": (ctypes.c_int, (_P, _P, _P, _P, ctypes.c_int,
-                                         ctypes.c_int, ctypes.c_longlong,
-                                         ctypes.c_float, ctypes.c_float,
-                                         ctypes.c_int, _P)),
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
+_U = ctypes.c_uint
+#: library name (``csrc/<name>.cu``) -> its C functions' signatures
+LIBRARIES = {
+    "consensus_update": {
+        "cdsgd_update": (_I, (_P, _P, _I, _P, _I, _I, _LL, _F, _I, _P)),
+        "cdmsgd_update": (_I, (_P, _P, _I, _P, _P, _I, _I, _LL, _F, _F, _I, _P)),
+        "cdsgd_update_q": (_I, (_P, _P, _P, _I, _P, _P, _I, _I, _LL, _F, _I, _P)),
+        "cdmsgd_update_q": (_I, (_P, _P, _P, _I, _P, _P, _P, _I, _I, _LL, _F, _F,
+                                 _I, _P)),
+    },
+    "sr_quantize": {
+        "sr_quantize": (_I, (_P, _P, _I, _P, _LL, _LL, _U, _U, _I, _P)),
+    },
 }
 
 
-def library() -> ctypes.CDLL:
-    """The kernels' shared library, built from the CUDA source on first use."""
-    return build.load("consensus_update", _SIGNATURES)
+def library(name: str = "consensus_update") -> ctypes.CDLL:
+    """A kernels' shared library, built from its CUDA source on first use."""
+    return build.load(name, LIBRARIES[name])
+
+
+def build_libraries() -> dict:
+    """Build every kernel library (one ``nvcc`` per source, all at once)."""
+    build.build_all(LIBRARIES)
+    return {name: library(name) for name in LIBRARIES}
 
 
 def _f32(x) -> float:
@@ -59,12 +92,15 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
-def _check(name: str, t: torch.Tensor, shape, device: torch.device) -> None:
+def _check(name: str, t: torch.Tensor, shape, device: torch.device,
+           dtypes=F32) -> None:
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32 (bf16 buckets are not ported "
-                        f"yet), got {t.dtype}")
+    if t.dtype not in dtypes:
+        note = " (bf16 parameter buckets are not ported yet)" \
+            if dtypes == F32 else ""
+        raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}"
+                        f"{note}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
@@ -74,40 +110,68 @@ def _check(name: str, t: torch.Tensor, shape, device: torch.device) -> None:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
 
 
+def _stack(name: str, t) -> tuple:
+    """``(S, rows)`` of a ``(S, rows, 128)`` stack operand."""
+    if not isinstance(t, torch.Tensor) or t.dim() != 3 or t.shape[-1] != LANE:
+        raise ValueError(f"{name} must be a (S, rows, 128) tensor, got "
+                         f"{getattr(t, 'shape', type(t))}")
+    return t.shape[0], t.shape[1]
+
+
 def _span(t: torch.Tensor):
     start = t.data_ptr()
     return start, start + t.numel() * t.element_size()
 
 
+def _check_placement(reads, outs, device: torch.device) -> None:
+    """No output overlaps any operand (the outputs are written in place
+    while every operand is read); 16-byte alignment on the card."""
+    for j, (n_out, t_out) in enumerate(outs):
+        for n, t in [*reads, *outs[:j]]:
+            (a0, a1), (b0, b1) = _span(t), _span(t_out)
+            if a0 < b1 and b0 < a1:
+                raise ValueError(f"{n} and {n_out} overlap in memory; the "
+                                 f"update writes {n_out} in place")
+    if device.type == "cuda":
+        for name, t in [*reads, *outs]:
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} is not 16-byte aligned")
+    elif device.type != "cpu":
+        raise ValueError(f"no consensus-update kernel for device {device}")
+
+
 def _check_operands(weights, neighbors, outs):
-    """Validate the operand form; returns ``(a_out, s, rows, device)``."""
-    if not isinstance(neighbors, torch.Tensor) or neighbors.dim() != 3 \
-            or neighbors.shape[-1] != LANE:
-        raise ValueError("neighbors must be a (S, rows, 128) tensor, got "
-                         f"{getattr(neighbors, 'shape', type(neighbors))}")
-    s, rows, _ = neighbors.shape
+    """Validate the dense operand form; returns ``(a_out, s, rows, device)``."""
+    s, rows = _stack("neighbors", neighbors)
     device = neighbors.device
     if not isinstance(weights, torch.Tensor) or weights.dim() != 2:
         raise ValueError("weights must be an (A_out, S) tensor")
     a_out = weights.shape[0]
     _check("weights", weights, (a_out, s), device)
-    _check("neighbors", neighbors, (s, rows, LANE), device)
+    _check("neighbors", neighbors, (s, rows, LANE), device, NEIGHBOR_DTYPES)
     for name, t in outs:
         _check(name, t, (a_out, rows, LANE), device)
-    # the outputs are written in place while every operand is read
-    named = [("neighbors", neighbors), *outs]
-    for i, (n1, t1) in enumerate(named):
-        for n2, t2 in named[i + 1:]:
-            (a0, a1), (b0, b1) = _span(t1), _span(t2)
-            if a0 < b1 and b0 < a1:
-                raise ValueError(f"{n1} and {n2} overlap in memory; the "
-                                 f"update writes {n2} in place")
-    if device.type == "cuda":
-        for name, t in named:
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name} is not 16-byte aligned")
-    elif device.type != "cpu":
-        raise ValueError(f"no consensus-update kernel for device {device}")
+    _check_placement([("weights", weights), ("neighbors", neighbors)], outs,
+                     device)
+    return a_out, s, rows, device
+
+
+def _check_q_operands(weights, self_buf, payload, scales, outs):
+    """Validate the self-separated operand form; returns
+    ``(a_out, s, rows, device)``."""
+    s, rows = _stack("payload", payload)
+    device = payload.device
+    if not isinstance(weights, torch.Tensor) or weights.dim() != 2:
+        raise ValueError("weights must be an (A_out, S+1) tensor")
+    a_out = weights.shape[0]
+    _check("weights", weights, (a_out, s + 1), device)
+    _check("payload", payload, (s, rows, LANE), device, tuple(KINDS))
+    _check("scales", scales, (s, rows, 1), device)
+    _check("self_buf", self_buf, (a_out, rows, LANE), device)
+    for name, t in outs:
+        _check(name, t, (a_out, rows, LANE), device)
+    _check_placement([("weights", weights), ("self_buf", self_buf),
+                      ("payload", payload), ("scales", scales)], outs, device)
     return a_out, s, rows, device
 
 
@@ -132,9 +196,10 @@ def cdsgd_update(weights: torch.Tensor, neighbors: torch.Tensor,
         return grad
     if a_out == 0 or rows == 0:
         return grad
-    rc = library().cdsgd_update_f32(
-        weights.data_ptr(), neighbors.data_ptr(), grad.data_ptr(), a_out, s,
-        rows * LANE // 4, alpha, device.index, _stream(device))
+    rc = library().cdsgd_update(
+        weights.data_ptr(), neighbors.data_ptr(), KINDS[neighbors.dtype],
+        grad.data_ptr(), a_out, s, rows * LANE // 4, alpha, device.index,
+        _stream(device))
     _launch_check(rc, "cdsgd_update")
     cdsgd_update.launches += 1
     return grad
@@ -158,20 +223,103 @@ def cdmsgd_update(weights: torch.Tensor, neighbors: torch.Tensor,
         return grad, momentum
     if a_out == 0 or rows == 0:
         return grad, momentum
-    rc = library().cdmsgd_update_f32(
-        weights.data_ptr(), neighbors.data_ptr(), grad.data_ptr(),
-        momentum.data_ptr(), a_out, s, rows * LANE // 4, alpha, mu,
-        device.index, _stream(device))
+    rc = library().cdmsgd_update(
+        weights.data_ptr(), neighbors.data_ptr(), KINDS[neighbors.dtype],
+        grad.data_ptr(), momentum.data_ptr(), a_out, s, rows * LANE // 4,
+        alpha, mu, device.index, _stream(device))
     _launch_check(rc, "cdmsgd_update")
     cdmsgd_update.launches += 1
     return grad, momentum
 
 
-cdsgd_update.launches = 0
-cdmsgd_update.launches = 0
+def cdsgd_update_q(weights: torch.Tensor, self_buf: torch.Tensor,
+                   payload: torch.Tensor, scales: torch.Tensor,
+                   grad: torch.Tensor, alpha) -> torch.Tensor:
+    """``grad[a] <- w[a,0] self[a] + sum_s w[a,1+s] (payload[s] * scales[s])
+    - alpha grad[a]``."""
+    a_out, s, rows, device = _check_q_operands(weights, self_buf, payload,
+                                               scales, [("grad", grad)])
+    alpha = _f32(alpha)
+    if device.type == "cpu":
+        grad.copy_(ref.cdsgd_update_q_ref(weights, self_buf, payload, scales,
+                                          grad, alpha))
+        return grad
+    if a_out == 0 or rows == 0:
+        return grad
+    rc = library().cdsgd_update_q(
+        weights.data_ptr(), self_buf.data_ptr(), payload.data_ptr(),
+        KINDS[payload.dtype], scales.data_ptr(), grad.data_ptr(), a_out, s,
+        rows, alpha, device.index, _stream(device))
+    _launch_check(rc, "cdsgd_update_q")
+    cdsgd_update_q.launches += 1
+    return grad
+
+
+def cdmsgd_update_q(weights: torch.Tensor, self_buf: torch.Tensor,
+                    payload: torch.Tensor, scales: torch.Tensor,
+                    grad: torch.Tensor, momentum: torch.Tensor, alpha, mu):
+    """``momentum[a] <- mu momentum[a] - alpha grad[a]``;
+    ``grad[a] <- w[a,0] self[a] + sum_s w[a,1+s] (payload[s] * scales[s])
+    + momentum[a]``.  Returns ``(grad, momentum)``, both updated in place.
+    """
+    a_out, s, rows, device = _check_q_operands(
+        weights, self_buf, payload, scales,
+        [("grad", grad), ("momentum", momentum)])
+    alpha, mu = _f32(alpha), _f32(mu)
+    if device.type == "cpu":
+        out, new_v = ref.cdmsgd_update_q_ref(weights, self_buf, payload,
+                                             scales, grad, momentum, alpha, mu)
+        grad.copy_(out)
+        momentum.copy_(new_v)
+        return grad, momentum
+    if a_out == 0 or rows == 0:
+        return grad, momentum
+    rc = library().cdmsgd_update_q(
+        weights.data_ptr(), self_buf.data_ptr(), payload.data_ptr(),
+        KINDS[payload.dtype], scales.data_ptr(), grad.data_ptr(),
+        momentum.data_ptr(), a_out, s, rows, alpha, mu, device.index,
+        _stream(device))
+    _launch_check(rc, "cdmsgd_update_q")
+    cdmsgd_update_q.launches += 1
+    return grad, momentum
+
+
+def sr_quantize(x: torch.Tensor, seed: int, exchange: str, *,
+                agent_stride: int = 0):
+    """Quantize ``x (A, rows, 128)`` float32 for the wire.
+
+    Returns ``(q, scales)``: ``q (A, rows, 128)`` int8 (``exchange="int8"``,
+    stochastic rounding) or float8_e4m3fn (``"fp8"``, nearest), ``scales
+    (A, rows, 1)`` float32, one per 128-lane row.  Agent ``a`` draws its
+    stochastic-rounding stream from the 32-bit seed ``seed + agent_stride *
+    a`` (wrapping); fp8 draws nothing.
+    """
+    if exchange not in ref.QMAX:
+        raise ValueError(f"sr_quantize takes exchange 'int8' or 'fp8', got "
+                         f"{exchange!r}")
+    a_count, rows = _stack("x", x)
+    device = x.device
+    _check("x", x, (a_count, rows, LANE), device)
+    _check_placement([("x", x)], [], device)
+    if device.type == "cpu":
+        return ref.sr_quantize_ref(x, seed, exchange, agent_stride)
+    q = torch.empty(x.shape, dtype=ref.QDTYPE[exchange], device=device)
+    scales = torch.empty((a_count, rows, 1), dtype=torch.float32, device=device)
+    if a_count == 0 or rows == 0:
+        return q, scales
+    rc = library("sr_quantize").sr_quantize(
+        x.data_ptr(), q.data_ptr(), KINDS[q.dtype], scales.data_ptr(),
+        a_count * rows, rows, seed & 0xFFFFFFFF, agent_stride & 0xFFFFFFFF,
+        device.index, _stream(device))
+    _launch_check(rc, "sr_quantize")
+    sr_quantize.launches += 1
+    return q, scales
+
 
 #: every kernel wrapper of this module, by kernel name
-KERNELS = {"cdsgd_update": cdsgd_update, "cdmsgd_update": cdmsgd_update}
+KERNELS = {"cdsgd_update": cdsgd_update, "cdmsgd_update": cdmsgd_update,
+           "sr_quantize": sr_quantize, "cdsgd_update_q": cdsgd_update_q,
+           "cdmsgd_update_q": cdmsgd_update_q}
 
 
 def reset_launch_counts() -> None:
@@ -181,3 +329,6 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+reset_launch_counts()

@@ -1,12 +1,36 @@
-"""Plain PyTorch versions of the fused consensus-update kernels.
+"""Plain PyTorch versions of the consensus-update and wire-quantize kernels.
 
-Same operand form as the CUDA kernels (``csrc/consensus_update.cu``):
-``weights (A_out, S)``, ``neighbors (S, rows, 128)``, and per-output
-``grad`` / ``momentum`` of shape ``(A_out, rows, 128)``.  The mixing sum is
-taken in float32 in stencil order ``s = 0 .. S-1`` starting from zero, one
-multiply and one add per term, exactly as the Pallas kernels
-(``_mix_stencil``) and the CUDA kernels accumulate, so the three agree to
-the last bit up to the JAX backend's own contraction choices.
+Same operand forms as the CUDA kernels (``csrc/consensus_update.cu``,
+``csrc/sr_quantize.cu``), the same float32 operations in the same order, so
+kernel and plain version agree to the last bit:
+
+* ``cdsgd_update_ref`` / ``cdmsgd_update_ref`` — ``weights (A_out, S)``,
+  ``neighbors (S, rows, 128)`` (float32 or bfloat16), per-output ``grad`` /
+  ``momentum (A_out, rows, 128)``.  The mixing sum starts from zero and
+  adds one product per stencil entry ``s = 0 .. S-1``, as the Pallas
+  kernels (``_mix_stencil``) accumulate.
+* ``cdsgd_update_q_ref`` / ``cdmsgd_update_q_ref`` — the self-separated
+  (quantized-wire) form: ``weights (A_out, S+1)``, the native ``self
+  (A_out, rows, 128)`` at ``weights[:, 0]``, the wire ``payload (S, rows,
+  128)`` (int8, float8_e4m3fn, bfloat16 or float32) dequantized with
+  ``scales (S, rows, 1)`` at ``weights[:, 1:]``:
+  ``acc = w0 * self``, then ``acc += w_{s+1} * (float(q_s) * scale_s)``.
+* ``sr_quantize_ref`` — per-128-lane-row scaled quantization for the wire
+  (``_quantize_math`` of the JAX package): ``scale = amax * (1 / qmax)``
+  (1.0 for an all-zero row); int8 rounds stochastically,
+  ``floor(x / scale + u)`` clipped to +-127; fp8 e4m3 rounds to nearest.
+  The JAX source writes ``amax / qmax``; XLA, compiling the JAX trainer's
+  step, folds that division by a literal into a multiply by the float32
+  reciprocal, and the port follows the compiled arithmetic, so its wire
+  bits equal the JAX trainer's.  ``x / scale`` stays a true division.
+
+The stochastic-rounding uniforms come from :func:`uniforms`, the port's own
+random stream: Philox4x32-10 keyed by the agent's 32-bit wire seed, with
+the float4 index within the agent's bucket as the counter, so one Philox
+call gives the four uniforms of one float4 whatever the launch shape.  The
+CUDA kernel computes the same stream in registers; this module computes it
+with int64 tensors.  Every draw goes through :func:`uniforms`, so a test
+can substitute another stream (the JAX package's ``jax.random`` draws).
 
 These are pure: they return new tensors.  The wrappers in
 :mod:`repro_torch.kernels.consensus_update.consensus_update` call them for
@@ -16,7 +40,103 @@ never calls them.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+QMAX = {"int8": 127.0, "fp8": 448.0}
+QDTYPE = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+#: 1 / qmax rounded to float32, as XLA folds the constant
+INV_QMAX = {k: float(np.float32(1.0) / np.float32(q)) for k, q in QMAX.items()}
+
+_MASK32 = 0xFFFFFFFF
+# Philox4x32 multipliers and Weyl key increments (Salmon et al., SC 2011)
+PHILOX_M0, PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+PHILOX_W0, PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+PHILOX_ROUNDS = 10
+
+
+def _mulhilo(m: int, x: torch.Tensor):
+    """``(hi, lo)`` 32-bit words of ``m * x`` for uint32 values held in int64.
+
+    The 64-bit product overflows int64, so ``x`` is split into 16-bit
+    halves: ``m * x = m * x_lo + (m * x_hi) << 16`` with both partial
+    products below 2^48.
+    """
+    a = m * (x & 0xFFFF)
+    b = m * (x >> 16)
+    t = (a & _MASK32) + ((b & 0xFFFF) << 16)
+    return (a >> 32) + (b >> 16) + (t >> 32), t & _MASK32
+
+
+def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
+    """Philox4x32-10 of counter words ``c0..c3`` (int64 tensors holding
+    uint32 values) under the key ``(k0, k1)``: four uint32 words."""
+    for r in range(PHILOX_ROUNDS):
+        if r:
+            k0 = (k0 + PHILOX_W0) & _MASK32
+            k1 = (k1 + PHILOX_W1) & _MASK32
+        hi0, lo0 = _mulhilo(PHILOX_M0, c0)
+        hi1, lo1 = _mulhilo(PHILOX_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def philox_uniforms(seed: int, n4: int, offset: int = 0,
+                    device=None) -> torch.Tensor:
+    """Uniforms in [0, 1) of float4s ``offset .. offset + n4`` of the stream
+    keyed by ``seed``: shape ``(n4, 4)``, float32.
+
+    Counter ``(p mod 2^32, p >> 32, 0, 0)`` for float4 index ``p``, key
+    ``(seed mod 2^32, 0)``; each 32-bit word ``b`` becomes
+    ``(b >> 8) * 2^-24``, exact in float32 and strictly below 1.
+    """
+    p = torch.arange(offset, offset + n4, dtype=torch.int64, device=device)
+    zero = torch.zeros_like(p)
+    words = philox4x32(p & _MASK32, p >> 32, zero, zero, seed & _MASK32, 0)
+    bits = torch.stack(words, dim=-1) >> 8
+    return bits.to(torch.float32) * (1.0 / 16777216.0)
+
+
+def uniforms(seed: int, shape, device=None) -> torch.Tensor:
+    """The stochastic-rounding uniforms of one agent's bucket of ``shape``
+    (row-major, a multiple of 4 elements), drawn from wire seed ``seed``."""
+    n = 1
+    for d in shape:
+        n *= d
+    return philox_uniforms(seed, n // 4, device=device).reshape(shape)
+
+
+def as_int32(x: int) -> int:
+    """``x`` wrapped to a signed 32-bit int (two's complement)."""
+    x &= _MASK32
+    return x - (1 << 32) if x >> 31 else x
+
+
+def quantize_math(xf: torch.Tensor, u, exchange: str):
+    """Per-row scale and rounding of float32 ``xf (..., 128)``; ``u`` is the
+    uniform draw of the same shape (int8) or None (nearest rounding)."""
+    qmax = QMAX[exchange]
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(amax > 0, amax * INV_QMAX[exchange],
+                        torch.ones_like(amax))
+    scaled = xf / scale
+    if u is not None:
+        scaled = torch.clamp(torch.floor(scaled + u), -qmax, qmax)
+    return scaled.to(QDTYPE[exchange]), scale
+
+
+def sr_quantize_ref(x: torch.Tensor, seed: int, exchange: str,
+                    agent_stride: int = 0):
+    """``x (A, rows, 128)`` -> ``(q (A, rows, 128), scales (A, rows, 1))``;
+    agent ``a`` draws its uniforms from seed ``seed + agent_stride * a``
+    (int32 wraparound)."""
+    a_count, rows, lane = x.shape
+    u = None
+    if exchange == "int8":
+        u = torch.stack([uniforms(as_int32(seed + agent_stride * a),
+                                  (rows, lane), device=x.device)
+                         for a in range(a_count)])
+    return quantize_math(x.float(), u, exchange)
 
 
 def _mix(weights: torch.Tensor, neighbors: torch.Tensor) -> torch.Tensor:
@@ -27,6 +147,15 @@ def _mix(weights: torch.Tensor, neighbors: torch.Tensor) -> torch.Tensor:
                       device=x.device)
     for s in range(x.shape[0]):
         acc = acc + w[:, s, None, None] * x[s]
+    return acc
+
+
+def _mix_q(weights, self_buf, payload, scales) -> torch.Tensor:
+    """``acc[a] = w[a,0] self[a] + sum_s w[a,1+s] (float(q[s]) * scale[s])``."""
+    w = weights.float()
+    acc = w[:, 0, None, None] * self_buf.float()
+    for s in range(payload.shape[0]):
+        acc = acc + w[:, s + 1, None, None] * (payload[s].float() * scales[s])
     return acc
 
 
@@ -41,4 +170,20 @@ def cdmsgd_update_ref(weights, neighbors, grad, momentum, alpha: float,
     """``v' = mu V[a] - alpha G[a]``; ``out[a] = sum_s W[a,s] X[s] + v'``."""
     v = mu * momentum.float() - alpha * grad.float()
     out = _mix(weights, neighbors) + v
+    return out.to(grad.dtype), v.to(momentum.dtype)
+
+
+def cdsgd_update_q_ref(weights, self_buf, payload, scales, grad,
+                       alpha: float) -> torch.Tensor:
+    """Self-separated CDSGD: ``out[a] = mix_q[a] - alpha G[a]``."""
+    out = _mix_q(weights, self_buf, payload, scales) - alpha * grad.float()
+    return out.to(grad.dtype)
+
+
+def cdmsgd_update_q_ref(weights, self_buf, payload, scales, grad, momentum,
+                        alpha: float, mu: float):
+    """Self-separated CDMSGD: ``v' = mu V[a] - alpha G[a]``;
+    ``out[a] = mix_q[a] + v'``."""
+    v = mu * momentum.float() - alpha * grad.float()
+    out = _mix_q(weights, self_buf, payload, scales) + v
     return out.to(grad.dtype), v.to(momentum.dtype)

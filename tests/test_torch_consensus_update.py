@@ -152,8 +152,8 @@ def test_mixing_error_and_wire_bytes_match():
     js, ts = jfb.make_flat_spec(jtree, lead=1), tfb.make_flat_spec(ttree, lead=1)
     assert tcons.exchange_bytes_per_step(ts, topo_t) == \
         jcons.exchange_bytes_per_step(js, topo_j, "f32")
-    with pytest.raises(NotImplementedError, match="A11"):
-        tcons.exchange_bytes_per_step(ts, topo_t, "int8")
+    assert tcons.exchange_bytes_per_step(ts, topo_t, "int8") == \
+        jcons.exchange_bytes_per_step(js, topo_j, "int8")
     with pytest.raises(ValueError, match="unknown exchange"):
         tcons.stacked_flat_comm(pi_t, exchange="f16")
 
@@ -162,7 +162,8 @@ def test_stacked_flat_comm_gathers_legacy_operands():
     topo = ttopo.make_topology("fully_connected", 4)
     comm = stacked_comm_ops(topo, device="cpu")
     bufs = [torch.zeros(4, 3, 128)]
-    nbrs, w = comm.flat.gather(bufs, 0)
+    nbrs, w, scales, selfs = comm.flat.gather(bufs, 0)
     assert nbrs[0] is bufs[0]
+    assert scales == [None] and selfs == [None]
     assert w.device.type == "cpu" and w.dtype == torch.float32
     np.testing.assert_array_equal(w.numpy(), topo.pi.astype(np.float32))

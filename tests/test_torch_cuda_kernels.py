@@ -1,4 +1,5 @@
-"""The CUDA consensus-update kernels on the card, against their plain versions.
+"""The CUDA consensus-update and wire-quantize kernels on the card, against
+their plain versions.
 
 Card-only: every test carries the ``cuda`` marker and skips when no CUDA
 device is present (decided inside the test).  This file imports no JAX,
@@ -8,7 +9,8 @@ so it also runs on a machine with PyTorch alone:
 
 Tolerance 1e-6 abs: kernel and plain version do the same float32
 operations in the same order (no FMA contraction in the kernel), so they
-are expected to agree exactly.
+are expected to agree exactly.  ``sr_quantize`` is held bit for bit: both
+draw the same Philox4x32-10 stream.
 """
 
 import pytest
@@ -84,3 +86,96 @@ def test_kernel_rejects_bad_operands_on_card():
     flat = torch.empty(2 * 8 * 128 + 1, device=dev)
     with pytest.raises(ValueError, match="aligned"):
         cu.cdsgd_update(w, x, flat[1:].view(2, 8, 128), ALPHA)
+
+
+PAYLOADS = (torch.int8, torch.float8_e4m3fn, torch.bfloat16, torch.float32)
+
+
+def _bucket(dev, a, rows, seed):
+    """(a, rows, 128) f32 over several decades, row 0 all zero."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((a, rows, 128), generator=gen, device=dev)
+    x = x * 10.0 ** (6 * torch.rand((a, rows, 1), generator=gen, device=dev) - 3)
+    x[:, 0] = 0.0
+    return x.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exchange", ["int8", "fp8"])
+@pytest.mark.parametrize("a,rows", [(5, 16941), (1, 777), (3, 5)])
+def test_sr_quantize_matches_plain_version_bitwise(exchange, a, rows):
+    dev = _card()
+    x = _bucket(dev, a, rows, seed=rows)
+    n = cu.sr_quantize.launches
+    q, sc = cu.sr_quantize(x, -7, exchange, agent_stride=104729)
+    torch.cuda.synchronize()
+    assert cu.sr_quantize.launches == n + 1
+    want_q, want_sc = ref.sr_quantize_ref(x, -7, exchange, 104729)
+    assert q.dtype == want_q.dtype and sc.dtype == torch.float32
+    assert torch.equal(q.view(torch.uint8), want_q.view(torch.uint8))
+    assert torch.equal(sc, want_sc)
+    assert bool((sc[:, 0] == 1.0).all())              # the all-zero row
+
+
+def _q_operands(dev, a_out, s, rows, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.rand((a_out, s + 1), generator=gen, device=dev)
+    w = (w / w.sum(dim=1, keepdim=True)).contiguous()
+    x = torch.randn((s, rows, 128), generator=gen, device=dev)
+    if dtype in (torch.int8, torch.float8_e4m3fn):
+        q, sc = cu.sr_quantize(x, seed,
+                               "int8" if dtype == torch.int8 else "fp8")
+    else:
+        q = x.to(dtype)
+        sc = torch.rand((s, rows, 1), generator=gen, device=dev) + 0.5
+    slf, g, v = (torch.randn((a_out, rows, 128), generator=gen, device=dev)
+                 for _ in range(3))
+    return w, slf, q, sc, g, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", PAYLOADS, ids=str)
+@pytest.mark.parametrize("a_out,s,rows", [(5, 5, 16941), (1, 3, 777), (2, 1, 3)])
+def test_q_kernels_match_plain_versions_in_place(dtype, a_out, s, rows):
+    dev = _card()
+    w, slf, q, sc, g, v = _q_operands(dev, a_out, s, rows, dtype, seed=rows)
+    want = ref.cdsgd_update_q_ref(w, slf, q, sc, g, ALPHA)
+    g1 = g.clone()
+    n = cu.cdsgd_update_q.launches
+    out = cu.cdsgd_update_q(w, slf, q, sc, g1, ALPHA)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == g1.data_ptr()
+    assert cu.cdsgd_update_q.launches == n + 1
+    assert float((out - want).abs().max()) <= ATOL
+    want_p, want_v = ref.cdmsgd_update_q_ref(w, slf, q, sc, g, v, ALPHA, MU)
+    g2, v2 = g.clone(), v.clone()
+    p, nv = cu.cdmsgd_update_q(w, slf, q, sc, g2, v2, ALPHA, MU)
+    torch.cuda.synchronize()
+    assert (p.data_ptr(), nv.data_ptr()) == (g2.data_ptr(), v2.data_ptr())
+    assert float((p - want_p).abs().max()) <= ATOL
+    assert float((nv - want_v).abs().max()) <= ATOL
+
+
+@pytest.mark.cuda
+def test_dense_kernels_take_bf16_neighbours():
+    dev = _card()
+    w, x, g, v = _operands(dev, 5, 5, 16941, seed=3)
+    xb = x.bfloat16()
+    out = cu.cdsgd_update(w, xb, g.clone(), ALPHA)
+    p, nv = cu.cdmsgd_update(w, xb, g.clone(), v.clone(), ALPHA, MU)
+    torch.cuda.synchronize()
+    assert float((out - ref.cdsgd_update_ref(w, xb, g, ALPHA)).abs().max()) <= ATOL
+    want_p, want_v = ref.cdmsgd_update_ref(w, xb, g, v, ALPHA, MU)
+    assert float((p - want_p).abs().max()) <= ATOL
+    assert float((nv - want_v).abs().max()) <= ATOL
+
+
+@pytest.mark.cuda
+def test_q_kernel_rejects_misaligned_payload_on_card():
+    dev = _card()
+    w, slf, q, sc, g, v = _q_operands(dev, 2, 2, 8, torch.int8, seed=1)
+    flat = torch.empty(2 * 8 * 128 + 1, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        cu.cdsgd_update_q(w, slf, flat[1:].view(2, 8, 128), sc, g, ALPHA)
+    with pytest.raises(ValueError, match="on cpu"):
+        cu.cdsgd_update_q(w, slf.cpu(), q, sc, g, ALPHA)

@@ -115,18 +115,18 @@ def test_trainer_without_device_raises_without_cuda(setup, monkeypatch):
         stacked_comm_ops(make_topology("ring", 5))
 
 
-@pytest.mark.parametrize("knob,item", [
-    ({"exchange": "int8"}, "A11"),
-    ({"schedule": "overlap"}, "A11"),
-    ({"microbatches": 2}, "A9"),
-    ({"error_feedback": True}, "A11"),
-    ({"consensus_rounds": 2}, "A13"),
-    ({"compressor": "topk:0.1"}, "A14"),
-    ({"staleness": 2}, "A13"),
+@pytest.mark.parametrize("knob,err,item", [
+    ({"microbatches": 2}, NotImplementedError, "A9"),
+    ({"consensus_rounds": 2}, NotImplementedError, "A13"),
+    ({"exchange": "int8", "consensus_rounds": 2}, NotImplementedError, "A13"),
+    ({"compressor": "topk:0.1"}, NotImplementedError, "A14"),
+    ({"staleness": 2}, NotImplementedError, "A13"),
+    ({"momentum_mixing": "mixed"}, NotImplementedError, "A12"),
+    ({"error_feedback": True}, ValueError, "lossy wire"),
 ])
-def test_unported_knobs_raise(setup, knob, item):
+def test_unported_knobs_raise(setup, knob, err, item):
     _, _, jp = setup
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(err, match=item):
         CollaborativeTrainer(
             functools.partial(tpm.classifier_loss, tpm.mlp_classifier_apply),
             params_from_numpy(jax.tree.map(np.asarray, jp), "cpu"),
