@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Drives the port's main paths — N agents on a fixed topology training the
-paper's CIFAR CNN at full width with fused CDSGD / CDMSGD, on the f32 wire
-and on the quantized (bf16 / int8 / fp8) wire, with error feedback and the
-overlap schedule — through the entry points a user calls, and holds every
-CUDA kernel on those paths against its plain PyTorch version.  Phases,
-each printing its own lines:
+paper's CIFAR CNN at full width with fused CDSGD / CDMSGD / CDMSGD-Nesterov
+/ CDAdam, on the f32 wire and on the quantized (bf16 / int8 / fp8) wire,
+with error feedback, the overlap schedule and momentum mixing, and the
+gossip, time-varying, SGD / MSGD and FedAvg baselines — through the entry
+points a user calls, and holds every CUDA kernel on those paths against
+its plain PyTorch version.  Phases, each printing its own lines:
 
 1. the card (``nvidia-smi`` name and power limit) and the versions;
 2. the build of every kernel source in ``src/repro_torch/csrc`` (one
@@ -23,18 +24,27 @@ each printing its own lines:
    and the kernel's own time from a ``torch.profiler`` trace.
    ``sr_quantize`` is held bit for bit (both sides draw the same Philox
    bits), and its int8 rounding to its error bound and, over 64 seeds, to
-   unbiasedness;
+   unbiasedness.  The Nesterov and CDAdam kernels (dense, ``_q``, ``_qm``)
+   and ``cdmsgd_update_qm`` are held the same way, every output (the
+   lookahead, both Adam moments) equal to the plain version's;
 4. training runs of the full-width CNN on 5 agents (table ``RUNS``): f32
    sync CDSGD / CDMSGD (and CDMSGD on the ring), int8 sync CDMSGD, int8
    overlap CDSGD with error feedback, fp8 and bf16 sync CDSGD, f32 overlap
-   CDMSGD and int8 overlap CDMSGD on the ring.  Every launch count is set
-   to 0 before a run and must rise by exactly the expected number per step
-   (one update per step, one ``sr_quantize`` per quantized step and one
-   more at overlap init); losses stay finite.  Then the ``kernels`` JSON
-   line, launches summed over the runs;
+   CDMSGD and int8 overlap CDMSGD on the ring; Nesterov (f32 sync, int8
+   sync, int8 overlap mixed on the ring), CDAdam (f32 sync, int8 sync with
+   EF, fp8 overlap mixed), mixed CDMSGD (int8 sync, f32 overlap); gossip,
+   time-varying CDSGD, SGD, MSGD and FedAvg (no kernel).  Every launch
+   count is set to 0 before a run and must rise by exactly the expected
+   number per step (one update per step, one ``sr_quantize`` per quantized
+   payload per step — two under momentum mixing — and as many more at
+   overlap init; none for the baselines); losses stay finite.  Then the
+   ``kernels`` JSON line, launches summed over the runs;
 5. parity, card against the port on the CPU from the same init and
-   batches: 3 f32 CDMSGD steps, 3 f32 overlap CDMSGD steps, and one int8
-   sync CDMSGD step whose wire (codes and scales) must be equal bit for bit.
+   batches: 3 f32 CDMSGD steps, 3 f32 overlap CDMSGD steps, one int8 sync
+   CDMSGD step whose wire (codes and scales) must be equal bit for bit,
+   two int8 mixed CDMSGD steps with both payload wires equal bit for bit
+   from the same state, and CDAdam's update phase (int8, mixed) on card
+   gradients copied to the CPU, within 1e-6.
 
 Any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -59,9 +69,12 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch.core import make_optimizer, make_topology  # noqa: E402
-from repro_torch.core.consensus import _self_separated_weights  # noqa: E402
+from repro_torch.core.consensus import (  # noqa: E402
+    _self_separated_weights,
+    widen_with_momentum,
+)
 from repro_torch.core.flatbuf import make_flat_spec  # noqa: E402
-from repro_torch.core.trainer import CollaborativeTrainer  # noqa: E402
+from repro_torch.core.trainer import CollaborativeTrainer, TrainState  # noqa: E402
 from repro_torch.data import AgentPartitioner, make_classification  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.consensus_update import consensus_update as cu  # noqa: E402
@@ -72,6 +85,7 @@ from repro_torch.nn.paper_models import (  # noqa: E402
     cnn_classifier_apply,
     cnn_classifier_template,
 )
+from repro_torch.utils.tree import tree_leaves, tree_map  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet), at the full 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -81,9 +95,12 @@ AGENTS = 5
 PATH_ROWS = 16941              # one f32 bucket of the full-width CNN
 KERNEL_TOL = 1e-6              # abs; same f32 operations in the same order
 PARITY_TOL = 1e-4              # abs, card vs CPU: conv sums differ in order
+UPDATE_TOL = 1e-6              # abs, card vs CPU update phase, same gradients
 SR_SEEDS = 64                  # int8 stochastic rounding: unbiasedness draws
 LR = 0.01
+ADAM_LR = 1e-3
 MU = 0.9
+ADAM = (ADAM_LR, 0.9, 0.999, 1e-8, 0.271, 0.002997)   # alpha b1 b2 eps bc1 bc2
 SOURCES = {"consensus_update": "src/repro_torch/csrc/consensus_update.cu",
            "sr_quantize": "src/repro_torch/csrc/sr_quantize.cu"}
 _TPU = "src/repro/kernels/consensus_update/consensus_update.py"
@@ -93,21 +110,60 @@ KERNELS = {   # name -> (library, CUDA kernel symbol, the TPU kernel it replaces
     "sr_quantize": ("sr_quantize", "sr_quantize_kernel", f"{_TPU}:130"),
     "cdsgd_update_q": ("consensus_update", "cdsgd_q_kernel", f"{_TPU}:257"),
     "cdmsgd_update_q": ("consensus_update", "cdmsgd_q_kernel", f"{_TPU}:276"),
+    "cdmsgd_update_qm": ("consensus_update", "cdmsgd_qm_kernel", f"{_TPU}:282"),
+    "cdmsgd_nesterov_update": ("consensus_update", "nesterov_kernel",
+                               f"{_TPU}:783"),
+    "cdmsgd_nesterov_update_q": ("consensus_update", "nesterov_q_kernel",
+                                 f"{_TPU}:324"),
+    "cdmsgd_nesterov_update_qm": ("consensus_update", "nesterov_qm_kernel",
+                                  f"{_TPU}:330"),
+    "cdadam_update": ("consensus_update", "adam_kernel", f"{_TPU}:842"),
+    "cdadam_update_q": ("consensus_update", "adam_q_kernel", f"{_TPU}:369"),
+    "cdadam_update_qm": ("consensus_update", "adam_qm_kernel", f"{_TPU}:375"),
+}
+# the Nesterov / CDAdam / mixed-momentum kernels: plain version, number of
+# per-agent operands written in place (grad, momentum / moments), form
+B4 = {
+    "cdmsgd_update_qm": (ref.cdmsgd_update_qm_ref, 2, "qm"),
+    "cdmsgd_nesterov_update": (ref.cdmsgd_nesterov_update_ref, 2, "dense"),
+    "cdmsgd_nesterov_update_q": (ref.cdmsgd_nesterov_update_q_ref, 2, "q"),
+    "cdmsgd_nesterov_update_qm": (ref.cdmsgd_nesterov_update_qm_ref, 2, "qm"),
+    "cdadam_update": (ref.cdadam_update_ref, 3, "dense"),
+    "cdadam_update_q": (ref.cdadam_update_q_ref, 3, "q"),
+    "cdadam_update_qm": (ref.cdadam_update_qm_ref, 3, "qm"),
 }
 WIRE = {"int8": torch.int8, "fp8": torch.float8_e4m3fn,
         "bf16": torch.bfloat16, "f32": torch.float32}
-# phase 4: (topology, optimizer, exchange, schedule, error_feedback, steps)
+# phase 4: (topology, optimizer, exchange, schedule, error_feedback,
+# momentum_mixing, steps)
 RUNS = (
-    ("fully_connected", "cdsgd", "f32", "sync", False, 10),
-    ("fully_connected", "cdmsgd", "f32", "sync", False, 10),
-    ("ring", "cdmsgd", "f32", "sync", False, 3),
-    ("fully_connected", "cdmsgd", "int8", "sync", False, 10),
-    ("fully_connected", "cdsgd", "int8", "overlap", True, 10),
-    ("fully_connected", "cdsgd", "fp8", "sync", False, 3),
-    ("fully_connected", "cdsgd", "bf16", "sync", False, 3),
-    ("fully_connected", "cdmsgd", "f32", "overlap", False, 3),
-    ("ring", "cdmsgd", "int8", "overlap", False, 3),
+    ("fully_connected", "cdsgd", "f32", "sync", False, "none", 10),
+    ("fully_connected", "cdmsgd", "f32", "sync", False, "none", 10),
+    ("ring", "cdmsgd", "f32", "sync", False, "none", 3),
+    ("fully_connected", "cdmsgd", "int8", "sync", False, "none", 10),
+    ("fully_connected", "cdsgd", "int8", "overlap", True, "none", 10),
+    ("fully_connected", "cdsgd", "fp8", "sync", False, "none", 3),
+    ("fully_connected", "cdsgd", "bf16", "sync", False, "none", 3),
+    ("fully_connected", "cdmsgd", "f32", "overlap", False, "none", 3),
+    ("ring", "cdmsgd", "int8", "overlap", False, "none", 3),
+    ("fully_connected", "cdmsgd_nesterov", "f32", "sync", False, "none", 10),
+    ("fully_connected", "cdmsgd_nesterov", "int8", "sync", False, "none", 3),
+    ("ring", "cdmsgd_nesterov", "int8", "overlap", False, "mixed", 3),
+    ("fully_connected", "cdadam", "f32", "sync", False, "none", 10),
+    ("fully_connected", "cdadam", "int8", "sync", True, "none", 3),
+    ("fully_connected", "cdadam", "fp8", "overlap", False, "mixed", 3),
+    ("fully_connected", "cdmsgd", "int8", "sync", False, "mixed", 10),
+    # the f32 wire's momentum payload is the packed momentum itself: the
+    # kernel must write v' elsewhere (ExchangeResult.mom_selfs)
+    ("fully_connected", "cdmsgd", "f32", "overlap", False, "mixed", 3),
+    ("fully_connected", "gossip", "f32", "sync", False, "none", 3),
+    ("fully_connected", "cdsgd_tv", "f32", "sync", False, "none", 3),
+    ("fully_connected", "sgd", "f32", "sync", False, "none", 3),
+    ("fully_connected", "msgd", "f32", "sync", False, "none", 3),
+    ("fully_connected", "fedavg", "f32", "sync", False, "none", 3),
 )
+# the optimizers without a kernel (plain PyTorch)
+BASELINES = ("gossip", "cdsgd_tv", "sgd", "msgd", "fedavg")
 
 
 def card_line() -> str:
@@ -148,24 +204,43 @@ def device_ms(fn, symbol: str, iters: int = 20):
     return sum(spans) / 1e3 / iters if spans else None
 
 
+# per update family: per-agent float32 streams read or written besides the
+# mix (G, out; + V, V'; + LOOK; Adam: G, M, V, out, M', V'), and the
+# float32 operations per element after the mix
+STATE = {"cdsgd": 2, "cdmsgd": 4, "nesterov": 5, "adam": 6}
+TAIL_FLOPS = {"cdsgd": 2, "cdmsgd": 4, "nesterov": 6, "adam": 14}
+
+
+def _family(name: str) -> str:
+    if name.startswith("cdadam"):
+        return "adam"
+    if "nesterov" in name:
+        return "nesterov"
+    return "cdmsgd" if name.startswith("cdmsgd") else "cdsgd"
+
+
 def bound(name: str, a_out: int, s: int, rows: int,
           dtype: torch.dtype = torch.float32):
     """(bound_ms, bound_by): least bytes over HBM rate vs float32 operations
     over the f32 peak.  ``dtype`` is the neighbour / payload / code type;
-    every other operand is float32.  For ``sr_quantize`` ``a_out`` is the
-    agent count (Philox's integer work is not counted: the table gives no
-    int32 rate, and the float work alone is far under the byte time)."""
+    every other operand is float32.  The ``_qm`` forms read two payloads.
+    For ``sr_quantize`` ``a_out`` is the agent count (Philox's integer work
+    is not counted: the table gives no int32 rate, and the float work alone
+    is far under the byte time).  Adam's divisions and square root count
+    one operation each."""
     n = rows * 128
     esize = torch.empty((), dtype=dtype).element_size()
-    state = 2 if name.startswith("cdsgd") else 4   # G (+V) read, out (+V') written
-    tail = 2 if name.startswith("cdsgd") else 4    # alpha g (+ mu v) and the sums
+    state = STATE[_family(name)]
+    tail = TAIL_FLOPS[_family(name)]
+    payloads = 2 if name.endswith("_qm") else 1
     if name == "sr_quantize":
         nbytes = a_out * (4 * n + esize * n + 4 * rows)
         flops = a_out * n * 8      # |x|, max, divide, + u, floor, 2 clamps, cast
-    elif name.endswith("_q"):
-        nbytes = (4 * a_out * (s + 1) + 4 * a_out * n + esize * s * n
-                  + 4 * s * rows + 4 * state * a_out * n)
-        flops = a_out * n * (1 + 3 * s + tail)
+    elif name.endswith(("_q", "_qm")):
+        nbytes = (4 * a_out * (s + 1) + 4 * a_out * n
+                  + payloads * (esize * s * n + 4 * s * rows)
+                  + 4 * state * a_out * n)
+        flops = a_out * n * (payloads * (1 + 3 * s) + tail)
     else:
         nbytes = 4 * a_out * s + esize * s * n + 4 * state * a_out * n
         flops = a_out * n * (2 * s + tail)
@@ -326,6 +401,67 @@ def check_q(results: dict, gen) -> None:
                         kernel, plain, None, bound(name, a_out, s, rows, dtype))
 
 
+def check_b4(results: dict, gen) -> None:
+    """Phase 3, the Nesterov and CDAdam kernels (dense, ``_q``, ``_qm``) and
+    ``cdmsgd_update_qm``: every output against the plain version, every
+    payload dtype; the headline row is f32 (dense) or int8 at the path
+    shape."""
+    dev = torch.device("cuda")
+    pis = {t: make_topology(t, AGENTS).pi for t in ("fully_connected", "ring")}
+    dense_w = {"ring": torch.tensor(pis["ring"], dtype=torch.float32, device=dev)}
+    q_w = {"path": torch.tensor(_self_separated_weights(pis["fully_connected"]),
+                                dtype=torch.float32, device=dev),
+           "ring": torch.tensor(_self_separated_weights(pis["ring"]),
+                                dtype=torch.float32, device=dev)}
+
+    def payload(wire, s, rows):
+        x = _bucket(gen, s, rows)
+        if wire in ("int8", "fp8"):
+            return cu.sr_quantize(x, rows, wire)
+        return x.to(WIRE[wire]), torch.ones((s, rows, 1), device=dev)
+
+    for name, (plain, n_state, form) in B4.items():
+        wires = ("f32", "bf16") if form == "dense" else tuple(WIRE)
+        headline = "f32" if form == "dense" else "int8"
+        for wire in wires:
+            for label, a_out, s, rows in (("path", AGENTS, AGENTS, PATH_ROWS),
+                                          ("ring", AGENTS, AGENTS, PATH_ROWS),
+                                          ("stencil", 1, 3, PATH_ROWS),
+                                          ("ragged", AGENTS, AGENTS, 1001)):
+                n_w = s if form == "dense" else s + 1
+                w = (dense_w if form == "dense" else q_w).get(label)
+                if w is None:
+                    w = torch.rand((a_out, n_w), generator=gen, device=dev)
+                    w = (w / w.sum(dim=1, keepdim=True)).contiguous()
+                if form == "dense":
+                    mix = [w, _bucket(gen, s, rows).to(WIRE[wire])]
+                else:
+                    slf = torch.randn((a_out, rows, 128), generator=gen, device=dev)
+                    mix = [w, slf, *payload(wire, s, rows)]
+                    if form == "qm":
+                        mix += payload(wire, s, rows)
+                state = [_bucket(gen, a_out, rows) for _ in range(n_state)]
+                if n_state == 3:                     # Adam's second moment
+                    state[2] = (state[2].abs() * 0.01).contiguous()
+                scalars = ADAM if n_state == 3 else (LR, MU)
+                want = plain(*mix, *state, *scalars)
+                outs = [t.clone() for t in state]
+                ptrs = [t.data_ptr() for t in outs]
+                fn = cu.KERNELS[name]
+                got = fn(*mix, *outs, *scalars)
+                ok_ptr = [t.data_ptr() for t in got[:n_state]] == ptrs
+                torch.cuda.synchronize()
+                err = max(float((g - r).abs().max()) for g, r in zip(got, want))
+                _check(name, f"{label} {wire}", err, ok_ptr)
+                row = label if wire == headline else f"{label}-{wire}"
+                _report(results, name, row,
+                        f"W=({a_out},{n_w}) {wire} {'neighbours' if form == 'dense' else 'payload'}"
+                        f" rows={rows}", err,
+                        lambda: fn(*mix, *outs, *scalars),
+                        lambda: plain(*mix, *state, *scalars), None,
+                        bound(name, a_out, s, rows, WIRE[wire]))
+
+
 def check_sr_quantize(results: dict, gen) -> None:
     """Phase 3, the wire quantizer: bit for bit against the plain version,
     the int8 error bound, and unbiased int8 rounding over 64 seeds."""
@@ -371,34 +507,50 @@ def check_sr_quantize(results: dict, gen) -> None:
         raise AssertionError("sr_quantize int8 rounding looks biased")
 
 
-def expected_launches(name: str, exchange: str, schedule: str) -> tuple:
+def expected_launches(name: str, exchange: str, schedule: str,
+                      mixing: str = "none") -> tuple:
     """(at trainer init, per step) launch counts of one phase-4 run."""
-    quantized = exchange in ("int8", "fp8")
-    dense = schedule == "sync" and not quantized      # the legacy f32 / bf16 form
     init = {k: 0 for k in cu.KERNELS}
     step = dict(init)
-    step[f"{name}_update" if dense else f"{name}_update_q"] = 1
-    if quantized:
-        step["sr_quantize"] = 1
-        init["sr_quantize"] = 1 if schedule == "overlap" else 0
+    if name in BASELINES:
+        return init, step
+    quantized = exchange in ("int8", "fp8")
+    mixed = mixing == "mixed"
+    # the legacy f32 / bf16 form: the dense kernel
+    dense = schedule == "sync" and not quantized and not mixed
+    step[f"{name}_update{'' if dense else '_qm' if mixed else '_q'}"] = 1
+    if quantized:               # one launch per payload tree, all agents
+        step["sr_quantize"] = 2 if mixed else 1
+        init["sr_quantize"] = step["sr_quantize"] if schedule == "overlap" else 0
     return init, step
+
+
+def make_run_optimizer(name: str):
+    """A phase-4 optimizer: fused where it has a fused path."""
+    kw = {"cdmsgd": {"mu": MU}, "cdmsgd_nesterov": {"mu": MU}, "msgd": {"mu": MU},
+          "fedavg": {"local_steps": 2, "mu": MU},
+          "gossip": {"n_agents": AGENTS},
+          "cdsgd_tv": {"topologies": [make_topology("ring", AGENTS),
+                                      make_topology("fully_connected", AGENTS)]},
+          }.get(name, {})
+    return make_optimizer(name, ADAM_LR if name == "cdadam" else LR, fused=True,
+                          **kw)
 
 
 def train_main_path(params, train) -> dict:
     """Phase 4: every run of ``RUNS``, launch counts checked per step."""
     loss = functools.partial(classifier_loss, cnn_classifier_apply)
     total = {k: 0 for k in cu.KERNELS}
-    for topo_name, name, exchange, schedule, ef, n_steps in RUNS:
-        what = (f"{name} {exchange} {schedule}{' EF' if ef else ''} on "
-                f"{topo_name}")
-        kw = {"mu": MU} if name == "cdmsgd" else {}
-        init, per_step = expected_launches(name, exchange, schedule)
+    for topo_name, name, exchange, schedule, ef, mixing, n_steps in RUNS:
+        what = (f"{name} {exchange} {schedule}{' EF' if ef else ''}"
+                f"{' mixed' if mixing == 'mixed' else ''} on {topo_name}")
+        init, per_step = expected_launches(name, exchange, schedule, mixing)
         torch.cuda.reset_peak_memory_stats()
         cu.reset_launch_counts()
         tr = CollaborativeTrainer(loss, params, make_topology(topo_name, AGENTS),
-                                  make_optimizer(name, LR, fused=True, **kw),
-                                  exchange=exchange, schedule=schedule,
-                                  error_feedback=ef)
+                                  make_run_optimizer(name), exchange=exchange,
+                                  schedule=schedule, error_feedback=ef,
+                                  momentum_mixing=mixing)
         spec = make_flat_spec(tr.state.params, lead=1)
         if [b.rows for b in spec.buckets] != [PATH_ROWS]:
             raise AssertionError(f"expected one bucket of {PATH_ROWS} rows, got "
@@ -486,6 +638,100 @@ def parity(params, train, steps: int, exchange: str = "f32",
     return diff
 
 
+def _copy_state(src, dst) -> None:
+    """``dst`` trainer takes ``src``'s params and optimizer state (moved to
+    ``dst``'s device)."""
+    move = lambda t: t.to(dst.device)
+    o = src.state.opt_state
+    dst.state = TrainState(
+        params=tree_map(move, src.state.params),
+        opt_state=o._replace(inner=tree_map(move, o.inner),
+                             wire=tree_map(move, o.wire),
+                             residual=tree_map(move, o.residual)),
+        step=src.state.step)
+
+
+def _wire_of(tr):
+    """The (params, momentum) wire a mixed sync step quantizes now."""
+    fl, st = tr.comm.flat, tr.state
+    spec = fl.spec(st.params)
+    bufs = widen_with_momentum(
+        fl, fl.pack(st.params, spec),
+        fl.pack(tr.optimizer.momentum_tree(st.opt_state.inner), spec))
+    return fl.strategy.quantize_stage(bufs, st.opt_state.step)
+
+
+def parity_mixed(params, train) -> float:
+    """Phase 5: int8 momentum-mixed CDMSGD, card vs CPU.  One step from the
+    same init; the card's state copied to the CPU; both payload wires (the
+    params' and the momentum's) quantized there equal bit for bit; one more
+    step from that state."""
+    loss = functools.partial(classifier_loss, cnn_classifier_apply)
+    topo = make_topology("fully_connected", AGENTS)
+    trainers = [CollaborativeTrainer(
+        loss, params, topo, make_optimizer("cdmsgd", LR, fused=True, mu=MU),
+        device=d, exchange="int8", momentum_mixing="mixed")
+        for d in ("cuda", "cpu")]
+    streams = [AgentPartitioner(train, AGENTS, seed=2).batches(64) for _ in trainers]
+    for tr, batches in zip(trainers, streams):
+        tr.step(next(batches))
+    first = _max_param_diff(trainers)
+    _copy_state(*trainers)
+    wires = [_wire_of(tr) for tr in trainers]
+    if len(wires[0]) != 2:
+        raise AssertionError(f"mixed wire has {len(wires[0])} entries, expected 2")
+    for (qg, sg), (qc, sc) in zip(*wires):
+        if not (torch.equal(qg.cpu().view(torch.uint8), qc.view(torch.uint8))
+                and torch.equal(sg.cpu(), sc)):
+            raise AssertionError("mixed int8: card and CPU wires differ")
+    for tr, batches in zip(trainers, streams):
+        tr.step(next(batches))
+    diff = _max_param_diff(trainers)
+    print(f"parity cdmsgd int8 sync mixed card vs cpu: max param abs diff "
+          f"{first:.3e} after one step from the same init, {diff:.3e} after "
+          f"one step from the same state (tol {PARITY_TOL:g}); both payload "
+          f"wires equal bit for bit ({sum(q.numel() for q, _ in wires[1])} codes)")
+    if not max(first, diff) <= PARITY_TOL:
+        raise AssertionError(f"card/CPU parity mixed int8: {first}, {diff}")
+    return diff
+
+
+def parity_adam_update(params, train) -> float:
+    """Phase 5: CDAdam's update phase (int8 wire, mixed first moment) on the
+    card and on the CPU from the same state with the same gradients: the
+    card's, copied to the CPU."""
+    loss = functools.partial(classifier_loss, cnn_classifier_apply)
+    topo = make_topology("fully_connected", AGENTS)
+    gpu, cpu = (CollaborativeTrainer(
+        loss, params, topo, make_optimizer("cdadam", ADAM_LR, fused=True),
+        device=d, exchange="int8", momentum_mixing="mixed")
+        for d in ("cuda", "cpu"))
+    batches = AgentPartitioner(train, AGENTS, seed=3).batches(64)
+    for _ in range(2):
+        gpu.step(next(batches))
+    _copy_state(gpu, cpu)
+    batch = {k: torch.as_tensor(v, device=gpu.device)
+             for k, v in next(batches).items()}
+    program = gpu._program
+    _, grads = program.grad_phase(
+        gpu.optimizer.grad_params(gpu.state.params, gpu.state.opt_state), batch)
+    grads = tree_map(lambda t: t.detach(), grads)
+    with torch.no_grad():
+        new_g, st_g = program.update_phase(gpu.state.params, grads,
+                                           gpu.state.opt_state)
+        new_c, st_c = cpu._program.update_phase(
+            cpu.state.params, tree_map(lambda t: t.cpu(), grads),
+            cpu.state.opt_state)
+    diff = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        tree_leaves((new_g, st_g.inner)), tree_leaves((new_c, st_c.inner))))
+    print(f"parity cdadam int8 sync mixed update phase card vs cpu, same "
+          f"gradients: max abs diff of params, m, v {diff:.3e} "
+          f"(tol {UPDATE_TOL:g})")
+    if not diff <= UPDATE_TOL:
+        raise AssertionError(f"CDAdam update phase card/CPU: {diff} > {UPDATE_TOL}")
+    return diff
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -515,6 +761,7 @@ def main() -> None:
     check_dense(measured, gen)
     check_sr_quantize(measured, gen)
     check_q(measured, gen)
+    check_b4(measured, gen)
 
     train, _ = make_classification(4096, n_classes=10, image_hw=32, seed=0)
     params = init_params(cnn_classifier_template(32, 3, 10), seed=0)
@@ -534,6 +781,8 @@ def main() -> None:
     parity(params, train, 3)
     parity(params, train, 3, schedule="overlap")
     parity(params, train, 1, exchange="int8")
+    parity_mixed(params, train)
+    parity_adam_update(params, train)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
 

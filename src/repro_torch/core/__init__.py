@@ -7,7 +7,14 @@ from repro_torch.core.engine import StepProgram
 from repro_torch.core.optim import (
     CDSGD,
     CDMSGD,
+    CDAdam,
+    CDMSGDNesterov,
+    CentralizedMSGD,
+    CentralizedSGD,
     CommOps,
+    FedAvg,
+    GossipSGD,
+    TimeVaryingCDSGD,
     make_optimizer,
     stacked_comm_ops,
 )
@@ -19,6 +26,13 @@ __all__ = [
     "StepProgram",
     "CDSGD",
     "CDMSGD",
+    "CDMSGDNesterov",
+    "CDAdam",
+    "CentralizedSGD",
+    "CentralizedMSGD",
+    "FedAvg",
+    "GossipSGD",
+    "TimeVaryingCDSGD",
     "CommOps",
     "make_optimizer",
     "stacked_comm_ops",

@@ -7,8 +7,9 @@ The stacked-simulation slice of :mod:`repro.core.consensus`:
   (the per-leaf reference path of the unfused optimizers);
 * :class:`MixingProgram` / :func:`make_mixing_program` — what the exchange
   does each step: the static strategy over one fixed ``Pi``, a wire
-  precision (``exchange`` f32 | bf16 | int8 | fp8) and optional error
-  feedback, validated at config time;
+  precision (``exchange`` f32 | bf16 | int8 | fp8), optional error
+  feedback and ``momentum_mixing`` (``"mixed"``: the momentum buffer rides
+  the wire next to the params), validated at config time;
 * :class:`StaticMixing` — the strategy's stages: ``quantize_stage``
   (packed buckets to the wire state, one ``(payload, row scales)`` pair
   per bucket), ``exchange_stage`` (wire state to the self-separated
@@ -17,6 +18,8 @@ The stacked-simulation slice of :mod:`repro.core.consensus`:
   ``quantize_ef`` / ``residual_init``;
 * :func:`stacked_flat_comm` — the fused path's :class:`FlatComm`;
 * :func:`wire_seed` — the stochastic-rounding seed of one wire payload;
+* :func:`widen_with_momentum` — the bucket list of a momentum-mixing
+  program: the params' buckets, then the momentum's;
 * :func:`initial_wire_state` / :func:`initial_residual_state`, the wire
   byte accounting and :func:`consensus_error_pytree`.
 
@@ -30,10 +33,16 @@ the wire.  The f32 and bf16 wires keep the legacy dense form under the
 sync schedule: the whole stack (cast to bf16 for ``"bf16"``, self
 included) with the dense ``Pi``.
 
-Time-varying and multi-round strategies, momentum mixing, staleness
-rings, fault schedules, the top-k / rank compressors and the sharded mode
-are later slices; asking for them raises ``NotImplementedError`` naming
-the ROADMAP item.
+With ``momentum_mixing="mixed"`` every bucket list the strategy sees is
+``params_bufs + momentum_bufs`` (equal halves); the momentum half is
+quantized with its own stochastic-rounding streams (``wire_seed(...,
+payload=1)``), carried in the same wire state and residuals, and handed
+to the ``_qm`` kernels.
+
+Time-varying and multi-round strategies, staleness rings, fault
+schedules, the top-k / rank compressors and the sharded mode are later
+slices; asking for them raises ``NotImplementedError`` naming the ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -98,20 +107,30 @@ class MixingProgram:
     """What the consensus exchange does each optimizer step.
 
     The ported slice is the static strategy: one fixed ``Pi``, one round,
-    one payload tree (the parameters), on a wire of precision ``exchange``.
-    ``error_feedback`` quantizes ``residual + payload`` instead of the raw
-    payload and carries the quantization error in ``OptState.residual``
-    (it needs an int8 / fp8 wire).  Built by :func:`make_mixing_program`.
+    on a wire of precision ``exchange``.  ``error_feedback`` quantizes
+    ``residual + payload`` instead of the raw payload and carries the
+    quantization error in ``OptState.residual`` (it needs an int8 / fp8
+    wire).  ``momentum_mixing="mixed"`` widens the wire to two payload
+    trees: the momentum buffer (CDAdam: the first moment) rides next to
+    the params and is mixed with the same ``Pi``, ``v' = mu (Pi v) -
+    alpha g``; it doubles the wire bytes at equal precision.  Built by
+    :func:`make_mixing_program`.
     """
 
     topology: Topology
     exchange: str = "f32"
     error_feedback: bool = False
+    momentum_mixing: str = "none"
 
     @property
     def is_trivial(self) -> bool:
         """True iff this is the legacy single-round fixed-``Pi`` program."""
-        return not self.error_feedback
+        return not self.error_feedback and self.momentum_mixing == "none"
+
+    @property
+    def n_payloads(self) -> int:
+        """Payload trees on the wire: params, plus the mixed momentum."""
+        return 2 if self.momentum_mixing == "mixed" else 1
 
 
 def make_mixing_program(
@@ -172,10 +191,6 @@ def make_mixing_program(
     if momentum_mixing not in MOMENTUM_MIXINGS:
         raise ValueError(f"unknown momentum_mixing {momentum_mixing!r}; "
                          f"expected one of {MOMENTUM_MIXINGS}")
-    if momentum_mixing != "none":
-        raise NotImplementedError(
-            f"momentum_mixing={momentum_mixing!r} is not ported yet: "
-            "ROADMAP A12 (momentum mixing, the _qm kernel forms)")
     if not isinstance(staleness, int) or staleness < 1:
         raise ValueError(f"staleness must be an int >= 1, got {staleness!r}")
     if staleness > 1 or faults is not None:
@@ -183,7 +198,8 @@ def make_mixing_program(
             "staleness > 1 and fault schedules are not ported yet: ROADMAP "
             "A13 (bounded-staleness wire ring, fault schedules)")
     return MixingProgram(topology=topology, exchange=exchange,
-                         error_feedback=bool(error_feedback))
+                         error_feedback=bool(error_feedback),
+                         momentum_mixing=momentum_mixing)
 
 
 # --------------------------------------------------------------------------
@@ -264,7 +280,8 @@ class MixingStrategy:
     ``pi`` is the dense ``(A, A)`` float32 ``Pi`` and ``pi_q`` the
     self-separated ``(A, A+1)`` weights, both on the device the buffers
     live on.  The wire state is a tuple of ``(payload, scales)`` per
-    bucket with the leading agent axis kept.
+    bucket with the leading agent axis kept; under momentum mixing it
+    holds the params' pairs, then the momentum's.
     """
 
     name = "static"
@@ -276,8 +293,18 @@ class MixingStrategy:
         self.pi_q = pi_q
 
     def quantize_stage(self, bufs, seed: int):
-        """Packed buckets -> the wire state (seed: the optimizer step)."""
-        return _quantize_wire_stacked(bufs, seed, self.program.exchange)
+        """Packed buckets -> the wire state (seed: the optimizer step).
+
+        Under momentum mixing ``bufs`` is ``params_bufs + momentum_bufs``
+        and the momentum half draws its streams at ``payload=1`` (seed
+        stride 2750161), so the two payloads' rounding stays independent.
+        """
+        exchange = self.program.exchange
+        if self.program.momentum_mixing != "mixed":
+            return _quantize_wire_stacked(bufs, seed, exchange)
+        b = len(bufs) // 2
+        return (_quantize_wire_stacked(bufs[:b], seed, exchange)
+                + _quantize_wire_stacked(bufs[b:], seed, exchange, payload=1))
 
     def exchange_stage(self, wire, step=None):
         """Wire state -> ``(payloads, weights_q, scales)``: in the stacked
@@ -305,7 +332,14 @@ class MixingStrategy:
     def gather(self, bufs, seed: int):
         """One-shot sync form.  f32 / bf16: the legacy dense operands (the
         whole stack, cast for bf16, with the dense ``Pi``; no scales, no
-        selfs).  int8 / fp8: quantize the current buckets and continue."""
+        selfs).  int8 / fp8: quantize the current buckets and continue.
+        A momentum-mixing program has no one-shot form: its momentum
+        payload comes from the optimizer state, which the engine packs."""
+        if self.program.momentum_mixing == "mixed":
+            raise ValueError(
+                "momentum_mixing='mixed' needs the StepProgram engine's "
+                "staged exchange (CollaborativeTrainer); the optimizer "
+                "cannot gather the momentum payload itself")
         exchange = self.program.exchange
         if exchange in ("f32", "bf16"):
             return ([_wire_payload(b, exchange) for b in bufs], self.pi,
@@ -385,11 +419,21 @@ def stacked_flat_comm(topology: Topology, *, exchange: str = "f32",
 
 
 def widen_with_momentum(fl: FlatComm, bufs, momentum_bufs=None):
-    """The strategy-facing bucket list: the params' buckets (momentum
-    mixing, which appends the momentum buckets, is ROADMAP A12)."""
-    if momentum_bufs is not None:
-        raise NotImplementedError("momentum payload on the wire: ROADMAP A12")
-    return list(bufs)
+    """The strategy-facing bucket list: ``bufs``, and under momentum mixing
+    the momentum buckets after them (equal halves, the momentum packed
+    against the params' spec).  ``momentum_bufs=None`` appends zeros, the
+    initializer convention ``v_{-1} := v_0 = 0``."""
+    if fl.program.momentum_mixing != "mixed":
+        if momentum_bufs is not None:
+            raise ValueError("momentum payload without a momentum-mixing "
+                             "program")
+        return list(bufs)
+    if momentum_bufs is None:
+        momentum_bufs = [torch.zeros_like(b) for b in bufs]
+    if len(momentum_bufs) != len(bufs):
+        raise ValueError(f"{len(momentum_bufs)} momentum buckets for "
+                         f"{len(bufs)} param buckets")
+    return list(bufs) + list(momentum_bufs)
 
 
 def _packed(fl: FlatComm, params: PyTree):
@@ -399,12 +443,14 @@ def _packed(fl: FlatComm, params: PyTree):
 
 def initial_wire_state(fl: FlatComm, params: PyTree) -> tuple:
     """Wire state priming the ``schedule="overlap"`` double buffer: the
-    initial params quantized with seed ``-1`` (``x_{-1} := x_0``)."""
+    initial params (and zero momentum, under momentum mixing) quantized
+    with seed ``-1`` (``x_{-1} := x_0``)."""
     return fl.strategy.initial_wire(_packed(fl, params))
 
 
 def initial_residual_state(fl: FlatComm, params: PyTree) -> tuple:
-    """Zero error-feedback residuals, one f32 buffer per packed bucket."""
+    """Zero error-feedback residuals, one f32 buffer per packed bucket per
+    wire payload."""
     return fl.strategy.residual_init(_packed(fl, params))
 
 
@@ -426,37 +472,65 @@ def mix_pytree_stacked(pi: torch.Tensor, tree: PyTree) -> PyTree:
 
 
 def program_bytes_per_neighbor(spec: flatbuf.FlatSpec,
-                               program: MixingProgram) -> int:
-    """Bytes one whole-model transfer moves to ONE neighbor: the params on
-    the dense wire at the program's precision (int8 / fp8 add one f32 scale
-    per 128-lane row)."""
-    return int(spec.exchange_bytes(program.exchange))
+                               program: Optional[MixingProgram],
+                               exchange: str = "f32",
+                               payloads: int = 1) -> int:
+    """Bytes one whole-model transfer moves to ONE neighbor: every payload
+    tree on the dense wire at the program's precision (int8 / fp8 add one
+    f32 scale per 128-lane row).  ``program=None`` prices ``payloads``
+    trees at ``exchange``."""
+    if program is None:
+        return int(spec.exchange_bytes(exchange) * payloads)
+    return int(spec.exchange_bytes(program.exchange) * program.n_payloads)
 
 
 def exchange_bytes_per_step(spec: flatbuf.FlatSpec, topology: Topology,
-                            exchange: str = "f32",
+                            exchange: str = "f32", payloads: int = 1,
                             program: Optional[MixingProgram] = None) -> dict:
     """Per-step bytes-on-wire of the fused consensus exchange.
 
     The paper's fixed-topology cost model (eq. 5/6): each agent sends and
     receives ``degree`` whole-model transfers per step, priced by
-    :func:`program_bytes_per_neighbor` (``program`` defaults to the static
-    program at wire ``exchange``).  The keys are the JAX package's;
-    ``rounds`` and ``payloads`` are the constant 1 of the ported static
-    strategy without momentum mixing.
+    :func:`program_bytes_per_neighbor`.  ``payloads`` counts the trees on
+    the wire per transfer (``momentum_mixing="mixed"`` moves params +
+    momentum = 2; a ``program`` sets it, and ``exchange``, itself); error
+    feedback moves zero extra.  The keys are the JAX package's; ``rounds``
+    is the constant 1 of the ported static strategy.
     """
-    if program is None:
-        program = make_mixing_program(topology, exchange=exchange)
-    per_neighbor = program_bytes_per_neighbor(spec, program)
+    per_neighbor = program_bytes_per_neighbor(spec, program, exchange,
+                                              payloads)
+    if program is not None:
+        exchange, payloads = program.exchange, program.n_payloads
     degree = topology.degree()
     return {
-        "exchange": program.exchange,
+        "exchange": exchange,
         "degree": degree,
         "rounds": 1,
-        "payloads": 1,
+        "payloads": payloads,
         "per_neighbor_bytes": per_neighbor,
         "per_step_bytes": int(per_neighbor * degree),
-        "native_per_step_bytes": int(spec.exchange_bytes("f32") * degree),
+        "native_per_step_bytes": int(spec.exchange_bytes("f32") * payloads
+                                     * degree),
+    }
+
+
+def mean_exchange_bytes_per_step(spec: flatbuf.FlatSpec, n_agents: int,
+                                 period: int = 1, payloads: int = 1) -> dict:
+    """Per-step bytes-on-wire of a *global-mean* optimizer (FedAvg).
+
+    Its sync step is a ring all-reduce of the whole model, ``2 (N-1)/N``
+    native-precision transfers per agent, paid once per ``period =
+    local_steps`` and amortized over them; ``payloads`` counts the
+    averaged trees (2 when the momentum is averaged too, ``mu != 0``).
+    """
+    native = spec.exchange_bytes("f32") * payloads
+    per_sync = 2.0 * (n_agents - 1) / max(n_agents, 1) * native
+    return {
+        "exchange": "f32",
+        "local_steps": period,
+        "payloads": payloads,
+        "per_sync_bytes": int(per_sync),
+        "per_step_bytes": int(per_sync / max(period, 1)),
     }
 
 

@@ -8,11 +8,17 @@ The stacked-simulation slice of :mod:`repro.core.engine`.  A step is
 * ``update`` — pack, quantize, exchange and the fused consensus-update
   kernel per bucket (:func:`make_update_phase`).
 
+The gradient is taken at ``optimizer.grad_params(params, state)``: the
+params, or Nesterov's lookahead point.
+
 Schedules
 ---------
 ``schedule="sync"`` quantizes and exchanges the *current* params inside the
-optimizer's ``comm.flat.gather``.  With error feedback the sync path is
-staged here instead, because the quantizer threads ``OptState.residual``.
+optimizer's ``comm.flat.gather``.  With error feedback or momentum mixing
+the sync path is staged here instead: the quantizer threads
+``OptState.residual``, and the momentum payload is packed from the
+optimizer state (``DistributedOptimizer.momentum_tree``) next to the
+params.
 
 ``schedule="overlap"`` pipelines the exchange one step deep: the quantized
 buckets and row scales live in ``OptState.wire``, so step ``t`` mixes the
@@ -22,7 +28,8 @@ payload quantized at step ``t-1``:
 
 with the self term always fresh and native (it never crosses the wire), and
 ``x_{-1} := x_0`` quantized at seed ``-1``.  The staleness rides entirely in
-which buffers feed the self-separated ``_q`` kernels.
+which buffers feed the self-separated ``_q`` kernels.  Under momentum mixing
+the wire carries ``(x_t, v_t)`` (``v_{-1} := v_0 = 0``).
 
 Gradient accumulation over microbatches is not ported yet (ROADMAP A9).
 """
@@ -71,7 +78,7 @@ def make_grad_phase(agent_loss: Callable, microbatches: int = 1) -> Callable:
 def _check_fused_flat(optimizer: DistributedOptimizer, comm: CommOps,
                       what: str) -> consensus.FlatComm:
     """``what`` needs the staged flat-buffer path; fail with the reason."""
-    if not getattr(optimizer, "fused", False):
+    if not (getattr(optimizer, "fused", False) and optimizer.has_fused):
         raise ValueError(
             f"{what} needs a fused=True consensus optimizer; "
             f"{type(optimizer).__name__}(fused="
@@ -88,20 +95,55 @@ def check_overlap_support(optimizer: DistributedOptimizer,
 
 def check_program_support(optimizer: DistributedOptimizer,
                           comm: CommOps) -> consensus.FlatComm:
-    """A non-trivial MixingProgram (error feedback) needs the fused path: the
-    reference path would silently mix the dense ``Pi`` instead."""
+    """A non-trivial MixingProgram (error feedback, momentum mixing) needs
+    the fused path: the reference path would silently mix the dense ``Pi``
+    instead.  Momentum mixing also needs an optimizer with a mixable
+    momentum (the CDMSGD family, CDAdam)."""
     fl = comm.flat
-    if fl.program.is_trivial:
+    p = fl.program
+    if p.is_trivial:
         return fl
-    return _check_fused_flat(
+    fl = _check_fused_flat(
         optimizer, comm,
-        f"mixing strategy 'static' (error_feedback="
-        f"{fl.program.error_feedback})")
+        f"mixing strategy 'static' (error_feedback={p.error_feedback}, "
+        f"momentum_mixing={p.momentum_mixing})")
+    if p.momentum_mixing == "mixed" and not optimizer.has_mixable_momentum:
+        raise ValueError(
+            f"momentum_mixing='mixed' puts the momentum buffer on the wire, "
+            f"but {type(optimizer).__name__} has no mixable momentum state "
+            "(use CDMSGD, CDMSGDNesterov, or CDAdam)")
+    return fl
 
 
-def _pack(fl: consensus.FlatComm, params):
+def _pack(fl: consensus.FlatComm, params, momentum=None):
+    """The wire's bucket list: the params, then (momentum mixing) the
+    momentum tree packed against the same spec, or zeros without one."""
     spec = fl.spec(params)
-    return spec, consensus.widen_with_momentum(fl, fl.pack(params, spec))
+    mom = None if momentum is None else fl.pack(momentum, spec)
+    return spec, consensus.widen_with_momentum(fl, fl.pack(params, spec), mom)
+
+
+def _momentum_payload(optimizer: DistributedOptimizer, state: OptState):
+    """The momentum tree a mixed-momentum step puts on the wire."""
+    mom = optimizer.momentum_tree(state.inner)
+    if mom is None:
+        raise ValueError(
+            f"momentum_mixing='mixed': {type(optimizer).__name__}."
+            "momentum_tree returned None for the current optimizer state; "
+            "no momentum payload to put on the wire")
+    return mom
+
+
+def _exchange_result(spec, operands, mixed: bool) -> ExchangeResult:
+    """Split the strategy's per-bucket ``(nbrs, weights, scales, selfs)``
+    into the params' and the mixed momentum's payload groups."""
+    nbrs, w, scales, selfs = operands
+    if not mixed:
+        return ExchangeResult(spec, nbrs, w, scales, selfs)
+    b = len(nbrs) // 2
+    return ExchangeResult(spec, nbrs[:b], w, scales[:b], selfs[:b],
+                          mom_neighbors=nbrs[b:], mom_scales=scales[b:],
+                          mom_selfs=selfs[b:])
 
 
 def make_update_phase(optimizer: DistributedOptimizer, comm: CommOps,
@@ -109,18 +151,24 @@ def make_update_phase(optimizer: DistributedOptimizer, comm: CommOps,
     """The update phase group: ``(params, grads, state) -> (params', state')``.
 
     ``sync``: the optimizer gathers on the current params (staged here with
-    error feedback, whose quantizer threads ``OptState.residual``).
+    error feedback, whose quantizer threads ``OptState.residual``, and with
+    momentum mixing, whose momentum payload comes from the state).
     ``overlap``: exchange the carried one-step-stale wire, update, then
-    quantize the current params (EF-compressed when the program asks) as
-    the wire of the next step.
+    quantize the current params (and momentum) (EF-compressed when the
+    program asks) as the wire of the next step.
     """
     if schedule not in SCHEDULES:
         raise ValueError(f"unknown schedule {schedule!r}; expected one of "
                          f"{SCHEDULES}")
     fl = check_program_support(optimizer, comm)
     error_feedback = fl.program.error_feedback
+    mixed = fl.program.momentum_mixing == "mixed"
 
-    if schedule == "sync" and not error_feedback:
+    def pack(params, state):
+        return _pack(fl, params,
+                     _momentum_payload(optimizer, state) if mixed else None)
+
+    if schedule == "sync" and not error_feedback and not mixed:
         def update_sync(params, grads, state):
             return optimizer.update(params, grads, state, comm)
         return update_sync
@@ -128,11 +176,15 @@ def make_update_phase(optimizer: DistributedOptimizer, comm: CommOps,
     strategy = fl.strategy
     if schedule == "sync":
         def update_sync_staged(params, grads, state):
-            spec, bufs = _pack(fl, params)
-            wire, new_res = strategy.quantize_ef(bufs, state.step,
-                                                 state.residual)
-            ex = ExchangeResult(spec, *strategy.continue_from_wire(
-                bufs, wire, state.step))
+            spec, bufs = pack(params, state)
+            if error_feedback:
+                wire, new_res = strategy.quantize_ef(bufs, state.step,
+                                                     state.residual)
+            else:
+                wire, new_res = (strategy.quantize_stage(bufs, state.step),
+                                 state.residual)
+            ex = _exchange_result(spec, strategy.continue_from_wire(
+                bufs, wire, state.step), mixed)
             new_params, new_state = optimizer.update(params, grads, state,
                                                      comm, exchanged=ex)
             return new_params, new_state._replace(residual=new_res)
@@ -141,13 +193,14 @@ def make_update_phase(optimizer: DistributedOptimizer, comm: CommOps,
     check_overlap_support(optimizer, comm)
 
     def update_overlap(params, grads, state):
-        spec, bufs = _pack(fl, params)
-        ex = ExchangeResult(spec, *strategy.continue_from_wire(
-            bufs, state.wire, state.step))
+        spec, bufs = pack(params, state)
+        ex = _exchange_result(spec, strategy.continue_from_wire(
+            bufs, state.wire, state.step), mixed)
         new_params, new_state = optimizer.update(params, grads, state, comm,
                                                  exchanged=ex)
-        # the fused kernels wrote the new params into the packed grads, so
-        # ``bufs`` still holds x_t: quantize it as the wire of step t + 1
+        # the fused kernels wrote the new params into the packed grads (and
+        # v' into a fresh pack of the momentum), so ``bufs`` still holds
+        # (x_t, v_t): quantize it as the wire of step t + 1
         if error_feedback:
             new_wire, new_res = strategy.quantize_ef(bufs, state.step,
                                                      state.residual)
@@ -176,7 +229,8 @@ class StepProgram:
 
     def init_state(self, params: PyTree) -> OptState:
         """The optimizer's state, with the overlap wire (``x_{-1} := x_0``
-        at seed -1) and the zero error-feedback residuals filled in."""
+        at seed -1; ``v_{-1} := 0`` under momentum mixing) and the zero
+        error-feedback residuals filled in."""
         state = self.optimizer.init(params)
         fl = self.comm.flat
         if self.schedule == "overlap":
@@ -195,7 +249,8 @@ class StepProgram:
         return new_params, new_state, extra
 
     def step_fn(self, params: PyTree, opt_state: OptState, batch):
-        (losses, metrics), grads = self.grad_phase(params, batch)
+        gp = self.optimizer.grad_params(params, opt_state)
+        (losses, metrics), grads = self.grad_phase(gp, batch)
         new_params, new_state, extra = self._update(params, grads, opt_state)
         out = {"loss": torch.mean(losses)}
         out.update(extra)

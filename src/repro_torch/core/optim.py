@@ -1,12 +1,19 @@
-"""Distributed optimizers CDSGD and CDMSGD (paper Algorithms 1-2).
+"""Distributed optimizers: CDSGD, CDMSGD (Polyak and Nesterov), CDAdam and
+the baselines.
 
 Every optimizer works on an opaque parameter tree (nested dicts of
 agent-stacked tensors) and a :class:`CommOps` bundle of the collective
 operations on the agent axis, as in :mod:`repro.core.optim`:
 
-    CDSGD:            x_{k+1} = Pi x_k - a_k g(x_k)
-    CDMSGD (Polyak):  w = Pi x_k ; v_{k+1} = mu v_k - a_k g(x_k)
-                      x_{k+1} = w + v_{k+1}
+    CDSGD:             x_{k+1} = Pi x_k - a_k g(x_k)
+    CDMSGD (Polyak):   w = Pi x_k ; v_{k+1} = mu v_k - a_k g(x_k)
+                       x_{k+1} = w + v_{k+1}
+    CDMSGD (Nesterov): same, with g evaluated at x_k + mu v_k
+    CDAdam:            x_{k+1} = Pi x_k - a_k adam_dir(g), moments local
+    FedAvg:            E local SGD(+momentum) steps, then x <- mean(x)
+    Centralized SGD:   g <- mean(g) every step; x_{k+1} = x_k - a_k g
+    Gossip SGD:        x <- (x + x[perm_k]) / 2 - a_k g, a random partner
+    Time-varying:      CDSGD with Pi_k cycling through a list
 
 ``fused=False`` runs :meth:`apply`, the per-leaf reference (a dense ``Pi``
 matmul per leaf, plain PyTorch; it ignores the wire precision).
@@ -16,10 +23,11 @@ kernel launch per bucket (see :mod:`repro_torch.kernels.consensus_update`),
 in place in the packed gradient and momentum buffers.  The mixing operands
 come from the comm's ``gather`` (sync) or from the engine's staged
 quantize / exchange phases (``exchanged``: error feedback, the overlap
-schedule); quantized wires feed the self-separated ``_q`` kernels.
+schedule, momentum mixing); quantized wires feed the self-separated
+``_q`` kernels, a mixed momentum the ``_qm`` kernels.  The baselines have
+no fused path: they run :meth:`apply` whatever ``fused`` says.
 
-Not ported yet: Nesterov, CDAdam (ROADMAP A12), the centralized SGD/MSGD
-and FedAvg baselines (A7), gossip and time-varying CDSGD (A12/A13).
+Not ported yet: FedAvg's partial participation (``faults=``, ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -27,12 +35,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core import consensus
 from repro_torch.core.schedules import Schedule, fixed
 from repro_torch.kernels.consensus_update import ops as kops
-from repro_torch.utils.tree import tree_map, tree_zeros_like
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_zeros_like
 
 PyTree = Any
 MixFn = Callable[[PyTree], PyTree]
@@ -43,6 +52,7 @@ class CommOps:
     """Collective operations over the agent population."""
 
     mix: MixFn                    # w = Pi x  (fixed topology), per leaf
+    mean: MixFn                   # exact global average, per leaf
     flat: consensus.FlatComm      # whole-model fused-update support
 
 
@@ -59,7 +69,11 @@ def stacked_comm_ops(topology, *, exchange: str = "f32",
     def mix(tree):
         return consensus.mix_pytree_stacked(pi, tree)
 
-    return CommOps(mix=mix, flat=flat)
+    def mean(tree):
+        return tree_map(lambda x: x.mean(dim=0, keepdim=True).expand_as(x)
+                        .clone(), tree)
+
+    return CommOps(mix=mix, mean=mean, flat=flat)
 
 
 class OptState(NamedTuple):
@@ -84,6 +98,15 @@ class ExchangeResult:
     / exchange itself (possibly against the one-step-stale carried wire).
     ``selfs`` are the fresh native packed params: the self term never
     crosses the wire and never goes stale.
+
+    With ``momentum_mixing="mixed"`` the wire carried a second payload
+    tree: ``mom_neighbors`` / ``mom_scales`` / ``mom_selfs`` are the
+    momentum's operands (same weights as the params), ``None`` otherwise.
+    ``mom_selfs`` are the packed momentum buckets the wire was quantized
+    from; the fused kernels write ``v'`` in place, so the optimizers hand
+    them a fresh pack of the same momentum instead and leave these intact
+    (under an f32 wire they are the payload stacks themselves, and the
+    overlap schedule quantizes them as the next step's wire).
     """
 
     spec: Any                     # flatbuf.FlatSpec of the param tree
@@ -91,6 +114,14 @@ class ExchangeResult:
     weights: torch.Tensor         # self-separated weights (self first)
     scales: Sequence              # per-bucket row-scale stacks
     selfs: Sequence               # per-bucket fresh native self buffers
+    # the mixed momentum payload's operands (momentum_mixing="mixed" only)
+    mom_neighbors: Optional[Sequence] = None
+    mom_scales: Optional[Sequence] = None
+    mom_selfs: Optional[Sequence] = None
+
+    @property
+    def momentum_mixed(self) -> bool:
+        return self.mom_neighbors is not None
 
 
 class DistributedOptimizer:
@@ -98,7 +129,8 @@ class DistributedOptimizer:
 
     ``fused=True`` routes the update through the flat-buffer kernels
     (:meth:`apply_fused`); otherwise the per-leaf reference :meth:`apply`
-    runs, with the same semantics.
+    runs, with the same semantics.  An optimizer without a fused path (the
+    baselines) runs :meth:`apply` either way.
     """
 
     def __init__(self, schedule: Schedule | float, *, fused: bool = False):
@@ -108,6 +140,15 @@ class DistributedOptimizer:
     def init(self, params: PyTree) -> OptState:
         return OptState(step=0, inner=self.init_inner(params))
 
+    @property
+    def has_fused(self) -> bool:
+        """True when the class implements the flat-buffer fast path."""
+        return type(self).apply_fused is not DistributedOptimizer.apply_fused
+
+    def grad_params(self, params: PyTree, state: OptState) -> PyTree:
+        """Point at which the caller evaluates the gradient."""
+        return params
+
     def update(self, params: PyTree, grads: PyTree, state: OptState,
                comm: CommOps, *, exchanged: Optional[ExchangeResult] = None):
         """One optimizer step.  ``exchanged`` carries the engine's mixing
@@ -115,7 +156,7 @@ class DistributedOptimizer:
         The wire and residual fields pass through (the engine refreshes
         them)."""
         alpha = self.schedule(state.step)
-        if self.fused:
+        if self.fused and self.has_fused:
             new_params, new_inner = self.apply_fused(
                 params, grads, state.inner, alpha, comm, state.step,
                 exchanged=exchanged)
@@ -136,13 +177,30 @@ class DistributedOptimizer:
 
     def apply_fused(self, params, grads, inner, alpha, comm: CommOps, step,
                     *, exchanged: Optional[ExchangeResult] = None):
-        raise NotImplementedError
+        raise NotImplementedError(f"{type(self).__name__} has no fused path")
+
+    @property
+    def uses_consensus(self) -> bool:
+        return True
+
+    # -- momentum mixing (MixingProgram momentum_mixing="mixed") ---------
+    @property
+    def has_mixable_momentum(self) -> bool:
+        """True when the optimizer carries a momentum-like buffer the wire
+        can mix next to the params (the CDMSGD family's ``v``, CDAdam's
+        first moment)."""
+        return False
+
+    def momentum_tree(self, inner) -> Optional[PyTree]:
+        """The param-structured momentum tree to put on the wire, or None."""
+        return None
 
 
 def _flat_setup(fl: consensus.FlatComm, params, step, *trees, exchanged=None):
     """Pack params (+ same-structured trees) against one shared FlatSpec and
     gather the mixing operands ``(nbrs, weights, scales, selfs)``; when the
-    engine already exchanged, only the extra trees are packed here."""
+    engine already exchanged, only the extra trees are packed here.  Every
+    packed tree is a fresh buffer, so the kernels may write it in place."""
     if exchanged is not None:
         others = [fl.pack(t, exchanged.spec) for t in trees]
         return (exchanged.spec, exchanged.neighbors, exchanged.weights,
@@ -152,6 +210,14 @@ def _flat_setup(fl: consensus.FlatComm, params, step, *trees, exchanged=None):
     others = [fl.pack(t, spec) for t in trees]
     nbrs, weights, scales, selfs = fl.gather(bufs, step)
     return spec, nbrs, weights, scales, selfs, others
+
+
+def _mom_operands(exchanged: Optional[ExchangeResult], n: int):
+    """Per-bucket ``(mom_neighbors, mom_scales)``: the mixed momentum's wire
+    operands, or ``None`` pairs when the momentum stays local."""
+    if exchanged is None or not exchanged.momentum_mixed:
+        return [(None, None)] * n
+    return list(zip(exchanged.mom_neighbors, exchanged.mom_scales))
 
 
 class CDSGD(DistributedOptimizer):
@@ -176,7 +242,11 @@ class CDSGD(DistributedOptimizer):
 
 class CDMSGD(DistributedOptimizer):
     """Algorithm 2 (Polyak momentum):
-    ``v' = mu v - alpha g(x); x' = Pi x + v'``."""
+    ``v' = mu v - alpha g(x); x' = Pi x + v'``.
+
+    With ``momentum_mixing="mixed"`` the momentum rides the wire and is
+    mixed with the same ``Pi``: ``v' = mu (Pi v) - alpha g``.
+    """
 
     def __init__(self, schedule, mu: float = 0.9, **kw):
         super().__init__(schedule, **kw)
@@ -184,6 +254,13 @@ class CDMSGD(DistributedOptimizer):
 
     def init_inner(self, params):
         return tree_zeros_like(params)
+
+    @property
+    def has_mixable_momentum(self):
+        return True
+
+    def momentum_tree(self, inner):
+        return inner
 
     def apply(self, params, grads, v, alpha, comm, step):
         mixed = comm.mix(params)
@@ -199,31 +276,261 @@ class CDMSGD(DistributedOptimizer):
         spec, nbrs, w, scs, sfs, (g, vb) = _flat_setup(
             fl, params, step, grads, v, exchanged=exchanged)
         pairs = [kops.cdmsgd_update_flat(nb, w, gb, vi, alpha, self.mu,
-                                         scales=sc, self_buf=sf)
-                 for nb, sc, sf, gb, vi in zip(nbrs, scs, sfs, g, vb)]
+                                         scales=sc, self_buf=sf,
+                                         mom_neighbors=mnb, mom_scales=msc)
+                 for nb, sc, sf, gb, vi, (mnb, msc) in zip(
+                     nbrs, scs, sfs, g, vb, _mom_operands(exchanged, len(g)))]
         new_params = fl.unpack([p for p, _ in pairs], spec)
         new_v = fl.unpack([nv for _, nv in pairs], spec)
         return new_params, new_v
 
 
-_NOT_PORTED = {
-    "cdmsgd_nesterov": "ROADMAP A12 (CDMSGDNesterov, kernel B4)",
-    "cdadam": "ROADMAP A12 (CDAdam, kernel B4)",
-    "sgd": "ROADMAP A7 (CentralizedSGD)",
-    "msgd": "ROADMAP A7 (CentralizedMSGD)",
-    "fedavg": "ROADMAP A7 (FedAvg)",
-    "gossip": "ROADMAP A12 (GossipSGD)",
-    "cdsgd_tv": "ROADMAP A12/A13 (TimeVaryingCDSGD)",
-}
+def _axpy(a: float, x: PyTree, y: PyTree) -> PyTree:
+    """``a * x + y``, leaf-wise."""
+    return tree_map(lambda xi, yi: a * xi + yi, x, y)
+
+
+class CDMSGDNesterov(CDMSGD):
+    """Algorithm 3: the gradient evaluated at the lookahead ``x + mu v``.
+
+    Unfused, the state is the momentum ``v`` and the lookahead is
+    recomputed before every backward.  Fused, the state is ``(v,
+    lookahead)``: the kernel emits ``x' + mu v'`` in the same pass as the
+    update, so :meth:`grad_params` is a state lookup.
+    """
+
+    def init_inner(self, params):
+        if self.fused:
+            # lookahead_0 = x_0 + mu * 0 = x_0, cloned: the packed views the
+            # kernels write in place must never be the params themselves
+            return (tree_zeros_like(params), tree_map(torch.clone, params))
+        return tree_zeros_like(params)
+
+    def grad_params(self, params, state):
+        if self.fused:
+            return state.inner[1]
+        return _axpy(self.mu, state.inner, params)
+
+    def momentum_tree(self, inner):
+        return inner[0] if self.fused else inner
+
+    def apply_fused(self, params, grads, inner, alpha, comm, step, *,
+                    exchanged=None):
+        fl = comm.flat
+        spec, nbrs, w, scs, sfs, (g, vb) = _flat_setup(
+            fl, params, step, grads, inner[0], exchanged=exchanged)
+        triples = [kops.cdmsgd_nesterov_update_flat(
+                       nb, w, gb, vi, alpha, self.mu, scales=sc, self_buf=sf,
+                       mom_neighbors=mnb, mom_scales=msc)
+                   for nb, sc, sf, gb, vi, (mnb, msc) in zip(
+                       nbrs, scs, sfs, g, vb, _mom_operands(exchanged, len(g)))]
+        new_params, new_v, look = (fl.unpack([t[i] for t in triples], spec)
+                                   for i in range(3))
+        return new_params, (new_v, look)
+
+
+def bias_corrections(b1: float, b2: float, step: int) -> tuple:
+    """``(1 - b1^t, 1 - b2^t)`` at ``t = step + 1``, in float32 as the JAX
+    step computes them."""
+    t = np.float32(step + 1)
+    one = np.float32(1.0)
+    return (float(one - np.float32(b1) ** t), float(one - np.float32(b2) ** t))
+
+
+class CDAdam(DistributedOptimizer):
+    """Consensus mixing of the parameters with local Adam moments
+    (``x' = Pi x - alpha adam_dir(g)``), beyond the paper.
+
+    ``momentum_mixing="mixed"`` mixes the FIRST moment over the wire
+    (``m' = b1 (Pi m) + (1-b1) g``); the second moment stays local, a
+    positive per-coordinate scale rather than a direction.
+    """
+
+    def __init__(self, schedule, b1=0.9, b2=0.999, eps=1e-8, **kw):
+        super().__init__(schedule, **kw)
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def init_inner(self, params):
+        return (tree_zeros_like(params), tree_zeros_like(params))
+
+    @property
+    def has_mixable_momentum(self):
+        return True
+
+    def momentum_tree(self, inner):
+        return inner[0]
+
+    def apply(self, params, grads, inner, alpha, comm, step):
+        m, v = inner
+        b1, b2, eps = self.b1, self.b2, self.eps
+        new_m = tree_map(lambda mi, g: b1 * mi + (1 - b1) * g.to(mi.dtype),
+                         m, grads)
+        new_v = tree_map(lambda vi, g: b2 * vi + (1 - b2) * g.to(vi.dtype) ** 2,
+                         v, grads)
+        bc1, bc2 = bias_corrections(b1, b2, step)
+        mixed = comm.mix(params)
+        new_params = tree_map(
+            lambda w, mi, vi: w - (alpha * (mi / bc1)
+                                   / (torch.sqrt(vi / bc2) + eps)).to(w.dtype),
+            mixed, new_m, new_v)
+        return new_params, (new_m, new_v)
+
+    def apply_fused(self, params, grads, inner, alpha, comm, step, *,
+                    exchanged=None):
+        fl = comm.flat
+        m, v = inner
+        bc1, bc2 = bias_corrections(self.b1, self.b2, step)
+        spec, nbrs, w, scs, sfs, (g, mb, vb) = _flat_setup(
+            fl, params, step, grads, m, v, exchanged=exchanged)
+        triples = [kops.cdadam_update_flat(
+                       nb, w, gb, mi, vi, alpha, self.b1, self.b2, self.eps,
+                       bc1, bc2, scales=sc, self_buf=sf, mom_neighbors=mnb,
+                       mom_scales=msc)
+                   for nb, sc, sf, gb, mi, vi, (mnb, msc) in zip(
+                       nbrs, scs, sfs, g, mb, vb,
+                       _mom_operands(exchanged, len(g)))]
+        new_params, new_m, new_v = (fl.unpack([t[i] for t in triples], spec)
+                                    for i in range(3))
+        return new_params, (new_m, new_v)
+
+
+# --------------------------------------------------------------------------
+# Baselines (plain PyTorch: no kernel)
+# --------------------------------------------------------------------------
+
+
+def _sgd_step(params, grads, alpha):
+    return tree_map(lambda x, g: (x - alpha * g.to(x.dtype)).to(x.dtype),
+                    params, grads)
+
+
+def _momentum_step(params, grads, v, alpha, mu):
+    new_v = tree_map(
+        lambda vi, g: (mu * vi - alpha * g.to(vi.dtype)).to(vi.dtype), v, grads)
+    return tree_map(lambda x, nv: (x + nv).to(x.dtype), params, new_v), new_v
+
+
+class CentralizedSGD(DistributedOptimizer):
+    """Data-parallel SGD: gradients averaged across agents every step."""
+
+    def apply(self, params, grads, inner, alpha, comm, step):
+        return _sgd_step(params, comm.mean(grads), alpha), inner
+
+    @property
+    def uses_consensus(self):
+        return False
+
+
+class CentralizedMSGD(DistributedOptimizer):
+    """Data-parallel Polyak-momentum SGD (the paper's MSGD)."""
+
+    def __init__(self, schedule, mu: float = 0.9, **kw):
+        super().__init__(schedule, **kw)
+        self.mu = mu
+
+    def init_inner(self, params):
+        return tree_zeros_like(params)
+
+    def apply(self, params, grads, v, alpha, comm, step):
+        return _momentum_step(params, comm.mean(grads), v, alpha, self.mu)
+
+    @property
+    def uses_consensus(self):
+        return False
+
+
+class FedAvg(DistributedOptimizer):
+    """Federated Averaging [McMahan et al. 2016] with every client.
+
+    Each agent takes local SGD(+momentum) steps; every ``local_steps``
+    steps the parameters AND the momentum are replaced by their global
+    averages (the momentum only when ``mu != 0``: with ``mu = 0`` it is
+    ``-alpha g``, already consumed).  Partial participation (``faults=``)
+    is ROADMAP A13.
+    """
+
+    def __init__(self, schedule, local_steps: int = 1, mu: float = 0.0,
+                 faults=None, **kw):
+        super().__init__(schedule, **kw)
+        if faults is not None:
+            raise NotImplementedError(
+                "FedAvg(faults=...) (partial participation) is not ported "
+                "yet: ROADMAP A13 (core/faults.py)")
+        self.local_steps = int(local_steps)
+        self.mu = mu
+
+    def init_inner(self, params):
+        return tree_zeros_like(params)
+
+    def apply(self, params, grads, v, alpha, comm, step):
+        local, new_v = _momentum_step(params, grads, v, alpha, self.mu)
+        if self.local_steps > 1 and (step + 1) % self.local_steps:
+            return local, new_v
+        return comm.mean(local), (comm.mean(new_v) if self.mu else new_v)
+
+    @property
+    def uses_consensus(self):
+        return False
+
+
+def gossip_permutation(seed: int, step: int, n_agents: int) -> torch.Tensor:
+    """The partner permutation of gossip step ``step``: a uniform random
+    permutation of ``n_agents`` from a generator seeded by ``(seed,
+    step)`` (CPU, int64).  The JAX package draws
+    ``jax.random.permutation(fold_in(PRNGKey(seed), step), n)`` instead;
+    the two streams differ."""
+    gen = torch.Generator().manual_seed(
+        ((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
+    return torch.randperm(n_agents, generator=gen)
+
+
+class GossipSGD(DistributedOptimizer):
+    """Gossip SGD [Jin et al. 2016]: every step each agent averages with a
+    random partner, ``W_k = (I + P_k) / 2`` for a random permutation
+    ``P_k``, then takes a local SGD step.  Unlike CDSGD the communication
+    graph is not fixed.  Stacked simulation only."""
+
+    def __init__(self, schedule, n_agents: int, seed: int = 0, **kw):
+        super().__init__(schedule, **kw)
+        self.n_agents = n_agents
+        self.seed = seed
+
+    def apply(self, params, grads, inner, alpha, comm, step):
+        device = tree_leaves(params)[0].device
+        perm = gossip_permutation(self.seed, step, self.n_agents).to(device)
+        mixed = tree_map(lambda x: 0.5 * (x + x[perm]), params)
+        return _sgd_step(mixed, grads, alpha), inner
+
+
+class TimeVaryingCDSGD(DistributedOptimizer):
+    """CDSGD over a time-varying topology: step ``k`` mixes with
+    ``Pi_{k mod P}`` of the list ``topologies``.  Stacked simulation."""
+
+    def __init__(self, schedule, topologies, **kw):
+        super().__init__(schedule, **kw)
+        self.pis = np.stack([t.pi for t in topologies]).astype(np.float32)
+
+    def apply(self, params, grads, inner, alpha, comm, step):
+        device = tree_leaves(params)[0].device
+        pi = torch.from_numpy(self.pis[step % len(self.pis)]).to(device)
+        return _sgd_step(consensus.mix_pytree_stacked(pi, params), grads,
+                         alpha), inner
 
 
 def make_optimizer(name: str, schedule, **kw) -> DistributedOptimizer:
-    """Registry used by configs (``"cdsgd"``, ``"cdmsgd"``)."""
+    """Registry used by configs (``--optimizer cdsgd`` etc.)."""
     name = name.lower()
-    table = {"cdsgd": CDSGD, "cdmsgd": CDMSGD}
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet: {_NOT_PORTED[name]}")
+    table = {
+        "cdsgd": CDSGD,
+        "cdmsgd": CDMSGD,
+        "cdmsgd_nesterov": CDMSGDNesterov,
+        "cdadam": CDAdam,
+        "sgd": CentralizedSGD,
+        "msgd": CentralizedMSGD,
+        "fedavg": FedAvg,
+        "gossip": GossipSGD,
+        "cdsgd_tv": TimeVaryingCDSGD,
+    }
     if name not in table:
         raise ValueError(f"unknown optimizer {name!r}; available: {sorted(table)}")
     return table[name](schedule, **kw)

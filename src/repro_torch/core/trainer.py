@@ -15,10 +15,10 @@ device each step.
 The wire knobs are the JAX trainer's and go through
 :func:`repro_torch.core.consensus.make_mixing_program`: ``exchange`` (f32 |
 bf16 | int8 | fp8, or the ``compressor="int8"|"fp8"`` aliases),
-``error_feedback`` and ``schedule`` (sync | overlap).  Knobs outside this
-slice raise ``NotImplementedError`` naming their ROADMAP item:
-microbatches, time-varying and multi-round mixing, momentum mixing,
-staleness and faults, the top-k / rank compressors.
+``error_feedback``, ``momentum_mixing`` (none | mixed) and ``schedule``
+(sync | overlap).  Knobs outside this slice raise ``NotImplementedError``
+naming their ROADMAP item: microbatches, time-varying and multi-round
+mixing, staleness and faults, the top-k / rank compressors.
 """
 
 from __future__ import annotations
@@ -38,8 +38,14 @@ from repro_torch.core.consensus import (
     consensus_error_pytree,
     exchange_bytes_per_step,
     make_mixing_program,
+    mean_exchange_bytes_per_step,
 )
-from repro_torch.core.optim import CommOps, DistributedOptimizer, stacked_comm_ops
+from repro_torch.core.optim import (
+    CommOps,
+    DistributedOptimizer,
+    FedAvg,
+    stacked_comm_ops,
+)
 from repro_torch.core.topology import Topology
 from repro_torch.device import resolve_device
 from repro_torch.utils.metrics import MetricHistory
@@ -129,10 +135,19 @@ class CollaborativeTrainer:
         self.state = TrainState(params=stacked,
                                 opt_state=self._program.init_state(stacked))
         self.history = MetricHistory()
-        # per-step neighbor-exchange bytes of the fused flat path (estimate)
-        self.wire_bytes_per_step = exchange_bytes_per_step(
-            flatbuf.make_flat_spec(stacked, lead=1), topology,
-            program=self.program)["per_step_bytes"]
+        # per-step bytes on the wire (estimate): the neighbor exchange of a
+        # consensus optimizer (momentum mixing doubles the payload trees);
+        # none for the centralized baselines; FedAvg's whole-model
+        # all-reduce once per local_steps, amortized per step
+        spec = flatbuf.make_flat_spec(stacked, lead=1)
+        self.wire_bytes_per_step = 0
+        if optimizer.uses_consensus:
+            self.wire_bytes_per_step = exchange_bytes_per_step(
+                spec, topology, program=self.program)["per_step_bytes"]
+        elif isinstance(optimizer, FedAvg):
+            self.wire_bytes_per_step = mean_exchange_bytes_per_step(
+                spec, topology.n_agents, period=optimizer.local_steps,
+                payloads=2 if optimizer.mu else 1)["per_step_bytes"]
 
     # ------------------------------------------------------------------
     def step(self, batch: Dict[str, np.ndarray]) -> Dict[str, float]:

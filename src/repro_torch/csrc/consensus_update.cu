@@ -18,15 +18,33 @@
 // payload (S, rows, 128) in int8, float8_e4m3fn, bfloat16 or float32, SC its
 // per-row scales (S, rows, 1) float32 (ones for bf16 / f32 payloads).
 //
+// Mixed-momentum form (_qm: the momentum buffer rode the wire too, as a
+// second payload VQ / VSC of the same type; the local momentum is its self
+// tile at W[a,0]):
+//   cdmsgd_update_qm: v' = mu mix_q(V; VQ, VSC)[a] - alpha G[a]
+//                     out[a] = mix_q[a] + v'
+//
+// Nesterov (Algorithm 3) and CDAdam, in the dense, _q and _qm forms:
+//   cdmsgd_nesterov_update*: as cdmsgd, and LOOK[a] = out[a] + mu v'
+//     (the next step's lookahead point, a new output buffer);
+//   cdadam_update*: m' = b1 M[a] + (1 - b1) G[a]     (_qm: b1 mix_q(M; ..))
+//                   v' = b2 V[a] + ((1 - b2) G[a]) G[a]
+//                   out[a] = mix - alpha ((m' / bc1) / (sqrt(v' / bc2) + eps))
+//     with the scalars alpha, b1, b2, eps, bc1 = 1 - b1^t, bc2 = 1 - b2^t
+//     passed in float32 (the Pallas kernel's packed scal operand).
+//
 // The same kernels serve one agent's stencil (A_out = 1) and the stacked
 // simulation (A_out = S = A, W = Pi or [diag(Pi) | zero-diag Pi], X / Q =
 // the whole agent stack): one launch per bucket either way.  out is written
-// into G's storage and v' into V's (the in-place contract of the JAX
-// package's input_output_aliases).
+// into G's storage, v' into V's and m' into M's (the in-place contract of
+// the JAX package's input_output_aliases); LOOK is the one new buffer.
 //
 // Replaces: src/repro/kernels/consensus_update/consensus_update.py
-//   cdsgd_update_2d  (line 687; bodies _cdsgd_kernel, _cdsgd_kernel_q), and
-//   cdmsgd_update_2d (line 729; bodies _cdmsgd_kernel, _cdmsgd_kernel_q).
+//   cdsgd_update_2d  (line 687; bodies _cdsgd_kernel, _cdsgd_kernel_q),
+//   cdmsgd_update_2d (line 729; bodies _cdmsgd_kernel, _cdmsgd_kernel_q,
+//                     _cdmsgd_kernel_qm),
+//   cdmsgd_nesterov_update_2d (line 783; _cdmsgd_nesterov_kernel{,_q,_qm}),
+//   cdadam_update_2d (line 842; _cdadam_kernel{,_q,_qm}).
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the tensor
 // cores): memory.  Per element and output the kernels do 2S+2 .. 3S+5
@@ -35,7 +53,12 @@
 // 16,941 rows): cdsgd_update 130.1 MB (~39 us) with f32 neighbors, 108.4 MB
 // (~32 us) with bf16; cdsgd_update_q 141.3 MB (~42 us) with an int8
 // payload, 152.1 MB (~45 us) bf16, 173.8 MB (~52 us) f32; cdmsgd_update_q
-// 228.0 MB (~68 us) with int8.
+// 228.0 MB (~68 us) with int8; cdmsgd_update_qm 239.2 MB (~71 us) int8;
+// cdmsgd_nesterov_update 260.2 MB (~78 us) f32, _q 271.4 MB (~81 us) and
+// _qm 282.6 MB (~84 us) int8; cdadam_update 303.6 MB (~91 us) f32, _q
+// 314.8 MB (~94 us) and _qm 325.9 MB (~97 us) int8.  Adam's divisions and
+// square root (about 30 flops per element with the mix) stay far under the
+// f32 rate.
 //
 // Design: one thread owns one float4 (4 lanes) of a row for all A_out
 // outputs, so G, V and SELF are read once and written once with 16-byte
@@ -48,7 +71,9 @@
 // float32 in stencil order with explicit round-to-nearest multiplies and
 // adds (no FMA contraction): the arithmetic of the Pallas bodies and of the
 // plain PyTorch versions (ref.py), so kernel and plain version agree bit for
-// bit.  A thread past the last float4 is masked, so any row count works.
+// bit; Adam divides with __fdiv_rn and takes __fsqrt_rn, the correctly
+// rounded operations.  A thread past the last float4 is masked, so any row
+// count works.
 
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
@@ -140,21 +165,70 @@ __device__ __forceinline__ void sgd_out(float4 acc, float4* g, float alpha) {
   *g = acc;
 }
 
-// *v <- mu v - alpha g;  *g <- acc + v'
-__device__ __forceinline__ void msgd_out(const float4& acc, float4* g, float4* v,
-                                         float alpha, float mu) {
+// mu vin - alpha g
+__device__ __forceinline__ float4 mom_step(const float4& vin, const float4& gv,
+                                           float alpha, float mu) {
+  return make_float4(__fsub_rn(__fmul_rn(mu, vin.x), __fmul_rn(alpha, gv.x)),
+                     __fsub_rn(__fmul_rn(mu, vin.y), __fmul_rn(alpha, gv.y)),
+                     __fsub_rn(__fmul_rn(mu, vin.z), __fmul_rn(alpha, gv.z)),
+                     __fsub_rn(__fmul_rn(mu, vin.w), __fmul_rn(alpha, gv.w)));
+}
+
+__device__ __forceinline__ float4 add4(const float4& a, const float4& b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                     __fadd_rn(a.w, b.w));
+}
+
+// *v <- mu vin - alpha g;  *g <- acc + v'   (vin: *v, or the momentum mix)
+__device__ __forceinline__ void msgd_out(const float4& acc, const float4& vin,
+                                         float4* g, float4* v, float alpha, float mu) {
+  const float4 nv = mom_step(vin, *g, alpha, mu);
+  *g = add4(acc, nv);
+  *v = nv;
+}
+
+// msgd_out, and *look <- (acc + v') + mu v'
+__device__ __forceinline__ void nesterov_out(const float4& acc, const float4& vin,
+                                             float4* g, float4* v, float4* look,
+                                             float alpha, float mu) {
+  const float4 nv = mom_step(vin, *g, alpha, mu);
+  const float4 x = add4(acc, nv);
+  *g = x;
+  *v = nv;
+  *look = add4(x, make_float4(__fmul_rn(mu, nv.x), __fmul_rn(mu, nv.y),
+                              __fmul_rn(mu, nv.z), __fmul_rn(mu, nv.w)));
+}
+
+struct AdamScalars {
+  float alpha, b1, b2, eps, bc1, bc2;
+};
+
+__device__ __forceinline__ float adam_lane(float acc, float m_in, float gv, float vv,
+                                           const AdamScalars& c, float* nm, float* nv) {
+  const float m = __fadd_rn(__fmul_rn(c.b1, m_in), __fmul_rn(__fsub_rn(1.f, c.b1), gv));
+  const float v = __fadd_rn(__fmul_rn(c.b2, vv),
+                            __fmul_rn(__fmul_rn(__fsub_rn(1.f, c.b2), gv), gv));
+  const float dir = __fdiv_rn(__fdiv_rn(m, c.bc1),
+                              __fadd_rn(__fsqrt_rn(__fdiv_rn(v, c.bc2)), c.eps));
+  *nm = m;
+  *nv = v;
+  return __fsub_rn(acc, __fmul_rn(c.alpha, dir));
+}
+
+// *m <- b1 m_in + (1-b1) g;  *v <- b2 v + ((1-b2) g) g;
+// *g <- acc - alpha ((m'/bc1) / (sqrt(v'/bc2) + eps))   (m_in: *m, or its mix)
+__device__ __forceinline__ void adam_out(const float4& acc, const float4& m_in,
+                                         float4* g, float4* m, float4* v,
+                                         const AdamScalars& c) {
   const float4 gv = *g;
   const float4 vv = *v;
-  float4 nv, out;
-  nv.x = __fsub_rn(__fmul_rn(mu, vv.x), __fmul_rn(alpha, gv.x));
-  nv.y = __fsub_rn(__fmul_rn(mu, vv.y), __fmul_rn(alpha, gv.y));
-  nv.z = __fsub_rn(__fmul_rn(mu, vv.z), __fmul_rn(alpha, gv.z));
-  nv.w = __fsub_rn(__fmul_rn(mu, vv.w), __fmul_rn(alpha, gv.w));
-  out.x = __fadd_rn(acc.x, nv.x);
-  out.y = __fadd_rn(acc.y, nv.y);
-  out.z = __fadd_rn(acc.z, nv.z);
-  out.w = __fadd_rn(acc.w, nv.w);
+  float4 out, nm, nv;
+  out.x = adam_lane(acc.x, m_in.x, gv.x, vv.x, c, &nm.x, &nv.x);
+  out.y = adam_lane(acc.y, m_in.y, gv.y, vv.y, c, &nm.y, &nv.y);
+  out.z = adam_lane(acc.z, m_in.z, gv.z, vv.z, c, &nm.z, &nv.z);
+  out.w = adam_lane(acc.w, m_in.w, gv.w, vv.w, c, &nm.w, &nv.w);
   *g = out;
+  *m = nm;
   *v = nv;
 }
 
@@ -178,8 +252,9 @@ cdmsgd_kernel(const float* __restrict__ w, const void* x, float4* __restrict__ g
   const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (p >= n4) return;
   for (int a = 0; a < a_out; ++a) {
-    msgd_out(mix<K>(w + static_cast<long long>(a) * s_count, x, s_count, n4, p),
-             g + a * n4 + p, v + a * n4 + p, alpha, mu);
+    const long long i = a * n4 + p;
+    msgd_out(mix<K>(w + static_cast<long long>(a) * s_count, x, s_count, n4, p), v[i],
+             g + i, v + i, alpha, mu);
   }
 }
 
@@ -208,9 +283,131 @@ cdmsgd_q_kernel(const float* __restrict__ w, const float4* __restrict__ self,
   const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (p >= n4) return;
   for (int a = 0; a < a_out; ++a) {
+    const long long i = a * n4 + p;
     msgd_out(mix_q<K>(w + static_cast<long long>(a) * (s_count + 1), self + a * n4, q,
                       sc, s_count, rows, n4, p),
-             g + a * n4 + p, v + a * n4 + p, alpha, mu);
+             v[i], g + i, v + i, alpha, mu);
+  }
+}
+
+// The mixed-momentum (_qm) kernels mix the momentum payload VQ against the
+// momentum tile V itself (its self term): v' = mu mix_q(V; VQ, VSC) - alpha G.
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+cdmsgd_qm_kernel(const float* __restrict__ w, const float4* __restrict__ self,
+                 const void* q, const float* __restrict__ sc, const void* vq,
+                 const float* __restrict__ vsc, float4* __restrict__ g,
+                 float4* __restrict__ v, int a_out, int s_count, long long rows,
+                 float alpha, float mu) {
+  const long long n4 = rows * 32;
+  const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (p >= n4) return;
+  for (int a = 0; a < a_out; ++a) {
+    const float* wa = w + static_cast<long long>(a) * (s_count + 1);
+    const long long i = a * n4 + p;
+    const float4 vmix = mix_q<K>(wa, v + a * n4, vq, vsc, s_count, rows, n4, p);
+    msgd_out(mix_q<K>(wa, self + a * n4, q, sc, s_count, rows, n4, p), vmix, g + i,
+             v + i, alpha, mu);
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+nesterov_kernel(const float* __restrict__ w, const void* x, float4* __restrict__ g,
+                float4* __restrict__ v, float4* __restrict__ look, int a_out,
+                int s_count, long long n4, float alpha, float mu) {
+  const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (p >= n4) return;
+  for (int a = 0; a < a_out; ++a) {
+    const long long i = a * n4 + p;
+    nesterov_out(mix<K>(w + static_cast<long long>(a) * s_count, x, s_count, n4, p),
+                 v[i], g + i, v + i, look + i, alpha, mu);
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+nesterov_q_kernel(const float* __restrict__ w, const float4* __restrict__ self,
+                  const void* q, const float* __restrict__ sc, float4* __restrict__ g,
+                  float4* __restrict__ v, float4* __restrict__ look, int a_out,
+                  int s_count, long long rows, float alpha, float mu) {
+  const long long n4 = rows * 32;
+  const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (p >= n4) return;
+  for (int a = 0; a < a_out; ++a) {
+    const long long i = a * n4 + p;
+    nesterov_out(mix_q<K>(w + static_cast<long long>(a) * (s_count + 1), self + a * n4,
+                          q, sc, s_count, rows, n4, p),
+                 v[i], g + i, v + i, look + i, alpha, mu);
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+nesterov_qm_kernel(const float* __restrict__ w, const float4* __restrict__ self,
+                   const void* q, const float* __restrict__ sc, const void* vq,
+                   const float* __restrict__ vsc, float4* __restrict__ g,
+                   float4* __restrict__ v, float4* __restrict__ look, int a_out,
+                   int s_count, long long rows, float alpha, float mu) {
+  const long long n4 = rows * 32;
+  const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (p >= n4) return;
+  for (int a = 0; a < a_out; ++a) {
+    const float* wa = w + static_cast<long long>(a) * (s_count + 1);
+    const long long i = a * n4 + p;
+    const float4 vmix = mix_q<K>(wa, v + a * n4, vq, vsc, s_count, rows, n4, p);
+    nesterov_out(mix_q<K>(wa, self + a * n4, q, sc, s_count, rows, n4, p), vmix,
+                 g + i, v + i, look + i, alpha, mu);
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+adam_kernel(const float* __restrict__ w, const void* x, float4* __restrict__ g,
+            float4* __restrict__ m, float4* __restrict__ v, int a_out, int s_count,
+            long long n4, AdamScalars c) {
+  const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (p >= n4) return;
+  for (int a = 0; a < a_out; ++a) {
+    const long long i = a * n4 + p;
+    adam_out(mix<K>(w + static_cast<long long>(a) * s_count, x, s_count, n4, p), m[i],
+             g + i, m + i, v + i, c);
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+adam_q_kernel(const float* __restrict__ w, const float4* __restrict__ self,
+              const void* q, const float* __restrict__ sc, float4* __restrict__ g,
+              float4* __restrict__ m, float4* __restrict__ v, int a_out, int s_count,
+              long long rows, AdamScalars c) {
+  const long long n4 = rows * 32;
+  const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (p >= n4) return;
+  for (int a = 0; a < a_out; ++a) {
+    const long long i = a * n4 + p;
+    adam_out(mix_q<K>(w + static_cast<long long>(a) * (s_count + 1), self + a * n4, q,
+                      sc, s_count, rows, n4, p),
+             m[i], g + i, m + i, v + i, c);
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+adam_qm_kernel(const float* __restrict__ w, const float4* __restrict__ self,
+               const void* q, const float* __restrict__ sc, const void* mq,
+               const float* __restrict__ msc, float4* __restrict__ g,
+               float4* __restrict__ m, float4* __restrict__ v, int a_out, int s_count,
+               long long rows, AdamScalars c) {
+  const long long n4 = rows * 32;
+  const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (p >= n4) return;
+  for (int a = 0; a < a_out; ++a) {
+    const float* wa = w + static_cast<long long>(a) * (s_count + 1);
+    const long long i = a * n4 + p;
+    const float4 mmix = mix_q<K>(wa, m + a * n4, mq, msc, s_count, rows, n4, p);
+    adam_out(mix_q<K>(wa, self + a * n4, q, sc, s_count, rows, n4, p), mmix, g + i,
+             m + i, v + i, c);
   }
 }
 
@@ -250,7 +447,9 @@ int launch_kind(int kind, bool quantized_kinds, int device, Launch launch) {
 // of float4s per output buffer (rows * 32).  Pointers must be 16-byte
 // aligned; X, Q, SELF and SC must not overlap G or V (the wrapper checks).
 // Returns the CUDA error of the device selection or of the launch
-// (0 = launched); a call with nothing to do launches nothing.
+// (0 = launched); a call with nothing to do launches nothing.  The _qm forms
+// take the momentum payload VQ in the same kind as Q; LOOK and the Adam
+// moments M, V are float32 like G and must not overlap any operand either.
 extern "C" int cdsgd_update(const float* w, const void* x, int kind, float* g,
                             int a_out, int s_count, long long n4, float alpha,
                             int device, void* stream) {
@@ -302,5 +501,124 @@ extern "C" int cdmsgd_update_q(const float* w, const float* self, const void* q,
   return launch_kind(kind, true, device, [&](auto k) {
     cdmsgd_q_kernel<decltype(k)::value><<<blocks_for(rows * 32), kThreads, 0, st>>>(
         w, self4, q, sc, g4, v4, a_out, s_count, rows, alpha, mu);
+  });
+}
+
+extern "C" int cdmsgd_update_qm(const float* w, const float* self, const void* q,
+                                const void* vq, int kind, const float* sc,
+                                const float* vsc, float* g, float* v, int a_out,
+                                int s_count, long long rows, float alpha, float mu,
+                                int device, void* stream) {
+  if (rows <= 0 || a_out <= 0) return 0;
+  const auto* self4 = reinterpret_cast<const float4*>(self);
+  auto* g4 = reinterpret_cast<float4*>(g);
+  auto* v4 = reinterpret_cast<float4*>(v);
+  auto st = static_cast<cudaStream_t>(stream);
+  return launch_kind(kind, true, device, [&](auto k) {
+    cdmsgd_qm_kernel<decltype(k)::value><<<blocks_for(rows * 32), kThreads, 0, st>>>(
+        w, self4, q, sc, vq, vsc, g4, v4, a_out, s_count, rows, alpha, mu);
+  });
+}
+
+extern "C" int cdmsgd_nesterov_update(const float* w, const void* x, int kind, float* g,
+                                      float* v, float* look, int a_out, int s_count,
+                                      long long n4, float alpha, float mu, int device,
+                                      void* stream) {
+  if (n4 <= 0 || a_out <= 0) return 0;
+  auto* g4 = reinterpret_cast<float4*>(g);
+  auto* v4 = reinterpret_cast<float4*>(v);
+  auto* l4 = reinterpret_cast<float4*>(look);
+  auto st = static_cast<cudaStream_t>(stream);
+  return launch_kind(kind, false, device, [&](auto k) {
+    nesterov_kernel<decltype(k)::value><<<blocks_for(n4), kThreads, 0, st>>>(
+        w, x, g4, v4, l4, a_out, s_count, n4, alpha, mu);
+  });
+}
+
+extern "C" int cdmsgd_nesterov_update_q(const float* w, const float* self, const void* q,
+                                        int kind, const float* sc, float* g, float* v,
+                                        float* look, int a_out, int s_count,
+                                        long long rows, float alpha, float mu,
+                                        int device, void* stream) {
+  if (rows <= 0 || a_out <= 0) return 0;
+  const auto* self4 = reinterpret_cast<const float4*>(self);
+  auto* g4 = reinterpret_cast<float4*>(g);
+  auto* v4 = reinterpret_cast<float4*>(v);
+  auto* l4 = reinterpret_cast<float4*>(look);
+  auto st = static_cast<cudaStream_t>(stream);
+  return launch_kind(kind, true, device, [&](auto k) {
+    nesterov_q_kernel<decltype(k)::value><<<blocks_for(rows * 32), kThreads, 0, st>>>(
+        w, self4, q, sc, g4, v4, l4, a_out, s_count, rows, alpha, mu);
+  });
+}
+
+extern "C" int cdmsgd_nesterov_update_qm(const float* w, const float* self,
+                                         const void* q, const void* vq, int kind,
+                                         const float* sc, const float* vsc, float* g,
+                                         float* v, float* look, int a_out, int s_count,
+                                         long long rows, float alpha, float mu,
+                                         int device, void* stream) {
+  if (rows <= 0 || a_out <= 0) return 0;
+  const auto* self4 = reinterpret_cast<const float4*>(self);
+  auto* g4 = reinterpret_cast<float4*>(g);
+  auto* v4 = reinterpret_cast<float4*>(v);
+  auto* l4 = reinterpret_cast<float4*>(look);
+  auto st = static_cast<cudaStream_t>(stream);
+  return launch_kind(kind, true, device, [&](auto k) {
+    nesterov_qm_kernel<decltype(k)::value><<<blocks_for(rows * 32), kThreads, 0, st>>>(
+        w, self4, q, sc, vq, vsc, g4, v4, l4, a_out, s_count, rows, alpha, mu);
+  });
+}
+
+extern "C" int cdadam_update(const float* w, const void* x, int kind, float* g,
+                             float* m, float* v, int a_out, int s_count, long long n4,
+                             float alpha, float b1, float b2, float eps, float bc1,
+                             float bc2, int device, void* stream) {
+  if (n4 <= 0 || a_out <= 0) return 0;
+  auto* g4 = reinterpret_cast<float4*>(g);
+  auto* m4 = reinterpret_cast<float4*>(m);
+  auto* v4 = reinterpret_cast<float4*>(v);
+  const AdamScalars c{alpha, b1, b2, eps, bc1, bc2};
+  auto st = static_cast<cudaStream_t>(stream);
+  return launch_kind(kind, false, device, [&](auto k) {
+    adam_kernel<decltype(k)::value><<<blocks_for(n4), kThreads, 0, st>>>(
+        w, x, g4, m4, v4, a_out, s_count, n4, c);
+  });
+}
+
+extern "C" int cdadam_update_q(const float* w, const float* self, const void* q,
+                               int kind, const float* sc, float* g, float* m, float* v,
+                               int a_out, int s_count, long long rows, float alpha,
+                               float b1, float b2, float eps, float bc1, float bc2,
+                               int device, void* stream) {
+  if (rows <= 0 || a_out <= 0) return 0;
+  const auto* self4 = reinterpret_cast<const float4*>(self);
+  auto* g4 = reinterpret_cast<float4*>(g);
+  auto* m4 = reinterpret_cast<float4*>(m);
+  auto* v4 = reinterpret_cast<float4*>(v);
+  const AdamScalars c{alpha, b1, b2, eps, bc1, bc2};
+  auto st = static_cast<cudaStream_t>(stream);
+  return launch_kind(kind, true, device, [&](auto k) {
+    adam_q_kernel<decltype(k)::value><<<blocks_for(rows * 32), kThreads, 0, st>>>(
+        w, self4, q, sc, g4, m4, v4, a_out, s_count, rows, c);
+  });
+}
+
+extern "C" int cdadam_update_qm(const float* w, const float* self, const void* q,
+                                const void* mq, int kind, const float* sc,
+                                const float* msc, float* g, float* m, float* v,
+                                int a_out, int s_count, long long rows, float alpha,
+                                float b1, float b2, float eps, float bc1, float bc2,
+                                int device, void* stream) {
+  if (rows <= 0 || a_out <= 0) return 0;
+  const auto* self4 = reinterpret_cast<const float4*>(self);
+  auto* g4 = reinterpret_cast<float4*>(g);
+  auto* m4 = reinterpret_cast<float4*>(m);
+  auto* v4 = reinterpret_cast<float4*>(v);
+  const AdamScalars c{alpha, b1, b2, eps, bc1, bc2};
+  auto st = static_cast<cudaStream_t>(stream);
+  return launch_kind(kind, true, device, [&](auto k) {
+    adam_qm_kernel<decltype(k)::value><<<blocks_for(rows * 32), kThreads, 0, st>>>(
+        w, self4, q, sc, mq, msc, g4, m4, v4, a_out, s_count, rows, c);
   });
 }

@@ -6,6 +6,10 @@ parameter bucket (paper eq. 5, Algorithms 1-2),
 
     x' = sum_s w_s * neighbor_s  -  alpha * g                  (CDSGD)
     v' = mu v - alpha g ; x' = sum_s w_s * neighbor_s + v'     (CDMSGD)
+    CDMSGD, and look = x' + mu v'                              (Nesterov)
+    m' = b1 m + (1-b1) g ; v' = b2 v + (1-b2) g^2 ;
+    x' = sum_s w_s * neighbor_s - alpha (m'/bc1) / (sqrt(v'/bc2) + eps)
+                                                               (CDAdam)
 
 and, on a quantized wire, first quantizes its bucket for the neighbors.
 The kernels live in ``src/repro_torch/csrc/`` (Hopper, ``sm_90a``) and
@@ -19,6 +23,16 @@ replace the Pallas TPU kernels of :mod:`repro.kernels.consensus_update`:
   (``_q``) form: ``weights (A_out, S+1)``, the native ``self (A_out, rows,
   128)`` at ``weights[:, 0]``, the wire ``payload (S, rows, 128)`` in
   int8, float8_e4m3fn, bfloat16 or float32 with ``scales (S, rows, 1)``;
+* :func:`cdmsgd_update_qm` — the mixed-momentum (``_qm``) form of
+  ``cdmsgd_update_2d``: the momentum rode the wire as a second payload
+  ``mom_payload`` / ``mom_scales`` of the payload's dtype, and the local
+  ``momentum`` is its self tile: ``v' = mu mix_q(momentum, mom_payload) -
+  alpha g``;
+* :func:`cdmsgd_nesterov_update` (``_q``, ``_qm``) —
+  ``cdmsgd_nesterov_update_2d``: CDMSGD that also returns the next
+  lookahead ``x' + mu v'`` in a new buffer;
+* :func:`cdadam_update` (``_q``, ``_qm``) — ``cdadam_update_2d``: the
+  mixing with a local Adam step; ``_qm`` mixes the first moment;
 * :func:`sr_quantize` — ``sr_quantize_2d``: ``x (A, rows, 128)`` to int8
   (stochastic rounding) or float8_e4m3fn (nearest) codes and per-row
   scales, one launch for all agents of a bucket.
@@ -29,8 +43,10 @@ are not ported yet); every operand is contiguous and on one device.
 stacked simulation in one launch.
 
 Update outputs are written **in place**: the new parameters into
-``grad``'s storage and ``v'`` into ``momentum``'s (the JAX kernels'
-``input_output_aliases``); the wrappers return those same tensors.
+``grad``'s storage, ``v'`` into ``momentum``'s and Adam's ``m'`` / ``v'``
+into ``m``'s / ``v``'s (the JAX kernels' ``input_output_aliases``); the
+wrappers return those same tensors.  Nesterov's lookahead is the one new
+output, allocated by the wrapper.
 
 Dispatch is by the tensors' device: CUDA tensors launch the kernel (a
 launch error raises), CPU tensors run the plain version in :mod:`.ref`.
@@ -69,6 +85,20 @@ LIBRARIES = {
         "cdsgd_update_q": (_I, (_P, _P, _P, _I, _P, _P, _I, _I, _LL, _F, _I, _P)),
         "cdmsgd_update_q": (_I, (_P, _P, _P, _I, _P, _P, _P, _I, _I, _LL, _F, _F,
                                  _I, _P)),
+        "cdmsgd_update_qm": (_I, (_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
+                                  _LL, _F, _F, _I, _P)),
+        "cdmsgd_nesterov_update": (_I, (_P, _P, _I, _P, _P, _P, _I, _I, _LL,
+                                        _F, _F, _I, _P)),
+        "cdmsgd_nesterov_update_q": (_I, (_P, _P, _P, _I, _P, _P, _P, _P, _I,
+                                          _I, _LL, _F, _F, _I, _P)),
+        "cdmsgd_nesterov_update_qm": (_I, (_P, _P, _P, _P, _I, _P, _P, _P, _P,
+                                           _P, _I, _I, _LL, _F, _F, _I, _P)),
+        "cdadam_update": (_I, (_P, _P, _I, _P, _P, _P, _I, _I, _LL,
+                               _F, _F, _F, _F, _F, _F, _I, _P)),
+        "cdadam_update_q": (_I, (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _LL,
+                                 _F, _F, _F, _F, _F, _F, _I, _P)),
+        "cdadam_update_qm": (_I, (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
+                                  _I, _LL, _F, _F, _F, _F, _F, _F, _I, _P)),
     },
     "sr_quantize": {
         "sr_quantize": (_I, (_P, _P, _I, _P, _LL, _LL, _U, _U, _I, _P)),
@@ -156,9 +186,10 @@ def _check_operands(weights, neighbors, outs):
     return a_out, s, rows, device
 
 
-def _check_q_operands(weights, self_buf, payload, scales, outs):
-    """Validate the self-separated operand form; returns
-    ``(a_out, s, rows, device)``."""
+def _check_q_operands(weights, self_buf, payload, scales, outs,
+                      mom_payload=None, mom_scales=None):
+    """Validate the self-separated operand form (with the momentum payload
+    of the ``_qm`` form when given); returns ``(a_out, s, rows, device)``."""
     s, rows = _stack("payload", payload)
     device = payload.device
     if not isinstance(weights, torch.Tensor) or weights.dim() != 2:
@@ -168,10 +199,16 @@ def _check_q_operands(weights, self_buf, payload, scales, outs):
     _check("payload", payload, (s, rows, LANE), device, tuple(KINDS))
     _check("scales", scales, (s, rows, 1), device)
     _check("self_buf", self_buf, (a_out, rows, LANE), device)
+    reads = [("weights", weights), ("self_buf", self_buf),
+             ("payload", payload), ("scales", scales)]
+    if mom_payload is not None:
+        _check("mom_payload", mom_payload, (s, rows, LANE), device,
+               (payload.dtype,))
+        _check("mom_scales", mom_scales, (s, rows, 1), device)
+        reads += [("mom_payload", mom_payload), ("mom_scales", mom_scales)]
     for name, t in outs:
         _check(name, t, (a_out, rows, LANE), device)
-    _check_placement([("weights", weights), ("self_buf", self_buf),
-                      ("payload", payload), ("scales", scales)], outs, device)
+    _check_placement(reads, outs, device)
     return a_out, s, rows, device
 
 
@@ -284,6 +321,209 @@ def cdmsgd_update_q(weights: torch.Tensor, self_buf: torch.Tensor,
     return grad, momentum
 
 
+def cdmsgd_update_qm(weights: torch.Tensor, self_buf: torch.Tensor,
+                     payload: torch.Tensor, scales: torch.Tensor,
+                     mom_payload: torch.Tensor, mom_scales: torch.Tensor,
+                     grad: torch.Tensor, momentum: torch.Tensor, alpha, mu):
+    """``momentum[a] <- mu (w[a,0] momentum[a] + sum_s w[a,1+s]
+    (mom_payload[s] * mom_scales[s])) - alpha grad[a]``;
+    ``grad[a] <- w[a,0] self[a] + sum_s w[a,1+s] (payload[s] * scales[s])
+    + momentum[a]``.  Returns ``(grad, momentum)``, both updated in place.
+    """
+    a_out, s, rows, device = _check_q_operands(
+        weights, self_buf, payload, scales,
+        [("grad", grad), ("momentum", momentum)], mom_payload, mom_scales)
+    alpha, mu = _f32(alpha), _f32(mu)
+    if device.type == "cpu":
+        out, new_v = ref.cdmsgd_update_qm_ref(
+            weights, self_buf, payload, scales, mom_payload, mom_scales,
+            grad, momentum, alpha, mu)
+        grad.copy_(out)
+        momentum.copy_(new_v)
+        return grad, momentum
+    if a_out == 0 or rows == 0:
+        return grad, momentum
+    rc = library().cdmsgd_update_qm(
+        weights.data_ptr(), self_buf.data_ptr(), payload.data_ptr(),
+        mom_payload.data_ptr(), KINDS[payload.dtype], scales.data_ptr(),
+        mom_scales.data_ptr(), grad.data_ptr(), momentum.data_ptr(), a_out, s,
+        rows, alpha, mu, device.index, _stream(device))
+    _launch_check(rc, "cdmsgd_update_qm")
+    cdmsgd_update_qm.launches += 1
+    return grad, momentum
+
+
+def _finish(outs, results) -> tuple:
+    """Copy a plain version's results into the in-place outputs; a result
+    without an output buffer (the lookahead) is returned as it is."""
+    done = []
+    for i, r in enumerate(results):
+        if i < len(outs):
+            outs[i].copy_(r)
+            done.append(outs[i])
+        else:
+            done.append(r)
+    return tuple(done)
+
+
+def cdmsgd_nesterov_update(weights: torch.Tensor, neighbors: torch.Tensor,
+                           grad: torch.Tensor, momentum: torch.Tensor,
+                           alpha, mu):
+    """:func:`cdmsgd_update` that also returns the next lookahead
+    ``grad' + mu momentum'``.  Returns ``(grad, momentum, look)``: the
+    first two updated in place, ``look`` new."""
+    a_out, s, rows, device = _check_operands(
+        weights, neighbors, [("grad", grad), ("momentum", momentum)])
+    alpha, mu = _f32(alpha), _f32(mu)
+    if device.type == "cpu":
+        return _finish([grad, momentum], ref.cdmsgd_nesterov_update_ref(
+            weights, neighbors, grad, momentum, alpha, mu))
+    look = torch.empty_like(grad)
+    if a_out == 0 or rows == 0:
+        return grad, momentum, look
+    rc = library().cdmsgd_nesterov_update(
+        weights.data_ptr(), neighbors.data_ptr(), KINDS[neighbors.dtype],
+        grad.data_ptr(), momentum.data_ptr(), look.data_ptr(), a_out, s,
+        rows * LANE // 4, alpha, mu, device.index, _stream(device))
+    _launch_check(rc, "cdmsgd_nesterov_update")
+    cdmsgd_nesterov_update.launches += 1
+    return grad, momentum, look
+
+
+def cdmsgd_nesterov_update_q(weights: torch.Tensor, self_buf: torch.Tensor,
+                             payload: torch.Tensor, scales: torch.Tensor,
+                             grad: torch.Tensor, momentum: torch.Tensor,
+                             alpha, mu):
+    """:func:`cdmsgd_update_q` plus the lookahead; returns
+    ``(grad, momentum, look)``."""
+    a_out, s, rows, device = _check_q_operands(
+        weights, self_buf, payload, scales,
+        [("grad", grad), ("momentum", momentum)])
+    alpha, mu = _f32(alpha), _f32(mu)
+    if device.type == "cpu":
+        return _finish([grad, momentum], ref.cdmsgd_nesterov_update_q_ref(
+            weights, self_buf, payload, scales, grad, momentum, alpha, mu))
+    look = torch.empty_like(grad)
+    if a_out == 0 or rows == 0:
+        return grad, momentum, look
+    rc = library().cdmsgd_nesterov_update_q(
+        weights.data_ptr(), self_buf.data_ptr(), payload.data_ptr(),
+        KINDS[payload.dtype], scales.data_ptr(), grad.data_ptr(),
+        momentum.data_ptr(), look.data_ptr(), a_out, s, rows, alpha, mu,
+        device.index, _stream(device))
+    _launch_check(rc, "cdmsgd_nesterov_update_q")
+    cdmsgd_nesterov_update_q.launches += 1
+    return grad, momentum, look
+
+
+def cdmsgd_nesterov_update_qm(weights: torch.Tensor, self_buf: torch.Tensor,
+                              payload: torch.Tensor, scales: torch.Tensor,
+                              mom_payload: torch.Tensor,
+                              mom_scales: torch.Tensor, grad: torch.Tensor,
+                              momentum: torch.Tensor, alpha, mu):
+    """:func:`cdmsgd_update_qm` plus the lookahead; returns
+    ``(grad, momentum, look)``."""
+    a_out, s, rows, device = _check_q_operands(
+        weights, self_buf, payload, scales,
+        [("grad", grad), ("momentum", momentum)], mom_payload, mom_scales)
+    alpha, mu = _f32(alpha), _f32(mu)
+    if device.type == "cpu":
+        return _finish([grad, momentum], ref.cdmsgd_nesterov_update_qm_ref(
+            weights, self_buf, payload, scales, mom_payload, mom_scales, grad,
+            momentum, alpha, mu))
+    look = torch.empty_like(grad)
+    if a_out == 0 or rows == 0:
+        return grad, momentum, look
+    rc = library().cdmsgd_nesterov_update_qm(
+        weights.data_ptr(), self_buf.data_ptr(), payload.data_ptr(),
+        mom_payload.data_ptr(), KINDS[payload.dtype], scales.data_ptr(),
+        mom_scales.data_ptr(), grad.data_ptr(), momentum.data_ptr(),
+        look.data_ptr(), a_out, s, rows, alpha, mu, device.index,
+        _stream(device))
+    _launch_check(rc, "cdmsgd_nesterov_update_qm")
+    cdmsgd_nesterov_update_qm.launches += 1
+    return grad, momentum, look
+
+
+def _adam_scalars(alpha, b1, b2, eps, bc1, bc2) -> tuple:
+    return tuple(_f32(x) for x in (alpha, b1, b2, eps, bc1, bc2))
+
+
+def cdadam_update(weights: torch.Tensor, neighbors: torch.Tensor,
+                  grad: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+                  alpha, b1, b2, eps, bc1, bc2):
+    """``m <- b1 m + (1-b1) grad``; ``v <- b2 v + ((1-b2) grad) grad``;
+    ``grad <- sum_s weights[a,s] neighbors[s] - alpha ((m/bc1) /
+    (sqrt(v/bc2) + eps))``.  Returns ``(grad, m, v)``, all in place."""
+    a_out, s, rows, device = _check_operands(
+        weights, neighbors, [("grad", grad), ("m", m), ("v", v)])
+    scal = _adam_scalars(alpha, b1, b2, eps, bc1, bc2)
+    if device.type == "cpu":
+        return _finish([grad, m, v], ref.cdadam_update_ref(
+            weights, neighbors, grad, m, v, *scal))
+    if a_out == 0 or rows == 0:
+        return grad, m, v
+    rc = library().cdadam_update(
+        weights.data_ptr(), neighbors.data_ptr(), KINDS[neighbors.dtype],
+        grad.data_ptr(), m.data_ptr(), v.data_ptr(), a_out, s,
+        rows * LANE // 4, *scal, device.index, _stream(device))
+    _launch_check(rc, "cdadam_update")
+    cdadam_update.launches += 1
+    return grad, m, v
+
+
+def cdadam_update_q(weights: torch.Tensor, self_buf: torch.Tensor,
+                    payload: torch.Tensor, scales: torch.Tensor,
+                    grad: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+                    alpha, b1, b2, eps, bc1, bc2):
+    """Self-separated :func:`cdadam_update`; returns ``(grad, m, v)``."""
+    a_out, s, rows, device = _check_q_operands(
+        weights, self_buf, payload, scales,
+        [("grad", grad), ("m", m), ("v", v)])
+    scal = _adam_scalars(alpha, b1, b2, eps, bc1, bc2)
+    if device.type == "cpu":
+        return _finish([grad, m, v], ref.cdadam_update_q_ref(
+            weights, self_buf, payload, scales, grad, m, v, *scal))
+    if a_out == 0 or rows == 0:
+        return grad, m, v
+    rc = library().cdadam_update_q(
+        weights.data_ptr(), self_buf.data_ptr(), payload.data_ptr(),
+        KINDS[payload.dtype], scales.data_ptr(), grad.data_ptr(),
+        m.data_ptr(), v.data_ptr(), a_out, s, rows, *scal, device.index,
+        _stream(device))
+    _launch_check(rc, "cdadam_update_q")
+    cdadam_update_q.launches += 1
+    return grad, m, v
+
+
+def cdadam_update_qm(weights: torch.Tensor, self_buf: torch.Tensor,
+                     payload: torch.Tensor, scales: torch.Tensor,
+                     mom_payload: torch.Tensor, mom_scales: torch.Tensor,
+                     grad: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+                     alpha, b1, b2, eps, bc1, bc2):
+    """Mixed-momentum :func:`cdadam_update_q`: the first moment ``m`` is the
+    self tile of its wire payload ``mom_payload``; returns ``(grad, m, v)``.
+    """
+    a_out, s, rows, device = _check_q_operands(
+        weights, self_buf, payload, scales,
+        [("grad", grad), ("m", m), ("v", v)], mom_payload, mom_scales)
+    scal = _adam_scalars(alpha, b1, b2, eps, bc1, bc2)
+    if device.type == "cpu":
+        return _finish([grad, m, v], ref.cdadam_update_qm_ref(
+            weights, self_buf, payload, scales, mom_payload, mom_scales, grad,
+            m, v, *scal))
+    if a_out == 0 or rows == 0:
+        return grad, m, v
+    rc = library().cdadam_update_qm(
+        weights.data_ptr(), self_buf.data_ptr(), payload.data_ptr(),
+        mom_payload.data_ptr(), KINDS[payload.dtype], scales.data_ptr(),
+        mom_scales.data_ptr(), grad.data_ptr(), m.data_ptr(), v.data_ptr(),
+        a_out, s, rows, *scal, device.index, _stream(device))
+    _launch_check(rc, "cdadam_update_qm")
+    cdadam_update_qm.launches += 1
+    return grad, m, v
+
+
 def sr_quantize(x: torch.Tensor, seed: int, exchange: str, *,
                 agent_stride: int = 0):
     """Quantize ``x (A, rows, 128)`` float32 for the wire.
@@ -319,7 +559,13 @@ def sr_quantize(x: torch.Tensor, seed: int, exchange: str, *,
 #: every kernel wrapper of this module, by kernel name
 KERNELS = {"cdsgd_update": cdsgd_update, "cdmsgd_update": cdmsgd_update,
            "sr_quantize": sr_quantize, "cdsgd_update_q": cdsgd_update_q,
-           "cdmsgd_update_q": cdmsgd_update_q}
+           "cdmsgd_update_q": cdmsgd_update_q,
+           "cdmsgd_update_qm": cdmsgd_update_qm,
+           "cdmsgd_nesterov_update": cdmsgd_nesterov_update,
+           "cdmsgd_nesterov_update_q": cdmsgd_nesterov_update_q,
+           "cdmsgd_nesterov_update_qm": cdmsgd_nesterov_update_qm,
+           "cdadam_update": cdadam_update, "cdadam_update_q": cdadam_update_q,
+           "cdadam_update_qm": cdadam_update_qm}
 
 
 def reset_launch_counts() -> None:

@@ -1,9 +1,10 @@
 """Bucket-level entry points of the fused consensus update.
 
-``cdsgd_update_flat`` / ``cdmsgd_update_flat`` take already-packed
-``(rows, 128)`` buffers (:mod:`repro_torch.core.flatbuf`) and dispatch on
-``weights.ndim`` and ``scales``, as :mod:`repro.kernels.consensus_update.ops`
-does:
+``cdsgd_update_flat`` / ``cdmsgd_update_flat`` /
+``cdmsgd_nesterov_update_flat`` / ``cdadam_update_flat`` take
+already-packed ``(rows, 128)`` buffers (:mod:`repro_torch.core.flatbuf`)
+and dispatch on ``weights.ndim``, ``scales`` and ``mom_neighbors``, as
+:mod:`repro.kernels.consensus_update.ops` does:
 
 * ``weights (S,)``   — one agent's stencil: ``neighbors (S, rows, 128)``,
   per-agent operands ``(rows, 128)`` (the sharded one-agent-per-device
@@ -15,46 +16,76 @@ does:
 With ``scales`` (and the native ``self_buf``) the neighbors are wire
 payloads and the weights carry the self weight first: ``(S+1,)`` for one
 agent, ``(A, A+1)`` = ``[diag(Pi) | zero-diag Pi]`` for the stacked
-simulation, again in one launch (the ``_q`` kernels).
+simulation, again in one launch (the ``_q`` kernels).  With
+``mom_neighbors`` / ``mom_scales`` as well, the momentum (CDAdam: the
+first moment) crossed the wire as a second payload and the local momentum
+operand is its self tile (the ``_qm`` kernels).
 
 The updated parameters are written into ``grad``'s storage and the new
-momentum into ``momentum``'s; the returned tensors are those buffers.
-CUDA tensors launch the kernel, CPU tensors run the plain version (see
-:mod:`.consensus_update`).
+momentum (moments) into ``momentum``'s (``m``'s, ``v``'s); Nesterov's
+lookahead is returned in a new buffer.  CUDA tensors launch the kernel,
+CPU tensors run the plain version (see :mod:`.consensus_update`).
 """
 
 from __future__ import annotations
 
-from repro_torch.kernels.consensus_update.consensus_update import (
-    cdmsgd_update,
-    cdmsgd_update_q,
-    cdsgd_update,
-    cdsgd_update_q,
-)
+from repro_torch.kernels.consensus_update import consensus_update as cu
+
+
+def _dispatch(dense, q, qm, neighbors, weights, per_agent, scalars, *,
+              scales, self_buf, mom_neighbors, mom_scales):
+    """Call the dense, ``_q`` or ``_qm`` kernel with the per-agent buffers
+    ``per_agent`` (grad first); strip the stencil form's leading axis."""
+    stencil = weights.dim() == 1
+    if stencil:
+        weights = weights[None]
+        per_agent = [t[None] for t in per_agent]
+        self_buf = None if self_buf is None else self_buf[None]
+    if mom_neighbors is not None:
+        out = qm(weights, self_buf, neighbors, scales, mom_neighbors,
+                 mom_scales, *per_agent, *scalars)
+    elif scales is not None:
+        out = q(weights, self_buf, neighbors, scales, *per_agent, *scalars)
+    else:
+        out = dense(weights, neighbors, *per_agent, *scalars)
+    if isinstance(out, tuple):
+        return tuple(t[0] for t in out) if stencil else out
+    return out[0] if stencil else out
 
 
 def cdsgd_update_flat(neighbors, weights, grad, alpha, *, scales=None,
                       self_buf=None):
-    stencil = weights.dim() == 1
-    if stencil:
-        weights, grad = weights[None], grad[None]
-        self_buf = None if self_buf is None else self_buf[None]
-    if scales is None:
-        out = cdsgd_update(weights, neighbors, grad, alpha)
-    else:
-        out = cdsgd_update_q(weights, self_buf, neighbors, scales, grad, alpha)
-    return out[0] if stencil else out
+    return _dispatch(cu.cdsgd_update, cu.cdsgd_update_q, None, neighbors,
+                     weights, [grad], (alpha,), scales=scales,
+                     self_buf=self_buf, mom_neighbors=None, mom_scales=None)
 
 
 def cdmsgd_update_flat(neighbors, weights, grad, momentum, alpha, mu, *,
-                       scales=None, self_buf=None):
-    stencil = weights.dim() == 1
-    if stencil:
-        weights, grad, momentum = weights[None], grad[None], momentum[None]
-        self_buf = None if self_buf is None else self_buf[None]
-    if scales is None:
-        g, v = cdmsgd_update(weights, neighbors, grad, momentum, alpha, mu)
-    else:
-        g, v = cdmsgd_update_q(weights, self_buf, neighbors, scales, grad,
-                               momentum, alpha, mu)
-    return (g[0], v[0]) if stencil else (g, v)
+                       scales=None, self_buf=None, mom_neighbors=None,
+                       mom_scales=None):
+    return _dispatch(cu.cdmsgd_update, cu.cdmsgd_update_q, cu.cdmsgd_update_qm,
+                     neighbors, weights, [grad, momentum], (alpha, mu),
+                     scales=scales, self_buf=self_buf,
+                     mom_neighbors=mom_neighbors, mom_scales=mom_scales)
+
+
+def cdmsgd_nesterov_update_flat(neighbors, weights, grad, momentum, alpha, mu,
+                                *, scales=None, self_buf=None,
+                                mom_neighbors=None, mom_scales=None):
+    """Returns ``(x', v', x' + mu v')``."""
+    return _dispatch(cu.cdmsgd_nesterov_update, cu.cdmsgd_nesterov_update_q,
+                     cu.cdmsgd_nesterov_update_qm, neighbors, weights,
+                     [grad, momentum], (alpha, mu), scales=scales,
+                     self_buf=self_buf, mom_neighbors=mom_neighbors,
+                     mom_scales=mom_scales)
+
+
+def cdadam_update_flat(neighbors, weights, grad, m, v, alpha, b1, b2, eps,
+                       bc1, bc2, *, scales=None, self_buf=None,
+                       mom_neighbors=None, mom_scales=None):
+    """Returns ``(x', m', v')``; ``bc1 = 1 - b1^t``, ``bc2 = 1 - b2^t``."""
+    return _dispatch(cu.cdadam_update, cu.cdadam_update_q, cu.cdadam_update_qm,
+                     neighbors, weights, [grad, m, v],
+                     (alpha, b1, b2, eps, bc1, bc2), scales=scales,
+                     self_buf=self_buf, mom_neighbors=mom_neighbors,
+                     mom_scales=mom_scales)

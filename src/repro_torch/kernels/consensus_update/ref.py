@@ -15,6 +15,17 @@ kernel and plain version agree to the last bit:
   128)`` (int8, float8_e4m3fn, bfloat16 or float32) dequantized with
   ``scales (S, rows, 1)`` at ``weights[:, 1:]``:
   ``acc = w0 * self``, then ``acc += w_{s+1} * (float(q_s) * scale_s)``.
+* ``cdmsgd_update_qm_ref`` — the mixed-momentum form: the momentum
+  buffer crossed the wire too (``mom_payload``, ``mom_scales``), and the
+  local ``momentum`` is its self tile at ``weights[:, 0]``:
+  ``v' = mu mix_q(momentum, mom_payload) - alpha G``.
+* ``cdmsgd_nesterov_update{,_q,_qm}_ref`` — CDMSGD that also returns the
+  next Nesterov lookahead ``look = x' + mu v'``.
+* ``cdadam_update{,_q,_qm}_ref`` — mixing plus a local Adam step:
+  ``m' = b1 m + (1 - b1) G``, ``v' = b2 v + ((1 - b2) G) G``,
+  ``x' = mix - alpha ((m' / bc1) / (sqrt(v' / bc2) + eps))``, in the
+  order of the Pallas bodies (``_cdadam_body``); ``_qm`` mixes ``m``.
+  The bias corrections ``bc = 1 - beta^t`` come in as operands.
 * ``sr_quantize_ref`` — per-128-lane-row scaled quantization for the wire
   (``_quantize_math`` of the JAX package): ``scale = amax * (1 / qmax)``
   (1.0 for an all-zero row); int8 rounds stochastically,
@@ -31,6 +42,11 @@ call gives the four uniforms of one float4 whatever the launch shape.  The
 CUDA kernel computes the same stream in registers; this module computes it
 with int64 tensors.  Every draw goes through :func:`uniforms`, so a test
 can substitute another stream (the JAX package's ``jax.random`` draws).
+
+Scalars enter as float32 (``1 - b1`` is a float32 subtraction).  A
+division by a scalar divides by a float32 tensor on the operand's device:
+PyTorch's CUDA ``tensor / python_scalar`` multiplies by the reciprocal,
+which is not the kernel's correctly rounded division.
 
 These are pure: they return new tensors.  The wrappers in
 :mod:`repro_torch.kernels.consensus_update.consensus_update` call them for
@@ -187,3 +203,92 @@ def cdmsgd_update_q_ref(weights, self_buf, payload, scales, grad, momentum,
     v = mu * momentum.float() - alpha * grad.float()
     out = _mix_q(weights, self_buf, payload, scales) + v
     return out.to(grad.dtype), v.to(momentum.dtype)
+
+
+def _mom_step(vin, grad, alpha: float, mu: float) -> torch.Tensor:
+    """``v' = mu vin - alpha G`` in float32."""
+    return mu * vin.float() - alpha * grad.float()
+
+
+def cdmsgd_update_qm_ref(weights, self_buf, payload, scales, mom_payload,
+                         mom_scales, grad, momentum, alpha: float, mu: float):
+    """Mixed-momentum CDMSGD: ``v' = mu mix_q(V, mom_payload) - alpha G``;
+    ``out[a] = mix_q[a] + v'``."""
+    v = _mom_step(_mix_q(weights, momentum, mom_payload, mom_scales), grad,
+                  alpha, mu)
+    out = _mix_q(weights, self_buf, payload, scales) + v
+    return out.to(grad.dtype), v.to(momentum.dtype)
+
+
+def _nesterov(acc, vin, grad, momentum, alpha: float, mu: float):
+    v = _mom_step(vin, grad, alpha, mu)
+    x = acc + v
+    look = x + mu * v
+    return x.to(grad.dtype), v.to(momentum.dtype), look.to(grad.dtype)
+
+
+def cdmsgd_nesterov_update_ref(weights, neighbors, grad, momentum,
+                               alpha: float, mu: float):
+    """CDMSGD plus the next lookahead: ``(x', v', x' + mu v')``."""
+    return _nesterov(_mix(weights, neighbors), momentum, grad, momentum,
+                     alpha, mu)
+
+
+def cdmsgd_nesterov_update_q_ref(weights, self_buf, payload, scales, grad,
+                                 momentum, alpha: float, mu: float):
+    """Self-separated Nesterov CDMSGD: ``(x', v', x' + mu v')``."""
+    return _nesterov(_mix_q(weights, self_buf, payload, scales), momentum,
+                     grad, momentum, alpha, mu)
+
+
+def cdmsgd_nesterov_update_qm_ref(weights, self_buf, payload, scales,
+                                  mom_payload, mom_scales, grad, momentum,
+                                  alpha: float, mu: float):
+    """Mixed-momentum Nesterov CDMSGD: the momentum mix feeds ``v'`` and
+    the lookahead."""
+    return _nesterov(_mix_q(weights, self_buf, payload, scales),
+                     _mix_q(weights, momentum, mom_payload, mom_scales),
+                     grad, momentum, alpha, mu)
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+def _adam(acc, m_in, grad, m, v, alpha, b1, b2, eps, bc1, bc2):
+    alpha, b1, b2, eps = _f32(alpha), _f32(b1), _f32(b2), _f32(eps)
+    omb1 = float(np.float32(1.0) - np.float32(b1))
+    omb2 = float(np.float32(1.0) - np.float32(b2))
+    g = grad.float()
+    new_m = b1 * m_in.float() + omb1 * g
+    new_v = b2 * v.float() + (omb2 * g) * g
+    dev = g.device
+    bc1_t = torch.tensor(_f32(bc1), dtype=torch.float32, device=dev)
+    bc2_t = torch.tensor(_f32(bc2), dtype=torch.float32, device=dev)
+    step_dir = (new_m / bc1_t) / (torch.sqrt(new_v / bc2_t) + eps)
+    out = acc - alpha * step_dir
+    return out.to(grad.dtype), new_m.to(m.dtype), new_v.to(v.dtype)
+
+
+def cdadam_update_ref(weights, neighbors, grad, m, v, alpha, b1, b2, eps,
+                      bc1, bc2):
+    """Mixing plus a local Adam step: ``(x', m', v')``."""
+    return _adam(_mix(weights, neighbors), m, grad, m, v, alpha, b1, b2,
+                 eps, bc1, bc2)
+
+
+def cdadam_update_q_ref(weights, self_buf, payload, scales, grad, m, v,
+                        alpha, b1, b2, eps, bc1, bc2):
+    """Self-separated CDAdam: ``(x', m', v')``."""
+    return _adam(_mix_q(weights, self_buf, payload, scales), m, grad, m, v,
+                 alpha, b1, b2, eps, bc1, bc2)
+
+
+def cdadam_update_qm_ref(weights, self_buf, payload, scales, mom_payload,
+                         mom_scales, grad, m, v, alpha, b1, b2, eps, bc1,
+                         bc2):
+    """Mixed-momentum CDAdam: ``m' = b1 mix_q(M, mom_payload) + (1-b1) G``;
+    the second moment stays local."""
+    return _adam(_mix_q(weights, self_buf, payload, scales),
+                 _mix_q(weights, m, mom_payload, mom_scales), grad, m, v,
+                 alpha, b1, b2, eps, bc1, bc2)

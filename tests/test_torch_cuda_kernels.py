@@ -179,3 +179,87 @@ def test_q_kernel_rejects_misaligned_payload_on_card():
         cu.cdsgd_update_q(w, slf, flat[1:].view(2, 8, 128), sc, g, ALPHA)
     with pytest.raises(ValueError, match="on cpu"):
         cu.cdsgd_update_q(w, slf.cpu(), q, sc, g, ALPHA)
+
+
+ADAM = (0.01, 0.9, 0.999, 1e-8, 0.271, 0.002997)
+# kernel -> (plain version, number of in-place per-agent operands, form)
+B4 = {
+    "cdmsgd_update_qm": (ref.cdmsgd_update_qm_ref, 2, "qm"),
+    "cdmsgd_nesterov_update": (ref.cdmsgd_nesterov_update_ref, 2, "dense"),
+    "cdmsgd_nesterov_update_q": (ref.cdmsgd_nesterov_update_q_ref, 2, "q"),
+    "cdmsgd_nesterov_update_qm": (ref.cdmsgd_nesterov_update_qm_ref, 2, "qm"),
+    "cdadam_update": (ref.cdadam_update_ref, 3, "dense"),
+    "cdadam_update_q": (ref.cdadam_update_q_ref, 3, "q"),
+    "cdadam_update_qm": (ref.cdadam_update_qm_ref, 3, "qm"),
+}
+
+
+def _b4_operands(dev, name, a_out, s, rows, dtype, seed):
+    """``(mix operands, per-agent operands, scalars)`` of one B4 kernel;
+    every per-agent operand and payload has an all-zero row 0."""
+    _, n_state, form = B4[name]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if form == "dense":
+        w, x, _, _ = _operands(dev, a_out, s, rows, seed)
+        mix = [w, x.to(dtype)]
+    else:
+        w, slf, q, sc, _, _ = _q_operands(dev, a_out, s, rows, dtype, seed)
+        mix = [w, slf, q, sc]
+        if form == "qm":
+            _, _, vq, vsc, _, _ = _q_operands(dev, a_out, s, rows, dtype,
+                                              seed + 1)
+            mix += [vq, vsc]
+    state = [torch.randn((a_out, rows, 128), generator=gen, device=dev)
+             for _ in range(n_state)]
+    if n_state == 3:
+        state[2] = state[2].abs() * 0.01          # Adam's second moment
+    for t in state:
+        t[:, 0] = 0.0
+    scalars = ADAM if n_state == 3 else (ALPHA, MU)
+    return mix, state, scalars
+
+
+# the dense form takes f32 and bf16 neighbours, the others every payload
+NEIGHBOR_DTYPES = (torch.float32, torch.bfloat16)
+B4_CASES = [(name, dtype) for name, (_, _, form) in B4.items()
+            for dtype in (NEIGHBOR_DTYPES if form == "dense" else PAYLOADS)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_out,s,rows", [(5, 5, 16941), (1, 3, 777), (2, 1, 3)],
+                         ids=["stacked", "stencil", "ragged"])
+@pytest.mark.parametrize("name,dtype", B4_CASES,
+                         ids=[f"{n}-{str(d)[6:]}" for n, d in B4_CASES])
+def test_b4_kernels_match_plain_versions_in_place(name, dtype, a_out, s, rows):
+    dev = _card()
+    plain, n_state, _ = B4[name]
+    mix, state, scalars = _b4_operands(dev, name, a_out, s, rows, dtype, rows)
+    want = plain(*mix, *state, *scalars)
+    outs = [t.clone() for t in state]
+    n = cu.KERNELS[name].launches
+    got = cu.KERNELS[name](*mix, *outs, *scalars)
+    torch.cuda.synchronize()
+    assert cu.KERNELS[name].launches == n + 1
+    assert [t.data_ptr() for t in got[:n_state]] == [t.data_ptr() for t in outs]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= ATOL
+
+
+@pytest.mark.cuda
+def test_b4_kernels_reject_overlap_and_misalignment_on_card():
+    dev = _card()
+    mix, (g, v), sc = _b4_operands(dev, "cdmsgd_update_qm", 2, 2, 8,
+                                   torch.int8, 1)
+    w, slf, q, qs, vq, vqs = mix
+    with pytest.raises(ValueError, match="overlap"):
+        cu.cdmsgd_update_qm(w, slf, q, qs, vq, vqs, g, g, *sc)
+    with pytest.raises(ValueError, match="overlap"):      # the f32-wire trap
+        vf = v.clone()
+        cu.cdmsgd_nesterov_update_qm(w, slf, q.float(), qs, vf, qs, g, vf, *sc)
+    flat = torch.empty(2 * 8 * 128 + 1, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        cu.cdadam_update_qm(w, slf, q, qs, flat[1:].view(2, 8, 128), vqs, g,
+                            v, v.clone(), *ADAM)
+    with pytest.raises(ValueError, match="on cpu"):
+        cu.cdadam_update_q(w, slf, q, qs, g, v, v.cpu(), *ADAM)

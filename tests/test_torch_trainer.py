@@ -121,7 +121,7 @@ def test_trainer_without_device_raises_without_cuda(setup, monkeypatch):
     ({"exchange": "int8", "consensus_rounds": 2}, NotImplementedError, "A13"),
     ({"compressor": "topk:0.1"}, NotImplementedError, "A14"),
     ({"staleness": 2}, NotImplementedError, "A13"),
-    ({"momentum_mixing": "mixed"}, NotImplementedError, "A12"),
+    ({"momentum_mixing": "mixed"}, ValueError, "mixable momentum"),
     ({"error_feedback": True}, ValueError, "lossy wire"),
 ])
 def test_unported_knobs_raise(setup, knob, err, item):
@@ -136,7 +136,8 @@ def test_unported_knobs_raise(setup, knob, err, item):
 
 def test_make_optimizer_names():
     assert type(make_optimizer("CDSGD", 0.1)).__name__ == "CDSGD"
-    with pytest.raises(NotImplementedError, match="A12"):
-        make_optimizer("cdadam", 0.1)
+    assert type(make_optimizer("cdadam", 0.1)).__name__ == "CDAdam"
+    with pytest.raises(NotImplementedError, match="A13"):
+        make_optimizer("fedavg", 0.1, faults=object())
     with pytest.raises(ValueError, match="unknown optimizer"):
         make_optimizer("adamw", 0.1)

@@ -184,6 +184,8 @@ def test_mixing_program_knobs():
     assert not tcons.make_mixing_program(topo, exchange="int8",
                                          error_feedback=True).is_trivial
     assert tcons.make_mixing_program(topo, strategy="multi_round").is_trivial
+    mixed = tcons.make_mixing_program(topo, momentum_mixing="mixed")
+    assert not mixed.is_trivial and mixed.n_payloads == 2
     for kw, err, match in [
         ({"error_feedback": True}, ValueError, "lossy wire"),
         ({"exchange": "bf16", "error_feedback": True}, ValueError, "lossy"),
@@ -195,7 +197,7 @@ def test_mixing_program_knobs():
         ({"sparse_update": True}, ValueError, "sparse_update"),
         ({"exchange": "int8", "rounds": 2}, NotImplementedError, "A13"),
         ({"strategy": "time_varying"}, NotImplementedError, "A13"),
-        ({"momentum_mixing": "mixed"}, NotImplementedError, "A12"),
+        ({"momentum_mixing": "both"}, ValueError, "momentum_mixing"),
         ({"staleness": 3}, NotImplementedError, "A13"),
         ({"compressor": "rank:4"}, NotImplementedError, "A14"),
     ]:
