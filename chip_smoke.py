@@ -46,6 +46,23 @@ its plain PyTorch version.  Phases, each printing its own lines:
    from the same state, and CDAdam's update phase (int8, mixed) on card
    gradients copied to the CPU, within 1e-6.
 
+The compressor slice (top-k and rank-r on the error-feedback rail) adds:
+the four sparse update kernels (``*_update_sparse``: the ``_q`` forms'
+arithmetic with the top-k wire's compact stacks scattered in) and the
+top-k threshold kernel to phase 3, each against its plain version at the
+path shape (``topk:0.01``: 170 compact rows), with the ring's ``Pi`` and
+at 1,001 rows; six phase-4 runs (``COMPRESSED_RUNS``: CDSGD / CDMSGD /
+Nesterov / CDAdam on ``topk:0.01`` and ``topk:auto:131072`` with the
+sparse kernels, ``topk:0.01`` with ``sparse_update=False`` and ``rank:4``
+through the ``_q`` kernels) with exact launch counts and wire bytes
+checked against the accounting; the threshold kernel run on the first
+top-k run's carried buffers ``x + e``, bracketing the K-th magnitude the
+wire's exact selection kept; and three parity checks: the sparse and the
+dense update phase on the card from one state with the same gradients
+(wires bit for bit, params within 1e-6), and card vs CPU update phases of
+CDMSGD ``topk:0.01`` (wire bit for bit, residual and params within 1e-6)
+and ``rank:4`` (within 1e-5).
+
 Any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 float32 matmuls and convolutions run in full float32 (TF32 off).
@@ -73,12 +90,14 @@ from repro_torch.core.consensus import (  # noqa: E402
     _self_separated_weights,
     widen_with_momentum,
 )
+from repro_torch.core.engine import wire_bytes_per_neighbor  # noqa: E402
 from repro_torch.core.flatbuf import make_flat_spec  # noqa: E402
 from repro_torch.core.trainer import CollaborativeTrainer, TrainState  # noqa: E402
 from repro_torch.data import AgentPartitioner, make_classification  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.consensus_update import consensus_update as cu  # noqa: E402
 from repro_torch.kernels.consensus_update import ref  # noqa: E402
+from repro_torch.kernels.consensus_update import topk as tk  # noqa: E402
 from repro_torch.nn.param import count_params, init_params  # noqa: E402
 from repro_torch.nn.paper_models import (  # noqa: E402
     classifier_loss,
@@ -101,8 +120,11 @@ LR = 0.01
 ADAM_LR = 1e-3
 MU = 0.9
 ADAM = (ADAM_LR, 0.9, 0.999, 1e-8, 0.271, 0.002997)   # alpha b1 b2 eps bc1 bc2
+RANK_TOL = 1e-5               # abs, card vs CPU rank-r update phase
+TOPK_P = 0.01                 # the top-k runs' density: 170 compact rows
 SOURCES = {"consensus_update": "src/repro_torch/csrc/consensus_update.cu",
-           "sr_quantize": "src/repro_torch/csrc/sr_quantize.cu"}
+           "sr_quantize": "src/repro_torch/csrc/sr_quantize.cu",
+           "topk_threshold": "src/repro_torch/csrc/topk_threshold.cu"}
 _TPU = "src/repro/kernels/consensus_update/consensus_update.py"
 KERNELS = {   # name -> (library, CUDA kernel symbol, the TPU kernel it replaces)
     "cdsgd_update": ("consensus_update", "cdsgd_kernel", f"{_TPU}:687"),
@@ -120,6 +142,24 @@ KERNELS = {   # name -> (library, CUDA kernel symbol, the TPU kernel it replaces
     "cdadam_update": ("consensus_update", "adam_kernel", f"{_TPU}:842"),
     "cdadam_update_q": ("consensus_update", "adam_q_kernel", f"{_TPU}:369"),
     "cdadam_update_qm": ("consensus_update", "adam_qm_kernel", f"{_TPU}:375"),
+    "cdsgd_update_sparse": ("consensus_update", "sparse_kernel<0>",
+                            f"{_TPU}:507"),
+    "cdmsgd_update_sparse": ("consensus_update", "sparse_kernel<1>",
+                             f"{_TPU}:545"),
+    "cdmsgd_nesterov_update_sparse": ("consensus_update", "sparse_kernel<2>",
+                                      f"{_TPU}:590"),
+    "cdadam_update_sparse": ("consensus_update", "sparse_kernel<3>",
+                             f"{_TPU}:636"),
+    "topk_threshold": ("topk_threshold", "threshold_kernel",
+                       "src/repro/kernels/consensus_update/topk.py:187"),
+}
+# the sparse (top-k wire) kernels: plain version, per-agent operands
+# written in place
+SPARSE = {
+    "cdsgd_update_sparse": (ref.cdsgd_update_sparse_ref, 1),
+    "cdmsgd_update_sparse": (ref.cdmsgd_update_sparse_ref, 2),
+    "cdmsgd_nesterov_update_sparse": (ref.cdmsgd_nesterov_update_sparse_ref, 2),
+    "cdadam_update_sparse": (ref.cdadam_update_sparse_ref, 3),
 }
 # the Nesterov / CDAdam / mixed-momentum kernels: plain version, number of
 # per-agent operands written in place (grad, momentum / moments), form
@@ -161,6 +201,17 @@ RUNS = (
     ("fully_connected", "sgd", "f32", "sync", False, "none", 3),
     ("fully_connected", "msgd", "f32", "sync", False, "none", 3),
     ("fully_connected", "fedavg", "f32", "sync", False, "none", 3),
+)
+# phase 4, the compressor axis (error feedback on): (topology, optimizer,
+# compressor, sparse_update, schedule, steps, wire bytes per step by the
+# accounting).  Run 23 (the first) also feeds the threshold kernel.
+COMPRESSED_RUNS = (
+    ("fully_connected", "cdsgd", f"topk:{TOPK_P}", None, "sync", 10, 437920),
+    ("fully_connected", "cdmsgd", f"topk:{TOPK_P}", None, "overlap", 3, 437920),
+    ("ring", "cdmsgd_nesterov", f"topk:{TOPK_P}", None, "sync", 3, 218960),
+    ("fully_connected", "cdadam", "topk:auto:131072", None, "sync", 3, 522928),
+    ("fully_connected", "cdsgd", f"topk:{TOPK_P}", False, "sync", 3, 437920),
+    ("fully_connected", "cdmsgd", "rank:4", None, "sync", 3, 1092416),
 )
 # the optimizers without a kernel (plain PyTorch)
 BASELINES = ("gossip", "cdsgd_tv", "sgd", "msgd", "fedavg")
@@ -220,20 +271,33 @@ def _family(name: str) -> str:
 
 
 def bound(name: str, a_out: int, s: int, rows: int,
-          dtype: torch.dtype = torch.float32):
+          dtype: torch.dtype = torch.float32, k_rows: int = 0):
     """(bound_ms, bound_by): least bytes over HBM rate vs float32 operations
     over the f32 peak.  ``dtype`` is the neighbour / payload / code type;
     every other operand is float32.  The ``_qm`` forms read two payloads.
     For ``sr_quantize`` ``a_out`` is the agent count (Philox's integer work
     is not counted: the table gives no int32 rate, and the float work alone
     is far under the byte time).  Adam's divisions and square root count
-    one operation each."""
+    one operation each.  The sparse forms read ``s`` compact stacks of
+    ``k_rows`` lane rows (int8 value, int32 index, f32 row scale) besides
+    the self buffer and the state, and do one multiply per compact element
+    and a multiply and an add per element and output agent.  For
+    ``topk_threshold`` ``a_out`` is the agent count; its compares count as
+    float32 operations, its integer adds not."""
     n = rows * 128
     esize = torch.empty((), dtype=dtype).element_size()
     state = STATE[_family(name)]
     tail = TAIL_FLOPS[_family(name)]
     payloads = 2 if name.endswith("_qm") else 1
-    if name == "sr_quantize":
+    if name == "topk_threshold":
+        nbytes = a_out * (4 * n + 2 * 4 * 16)
+        flops = a_out * n * 16
+    elif name.endswith("_sparse"):
+        kk = k_rows * 128
+        nbytes = (4 * a_out * (s + 1) + s * (5 * kk + 4 * k_rows)
+                  + 4 * a_out * n + 4 * state * a_out * n)
+        flops = a_out * n * (1 + tail) + s * kk * (1 + 2 * a_out)
+    elif name == "sr_quantize":
         nbytes = a_out * (4 * n + esize * n + 4 * rows)
         flops = a_out * n * 8      # |x|, max, divide, + u, floor, 2 clamps, cast
     elif name.endswith(("_q", "_qm")):
@@ -507,12 +571,103 @@ def check_sr_quantize(results: dict, gen) -> None:
         raise AssertionError("sr_quantize int8 rounding looks biased")
 
 
+def check_sparse(results: dict, gen) -> None:
+    """Phase 3, the sparse (top-k wire) update kernels: every output against
+    the plain version (``index_add_`` per neighbour), on compact stacks
+    that ``topk_compress_2d`` makes at ``topk:0.01``; the fully connected
+    and the ring's self-separated weights at the path shape, a one-agent
+    stencil, and the ring at 1,001 rows."""
+    dev = torch.device("cuda")
+    q_w = {t: torch.tensor(_self_separated_weights(make_topology(t, AGENTS).pi),
+                           dtype=torch.float32, device=dev)
+           for t in ("fully_connected", "ring")}
+    for name, (plain, n_state) in SPARSE.items():
+        for label, a_out, s, rows in (("path", AGENTS, AGENTS, PATH_ROWS),
+                                      ("ring", AGENTS, AGENTS, PATH_ROWS),
+                                      ("stencil", 1, 3, PATH_ROWS),
+                                      ("ragged-ring", AGENTS, AGENTS, 1001)):
+            k_rows = tk.topk_k_rows(rows, TOPK_P)
+            if label == "path":
+                w = q_w["fully_connected"]
+            elif "ring" in label:
+                w = q_w["ring"]
+            else:
+                w = torch.rand((a_out, s + 1), generator=gen, device=dev)
+                w = (w / w.sum(dim=1, keepdim=True)).contiguous()
+            compact = tk.topk_compress_2d(_bucket(gen, s, rows), k_rows, rows,
+                                          agent_stride=104729)
+            mix = [w, torch.randn((a_out, rows, 128), generator=gen,
+                                  device=dev), *compact]
+            state = [_bucket(gen, a_out, rows) for _ in range(n_state)]
+            if n_state == 3:                         # Adam's second moment
+                state[2] = (state[2].abs() * 0.01).contiguous()
+            scalars = {1: (LR,), 2: (LR, MU), 3: ADAM}[n_state]
+            want = plain(*mix, *state, *scalars)
+            want = want if isinstance(want, tuple) else (want,)
+            outs = [t.clone() for t in state]
+            ptrs = [t.data_ptr() for t in outs]
+            fn = cu.KERNELS[name]
+            got = fn(*mix, *outs, *scalars)
+            got = got if isinstance(got, tuple) else (got,)
+            ok_ptr = [t.data_ptr() for t in got[:n_state]] == ptrs
+            torch.cuda.synchronize()
+            err = max(float((g - r).abs().max()) for g, r in zip(got, want))
+            _check(name, label, err, ok_ptr)
+            _report(results, name, label,
+                    f"W=({a_out},{s + 1}) int8 compact k_rows={k_rows} "
+                    f"rows={rows}", err, lambda: fn(*mix, *outs, *scalars),
+                    lambda: plain(*mix, *state, *scalars), None,
+                    bound(name, a_out, s, rows, torch.int8, k_rows))
+    print("library_ms none for the sparse kernels: no one PyTorch call "
+          "computes the function (index_add_ scatters one neighbour's "
+          "products, without the self term or the optimizer epilogue)")
+
+
+def check_threshold(results: dict, gen) -> None:
+    """Phase 3, the top-k threshold kernel: counts exact and ``tau`` equal
+    bit for bit to the plain version's, with an all-zero bucket and ties."""
+    for label, a, rows in (("path", AGENTS, PATH_ROWS),
+                           ("stencil", 1, PATH_ROWS),
+                           ("ragged", AGENTS, 1001)):
+        k = tk.topk_k_rows(rows, TOPK_P) * 128
+        x = _bucket(gen, a, rows)
+        x[-1] = 0.0                                  # an all-zero bucket
+        x[0, 1:4] = 0.5                              # ties
+        tau, counts = tk.topk_threshold(x, k)
+        torch.cuda.synchronize()
+        taus = tk.threshold_taus(x)
+        want = ref.topk_threshold_counts_ref(x, taus)
+        want_tau = taus.gather(1, torch.clamp((want <= k).sum(dim=1) - 1,
+                                              min=0)[:, None])[:, 0]
+        if not (torch.equal(counts, want.float()) and torch.equal(tau, want_tau)):
+            raise AssertionError(f"topk_threshold [{label}] differs from its "
+                                 "plain version")
+        _report(results, "topk_threshold", label, f"A={a} rows={rows} k={k}",
+                0.0, lambda: tk.topk_threshold(x, k),
+                lambda: ref.topk_threshold_counts_ref(x, taus), None,
+                bound("topk_threshold", a, 0, rows))
+    print("topk_threshold: counts exact and tau equal bit for bit at every "
+          "shape; library_ms none: no one PyTorch call counts |x| >= tau for "
+          "16 thresholds")
+
+
 def expected_launches(name: str, exchange: str, schedule: str,
-                      mixing: str = "none") -> tuple:
+                      mixing: str = "none", compressor: str = "none",
+                      sparse_update=None) -> tuple:
     """(at trainer init, per step) launch counts of one phase-4 run."""
     init = {k: 0 for k in cu.KERNELS}
     step = dict(init)
     if name in BASELINES:
+        return init, step
+    kind = compressor.partition(":")[0]
+    if kind == "topk":          # one sr_quantize for the compact values
+        sparse = sparse_update is not False
+        step[f"{name}_update_{'sparse' if sparse else 'q'}"] = 1
+        step["sr_quantize"] = 1
+        init["sr_quantize"] = 1 if schedule == "overlap" else 0
+        return init, step
+    if kind == "rank":          # two f32 factors, decompressed for _q
+        step[f"{name}_update_q"] = 1
         return init, step
     quantized = exchange in ("int8", "fp8")
     mixed = mixing == "mixed"
@@ -537,20 +692,64 @@ def make_run_optimizer(name: str):
                           **kw)
 
 
+def _run_specs():
+    """Every phase-4 run as keyword sets: ``RUNS``, then ``COMPRESSED_RUNS``
+    (error feedback on, the wire precision set by the compressor)."""
+    for i, (topo, name, exchange, schedule, ef, mixing, steps) in enumerate(RUNS):
+        yield dict(topo=topo, name=name, exchange=exchange, schedule=schedule,
+                   ef=ef, mixing=mixing, steps=steps, compressor="none",
+                   sparse_update=None, wire=None, profile=i == 0)
+    for topo, name, comp, sparse, schedule, steps, wire in COMPRESSED_RUNS:
+        yield dict(topo=topo, name=name, exchange="f32", schedule=schedule,
+                   ef=True, mixing="none", steps=steps, compressor=comp,
+                   sparse_update=sparse, wire=wire, profile=True)
+
+
+def profile_step(tr, batch, what: str) -> None:
+    """One more step under ``torch.profiler``: its device time (kernels and
+    copies) against its wall time, and the device time by kernel."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.step(batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"profile {what}: one step under the profiler, wall {wall_ms:.3f} ms, "
+          f"device {busy:.3f} ms ({busy / wall_ms:.1%} busy) over "
+          f"{len(by_name)} kernel names; top: "
+          + "; ".join(f"{n[:48]} {t:.3f} ms" for n, t in top))
+
+
 def train_main_path(params, train) -> dict:
-    """Phase 4: every run of ``RUNS``, launch counts checked per step."""
+    """Phase 4: every run of ``RUNS`` and ``COMPRESSED_RUNS``, launch counts
+    checked per step; the threshold kernel on the first top-k run's carried
+    buffers."""
     loss = functools.partial(classifier_loss, cnn_classifier_apply)
     total = {k: 0 for k in cu.KERNELS}
-    for topo_name, name, exchange, schedule, ef, mixing, n_steps in RUNS:
-        what = (f"{name} {exchange} {schedule}{' EF' if ef else ''}"
-                f"{' mixed' if mixing == 'mixed' else ''} on {topo_name}")
-        init, per_step = expected_launches(name, exchange, schedule, mixing)
+    f32_bytes = None
+    for run in _run_specs():
+        name, schedule, comp = run["name"], run["schedule"], run["compressor"]
+        what = (f"{name} {comp if comp != 'none' else run['exchange']}"
+                f"{' dense-update' if run['sparse_update'] is False else ''} "
+                f"{schedule}{' EF' if run['ef'] else ''}"
+                f"{' mixed' if run['mixing'] == 'mixed' else ''} on {run['topo']}")
+        init, per_step = expected_launches(name, run["exchange"], schedule,
+                                           run["mixing"], comp,
+                                           run["sparse_update"])
         torch.cuda.reset_peak_memory_stats()
         cu.reset_launch_counts()
-        tr = CollaborativeTrainer(loss, params, make_topology(topo_name, AGENTS),
-                                  make_run_optimizer(name), exchange=exchange,
-                                  schedule=schedule, error_feedback=ef,
-                                  momentum_mixing=mixing)
+        tr = CollaborativeTrainer(loss, params, make_topology(run["topo"], AGENTS),
+                                  make_run_optimizer(name),
+                                  exchange=run["exchange"], schedule=schedule,
+                                  error_feedback=run["ef"],
+                                  momentum_mixing=run["mixing"], compressor=comp,
+                                  sparse_update=run["sparse_update"])
         spec = make_flat_spec(tr.state.params, lead=1)
         if [b.rows for b in spec.buckets] != [PATH_ROWS]:
             raise AssertionError(f"expected one bucket of {PATH_ROWS} rows, got "
@@ -558,9 +757,14 @@ def train_main_path(params, train) -> dict:
         if cu.launch_counts() != init:
             raise AssertionError(f"{what}: init launched {cu.launch_counts()}, "
                                  f"expected {init}")
+        if f32_bytes is None:
+            f32_bytes = tr.wire_bytes_per_step          # run 1: f32 on FC
+        if run["wire"] is not None and tr.wire_bytes_per_step != run["wire"]:
+            raise AssertionError(f"{what}: {tr.wire_bytes_per_step} wire B/step,"
+                                 f" the accounting says {run['wire']}")
         batches = AgentPartitioner(train, AGENTS, seed=0).batches(64)
         times, losses = [], []
-        for i in range(n_steps):
+        for i in range(run["steps"]):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             m = tr.step(next(batches))
@@ -581,19 +785,78 @@ def train_main_path(params, train) -> dict:
                                          f"{tuple(t.shape)}")
         for k in total:
             total[k] += counts[k]
+        wire_note = ""
+        if comp != "none":
+            wire_note = f" ({f32_bytes / tr.wire_bytes_per_step:.1f}x under f32)"
+            if schedule == "overlap":
+                carried = (wire_bytes_per_neighbor(tr.state.opt_state.wire)
+                           * make_topology(run["topo"], AGENTS).degree())
+                if carried != tr.wire_bytes_per_step:
+                    raise AssertionError(f"{what}: the carried wire moves "
+                                         f"{carried} B/step, the accounting "
+                                         f"{tr.wire_bytes_per_step}")
+                wire_note += ", equal to the carried wire's buffers"
         steady = times[1:]
         launched = ", ".join(f"{k} {v}" for k, v in counts.items() if v)
-        print(f"train {what}: {n_steps} steps, cnn 32x32x3 "
+        print(f"train {what}: {run['steps']} steps, cnn 32x32x3 "
               f"{count_params(cnn_classifier_template(32, 3, 10))} "
               f"params, {AGENTS} agents, batch 64/agent: loss {losses[0]:.4f} -> "
               f"{losses[-1]:.4f}, consensus_error {m['consensus_error']:.3e}, "
-              f"wire {tr.wire_bytes_per_step} B/step, first step "
+              f"wire {tr.wire_bytes_per_step} B/step{wire_note}, first step "
               f"{times[0]:.2f} ms, steady step median "
               f"{float(np.median(steady)):.3f} ms mean {float(np.mean(steady)):.3f} ms, "
               f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
               f"launches: {launched}")
+        if comp.startswith("topk") and total["topk_threshold"] == 0:
+            cu.reset_launch_counts()
+            threshold_on_carried(tr)
+            for k, v in cu.launch_counts().items():
+                total[k] += v
+        if run["profile"]:          # after the counts: not a main-path launch
+            profile_step(tr, next(batches), what)
         del tr                      # the next run's peak memory is its own
     return total
+
+
+def threshold_on_carried(tr) -> None:
+    """The threshold kernel on every agent's carried buffer ``x + e`` (what
+    the next step compresses) at ``k = K``: one launch, against its plain
+    version, and bracketing within one geometric bin the K-th magnitude
+    that the wire's exact selection keeps."""
+    fl, st = tr.comm.flat, tr.state
+    bufs = fl.pack(st.params, fl.spec(st.params))
+    k_list = tk.topk_k_rows_for([b.shape[-2] for b in bufs],
+                                tr.program.compressor_param)
+    for b, e, k_rows in zip(bufs, st.opt_state.residual, k_list):
+        x = (b.float() + e).contiguous()
+        k = k_rows * 128
+        tau, counts = tk.topk_threshold(x, k)
+        torch.cuda.synchronize()
+        taus = tk.threshold_taus(x)
+        want = ref.topk_threshold_counts_ref(x, taus)
+        idx = torch.clamp((want <= k).sum(dim=1) - 1, min=0)
+        if not (torch.equal(counts, want.float())
+                and torch.equal(tau, taus.gather(1, idx[:, None])[:, 0])):
+            raise AssertionError("topk_threshold on the carried buffers "
+                                 "differs from its plain version")
+        flat = x.reshape(x.shape[0], -1)
+        kept = tk.topk_indices(flat, k)
+        kth = flat.abs().gather(1, kept.long()).amin(dim=1)
+        last = taus.shape[1] - 1
+        below = taus.gather(1, torch.clamp(idx + 1, max=last)[:, None])[:, 0]
+        at = counts.gather(1, idx[:, None])[:, 0]
+        # the next bin down holds more than k (unless tau is the last bin),
+        # and tau holds at most k: kth lies in [tau_{b+1}, tau] (above tau
+        # only when exactly k elements reach tau)
+        ok = ((idx == last) | (kth >= below)) & ((kth <= tau) | (at == k))
+        print(f"topk_threshold on run 23's carried x + e, k = {k}: tau "
+              f"{[f'{v:.6e}' for v in tau.tolist()]}, the kept K-th magnitude "
+              f"{[f'{v:.6e}' for v in kth.tolist()]}, count(|x| >= tau) "
+              f"{[int(v) for v in at.tolist()]}; counts exact and tau bitwise "
+              "against the plain version")
+        if not bool(ok.all()):
+            raise AssertionError("topk_threshold does not bracket the kept "
+                                 "K-th magnitude within one bin")
 
 
 def _max_param_diff(trainers) -> float:
@@ -647,7 +910,8 @@ def _copy_state(src, dst) -> None:
         params=tree_map(move, src.state.params),
         opt_state=o._replace(inner=tree_map(move, o.inner),
                              wire=tree_map(move, o.wire),
-                             residual=tree_map(move, o.residual)),
+                             residual=tree_map(move, o.residual),
+                             qwarm=tree_map(move, o.qwarm)),
         step=src.state.step)
 
 
@@ -732,6 +996,108 @@ def parity_adam_update(params, train) -> float:
     return diff
 
 
+def _compressed_trainers(params, train, devices, name: str, compressor: str,
+                         sparse=(None, None), seed: int = 4):
+    """Trainers with error feedback on ``compressor``, one per device, all
+    in the first's state after two of its steps; and the card gradients of
+    the next batch (detached, on the first trainer's device)."""
+    loss = functools.partial(classifier_loss, cnn_classifier_apply)
+    topo = make_topology("fully_connected", AGENTS)
+    trs = [CollaborativeTrainer(loss, params, topo, make_run_optimizer(name),
+                                device=d, error_feedback=True,
+                                compressor=compressor, sparse_update=sp)
+           for d, sp in zip(devices, sparse)]
+    batches = AgentPartitioner(train, AGENTS, seed=seed).batches(64)
+    for _ in range(2):
+        trs[0].step(next(batches))
+    for tr in trs[1:]:
+        _copy_state(trs[0], tr)
+    first = trs[0]
+    batch = {k: torch.as_tensor(v, device=first.device)
+             for k, v in next(batches).items()}
+    _, grads = first._program.grad_phase(
+        first.optimizer.grad_params(first.state.params, first.state.opt_state),
+        batch)
+    return trs, tree_map(lambda t: t.detach(), grads)
+
+
+def _compress_now(tr):
+    """The wire, residual and warm start the next sync step compresses."""
+    fl, st = tr.comm.flat, tr.state
+    bufs = fl.pack(st.params, fl.spec(st.params))
+    return fl.strategy.compress_ef(bufs, st.opt_state.step,
+                                   st.opt_state.residual, st.opt_state.qwarm)
+
+
+def _update(tr, grads):
+    with torch.no_grad():
+        return tr._program.update_phase(
+            tr.state.params, tree_map(lambda t: t.to(tr.device), grads),
+            tr.state.opt_state)
+
+
+def _gap(a, b) -> float:
+    """Max abs difference over two trees of tensors (any devices)."""
+    return max([float((x.cpu().float() - y.cpu().float()).abs().max())
+                for x, y in zip(tree_leaves(a), tree_leaves(b))], default=0.0)
+
+
+def _same_bits(a, b) -> bool:
+    return all(x.dtype == y.dtype and torch.equal(
+        x.cpu().contiguous().view(torch.uint8), y.cpu().contiguous().view(torch.uint8))
+        for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def parity_sparse_dense(params, train) -> float:
+    """Phase 5: one CDSGD ``topk:0.01`` update phase with ``sparse_update``
+    on and one with it off, on the card, from one state with the same
+    gradients: the wires equal bit for bit, params within 1e-6 (predicted
+    0.0: the same products in the same order)."""
+    (sp, dn), grads = _compressed_trainers(params, train, ("cuda", "cuda"),
+                                           "cdsgd", f"topk:{TOPK_P}",
+                                           sparse=(True, False))
+    if not _same_bits(_compress_now(sp)[0], _compress_now(dn)[0]):
+        raise AssertionError("sparse/dense: the compressed wires differ")
+    (ps, ss), (pd, sd) = _update(sp, grads), _update(dn, grads)
+    diff = _gap(ps, pd)
+    res = _gap(ss.residual, sd.residual)
+    print(f"parity cdsgd topk:{TOPK_P} sync EF update phase, sparse vs dense "
+          f"on the card, same state and gradients: wires equal bit for bit, "
+          f"max param abs diff {diff:.3e}, residual {res:.3e} "
+          f"(tol {UPDATE_TOL:g})")
+    if not max(diff, res) <= UPDATE_TOL:
+        raise AssertionError(f"sparse vs dense update phase: {diff}, {res}")
+    return diff
+
+
+def parity_compressed_update(params, train, compressor: str, tol: float) -> float:
+    """Phase 5: one CDMSGD sync EF update phase on ``compressor``, card vs
+    CPU from the same state with the card's gradients.  Top-k: the wire
+    (values, indices, scales) equal bit for bit, residual and params within
+    ``tol``; rank: every field within ``tol``."""
+    (gpu, cpu), grads = _compressed_trainers(params, train, ("cuda", "cpu"),
+                                             "cdmsgd", compressor, seed=5)
+    (wg, rg, qg), (wc, rc, qc) = _compress_now(gpu), _compress_now(cpu)
+    topk_wire = compressor.startswith("topk")
+    if topk_wire and not _same_bits(wg, wc):
+        raise AssertionError(f"{compressor}: card and CPU wires differ")
+    wire_gap = 0.0 if topk_wire else _gap(wg, wc)
+    (pg, sg), (pc, sc) = _update(gpu, grads), _update(cpu, grads)
+    gaps = {"wire": wire_gap, "residual": _gap(sg.residual, sc.residual),
+            "params": _gap(pg, pc), "momentum": _gap(sg.inner, sc.inner),
+            "qwarm": _gap(sg.qwarm, sc.qwarm)}
+    codes = sum(t.numel() for t in tree_leaves(wg))
+    print(f"parity cdmsgd {compressor} sync EF update phase card vs cpu, same "
+          f"state and gradients: "
+          + (f"wire equal bit for bit ({codes} values, indices and scales), "
+             if topk_wire else "")
+          + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+          + f" (tol {tol:g})")
+    if not max(gaps.values()) <= tol:
+        raise AssertionError(f"{compressor} card/CPU update phase: {gaps}")
+    return gaps["params"]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -762,6 +1128,8 @@ def main() -> None:
     check_sr_quantize(measured, gen)
     check_q(measured, gen)
     check_b4(measured, gen)
+    check_sparse(measured, gen)
+    check_threshold(measured, gen)
 
     train, _ = make_classification(4096, n_classes=10, image_hw=32, seed=0)
     params = init_params(cnn_classifier_template(32, 3, 10), seed=0)
@@ -783,6 +1151,9 @@ def main() -> None:
     parity(params, train, 1, exchange="int8")
     parity_mixed(params, train)
     parity_adam_update(params, train)
+    parity_sparse_dense(params, train)
+    parity_compressed_update(params, train, f"topk:{TOPK_P}", UPDATE_TOL)
+    parity_compressed_update(params, train, "rank:4", RANK_TOL)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
 

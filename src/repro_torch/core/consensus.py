@@ -39,16 +39,27 @@ quantized with its own stochastic-rounding streams (``wire_seed(...,
 payload=1)``), carried in the same wire state and residuals, and handed
 to the ``_qm`` kernels.
 
-Time-varying and multi-round strategies, staleness rings, fault
-schedules, the top-k / rank compressors and the sharded mode are later
-slices; asking for them raises ``NotImplementedError`` naming the ROADMAP
-item.
+The compressor axis (``compressor="topk:p" | "topk:auto:B" | "rank:r"``)
+rides the error-feedback rail: :meth:`MixingStrategy.compress_ef` compresses
+``x + e`` to a :class:`TopKWire` (int8 compact values, int32 flat indices,
+row scales; :func:`repro_torch.kernels.consensus_update.topk.
+topk_compress_2d`) or a :class:`RankWire` (two f32 factors, the warm-start
+basis carried in ``OptState.qwarm``), and the residual takes what the
+receivers' decompression loses.  With ``sparse_update`` (the default for
+top-k) the exchange hands the compact fields to the sparse update kernels
+as a :class:`~repro_torch.kernels.consensus_update.ops.SparseNeighbors`;
+otherwise compressed entries decompress to dense f32 stacks with unit
+scales for the ``_q`` kernels.
+
+Time-varying and multi-round strategies, staleness rings, fault schedules
+and the sharded mode are later slices; asking for them raises
+``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -57,6 +68,8 @@ from repro_torch.core import flatbuf
 from repro_torch.core.topology import Topology
 from repro_torch.device import resolve_device
 from repro_torch.kernels.consensus_update import sr_quantize
+from repro_torch.kernels.consensus_update import topk as tk
+from repro_torch.kernels.consensus_update.ops import SparseNeighbors
 from repro_torch.kernels.consensus_update.ref import as_int32
 from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -80,9 +93,12 @@ def _check_exchange(exchange: str) -> str:
     return exchange
 
 
-def parse_compressor(spec: str) -> str:
-    """The kind of a compressor spec: ``"none"``, or the dense ``"int8"`` /
-    ``"fp8"`` aliases of the quantized exchange."""
+def parse_compressor(spec: str):
+    """``"none" | "int8" | "fp8" | "topk:p" | "topk:auto:B" | "rank:r"`` ->
+    ``(kind, param)``: the density ``p in (0, 1]`` for ``topk``, ``("auto",
+    B)`` for a per-neighbour byte budget ``B``, the int rank ``r >= 1`` for
+    ``rank``, ``None`` for the dense kinds.  Malformed specs raise the JAX
+    package's ``ValueError``."""
     if not isinstance(spec, str):
         raise TypeError(f"compressor spec must be a str, got "
                         f"{type(spec).__name__}")
@@ -92,14 +108,48 @@ def parse_compressor(spec: str) -> str:
             f"unknown compressor {spec!r}; expected one of "
             f"{COMPRESSOR_KINDS[:3]} or 'topk:p' (0 < p <= 1) or "
             "'rank:r' (int r >= 1)")
-    if kind in ("topk", "rank"):
-        raise NotImplementedError(
-            f"compressor {spec!r} is not ported yet: ROADMAP A14 "
-            "(compressor axis, kernels B5/B6)")
-    if arg:
-        raise ValueError(f"compressor {kind!r} takes no parameter "
-                         f"(got {spec!r})")
-    return kind
+    if kind in ("none", "int8", "fp8"):
+        if arg:
+            raise ValueError(f"compressor {kind!r} takes no parameter "
+                             f"(got {spec!r})")
+        return kind, None
+    if not arg:
+        raise ValueError(
+            f"compressor {kind!r} needs a parameter: "
+            + ("'topk:p' with density 0 < p <= 1 (e.g. 'topk:0.01')"
+               if kind == "topk" else
+               "'rank:r' with int rank r >= 1 (e.g. 'rank:4')"))
+    if kind == "topk":
+        if arg.startswith("auto:") or arg == "auto":
+            _, _, barg = arg.partition(":")
+            try:
+                budget = int(barg)
+            except ValueError:
+                raise ValueError(
+                    f"topk:auto needs an int byte budget per neighbor, got "
+                    f"{barg!r} in {spec!r} (e.g. 'topk:auto:65536')") from None
+            if budget < 1:
+                raise ValueError(f"topk:auto byte budget must be >= 1, got "
+                                 f"{budget} in {spec!r}")
+            return kind, ("auto", budget)
+        try:
+            p = float(arg)
+        except ValueError:
+            raise ValueError(f"top-k density must be a float, got {arg!r} "
+                             f"in {spec!r}; for adaptive per-bucket density "
+                             f"use 'topk:auto:B' with a byte budget") from None
+        if not (0.0 < p <= 1.0):
+            raise ValueError(f"top-k density must be in (0, 1], got {p!r} "
+                             f"in {spec!r}")
+        return kind, p
+    try:
+        r = int(arg)
+    except ValueError:
+        raise ValueError(f"rank must be an int, got {arg!r} in {spec!r}") \
+            from None
+    if r < 1:
+        raise ValueError(f"rank must be >= 1, got {r} in {spec!r}")
+    return kind, r
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,7 +163,14 @@ class MixingProgram:
     wire).  ``momentum_mixing="mixed"`` widens the wire to two payload
     trees: the momentum buffer (CDAdam: the first moment) rides next to
     the params and is mixed with the same ``Pi``, ``v' = mu (Pi v) -
-    alpha g``; it doubles the wire bytes at equal precision.  Built by
+    alpha g``; it doubles the wire bytes at equal precision.
+
+    ``compressor`` is the compressor axis: the dense aliases ``"int8"`` /
+    ``"fp8"`` (they set ``exchange`` and change nothing else) or the
+    biased ``"topk:p"`` / ``"topk:auto:B"`` / ``"rank:r"``, which need
+    error feedback.  ``sparse_update`` feeds the top-k wire's compact
+    fields straight to the sparse update kernels; ``False`` keeps the
+    dense decompress-then-update form.  Built by
     :func:`make_mixing_program`.
     """
 
@@ -121,16 +178,50 @@ class MixingProgram:
     exchange: str = "f32"
     error_feedback: bool = False
     momentum_mixing: str = "none"
+    compressor: str = "none"
+    sparse_update: bool = False
+
+    @property
+    def compressor_kind(self) -> str:
+        return parse_compressor(self.compressor)[0]
+
+    @property
+    def compressor_param(self):
+        """Density ``p`` or ``("auto", B)`` (topk), rank ``r`` (rank); None
+        for the dense kinds."""
+        return parse_compressor(self.compressor)[1]
+
+    @property
+    def compressed(self) -> bool:
+        """True iff a biased (top-k / rank-r) compressor rides the wire."""
+        return self.compressor_kind in ("topk", "rank")
 
     @property
     def is_trivial(self) -> bool:
         """True iff this is the legacy single-round fixed-``Pi`` program."""
-        return not self.error_feedback and self.momentum_mixing == "none"
+        return (not self.error_feedback and self.momentum_mixing == "none"
+                and not self.compressed)
 
     @property
     def n_payloads(self) -> int:
         """Payload trees on the wire: params, plus the mixed momentum."""
         return 2 if self.momentum_mixing == "mixed" else 1
+
+    def describe(self) -> dict:
+        """The JAX package's description keys, for the ported slice."""
+        return {
+            "strategy": "static",
+            "schedule": f"fixed:{self.topology.name}",
+            "period": 1,
+            "rounds": 1,
+            "error_feedback": self.error_feedback,
+            "exchange": self.exchange,
+            "momentum_mixing": self.momentum_mixing,
+            "staleness": 1,
+            "faults": None,
+            "compressor": self.compressor,
+            "sparse_update": self.sparse_update,
+        }
 
 
 def make_mixing_program(
@@ -149,14 +240,21 @@ def make_mixing_program(
     """Validate and build a :class:`MixingProgram` at config time.
 
     The knobs are the JAX package's.  ``compressor="int8"|"fp8"`` are dense
-    aliases that set ``exchange``; ``strategy="multi_round"`` with
+    aliases that set ``exchange``; ``"topk:p"`` / ``"topk:auto:B"`` /
+    ``"rank:r"`` need ``error_feedback=True`` and exclude staleness, inner
+    rounds and momentum mixing; top-k sets ``exchange="int8"`` (its
+    compact values) and rank keeps ``"f32"``.  ``sparse_update=None``
+    resolves to True exactly for top-k.  ``strategy="multi_round"`` with
     ``rounds=1`` is the static strategy.  Values outside the ported slice
     raise ``NotImplementedError`` naming their ROADMAP item; bad values and
-    combinations raise the JAX package's ``ValueError``.
+    combinations raise the JAX package's ``ValueError``, checked in its
+    order.
     """
     _check_exchange(exchange)
-    ckind = parse_compressor(compressor)
-    if sparse_update:
+    ckind, _ = parse_compressor(compressor)
+    if sparse_update is None:
+        sparse_update = ckind == "topk"
+    elif sparse_update and ckind != "topk":
         raise ValueError(
             f"sparse_update=True needs --compressor topk:p / topk:auto:B "
             f"(got {compressor!r}): only the top-k wire has the compact "
@@ -170,6 +268,10 @@ def make_mixing_program(
                 f"quantized exchange — drop --exchange or set it to "
                 f"{ckind!r}")
         exchange = ckind
+    if ckind in ("topk", "rank"):
+        exchange = _check_compressed(compressor, ckind, error_feedback,
+                                     exchange, staleness, faults, rounds,
+                                     strategy, momentum_mixing)
     if not isinstance(topology, Topology):
         raise TypeError(f"expected a Topology, got {type(topology).__name__} "
                         "(TopologySchedule is ROADMAP A13)")
@@ -182,7 +284,8 @@ def make_mixing_program(
         raise NotImplementedError(
             f"mixing strategy {strategy!r} with rounds={rounds} is not "
             "ported yet: ROADMAP A13 (time-varying / multi-round mixing)")
-    if error_feedback and exchange not in ("int8", "fp8"):
+    if error_feedback and exchange not in ("int8", "fp8") \
+            and ckind not in ("topk", "rank"):
         raise ValueError(
             "--error-feedback needs a lossy wire to feed back: set "
             "--exchange int8/fp8 (quantization error) or --compressor "
@@ -199,7 +302,58 @@ def make_mixing_program(
             "A13 (bounded-staleness wire ring, fault schedules)")
     return MixingProgram(topology=topology, exchange=exchange,
                          error_feedback=bool(error_feedback),
-                         momentum_mixing=momentum_mixing)
+                         momentum_mixing=momentum_mixing,
+                         compressor=compressor,
+                         sparse_update=bool(sparse_update))
+
+
+def _check_compressed(compressor, ckind, error_feedback, exchange, staleness,
+                      faults, rounds, strategy, momentum_mixing) -> str:
+    """The biased compressors' rules (the JAX package's messages); returns
+    the wire precision they set."""
+    if not error_feedback:
+        raise ValueError(
+            f"--compressor {compressor} is a biased compressor and "
+            "needs --error-feedback: without the EF residual "
+            "(OptState.residual) the dropped mass accumulates and the "
+            "consensus diverges (Karimireddy et al. 2019) — add "
+            "--error-feedback, or use --compressor int8/fp8 for an "
+            "unbiased dense wire")
+    if staleness > 1 or faults is not None:
+        raise ValueError(
+            f"--compressor {compressor} is incompatible with "
+            "--staleness > 1 / --fault-schedule: the EF residual "
+            "telescoping it requires assumes every carried payload is "
+            "consumed exactly one step later — use --compressor "
+            "int8/fp8 (no EF) with the staleness ring instead")
+    if rounds > 1 or strategy == "multi_round":
+        raise ValueError(
+            f"--compressor {compressor} is incompatible with "
+            "--consensus-rounds > 1: inner i-CDSGD rounds re-compress "
+            "partially mixed buffers without an EF residual to absorb "
+            "the bias — use a single round, or --compressor int8/fp8 "
+            "for multi-round")
+    if momentum_mixing != "none":
+        raise ValueError(
+            f"--compressor {compressor} is incompatible with "
+            "--momentum-mixing mixed: only the params payload rides "
+            "the sparse/low-rank wire — use --compressor int8/fp8 to "
+            "mix the momentum buffer, or momentum_mixing='none'")
+    if ckind == "topk":
+        if exchange not in ("f32", "int8"):
+            raise ValueError(
+                f"--compressor {compressor} ships int8 SR-quantized "
+                f"compact values; --exchange {exchange} conflicts — "
+                "drop --exchange (the compact-value precision is part "
+                "of the top-k wire contract)")
+        return "int8"
+    if exchange != "f32":
+        raise ValueError(
+            f"--compressor {compressor} ships two dense f32 "
+            f"factors; --exchange {exchange} conflicts — drop "
+            "--exchange (quantizing the factors is not part of "
+            "the rank-r wire contract)")
+    return "f32"
 
 
 # --------------------------------------------------------------------------
@@ -270,6 +424,86 @@ def _self_separated_weights(pi: np.ndarray) -> np.ndarray:
 
 
 # --------------------------------------------------------------------------
+# compressed wire payloads (the biased EF-rail compressors)
+# --------------------------------------------------------------------------
+
+
+class TopKWire(NamedTuple):
+    """The wire of one top-k-compressed bucket, every field crossing it:
+    ``values`` int8 ``(A, k_rows, 128)``, ``indices`` int32 ``(A, k_rows,
+    128)`` flat dense positions (``row * 128 + lane``, sorted ascending),
+    ``scales`` f32 ``(A, k_rows, 1)``."""
+
+    values: torch.Tensor
+    indices: torch.Tensor
+    scales: torch.Tensor
+
+
+class RankWire(NamedTuple):
+    """The wire of one rank-r-compressed bucket: the two f32 factors ``p
+    (A, rows, r)`` and ``qt (A, r, 128)`` (reconstruction ``p @ qt``).
+    The warm-start basis stays local, in ``OptState.qwarm``."""
+
+    p: torch.Tensor
+    qt: torch.Tensor
+
+
+def _is_compressed_entry(entry) -> bool:
+    return isinstance(entry, (TopKWire, RankWire))
+
+
+def _decompress_entry(entry, rows: int) -> torch.Tensor:
+    """Compressed wire entry -> dense f32 ``(A, rows, 128)`` bucket: the
+    gather-dequant form the receivers (and the EF residual) apply."""
+    if isinstance(entry, TopKWire):
+        return tk.topk_decompress_2d(entry.values, entry.indices,
+                                     entry.scales, rows)
+    if isinstance(entry, RankWire):
+        return tk.rank_decompress_2d(entry.p, entry.qt)
+    raise TypeError(f"not a compressed wire entry: {type(entry).__name__}")
+
+
+def _compress_wire_stacked(bufs, seed: int, program: MixingProgram, qwarm):
+    """Compress agent-stacked ``(A, rows, 128)`` buckets for the wire.
+
+    Top-k: bucket ``bi``'s compact values take one ``sr_quantize`` launch
+    for all agents, agent ``a`` seeded ``wire_seed(seed, agent=a,
+    bucket=bi)`` (the dense int8 wire's composition).  Rank: one power
+    iteration per bucket from its warm start.  Returns ``(wire, qwarm')``
+    (``qwarm`` is ``()`` in and out for top-k).
+    """
+    kind, param = parse_compressor(program.compressor)
+    if kind == "topk":
+        k_list = tk.topk_k_rows_for([b.shape[-2] for b in bufs], param)
+        wire = tuple(
+            TopKWire(*tk.topk_compress_2d(
+                b.float(), k_rows, wire_seed(seed, bucket=bi),
+                agent_stride=_SEED_AGENT_STRIDE))
+            for bi, (b, k_rows) in enumerate(zip(bufs, k_list)))
+        return wire, ()
+    wire, nq = [], []
+    for b, q in zip(bufs, qwarm):
+        p, qt, q2 = tk.rank_compress_2d(b.float(), q)
+        wire.append(RankWire(p=p, qt=qt))
+        nq.append(q2)
+    return tuple(wire), tuple(nq)
+
+
+def _qwarm_init_stacked(bufs, program: MixingProgram) -> tuple:
+    """The rank compressor's warm starts: :func:`~repro_torch.kernels.
+    consensus_update.topk.rank_init_q` broadcast to one ``(A, 128, r)``
+    stack per bucket; ``()`` for every other program."""
+    kind, param = parse_compressor(program.compressor)
+    if kind != "rank":
+        return ()
+    out = []
+    for b in bufs:
+        q0 = tk.rank_init_q(param, device=b.device)
+        out.append(q0.expand((b.shape[0],) + tuple(q0.shape)).clone())
+    return tuple(out)
+
+
+# --------------------------------------------------------------------------
 # the mixing strategy (stacked simulation)
 # --------------------------------------------------------------------------
 
@@ -281,7 +515,8 @@ class MixingStrategy:
     self-separated ``(A, A+1)`` weights, both on the device the buffers
     live on.  The wire state is a tuple of ``(payload, scales)`` per
     bucket with the leading agent axis kept; under momentum mixing it
-    holds the params' pairs, then the momentum's.
+    holds the params' pairs, then the momentum's; under a compressor, one
+    :class:`TopKWire` / :class:`RankWire` per bucket.
     """
 
     name = "static"
@@ -291,6 +526,23 @@ class MixingStrategy:
         self.program = program
         self.pi = pi
         self.pi_q = pi_q
+        self.compressed = program.compressed
+        # the dense row count of every bucket: the compact top-k payload
+        # cannot recover it, so every bufs-seeing stage records it
+        self._rows = None
+
+    def _note_bufs(self, bufs):
+        """Record the dense bucket row counts the decompressors need."""
+        if self.compressed:
+            self._rows = [int(b.shape[-2]) for b in bufs]
+
+    def _rows_of(self, bi: int) -> int:
+        if self._rows is None:
+            raise RuntimeError(
+                "compressed exchange before any bufs-seeing stage: call "
+                "quantize_stage/compress_ef (or continue_from_wire) once so "
+                "the strategy records the dense bucket row counts")
+        return self._rows[bi]
 
     def quantize_stage(self, bufs, seed: int):
         """Packed buckets -> the wire state (seed: the optimizer step).
@@ -298,8 +550,17 @@ class MixingStrategy:
         Under momentum mixing ``bufs`` is ``params_bufs + momentum_bufs``
         and the momentum half draws its streams at ``payload=1`` (seed
         stride 2750161), so the two payloads' rounding stays independent.
+        A compressed program reaches this only from :meth:`initial_wire`
+        (the seed -1 priming; every step compresses through
+        :meth:`compress_ef`), with the initial warm start.
         """
         exchange = self.program.exchange
+        if self.compressed:
+            self._note_bufs(bufs)
+            wire, _ = _compress_wire_stacked(
+                bufs, seed, self.program,
+                _qwarm_init_stacked(bufs, self.program))
+            return wire
         if self.program.momentum_mixing != "mixed":
             return _quantize_wire_stacked(bufs, seed, exchange)
         b = len(bufs) // 2
@@ -310,8 +571,24 @@ class MixingStrategy:
         """Wire state -> ``(payloads, weights_q, scales)``: in the stacked
         simulation every agent already sees the whole stack, so the
         exchange hands the payloads to the kernels with the self-separated
-        weights."""
-        return [p for p, _ in wire], self.pi_q, [sc for _, sc in wire]
+        weights.  A top-k entry under ``sparse_update`` becomes a
+        :class:`SparseNeighbors` (scales ``None``: they ride inside); other
+        compressed entries decompress to dense f32 stacks with unit
+        scales."""
+        nbrs, scs = [], []
+        for bi, e in enumerate(wire):
+            if isinstance(e, TopKWire) and self.program.sparse_update:
+                nbrs.append(SparseNeighbors(e.values, e.indices, e.scales))
+                scs.append(None)
+            elif _is_compressed_entry(e):
+                d = _decompress_entry(e, self._rows_of(bi))
+                nbrs.append(d)
+                scs.append(torch.ones(d.shape[:-1] + (1,),
+                                      dtype=torch.float32, device=d.device))
+            else:
+                nbrs.append(e[0])
+                scs.append(e[1])
+        return nbrs, self.pi_q, scs
 
     def advance_wire(self, bufs, old_wire, step: int):
         """The wire state step ``step + 1`` consumes (overlap): the current
@@ -326,6 +603,7 @@ class MixingStrategy:
         """The kernel operands ``(nbrs, weights, scales, selfs)`` of the
         one round, from ``wire`` (fresh under sync, carried under
         overlap); ``selfs`` are the fresh native buckets."""
+        self._note_bufs(bufs)
         nbrs, w, sc = self.exchange_stage(wire, step)
         return nbrs, w, sc, list(bufs)
 
@@ -348,8 +626,10 @@ class MixingStrategy:
                                        seed)
 
     def wire_to_bufs(self, wire):
-        """Local dequantization of a wire state, f32."""
-        return [p.float() * sc for p, sc in wire]
+        """Local dequantization (decompression) of a wire state, f32."""
+        return [_decompress_entry(e, self._rows_of(bi))
+                if _is_compressed_entry(e) else e[0].float() * e[1]
+                for bi, e in enumerate(wire)]
 
     def quantize_ef(self, bufs, seed: int, residual):
         """Error-feedback quantization ``Q(x + e)``: returns ``(wire,
@@ -360,10 +640,36 @@ class MixingStrategy:
         deq = self.wire_to_bufs(wire)
         return wire, tuple(c - d for c, d in zip(carried, deq))
 
+    def compress_ef(self, bufs, seed: int, residual, qwarm):
+        """The compressor-axis form of :meth:`quantize_ef`: ``C(x + e)``
+        for the program's compressor, returning ``(wire, new_residual,
+        new_qwarm)`` with ``new_residual = (x + e) - decompress(C(x +
+        e))``.  Dense programs quantize and pass ``qwarm`` through, so the
+        engine calls this at both error-feedback sites."""
+        if not self.compressed:
+            wire, new_residual = self.quantize_ef(bufs, seed, residual)
+            return wire, new_residual, qwarm
+        self._note_bufs(bufs)
+        carried = [b.float() + e for b, e in zip(bufs, residual)]
+        wire, new_qwarm = _compress_wire_stacked(carried, seed, self.program,
+                                                 qwarm)
+        deq = self.wire_to_bufs(wire)
+        return (wire, tuple(c - d for c, d in zip(carried, deq)),
+                new_qwarm)
+
     def residual_init(self, bufs):
         """Zero f32 residuals, one per packed bucket (agent axis kept)."""
+        self._note_bufs(bufs)
         return tuple(torch.zeros(b.shape, dtype=torch.float32, device=b.device)
                      for b in bufs)
+
+    def qwarm_init(self, bufs):
+        """``OptState.qwarm`` at init: the rank compressor's per-bucket
+        ``(A, 128, r)`` basis, ``()`` for every other program."""
+        if not self.compressed:
+            return ()
+        self._note_bufs(bufs)
+        return _qwarm_init_stacked(bufs, self.program)
 
 
 class StaticMixing(MixingStrategy):
@@ -454,6 +760,16 @@ def initial_residual_state(fl: FlatComm, params: PyTree) -> tuple:
     return fl.strategy.residual_init(_packed(fl, params))
 
 
+def initial_qwarm_state(fl: FlatComm, params: PyTree) -> tuple:
+    """The compressor's warm-start state: one ``(A, 128, r)`` basis per
+    bucket under ``rank:r`` (identical across agents and buckets), ``()``
+    otherwise.  Independent of :func:`initial_wire_state`, whose seed -1
+    compression discards its warm-start output."""
+    if not fl.program.compressed:
+        return ()
+    return fl.strategy.qwarm_init(_packed(fl, params))
+
+
 # --------------------------------------------------------------------------
 # dense stacked mixing, wire accounting, diagnostics
 # --------------------------------------------------------------------------
@@ -477,11 +793,23 @@ def program_bytes_per_neighbor(spec: flatbuf.FlatSpec,
                                payloads: int = 1) -> int:
     """Bytes one whole-model transfer moves to ONE neighbor: every payload
     tree on the dense wire at the program's precision (int8 / fp8 add one
-    f32 scale per 128-lane row).  ``program=None`` prices ``payloads``
+    f32 scale per 128-lane row); a compressed wire's carried fields —
+    ``topk``: ``k_rows`` lane rows of 644 B per bucket (int8 values, int32
+    indices, one f32 scale), ``rank:r``: the two f32 factors, ``(rows * r
+    + r * 128) * 4`` per bucket.  ``program=None`` prices ``payloads``
     trees at ``exchange``."""
     if program is None:
         return int(spec.exchange_bytes(exchange) * payloads)
-    return int(spec.exchange_bytes(program.exchange) * program.n_payloads)
+    kind, param = parse_compressor(program.compressor)
+    if kind == "topk":
+        total = sum(tk.topk_k_rows_for([b.rows for b in spec.buckets], param)
+                    ) * tk.TOPK_LANE_ROW_BYTES
+    elif kind == "rank":
+        total = sum((b.rows * param + param * flatbuf.LANE) * 4
+                    for b in spec.buckets)
+    else:
+        total = spec.exchange_bytes(program.exchange)
+    return int(total * program.n_payloads)
 
 
 def exchange_bytes_per_step(spec: flatbuf.FlatSpec, topology: Topology,
@@ -494,13 +822,16 @@ def exchange_bytes_per_step(spec: flatbuf.FlatSpec, topology: Topology,
     :func:`program_bytes_per_neighbor`.  ``payloads`` counts the trees on
     the wire per transfer (``momentum_mixing="mixed"`` moves params +
     momentum = 2; a ``program`` sets it, and ``exchange``, itself); error
-    feedback moves zero extra.  The keys are the JAX package's; ``rounds``
-    is the constant 1 of the ported static strategy.
+    feedback moves zero extra.  The keys are the JAX package's (a
+    compressed program reports its compressor spec as ``exchange``);
+    ``rounds`` is the constant 1 of the ported static strategy.
     """
     per_neighbor = program_bytes_per_neighbor(spec, program, exchange,
                                               payloads)
     if program is not None:
-        exchange, payloads = program.exchange, program.n_payloads
+        exchange = (program.compressor if program.compressed
+                    else program.exchange)
+        payloads = program.n_payloads
     degree = topology.degree()
     return {
         "exchange": exchange,

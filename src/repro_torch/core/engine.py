@@ -31,6 +31,11 @@ with the self term always fresh and native (it never crosses the wire), and
 which buffers feed the self-separated ``_q`` kernels.  Under momentum mixing
 the wire carries ``(x_t, v_t)`` (``v_{-1} := v_0 = 0``).
 
+Both error-feedback sites go through ``strategy.compress_ef``, which
+threads ``OptState.qwarm`` (the rank compressor's warm start) and, for a
+top-k / rank-r program, carries a :class:`~repro_torch.core.consensus.
+TopKWire` / :class:`~repro_torch.core.consensus.RankWire` per bucket.
+
 Gradient accumulation over microbatches is not ported yet (ROADMAP A9).
 """
 
@@ -178,16 +183,18 @@ def make_update_phase(optimizer: DistributedOptimizer, comm: CommOps,
         def update_sync_staged(params, grads, state):
             spec, bufs = pack(params, state)
             if error_feedback:
-                wire, new_res = strategy.quantize_ef(bufs, state.step,
-                                                     state.residual)
+                wire, new_res, new_qwarm = strategy.compress_ef(
+                    bufs, state.step, state.residual, state.qwarm)
             else:
-                wire, new_res = (strategy.quantize_stage(bufs, state.step),
-                                 state.residual)
+                wire, new_res, new_qwarm = (
+                    strategy.quantize_stage(bufs, state.step),
+                    state.residual, state.qwarm)
             ex = _exchange_result(spec, strategy.continue_from_wire(
                 bufs, wire, state.step), mixed)
             new_params, new_state = optimizer.update(params, grads, state,
                                                      comm, exchanged=ex)
-            return new_params, new_state._replace(residual=new_res)
+            return new_params, new_state._replace(residual=new_res,
+                                                  qwarm=new_qwarm)
         return update_sync_staged
 
     check_overlap_support(optimizer, comm)
@@ -202,10 +209,10 @@ def make_update_phase(optimizer: DistributedOptimizer, comm: CommOps,
         # v' into a fresh pack of the momentum), so ``bufs`` still holds
         # (x_t, v_t): quantize it as the wire of step t + 1
         if error_feedback:
-            new_wire, new_res = strategy.quantize_ef(bufs, state.step,
-                                                     state.residual)
-            return new_params, new_state._replace(wire=new_wire,
-                                                  residual=new_res)
+            new_wire, new_res, new_qwarm = strategy.compress_ef(
+                bufs, state.step, state.residual, state.qwarm)
+            return new_params, new_state._replace(
+                wire=new_wire, residual=new_res, qwarm=new_qwarm)
         return new_params, new_state._replace(
             wire=strategy.advance_wire(bufs, state.wire, state.step))
 
@@ -229,8 +236,9 @@ class StepProgram:
 
     def init_state(self, params: PyTree) -> OptState:
         """The optimizer's state, with the overlap wire (``x_{-1} := x_0``
-        at seed -1; ``v_{-1} := 0`` under momentum mixing) and the zero
-        error-feedback residuals filled in."""
+        at seed -1; ``v_{-1} := 0`` under momentum mixing), the zero
+        error-feedback residuals and the rank compressor's warm start
+        (under both schedules) filled in."""
         state = self.optimizer.init(params)
         fl = self.comm.flat
         if self.schedule == "overlap":
@@ -240,6 +248,9 @@ class StepProgram:
             check_program_support(self.optimizer, self.comm)
             state = state._replace(
                 residual=consensus.initial_residual_state(fl, params))
+        if fl.program.compressed:
+            state = state._replace(
+                qwarm=consensus.initial_qwarm_state(fl, params))
         return state
 
     @torch.no_grad()
@@ -263,9 +274,17 @@ def wire_bytes_per_neighbor(wire) -> int:
     """Bytes ONE neighbor transfer of a carried wire state moves, per agent,
     counted from the actual buffers: the payload, plus the row scales for
     quantized (one-byte) payloads.  The unit scales of f32 / bf16 wires are
-    synthesized after the exchange, so they cost nothing."""
+    synthesized after the exchange, so they cost nothing.  A compressed
+    entry (:class:`~repro_torch.core.consensus.TopKWire` /
+    :class:`~repro_torch.core.consensus.RankWire`) counts every field: the
+    receivers can rebuild none of them."""
     total = 0
-    for payload, scales in wire:
-        fields = [payload, scales] if payload.element_size() == 1 else [payload]
+    for entry in wire:
+        if isinstance(entry, (consensus.TopKWire, consensus.RankWire)):
+            fields = list(entry)
+        else:
+            payload, scales = entry
+            fields = [payload, scales] if payload.element_size() == 1 \
+                else [payload]
         total += sum(x[0].numel() * x.element_size() for x in fields)
     return total

@@ -23,8 +23,9 @@ kernel launch per bucket (see :mod:`repro_torch.kernels.consensus_update`),
 in place in the packed gradient and momentum buffers.  The mixing operands
 come from the comm's ``gather`` (sync) or from the engine's staged
 quantize / exchange phases (``exchanged``: error feedback, the overlap
-schedule, momentum mixing); quantized wires feed the self-separated
-``_q`` kernels, a mixed momentum the ``_qm`` kernels.  The baselines have
+schedule, momentum mixing, the compressors); quantized wires feed the
+self-separated ``_q`` kernels, a mixed momentum the ``_qm`` kernels, the
+top-k wire's compact fields the ``_sparse`` kernels.  The baselines have
 no fused path: they run :meth:`apply` whatever ``fused`` says.
 
 Not ported yet: FedAvg's partial participation (``faults=``, ROADMAP A13).
@@ -84,9 +85,13 @@ class OptState(NamedTuple):
     # schedule="sync" (the engine fills and refreshes it)
     wire: Any = ()
     # error-feedback residuals: one f32 buffer per bucket carrying the
-    # quantization error of the last wire payload; local state, never on
-    # the wire; () without error feedback (the engine owns it)
+    # quantization (compression) error of the last wire payload; local
+    # state, never on the wire; () without error feedback (the engine owns
+    # it)
     residual: Any = ()
+    # the rank-r compressor's warm-start basis, one (A, 128, r) stack per
+    # bucket; local state like the residual; () for every other program
+    qwarm: Any = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +112,12 @@ class ExchangeResult:
     them a fresh pack of the same momentum instead and leave these intact
     (under an f32 wire they are the payload stacks themselves, and the
     overlap schedule quantizes them as the next step's wire).
+
+    The sparse operand form of the top-k wire: a bucket's ``neighbors``
+    entry is a :class:`~repro_torch.kernels.consensus_update.ops.
+    SparseNeighbors` and its ``scales`` entry ``None`` (the row scales ride
+    inside); the fused optimizers hand it to ``*_update_flat``, which
+    launches the ``*_update_sparse`` kernels.
     """
 
     spec: Any                     # flatbuf.FlatSpec of the param tree

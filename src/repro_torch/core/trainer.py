@@ -15,10 +15,13 @@ device each step.
 The wire knobs are the JAX trainer's and go through
 :func:`repro_torch.core.consensus.make_mixing_program`: ``exchange`` (f32 |
 bf16 | int8 | fp8, or the ``compressor="int8"|"fp8"`` aliases),
-``error_feedback``, ``momentum_mixing`` (none | mixed) and ``schedule``
-(sync | overlap).  Knobs outside this slice raise ``NotImplementedError``
-naming their ROADMAP item: microbatches, time-varying and multi-round
-mixing, staleness and faults, the top-k / rank compressors.
+``error_feedback``, ``momentum_mixing`` (none | mixed), ``schedule``
+(sync | overlap), and the biased compressors on the error-feedback rail,
+``compressor="topk:p" | "topk:auto:B" | "rank:r"`` with ``sparse_update``
+(default on for top-k: the update kernels read the compact top-k wire;
+``False`` decompresses it for the ``_q`` kernels).  Knobs outside this
+slice raise ``NotImplementedError`` naming their ROADMAP item:
+microbatches, time-varying and multi-round mixing, staleness and faults.
 """
 
 from __future__ import annotations
@@ -136,7 +139,8 @@ class CollaborativeTrainer:
                                 opt_state=self._program.init_state(stacked))
         self.history = MetricHistory()
         # per-step bytes on the wire (estimate): the neighbor exchange of a
-        # consensus optimizer (momentum mixing doubles the payload trees);
+        # consensus optimizer (momentum mixing doubles the payload trees; a
+        # compressor prices its carried fields);
         # none for the centralized baselines; FedAvg's whole-model
         # all-reduce once per local_steps, amortized per step
         spec = flatbuf.make_flat_spec(stacked, lead=1)

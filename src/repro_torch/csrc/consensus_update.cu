@@ -44,7 +44,19 @@
 //   cdmsgd_update_2d (line 729; bodies _cdmsgd_kernel, _cdmsgd_kernel_q,
 //                     _cdmsgd_kernel_qm),
 //   cdmsgd_nesterov_update_2d (line 783; _cdmsgd_nesterov_kernel{,_q,_qm}),
-//   cdadam_update_2d (line 842; _cdadam_kernel{,_q,_qm}).
+//   cdadam_update_2d (line 842; _cdadam_kernel{,_q,_qm}),
+//   and the sparse operand form of the top-k wire (*_update_sparse below):
+//   cdsgd_update_sparse_2d (line 507), cdmsgd_update_sparse_2d (545),
+//   cdmsgd_nesterov_update_sparse_2d (590), cdadam_update_sparse_2d (636),
+//   bodies _cdsgd_kernel_s & co. over _sparse_stencil (line 219).
+//
+// The sparse forms are bound by the same dense traffic (SELF, G, V, out):
+// the compact stacks are k_rows / rows of a payload (547,400 B at topk:0.01
+// for A = S = 5), so at the path shape cdsgd_update_sparse moves 130.65 MB
+// (~39.0 us), cdmsgd 217.39 MB (~64.9 us), Nesterov 260.76 MB (~77.8 us),
+// CDAdam 304.13 MB (~90.8 us).  The TPU kernel masks out-of-block indices
+// because it cannot scatter; here each block binary-searches its range of
+// every neighbour's sorted indices and scatters into shared memory.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the tensor
 // cores): memory.  Per element and output the kernels do 2S+2 .. 3S+5
@@ -411,6 +423,155 @@ adam_qm_kernel(const float* __restrict__ w, const float4* __restrict__ self,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Sparse operand form (the top-k wire): the neighbours arrive as compact
+// stacks VALS (S, k_rows, 128) int8, IDX (S, k_rows, 128) int32 flat dense
+// positions, sorted ascending and unique within each neighbour, and SC
+// (S, k_rows, 1) float32 per-compact-row scales.  Per element e of agent a:
+//   acc = W[a,0] SELF[a][e];  for s = 0..S-1 in order, for each j with
+//   IDX[s][j] == e:  acc = acc + W[a,1+s] (float(VALS[s][j]) * SC[s][j/128])
+// then the family's epilogue (the _q forms' arithmetic).  One CTA owns 8
+// dense rows (1,024 elements, one float4 per thread) for up to
+// kAgentsPerCta agents: acc lives in shared memory, each neighbour's
+// contiguous index range inside the block is found by binary search (all
+// neighbours' searches at once, before the first scatter), the range is
+// scatter-added into acc for every agent, and a __syncthreads() separates
+// neighbours.  Indices are unique within a neighbour, so no two threads
+// touch one element between two barriers, and the per-element order is the
+// stencil order of the Pallas body (_sparse_stencil).
+
+constexpr int kSparseElems = kThreads * 4;     // 8 rows of 128 lanes
+constexpr int kAgentsPerCta = 8;               // 32 KB of acc at most
+// epilogue families
+constexpr int kSgd = 0;
+constexpr int kMsgd = 1;
+constexpr int kNesterov = 2;
+constexpr int kAdam = 3;
+
+struct SparseArgs {
+  const float* w;            // (a_out, s_count + 1)
+  const float4* self;        // (a_out, rows * 32)
+  const int8_t* vals;        // (s_count, k_rows * 128)
+  const int* idx;            // (s_count, k_rows * 128)
+  const float* sc;           // (s_count, k_rows)
+  float4* g;                 // grad in, params out
+  float4* s1;                // momentum (Adam: first moment)
+  float4* s2;                // Adam: second moment
+  float4* look;              // Nesterov: lookahead out
+  int a_out;
+  int s_count;
+  long long k_rows;
+  long long rows;
+  float alpha, mu;
+  AdamScalars adam;
+};
+
+template <int F>
+__global__ void __launch_bounds__(kThreads) sparse_kernel(const SparseArgs p) {
+  extern __shared__ float4 smem[];
+  const int a0 = blockIdx.y * kAgentsPerCta;
+  const int ca = min(kAgentsPerCta, p.a_out - a0);
+  float4* acc4 = smem;                                     // [ca][kThreads]
+  float* acc = reinterpret_cast<float*>(smem);
+  long long* bounds = reinterpret_cast<long long*>(smem + ca * kThreads);
+  const int sw = p.s_count + 1;
+  const long long n4 = p.rows * 32;
+  const long long kk = p.k_rows * 128;
+  const long long e0 = static_cast<long long>(blockIdx.x) * kSparseElems;
+  const long long e1 = min(e0 + kSparseElems, p.rows * 128);
+  // bounds[2s], bounds[2s+1]: the first compact position of neighbour s at
+  // or past e0, and at or past e1 (lower bounds in its sorted indices)
+  for (int i = threadIdx.x; i < 2 * p.s_count; i += kThreads) {
+    const int* ix = p.idx + (i >> 1) * kk;
+    const long long target = (i & 1) ? e1 : e0;
+    long long lo = 0, hi = kk;
+    while (lo < hi) {
+      const long long mid = (lo + hi) >> 1;
+      if (ix[mid] < target) lo = mid + 1; else hi = mid;
+    }
+    bounds[i] = lo;
+  }
+  const long long q = e0 / 4 + threadIdx.x;               // this thread's float4
+  const bool live = q < n4;
+  for (int a = 0; a < ca; ++a) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (live) {
+      const float w0 = p.w[static_cast<long long>(a0 + a) * sw];
+      const float4 sv = p.self[(a0 + a) * n4 + q];
+      v = make_float4(__fmul_rn(w0, sv.x), __fmul_rn(w0, sv.y), __fmul_rn(w0, sv.z),
+                      __fmul_rn(w0, sv.w));
+    }
+    acc4[a * kThreads + threadIdx.x] = v;
+  }
+  __syncthreads();
+  for (int s = 0; s < p.s_count; ++s) {
+    const long long hi = bounds[2 * s + 1];
+    for (long long j = bounds[2 * s] + threadIdx.x; j < hi; j += kThreads) {
+      const long long c = s * kk + j;
+      const int local = static_cast<int>(p.idx[c] - e0);
+      const float deq = __fmul_rn(static_cast<float>(p.vals[c]),
+                                  p.sc[s * p.k_rows + j / 128]);
+      for (int a = 0; a < ca; ++a) {
+        float* cell = acc + a * kSparseElems + local;
+        *cell = __fadd_rn(*cell, __fmul_rn(p.w[static_cast<long long>(a0 + a) * sw + 1 + s],
+                                           deq));
+      }
+    }
+    __syncthreads();
+  }
+  if (!live) return;
+  for (int a = 0; a < ca; ++a) {
+    const long long i = (a0 + a) * n4 + q;
+    const float4 mix = acc4[a * kThreads + threadIdx.x];
+    if constexpr (F == kSgd) {
+      sgd_out(mix, p.g + i, p.alpha);
+    } else if constexpr (F == kMsgd) {
+      msgd_out(mix, p.s1[i], p.g + i, p.s1 + i, p.alpha, p.mu);
+    } else if constexpr (F == kNesterov) {
+      nesterov_out(mix, p.s1[i], p.g + i, p.s1 + i, p.look + i, p.alpha, p.mu);
+    } else {
+      adam_out(mix, p.s1[i], p.g + i, p.s1 + i, p.s2 + i, p.adam);
+    }
+  }
+}
+
+template <int F>
+int launch_sparse(const SparseArgs& p, int device, void* stream) {
+  if (p.rows <= 0 || p.a_out <= 0) return 0;
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const int ca = p.a_out < kAgentsPerCta ? p.a_out : kAgentsPerCta;
+  const size_t smem = static_cast<size_t>(ca) * kSparseElems * sizeof(float) +
+                      2 * static_cast<size_t>(p.s_count) * sizeof(long long);
+  if (smem > 48 * 1024) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        sparse_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+  }
+  const dim3 grid(static_cast<unsigned int>((p.rows * 128 + kSparseElems - 1) / kSparseElems),
+                  static_cast<unsigned int>((p.a_out + kAgentsPerCta - 1) / kAgentsPerCta));
+  sparse_kernel<F><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+SparseArgs sparse_args(const float* w, const float* self, const void* vals,
+                       const int* idx, const float* sc, float* g, int a_out, int s_count,
+                       long long k_rows, long long rows) {
+  SparseArgs p{};
+  p.w = w;
+  p.self = reinterpret_cast<const float4*>(self);
+  p.vals = static_cast<const int8_t*>(vals);
+  p.idx = idx;
+  p.sc = sc;
+  p.g = reinterpret_cast<float4*>(g);
+  p.a_out = a_out;
+  p.s_count = s_count;
+  p.k_rows = k_rows;
+  p.rows = rows;
+  return p;
+}
+
 unsigned int blocks_for(long long n4) {
   return static_cast<unsigned int>((n4 + kThreads - 1) / kThreads);
 }
@@ -621,4 +782,58 @@ extern "C" int cdadam_update_qm(const float* w, const float* self, const void* q
     adam_qm_kernel<decltype(k)::value><<<blocks_for(rows * 32), kThreads, 0, st>>>(
         w, self4, q, sc, mq, msc, g4, m4, v4, a_out, s_count, rows, c);
   });
+}
+
+// The sparse operand form: VALS int8, IDX int32 (sorted ascending and unique
+// within each neighbour, every value in [0, rows * 128)), SC float32 per
+// compact row; W is (A_out, S+1) with the self weight first, SELF (A_out,
+// rows, 128).  Outputs as the _q forms: out into G, v' into V (Adam: m' into
+// M, v' into V), Nesterov's lookahead into LOOK.
+extern "C" int cdsgd_update_sparse(const float* w, const float* self, const void* vals,
+                                   const int* idx, const float* sc, float* g, int a_out,
+                                   int s_count, long long k_rows, long long rows,
+                                   float alpha, int device, void* stream) {
+  SparseArgs p = sparse_args(w, self, vals, idx, sc, g, a_out, s_count, k_rows, rows);
+  p.alpha = alpha;
+  return launch_sparse<kSgd>(p, device, stream);
+}
+
+extern "C" int cdmsgd_update_sparse(const float* w, const float* self, const void* vals,
+                                    const int* idx, const float* sc, float* g, float* v,
+                                    int a_out, int s_count, long long k_rows,
+                                    long long rows, float alpha, float mu, int device,
+                                    void* stream) {
+  SparseArgs p = sparse_args(w, self, vals, idx, sc, g, a_out, s_count, k_rows, rows);
+  p.s1 = reinterpret_cast<float4*>(v);
+  p.alpha = alpha;
+  p.mu = mu;
+  return launch_sparse<kMsgd>(p, device, stream);
+}
+
+extern "C" int cdmsgd_nesterov_update_sparse(const float* w, const float* self,
+                                             const void* vals, const int* idx,
+                                             const float* sc, float* g, float* v,
+                                             float* look, int a_out, int s_count,
+                                             long long k_rows, long long rows,
+                                             float alpha, float mu, int device,
+                                             void* stream) {
+  SparseArgs p = sparse_args(w, self, vals, idx, sc, g, a_out, s_count, k_rows, rows);
+  p.s1 = reinterpret_cast<float4*>(v);
+  p.look = reinterpret_cast<float4*>(look);
+  p.alpha = alpha;
+  p.mu = mu;
+  return launch_sparse<kNesterov>(p, device, stream);
+}
+
+extern "C" int cdadam_update_sparse(const float* w, const float* self, const void* vals,
+                                    const int* idx, const float* sc, float* g, float* m,
+                                    float* v, int a_out, int s_count, long long k_rows,
+                                    long long rows, float alpha, float b1, float b2,
+                                    float eps, float bc1, float bc2, int device,
+                                    void* stream) {
+  SparseArgs p = sparse_args(w, self, vals, idx, sc, g, a_out, s_count, k_rows, rows);
+  p.s1 = reinterpret_cast<float4*>(m);
+  p.s2 = reinterpret_cast<float4*>(v);
+  p.adam = AdamScalars{alpha, b1, b2, eps, bc1, bc2};
+  return launch_sparse<kAdam>(p, device, stream);
 }

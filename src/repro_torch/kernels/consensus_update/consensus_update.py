@@ -33,9 +33,18 @@ replace the Pallas TPU kernels of :mod:`repro.kernels.consensus_update`:
   lookahead ``x' + mu v'`` in a new buffer;
 * :func:`cdadam_update` (``_q``, ``_qm``) — ``cdadam_update_2d``: the
   mixing with a local Adam step; ``_qm`` mixes the first moment;
+* :func:`cdsgd_update_sparse` (and ``cdmsgd_`` / ``cdmsgd_nesterov_`` /
+  ``cdadam_update_sparse``) — ``*_update_sparse_2d``: the ``_q`` forms'
+  arithmetic with the neighbours as top-k compact stacks (``values (S,
+  k_rows, 128)`` int8, ``indices`` int32 flat dense positions, sorted and
+  unique per neighbour, ``scales (S, k_rows, 1)``), scatter-accumulated
+  in stencil order;
 * :func:`sr_quantize` — ``sr_quantize_2d``: ``x (A, rows, 128)`` to int8
   (stochastic rounding) or float8_e4m3fn (nearest) codes and per-row
   scales, one launch for all agents of a bucket.
+
+The top-k threshold kernel's wrapper lives in :mod:`.topk` with the rest of
+the compressor; its library is built from here like the others.
 
 Gradient, momentum and self buffers are float32 (bf16 parameter buckets
 are not ported yet); every operand is contiguous and on one device.
@@ -99,9 +108,22 @@ LIBRARIES = {
                                  _F, _F, _F, _F, _F, _F, _I, _P)),
         "cdadam_update_qm": (_I, (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
                                   _I, _LL, _F, _F, _F, _F, _F, _F, _I, _P)),
+        "cdsgd_update_sparse": (_I, (_P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL,
+                                     _F, _I, _P)),
+        "cdmsgd_update_sparse": (_I, (_P, _P, _P, _P, _P, _P, _P, _I, _I, _LL,
+                                      _LL, _F, _F, _I, _P)),
+        "cdmsgd_nesterov_update_sparse": (_I, (_P, _P, _P, _P, _P, _P, _P, _P,
+                                               _I, _I, _LL, _LL, _F, _F, _I,
+                                               _P)),
+        "cdadam_update_sparse": (_I, (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                      _LL, _LL, _F, _F, _F, _F, _F, _F, _I,
+                                      _P)),
     },
     "sr_quantize": {
         "sr_quantize": (_I, (_P, _P, _I, _P, _LL, _LL, _U, _U, _I, _P)),
+    },
+    "topk_threshold": {
+        "topk_threshold": (_I, (_P, _P, _P, _I, _LL, _I, _I, _P)),
     },
 }
 
@@ -524,6 +546,142 @@ def cdadam_update_qm(weights: torch.Tensor, self_buf: torch.Tensor,
     return grad, m, v
 
 
+def _check_sparse_operands(weights, self_buf, values, indices, scales, outs):
+    """Validate the sparse (top-k wire) operand form; returns ``(a_out, s,
+    k_rows, rows, device)``."""
+    s, k_rows = _stack("values", values)
+    device = values.device
+    if not isinstance(weights, torch.Tensor) or weights.dim() != 2:
+        raise ValueError("weights must be an (A_out, S+1) tensor")
+    a_out = weights.shape[0]
+    _check("weights", weights, (a_out, s + 1), device)
+    _check("values", values, (s, k_rows, LANE), device, (torch.int8,))
+    _check("indices", indices, (s, k_rows, LANE), device, (torch.int32,))
+    _check("scales", scales, (s, k_rows, 1), device)
+    if not isinstance(self_buf, torch.Tensor) or self_buf.dim() != 3:
+        raise ValueError("self_buf must be an (A_out, rows, 128) tensor")
+    rows = self_buf.shape[1]
+    _check("self_buf", self_buf, (a_out, rows, LANE), device)
+    if k_rows > rows:
+        raise ValueError(f"{k_rows} compact rows for a bucket of {rows} rows")
+    for name, t in outs:
+        _check(name, t, (a_out, rows, LANE), device)
+    _check_placement([("weights", weights), ("self_buf", self_buf),
+                      ("values", values), ("indices", indices),
+                      ("scales", scales)], outs, device)
+    return a_out, s, k_rows, rows, device
+
+
+def _sparse_ptrs(weights, self_buf, values, indices, scales) -> tuple:
+    return (weights.data_ptr(), self_buf.data_ptr(), values.data_ptr(),
+            indices.data_ptr(), scales.data_ptr())
+
+
+def cdsgd_update_sparse(weights: torch.Tensor, self_buf: torch.Tensor,
+                        values: torch.Tensor, indices: torch.Tensor,
+                        scales: torch.Tensor, grad: torch.Tensor,
+                        alpha) -> torch.Tensor:
+    """The sparse operand form of :func:`cdsgd_update_q`: the neighbours
+    are top-k compact stacks, ``values (S, k_rows, 128)`` int8 at the flat
+    dense positions ``indices`` (int32, sorted and unique per neighbour)
+    with ``scales (S, k_rows, 1)``:
+    ``grad[a] <- w[a,0] self[a] + sum_s scatter(w[a,1+s] (values[s] *
+    scales[s]) @ indices[s]) - alpha grad[a]``."""
+    a_out, s, k_rows, rows, device = _check_sparse_operands(
+        weights, self_buf, values, indices, scales, [("grad", grad)])
+    alpha = _f32(alpha)
+    if device.type == "cpu":
+        grad.copy_(ref.cdsgd_update_sparse_ref(weights, self_buf, values,
+                                               indices, scales, grad, alpha))
+        return grad
+    if a_out == 0 or rows == 0:
+        return grad
+    rc = library().cdsgd_update_sparse(
+        *_sparse_ptrs(weights, self_buf, values, indices, scales),
+        grad.data_ptr(), a_out, s, k_rows, rows, alpha, device.index,
+        _stream(device))
+    _launch_check(rc, "cdsgd_update_sparse")
+    cdsgd_update_sparse.launches += 1
+    return grad
+
+
+def cdmsgd_update_sparse(weights: torch.Tensor, self_buf: torch.Tensor,
+                         values: torch.Tensor, indices: torch.Tensor,
+                         scales: torch.Tensor, grad: torch.Tensor,
+                         momentum: torch.Tensor, alpha, mu):
+    """Sparse-operand :func:`cdmsgd_update_q`; returns ``(grad, momentum)``,
+    both updated in place."""
+    a_out, s, k_rows, rows, device = _check_sparse_operands(
+        weights, self_buf, values, indices, scales,
+        [("grad", grad), ("momentum", momentum)])
+    alpha, mu = _f32(alpha), _f32(mu)
+    if device.type == "cpu":
+        return _finish([grad, momentum], ref.cdmsgd_update_sparse_ref(
+            weights, self_buf, values, indices, scales, grad, momentum,
+            alpha, mu))
+    if a_out == 0 or rows == 0:
+        return grad, momentum
+    rc = library().cdmsgd_update_sparse(
+        *_sparse_ptrs(weights, self_buf, values, indices, scales),
+        grad.data_ptr(), momentum.data_ptr(), a_out, s, k_rows, rows, alpha,
+        mu, device.index, _stream(device))
+    _launch_check(rc, "cdmsgd_update_sparse")
+    cdmsgd_update_sparse.launches += 1
+    return grad, momentum
+
+
+def cdmsgd_nesterov_update_sparse(weights: torch.Tensor,
+                                  self_buf: torch.Tensor,
+                                  values: torch.Tensor, indices: torch.Tensor,
+                                  scales: torch.Tensor, grad: torch.Tensor,
+                                  momentum: torch.Tensor, alpha, mu):
+    """Sparse-operand :func:`cdmsgd_nesterov_update_q`; returns ``(grad,
+    momentum, look)``: the first two in place, ``look`` new."""
+    a_out, s, k_rows, rows, device = _check_sparse_operands(
+        weights, self_buf, values, indices, scales,
+        [("grad", grad), ("momentum", momentum)])
+    alpha, mu = _f32(alpha), _f32(mu)
+    if device.type == "cpu":
+        return _finish([grad, momentum], ref.cdmsgd_nesterov_update_sparse_ref(
+            weights, self_buf, values, indices, scales, grad, momentum,
+            alpha, mu))
+    look = torch.empty_like(grad)
+    if a_out == 0 or rows == 0:
+        return grad, momentum, look
+    rc = library().cdmsgd_nesterov_update_sparse(
+        *_sparse_ptrs(weights, self_buf, values, indices, scales),
+        grad.data_ptr(), momentum.data_ptr(), look.data_ptr(), a_out, s,
+        k_rows, rows, alpha, mu, device.index, _stream(device))
+    _launch_check(rc, "cdmsgd_nesterov_update_sparse")
+    cdmsgd_nesterov_update_sparse.launches += 1
+    return grad, momentum, look
+
+
+def cdadam_update_sparse(weights: torch.Tensor, self_buf: torch.Tensor,
+                         values: torch.Tensor, indices: torch.Tensor,
+                         scales: torch.Tensor, grad: torch.Tensor,
+                         m: torch.Tensor, v: torch.Tensor,
+                         alpha, b1, b2, eps, bc1, bc2):
+    """Sparse-operand :func:`cdadam_update_q` (local moments); returns
+    ``(grad, m, v)``, all in place."""
+    a_out, s, k_rows, rows, device = _check_sparse_operands(
+        weights, self_buf, values, indices, scales,
+        [("grad", grad), ("m", m), ("v", v)])
+    scal = _adam_scalars(alpha, b1, b2, eps, bc1, bc2)
+    if device.type == "cpu":
+        return _finish([grad, m, v], ref.cdadam_update_sparse_ref(
+            weights, self_buf, values, indices, scales, grad, m, v, *scal))
+    if a_out == 0 or rows == 0:
+        return grad, m, v
+    rc = library().cdadam_update_sparse(
+        *_sparse_ptrs(weights, self_buf, values, indices, scales),
+        grad.data_ptr(), m.data_ptr(), v.data_ptr(), a_out, s, k_rows, rows,
+        *scal, device.index, _stream(device))
+    _launch_check(rc, "cdadam_update_sparse")
+    cdadam_update_sparse.launches += 1
+    return grad, m, v
+
+
 def sr_quantize(x: torch.Tensor, seed: int, exchange: str, *,
                 agent_stride: int = 0):
     """Quantize ``x (A, rows, 128)`` float32 for the wire.
@@ -565,7 +723,13 @@ KERNELS = {"cdsgd_update": cdsgd_update, "cdmsgd_update": cdmsgd_update,
            "cdmsgd_nesterov_update_q": cdmsgd_nesterov_update_q,
            "cdmsgd_nesterov_update_qm": cdmsgd_nesterov_update_qm,
            "cdadam_update": cdadam_update, "cdadam_update_q": cdadam_update_q,
-           "cdadam_update_qm": cdadam_update_qm}
+           "cdadam_update_qm": cdadam_update_qm,
+           "cdsgd_update_sparse": cdsgd_update_sparse,
+           "cdmsgd_update_sparse": cdmsgd_update_sparse,
+           "cdmsgd_nesterov_update_sparse": cdmsgd_nesterov_update_sparse,
+           "cdadam_update_sparse": cdadam_update_sparse}
+# (topk_threshold, in .topk, adds itself to this table when the package
+# is imported, before any caller can read it)
 
 
 def reset_launch_counts() -> None:

@@ -46,7 +46,11 @@ can substitute another stream (the JAX package's ``jax.random`` draws).
 Scalars enter as float32 (``1 - b1`` is a float32 subtraction).  A
 division by a scalar divides by a float32 tensor on the operand's device:
 PyTorch's CUDA ``tensor / python_scalar`` multiplies by the reciprocal,
-which is not the kernel's correctly rounded division.
+which is not the kernel's correctly rounded division.  Square roots go
+through :func:`sqrt_rn`: PyTorch's vectorized CPU ``torch.sqrt`` on
+float32 is not correctly rounded (about 0.6% of inputs come out one ulp
+low on an AVX-512 host), while the kernel's ``__fsqrt_rn`` and CUDA's
+``torch.sqrt`` are.
 
 These are pure: they return new tensors.  The wrappers in
 :mod:`repro_torch.kernels.consensus_update.consensus_update` call them for
@@ -255,6 +259,13 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root on any device: a float64
+    root (53 bits, enough that rounding it to 24 bits rounds once) cast
+    back to float32."""
+    return torch.sqrt(x.double()).to(torch.float32)
+
+
 def _adam(acc, m_in, grad, m, v, alpha, b1, b2, eps, bc1, bc2):
     alpha, b1, b2, eps = _f32(alpha), _f32(b1), _f32(b2), _f32(eps)
     omb1 = float(np.float32(1.0) - np.float32(b1))
@@ -265,7 +276,7 @@ def _adam(acc, m_in, grad, m, v, alpha, b1, b2, eps, bc1, bc2):
     dev = g.device
     bc1_t = torch.tensor(_f32(bc1), dtype=torch.float32, device=dev)
     bc2_t = torch.tensor(_f32(bc2), dtype=torch.float32, device=dev)
-    step_dir = (new_m / bc1_t) / (torch.sqrt(new_v / bc2_t) + eps)
+    step_dir = (new_m / bc1_t) / (sqrt_rn(new_v / bc2_t) + eps)
     out = acc - alpha * step_dir
     return out.to(grad.dtype), new_m.to(m.dtype), new_v.to(v.dtype)
 
@@ -292,3 +303,61 @@ def cdadam_update_qm_ref(weights, self_buf, payload, scales, mom_payload,
     return _adam(_mix_q(weights, self_buf, payload, scales),
                  _mix_q(weights, m, mom_payload, mom_scales), grad, m, v,
                  alpha, b1, b2, eps, bc1, bc2)
+
+
+def _mix_sparse(weights, self_buf, values, indices, scales) -> torch.Tensor:
+    """The sparse operand form (top-k wire) of :func:`_mix_q`:
+    ``acc[a] = w[a,0] self[a]``, then for ``s = 0 .. S-1`` one
+    ``index_add_`` of ``w[a,1+s] (float(values[s]) * scales[s])`` at the
+    flat dense positions ``indices[s]`` (``_sparse_stencil``, stencil
+    order)."""
+    w = weights.float()
+    a_out = w.shape[0]
+    acc = (w[:, 0, None, None] * self_buf.float()).reshape(a_out, -1)
+    for s in range(values.shape[0]):
+        deq = (values[s].float() * scales[s]).reshape(-1)
+        acc.index_add_(1, indices[s].reshape(-1).long(),
+                       w[:, s + 1, None] * deq[None])
+    return acc.reshape(self_buf.shape)
+
+
+def cdsgd_update_sparse_ref(weights, self_buf, values, indices, scales, grad,
+                            alpha: float) -> torch.Tensor:
+    """Sparse-operand CDSGD: ``out[a] = mix_sparse[a] - alpha G[a]``."""
+    out = (_mix_sparse(weights, self_buf, values, indices, scales)
+           - alpha * grad.float())
+    return out.to(grad.dtype)
+
+
+def cdmsgd_update_sparse_ref(weights, self_buf, values, indices, scales, grad,
+                             momentum, alpha: float, mu: float):
+    """Sparse-operand CDMSGD: ``v' = mu V[a] - alpha G[a]``;
+    ``out[a] = mix_sparse[a] + v'``."""
+    v = _mom_step(momentum, grad, alpha, mu)
+    out = _mix_sparse(weights, self_buf, values, indices, scales) + v
+    return out.to(grad.dtype), v.to(momentum.dtype)
+
+
+def cdmsgd_nesterov_update_sparse_ref(weights, self_buf, values, indices,
+                                      scales, grad, momentum, alpha: float,
+                                      mu: float):
+    """Sparse-operand Nesterov CDMSGD: ``(x', v', x' + mu v')``."""
+    return _nesterov(_mix_sparse(weights, self_buf, values, indices, scales),
+                     momentum, grad, momentum, alpha, mu)
+
+
+def cdadam_update_sparse_ref(weights, self_buf, values, indices, scales, grad,
+                             m, v, alpha, b1, b2, eps, bc1, bc2):
+    """Sparse-operand CDAdam, local moments: ``(x', m', v')``."""
+    return _adam(_mix_sparse(weights, self_buf, values, indices, scales), m,
+                 grad, m, v, alpha, b1, b2, eps, bc1, bc2)
+
+
+def topk_threshold_counts_ref(x: torch.Tensor,
+                              taus: torch.Tensor) -> torch.Tensor:
+    """``counts[a, b] = #{e : |x[a][e]| >= taus[a, b]}`` for ``x (A, rows,
+    128)`` float32 and ``taus (A, n_bins)``: exact int64 counts (the
+    threshold kernel's sweep, ``_threshold_count_kernel``)."""
+    ax = x.float().abs().reshape(x.shape[0], -1)
+    return torch.stack([(ax >= taus[:, b, None]).sum(dim=1)
+                        for b in range(taus.shape[1])], dim=1)

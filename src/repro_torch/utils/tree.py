@@ -4,7 +4,8 @@ The port keeps parameters as plain nested dicts of tensors.  Every walk
 over them uses JAX's leaf order — dict keys **sorted**, lists and tuples in
 position order — so packed flat buffers line up bit for bit with the JAX
 package's (``"h10"`` comes before ``"h2"``; Python insertion order would
-not).  ``None`` is an empty node, as in JAX.
+not).  ``None`` is an empty node, as in JAX, and a named tuple (a wire
+entry such as ``TopKWire``) keeps its type.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ def tree_flatten(tree: PyTree) -> Tuple[List[Any], tuple]:
             keys = tuple(sorted(t))
             return ("dict", keys, tuple(walk(t[k]) for k in keys))
         if isinstance(t, (list, tuple)):
-            return (type(t).__name__, tuple(walk(x) for x in t))
+            kind = type(t) if hasattr(t, "_fields") else type(t).__name__
+            return (kind, tuple(walk(x) for x in t))
         if t is None:
             return _NONE
         leaves.append(t)
@@ -49,6 +51,8 @@ def tree_unflatten(treedef: tuple, leaves) -> PyTree:
         if kind == "dict":
             return {k: build(c) for k, c in zip(d[1], d[2])}
         children = [build(c) for c in d[1]]
+        if isinstance(kind, type):
+            return kind._make(children)
         return children if kind == "list" else tuple(children)
 
     out = build(treedef)

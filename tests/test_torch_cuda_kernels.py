@@ -10,7 +10,10 @@ so it also runs on a machine with PyTorch alone:
 Tolerance 1e-6 abs: kernel and plain version do the same float32
 operations in the same order (no FMA contraction in the kernel), so they
 are expected to agree exactly.  ``sr_quantize`` is held bit for bit: both
-draw the same Philox4x32-10 stream.
+draw the same Philox4x32-10 stream.  The sparse (top-k wire) update
+kernels are held against their ``index_add_`` plain versions on compact
+stacks that ``topk_compress_2d`` makes on the card; the threshold kernel's
+counts must be exact and its ``tau`` equal bit for bit.
 """
 
 import pytest
@@ -20,6 +23,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels.consensus_update import consensus_update as cu  # noqa: E402
 from repro_torch.kernels.consensus_update import ops  # noqa: E402
 from repro_torch.kernels.consensus_update import ref  # noqa: E402
+from repro_torch.kernels.consensus_update import topk  # noqa: E402
 
 ATOL = 1e-6
 ALPHA, MU = 0.05, 0.9
@@ -263,3 +267,130 @@ def test_b4_kernels_reject_overlap_and_misalignment_on_card():
                             v, v.clone(), *ADAM)
     with pytest.raises(ValueError, match="on cpu"):
         cu.cdadam_update_q(w, slf, q, qs, g, v, v.cpu(), *ADAM)
+
+
+# sparse (top-k wire) kernels: plain version, in-place per-agent operands
+SPARSE = {
+    "cdsgd_update_sparse": (ref.cdsgd_update_sparse_ref, 1),
+    "cdmsgd_update_sparse": (ref.cdmsgd_update_sparse_ref, 2),
+    "cdmsgd_nesterov_update_sparse": (ref.cdmsgd_nesterov_update_sparse_ref, 2),
+    "cdadam_update_sparse": (ref.cdadam_update_sparse_ref, 3),
+}
+RING5 = [[1 / 3, 0, 1 / 3, 0, 0, 1 / 3], [1 / 3, 1 / 3, 0, 1 / 3, 0, 0],
+         [1 / 3, 0, 1 / 3, 0, 1 / 3, 0], [1 / 3, 0, 0, 1 / 3, 0, 1 / 3],
+         [1 / 3, 1 / 3, 0, 0, 1 / 3, 0]]     # [diag | zero-diag Pi], ring of 5
+
+
+def _sparse_operands(dev, name, a_out, s, rows, k_rows, seed, ring=False):
+    """Compact stacks of ``s`` random buckets (all-zero row 0), self and
+    per-agent state, and the self-separated weights."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = _bucket(dev, s, rows, seed)
+    vals, idx, sc = topk.topk_compress_2d(x, k_rows, seed, agent_stride=104729)
+    if ring:
+        w = torch.tensor(RING5, dtype=torch.float32, device=dev)
+    else:
+        w = torch.rand((a_out, s + 1), generator=gen, device=dev)
+        w = (w / w.sum(dim=1, keepdim=True)).contiguous()
+    slf = torch.randn((a_out, rows, 128), generator=gen, device=dev)
+    n_state = SPARSE[name][1]
+    state = [torch.randn((a_out, rows, 128), generator=gen, device=dev)
+             for _ in range(n_state)]
+    if n_state == 3:
+        state[2] = state[2].abs() * 0.01          # Adam's second moment
+    scalars = {1: (ALPHA,), 2: (ALPHA, MU), 3: ADAM}[n_state]
+    return [w, slf, vals, idx, sc], state, scalars
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_out,s,rows,k_rows,ring", [
+    (5, 5, 16941, 170, False), (5, 5, 16941, 170, True),
+    (5, 5, 1001, 11, True), (1, 3, 1001, 1001, False), (1, 1, 1, 1, False),
+    (12, 12, 300, 3, False)],
+    ids=["path", "path-ring", "1001-ring", "stencil-full", "one-row",
+         "agent-chunks"])
+@pytest.mark.parametrize("name", list(SPARSE))
+def test_sparse_kernels_match_plain_versions_in_place(name, a_out, s, rows,
+                                                      k_rows, ring):
+    dev = _card()
+    plain, n_state = SPARSE[name]
+    mix, state, scalars = _sparse_operands(dev, name, a_out, s, rows, k_rows,
+                                           seed=rows + s, ring=ring)
+    want = plain(*mix, *state, *scalars)
+    want = want if isinstance(want, tuple) else (want,)
+    outs = [t.clone() for t in state]
+    fn = cu.KERNELS[name]
+    n = fn.launches
+    got = fn(*mix, *outs, *scalars)
+    got = got if isinstance(got, tuple) else (got,)
+    torch.cuda.synchronize()
+    assert fn.launches == n + 1
+    assert [t.data_ptr() for t in got[:n_state]] == [t.data_ptr() for t in outs]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= ATOL
+    # the dense form on the same payloads: decompress, then _q, unit scales
+    if name == "cdsgd_update_sparse":
+        dense = topk.topk_decompress_2d(*mix[2:], rows)
+        unit = torch.ones((s, rows, 1), device=dev)
+        ref_q = cu.cdsgd_update_q(mix[0], mix[1], dense, unit,
+                                  state[0].clone(), ALPHA)
+        torch.cuda.synchronize()
+        assert float((got[0] - ref_q).abs().max()) <= ATOL
+
+
+@pytest.mark.cuda
+def test_sparse_stencil_entry_point_on_card():
+    dev = _card()
+    mix, (g,), _ = _sparse_operands(dev, "cdsgd_update_sparse", 1, 3, 777, 7,
+                                    seed=5)
+    w, slf, vals, idx, sc = mix
+    want = ref.cdsgd_update_sparse_ref(w, slf, vals, idx, sc, g, ALPHA)[0]
+    out = ops.cdsgd_update_flat(ops.SparseNeighbors(vals, idx, sc), w[0],
+                                g[0].clone(), ALPHA, self_buf=slf[0])
+    torch.cuda.synchronize()
+    assert float((out - want).abs().max()) <= ATOL
+
+
+@pytest.mark.cuda
+def test_sparse_kernel_rejects_bad_operands_on_card():
+    dev = _card()
+    mix, (g, v), sc = _sparse_operands(dev, "cdmsgd_update_sparse", 2, 2, 8,
+                                       1, seed=1)
+    w, slf, vals, idx, scs = mix
+    with pytest.raises(ValueError, match="overlap"):
+        cu.cdmsgd_update_sparse(w, slf, vals, idx, scs, g, g, *sc)
+    with pytest.raises(TypeError, match="int32"):
+        cu.cdsgd_update_sparse(w, slf, vals, idx.long(), scs, g, ALPHA)
+    with pytest.raises(ValueError, match="on cpu"):
+        cu.cdsgd_update_sparse(w, slf, vals, idx, scs, g.cpu(), ALPHA)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a,rows,k", [(5, 16941, 21760), (5, 1001, 1408),
+                                      (1, 16941, 1), (3, 1, 128)],
+                         ids=["path", "1001", "stencil", "one-row"])
+def test_threshold_kernel_matches_plain_version(a, rows, k):
+    dev = _card()
+    x = _bucket(dev, a, rows, rows)
+    x[-1] = 0.0                                   # an all-zero bucket
+    x[0, 1:3] = 0.5                               # ties
+    n = topk.topk_threshold.launches
+    tau, counts = topk.topk_threshold(x, k)
+    torch.cuda.synchronize()
+    assert topk.topk_threshold.launches == n + 1
+    taus = topk.threshold_taus(x)
+    want = ref.topk_threshold_counts_ref(x, taus)
+    assert torch.equal(counts, want.float())
+    ok = (want <= k).sum(dim=1)
+    want_tau = taus.gather(1, torch.clamp(ok - 1, min=0)[:, None])[:, 0]
+    assert torch.equal(tau, want_tau)
+    assert bool((counts[:, 1:] >= counts[:, :-1]).all())
+    # fewer than 16 bins: the kernel pads with +inf thresholds
+    tau8, counts8 = topk.topk_threshold(x, k, n_bins=8)
+    taus8 = topk.threshold_taus(x, 8)
+    want8 = ref.topk_threshold_counts_ref(x, taus8)
+    assert torch.equal(counts8, want8.float())
+    ok8 = (want8 <= k).sum(dim=1)
+    assert torch.equal(tau8, taus8.gather(
+        1, torch.clamp(ok8 - 1, min=0)[:, None])[:, 0])

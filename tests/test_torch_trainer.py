@@ -119,7 +119,7 @@ def test_trainer_without_device_raises_without_cuda(setup, monkeypatch):
     ({"microbatches": 2}, NotImplementedError, "A9"),
     ({"consensus_rounds": 2}, NotImplementedError, "A13"),
     ({"exchange": "int8", "consensus_rounds": 2}, NotImplementedError, "A13"),
-    ({"compressor": "topk:0.1"}, NotImplementedError, "A14"),
+    ({"compressor": "topk:0.1"}, ValueError, "needs --error-feedback"),
     ({"staleness": 2}, NotImplementedError, "A13"),
     ({"momentum_mixing": "mixed"}, ValueError, "mixable momentum"),
     ({"error_feedback": True}, ValueError, "lossy wire"),

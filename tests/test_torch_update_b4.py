@@ -208,3 +208,24 @@ def test_b4_wrappers_reject_bad_operands():
     # not double as the momentum operand the kernel writes in place
     with pytest.raises(ValueError, match="overlap"):
         cu.cdmsgd_update_qm(w, slf, v, sc, v, sc, g, v, ALPHA, MU)
+
+
+def test_plain_adam_square_root_is_correctly_rounded():
+    """The plain versions' square root (``ref.sqrt_rn``) equals IEEE's
+    correctly rounded float32 root (numpy's) on every input, as the
+    kernel's ``__fsqrt_rn`` does; PyTorch's vectorized CPU ``torch.sqrt``
+    need not (its share of one-ulp misses on this host prints with
+    ``pytest -s``).  Adam's ``m / (sqrt(v) + eps)`` turns a one-ulp miss
+    at a tiny ``v`` into a visible parameter difference."""
+    from repro_torch.kernels.consensus_update import ref
+    rng = np.random.default_rng(0)
+    x = (rng.random(1_000_000) * 10.0 ** rng.integers(-40, 30, 1_000_000)
+         ).astype(np.float32)
+    x[:4] = [0.0, -0.0, np.inf, 1e-45]
+    want = np.sqrt(x)
+    got = ref.sqrt_rn(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    plain = torch.sqrt(torch.from_numpy(x)).numpy()
+    print(f"torch.sqrt on the CPU: {np.mean(plain != want):.4%} of 1e6 "
+          "float32 inputs one ulp or more from the correctly rounded root; "
+          "ref.sqrt_rn: 0")

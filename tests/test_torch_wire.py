@@ -199,7 +199,7 @@ def test_mixing_program_knobs():
         ({"strategy": "time_varying"}, NotImplementedError, "A13"),
         ({"momentum_mixing": "both"}, ValueError, "momentum_mixing"),
         ({"staleness": 3}, NotImplementedError, "A13"),
-        ({"compressor": "rank:4"}, NotImplementedError, "A14"),
+        ({"compressor": "rank:4"}, ValueError, "needs --error-feedback"),
     ]:
         with pytest.raises(err, match=match):
             tcons.make_mixing_program(topo, **kw)
