@@ -63,6 +63,35 @@ dense update phase on the card from one state with the same gradients
 CDMSGD ``topk:0.01`` (wire bit for bit, residual and params within 1e-6)
 and ``rank:4`` (within 1e-5).
 
+The serving slice (the model zoo's prefill and cached decode) adds the
+flash attention and WKV6 kernels to phase 3, each against its plain
+version at its path shape (gemma3-1b: B 4, S 2048, 4 query heads on 1 KV
+head of 256, bf16, the 512 window and the global mask; rwkv6-1.6b: 4 x 32
+heads of 64 over 2048 steps, bf16 r, k, v, f32 w, u; and both in float32)
+with the time of one ``scaled_dot_product_attention`` call beside the
+flash kernel, and then:
+
+6. prefill: ``forward`` of full-width gemma3-1b and rwkv6-1.6b (bf16
+   weights from ``init_params``, random, seed 0) on 4 x 2048 tokens under
+   ``torch.inference_mode``: every launch count set to 0 before one
+   forward and read after it (exactly 26 flash launches, 24 WKV launches),
+   finite logits, the wall time and prefill tokens/s, the peak memory, and
+   one profiled forward counting each kernel's launches in the trace;
+7. serve: the ``serve`` loop at full width (batch 4, prompt 8, 16 new
+   tokens; no kernel launch in decode) and its decode tokens/s, then the
+   port's decode against its own kernel-backed forward over 64
+   teacher-forced positions on float32 weights made live and well
+   conditioned (``live_weights``), within 1e-3 of max |logit|; the same
+   weights in bf16 at growing depth (the first 2 to all layers), where
+   decode's distance from the float32 forward is held to at most twice
+   the bf16 forward's own, and at 2 layers (the reference's depth) decode
+   against forward within 5e-2 (the reference's bound); the template's
+   draw is printed;
+8. card against CPU at full width in float32 at reduced depth, on
+   ``live_weights``: gemma3-1b at 7 layers (a 6-layer super-block and a
+   tail: both masks) at b 1, s 640, and rwkv6-1.6b at 2 layers at b 1, s
+   256, logits within 1e-4 of max |logit|.
+
 Any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 float32 matmuls and convolutions run in full float32 (TF32 off).
@@ -70,8 +99,10 @@ float32 matmuls and convolutions run in full float32 (TF32 off).
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -85,6 +116,7 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import make_optimizer, make_topology  # noqa: E402
 from repro_torch.core.consensus import (  # noqa: E402
     _self_separated_weights,
@@ -98,6 +130,12 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.consensus_update import consensus_update as cu  # noqa: E402
 from repro_torch.kernels.consensus_update import ref  # noqa: E402
 from repro_torch.kernels.consensus_update import topk as tk  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.rwkv_scan import rwkv_scan as rs  # noqa: E402
+from repro_torch.kernels.rwkv_scan.ref import wkv6_ref  # noqa: E402
+from repro_torch.launch.serve import make_prompt, serve  # noqa: E402
+from repro_torch.nn import transformer as tt  # noqa: E402
 from repro_torch.nn.param import count_params, init_params  # noqa: E402
 from repro_torch.nn.paper_models import (  # noqa: E402
     classifier_loss,
@@ -109,6 +147,7 @@ from repro_torch.utils.tree import tree_leaves, tree_map  # noqa: E402
 # H100 SXM published peaks (NVIDIA data sheet), at the full 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12        # float32 outside the tensor cores
+BF16_TC_FLOPS_PER_S = 989e12   # bf16 tensor cores, dense
 
 AGENTS = 5
 PATH_ROWS = 16941              # one f32 bucket of the full-width CNN
@@ -124,7 +163,9 @@ RANK_TOL = 1e-5               # abs, card vs CPU rank-r update phase
 TOPK_P = 0.01                 # the top-k runs' density: 170 compact rows
 SOURCES = {"consensus_update": "src/repro_torch/csrc/consensus_update.cu",
            "sr_quantize": "src/repro_torch/csrc/sr_quantize.cu",
-           "topk_threshold": "src/repro_torch/csrc/topk_threshold.cu"}
+           "topk_threshold": "src/repro_torch/csrc/topk_threshold.cu",
+           "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+           "wkv6": "src/repro_torch/csrc/wkv6.cu"}
 _TPU = "src/repro/kernels/consensus_update/consensus_update.py"
 KERNELS = {   # name -> (library, CUDA kernel symbol, the TPU kernel it replaces)
     "cdsgd_update": ("consensus_update", "cdsgd_kernel", f"{_TPU}:687"),
@@ -152,7 +193,29 @@ KERNELS = {   # name -> (library, CUDA kernel symbol, the TPU kernel it replaces
                              f"{_TPU}:636"),
     "topk_threshold": ("topk_threshold", "threshold_kernel",
                        "src/repro/kernels/consensus_update/topk.py:187"),
+    "flash_attention": ("flash_attention", "flash_kernel",
+                        "src/repro/kernels/flash_attention/flash_attention.py:74"),
+    "wkv6": ("wkv6", "wkv6_kernel", "src/repro/kernels/rwkv_scan/rwkv_scan.py:67"),
 }
+# the serving path's kernel wrappers (each with its ``launches`` count)
+SERVE_KERNELS = {"flash_attention": fa.flash_attention, "wkv6": rs.wkv6}
+# the serving path: (arch, its kernel, launches per prefill = layers)
+SERVE_ARCHS = (("gemma3-1b", "flash_attention", 26), ("rwkv6-1.6b", "wkv6", 24))
+PREFILL_BATCH, PREFILL_LEN = 4, 2048
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 8, 16
+DECODE_CHECK = (2, 64)         # batch, positions: decode against forward
+DECODE_TOL = 5e-2              # of max |logit|: tests/test_models.py's bound, 2 layers
+DECODE_F32_TOL = 1e-3          # of max |logit|: float32 decode vs forward, full depth
+# bf16 decode's distance from the float32 forward, at most this many times
+# the bf16 forward's own: decode rounds like the forward, no worse
+DECODE_BF16_RATIO = 2.0
+# the bf16 decode check's depths (layers of the full-width weights)
+DECODE_DEPTHS = {"gemma3-1b": (2, 7, 13, 26), "rwkv6-1.6b": (2, 6, 12, 24)}
+MODEL_TOL = 1e-4               # of max |logit|: card vs CPU, f32 weights
+# card vs CPU at full width, reduced depth: (arch, layers, batch, seq)
+MODEL_PARITY = (("gemma3-1b", 7, 1, 640), ("rwkv6-1.6b", 2, 1, 256))
+FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}   # tol_for, abs and rel
+WKV_TOL = 1e-4                 # abs and rel (bf16 y: FLASH_TOL's 2e-2)
 # the sparse (top-k wire) kernels: plain version, per-agent operands
 # written in place
 SPARSE = {
@@ -1098,6 +1161,385 @@ def parity_compressed_update(params, train, compressor: str, tol: float) -> floa
     return gaps["params"]
 
 
+def _close_err(got: torch.Tensor, want: torch.Tensor, tol: float):
+    """(max abs err, ok): ``|got - want| <= tol + tol |want|`` everywhere
+    (the reference's allclose with rtol = atol = tol)."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    return float(diff.max()), bool((diff <= tol + tol * want.abs()).all())
+
+
+def _report_serving(results: dict, name: str, label: str, shape: str, err: float,
+                    tol: float, kernel, plain, library, flops: float,
+                    nbytes: float, plain_iters: int = 20) -> None:
+    """Time one checked operand set of a serving-path kernel and print its
+    line: CUDA-event ms, the kernel alone from a profiler trace, the bound
+    (float32 operations on the CUDA cores vs bytes), the bf16 tensor-core
+    time of the same operations, the plain version's and the library's ms."""
+    ms = cuda_ms(kernel, iters=20, warmup=2)
+    plain_ms = cuda_ms(plain, iters=plain_iters, warmup=1)
+    lib_ms = cuda_ms(library, iters=20, warmup=2) if library is not None else None
+    dev_ms = device_ms(kernel, KERNELS[name][1], iters=10)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    b_ms, b_by = 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    print(f"kernel {name} [{label}] {shape}: max_abs_err={err:.3e} (tol {tol:g} "
+          f"abs and rel) ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms="
+          f"{'none' if lib_ms is None else f'{lib_ms:.5f}'} bound_ms={b_ms:.5f} "
+          f"({b_by}: {flops:.4g} float32 operations, {nbytes:.4g} bytes) "
+          f"bound_share={b_ms / ms:.3f} bf16_tensor_core_ms="
+          f"{1e3 * flops / BF16_TC_FLOPS_PER_S:.5f} kernel_only_ms="
+          f"{'not measured' if dev_ms is None else f'{dev_ms:.5f}'}")
+    entry = results.setdefault(name, {"max_abs_err": 0.0})
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    if label == "path":
+        entry.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=lib_ms)
+
+
+def _allowed_pairs(sq: int, sk: int, window) -> int:
+    """(row, col) pairs the causal (+ window) mask keeps."""
+    rows = torch.arange(sq, dtype=torch.float64)
+    lo = torch.zeros_like(rows) if window is None else torch.clamp(rows - window + 1, min=0)
+    return int((torch.clamp(rows, max=sk - 1) - lo + 1).clamp(min=0).sum())
+
+
+def check_flash(results: dict, gen) -> None:
+    """Phase 3, the flash attention kernel against ``attention_ref`` at the
+    gemma3-1b prefill shape (bf16; the 512-window local layer is the
+    ``path`` row, the global layer beside it) and at the float32 card-vs-
+    CPU shape; ``scaled_dot_product_attention`` on the same operands (GQA,
+    causal or a boolean band mask) as the library yardstick."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dev = torch.device("cuda")
+    for label, b, s, dtype, window in (
+            ("path", PREFILL_BATCH, PREFILL_LEN, torch.bfloat16, 512),
+            ("path-global", PREFILL_BATCH, PREFILL_LEN, torch.bfloat16, None),
+            ("f32-local", 1, 640, torch.float32, 512),
+            ("f32-global", 1, 640, torch.float32, None)):
+        h, kv, d = 4, 1, 256
+        q = torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, kv, s, d), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, kv, s, d), generator=gen, device=dev).to(dtype)
+        out = fa.flash_attention(q, k, v, window=window)
+        torch.cuda.synchronize()
+        want = attention_ref(q, k, v, window=window)
+        err, ok = _close_err(out, want, FLASH_TOL[dtype])
+        if not ok or out.dtype != dtype:
+            raise AssertionError(f"flash_attention [{label}] differs from its "
+                                 f"plain version: max abs err {err}")
+        if window is None:
+            library = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        else:
+            pos = torch.arange(s, device=dev)
+            band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+            library = lambda: sdpa(q, k, v, attn_mask=band, enable_gqa=True)
+        lib_err, _ = _close_err(library(), want, FLASH_TOL[dtype])
+        print(f"  sdpa [{label}] against the plain version: max abs err {lib_err:.3e}")
+        esize = q.element_size()
+        _report_serving(results, "flash_attention", label,
+                        f"q ({b},{h},{s},{d}) k,v ({b},{kv},{s},{d}) "
+                        f"{str(dtype)[6:]} window={window}", err, FLASH_TOL[dtype],
+                        lambda: fa.flash_attention(q, k, v, window=window),
+                        lambda: attention_ref(q, k, v, window=window), library,
+                        4.0 * d * b * h * _allowed_pairs(s, s, window),
+                        esize * (2 * q.numel() + k.numel() + v.numel()))
+
+
+def wkv_flops(bh: int, s: int, hs: int) -> float:
+    """Operations of the WKV6 recurrence, per step and head: y_j = sum_i
+    r_i S_ij + v_j sum_i r_i u_i k_i is 2 hs^2 + 5 hs (the bonus term is a
+    scalar per step, not an hs x hs product), S <- w (.) S + k (x) v is
+    3 hs^2."""
+    return float(bh * s * (5 * hs * hs + 5 * hs))
+
+
+def check_wkv(results: dict, gen) -> None:
+    """Phase 3, the WKV6 kernel against ``wkv6_ref`` at the rwkv6-1.6b
+    prefill shape, in the model's (b, s, n_h, hs) layout: bf16 r, k, v with
+    f32 w, u (the ``path`` row; y bf16 within 2e-2, the state within 1e-4)
+    and the same operands in float32 (y and state within 1e-4)."""
+    dev = torch.device("cuda")
+    b, s, nh, hs = PREFILL_BATCH, PREFILL_LEN, 32, 64
+    r, k, v = (torch.randn((b, s, nh, hs), generator=gen, device=dev) for _ in range(3))
+    w = torch.sigmoid(torch.randn((b, s, nh, hs), generator=gen, device=dev)) * 0.5 + 0.45
+    u = 0.1 * torch.randn((nh, hs), generator=gen, device=dev)
+
+    def fold(x):
+        return x.transpose(1, 2).reshape(b * nh, s, hs)
+
+    for label, dtype in (("path", torch.bfloat16), ("f32", torch.float32)):
+        rr, kk, vv = (x.to(dtype) for x in (r, k, v))
+        y, state = rs.wkv6(rr, kk, vv, w, u)
+        torch.cuda.synchronize()
+        want_y, want_state = wkv6_ref(fold(rr), fold(kk), fold(vv), fold(w),
+                                      u.repeat(b, 1))
+        y_tol = FLASH_TOL[torch.bfloat16] if dtype == torch.bfloat16 else WKV_TOL
+        y_err, y_ok = _close_err(fold(y), want_y.to(dtype), y_tol)
+        s_err, s_ok = _close_err(state, want_state, WKV_TOL)
+        if not (y_ok and s_ok) or y.dtype != dtype:
+            raise AssertionError(f"wkv6 [{label}] differs from its plain version: "
+                                 f"y {y_err}, state {s_err}")
+        print(f"  wkv6 [{label}]: y max abs err {y_err:.3e} (tol {y_tol:g} abs and "
+              f"rel, {str(dtype)[6:]} y), state {s_err:.3e} (tol {WKV_TOL:g})")
+        esize = rr.element_size()
+        _report_serving(results, "wkv6", label,
+                        f"(b,s,n_h,hs)=({b},{s},{nh},{hs}) {str(dtype)[6:]} r,k,v, "
+                        "float32 w,u", max(y_err, s_err), y_tol,
+                        lambda: rs.wkv6(rr, kk, vv, w, u),
+                        lambda: wkv6_ref(fold(rr), fold(kk), fold(vv), fold(w),
+                                         u.repeat(b, 1)), None,
+                        wkv_flops(b * nh, s, hs),
+                        esize * 4 * r.numel() + 4 * w.numel() + 4 * u.numel()
+                        + 4 * b * nh * hs * hs, plain_iters=2)
+    print("library_ms none for wkv6: no one PyTorch call computes the recurrence")
+
+
+def _serving_counts() -> dict:
+    return {k: fn.launches for k, fn in SERVE_KERNELS.items()}
+
+
+def _reset_serving_counts() -> None:
+    for fn in SERVE_KERNELS.values():
+        fn.launches = 0
+
+
+def _rel_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max |want| (on the CPU, float32)."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    if got.shape != want.shape:
+        raise AssertionError(f"compared shapes differ: {tuple(got.shape)} and "
+                             f"{tuple(want.shape)}")
+    return float((got - want).abs().max() / (want.abs().max() + 1e-6))
+
+
+def prefill_path(params_by_arch: dict) -> dict:
+    """Phase 6: one counted forward per arch at full width, then the timed
+    and the profiled ones; returns each kernel's launches per forward."""
+    counts = {}
+    for arch, kernel, per_forward in SERVE_ARCHS:
+        cfg = get_config(arch)
+        params = params_by_arch[arch]
+        tokens = torch.as_tensor(make_prompt(cfg, PREFILL_BATCH, PREFILL_LEN, 0),
+                                 device="cuda")
+        batch = {"inputs": tokens}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_serving_counts()
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            logits, _ = tt.forward(cfg, params, batch)
+            torch.cuda.synchronize()
+            first_ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        got = _serving_counts()
+        want = {k: per_forward if k == kernel else 0 for k in SERVE_KERNELS}
+        if got != want:
+            raise AssertionError(f"prefill {arch}: launched {got}, expected {want}")
+        counts[kernel] = got[kernel]
+        finite = bool(torch.isfinite(logits).all())
+        if tuple(logits.shape) != (PREFILL_BATCH, PREFILL_LEN, cfg.vocab_size) \
+                or not finite:
+            raise AssertionError(f"prefill {arch}: logits {tuple(logits.shape)}, "
+                                 f"finite {finite}")
+        del logits
+        walls = []
+        with torch.inference_mode():
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tt.forward(cfg, params, batch)
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - t0))
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                tt.forward(cfg, params, batch)
+                torch.cuda.synchronize()
+        spans = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        symbol = KERNELS[kernel][1]
+        mine = [e.time_range.elapsed_us() / 1e3 for e in spans if symbol in e.name]
+        busy = sum(e.time_range.elapsed_us() for e in spans) / 1e3
+        by_name = {}
+        for e in spans:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        if len(mine) != per_forward:
+            raise AssertionError(f"prefill {arch}: the trace shows {len(mine)} "
+                                 f"{symbol} launches, expected {per_forward}")
+        wall = float(np.median(walls))
+        tokens_n = PREFILL_BATCH * PREFILL_LEN
+        print(f"prefill {arch}: {cfg.param_count()} params bf16, {PREFILL_BATCH}x"
+              f"{PREFILL_LEN} tokens: first forward {first_ms:.2f} ms, wall median "
+              f"{wall:.3f} ms over {len(walls)} ({[round(x, 3) for x in walls]}), "
+              f"{tokens_n / wall * 1e3:.1f} prefill tokens/s, max_memory_allocated "
+              f"{peak:.1f} MiB (both archs' weights resident), logits finite; "
+              f"{kernel} launches per forward "
+              f"{got[kernel]} (trace: {len(mine)}, {sum(mine):.3f} ms of "
+              f"{busy:.3f} ms device time); top: " + "; ".join(
+                  f"{n[:60]} {t:.3f} ms" for n, t in
+                  sorted(by_name.items(), key=lambda kv: -kv[1])[:6]))
+    return counts
+
+
+def serve_path(params_by_arch: dict) -> None:
+    """Phase 7: the ``serve`` loop at full width (no kernel launches in
+    decode), then decode against the kernel-backed forward over 64
+    teacher-forced positions."""
+    for arch, _, _ in SERVE_ARCHS:
+        cfg = get_config(arch)
+        params = params_by_arch[arch]
+        prompt = make_prompt(cfg, SERVE_BATCH, SERVE_PROMPT, 0)
+        _reset_serving_counts()
+        seqs, stats = serve(cfg, params, prompt, SERVE_NEW, "cuda")
+        if _serving_counts() != {k: 0 for k in SERVE_KERNELS}:
+            raise AssertionError(f"serve {arch}: decode launched {_serving_counts()}")
+        if seqs.shape != (SERVE_BATCH, SERVE_PROMPT + SERVE_NEW) \
+                or not np.array_equal(seqs[:, :SERVE_PROMPT], prompt) \
+                or not ((seqs >= 0) & (seqs < cfg.vocab_size)).all():
+            raise AssertionError(f"serve {arch}: bad tokens {seqs.shape}")
+        print(f"serve {arch}: batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
+              f"{SERVE_NEW} new tokens: {stats['decode_steps']} decode steps in "
+              f"{stats['seconds'] * 1e3:.1f} ms, {stats['tokens_per_s']:.1f} decode "
+              f"tokens/s; first sequence {seqs[0].tolist()}")
+        toks = torch.as_tensor(make_prompt(cfg, *DECODE_CHECK, 1), device="cuda")
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+        params32 = tree_map(lambda t: t.float(), params)
+        template_gaps = (_rel_gap(*_decode_and_forward(cfg, params, toks)),
+                         _rel_gap(*_decode_and_forward(cfg32, params32, toks)))
+        live = live_weights(cfg32, params32, seed=3)
+        dec32, fwd32 = _decode_and_forward(cfg32, live, toks)
+        gap = _rel_gap(dec32, fwd32)
+        print(f"serve {arch}: decode vs the kernel-backed forward over "
+              f"{DECODE_CHECK[1]} teacher-forced positions (b={DECODE_CHECK[0]}), "
+              f"max |diff| / max |logit|: live float32 weights {gap:.3e} (tol "
+              f"{DECODE_F32_TOL:g}); not held: the template's draw "
+              f"{template_gaps[0]:.3e} in bf16 and {template_gaps[1]:.3e} in float32")
+        if not gap <= DECODE_F32_TOL:
+            raise AssertionError(f"serve {arch}: float32 decode/forward gap {gap}")
+        del dec32, fwd32
+        decode_bf16_by_depth(arch, cfg, live, toks)
+        del live, params32
+
+
+def first_layers(cfg, params, depth: int):
+    """``(cfg with depth layers, views of params' first layers)``: each
+    stacked group cut to the counts of that depth's template."""
+    cut = dataclasses.replace(cfg, n_layers=depth)
+    groups = {name: tree_map(lambda t: t[:count], params["groups"][name])
+              for name, count, _ in tt.layer_groups(cut) if count > 0}
+    sub = {**params, "groups": groups}
+    want = [pd.shape for pd in tree_leaves(tt.model_template(cut))]
+    if [tuple(t.shape) for t in tree_leaves(sub)] != want:
+        raise AssertionError(f"first {depth} layers: shapes differ from the template")
+    return cut, sub
+
+
+def decode_bf16_by_depth(arch: str, cfg, live, toks) -> None:
+    """The bf16 decode against the bf16 forward at growing depth, each
+    beside the float32 forward of the same (live float32) weights: held
+    where decode rounds worse than the forward (its distance from the
+    float32 forward over DECODE_BF16_RATIO times the bf16 forward's), and
+    at the reference's 2 layers within DECODE_TOL."""
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    for depth in DECODE_DEPTHS[arch]:
+        cut32, sub32 = first_layers(cfg32, live, depth)
+        cut16 = dataclasses.replace(cut32, param_dtype=cfg.param_dtype)
+        sub16 = tree_map(lambda t: t.to(cfg.dtype), sub32)
+        _, fwd32 = _decode_and_forward(cut32, sub32, toks, decode=False)
+        dec16, fwd16 = _decode_and_forward(cut16, sub16, toks)
+        gap, e_fwd, e_dec = (_rel_gap(dec16, fwd16), _rel_gap(fwd16, fwd32),
+                             _rel_gap(dec16, fwd32))
+        print(f"serve {arch}: bf16 at {depth} layers, max |diff| / max |logit|: "
+              f"decode vs forward {gap:.3e}"
+              f"{f' (tol {DECODE_TOL:g})' if depth == 2 else ''}; against the "
+              f"float32 forward: bf16 forward {e_fwd:.3e}, bf16 decode {e_dec:.3e} "
+              f"(ratio {e_dec / max(e_fwd, 1e-30):.3f}, at most {DECODE_BF16_RATIO:g})")
+        if not e_dec <= DECODE_BF16_RATIO * e_fwd or (depth == 2 and not gap <= DECODE_TOL):
+            raise AssertionError(f"serve {arch}: bf16 decode at {depth} layers: gap "
+                                 f"{gap}, {e_dec} against {e_fwd} for the forward")
+        del sub16, fwd32, dec16, fwd16
+
+
+def live_weights(cfg, params, seed: int):
+    """Make a template draw well conditioned and fully live, in place, for
+    the parity checks: the attention projections rescaled to variance 1 /
+    (contraction size) and the zero-initialised RWKV6 leaves drawn (token-
+    shift ``mu_*`` uniform in [0, 1), ``w0`` ~ N(-0.5, 0.3), the bonus ``u``
+    ~ N(0, 0.3)).  The template's ``scaled`` init reads the head axis of a
+    ``(d, heads, hd)`` projection as its fan-in (gemma3-1b: std 0.5 over d
+    1152, so q and k entries have std ~17 and scores std ~290): attention
+    is then an argmax that float32 summation order can flip, and the model
+    is chaotic.  Phases 7 and 8 print the template draw's gaps beside the
+    held ones."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(leaf, fn):
+        leaf.copy_(fn(torch.empty(leaf.shape).normal_(generator=gen)))
+
+    for group in params["groups"].values():
+        if "attn" in group:
+            a = group["attn"]
+            for n in ("wq", "wk", "wv"):
+                a[n].mul_(math.sqrt(a[n].shape[-2] / cfg.d_model))
+            a["wo"].mul_(1 / math.sqrt(cfg.n_heads))
+        if "time_mix" in group:
+            tm, cm = group["time_mix"], group["channel_mix"]
+            for leaf in [v for k, v in {**tm, **cm}.items() if k.startswith("mu_")]:
+                leaf.copy_(torch.rand(leaf.shape, generator=gen))
+            draw(tm["w0"], lambda z: -0.5 + 0.3 * z)
+            draw(tm["u"], lambda z: 0.3 * z)
+    return params
+
+
+def _decode_and_forward(cfg, params, toks, decode: bool = True):
+    """``(decode logits or None, forward logits)`` over teacher-forced
+    ``toks``, on the CPU in float32."""
+    b, n = toks.shape
+    with torch.inference_mode():
+        fwd, _ = tt.forward(cfg, params, {"inputs": toks})
+        fwd = fwd.float().cpu()
+        if not decode:
+            return None, fwd
+        cache = tt.init_cache(cfg, b, n, device=toks.device)
+        steps = []
+        for t in range(n):
+            logits, cache = tt.decode_step(cfg, params, cache, toks[:, t:t + 1], t)
+            steps.append(logits.float().cpu())
+        return torch.stack(steps, dim=1), fwd
+
+
+def parity_models() -> None:
+    """Phase 8: full width, float32 weights, reduced depth: the card's
+    forward (the kernels) against the port's on the CPU (the plain
+    versions) from the same weights (:func:`live_weights`) and tokens."""
+    for arch, layers, b, s in MODEL_PARITY:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                                  param_dtype="float32")
+        toks = torch.as_tensor(make_prompt(cfg, b, s, 2))
+        cpu_params = init_params(tt.model_template(cfg), seed=1)
+        template_gap = _card_vs_cpu(cfg, cpu_params, toks)[0]
+        gap, launched, cpu_s = _card_vs_cpu(cfg, live_weights(cfg, cpu_params, seed=4),
+                                            toks)
+        print(f"parity {arch} {layers} layers float32 b={b} s={s} card vs cpu: max "
+              f"|logit diff| / max |logit| {gap:.3e} on live_weights (tol "
+              f"{MODEL_TOL:g}; the template's draw, not held: {template_gap:.3e}); "
+              f"card launches {launched}; CPU forward {cpu_s:.1f} s")
+        if not gap <= MODEL_TOL:
+            raise AssertionError(f"card/CPU forward {arch}: {gap} > {MODEL_TOL}")
+        del cpu_params
+
+
+def _card_vs_cpu(cfg, cpu_params, toks):
+    """(gap, the card forward's kernel launches, CPU seconds) of one forward
+    on the CPU and on the card from the same weights."""
+    card_params = tree_map(lambda t: t.to("cuda"), cpu_params)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want, _ = tt.forward(cfg, cpu_params, {"inputs": toks})
+        cpu_s = time.perf_counter() - t0
+        _reset_serving_counts()
+        got, _ = tt.forward(cfg, card_params, {"inputs": toks.to("cuda")})
+        torch.cuda.synchronize()
+    return _rel_gap(got, want), _serving_counts(), cpu_s
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1112,7 +1554,10 @@ def main() -> None:
           "matmul and cuDNN (full float32)")
 
     t0 = time.perf_counter()
+    build.build_all(SOURCES)
     cu.build_libraries()
+    fa.library()
+    rs.library()
     print(f"build {', '.join(SOURCES)} (nvcc sm_90a, in parallel) and load: "
           f"{time.perf_counter() - t0:.2f} s")
     for lib in SOURCES:
@@ -1130,10 +1575,21 @@ def main() -> None:
     check_b4(measured, gen)
     check_sparse(measured, gen)
     check_threshold(measured, gen)
+    check_flash(measured, gen)
+    check_wkv(measured, gen)
 
     train, _ = make_classification(4096, n_classes=10, image_hw=32, seed=0)
     params = init_params(cnn_classifier_template(32, 3, 10), seed=0)
     counts = train_main_path(params, train)
+
+    t0 = time.perf_counter()
+    serving = {arch: init_params(tt.model_template(get_config(arch)), seed=0,
+                                 device="cuda") for arch, _, _ in SERVE_ARCHS}
+    print(f"full-width bf16 weights of {', '.join(serving)} drawn (seed 0) and "
+          f"moved to the card: {time.perf_counter() - t0:.1f} s")
+    counts.update(prefill_path(serving))
+    serve_path(serving)
+    del serving
     kernels = []
     for name, (lib, _, replaces) in KERNELS.items():
         if counts[name] < 1:
@@ -1154,6 +1610,7 @@ def main() -> None:
     parity_sparse_dense(params, train)
     parity_compressed_update(params, train, f"topk:{TOPK_P}", UPDATE_TOL)
     parity_compressed_update(params, train, "rank:4", RANK_TOL)
+    parity_models()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
 

@@ -5,8 +5,8 @@ same path, but imports neither JAX nor anything of :mod:`repro`: it runs on
 a machine with PyTorch alone.  Entry points run on the CUDA device unless
 the caller passes ``device="cpu"`` (see :mod:`repro_torch.device`).
 
-The kernels on the training path are hand-written CUDA C++ for Hopper
-(``sm_90a``) under ``csrc/``, built with ``nvcc`` at first use and bound
+The kernels on the training and serving paths are hand-written CUDA C++
+for Hopper (``sm_90a``) under ``csrc/``, built with ``nvcc`` at first use and bound
 with ``ctypes`` (:mod:`repro_torch.kernels.build`).  On CPU tensors every
 kernel wrapper runs its plain PyTorch version instead.
 """

@@ -1,0 +1,34 @@
+"""Config registry: ``get_config("<arch-id>")`` / ``--arch <id>`` on CLIs.
+
+The ported architectures only (the model zoo's serving path): gemma3-1b
+(dense GQA, local/global sliding windows) and rwkv6-1.6b (RWKV6).  A
+``-reduced`` suffix gives the smoke-test variant.  The reference's other
+eight architectures wait for ROADMAP A17.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.gemma3_1b import CONFIG as _gemma3
+from repro_torch.configs.rwkv6_1_6b import CONFIG as _rwkv6
+
+ARCH_CONFIGS: Dict[str, ArchConfig] = {c.name: c for c in [_rwkv6, _gemma3]}
+
+
+def get_config(name: str) -> ArchConfig:
+    if name.endswith("-reduced"):
+        return get_config(name[: -len("-reduced")]).reduced()
+    if name not in ARCH_CONFIGS:
+        raise KeyError(f"unknown or unported arch {name!r}; the port has "
+                       f"{sorted(ARCH_CONFIGS)} (the other architectures of "
+                       "the JAX package are ROADMAP A17)")
+    return ARCH_CONFIGS[name]
+
+
+def list_archs() -> List[str]:
+    return sorted(ARCH_CONFIGS)
+
+
+__all__ = ["ArchConfig", "ARCH_CONFIGS", "get_config", "list_archs"]

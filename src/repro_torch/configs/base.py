@@ -1,0 +1,98 @@
+"""Architecture configuration schema, as :mod:`repro.configs.base`.
+
+The port's own copy of :class:`ArchConfig` with the fields that the ported
+families read (dense GQA with local/global windows, RWKV6), and the
+discriminators of the families it does not run yet, on which the model
+raises.  :attr:`ArchConfig.dtype` is a ``torch.dtype``.  The reference's
+MLA, MoE, SSM-state, encoder and frontend sizes, ``InputShape`` and
+``RunConfig`` are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.nn.param import torch_dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None   # default d_model // n_heads
+
+    # attention flavour
+    attn_kind: str = "full"          # full | swa | local_global | mla | none
+    window: int = 0                  # swa / local layers
+    local_global_period: int = 0     # every k-th layer is global (gemma3: 6)
+
+    # families the port does not run yet (the model raises on them)
+    n_experts: int = 0               # MoE
+    hybrid: bool = False             # parallel attention + mamba heads
+    is_encoder_decoder: bool = False
+    modality: str = "text"           # text | audio | vlm
+
+    ssm_kind: str = "none"           # rwkv6 | mamba | none
+    rope_theta: float = 1e4
+    norm_kind: str = "rmsnorm"       # rmsnorm | layernorm
+    act: str = "silu"
+    mlp_gated: bool = True
+    tie_embeddings: bool = False
+    param_dtype: str = "float32"
+    source: str = ""                 # citation from the assignment table
+
+    # ---- derived -----------------------------------------------------------
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // self.n_heads
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch_dtype(self.param_dtype)
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    def layer_is_global(self, i: int) -> bool:
+        """local_global interleave: every `period`-th layer attends globally."""
+        if self.attn_kind != "local_global":
+            return True
+        p = self.local_global_period
+        return (i % p) == (p - 1)
+
+    def param_count(self) -> int:
+        """Parameter count of the template (:func:`model_template`)."""
+        from repro_torch.nn.param import count_params
+        from repro_torch.nn.transformer import model_template
+        return count_params(model_template(self))
+
+    def reduced(self) -> "ArchConfig":
+        """Smoke-test variant: 2 layers, d_model <= 512 (the reference's)."""
+        n_heads = min(self.n_heads, 4)
+        n_kv = min(self.n_kv_heads, n_heads)
+        while n_heads % n_kv:
+            n_kv -= 1
+        return dataclasses.replace(
+            self,
+            name=self.name + "-reduced",
+            n_layers=2,
+            d_model=min(self.d_model, 256),
+            n_heads=n_heads,
+            n_kv_heads=n_kv,
+            head_dim=64 if self.attn_kind != "mla" else None,
+            d_ff=min(self.d_ff, 512),
+            vocab_size=min(self.vocab_size, 512),
+            window=min(self.window, 8) if self.window else 0,
+            local_global_period=min(self.local_global_period, 2)
+            if self.local_global_period else 0,
+        )

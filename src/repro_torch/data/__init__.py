@@ -1,5 +1,12 @@
-"""Synthetic datasets and the per-agent partitioner."""
+"""Synthetic datasets, LM token streams and the per-agent partitioner."""
 
-from repro_torch.data.synthetic import AgentPartitioner, Dataset, make_classification
+from repro_torch.data.synthetic import (
+    AgentPartitioner,
+    Dataset,
+    lm_batches,
+    make_classification,
+    make_lm_tokens,
+)
 
-__all__ = ["AgentPartitioner", "Dataset", "make_classification"]
+__all__ = ["AgentPartitioner", "Dataset", "lm_batches", "make_classification",
+           "make_lm_tokens"]

@@ -1,9 +1,10 @@
-"""Synthetic classification data + the per-agent partitioner (numpy only).
+"""Synthetic classification and LM-token data + the per-agent partitioner
+(numpy only).
 
-A copy of the classification half of :mod:`repro.data.synthetic`: the same
-``np.random.default_rng`` draws in the same order, so the same seed gives
-the same arrays and the same per-agent batches in both packages.  Batches
-come out as numpy; the trainer moves them to its device.
+A copy of :mod:`repro.data.synthetic`: the same ``np.random.default_rng``
+draws in the same order, so the same seed gives the same arrays, token
+streams and batches in both packages.  Batches come out as numpy; the
+trainer moves them to its device.
 """
 
 from __future__ import annotations
@@ -47,6 +48,41 @@ def make_classification(
         x = x.reshape(n, image_hw, image_hw, 3)
     split = int(n * train_fraction)
     return Dataset(x[:split], y[:split]), Dataset(x[split:], y[split:])
+
+
+def make_lm_tokens(
+    n_tokens: int = 1 << 16,
+    *,
+    vocab: int = 512,
+    seed: int = 0,
+    order: int = 1,
+) -> np.ndarray:
+    """Markov token stream: learnable structure for LM smoke training."""
+    rng = np.random.default_rng(seed)
+    # sparse-ish transition table: each token prefers ~8 successors
+    prefs = rng.integers(0, vocab, size=(vocab, 8))
+    out = np.empty(n_tokens, dtype=np.int32)
+    t = rng.integers(0, vocab)
+    for i in range(n_tokens):
+        out[i] = t
+        if rng.random() < 0.85:
+            t = int(prefs[t, rng.integers(0, 8)])
+        else:
+            t = int(rng.integers(0, vocab))
+    return out
+
+
+def lm_batches(
+    tokens: np.ndarray, batch: int, seq: int, *, seed: int = 0
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Infinite iterator of {"inputs","targets"} windows."""
+    rng = np.random.default_rng(seed)
+    n = tokens.shape[0] - seq - 1
+    while True:
+        starts = rng.integers(0, n, size=batch)
+        inp = np.stack([tokens[s : s + seq] for s in starts])
+        tgt = np.stack([tokens[s + 1 : s + seq + 1] for s in starts])
+        yield {"inputs": inp, "targets": tgt}
 
 
 class AgentPartitioner:

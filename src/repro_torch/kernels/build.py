@@ -10,7 +10,9 @@ without ``nvcc``.
 :func:`load` builds what is missing and returns the loaded library with its
 function signatures set; :func:`build_all` compiles several sources at
 once, one ``nvcc`` process each.  nvcc's output (``ptxas`` register and
-spill lines) is kept in :data:`BUILD_LOGS`.
+spill lines) is kept in :data:`BUILD_LOGS`.  :func:`current_stream`,
+:func:`check_launch` and :func:`forward_only` are the wrappers' launch
+helpers.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -90,6 +94,25 @@ def build_all(names: Iterable[str]) -> None:
             os.replace(tmp, path)
     if failed:
         raise RuntimeError("\n".join(failed))
+
+
+def current_stream(device) -> int:
+    """PyTorch's current stream on ``device``, as the raw handle."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_launch(rc: int, what: str) -> None:
+    """Raise if a kernel's C entry point returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
+
+
+def forward_only(what: str, *tensors) -> None:
+    """Raise when autograd would need a backward pass through a kernel that
+    has none (the reference's attention and WKV kernels are forward-only)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what} has no backward pass; call it on tensors "
+                           "that do not require grad (or under torch.no_grad)")
 
 
 def load(name: str, signatures: Signatures) -> ctypes.CDLL:

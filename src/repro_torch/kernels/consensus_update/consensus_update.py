@@ -234,14 +234,8 @@ def _check_q_operands(weights, self_buf, payload, scales, outs,
     return a_out, s, rows, device
 
 
-def _stream(device: torch.device) -> int:
-    """PyTorch's current stream on ``device``, as the raw handle."""
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _launch_check(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
+_stream = build.current_stream
+_launch_check = build.check_launch
 
 
 def cdsgd_update(weights: torch.Tensor, neighbors: torch.Tensor,

@@ -1,0 +1,118 @@
+"""Wrapper of the flash attention CUDA kernel, with its launch count.
+
+Replaces the Pallas TPU kernel :func:`repro.kernels.flash_attention.
+flash_attention.flash_attention`: masked grouped-query attention with an
+online softmax, q ``(B, H, Sq, D)`` and k, v ``(B, KV, Sk, D)``, output in
+``q.dtype``, float32 arithmetic (source ``csrc/flash_attention.cu``).
+
+The operands may be strided views (the D axis contiguous): the model's
+``(b, s, heads, D)`` projections are passed transposed, without a copy,
+and the output is allocated with ``q``'s strides.  The kernel takes
+float32 or bfloat16 (one type for q, k, v), D in {64, 128, 256}.
+
+Sequence lengths follow the reference kernel's blocking at its default
+blocks of :data:`BLOCK` rows: a length above ``BLOCK`` must be a multiple
+of it, else :class:`ValueError` (on every device).  The CUDA kernel's own
+tiles are 64 rows and take any length; the check keeps the reference's
+contract.
+
+CUDA tensors launch the kernel (a launch error raises); CPU tensors run
+the plain version :func:`.ref.attention_ref`.  There is no backward pass
+(the reference has none): an operand that requires grad raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import ref
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+SIGNATURES = {
+    "flash_attention": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             ctypes.POINTER(ctypes.c_longlong), _F, _I, _I,
+                             _I, _P)),
+}
+#: operand dtype -> the kernel's code
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 128, 256)
+#: the reference kernel's default block_q / block_k
+BLOCK = 128
+
+
+def library() -> ctypes.CDLL:
+    """The kernel's shared library, built from its CUDA source on first use."""
+    return build.load("flash_attention", SIGNATURES)
+
+
+def check_blocks(sq: int, sk: int) -> None:
+    bq, bk = min(BLOCK, sq), min(BLOCK, sk)
+    if sq % bq or sk % bk:
+        raise ValueError(f"seq lens ({sq},{sk}) must divide blocks ({bq},{bk}): "
+                         f"a length above {BLOCK} must be a multiple of it")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Attention of ``q (B, H, Sq, D)`` over ``k, v (B, KV, Sk, D)``."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor) or t.dim() != 4:
+            raise ValueError(f"{name} must be a 4-d tensor, got "
+                             f"{getattr(t, 'shape', type(t))}")
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must be "
+                         f"({b}, KV, Sk, {d})")
+    if kv < 1 or h % kv:
+        raise ValueError(f"{h} query heads do not group over {kv} KV heads")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be a positive int or None, got {window}")
+    check_blocks(sq, sk)
+    build.forward_only("flash_attention", q, k, v)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    device = q.device
+    if k.device != device or v.device != device:
+        raise ValueError("q, k and v must be on one device")
+    if device.type == "cpu":
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 scale=scale)
+    if device.type != "cuda":
+        raise ValueError(f"no flash attention kernel for device {device}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"the kernel takes float32 or bfloat16 q, k, v of one "
+                        f"type, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {d}")
+    out = torch.empty_like(q)
+    if out.numel() == 0 or sk == 0:
+        return out.zero_()
+    esize = q.element_size()
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}'s head dim must be contiguous")
+        if t.data_ptr() % 16 or any((s * esize) % 16 for s in t.stride()[:3]):
+            raise ValueError(f"{name}'s rows must be 16-byte aligned")
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
+                                       *v.stride()[:3], *out.stride()[:3])
+    rc = library().flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        DTYPES[q.dtype], b, h, kv, sq, sk, d, strides,
+        float(np.float32(scale)), int(bool(causal)),
+        0 if window is None else int(window), device.index,
+        build.current_stream(device))
+    build.check_launch(rc, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

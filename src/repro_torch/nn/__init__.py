@@ -1,4 +1,5 @@
-"""Parameter templates and the paper's MLP/CNN classifiers."""
+"""Parameter templates, the paper's MLP/CNN classifiers and the model zoo's
+layers (:mod:`.layers`, :mod:`.attention`, :mod:`.ssm`, :mod:`.transformer`)."""
 
 from repro_torch.nn.param import (
     ParamDef,
@@ -6,7 +7,9 @@ from repro_torch.nn.param import (
     init_params,
     params_from_numpy,
     params_to_numpy,
+    stack_layers,
+    torch_dtype,
 )
 
 __all__ = ["ParamDef", "count_params", "init_params", "params_from_numpy",
-           "params_to_numpy"]
+           "params_to_numpy", "stack_layers", "torch_dtype"]

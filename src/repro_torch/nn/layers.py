@@ -1,0 +1,131 @@
+"""Basic layers as functions on tensors + their parameter templates, as
+:mod:`repro.nn.layers`: norms, embedding / unembedding, the MLP and rotary
+position embeddings.  The float32 upcasts sit where the reference has
+them (norm statistics and affine, rope's rotation)."""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.nn.param import ParamDef
+
+
+# --------------------------------------------------------------------------
+# Norms
+# --------------------------------------------------------------------------
+
+
+def rmsnorm_template(d: int, dtype=torch.float32) -> Dict[str, ParamDef]:
+    return {"scale": ParamDef((d,), (None,), init="ones", dtype=dtype)}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+def layernorm_template(d: int, dtype=torch.float32) -> Dict[str, ParamDef]:
+    return {
+        "scale": ParamDef((d,), (None,), init="ones", dtype=dtype),
+        "bias": ParamDef((d,), (None,), init="zeros", dtype=dtype),
+    }
+
+
+def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
+
+
+def make_norm(kind: str):
+    if kind == "rmsnorm":
+        return rmsnorm_template, rmsnorm
+    if kind == "layernorm":
+        return layernorm_template, layernorm
+    raise ValueError(f"unknown norm {kind!r}")
+
+
+# --------------------------------------------------------------------------
+# Embedding / unembedding
+# --------------------------------------------------------------------------
+
+
+def embedding_template(vocab: int, d: int, dtype=torch.float32) -> Dict[str, ParamDef]:
+    return {"table": ParamDef((vocab, d), ("tp", "fsdp"), init="embed", dtype=dtype)}
+
+
+def embed(params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["table"][tokens]
+
+
+def unembed_template(d: int, vocab: int, dtype=torch.float32) -> Dict[str, ParamDef]:
+    return {"w": ParamDef((d, vocab), ("fsdp", "tp"), init="scaled", dtype=dtype)}
+
+
+def unembed(params, x: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(x, params["w"])
+
+
+# --------------------------------------------------------------------------
+# MLP (gated or plain)
+# --------------------------------------------------------------------------
+
+
+def mlp_template(d: int, ff: int, *, gated: bool = True,
+                 dtype=torch.float32) -> Dict[str, ParamDef]:
+    t = {
+        "wi": ParamDef((d, ff), ("fsdp", "tp"), init="scaled", dtype=dtype),
+        "wo": ParamDef((ff, d), ("tp", "fsdp"), init="scaled", dtype=dtype),
+    }
+    if gated:
+        t["wg"] = ParamDef((d, ff), ("fsdp", "tp"), init="scaled", dtype=dtype)
+    return t
+
+
+def _act(name: str):
+    return {
+        "silu": F.silu,
+        "gelu": F.gelu,
+        "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+        "relu": F.relu,
+        "relu2": lambda x: torch.square(F.relu(x)),
+    }[name]
+
+
+def mlp(params, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
+    h = torch.matmul(x, params["wi"])
+    if "wg" in params:
+        h = _act(act)(torch.matmul(x, params["wg"])) * h
+    else:
+        h = _act(act)(h)
+    return torch.matmul(h, params["wo"])
+
+
+# --------------------------------------------------------------------------
+# Rotary position embeddings
+# --------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float = 1e4, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 1e4) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)          # (half,)
+    angles = positions[..., :, None, None].float() * freqs          # (..., s, 1, half)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

@@ -72,6 +72,24 @@ def init_params(template: PyTree, seed: Union[int, torch.Generator] = 0,
     return tree_unflatten(treedef, leaves)
 
 
+def stack_layers(template: PyTree, n: int) -> PyTree:
+    """Prefix every ParamDef with a leading ``layers`` axis of size ``n``."""
+    return tree_map(lambda pd: ParamDef((n,) + pd.shape, ("layers",) + pd.axes,
+                                        init=pd.init, scale=pd.scale,
+                                        dtype=pd.dtype), template)
+
+
+#: a configuration's dtype name -> the torch dtype
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """``"bfloat16"`` -> ``torch.bfloat16`` (a config's ``param_dtype``)."""
+    if name not in DTYPES:
+        raise ValueError(f"unknown dtype {name!r}; known: {sorted(DTYPES)}")
+    return DTYPES[name]
+
+
 def count_params(template: PyTree) -> int:
     return sum(math.prod(pd.shape) for pd in tree_flatten(template)[0])
 

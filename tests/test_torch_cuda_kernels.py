@@ -1,5 +1,5 @@
-"""The CUDA consensus-update and wire-quantize kernels on the card, against
-their plain versions.
+"""The CUDA consensus-update, wire-quantize, flash-attention and WKV6
+kernels on the card, against their plain versions.
 
 Card-only: every test carries the ``cuda`` marker and skips when no CUDA
 device is present (decided inside the test).  This file imports no JAX,
@@ -13,7 +13,12 @@ are expected to agree exactly.  ``sr_quantize`` is held bit for bit: both
 draw the same Philox4x32-10 stream.  The sparse (top-k wire) update
 kernels are held against their ``index_add_`` plain versions on compact
 stacks that ``topk_compress_2d`` makes on the card; the threshold kernel's
-counts must be exact and its ``tau`` equal bit for bit.
+counts must be exact and its ``tau`` equal bit for bit.  The flash
+attention and WKV6 kernels sum in another order than their plain versions
+(float32 throughout): they are held at the reference's own tolerances,
+``tol_for`` of ``tests/test_kernels.py`` for attention (2e-5 float32, 2e-2
+bfloat16, abs and rel) and 1e-4 for WKV6 (its bfloat16 ``y`` at 2e-2: one
+bfloat16 rounding step is 4e-3 relative).
 """
 
 import pytest
@@ -24,6 +29,12 @@ from repro_torch.kernels.consensus_update import consensus_update as cu  # noqa:
 from repro_torch.kernels.consensus_update import ops  # noqa: E402
 from repro_torch.kernels.consensus_update import ref  # noqa: E402
 from repro_torch.kernels.consensus_update import topk  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.rwkv_scan import ops as wkv_ops  # noqa: E402
+from repro_torch.kernels.rwkv_scan import rwkv_scan as rs  # noqa: E402
+from repro_torch.kernels.rwkv_scan.ref import wkv6_ref  # noqa: E402
 
 ATOL = 1e-6
 ALPHA, MU = 0.05, 0.9
@@ -394,3 +405,132 @@ def test_threshold_kernel_matches_plain_version(a, rows, k):
     ok8 = (want8 <= k).sum(dim=1)
     assert torch.equal(tau8, taus8.gather(
         1, torch.clamp(ok8 - 1, min=0)[:, None])[:, 0])
+
+
+def _tol(dtype):
+    return (dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16
+            else dict(rtol=2e-5, atol=2e-5))
+
+
+FLASH_CASES = [   # b, h, kv, sq, sk, d, causal, window, dtype
+    (2, 4, 2, 256, 256, 64, True, None, torch.float32),
+    (1, 4, 1, 256, 256, 128, True, 64, torch.float32),
+    (1, 2, 2, 128, 128, 64, False, None, torch.float32),
+    (1, 8, 2, 128, 128, 64, True, 32, torch.float32),
+    (1, 4, 4, 256, 256, 64, True, None, torch.bfloat16),
+    (1, 4, 1, 640, 640, 256, True, 512, torch.bfloat16),    # gemma3 local
+    (1, 4, 1, 384, 384, 256, True, None, torch.float32),    # gemma3 global
+    (2, 2, 1, 100, 100, 64, True, 16, torch.float32),       # one ragged tile
+    (1, 2, 1, 64, 128, 128, False, 40, torch.float32),      # sq != sk
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,causal,window,dtype", FLASH_CASES)
+def test_flash_kernel_matches_plain_version(b, h, kv, sq, sk, d, causal, window,
+                                            dtype):
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(sq + d)
+    q = torch.randn((b, h, sq, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, kv, sk, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, kv, sk, d), generator=gen, device=dev).to(dtype)
+    n = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n + 1 and out.dtype == dtype
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 24])
+def test_flash_bshd_reads_strided_views_on_card(window):
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((2, 128, hh, 64), generator=gen, device=dev)
+               for hh in (4, 2, 2))
+    out = fa_ops.flash_attention_bshd(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.stride() == q.stride()
+    want = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                         window=window).transpose(1, 2)
+    torch.testing.assert_close(out, want, **_tol(torch.float32))
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_what_it_cannot_take_on_card():
+    dev = _card()
+    q = torch.zeros((1, 2, 200, 64), device=dev)
+    with pytest.raises(ValueError, match="must divide blocks"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros((1, 2, 128, 96), device=dev)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros((1, 2, 128, 64), device=dev)
+    with pytest.raises(TypeError, match="one type"):
+        fa.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention(q.requires_grad_(), q, q)
+
+
+def _wkv_operands(dev, shape, seed, dtype=torch.float32):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for _ in range(3))
+    w = torch.sigmoid(torch.randn(shape, generator=gen, device=dev)) * 0.5 + 0.45
+    return r, k, v, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,hs", [(4, 128, 64), (2, 96, 32), (1, 256, 64),
+                                     (8, 64, 16), (3, 100, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_wkv6_kernel_matches_plain_version(bh, s, hs, dtype):
+    dev = _card()
+    r, k, v, w = _wkv_operands(dev, (bh, s, hs), s + hs, dtype)
+    u = 0.1 * torch.randn((bh, hs), device=dev)
+    n = rs.wkv6.launches
+    y, state = rs.wkv6(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert rs.wkv6.launches == n + 1 and y.dtype == dtype
+    want_y, want_state = wkv6_ref(r, k, v, w, u)
+    torch.testing.assert_close(state, want_state, rtol=1e-4, atol=1e-4)
+    y_tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else _tol(dtype)
+    torch.testing.assert_close(y.float(), want_y.to(dtype).float(), **y_tol)
+
+
+@pytest.mark.cuda
+def test_wkv6_bsnh_reads_the_model_layout_on_card():
+    dev = _card()
+    b, s, n_h, hs = 2, 70, 4, 64
+    r, k, v = (t.bfloat16() for t in _wkv_operands(dev, (b, s, n_h, hs), 5)[:3])
+    w = _wkv_operands(dev, (b, s, n_h, hs), 6)[3]
+    u = 0.1 * torch.randn((n_h, hs), device=dev)
+    y, state = wkv_ops.wkv6_bsnh(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert y.shape == r.shape and state.shape == (b, n_h, hs, hs)
+
+    def fold(x):
+        return x.transpose(1, 2).reshape(b * n_h, s, hs)
+
+    want_y, want_state = wkv6_ref(fold(r), fold(k), fold(v), fold(w),
+                                  u.repeat(b, 1))
+    torch.testing.assert_close(state.reshape(b * n_h, hs, hs), want_state,
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(fold(y).float(), want_y.bfloat16().float(),
+                               **_tol(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_rejects_what_it_cannot_take_on_card():
+    dev = _card()
+    r = torch.zeros((2, 8, 48), device=dev)
+    with pytest.raises(ValueError, match="head sizes"):
+        rs.wkv6(r, r, r, r, torch.zeros((2, 48), device=dev))
+    r = torch.zeros((2, 8, 64), device=dev)
+    with pytest.raises(TypeError, match="float32 u"):
+        rs.wkv6(r, r, r, r, torch.zeros((2, 64), device=dev).bfloat16())
+    with pytest.raises(TypeError, match="float32 w"):
+        rs.wkv6(r, r, r, r.bfloat16(), torch.zeros((2, 64), device=dev))
+    with pytest.raises(RuntimeError, match="no backward"):
+        rs.wkv6(r.clone().requires_grad_(), r, r, r, torch.zeros((2, 64), device=dev))
