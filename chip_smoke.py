@@ -92,6 +92,20 @@ flash kernel, and then:
    tail: both masks) at b 1, s 640, and rwkv6-1.6b at 2 layers at b 1, s
    256, logits within 1e-4 of max |logit|.
 
+The tensor-core slice routes bfloat16 attention to ``flash_tc_kernel``
+(wgmma and TMA) and float32 to ``flash_kernel``, and lets the model path
+take ragged lengths.  Phase 3 holds the bf16 kernel at the path shapes
+and at s = 200 (window 512 and global) against the plain version (within
+2e-2, and at most twice SDPA's max abs error on the same operands), its
+bound taken at the bf16 tensor-core rate (the float32 rows keep the
+float32 rate), with SDPA's time and the ratio beside each bf16 row, and
+prints the speed criteria (global at most 2x SDPA causal and 0.23 ms, the
+window at most SDPA's band mask) and the wrapper's host time per call at a
+tiny shape; each launch is checked on the per-kernel count.  Phase 6
+requires all 26 gemma3-1b launches on the tensor-core kernel (count and
+trace) and prints its share of device time; phase 7 prints
+``tokens_per_s`` (the reference's figure) and ``decode_tokens_per_s``.
+
 Any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 float32 matmuls and convolutions run in full float32 (TF32 off).
@@ -193,12 +207,19 @@ KERNELS = {   # name -> (library, CUDA kernel symbol, the TPU kernel it replaces
                              f"{_TPU}:636"),
     "topk_threshold": ("topk_threshold", "threshold_kernel",
                        "src/repro/kernels/consensus_update/topk.py:187"),
-    "flash_attention": ("flash_attention", "flash_kernel",
+    "flash_attention": ("flash_attention", "flash_tc_kernel",
                         "src/repro/kernels/flash_attention/flash_attention.py:74"),
     "wkv6": ("wkv6", "wkv6_kernel", "src/repro/kernels/rwkv_scan/rwkv_scan.py:67"),
 }
 # the serving path's kernel wrappers (each with its ``launches`` count)
 SERVE_KERNELS = {"flash_attention": fa.flash_attention, "wkv6": rs.wkv6}
+# flash attention's kernels by variant (``launches_by_variant``): symbol,
+# operation rate of the bound.  Neither symbol contains the other.
+FLASH_VARIANTS = {"tc": ("flash_tc_kernel", BF16_TC_FLOPS_PER_S),
+                  "f32": ("flash_kernel", F32_FLOPS_PER_S)}
+# the acceptance criteria of the bf16 kernel at the path shape: global at
+# most 2x SDPA causal and at most 0.23 ms; the window at most SDPA's band
+FLASH_GLOBAL_SDPA_RATIO, FLASH_GLOBAL_MS = 2.0, 0.23
 # the serving path: (arch, its kernel, launches per prefill = layers)
 SERVE_ARCHS = (("gemma3-1b", "flash_attention", 26), ("rwkv6-1.6b", "wkv6", 24))
 PREFILL_BATCH, PREFILL_LEN = 4, 2048
@@ -215,6 +236,10 @@ MODEL_TOL = 1e-4               # of max |logit|: card vs CPU, f32 weights
 # card vs CPU at full width, reduced depth: (arch, layers, batch, seq)
 MODEL_PARITY = (("gemma3-1b", 7, 1, 640), ("rwkv6-1.6b", 2, 1, 256))
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}   # tol_for, abs and rel
+# besides FLASH_TOL, the bf16 kernel's max abs error against the plain
+# version is at most this many times SDPA's on the same operands (or one
+# bf16 rounding of the largest output, 2^-8 of it, where SDPA's is smaller)
+FLASH_BF16_SDPA_ERR_RATIO = 2.0
 WKV_TOL = 1e-4                 # abs and rel (bf16 y: FLASH_TOL's 2e-2)
 # the sparse (top-k wire) kernels: plain version, per-agent operands
 # written in place
@@ -300,6 +325,20 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Host time per call of ``fn`` in microseconds, launches not waited
+    for (of a launch-bound call: what the card waits for between them)."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / iters
 
 
 def device_ms(fn, symbol: str, iters: int = 20):
@@ -1171,22 +1210,27 @@ def _close_err(got: torch.Tensor, want: torch.Tensor, tol: float):
 
 def _report_serving(results: dict, name: str, label: str, shape: str, err: float,
                     tol: float, kernel, plain, library, flops: float,
-                    nbytes: float, plain_iters: int = 20) -> None:
+                    nbytes: float, plain_iters: int = 20, symbol: str = None,
+                    peak: float = F32_FLOPS_PER_S) -> dict:
     """Time one checked operand set of a serving-path kernel and print its
-    line: CUDA-event ms, the kernel alone from a profiler trace, the bound
-    (float32 operations on the CUDA cores vs bytes), the bf16 tensor-core
-    time of the same operations, the plain version's and the library's ms."""
+    line: CUDA-event ms, the kernel alone from a profiler trace (kernels
+    named ``symbol``), the bound (operations at ``peak``, float32 on the
+    CUDA cores unless the bf16 tensor cores are given, vs bytes), the bf16
+    tensor-core time of the same operations, the plain version's and the
+    library's ms and the ratio to the library.  Returns the times."""
     ms = cuda_ms(kernel, iters=20, warmup=2)
     plain_ms = cuda_ms(plain, iters=plain_iters, warmup=1)
     lib_ms = cuda_ms(library, iters=20, warmup=2) if library is not None else None
-    dev_ms = device_ms(kernel, KERNELS[name][1], iters=10)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    dev_ms = device_ms(kernel, symbol or KERNELS[name][1], iters=10)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     b_ms, b_by = 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    rate = "bf16 tensor-core" if peak == BF16_TC_FLOPS_PER_S else "float32"
     print(f"kernel {name} [{label}] {shape}: max_abs_err={err:.3e} (tol {tol:g} "
           f"abs and rel) ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms="
-          f"{'none' if lib_ms is None else f'{lib_ms:.5f}'} bound_ms={b_ms:.5f} "
-          f"({b_by}: {flops:.4g} float32 operations, {nbytes:.4g} bytes) "
-          f"bound_share={b_ms / ms:.3f} bf16_tensor_core_ms="
+          f"{'none' if lib_ms is None else f'{lib_ms:.5f}'} "
+          f"{'' if lib_ms is None else f'ms/library_ms={ms / lib_ms:.3f} '}"
+          f"bound_ms={b_ms:.5f} ({b_by}: {flops:.4g} {rate} operations, "
+          f"{nbytes:.4g} bytes) bound_share={b_ms / ms:.3f} bf16_tensor_core_ms="
           f"{1e3 * flops / BF16_TC_FLOPS_PER_S:.5f} kernel_only_ms="
           f"{'not measured' if dev_ms is None else f'{dev_ms:.5f}'}")
     entry = results.setdefault(name, {"max_abs_err": 0.0})
@@ -1194,6 +1238,7 @@ def _report_serving(results: dict, name: str, label: str, shape: str, err: float
     if label == "path":
         entry.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                      library_ms=lib_ms)
+    return {"ms": ms, "library_ms": lib_ms, "bound_ms": b_ms}
 
 
 def _allowed_pairs(sq: int, sk: int, window) -> int:
@@ -1204,24 +1249,40 @@ def _allowed_pairs(sq: int, sk: int, window) -> int:
 
 
 def check_flash(results: dict, gen) -> None:
-    """Phase 3, the flash attention kernel against ``attention_ref`` at the
-    gemma3-1b prefill shape (bf16; the 512-window local layer is the
-    ``path`` row, the global layer beside it) and at the float32 card-vs-
-    CPU shape; ``scaled_dot_product_attention`` on the same operands (GQA,
-    causal or a boolean band mask) as the library yardstick."""
+    """Phase 3, the flash attention kernels against ``attention_ref``: the
+    tensor-core kernel at the gemma3-1b prefill shape (bf16; the 512-window
+    local layer is the ``path`` row, the global layer beside it) and at a
+    ragged s = 200 (both masks, through the model path's any-length
+    launch), the float32 kernel at the float32 card-vs-CPU shape;
+    ``scaled_dot_product_attention`` on the same operands (GQA, causal or a
+    boolean band mask) as the library yardstick.  Then the bf16 speed
+    criteria, printed (met or not), not held."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = torch.device("cuda")
+    times = {}
     for label, b, s, dtype, window in (
             ("path", PREFILL_BATCH, PREFILL_LEN, torch.bfloat16, 512),
             ("path-global", PREFILL_BATCH, PREFILL_LEN, torch.bfloat16, None),
+            ("ragged", PREFILL_BATCH, 200, torch.bfloat16, 512),
+            ("ragged-global", PREFILL_BATCH, 200, torch.bfloat16, None),
             ("f32-local", 1, 640, torch.float32, 512),
             ("f32-global", 1, 640, torch.float32, None)):
         h, kv, d = 4, 1, 256
         q = torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
         k = torch.randn((b, kv, s, d), generator=gen, device=dev).to(dtype)
         v = torch.randn((b, kv, s, d), generator=gen, device=dev).to(dtype)
-        out = fa.flash_attention(q, k, v, window=window)
+        launch = fa.flash_attention_any_length if label.startswith("ragged") \
+            else fa.flash_attention
+        variant = "tc" if dtype == torch.bfloat16 else "f32"
+        symbol, peak = FLASH_VARIANTS[variant]
+        before = dict(fa.flash_attention.launches_by_variant)
+        out = launch(q, k, v, window=window)
         torch.cuda.synchronize()
+        before[variant] += 1
+        if fa.flash_attention.launches_by_variant != before:
+            raise AssertionError(f"flash_attention [{label}] ran "
+                                 f"{fa.flash_attention.launches_by_variant}, "
+                                 f"expected one more {variant}")
         want = attention_ref(q, k, v, window=window)
         err, ok = _close_err(out, want, FLASH_TOL[dtype])
         if not ok or out.dtype != dtype:
@@ -1235,14 +1296,35 @@ def check_flash(results: dict, gen) -> None:
             library = lambda: sdpa(q, k, v, attn_mask=band, enable_gqa=True)
         lib_err, _ = _close_err(library(), want, FLASH_TOL[dtype])
         print(f"  sdpa [{label}] against the plain version: max abs err {lib_err:.3e}")
+        if dtype == torch.bfloat16:
+            err_cap = FLASH_BF16_SDPA_ERR_RATIO * max(
+                lib_err, float(want.float().abs().max()) * 2.0 ** -8)
+            if err > err_cap:
+                raise AssertionError(
+                    f"flash_attention [{label}]: max abs err {err:.3e} above "
+                    f"{FLASH_BF16_SDPA_ERR_RATIO:g} x SDPA's {lib_err:.3e}")
         esize = q.element_size()
-        _report_serving(results, "flash_attention", label,
-                        f"q ({b},{h},{s},{d}) k,v ({b},{kv},{s},{d}) "
-                        f"{str(dtype)[6:]} window={window}", err, FLASH_TOL[dtype],
-                        lambda: fa.flash_attention(q, k, v, window=window),
-                        lambda: attention_ref(q, k, v, window=window), library,
-                        4.0 * d * b * h * _allowed_pairs(s, s, window),
-                        esize * (2 * q.numel() + k.numel() + v.numel()))
+        times[label] = _report_serving(
+            results, "flash_attention", label,
+            f"q ({b},{h},{s},{d}) k,v ({b},{kv},{s},{d}) {str(dtype)[6:]} "
+            f"window={window} ({symbol})", err, FLASH_TOL[dtype],
+            lambda: launch(q, k, v, window=window),
+            lambda: attention_ref(q, k, v, window=window), library,
+            4.0 * d * b * h * _allowed_pairs(s, s, window),
+            esize * (2 * q.numel() + k.numel() + v.numel()), symbol=symbol, peak=peak)
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn((1, 1, 64, 256), generator=gen, device=dev).to(dtype)
+        print(f"flash_attention wrapper host time at (1,1,64,256) {str(dtype)[6:]}: "
+              f"{host_us(lambda: fa.flash_attention(q, q, q)):.1f} us per call "
+              "(launch-bound: the ragged rows' ms above is this, not the kernel)")
+    glob, loc = times["path-global"], times["path"]
+    print(f"flash bf16 speed criteria: global {glob['ms']:.5f} ms <= "
+          f"{FLASH_GLOBAL_SDPA_RATIO:g} x SDPA causal {glob['library_ms']:.5f} and <= "
+          f"{FLASH_GLOBAL_MS:g} ms: "
+          f"{glob['ms'] <= min(FLASH_GLOBAL_SDPA_RATIO * glob['library_ms'], FLASH_GLOBAL_MS)}; "
+          f"window {loc['ms']:.5f} ms <= SDPA band {loc['library_ms']:.5f}: "
+          f"{loc['ms'] <= loc['library_ms']}; goal, global <= SDPA causal: "
+          f"{glob['ms'] <= glob['library_ms']} (bound share {glob['bound_ms'] / glob['ms']:.3f})")
 
 
 def wkv_flops(bh: int, s: int, hs: int) -> float:
@@ -1299,8 +1381,8 @@ def _serving_counts() -> dict:
 
 
 def _reset_serving_counts() -> None:
-    for fn in SERVE_KERNELS.values():
-        fn.launches = 0
+    fa.reset_launches()
+    rs.wkv6.launches = 0
 
 
 def _rel_gap(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1333,8 +1415,11 @@ def prefill_path(params_by_arch: dict) -> dict:
         peak = torch.cuda.max_memory_allocated() / 2**20
         got = _serving_counts()
         want = {k: per_forward if k == kernel else 0 for k in SERVE_KERNELS}
-        if got != want:
-            raise AssertionError(f"prefill {arch}: launched {got}, expected {want}")
+        variants = dict(fa.flash_attention.launches_by_variant)
+        want_variants = {"tc": want["flash_attention"], "f32": 0}
+        if got != want or variants != want_variants:
+            raise AssertionError(f"prefill {arch}: launched {got}, flash by kernel "
+                                 f"{variants}; expected {want}, {want_variants}")
         counts[kernel] = got[kernel]
         finite = bool(torch.isfinite(logits).all())
         if tuple(logits.shape) != (PREFILL_BATCH, PREFILL_LEN, cfg.vocab_size) \
@@ -1350,12 +1435,24 @@ def prefill_path(params_by_arch: dict) -> dict:
                 tt.forward(cfg, params, batch)
                 torch.cuda.synchronize()
                 walls.append(1e3 * (time.perf_counter() - t0))
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        symbol = KERNELS[kernel][1]
+        # the counter above is exact; a trace can lose a kernel's record
+        # (seen once: 23 of 24), so a short trace is taken once more
+        for attempt in range(2):
+            with torch.inference_mode(), \
+                    profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 tt.forward(cfg, params, batch)
                 torch.cuda.synchronize()
-        spans = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        symbol = KERNELS[kernel][1]
-        mine = [e.time_range.elapsed_us() / 1e3 for e in spans if symbol in e.name]
+            spans = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            mine = [e.time_range.elapsed_us() / 1e3 for e in spans if symbol in e.name]
+            if len(mine) == per_forward:
+                break
+            print(f"prefill {arch}: trace {attempt + 1} shows {len(mine)} {symbol} "
+                  f"launches of {per_forward}")
+        other = sum(FLASH_VARIANTS["f32"][0] in e.name for e in spans)
+        if other:
+            raise AssertionError(f"prefill {arch}: the trace shows {other} float32 "
+                                 "flash launches")
         busy = sum(e.time_range.elapsed_us() for e in spans) / 1e3
         by_name = {}
         for e in spans:
@@ -1371,8 +1468,10 @@ def prefill_path(params_by_arch: dict) -> dict:
               f"{tokens_n / wall * 1e3:.1f} prefill tokens/s, max_memory_allocated "
               f"{peak:.1f} MiB (both archs' weights resident), logits finite; "
               f"{kernel} launches per forward "
-              f"{got[kernel]} (trace: {len(mine)}, {sum(mine):.3f} ms of "
-              f"{busy:.3f} ms device time); top: " + "; ".join(
+              f"{got[kernel]} (trace: {len(mine)} {symbol}, {sum(mine):.3f} ms of "
+              f"{busy:.3f} ms device time, {100 * sum(mine) / busy:.1f}%"
+              f"{'; by kernel ' + str(variants) if kernel == 'flash_attention' else ''})"
+              f"; top: " + "; ".join(
                   f"{n[:60]} {t:.3f} ms" for n, t in
                   sorted(by_name.items(), key=lambda kv: -kv[1])[:6]))
     return counts
@@ -1396,8 +1495,9 @@ def serve_path(params_by_arch: dict) -> None:
             raise AssertionError(f"serve {arch}: bad tokens {seqs.shape}")
         print(f"serve {arch}: batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
               f"{SERVE_NEW} new tokens: {stats['decode_steps']} decode steps in "
-              f"{stats['seconds'] * 1e3:.1f} ms, {stats['tokens_per_s']:.1f} decode "
-              f"tokens/s; first sequence {seqs[0].tolist()}")
+              f"{stats['seconds'] * 1e3:.1f} ms, decode_tokens_per_s "
+              f"{stats['decode_tokens_per_s']:.1f}, tokens_per_s (the reference's "
+              f"figure) {stats['tokens_per_s']:.1f}; first sequence {seqs[0].tolist()}")
         toks = torch.as_tensor(make_prompt(cfg, *DECODE_CHECK, 1), device="cuda")
         cfg32 = dataclasses.replace(cfg, param_dtype="float32")
         params32 = tree_map(lambda t: t.float(), params)
@@ -1564,7 +1664,8 @@ def main() -> None:
         if lib not in build.BUILD_LOGS:
             print(f"  {lib}: library current, not rebuilt by this run")
         for line in build.BUILD_LOGS.get(lib, "").splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling entry",
+                                       "Performance Loss")):
                 print(f"  ptxas {lib}: {line.strip()}")
 
     measured = {}

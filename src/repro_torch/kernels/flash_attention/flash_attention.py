@@ -1,24 +1,32 @@
-"""Wrapper of the flash attention CUDA kernel, with its launch count.
+"""Wrapper of the flash attention CUDA kernels, with their launch counts.
 
 Replaces the Pallas TPU kernel :func:`repro.kernels.flash_attention.
 flash_attention.flash_attention`: masked grouped-query attention with an
 online softmax, q ``(B, H, Sq, D)`` and k, v ``(B, KV, Sk, D)``, output in
-``q.dtype``, float32 arithmetic (source ``csrc/flash_attention.cu``).
+``q.dtype`` (source ``csrc/flash_attention.cu``).  Dispatch is by type:
+bfloat16 operands run the tensor-core kernel (``flash_tc_kernel``: wgmma
+and TMA, P rounded to bfloat16 before the PV product), float32 operands
+the float32 kernel (``flash_kernel``, float32 arithmetic throughout).
 
 The operands may be strided views (the D axis contiguous): the model's
 ``(b, s, heads, D)`` projections are passed transposed, without a copy,
-and the output is allocated with ``q``'s strides.  The kernel takes
-float32 or bfloat16 (one type for q, k, v), D in {64, 128, 256}.
+and the output is allocated with ``q``'s strides.  The kernels take D in
+{64, 128, 256}.
 
-Sequence lengths follow the reference kernel's blocking at its default
-blocks of :data:`BLOCK` rows: a length above ``BLOCK`` must be a multiple
-of it, else :class:`ValueError` (on every device).  The CUDA kernel's own
-tiles are 64 rows and take any length; the check keeps the reference's
-contract.
+:func:`flash_attention` keeps the reference kernel's contract: at its
+default blocks of :data:`BLOCK` rows, a length above ``BLOCK`` must be a
+multiple of it, else :class:`ValueError` (on every device).
+:func:`flash_attention_any_length` is the same launch without that check
+(any ``Sq, Sk >= 1``: the kernels mask ragged tiles); the model path
+(:func:`.ops.flash_attention_bshd`) calls it.  Both count their launches
+on ``flash_attention.launches`` and, by kernel, on
+``flash_attention.launches_by_variant`` (``"tc"``, ``"f32"``).
 
-CUDA tensors launch the kernel (a launch error raises); CPU tensors run
-the plain version :func:`.ref.attention_ref`.  There is no backward pass
-(the reference has none): an operand that requires grad raises.
+CUDA tensors launch a kernel (a launch error raises; a bfloat16 operand
+the tensor-core kernel cannot take raises and never reaches the float32
+kernel); CPU tensors run the plain version :func:`.ref.attention_ref`.
+There is no backward pass (the reference has none): an operand that
+requires grad raises.
 """
 
 from __future__ import annotations
@@ -43,6 +51,8 @@ SIGNATURES = {
 }
 #: operand dtype -> the kernel's code
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: operand dtype -> the kernel that runs it (keys of ``launches_by_variant``)
+VARIANTS = {torch.bfloat16: "tc", torch.float32: "f32"}
 HEAD_DIMS = (64, 128, 256)
 #: the reference kernel's default block_q / block_k
 BLOCK = 128
@@ -63,21 +73,37 @@ def check_blocks(sq: int, sk: int) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Attention of ``q (B, H, Sq, D)`` over ``k, v (B, KV, Sk, D)``."""
+    """Attention of ``q (B, H, Sq, D)`` over ``k, v (B, KV, Sk, D)``, at the
+    reference kernel's lengths (:func:`check_blocks`)."""
+    _check_shapes(q, k, v)
+    check_blocks(q.shape[2], k.shape[2])
+    return flash_attention_any_length(q, k, v, causal=causal, window=window,
+                                      scale=scale)
+
+
+def _check_shapes(q, k, v) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or t.dim() != 4:
             raise ValueError(f"{name} must be a 4-d tensor, got "
                              f"{getattr(t, 'shape', type(t))}")
-    b, h, sq, d = q.shape
-    kv, sk = k.shape[1], k.shape[2]
+    b, h, _, d = q.shape
+    kv = k.shape[1]
     if k.shape[0] != b or k.shape[3] != d or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must be "
                          f"({b}, KV, Sk, {d})")
     if kv < 1 or h % kv:
         raise ValueError(f"{h} query heads do not group over {kv} KV heads")
+
+
+def flash_attention_any_length(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               *, causal: bool = True,
+                               window: Optional[int] = None,
+                               scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`flash_attention` at any ``Sq, Sk >= 1``."""
+    _check_shapes(q, k, v)
+    d, sk = q.shape[3], k.shape[2]
     if window is not None and window < 1:
         raise ValueError(f"window must be a positive int or None, got {window}")
-    check_blocks(sq, sk)
     build.forward_only("flash_attention", q, k, v)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     device = q.device
@@ -102,17 +128,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"{name}'s head dim must be contiguous")
         if t.data_ptr() % 16 or any((s * esize) % 16 for s in t.stride()[:3]):
             raise ValueError(f"{name}'s rows must be 16-byte aligned")
+    b, h, sq, _ = q.shape
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *out.stride()[:3])
     rc = library().flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        DTYPES[q.dtype], b, h, kv, sq, sk, d, strides,
+        DTYPES[q.dtype], b, h, k.shape[1], sq, sk, d, strides,
         float(np.float32(scale)), int(bool(causal)),
         0 if window is None else int(window), device.index,
         build.current_stream(device))
-    build.check_launch(rc, "flash_attention")
+    build.check_launch(rc, f"flash_attention ({VARIANTS[q.dtype]})")
     flash_attention.launches += 1
+    flash_attention.launches_by_variant[VARIANTS[q.dtype]] += 1
     return out
 
 
-flash_attention.launches = 0
+def reset_launches() -> None:
+    """Set the launch count and the per-kernel counts to 0."""
+    flash_attention.launches = 0
+    flash_attention.launches_by_variant = {name: 0 for name in VARIANTS.values()}
+
+
+reset_launches()

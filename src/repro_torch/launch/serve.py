@@ -38,8 +38,11 @@ def serve(cfg, params, prompt: np.ndarray, new_tokens: int,
     """Greedy decode after a teacher-forced ``prompt (batch, prompt_len)``.
 
     Returns ``(tokens (batch, prompt_len + new_tokens), stats)``; stats has
-    the wall ``seconds`` of the loop (synchronized), its ``decode_steps``
-    and ``tokens_per_s`` (tokens through :func:`decode_step` per second).
+    the wall ``seconds`` of the loop (synchronized), its ``decode_steps``,
+    ``tokens_per_s`` (``batch * max_len / seconds``, the figure the
+    reference's loop prints: every token of the returned sequences) and
+    ``decode_tokens_per_s`` (``batch * decode_steps / seconds``: tokens
+    through :func:`decode_step`, ``max_len - 1`` per sequence).
     """
     dev = resolve_device(device)
     batch, prompt_len = prompt.shape
@@ -62,8 +65,13 @@ def serve(cfg, params, prompt: np.ndarray, new_tokens: int,
         seqs = torch.cat(out, dim=1).cpu().numpy()
         dt = time.perf_counter() - t0
     steps = max_len - 1
+
+    def rate(n):
+        return n / dt if dt > 0 else float("inf")
+
     return seqs, {"seconds": dt, "decode_steps": steps,
-                  "tokens_per_s": batch * steps / dt if dt > 0 else float("inf")}
+                  "tokens_per_s": rate(batch * max_len),
+                  "decode_tokens_per_s": rate(batch * steps)}
 
 
 def main() -> None:
@@ -88,8 +96,8 @@ def main() -> None:
     seqs, stats = serve(cfg, params, prompt, args.new_tokens, dev)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "CPU"
     print(f"[serve] {cfg.name}: decoded {args.batch}x{seqs.shape[1]} tokens in "
-          f"{stats['seconds']:.2f}s ({stats['tokens_per_s']:.1f} decode tok/s "
-          f"on {where})")
+          f"{stats['seconds']:.2f}s ({stats['tokens_per_s']:.1f} tok/s, "
+          f"{stats['decode_tokens_per_s']:.1f} decode tok/s on {where})")
     print("[serve] first sequence:", seqs[0].tolist())
 
 

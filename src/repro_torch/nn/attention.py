@@ -7,8 +7,10 @@
   layer and a global one are the same kernel with and without ``window``.
   The reference computes the same function with ``banded_attention``
   (static window below ``s``) or ``blockwise_attention`` (otherwise).
-  Lengths the kernel cannot take (above 128 and not a multiple of 128)
-  raise ``ValueError``; nothing falls back to plain code.
+  Any length is taken: the kernel masks ragged tiles (the reference's
+  ``blockwise_attention`` pads KV to its chunk).  bfloat16 runs the
+  tensor-core kernel, float32 the float32 one; nothing falls back to
+  plain code.
 * Decode (:func:`gqa_decode`) writes the new token's K/V into the cache
   **in place** and attends over it with :func:`decode_attention`, a plain
   einsum pair as in the reference (no kernel there either).

@@ -14,11 +14,16 @@ draw the same Philox4x32-10 stream.  The sparse (top-k wire) update
 kernels are held against their ``index_add_`` plain versions on compact
 stacks that ``topk_compress_2d`` makes on the card; the threshold kernel's
 counts must be exact and its ``tau`` equal bit for bit.  The flash
-attention and WKV6 kernels sum in another order than their plain versions
-(float32 throughout): they are held at the reference's own tolerances,
-``tol_for`` of ``tests/test_kernels.py`` for attention (2e-5 float32, 2e-2
-bfloat16, abs and rel) and 1e-4 for WKV6 (its bfloat16 ``y`` at 2e-2: one
-bfloat16 rounding step is 4e-3 relative).
+attention and WKV6 kernels sum in another order than their plain versions:
+they are held at the reference's own tolerances, ``tol_for`` of
+``tests/test_kernels.py`` for attention (2e-5 float32, 2e-2 bfloat16, abs
+and rel) and 1e-4 for WKV6 (its bfloat16 ``y`` at 2e-2: one bfloat16
+rounding step is 4e-3 relative).  bfloat16 attention runs the tensor-core
+kernel (it also rounds P to bfloat16 before the PV product), float32 the
+float32 kernel; each case checks which ran on the per-kernel count, and
+covers D 64 / 128 / 256, GQA groups 1 / 2 / 4, ragged and unequal lengths
+(through the model path's any-length launch), both masks, b > 1 and the
+strided (b, s, heads, d) view.
 """
 
 import pytest
@@ -422,22 +427,51 @@ FLASH_CASES = [   # b, h, kv, sq, sk, d, causal, window, dtype
     (1, 4, 1, 384, 384, 256, True, None, torch.float32),    # gemma3 global
     (2, 2, 1, 100, 100, 64, True, 16, torch.float32),       # one ragged tile
     (1, 2, 1, 64, 128, 128, False, 40, torch.float32),      # sq != sk
+    # the tensor-core kernel: D 64 / 128 / 256, GQA groups 1 / 2 / 4,
+    # ragged and unequal lengths, both masks, windows below a tile and off
+    # its multiples, b > 1
+    (2, 4, 2, 256, 256, 128, True, None, torch.bfloat16),   # group 2, b 2
+    (1, 8, 2, 130, 130, 64, True, None, torch.bfloat16),    # group 4, ragged
+    (1, 4, 1, 200, 200, 256, True, None, torch.bfloat16),   # ragged global
+    (2, 4, 1, 200, 200, 256, True, 512, torch.bfloat16),    # ragged, window > s
+    (1, 2, 1, 100, 100, 128, True, 16, torch.bfloat16),     # window < a tile
+    (1, 4, 2, 384, 384, 64, True, 100, torch.bfloat16),     # window off 64s
+    (1, 2, 2, 128, 128, 256, False, None, torch.bfloat16),  # non-causal
+    (1, 4, 4, 100, 200, 64, False, 40, torch.bfloat16),     # sq < sk, window
+    (2, 4, 1, 200, 130, 256, True, None, torch.bfloat16),   # sq > sk, causal
+    (1, 4, 2, 64, 320, 128, True, None, torch.bfloat16),    # sq < sk, causal
+    (1, 2, 1, 1, 1, 64, True, None, torch.bfloat16),        # one row
 ]
+
+
+def _variant(dtype) -> str:
+    return "tc" if dtype == torch.bfloat16 else "f32"
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,kv,sq,sk,d,causal,window,dtype", FLASH_CASES)
 def test_flash_kernel_matches_plain_version(b, h, kv, sq, sk, d, causal, window,
                                             dtype):
+    """Each case through the public ``flash_attention`` where the reference
+    kernel's blocks allow its lengths, else through the model path's
+    ``flash_attention_any_length``; bfloat16 runs the tensor-core kernel,
+    float32 the float32 one."""
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(sq + d)
     q = torch.randn((b, h, sq, d), generator=gen, device=dev).to(dtype)
     k = torch.randn((b, kv, sk, d), generator=gen, device=dev).to(dtype)
     v = torch.randn((b, kv, sk, d), generator=gen, device=dev).to(dtype)
-    n = fa.flash_attention.launches
-    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    try:
+        fa.check_blocks(sq, sk)
+        fn = fa.flash_attention
+    except ValueError:
+        fn = fa.flash_attention_any_length
+    n, by = fa.flash_attention.launches, dict(fa.flash_attention.launches_by_variant)
+    out = fn(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == n + 1 and out.dtype == dtype
+    by[_variant(dtype)] += 1
+    assert fa.flash_attention.launches_by_variant == by
     want = attention_ref(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(out.float(), want.float(), **_tol(dtype))
 
@@ -458,14 +492,41 @@ def test_flash_bshd_reads_strided_views_on_card(window):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("s,window", [(200, None), (200, 48), (2048, 512)])
+def test_flash_bshd_takes_ragged_lengths_on_card(s, window, dtype):
+    """The model path at gemma3-1b's head shape (4 query heads on 1 KV
+    head of 256): strided (b, s, heads, d) views, s = 200 ragged, and the
+    full prefill length."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(s)
+    q, k, v = (torch.randn((2, s, hh, 256), generator=gen, device=dev).to(dtype)
+               for hh in (4, 1, 1))
+    by = dict(fa.flash_attention.launches_by_variant)
+    out = fa_ops.flash_attention_bshd(q, k, v, window=window)
+    torch.cuda.synchronize()
+    by[_variant(dtype)] += 1
+    assert fa.flash_attention.launches_by_variant == by
+    assert out.shape == q.shape and out.stride() == q.stride() and out.dtype == dtype
+    want = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                         window=window).transpose(1, 2)
+    torch.testing.assert_close(out.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.cuda
 def test_flash_kernel_rejects_what_it_cannot_take_on_card():
     dev = _card()
-    q = torch.zeros((1, 2, 200, 64), device=dev)
-    with pytest.raises(ValueError, match="must divide blocks"):
-        fa.flash_attention(q, q, q)
-    q = torch.zeros((1, 2, 128, 96), device=dev)
-    with pytest.raises(ValueError, match="head dims"):
-        fa.flash_attention(q, q, q)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros((1, 2, 200, 64), device=dev, dtype=dtype)
+        with pytest.raises(ValueError, match="must divide blocks"):
+            fa.flash_attention(q, q, q)
+        q = torch.zeros((1, 2, 128, 96), device=dev, dtype=dtype)
+        with pytest.raises(ValueError, match="head dims"):
+            fa.flash_attention(q, q, q)
+        q = torch.zeros((1, 2, 200, 64), device=dev, dtype=dtype)
+        shifted = torch.zeros(q.numel() + 1, device=dev, dtype=dtype)[1:].view(q.shape)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa.flash_attention_any_length(shifted, q, q)
     q = torch.zeros((1, 2, 128, 64), device=dev)
     with pytest.raises(TypeError, match="one type"):
         fa.flash_attention(q, q.bfloat16(), q)

@@ -6,9 +6,15 @@ and its ``attention_ref`` and through the port's ``flash_attention`` on CPU
 tensors (its plain version, ``attention_ref``), on the five cases of the
 reference's kernel sweep (causal, non-causal, windows 64 and 32, GQA 4:1
 and 8:2, bfloat16).  ``flash_attention_bshd`` is held against the model's
-``blockwise_attention`` and ``banded_attention``.  Tolerances are the
-reference's own: ``tol_for`` (2e-5 float32, 2e-2 bfloat16, abs and rel)
-and 3e-5 for the model-layout wrapper.  ``pytest -s`` prints the gaps.
+``blockwise_attention`` and ``banded_attention``, also at ragged lengths
+(above 128 and not a multiple of it), which the public ``flash_attention``
+refuses as the reference kernel does and ``flash_attention_any_length``
+(the model path's launch) takes: there it is held against JAX's
+``attention_ref`` and, for the causal self-attention the model runs,
+against the Pallas kernel on inputs padded to its blocks and cropped.
+Tolerances are the reference's own: ``tol_for`` (2e-5 float32, 2e-2
+bfloat16, abs and rel) and 3e-5 for the model-layout wrapper.  ``pytest
+-s`` prints the gaps.
 """
 
 import pytest
@@ -105,13 +111,76 @@ def test_bshd_wrapper_matches_model_banded():
 @pytest.mark.parametrize("s", [130, 200, 320])
 def test_rejects_ragged_blocks_on_every_device(s):
     """A length above 128 that is not a multiple of it (the reference
-    kernel's blocks) raises, in both layouts."""
+    kernel's blocks) raises in the public ``flash_attention``, also when
+    only one of the two lengths is ragged; the model layout takes it."""
     q = torch.zeros((1, 2, s, 64))
     with pytest.raises(ValueError, match="must divide blocks"):
         fa.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="must divide blocks"):
-        ops.flash_attention_bshd(q.transpose(1, 2), q.transpose(1, 2),
-                                 q.transpose(1, 2))
+        fa.flash_attention(torch.zeros((1, 2, 128, 64)), q, q, causal=False)
+    t = q.transpose(1, 2)
+    assert ops.flash_attention_bshd(t, t, t).shape == t.shape
+
+
+RAGGED = [   # sq, sk, causal, window, dtype
+    (130, 130, True, None, "float32"),
+    (200, 200, True, 48, "float32"),
+    (320, 320, True, None, "bfloat16"),
+    (200, 200, True, 512, "bfloat16"),
+    (100, 200, False, 40, "float32"),
+    (200, 130, True, None, "float32"),
+]
+
+
+def _ragged_inputs(sq, sk, dt, h=4, kv=2, d=64, seed=5):
+    rng = np.random.default_rng(seed)
+    shapes = [(1, h, sq, d), (1, kv, sk, d), (1, kv, sk, d)]
+    jx = [jnp.asarray(rng.normal(size=sh).astype(np.float32), dt) for sh in shapes]
+    return jx, [params_from_numpy(np.asarray(x), "cpu") for x in jx]
+
+
+@pytest.mark.parametrize("sq,sk,causal,window,dt", RAGGED)
+def test_any_length_matches_ref_at_ragged_lengths(sq, sk, causal, window, dt):
+    (jq, jk, jv), (tq, tk, tv) = _ragged_inputs(sq, sk, dt)
+    kw = dict(causal=causal, window=window)
+    n = fa.flash_attention.launches
+    got = fa.flash_attention_any_length(tq, tk, tv, **kw)
+    assert got.dtype == tq.dtype and fa.flash_attention.launches == n
+    got = got.float().numpy()
+    want = np.asarray(j_ref(jq, jk, jv, **kw), np.float32)
+    gaps = [_gap(got, want)]
+    np.testing.assert_allclose(got, want, **tol_for(dt))
+    if causal and sq == sk:
+        # the model's case: padded keys lie right of every real row's
+        # diagonal, so the Pallas kernel on padded inputs, cropped, is the
+        # same function
+        pad = -sq % 128
+        jp = [jnp.pad(x, ((0, 0), (0, 0), (0, pad), (0, 0))) for x in (jq, jk, jv)]
+        kernel = j_flash(*jp, interpret=True, **kw)[:, :, :sq]
+        gaps.append(_gap(got, kernel))
+        np.testing.assert_allclose(got, np.asarray(kernel, np.float32), **tol_for(dt))
+    print(f"flash_attention_any_length sq={sq} sk={sk} causal={causal} "
+          f"window={window} {dt}: vs JAX attention_ref"
+          f"{' and the padded Pallas kernel' if len(gaps) > 1 else ''} "
+          + ", ".join(f"{x:.3e}" for x in gaps))
+
+
+@pytest.mark.parametrize("s", [130, 200, 320])
+@pytest.mark.parametrize("window", [None, 48])
+def test_bshd_wrapper_matches_model_blockwise_at_ragged_lengths(s, window):
+    """The model layout at the lengths the reference's model serves through
+    ``blockwise_attention`` (which pads KV to its chunk)."""
+    b, h, kv, d = 1, 4, 1, 64
+    rng = np.random.default_rng(s)
+    q, k, v = (rng.normal(size=(b, s, n, d)).astype(np.float32) for n in (h, kv, kv))
+    got = ops.flash_attention_bshd(*(torch.from_numpy(x) for x in (q, k, v)),
+                                   causal=True, window=window)
+    want = blockwise_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               causal=True, window=window, chunk=128)
+    print(f"flash_attention_bshd s={s} window={window} vs blockwise_attention "
+          f"(chunk 128, padded): {_gap(got.numpy(), want):.3e}")
+    assert got.shape == (b, s, h, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-5, atol=3e-5)
 
 
 def test_short_and_block_multiple_lengths_are_taken():

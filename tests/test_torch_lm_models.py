@@ -14,7 +14,8 @@ weights go to JAX as arrays of the template's dtype and to the port with
 ``params_from_numpy`` (bfloat16 bit for bit).  Checked: the template tree and ``param_count``;
 ``forward`` logits at float32 within 1e-5 of max |logit| (rwkv6 at s = 128
 within 1e-4: JAX takes its chunked matmul form there, which rounds
-differently) and at bfloat16 within the reference's 2e-2; the loss;
+differently; gemma3 also at the ragged prefill lengths 130, 200 and 320)
+and at bfloat16 within the reference's 2e-2; the loss;
 ``decode_step`` over 8 teacher-forced tokens against JAX's; the port's
 decode against its own forward at the reference's 5e-2; the ``serve``
 loop's greedy tokens against the JAX loop's.  ``pytest -s`` prints the
@@ -139,6 +140,12 @@ FORWARD_CASES = [   # name, n_layers, dtype, s, tolerance (relative to max |logi
     # one plain dense stack: every layer global, or every layer in the window
     ("gemma3-1b:full", 2, "float32", 32, 1e-5),
     ("gemma3-1b:swa", 2, "float32", 32, 1e-5),
+    # ragged prefill lengths (above 128, not a multiple of it): JAX takes
+    # banded_attention (window 8 < s) and blockwise_attention (padded KV)
+    ("gemma3-1b", 2, "float32", 130, 1e-5),
+    ("gemma3-1b", 2, "float32", 200, 1e-5),
+    ("gemma3-1b", 2, "float32", 320, 1e-5),
+    ("gemma3-1b", 2, "bfloat16", 200, 2e-2),
 ]
 
 
@@ -282,6 +289,21 @@ def test_serve_greedy_tokens_match_jax(name):
     np.testing.assert_array_equal(got, want)
 
 
+def test_serve_reports_the_references_rate():
+    """``tokens_per_s`` is the reference loop's figure, batch x max_len
+    over the loop's seconds; ``decode_tokens_per_s`` counts the max_len - 1
+    tokens per sequence that went through ``decode_step``."""
+    _, tc, _, tp = _carried("rwkv6-1.6b", 2, "float32")
+    batch, prompt_len, new_tokens = 3, 5, 4
+    prompt = make_prompt(tc, batch, prompt_len, seed=9)
+    _, stats = serve(tc, tp, prompt, new_tokens, device="cpu")
+    max_len = prompt_len + new_tokens
+    assert stats["decode_steps"] == max_len - 1
+    assert stats["tokens_per_s"] * stats["seconds"] == pytest.approx(batch * max_len, rel=1e-9)
+    assert stats["decode_tokens_per_s"] * stats["seconds"] == pytest.approx(
+        batch * (max_len - 1), rel=1e-9)
+
+
 def _serve_cli(*args):
     root = Path(__file__).resolve().parents[1]
     env = {**os.environ, "PYTHONPATH": str(root / "src")}
@@ -295,6 +317,7 @@ def test_serve_cli_on_the_cpu():
                      "--batch", "2", "--new-tokens", "4")
     assert out.returncode == 0, out.stderr
     assert "rwkv6-1.6b-reduced: decoded 2x12 tokens" in out.stdout
+    assert " tok/s, " in out.stdout and " decode tok/s on CPU" in out.stdout
     if not torch.cuda.is_available():          # the default device is the card
         out = _serve_cli("--arch", "gemma3-1b")
         assert out.returncode != 0 and "CUDA is not available" in out.stderr
