@@ -12,7 +12,10 @@ hs)`` shared over the batch; the kernel reads either in place (the hs axis
 contiguous), so the model's projections need no fold and no cast.  r, k,
 v are float32 or bfloat16 (one type), w and u float32 (the model's w is
 float32); hs in {16, 32, 64}.  Unlike the reference kernel, any sequence length is
-taken (the reference's needs a multiple of its chunk).
+taken (the reference's needs a multiple of its chunk).  The kernel copies
+rows of r, k, v and w into shared memory 16 bytes at a time; an operand
+whose rows do not start on 16 bytes is first copied to a contiguous tensor
+(:func:`_aligned16`; never on the model's path).
 
 CUDA tensors launch the kernel (a launch error raises); CPU tensors run
 the plain version :func:`.ref.wkv6_ref`.  There is no backward pass (the
@@ -44,6 +47,17 @@ def library() -> ctypes.CDLL:
     return build.load("wkv6", SIGNATURES)
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if each of its rows (all axes but the last, of size > 1) starts
+    on 16 bytes, else a contiguous copy (a fresh allocation, aligned)."""
+    size = t.element_size()
+    if t.data_ptr() % 16 == 0 and all(
+            stride * size % 16 == 0
+            for n, stride in zip(t.shape[:-1], t.stride()[:-1]) if n > 1):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _launch(r, k, v, w, u):
     """The kernel on ``(B, S, NH, hs)`` operands, ``u (B, NH, hs)`` (any
     strides but the unit hs axis); returns ``(y, state (B*NH, hs, hs))``."""
@@ -66,6 +80,7 @@ def _launch(r, k, v, w, u):
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s head axis must be contiguous")
+    r, k, v, w = (_aligned16(t) for t in (r, k, v, w))
     strides = (ctypes.c_longlong * 17)(
         *(x for t in (r, k, v, w, y) for x in (t.stride(0), t.stride(2),
                                                  t.stride(1))),

@@ -18,12 +18,15 @@ attention and WKV6 kernels sum in another order than their plain versions:
 they are held at the reference's own tolerances, ``tol_for`` of
 ``tests/test_kernels.py`` for attention (2e-5 float32, 2e-2 bfloat16, abs
 and rel) and 1e-4 for WKV6 (its bfloat16 ``y`` at 2e-2: one bfloat16
-rounding step is 4e-3 relative).  bfloat16 attention runs the tensor-core
-kernel (it also rounds P to bfloat16 before the PV product), float32 the
-float32 kernel; each case checks which ran on the per-kernel count, and
-covers D 64 / 128 / 256, GQA groups 1 / 2 / 4, ragged and unequal lengths
-(through the model path's any-length launch), both masks, b > 1 and the
-strided (b, s, heads, d) view.
+rounding step is 4e-3 relative).  WKV6 is held at lengths around and
+inside its staged chunks, at prime BH, in the model's layout, at decays
+near 0 and 1, on rows off 16 bytes, and to equal bits on a second
+launch.  bfloat16 attention runs the tensor-core kernel (it also rounds P
+to bfloat16 before the PV product), float32 the float32 kernel; each case
+checks which ran on the per-kernel count, and covers D 64 / 128 / 256, GQA
+groups 1 / 2 / 4, ragged and unequal lengths (through the model path's
+any-length launch), both masks, b > 1 and the strided (b, s, heads, d)
+view.
 """
 
 import pytest
@@ -534,30 +537,104 @@ def test_flash_kernel_rejects_what_it_cannot_take_on_card():
         fa.flash_attention(q.requires_grad_(), q, q)
 
 
-def _wkv_operands(dev, shape, seed, dtype=torch.float32):
+def _wkv_operands(dev, shape, seed, dtype=torch.float32, scale=1.0):
     gen = torch.Generator(device=dev).manual_seed(seed)
-    r, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+    r, k, v = ((scale * torch.randn(shape, generator=gen, device=dev)).to(dtype)
                for _ in range(3))
     w = torch.sigmoid(torch.randn(shape, generator=gen, device=dev)) * 0.5 + 0.45
     return r, k, v, w
 
 
+# (shape, decay, scale): shape (bh, s, hs) folded or (b, s, n_h, hs) the
+# model's layout; decay None draws w in (0.45, 0.95), a number fills w with
+# it; r, k, v are drawn N(0, scale^2).  With w = 0.999 the state sums 200
+# steps almost undecayed: at scale 1 (|y| in the hundreds) the float32
+# plain version's own rounding of y nears the 1e-4 tolerance, so that case
+# draws at scale 1/4
+WKV_CASES = [
+    ((4, 128, 64), None, 1.0), ((2, 96, 32), None, 1.0), ((1, 256, 64), None, 1.0),
+    ((8, 64, 16), None, 1.0), ((3, 100, 64), None, 1.0),
+    # around and inside the staged chunks of 16 and 32 steps; the last ragged
+    ((2, 1, 64), None, 1.0), ((2, 31, 64), None, 1.0), ((3, 33, 64), None, 1.0),
+    ((2, 65, 32), None, 1.0), ((3, 65, 16), None, 1.0),
+    # BH prime: a multiple of no grouping of blocks
+    ((7, 40, 64), None, 1.0), ((5, 33, 32), None, 1.0),
+    ((1, 96, 32, 64), None, 1.0),   # the model's layout, b 1 x 32 heads
+    ((2, 200, 64), 0.999, 0.25), ((2, 200, 64), 1e-3, 1.0),
+]
+
+
+def _wkv_case_id(case):
+    shape, decay, scale = case
+    return ("x".join(map(str, shape)) + ("" if decay is None else f"-w{decay:g}")
+            + ("" if scale == 1.0 else f"-x{scale:g}"))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("bh,s,hs", [(4, 128, 64), (2, 96, 32), (1, 256, 64),
-                                     (8, 64, 16), (3, 100, 64)])
+@pytest.mark.parametrize("case", WKV_CASES, ids=_wkv_case_id)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-def test_wkv6_kernel_matches_plain_version(bh, s, hs, dtype):
+def test_wkv6_kernel_matches_plain_version(case, dtype):
     dev = _card()
-    r, k, v, w = _wkv_operands(dev, (bh, s, hs), s + hs, dtype)
-    u = 0.1 * torch.randn((bh, hs), device=dev)
+    shape, decay, scale = case
+    hs = shape[-1]
+    r, k, v, w = _wkv_operands(dev, shape, shape[1] + hs, dtype, scale)
+    if decay is not None:
+        w = torch.full_like(w, decay)
+    model_layout = len(shape) == 4
+    u = 0.1 * torch.randn((shape[2] if model_layout else shape[0], hs), device=dev)
     n = rs.wkv6.launches
     y, state = rs.wkv6(r, k, v, w, u)
     torch.cuda.synchronize()
-    assert rs.wkv6.launches == n + 1 and y.dtype == dtype
+    assert rs.wkv6.launches == n + 1 and y.dtype == dtype and y.shape == r.shape
+    if model_layout:
+        b, s, n_h, _ = shape
+
+        def fold(x):
+            return x.transpose(1, 2).reshape(b * n_h, s, hs)
+
+        r, k, v, w, y = map(fold, (r, k, v, w, y))
+        u = u.repeat(b, 1)
     want_y, want_state = wkv6_ref(r, k, v, w, u)
     torch.testing.assert_close(state, want_state, rtol=1e-4, atol=1e-4)
     y_tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else _tol(dtype)
     torch.testing.assert_close(y.float(), want_y.to(dtype).float(), **y_tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_wkv6_kernel_is_deterministic(dtype):
+    """Two launches on the same operands agree bit for bit: no atomics, and
+    every sum has a fixed order."""
+    dev = _card()
+    shape = (2, 300, 32, 64)
+    r, k, v, w = _wkv_operands(dev, shape, 12, dtype)
+    u = 0.1 * torch.randn((32, 64), device=dev)
+    y1, state1 = rs.wkv6(r, k, v, w, u)
+    y2, state2 = rs.wkv6(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(state1, state2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_wkv6_takes_rows_off_16_bytes_on_card(dtype):
+    """Operands whose rows do not start on 16 bytes (a storage offset of
+    one element) give what their aligned copies give."""
+    dev = _card()
+    shape = (3, 70, 64)
+    r, k, v, w = _wkv_operands(dev, shape, 4, dtype)
+    u = 0.1 * torch.randn((3, 64), device=dev)
+
+    def shifted(x):
+        buf = torch.zeros(x.numel() + 1, dtype=x.dtype, device=dev)
+        out = buf[1:].view(x.shape)
+        out.copy_(x)
+        return out
+
+    y, state = rs.wkv6(*map(shifted, (r, k, v, w)), u)
+    want_y, want_state = rs.wkv6(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert torch.equal(y, want_y) and torch.equal(state, want_state)
 
 
 @pytest.mark.cuda

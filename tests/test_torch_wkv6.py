@@ -5,8 +5,12 @@ The same numpy inputs go through the JAX Pallas kernel (``interpret=True``)
 and ``wkv6_ref`` and through the port's ``wkv6`` on CPU tensors (its plain
 version), on the shapes of the reference's kernel sweep; ``wkv6_bsnh``
 against JAX ``wkv6_scan``; the port's ``wkv6_scan`` with a carried
-``state0`` (the decode path) against JAX's.  Tolerance: the reference's
-1e-4 abs and rel.  ``pytest -s`` prints the gaps.
+``state0`` (the decode path) against JAX's.  A mirror of the CUDA kernel's
+arithmetic order (``_kernel_order``: the bonus term as one scalar per step,
+each row group's y partial summed in sequence, the groups as a tree) is
+held against the same references, so that its rounding is known off the
+card.  Tolerance: the reference's 1e-4 abs and rel.  ``pytest -s`` prints
+the gaps.
 """
 
 import pytest
@@ -25,6 +29,8 @@ from repro_torch.kernels.rwkv_scan.ref import wkv6_ref  # noqa: E402
 from repro_torch.nn.ssm import wkv6_scan  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
+# the reference's kernel sweep: (bh, s, hs, chunk)
+SWEEP = [(4, 128, 64, 32), (2, 96, 32, 32), (1, 256, 64, 128), (8, 64, 16, 16)]
 
 
 def _inputs(shape, u_shape, seed):
@@ -39,9 +45,7 @@ def _gap(a, b) -> float:
     return float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
 
 
-@pytest.mark.parametrize("bh,s,hs,chunk", [
-    (4, 128, 64, 32), (2, 96, 32, 32), (1, 256, 64, 128), (8, 64, 16, 16),
-])
+@pytest.mark.parametrize("bh,s,hs,chunk", SWEEP)
 def test_plain_version_matches_pallas_kernel_and_ref(bh, s, hs, chunk):
     x = _inputs((bh, s, hs), (bh, hs), seed=s + hs)
     jy, jst = wkv6_pallas(*map(jnp.asarray, x), chunk=chunk, interpret=True)
@@ -55,6 +59,93 @@ def test_plain_version_matches_pallas_kernel_and_ref(bh, s, hs, chunk):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     direct_y, direct_st = wkv6_ref(*map(torch.from_numpy, x))
     assert torch.equal(direct_y, y) and torch.equal(direct_st, st)
+
+
+def _fma(a, b, c):
+    """``fmaf``: a * b + c rounded once to float32 (a float64 holds the
+    float32 product exactly; the sum's double rounding is rarely off by
+    one float32 step)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _tree(parts):
+    """Sum over axis 1 as the kernel's tree: neighbours first, then pairs
+    of pairs (its xor shuffles and its shared-memory reduction)."""
+    parts = list(parts.unbind(1))
+    step = 1
+    while step < len(parts):
+        for q in range(0, len(parts), 2 * step):
+            parts[q] = parts[q] + parts[q + step]
+        step *= 2
+    return parts[0]
+
+
+def _kernel_order(r, k, v, w, u):
+    """WKV6 in ``csrc/wkv6.cu``'s arithmetic order, float32.
+
+    Per step: ``b_t`` summed by the staging threads (SR rows each, in
+    sequence, ``fmaf(r, u k, b)``), then as a tree over the SL threads of
+    the step; each row group of 4 rows sums ``fmaf(r, S, acc)`` in sequence
+    with S before the update; y = ``fmaf(v, b, tree of the hs / 4 groups)``;
+    the state ``fmaf(w, S, k v)`` with k v rounded."""
+    r, k, v, w, u = (torch.from_numpy(x) for x in (r, k, v, w, u))
+    bh, s, hs = r.shape
+    lanes = {64: 8, 32: 2, 16: 1}[hs]       # SL: staging threads per step
+    groups = hs // 4
+    state = torch.zeros((bh, hs, hs))
+    ys = torch.empty((bh, s, hs))
+    for t in range(s):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]
+        rl, ukl = rt.reshape(bh, lanes, -1), (u * kt).reshape(bh, lanes, -1)
+        bonus = torch.zeros((bh, lanes))
+        for i in range(hs // lanes):
+            bonus = _fma(rl[:, :, i], ukl[:, :, i], bonus)
+        rg = rt.reshape(bh, groups, -1)
+        sg = state.reshape(bh, groups, -1, hs)
+        acc = torch.zeros((bh, groups, hs))
+        for i in range(4):
+            acc = _fma(rg[:, :, i, None], sg[:, :, i], acc)
+        ys[:, t] = _fma(vt, _tree(bonus)[:, None], _tree(acc))
+        state = _fma(wt[:, :, None], state, kt[:, :, None] * vt[:, None, :])
+    return ys, state
+
+
+@pytest.mark.parametrize("bh,s,hs,chunk", SWEEP)
+def test_kernel_order_matches_pallas_kernel_and_ref(bh, s, hs, chunk):
+    """The CUDA kernel's summation order against the Pallas kernel, JAX's
+    ``wkv6_ref`` and the port's plain version: the reordering's rounding."""
+    x = _inputs((bh, s, hs), (bh, hs), seed=s + hs)
+    y, st = _kernel_order(*x)
+    jy, jst = wkv6_pallas(*map(jnp.asarray, x), chunk=chunk, interpret=True)
+    ry, rst = j_ref(*map(jnp.asarray, x))
+    py, pst = wkv6_ref(*map(torch.from_numpy, x))
+    print(f"wkv6 kernel order ({bh},{s},{hs}), max |y| {float(py.abs().max()):.3g}: "
+          f"vs Pallas interpret y {_gap(y.numpy(), jy):.3e} state "
+          f"{_gap(st.numpy(), jst):.3e}; vs JAX wkv6_ref y {_gap(y.numpy(), ry):.3e} "
+          f"state {_gap(st.numpy(), rst):.3e}; vs the port's plain version y "
+          f"{_gap(y, py):.3e} state {_gap(st, pst):.3e}")
+    for got, want in ((y, jy), (st, jst), (y, ry), (st, rst), (y, py), (st, pst)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_misaligned_operands_are_copied_for_the_kernel():
+    """The kernel copies rows 16 bytes at a time: an operand whose rows do
+    not start on 16 bytes is handed over as an aligned contiguous copy, an
+    aligned one (the model's layout, the folded view) as it is."""
+    base = torch.arange(2 * 8 * 4 * 16 + 1, dtype=torch.float32)
+    aligned = base[:-1].view(2, 8, 4, 16)
+    assert rs._aligned16(aligned) is aligned
+    folded = aligned.reshape(16, 4, 16)[:, :, None]
+    assert rs._aligned16(folded) is folded
+    shifted = base[1:].view(2, 8, 4, 16)
+    copy = rs._aligned16(shifted)
+    assert copy is not shifted and copy.data_ptr() % 16 == 0
+    assert torch.equal(copy, shifted)
+    padded = torch.zeros((3, 5, 24))[:, :, :16]     # 96-byte row stride: aligned
+    assert rs._aligned16(padded) is padded
+    padded = torch.zeros((3, 5, 22))[:, :, :16]     # 88-byte row stride
+    copy = rs._aligned16(padded)
+    assert copy.stride() == (80, 16, 1) and torch.equal(copy, padded)
 
 
 def test_bsnh_wrapper_matches_model_scan():
