@@ -65,27 +65,30 @@
 // 16,941 rows): cdsgd_update 130.1 MB (~39 us) with f32 neighbors, 108.4 MB
 // (~32 us) with bf16; cdsgd_update_q 141.3 MB (~42 us) with an int8
 // payload, 152.1 MB (~45 us) bf16, 173.8 MB (~52 us) f32; cdmsgd_update_q
-// 228.0 MB (~68 us) with int8; cdmsgd_update_qm 239.2 MB (~71 us) int8;
-// cdmsgd_nesterov_update 260.2 MB (~78 us) f32, _q 271.4 MB (~81 us) and
-// _qm 282.6 MB (~84 us) int8; cdadam_update 303.6 MB (~91 us) f32, _q
-// 314.8 MB (~94 us) and _qm 325.9 MB (~97 us) int8.  Adam's divisions and
-// square root (about 30 flops per element with the mix) stay far under the
-// f32 rate.
+// 228.0 MB (~68 us) with int8; cdmsgd_update_qm 239.2 MB (~71 us) int8,
+// 304.3 MB (~91 us) with an f32 payload; cdmsgd_nesterov_update 260.2 MB
+// (~78 us) f32, _q 271.4 MB (~81 us) and _qm 282.6 MB (~84 us) int8, 347.7
+// MB (~104 us) f32 payload; cdadam_update 303.6 MB (~91 us) f32, _q 314.8
+// MB (~94 us) and _qm 325.9 MB (~97 us) int8, 391.0 MB (~117 us) f32
+// payload.  Adam's divisions and square root (about 30 flops per element
+// with the mix) stay far under the f32 rate.
 //
-// Design: one thread owns one float4 (4 lanes) of a row for all A_out
-// outputs, so G, V and SELF are read once and written once with 16-byte
-// coalesced accesses.  The neighbor / payload tile at that position is read
-// from device memory by the first output and re-read for the others from
-// L1/L2, so device-memory traffic stays at the least above.  A payload
-// float4 position p lies in row p / 32, whose scale the thread loads once
-// per stencil entry.  Payloads are converted to float32 exactly (int8 and
-// bf16 by value, e4m3 through half), then scaled, weighted and summed in
-// float32 in stencil order with explicit round-to-nearest multiplies and
-// adds (no FMA contraction): the arithmetic of the Pallas bodies and of the
-// plain PyTorch versions (ref.py), so kernel and plain version agree bit for
-// bit; Adam divides with __fdiv_rn and takes __fsqrt_rn, the correctly
-// rounded operations.  A thread past the last float4 is masked, so any row
-// count works.
+// Design (dense, _q and sparse forms): one thread owns one float4 (4 lanes)
+// of a row for all A_out outputs, so G, V and SELF are read once and
+// written once with 16-byte coalesced accesses.  The neighbor / payload
+// tile at that position is read from device memory by the first output and
+// re-read for the others from L1/L2, so device-memory traffic stays at the
+// least above.  A payload float4 position p lies in row p / 32, whose scale
+// the thread loads once per stencil entry.  Payloads are converted to
+// float32 exactly (int8 and bf16 by value, e4m3 through half), then scaled,
+// weighted and summed in float32 in stencil order with explicit
+// round-to-nearest multiplies and adds (no FMA contraction): the arithmetic
+// of the Pallas bodies and of the plain PyTorch versions (ref.py), so
+// kernel and plain version agree bit for bit; Adam divides with __fdiv_rn
+// and takes __fsqrt_rn, the correctly rounded operations.  A thread past
+// the last float4 is masked, so any row count works.  The _qm form reads
+// two payloads per output and loops the other way round (see qm_tiles):
+// with f32 payloads the per-output re-reads no longer fit L1.
 
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
@@ -146,23 +149,29 @@ __device__ __forceinline__ float4 mix(const float* __restrict__ w, const void* x
   return acc;
 }
 
+__device__ __forceinline__ float4 scale4(float w, const float4& x) {
+  return make_float4(__fmul_rn(w, x.x), __fmul_rn(w, x.y), __fmul_rn(w, x.z),
+                     __fmul_rn(w, x.w));
+}
+
+// float(q[s * n4 + p]) * sc[s * rows + p / 32]: float4 position p of payload
+// stack s, dequantized
+template <int K>
+__device__ __forceinline__ float4 dequant(const void* __restrict__ q,
+                                          const float* __restrict__ sc, int s,
+                                          long long rows, long long n4, long long p) {
+  return scale4(sc[s * rows + (p >> 5)], load4<K>(q, s * n4 + p));
+}
+
 // w[0] * self[p] + sum_s w[1+s] * (float(q[s * n4 + p]) * sc[s * rows + p / 32])
 template <int K>
 __device__ __forceinline__ float4 mix_q(const float* __restrict__ w,
                                         const float4* __restrict__ self, const void* q,
                                         const float* __restrict__ sc, int s_count,
                                         long long rows, long long n4, long long p) {
-  const float4 sv = self[p];
-  const float w0 = w[0];
-  float4 acc = make_float4(__fmul_rn(w0, sv.x), __fmul_rn(w0, sv.y),
-                           __fmul_rn(w0, sv.z), __fmul_rn(w0, sv.w));
-  const long long row = p >> 5;
+  float4 acc = scale4(w[0], self[p]);
   for (int s = 0; s < s_count; ++s) {
-    const float scale = sc[s * rows + row];
-    const float4 d = load4<K>(q, s * n4 + p);
-    axpy_rn(acc, w[1 + s],
-            make_float4(__fmul_rn(d.x, scale), __fmul_rn(d.y, scale),
-                        __fmul_rn(d.z, scale), __fmul_rn(d.w, scale)));
+    axpy_rn(acc, w[1 + s], dequant<K>(q, sc, s, rows, n4, p));
   }
   return acc;
 }
@@ -191,24 +200,25 @@ __device__ __forceinline__ float4 add4(const float4& a, const float4& b) {
                      __fadd_rn(a.w, b.w));
 }
 
-// *v <- mu vin - alpha g;  *g <- acc + v'   (vin: *v, or the momentum mix)
+// *v <- mu vin - alpha gv;  *g <- acc + v'   (gv: *g; vin: *v, or the
+// momentum mix)
 __device__ __forceinline__ void msgd_out(const float4& acc, const float4& vin,
-                                         float4* g, float4* v, float alpha, float mu) {
-  const float4 nv = mom_step(vin, *g, alpha, mu);
+                                         const float4& gv, float4* g, float4* v,
+                                         float alpha, float mu) {
+  const float4 nv = mom_step(vin, gv, alpha, mu);
   *g = add4(acc, nv);
   *v = nv;
 }
 
 // msgd_out, and *look <- (acc + v') + mu v'
 __device__ __forceinline__ void nesterov_out(const float4& acc, const float4& vin,
-                                             float4* g, float4* v, float4* look,
-                                             float alpha, float mu) {
-  const float4 nv = mom_step(vin, *g, alpha, mu);
+                                             const float4& gv, float4* g, float4* v,
+                                             float4* look, float alpha, float mu) {
+  const float4 nv = mom_step(vin, gv, alpha, mu);
   const float4 x = add4(acc, nv);
   *g = x;
   *v = nv;
-  *look = add4(x, make_float4(__fmul_rn(mu, nv.x), __fmul_rn(mu, nv.y),
-                              __fmul_rn(mu, nv.z), __fmul_rn(mu, nv.w)));
+  *look = add4(x, scale4(mu, nv));
 }
 
 struct AdamScalars {
@@ -227,13 +237,12 @@ __device__ __forceinline__ float adam_lane(float acc, float m_in, float gv, floa
   return __fsub_rn(acc, __fmul_rn(c.alpha, dir));
 }
 
-// *m <- b1 m_in + (1-b1) g;  *v <- b2 v + ((1-b2) g) g;
-// *g <- acc - alpha ((m'/bc1) / (sqrt(v'/bc2) + eps))   (m_in: *m, or its mix)
+// *m <- b1 m_in + (1-b1) gv;  *v <- b2 vv + ((1-b2) gv) gv;
+// *g <- acc - alpha ((m'/bc1) / (sqrt(v'/bc2) + eps))
+// (gv: *g, vv: *v; m_in: *m, or its mix)
 __device__ __forceinline__ void adam_out(const float4& acc, const float4& m_in,
-                                         float4* g, float4* m, float4* v,
-                                         const AdamScalars& c) {
-  const float4 gv = *g;
-  const float4 vv = *v;
+                                         const float4& gv, const float4& vv, float4* g,
+                                         float4* m, float4* v, const AdamScalars& c) {
   float4 out, nm, nv;
   out.x = adam_lane(acc.x, m_in.x, gv.x, vv.x, c, &nm.x, &nv.x);
   out.y = adam_lane(acc.y, m_in.y, gv.y, vv.y, c, &nm.y, &nv.y);
@@ -266,7 +275,7 @@ cdmsgd_kernel(const float* __restrict__ w, const void* x, float4* __restrict__ g
   for (int a = 0; a < a_out; ++a) {
     const long long i = a * n4 + p;
     msgd_out(mix<K>(w + static_cast<long long>(a) * s_count, x, s_count, n4, p), v[i],
-             g + i, v + i, alpha, mu);
+             g[i], g + i, v + i, alpha, mu);
   }
 }
 
@@ -298,28 +307,7 @@ cdmsgd_q_kernel(const float* __restrict__ w, const float4* __restrict__ self,
     const long long i = a * n4 + p;
     msgd_out(mix_q<K>(w + static_cast<long long>(a) * (s_count + 1), self + a * n4, q,
                       sc, s_count, rows, n4, p),
-             v[i], g + i, v + i, alpha, mu);
-  }
-}
-
-// The mixed-momentum (_qm) kernels mix the momentum payload VQ against the
-// momentum tile V itself (its self term): v' = mu mix_q(V; VQ, VSC) - alpha G.
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-cdmsgd_qm_kernel(const float* __restrict__ w, const float4* __restrict__ self,
-                 const void* q, const float* __restrict__ sc, const void* vq,
-                 const float* __restrict__ vsc, float4* __restrict__ g,
-                 float4* __restrict__ v, int a_out, int s_count, long long rows,
-                 float alpha, float mu) {
-  const long long n4 = rows * 32;
-  const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (p >= n4) return;
-  for (int a = 0; a < a_out; ++a) {
-    const float* wa = w + static_cast<long long>(a) * (s_count + 1);
-    const long long i = a * n4 + p;
-    const float4 vmix = mix_q<K>(wa, v + a * n4, vq, vsc, s_count, rows, n4, p);
-    msgd_out(mix_q<K>(wa, self + a * n4, q, sc, s_count, rows, n4, p), vmix, g + i,
-             v + i, alpha, mu);
+             v[i], g[i], g + i, v + i, alpha, mu);
   }
 }
 
@@ -333,7 +321,7 @@ nesterov_kernel(const float* __restrict__ w, const void* x, float4* __restrict__
   for (int a = 0; a < a_out; ++a) {
     const long long i = a * n4 + p;
     nesterov_out(mix<K>(w + static_cast<long long>(a) * s_count, x, s_count, n4, p),
-                 v[i], g + i, v + i, look + i, alpha, mu);
+                 v[i], g[i], g + i, v + i, look + i, alpha, mu);
   }
 }
 
@@ -350,26 +338,7 @@ nesterov_q_kernel(const float* __restrict__ w, const float4* __restrict__ self,
     const long long i = a * n4 + p;
     nesterov_out(mix_q<K>(w + static_cast<long long>(a) * (s_count + 1), self + a * n4,
                           q, sc, s_count, rows, n4, p),
-                 v[i], g + i, v + i, look + i, alpha, mu);
-  }
-}
-
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-nesterov_qm_kernel(const float* __restrict__ w, const float4* __restrict__ self,
-                   const void* q, const float* __restrict__ sc, const void* vq,
-                   const float* __restrict__ vsc, float4* __restrict__ g,
-                   float4* __restrict__ v, float4* __restrict__ look, int a_out,
-                   int s_count, long long rows, float alpha, float mu) {
-  const long long n4 = rows * 32;
-  const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (p >= n4) return;
-  for (int a = 0; a < a_out; ++a) {
-    const float* wa = w + static_cast<long long>(a) * (s_count + 1);
-    const long long i = a * n4 + p;
-    const float4 vmix = mix_q<K>(wa, v + a * n4, vq, vsc, s_count, rows, n4, p);
-    nesterov_out(mix_q<K>(wa, self + a * n4, q, sc, s_count, rows, n4, p), vmix,
-                 g + i, v + i, look + i, alpha, mu);
+                 v[i], g[i], g + i, v + i, look + i, alpha, mu);
   }
 }
 
@@ -383,7 +352,7 @@ adam_kernel(const float* __restrict__ w, const void* x, float4* __restrict__ g,
   for (int a = 0; a < a_out; ++a) {
     const long long i = a * n4 + p;
     adam_out(mix<K>(w + static_cast<long long>(a) * s_count, x, s_count, n4, p), m[i],
-             g + i, m + i, v + i, c);
+             g[i], v[i], g + i, m + i, v + i, c);
   }
 }
 
@@ -400,27 +369,152 @@ adam_q_kernel(const float* __restrict__ w, const float4* __restrict__ self,
     const long long i = a * n4 + p;
     adam_out(mix_q<K>(w + static_cast<long long>(a) * (s_count + 1), self + a * n4, q,
                       sc, s_count, rows, n4, p),
-             m[i], g + i, m + i, v + i, c);
+             m[i], g[i], v[i], g + i, m + i, v + i, c);
   }
 }
 
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-adam_qm_kernel(const float* __restrict__ w, const float4* __restrict__ self,
-               const void* q, const float* __restrict__ sc, const void* mq,
-               const float* __restrict__ msc, float4* __restrict__ g,
-               float4* __restrict__ m, float4* __restrict__ v, int a_out, int s_count,
-               long long rows, AdamScalars c) {
-  const long long n4 = rows * 32;
-  const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (p >= n4) return;
-  for (int a = 0; a < a_out; ++a) {
-    const float* wa = w + static_cast<long long>(a) * (s_count + 1);
-    const long long i = a * n4 + p;
-    const float4 mmix = mix_q<K>(wa, m + a * n4, mq, msc, s_count, rows, n4, p);
-    adam_out(mix_q<K>(wa, self + a * n4, q, sc, s_count, rows, n4, p), mmix, g + i,
-             m + i, v + i, c);
+// ---------------------------------------------------------------------------
+// Mixed-momentum (_qm) form: two payloads (the parameters' Q / SC and the
+// momentum's MQ / MSC, one kind), two mixes per output that share W.  One
+// thread owns float4 position p for a register tile of up to T outputs:
+// per tile it loads the outputs' SELF and momentum self tile M (and, by the
+// plan below, G and Adam's V), then, for each neighbour s in order, loads
+// s's two payload float4s and row scales once, dequantizes them once and
+// folds them into every output of the tile (acc_x[t] += W[a,1+s] dx,
+// acc_m[t] += W[a,1+s] dm).  A payload byte is read once per tile, not
+// once per output and mix, and each output's sums keep the stencil order
+// (W[a,0] SELF[a] first, then s ascending, _rn operations): the plain
+// version's bits.  Above T outputs the tiles loop and re-read the payload
+// once per tile, so any A_out and S work.
+//
+// Why: with an f32 payload the old loop (one output at a time, each mix
+// re-reading all S payload float4s) needed 2 x S x 16 B per thread in L1,
+// 40 KB per 256-thread block at S = 5: more than L1 holds for the blocks
+// resident on an SM, so the re-reads went to L2 and the kernel ran at 40-58%
+// of its byte bound.  Narrow payloads (int8 / fp8 / bf16) fit L1 and ran at
+// 73-77%; there a register tile costs more occupancy than the re-reads
+// cost, so they keep one output per tile.
+
+// epilogue families (the _qm and sparse kernels)
+constexpr int kSgd = 0;
+constexpr int kMsgd = 1;
+constexpr int kNesterov = 2;
+constexpr int kAdam = 3;
+
+// per payload kind K and family F (chosen by measurement on an H100 with
+// chip_smoke's phase 3): outputs per register tile, whether the tile's G
+// (and Adam's V) load before the mix loop or after it, and the mix loop's
+// unroll.  f32 payloads take 4-output tiles (8 outputs cost 150-210
+// registers and half the occupancy); CDAdam's f32 tile loads G and V after
+// the mix, with the mix loop unrolled twice (four float4 arrays per output
+// in registers cost more occupancy than that); narrow payloads take one
+// output per tile.
+template <int K, int F>
+struct QmPlan {
+  static constexpr bool kWide = K == kF32;
+  static constexpr int kTile = kWide ? 4 : 1;
+  static constexpr bool kLoadFirst = !(kWide && F == kAdam);
+  static constexpr int kUnroll = (kWide && F == kAdam) ? 2 : 1;
+};
+
+struct QmArgs {
+  const float* w;        // (a_out, s_count + 1)
+  const float4* self;    // (a_out, rows * 32)
+  const void* q;         // (s_count, rows * 32) float4 positions of the kind
+  const float* sc;       // (s_count, rows)
+  const void* mq;        // the momentum payload and its scales, same shapes
+  const float* msc;
+  float4* g;             // grad in, params out
+  float4* m;             // momentum (Adam: first moment) in, mixed update out
+  float4* v;             // Adam: second moment
+  float4* look;          // Nesterov: lookahead out
+  int a_out;
+  int s_count;
+  long long rows;
+  float alpha, mu;
+  AdamScalars adam;
+};
+
+template <int F>
+__device__ __forceinline__ void qm_out(const QmArgs& p, const float4& ax, const float4& am,
+                                       const float4& gv, const float4& vv, long long j) {
+  if constexpr (F == kMsgd) {
+    msgd_out(ax, am, gv, p.g + j, p.m + j, p.alpha, p.mu);
+  } else if constexpr (F == kNesterov) {
+    nesterov_out(ax, am, gv, p.g + j, p.m + j, p.look + j, p.alpha, p.mu);
+  } else {
+    adam_out(ax, am, gv, vv, p.g + j, p.m + j, p.v + j, p.adam);
   }
+}
+
+template <int K, int F>
+__device__ __forceinline__ void qm_tiles(const QmArgs& p) {
+  using Plan = QmPlan<K, F>;
+  constexpr int T = Plan::kTile;
+  const long long n4 = p.rows * 32;
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n4) return;
+  const int sw = p.s_count + 1;
+  for (int a0 = 0; a0 < p.a_out; a0 += T) {
+    const int na = min(T, p.a_out - a0);
+    const float* __restrict__ w = p.w + static_cast<long long>(a0) * sw;
+    float4 ax[T], am[T], gv[T], vv[T];
+#pragma unroll
+    for (int t = 0; t < T; ++t) {
+      if (t < na) {
+        const long long j = (a0 + t) * n4 + i;
+        const float w0 = w[t * sw];
+        ax[t] = scale4(w0, p.self[j]);
+        am[t] = scale4(w0, p.m[j]);
+        if constexpr (Plan::kLoadFirst) {
+          gv[t] = p.g[j];
+          if constexpr (F == kAdam) vv[t] = p.v[j];
+        }
+      }
+    }
+#pragma unroll (Plan::kUnroll)
+    for (int s = 0; s < p.s_count; ++s) {
+      const float4 dx = dequant<K>(p.q, p.sc, s, p.rows, n4, i);
+      const float4 dm = dequant<K>(p.mq, p.msc, s, p.rows, n4, i);
+#pragma unroll
+      for (int t = 0; t < T; ++t) {
+        if (t < na) {
+          const float ws = w[t * sw + 1 + s];
+          axpy_rn(ax[t], ws, dx);
+          axpy_rn(am[t], ws, dm);
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < T; ++t) {
+      if (t < na) {
+        const long long j = (a0 + t) * n4 + i;
+        if constexpr (!Plan::kLoadFirst) {
+          gv[t] = p.g[j];
+          if constexpr (F == kAdam) vv[t] = p.v[j];
+        }
+        qm_out<F>(p, ax[t], am[t], gv[t], vv[t], j);
+      }
+    }
+  }
+}
+
+// v' = mu mix_q(M; MQ, MSC) - alpha G;  out = mix_q(SELF; Q, SC) + v'
+template <int K>
+__global__ void __launch_bounds__(kThreads) cdmsgd_qm_kernel(const QmArgs p) {
+  qm_tiles<K, kMsgd>(p);
+}
+
+// as cdmsgd_qm_kernel, and LOOK = out + mu v'
+template <int K>
+__global__ void __launch_bounds__(kThreads) nesterov_qm_kernel(const QmArgs p) {
+  qm_tiles<K, kNesterov>(p);
+}
+
+// m' = b1 mix_q(M; MQ, MSC) + (1 - b1) G, Adam's epilogue on mix_q(SELF; Q, SC)
+template <int K>
+__global__ void __launch_bounds__(kThreads) adam_qm_kernel(const QmArgs p) {
+  qm_tiles<K, kAdam>(p);
 }
 
 // ---------------------------------------------------------------------------
@@ -442,11 +536,6 @@ adam_qm_kernel(const float* __restrict__ w, const float4* __restrict__ self,
 
 constexpr int kSparseElems = kThreads * 4;     // 8 rows of 128 lanes
 constexpr int kAgentsPerCta = 8;               // 32 KB of acc at most
-// epilogue families
-constexpr int kSgd = 0;
-constexpr int kMsgd = 1;
-constexpr int kNesterov = 2;
-constexpr int kAdam = 3;
 
 struct SparseArgs {
   const float* w;            // (a_out, s_count + 1)
@@ -526,19 +615,28 @@ __global__ void __launch_bounds__(kThreads) sparse_kernel(const SparseArgs p) {
     if constexpr (F == kSgd) {
       sgd_out(mix, p.g + i, p.alpha);
     } else if constexpr (F == kMsgd) {
-      msgd_out(mix, p.s1[i], p.g + i, p.s1 + i, p.alpha, p.mu);
+      msgd_out(mix, p.s1[i], p.g[i], p.g + i, p.s1 + i, p.alpha, p.mu);
     } else if constexpr (F == kNesterov) {
-      nesterov_out(mix, p.s1[i], p.g + i, p.s1 + i, p.look + i, p.alpha, p.mu);
+      nesterov_out(mix, p.s1[i], p.g[i], p.g + i, p.s1 + i, p.look + i, p.alpha,
+                   p.mu);
     } else {
-      adam_out(mix, p.s1[i], p.g + i, p.s1 + i, p.s2 + i, p.adam);
+      adam_out(mix, p.s1[i], p.g[i], p.s2[i], p.g + i, p.s1 + i, p.s2 + i, p.adam);
     }
   }
+}
+
+// make device current unless it already is (cudaSetDevice on every call
+// costs host time the launch does not need)
+cudaError_t select_device(int device) {
+  int current = -1;
+  if (cudaGetDevice(&current) == cudaSuccess && current == device) return cudaSuccess;
+  return cudaSetDevice(device);
 }
 
 template <int F>
 int launch_sparse(const SparseArgs& p, int device, void* stream) {
   if (p.rows <= 0 || p.a_out <= 0) return 0;
-  const cudaError_t set = cudaSetDevice(device);
+  const cudaError_t set = select_device(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const int ca = p.a_out < kAgentsPerCta ? p.a_out : kAgentsPerCta;
   const size_t smem = static_cast<size_t>(ca) * kSparseElems * sizeof(float) +
@@ -572,6 +670,24 @@ SparseArgs sparse_args(const float* w, const float* self, const void* vals,
   return p;
 }
 
+QmArgs qm_args(const float* w, const float* self, const void* q, const void* mq,
+               const float* sc, const float* msc, float* g, float* m, int a_out,
+               int s_count, long long rows) {
+  QmArgs p{};
+  p.w = w;
+  p.self = reinterpret_cast<const float4*>(self);
+  p.q = q;
+  p.sc = sc;
+  p.mq = mq;
+  p.msc = msc;
+  p.g = reinterpret_cast<float4*>(g);
+  p.m = reinterpret_cast<float4*>(m);
+  p.a_out = a_out;
+  p.s_count = s_count;
+  p.rows = rows;
+  return p;
+}
+
 unsigned int blocks_for(long long n4) {
   return static_cast<unsigned int>((n4 + kThreads - 1) / kThreads);
 }
@@ -580,7 +696,7 @@ unsigned int blocks_for(long long n4) {
 // the CUDA error of the selection or of the launch.
 template <typename Launch>
 int launch_kind(int kind, bool quantized_kinds, int device, Launch launch) {
-  const cudaError_t set = cudaSetDevice(device);
+  const cudaError_t set = select_device(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   switch (kind) {
     case kF32: launch(std::integral_constant<int, kF32>{}); break;
@@ -671,13 +787,12 @@ extern "C" int cdmsgd_update_qm(const float* w, const float* self, const void* q
                                 int s_count, long long rows, float alpha, float mu,
                                 int device, void* stream) {
   if (rows <= 0 || a_out <= 0) return 0;
-  const auto* self4 = reinterpret_cast<const float4*>(self);
-  auto* g4 = reinterpret_cast<float4*>(g);
-  auto* v4 = reinterpret_cast<float4*>(v);
+  QmArgs p = qm_args(w, self, q, vq, sc, vsc, g, v, a_out, s_count, rows);
+  p.alpha = alpha;
+  p.mu = mu;
   auto st = static_cast<cudaStream_t>(stream);
   return launch_kind(kind, true, device, [&](auto k) {
-    cdmsgd_qm_kernel<decltype(k)::value><<<blocks_for(rows * 32), kThreads, 0, st>>>(
-        w, self4, q, sc, vq, vsc, g4, v4, a_out, s_count, rows, alpha, mu);
+    cdmsgd_qm_kernel<decltype(k)::value><<<blocks_for(rows * 32), kThreads, 0, st>>>(p);
   });
 }
 
@@ -720,14 +835,13 @@ extern "C" int cdmsgd_nesterov_update_qm(const float* w, const float* self,
                                          long long rows, float alpha, float mu,
                                          int device, void* stream) {
   if (rows <= 0 || a_out <= 0) return 0;
-  const auto* self4 = reinterpret_cast<const float4*>(self);
-  auto* g4 = reinterpret_cast<float4*>(g);
-  auto* v4 = reinterpret_cast<float4*>(v);
-  auto* l4 = reinterpret_cast<float4*>(look);
+  QmArgs p = qm_args(w, self, q, vq, sc, vsc, g, v, a_out, s_count, rows);
+  p.look = reinterpret_cast<float4*>(look);
+  p.alpha = alpha;
+  p.mu = mu;
   auto st = static_cast<cudaStream_t>(stream);
   return launch_kind(kind, true, device, [&](auto k) {
-    nesterov_qm_kernel<decltype(k)::value><<<blocks_for(rows * 32), kThreads, 0, st>>>(
-        w, self4, q, sc, vq, vsc, g4, v4, l4, a_out, s_count, rows, alpha, mu);
+    nesterov_qm_kernel<decltype(k)::value><<<blocks_for(rows * 32), kThreads, 0, st>>>(p);
   });
 }
 
@@ -772,15 +886,12 @@ extern "C" int cdadam_update_qm(const float* w, const float* self, const void* q
                                 float b1, float b2, float eps, float bc1, float bc2,
                                 int device, void* stream) {
   if (rows <= 0 || a_out <= 0) return 0;
-  const auto* self4 = reinterpret_cast<const float4*>(self);
-  auto* g4 = reinterpret_cast<float4*>(g);
-  auto* m4 = reinterpret_cast<float4*>(m);
-  auto* v4 = reinterpret_cast<float4*>(v);
-  const AdamScalars c{alpha, b1, b2, eps, bc1, bc2};
+  QmArgs p = qm_args(w, self, q, mq, sc, msc, g, m, a_out, s_count, rows);
+  p.v = reinterpret_cast<float4*>(v);
+  p.adam = AdamScalars{alpha, b1, b2, eps, bc1, bc2};
   auto st = static_cast<cudaStream_t>(stream);
   return launch_kind(kind, true, device, [&](auto k) {
-    adam_qm_kernel<decltype(k)::value><<<blocks_for(rows * 32), kThreads, 0, st>>>(
-        w, self4, q, sc, mq, msc, g4, m4, v4, a_out, s_count, rows, c);
+    adam_qm_kernel<decltype(k)::value><<<blocks_for(rows * 32), kThreads, 0, st>>>(p);
   });
 }
 

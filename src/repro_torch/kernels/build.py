@@ -97,8 +97,12 @@ def build_all(names: Iterable[str]) -> None:
 
 
 def current_stream(device) -> int:
-    """PyTorch's current stream on ``device``, as the raw handle."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current stream on ``device``, as the raw handle.
+
+    Read with ``torch._C._cuda_getCurrentRawStream`` (the call Triton's
+    launcher makes): ``torch.cuda.current_stream`` builds a ``Stream``
+    object per call, several microseconds of host time per launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check_launch(rc: int, what: str) -> None:

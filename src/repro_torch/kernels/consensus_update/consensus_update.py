@@ -66,6 +66,7 @@ CPU path launches nothing and counts nothing.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -75,6 +76,9 @@ from repro_torch.kernels.consensus_update import ref
 
 LANE = 128
 
+#: rows (of 128 lanes, all agents) one ``sr_quantize`` launch takes: the
+#: kernel counts rows in 32-bit integers
+MAX_QUANTIZE_ROWS = 2**31 - 1
 #: payload / neighbor dtype -> the kernels' kind code
 KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
          torch.float8_e4m3fn: 3}
@@ -685,27 +689,45 @@ def sr_quantize(x: torch.Tensor, seed: int, exchange: str, *,
     (A, rows, 1)`` float32, one per 128-lane row.  Agent ``a`` draws its
     stochastic-rounding stream from the 32-bit seed ``seed + agent_stride *
     a`` (wrapping); fp8 draws nothing.
+
+    The kernel runs for about 20 microseconds at the training path's shape,
+    so the host work per call is kept to the checks, two allocations and
+    the launch: the C function is resolved once (:func:`_sr_quantize_fn`),
+    the outputs are allocated ``like`` ``x`` (cheaper than ``torch.empty``
+    with a device), and the library selects the device only when it is not
+    current.
     """
-    if exchange not in ref.QMAX:
+    qdtype = ref.QDTYPE.get(exchange)
+    if qdtype is None:
         raise ValueError(f"sr_quantize takes exchange 'int8' or 'fp8', got "
                          f"{exchange!r}")
     a_count, rows = _stack("x", x)
     device = x.device
     _check("x", x, (a_count, rows, LANE), device)
-    _check_placement([("x", x)], [], device)
+    if a_count * rows > MAX_QUANTIZE_ROWS:
+        raise ValueError(f"sr_quantize takes at most {MAX_QUANTIZE_ROWS} rows "
+                         f"per launch, got {a_count * rows}")
     if device.type == "cpu":
         return ref.sr_quantize_ref(x, seed, exchange, agent_stride)
-    q = torch.empty(x.shape, dtype=ref.QDTYPE[exchange], device=device)
-    scales = torch.empty((a_count, rows, 1), dtype=torch.float32, device=device)
+    _check_placement([("x", x)], [], device)
+    q = torch.empty_like(x, dtype=qdtype)
+    scales = x.new_empty((a_count, rows, 1))
     if a_count == 0 or rows == 0:
         return q, scales
-    rc = library("sr_quantize").sr_quantize(
-        x.data_ptr(), q.data_ptr(), KINDS[q.dtype], scales.data_ptr(),
+    rc = _sr_quantize_fn()(
+        x.data_ptr(), q.data_ptr(), KINDS[qdtype], scales.data_ptr(),
         a_count * rows, rows, seed & 0xFFFFFFFF, agent_stride & 0xFFFFFFFF,
         device.index, _stream(device))
     _launch_check(rc, "sr_quantize")
     sr_quantize.launches += 1
     return q, scales
+
+
+@functools.cache
+def _sr_quantize_fn():
+    """The ``sr_quantize`` C function, its library built and its argtypes
+    set on first use."""
+    return library("sr_quantize").sr_quantize
 
 
 #: every kernel wrapper of this module, by kernel name

@@ -140,6 +140,24 @@ def test_sr_quantize_matches_plain_version_bitwise(exchange, a, rows):
     assert bool((sc[:, 0] == 1.0).all())              # the all-zero row
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [2**32 - 1, 2**32 - 3])
+@pytest.mark.parametrize("exchange", ["int8", "fp8"])
+@pytest.mark.parametrize("a,rows", [(7, 16941), (5, 1001)])
+def test_sr_quantize_persistent_grid_matches_plain_version(exchange, a, rows,
+                                                            seed):
+    """The persistent grid's warps cross agent boundaries inside a block and
+    its last sweep is partial at these shapes; seeds near 2^32 make the
+    per-agent key ``seed + 104729 a`` wrap.  Codes and scales bit for bit."""
+    dev = _card()
+    x = _bucket(dev, a, rows, seed=a * rows)
+    q, sc = cu.sr_quantize(x, seed, exchange, agent_stride=104729)
+    torch.cuda.synchronize()
+    want_q, want_sc = ref.sr_quantize_ref(x, seed, exchange, 104729)
+    assert torch.equal(q.view(torch.uint8), want_q.view(torch.uint8))
+    assert torch.equal(sc, want_sc)
+
+
 def _q_operands(dev, a_out, s, rows, dtype, seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
     w = torch.rand((a_out, s + 1), generator=gen, device=dev)
@@ -267,6 +285,35 @@ def test_b4_kernels_match_plain_versions_in_place(name, dtype, a_out, s, rows):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert float((g - w).abs().max()) <= ATOL
+
+
+QM = [name for name, (_, _, form) in B4.items() if form == "qm"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_out,s,rows", [(16, 15, 777), (9, 8, 33)],
+                         ids=["fc16", "partial-tile"])
+@pytest.mark.parametrize("dtype", PAYLOADS, ids=str)
+@pytest.mark.parametrize("name", QM)
+def test_qm_kernels_match_plain_versions_bitwise(name, dtype, a_out, s, rows):
+    """The register-tiled _qm kernels at fig. 2(a)'s fully connected 16
+    agents (two 4-output tiles of f32 payloads, 16 one-output tiles of
+    narrow ones) and at 9 outputs (a partial tile): every output equal to
+    the plain version's bits, written in place."""
+    dev = _card()
+    plain, n_state, _ = B4[name]
+    mix, state, scalars = _b4_operands(dev, name, a_out, s, rows, dtype,
+                                       a_out * 1000 + rows)
+    want = plain(*mix, *state, *scalars)
+    outs = [t.clone() for t in state]
+    n = cu.KERNELS[name].launches
+    got = cu.KERNELS[name](*mix, *outs, *scalars)
+    torch.cuda.synchronize()
+    assert cu.KERNELS[name].launches == n + 1
+    assert [t.data_ptr() for t in got[:n_state]] == [t.data_ptr() for t in outs]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

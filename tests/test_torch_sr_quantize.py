@@ -36,6 +36,7 @@ from repro.kernels.consensus_update.consensus_update import (  # noqa: E402
     _quantize_math,
     sr_quantize_2d,
 )
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.consensus_update import consensus_update as cu  # noqa: E402
 from repro_torch.kernels.consensus_update import ref  # noqa: E402
 
@@ -185,3 +186,36 @@ def test_sr_quantize_rejects_bad_operands():
     before = cu.launch_counts()
     cu.sr_quantize(x, 0, "int8")
     assert cu.launch_counts() == before          # the CPU path launches nothing
+
+
+@pytest.mark.parametrize("a,rows", [(2**31, 1), (1, 2**31), (3, 2**30)])
+def test_sr_quantize_refuses_more_rows_than_a_launch_counts(a, rows):
+    """The kernel counts rows in 32-bit integers: the wrapper refuses more
+    than 2^31 - 1 rows on every device (shape-only meta tensors here)."""
+    x = torch.empty((a, rows, 128), device="meta")
+    with pytest.raises(ValueError, match="at most 2147483647 rows"):
+        cu.sr_quantize(x, 0, "int8")
+
+
+def test_sr_quantize_has_no_kernel_for_other_devices():
+    x = torch.empty((2, 3, 128), device="meta")
+    with pytest.raises(ValueError, match="no consensus-update kernel for device meta"):
+        cu.sr_quantize(x, 0, "fp8")
+
+
+def test_launch_helpers_resolve_once_and_read_the_raw_stream(monkeypatch):
+    """The wrapper's host path: the C function is looked up once per process
+    (not per call), and the stream handle is the raw current stream of the
+    tensors' device index."""
+    looked_up = []
+    monkeypatch.setattr(cu, "library", lambda name: looked_up.append(name)
+                        or type("Lib", (), {"sr_quantize": name})())
+    cu._sr_quantize_fn.cache_clear()
+    try:
+        assert cu._sr_quantize_fn() == cu._sr_quantize_fn() == "sr_quantize"
+        assert looked_up == ["sr_quantize"]
+    finally:
+        cu._sr_quantize_fn.cache_clear()
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 1000 + index, raising=False)
+    assert build.current_stream(torch.device("cuda", 3)) == 1003
