@@ -127,6 +127,21 @@ loop's times) and ``sr_quantize speed criteria`` (int8 kernel-only at most 0.021
 0.019; the CUDA-event time within 15% of kernel-only; the wrapper's host
 time per call over 1,000 unsynchronized calls).
 
+The float32-flash and threshold slice redesigns ``flash_kernel`` (the key
+loop of long query tiles split over blocks that combine their partial
+results through a workspace, 128-key tiles, a cp.async ring) and moves the
+whole ``topk_threshold`` function onto the card (amax, thresholds, counts
+and the pick: a memset and two launches).  Phase 3 adds float32 flash rows
+at the gemma3-1b prefill shape (``path-f32``, ``path-f32-global``, SDPA
+float32 beside them) and a ``flash f32 speed criteria`` line (b 1, s 640
+at most SDPA float32 and 0.08 ms, goal 0.05; the prefill shape at 40% of
+the float32 bound); the threshold at 7 agents (``agents7``), its trace per
+call (at most two kernels and one memset, no copy: held) and a
+``topk_threshold speed criteria`` line (the CUDA-event card ms at most
+0.05, the count sweep alone at most 0.018 ms, the function's device time,
+all its kernels, at most 0.035 ms, and the wrapper's host time per call
+over 1,000 unsynchronized calls), met or not, not held.
+
 Any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 float32 matmuls and convolutions run in full float32 (TF32 off).
@@ -226,7 +241,9 @@ KERNELS = {   # name -> (library, CUDA kernel symbol, the TPU kernel it replaces
                                       f"{_TPU}:590"),
     "cdadam_update_sparse": ("consensus_update", "sparse_kernel<3>",
                              f"{_TPU}:636"),
-    "topk_threshold": ("topk_threshold", "threshold_kernel",
+    # both of the function's kernels (threshold_amax_kernel, then
+    # threshold_count_kernel): kernel-only is the function's device time
+    "topk_threshold": ("topk_threshold", "threshold_",
                        "src/repro/kernels/consensus_update/topk.py:187"),
     "flash_attention": ("flash_attention", "flash_tc_kernel",
                         "src/repro/kernels/flash_attention/flash_attention.py:74"),
@@ -255,6 +272,14 @@ QM_WIDE_AGENTS = 16            # fig. 2(a): the _qm kernels' [path16-f32] rows
 # sr_quantize's: int8 kernel-only at most 0.021 ms (goal 0.019), the
 # CUDA-event time within 15% of the kernel-only time
 SR_KERNEL_MS, SR_GOAL_MS, SR_EVENT_RATIO = 0.021, 0.019, 1.15
+# topk_threshold's at the path shape: the CUDA-event card ms (the wrapper
+# included) at most 0.05; the count sweep alone at most 0.018 ms (72% of
+# its one-read bound); the function's device time (all its kernels) at most
+# 0.035 ms (74% of the two-read bound)
+TOPK_EVENT_MS, TOPK_COUNT_MS, TOPK_DEVICE_MS = 0.05, 0.018, 0.035
+# float32 flash's: at b 1, s 640 at most SDPA float32 on the same operands
+# and at most 0.08 ms (goal 0.05); at the path shape 40% of the bound
+FLASH_F32_MS, FLASH_F32_GOAL_MS, FLASH_F32_BOUND_SHARE = 0.08, 0.05, 0.40
 # the serving path: (arch, its kernel, launches per prefill = layers)
 SERVE_ARCHS = (("gemma3-1b", "flash_attention", 26), ("rwkv6-1.6b", "wkv6", 24))
 PREFILL_BATCH, PREFILL_LEN = 4, 2048
@@ -823,12 +848,35 @@ def check_sparse(results: dict, gen) -> None:
           "products, without the self term or the optimizer epilogue)")
 
 
+def _trace_counts(fn, iters: int = 10) -> dict:
+    """Device activity of ``iters`` calls of ``fn`` in a ``torch.profiler``
+    trace, per call: kernels, memsets and copies by name."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            names[e.name] = names.get(e.name, 0) + 1
+    return {n: c / iters for n, c in names.items()}
+
+
 def check_threshold(results: dict, gen) -> None:
-    """Phase 3, the top-k threshold kernel: counts exact and ``tau`` equal
-    bit for bit to the plain version's, with an all-zero bucket and ties."""
+    """Phase 3, the top-k threshold function on the card (amax, thresholds,
+    counts and pick): counts exact and ``tau`` equal bit for bit to the
+    plain path's, with an all-zero bucket and ties, also at 7 agents (agent
+    boundaries inside the blocks' chunks); the trace of one call (two
+    kernels, at most one memset, no copy); the speed criteria, met or not,
+    with the count sweep alone, the function's device time and the
+    wrapper's host time per call."""
+    times = {}
     for label, a, rows in (("path", AGENTS, PATH_ROWS),
                            ("stencil", 1, PATH_ROWS),
-                           ("ragged", AGENTS, 1001)):
+                           ("ragged", AGENTS, 1001),
+                           ("agents7", 7, PATH_ROWS)):
         k = tk.topk_k_rows(rows, TOPK_P) * 128
         x = _bucket(gen, a, rows)
         x[-1] = 0.0                                  # an all-zero bucket
@@ -842,13 +890,43 @@ def check_threshold(results: dict, gen) -> None:
         if not (torch.equal(counts, want.float()) and torch.equal(tau, want_tau)):
             raise AssertionError(f"topk_threshold [{label}] differs from its "
                                  "plain version")
-        _report(results, "topk_threshold", label, f"A={a} rows={rows} k={k}",
-                0.0, lambda: tk.topk_threshold(x, k),
-                lambda: ref.topk_threshold_counts_ref(x, taus), None,
-                bound("topk_threshold", a, 0, rows))
+        times[label] = _report(
+            results, "topk_threshold", label, f"A={a} rows={rows} k={k}",
+            0.0, lambda: tk.topk_threshold(x, k),
+            lambda: ref.topk_threshold_counts_ref(x, taus), None,
+            bound("topk_threshold", a, 0, rows))
+        if label == "path":
+            fn = lambda: tk.topk_threshold(x, k)
+            count_ms = device_ms(fn, "threshold_count_kernel")
+            trace = _trace_counts(fn)
+            kernels = {n: c for n, c in trace.items() if "threshold_" in n}
+            memsets = sum(c for n, c in trace.items() if "memset" in n.lower())
+            copies = sum(c for n, c in trace.items() if "memcpy" in n.lower())
+            print(f"topk_threshold [path] trace per call: kernels "
+                  f"{ {n[n.find('threshold_'):].split('(')[0]: c for n, c in kernels.items()} }, "
+                  f"memsets {memsets:g}, copies {copies:g}")
+            if sum(kernels.values()) > 2 or memsets > 1 or copies:
+                raise AssertionError("topk_threshold: more than two kernels and "
+                                     "one memset per call, or a copy")
+            tiny = torch.randn((1, 8, 128), generator=gen, device="cuda")
+            host = host_us(lambda: tk.topk_threshold(tiny, 128), iters=1000)
+    path = times["path"]
+    fn_ms = path["kernel_only_ms"]
+    two_read_ms = 2 * bound("topk_threshold", AGENTS, 0, PATH_ROWS)[0]
+    measured = fn_ms is not None and count_ms is not None
     print("topk_threshold: counts exact and tau equal bit for bit at every "
           "shape; library_ms none: no one PyTorch call counts |x| >= tau for "
           "16 thresholds")
+    print(f"topk_threshold speed criteria: [path] card ms {path['ms']:.5f} <= "
+          f"{TOPK_EVENT_MS:g}: {path['ms'] <= TOPK_EVENT_MS}; count sweep "
+          + (f"kernel-only {count_ms:.5f} ms <= {TOPK_COUNT_MS:g}: "
+             f"{count_ms <= TOPK_COUNT_MS} (share of the one-read bound "
+             f"{path['bound_ms'] / count_ms:.3f}); the function's device time "
+             f"{fn_ms:.5f} ms <= {TOPK_DEVICE_MS:g}: {fn_ms <= TOPK_DEVICE_MS} "
+             f"(share of the two-read bound {two_read_ms:.5f} ms: "
+             f"{two_read_ms / fn_ms:.3f})" if measured else "kernel-only not measured")
+          + f"; wrapper host time {host:.1f} us per call (time.perf_counter "
+          "over 1000 calls at (1, 8, 128), no synchronize)")
 
 
 def expected_launches(name: str, exchange: str, schedule: str,
@@ -1019,10 +1097,10 @@ def train_main_path(params, train) -> dict:
 
 
 def threshold_on_carried(tr) -> None:
-    """The threshold kernel on every agent's carried buffer ``x + e`` (what
-    the next step compresses) at ``k = K``: one launch, against its plain
-    version, and bracketing within one geometric bin the K-th magnitude
-    that the wire's exact selection keeps."""
+    """The threshold function on every agent's carried buffer ``x + e``
+    (what the next step compresses) at ``k = K``: one call, against its
+    plain version, and bracketing within one geometric bin the K-th
+    magnitude that the wire's exact selection keeps."""
     fl, st = tr.comm.flat, tr.state
     bufs = fl.pack(st.params, fl.spec(st.params))
     k_list = tk.topk_k_rows_for([b.shape[-2] for b in bufs],
@@ -1364,7 +1442,9 @@ def check_flash(results: dict, gen) -> None:
             ("ragged", PREFILL_BATCH, 200, torch.bfloat16, 512),
             ("ragged-global", PREFILL_BATCH, 200, torch.bfloat16, None),
             ("f32-local", 1, 640, torch.float32, 512),
-            ("f32-global", 1, 640, torch.float32, None)):
+            ("f32-global", 1, 640, torch.float32, None),
+            ("path-f32", PREFILL_BATCH, PREFILL_LEN, torch.float32, 512),
+            ("path-f32-global", PREFILL_BATCH, PREFILL_LEN, torch.float32, None)):
         h, kv, d = 4, 1, 256
         q = torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
         k = torch.randn((b, kv, s, d), generator=gen, device=dev).to(dtype)
@@ -1423,6 +1503,20 @@ def check_flash(results: dict, gen) -> None:
           f"window {loc['ms']:.5f} ms <= SDPA band {loc['library_ms']:.5f}: "
           f"{loc['ms'] <= loc['library_ms']}; goal, global <= SDPA causal: "
           f"{glob['ms'] <= glob['library_ms']} (bound share {glob['bound_ms'] / glob['ms']:.3f})")
+    parts = []
+    for label in ("f32-local", "f32-global"):
+        t = times[label]
+        cap = min(t["library_ms"], FLASH_F32_MS)
+        parts.append(f"[{label}] {t['ms']:.5f} ms <= SDPA float32 {t['library_ms']:.5f} "
+                     f"and <= {FLASH_F32_MS:g}: {t['ms'] <= cap}; goal <= "
+                     f"{FLASH_F32_GOAL_MS:g}: {t['ms'] <= FLASH_F32_GOAL_MS}")
+    for label in ("path-f32", "path-f32-global"):
+        t = times[label]
+        share = t["bound_ms"] / t["ms"]
+        parts.append(f"[{label}] {t['ms']:.5f} ms, bound share {share:.3f} >= "
+                     f"{FLASH_F32_BOUND_SHARE:g}: {share >= FLASH_F32_BOUND_SHARE} "
+                     f"(SDPA float32 {t['library_ms']:.5f})")
+    print("flash f32 speed criteria: " + "; ".join(parts))
 
 
 def wkv_flops(bh: int, s: int, hs: int) -> float:

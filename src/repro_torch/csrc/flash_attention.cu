@@ -26,19 +26,37 @@
 // ms at the bf16 tensor cores' 989 TFLOP/s (the 512 window: 1.5e10, 0.224
 // and 0.015 ms).
 //
-// flash_kernel (float32; simple, CUDA cores): one block of 256 threads per
-// (64-row query tile, b * h), heaviest tiles (latest rows) first.  The
-// scaled query tile stays in shared memory transposed (D x 64 floats);
-// each 64-key tile of K (transposed) and V is staged through shared memory.
-// A thread owns a 4 x 4 patch of the 64 x 64 score tile and a 4 x (D/16)
-// patch of the output accumulator (registers), so the row state (max, sum)
-// is per thread and reduced over the 16 lanes that share a row with
-// shuffles.  q is scaled in float32 before the dot, as in the reference.
-// Key tiles that the mask removes entirely (above the diagonal, or left of
-// the window) are skipped: in the reference their p is 0 and their
-// correction exp(m - m) is 1, so skipping them is exact.  At D = 256 the
-// tiles take 208 KB of shared memory (one block per SM).
-//
+// flash_kernel (float32, CUDA cores): what bounds it is the float32 FMA
+// rate of each SM and, at short lengths, how many SMs have work: one block
+// per (64-row query tile, b * h) gave 40 blocks on 132 SMs at b 1, s 640,
+// 4 heads, the last tile's key loop run serially on one SM.  So:
+//  - Units.  A query tile's key tiles (those the mask leaves) are cut into
+//    splits of at most max_tiles tiles, max_tiles chosen per call so that
+//    about kWaves x the resident blocks run.  One block per unit, 1-d grid:
+//    (b, head) fastest, query tiles latest first (most key tiles first).
+//    A split writes its row state (m, l) and its unnormalised O to the
+//    workspace; the last split of a tile to finish (an atomic ticket,
+//    zeroed by a memset in the launch) combines them in split order (M =
+//    max m, L = sum l e^(m - M), O = sum O e^(m - M), out = O / max(L,
+//    1e-30)), so the result does not depend on the order the splits end.
+//  - Key tiles of 128 keys; a thread owns a 4 x 8 patch of the 64 x 128
+//    score tile (rows ty + 16 i, keys tx + 16 j: conflict-free 16-byte
+//    shared loads along D, 12 loads per 128 FMAs) and a 4 x (D / 16) patch
+//    of O in registers; the row state is per thread and reduced over the 16
+//    lanes of a row with shuffles.  P goes through shared memory (keys by
+//    rows, padded).
+//  - One block of 256 threads an SM (up to 255 registers a thread): the
+//    scaled query tile stays in shared memory (64 x D, padded rows), and K
+//    and V stream through a 3-slot cp.async ring of 34 KB chunks (K: 128
+//    keys by 64 of D, padded rows; V: 8192 / D keys by D), so chunk i + 2
+//    lands while chunk i computes: 205,824 bytes at D = 256.
+// The arithmetic is the reference's: q scaled in float32 before the dot,
+// masked scores -1e30 and masked p exactly 0, the denominator max(l,
+// 1e-30); key tiles the mask removes entirely are skipped (their p is 0 and
+// their correction exp(m - m) 1 in the reference, so skipping is exact).
+// A split sums the keys in another order than one block would: results
+// agree with the plain version to the reference's float32 tolerance.
+
 // flash_tc_kernel (bfloat16; wgmma and TMA): the float32 cores cap the
 // bf16 path at 67 TFLOP/s, 15x under the tensor cores.  One block of two
 // warpgroups (256 threads) per (128-row query tile, b * h), latest rows
@@ -104,73 +122,50 @@ struct Strides {          // in elements: batch, head, position (D is unit)
 namespace f32 {
 
 constexpr int kThreads = 256;
-constexpr int kBQ = 64;              // query rows per block
-constexpr int kBK = 64;              // keys per staged tile
+constexpr int kBQ = 64;                  // query rows of a unit
+constexpr int kBK = 128;                 // keys of a key tile
+constexpr int kKJ = kBK / 16;            // its keys in a thread's score patch
+constexpr int kKC = 64;                  // a K chunk: kBK keys by 64 of D
+constexpr int kKStride = kKC + 4;        // its padded key row (floats)
+constexpr int kPStride = kBQ + 4;        // P's padded key row (floats)
+constexpr int kStages = 3;               // cp.async ring depth
+constexpr int kSlot = kBK * kKStride;    // floats in a ring slot (K chunk, padded)
+constexpr int kMinBlocks = 1;            // blocks resident on an SM
+constexpr int kWaves = 2;                // units aimed for, in resident blocks
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-
-// 16 bytes of T (4 floats).
-template <typename T>
-struct Vec16;
-template <>
-struct Vec16<float> {
-  static constexpr int kN = 4;
-  __device__ static void load(const float* p, float* out) {
-    const float4 a = *reinterpret_cast<const float4*>(p);
-    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  }
+template <int D>
+struct Cfg {
+  static constexpr int kQStride = D + 4;                 // Q's padded row (floats)
+  static constexpr int kVC = kBK * kKC / D;              // keys of a V chunk
+  static constexpr int kKChunks = D / kKC;
+  static constexpr int kChunks = kKChunks + kBK / kVC;   // ring chunks per key tile
+  static constexpr int kCols = D / 16;                   // output columns a thread
+  static constexpr size_t kSmem =
+      sizeof(float) * (kBQ * kQStride + kBK * kPStride + kStages * kSlot);
 };
 
-// Stage rows [row0, row0 + 64) of one (b, head) slice into shared memory,
-// transposed: dst[d * 64 + r] = x[r][d] * mul.  Rows at or past n_rows are
-// zero.  Consecutive threads take consecutive rows, so the stores hit
-// consecutive banks.
-template <typename T, int D>
-__device__ void stage_transposed(float* dst, const T* src, long long stride_s, int row0,
-                                 int n_rows, float mul, bool scaled) {
-  constexpr int kN = Vec16<T>::kN;
-  constexpr int kChunks = D / kN;
-  for (int idx = threadIdx.x; idx < 64 * kChunks; idx += kThreads) {
-    const int r = idx & 63;
-    const int d0 = (idx >> 6) * kN;
-    float val[kN];
-    if (row0 + r < n_rows) {
-      Vec16<T>::load(src + (row0 + r) * stride_s + d0, val);
-    } else {
-#pragma unroll
-      for (int e = 0; e < kN; ++e) val[e] = 0.0f;
-    }
-#pragma unroll
-    for (int e = 0; e < kN; ++e) {
-      dst[(d0 + e) * 64 + r] = scaled ? __fmul_rn(val[e], mul) : val[e];
-    }
-  }
+// The number of key tiles that hold an allowed column for query tile qi,
+// from key tile *lo on.
+__host__ __device__ inline int key_tiles(int qi, int sq, int sk, int causal, int window,
+                                         int* lo) {
+  const int q0 = qi * kBQ;
+  const int last_row = (q0 + kBQ < sq ? q0 + kBQ : sq) - 1;
+  int hi = (sk - 1) / kBK;
+  if (causal && last_row / kBK < hi) hi = last_row / kBK;
+  *lo = 0;
+  if (window > 0 && q0 - window + 1 > 0) *lo = (q0 - window + 1) / kBK;
+  return hi >= *lo ? hi - *lo + 1 : 0;
 }
 
-// Stage rows [row0, row0 + 64) as they are: dst[r * D + d] = x[r][d].
-template <typename T, int D>
-__device__ void stage_rows(float* dst, const T* src, long long stride_s, int row0, int n_rows) {
-  constexpr int kN = Vec16<T>::kN;
-  constexpr int kChunks = D / kN;
-  for (int idx = threadIdx.x; idx < 64 * kChunks; idx += kThreads) {
-    const int r = idx / kChunks;
-    const int d0 = (idx % kChunks) * kN;
-    float val[kN];
-    if (row0 + r < n_rows) {
-      Vec16<T>::load(src + (row0 + r) * stride_s + d0, val);
-    } else {
-#pragma unroll
-      for (int e = 0; e < kN; ++e) val[e] = 0.0f;
-    }
-#pragma unroll
-    for (int e = 0; e < kN; e += 4) {
-      *reinterpret_cast<float4*>(dst + r * D + d0 + e) =
-          make_float4(val[e], val[e + 1], val[e + 2], val[e + 3]);
-    }
-  }
+// The units that a query tile of n key tiles is cut into.
+__host__ __device__ inline int n_splits(int n, int max_tiles) {
+  return n > max_tiles ? (n + max_tiles - 1) / max_tiles : 1;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
 }
 
 __device__ __forceinline__ float row_max16(float x) {
@@ -185,160 +180,379 @@ __device__ __forceinline__ float row_sum16(float x) {
   return x;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ o, int heads, int kv_heads, int sq, int sk, Strides qs,
-             Strides ks, Strides vs, Strides os, float scale, int causal, int window) {
-  constexpr int kCols = D / 16;              // output columns per thread
-  extern __shared__ float4 smem4[];
-  float* q_t = reinterpret_cast<float*>(smem4);     // (D, 64) scaled queries
-  float* k_t = q_t + D * kBQ;                       // (D, 64) keys
-  float* v_s = k_t + D * kBK;                       // (64, D) values
-  float* p_t = v_s + kBK * D;                       // (64 keys, 64 rows)
+// Copy ring chunk j of the key tile at k0 into `slot`: a K chunk (its kBK
+// keys, D columns kKC j .. kKC j + kKC - 1, padded rows) or a V chunk (kVC
+// keys, all of D).  Keys at or past sk arrive as zeros.  A thread copies
+// 16 bytes at a fixed column of rows r, r + kRows, ...
+template <int D>
+__device__ __forceinline__ void issue_chunk(float* slot, const float* kb, const float* vb,
+                                            long long ks_s, long long vs_s, int k0, int j,
+                                            int sk) {
+  using C = Cfg<D>;
+  if (j < C::kKChunks) {
+    constexpr int kPer = kKC / 4, kRows = kThreads / kPer;
+    const int r = threadIdx.x / kPer, c4 = threadIdx.x % kPer;
+    const float* src = kb + (k0 + r) * ks_s + j * kKC + 4 * c4;
+    float* dst = slot + r * kKStride + 4 * c4;
+#pragma unroll
+    for (int it = 0; it < kBK / kRows; ++it) {
+      const bool ok = k0 + r + it * kRows < sk;
+      cp_async16(dst + it * kRows * kKStride, ok ? src + it * kRows * ks_s : kb, ok);
+    }
+  } else {
+    constexpr int kPer = D / 4, kRows = kThreads / kPer;
+    const int key0 = k0 + (j - C::kKChunks) * C::kVC;
+    const int r = threadIdx.x / kPer, c4 = threadIdx.x % kPer;
+    const float* src = vb + (key0 + r) * vs_s + 4 * c4;
+    float* dst = slot + r * D + 4 * c4;
+#pragma unroll
+    for (int it = 0; it < C::kVC / kRows; ++it) {
+      const bool ok = key0 + r + it * kRows < sk;
+      cp_async16(dst + it * kRows * D, ok ? src + it * kRows * vs_s : vb, ok);
+    }
+  }
+}
 
+template <int D>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ o, int n_bh, int heads,
+             int kv_heads, int sq, int sk, Strides qs, Strides ks, Strides vs, Strides os,
+             float scale, int causal, int window, int max_tiles, int* __restrict__ tickets,
+             float2* __restrict__ part_ml, float* __restrict__ part_o) {
+  using C = Cfg<D>;
+  constexpr int kCols = C::kCols;
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);    // (64 rows, D) scaled queries
+  float* p_s = q_s + kBQ * C::kQStride;            // (64 keys, 64 rows) probabilities
+  float* ring = p_s + kBK * kPStride;              // kStages chunk slots
+  __shared__ bool last_split;
+
+  // This block's unit: (b, head) fastest, then query tiles latest first,
+  // each cut into n_splits units of key ranges as equal as they can be.
+  const int bh = static_cast<int>(blockIdx.x % n_bh);
+  int unit = static_cast<int>(blockIdx.x / n_bh);
   const int n_q = (sq + kBQ - 1) / kBQ;
-  const int qi = n_q - 1 - static_cast<int>(blockIdx.x);   // latest rows first
-  const int bh = blockIdx.y;
+  int qi = 0, lo = 0, n = 0, splits = 1, split_base = 0;
+  for (int t = 0; t < n_q; ++t) {
+    qi = n_q - 1 - t;
+    n = key_tiles(qi, sq, sk, causal, window, &lo);
+    splits = n_splits(n, max_tiles);
+    if (unit < splits) break;
+    unit -= splits;
+    if (splits > 1) split_base += splits;
+  }
+  const int split = unit;
+  const int t_begin = lo + split * (n / splits) + min(split, n % splits);
+  const int n_tiles = n / splits + (split < n % splits ? 1 : 0);
+
   const int b = bh / heads;
   const int h = bh % heads;
   const int g = h / (heads / kv_heads);
   const int q0 = qi * kBQ;
-  const int tx = threadIdx.x & 15;           // score columns 4 tx .. 4 tx + 3
-  const int ty = threadIdx.x >> 4;           // rows 4 ty .. 4 ty + 3
+  const int tx = threadIdx.x & 15;     // keys tx + 16 jj; columns 4 tx + 64 jj + e
+  const int ty = threadIdx.x >> 4;     // rows ty + 16 i
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + g * ks.h;
+  const float* vb = v + b * vs.b + g * vs.h;
 
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + g * ks.h;
-  const T* vb = v + b * vs.b + g * vs.h;
-
-  // key tiles that hold at least one allowed column for these rows
-  const int last_row = min(q0 + kBQ, sq) - 1;
-  int hi = (sk - 1) / kBK;
-  if (causal) hi = min(hi, last_row / kBK);
-  int lo = 0;
-  if (window > 0) {
-    const int first_col = q0 - window + 1;      // smallest allowed column of row q0
-    if (first_col > 0) lo = first_col / kBK;
+  const int n_chunks = n_tiles * C::kChunks;
+#pragma unroll
+  for (int c = 0; c < kStages - 1; ++c) {
+    if (c < n_chunks) {
+      issue_chunk<D>(ring + c * kSlot, kb, vb, ks.s, vs.s, (t_begin + c / C::kChunks) * kBK,
+                     c % C::kChunks, sk);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  // the scaled query tile, while the first chunks land
+  for (int idx = threadIdx.x; idx < kBQ * D / 4; idx += kThreads) {
+    const int r = idx / (D / 4), c4 = idx % (D / 4);
+    float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (q0 + r < sq) {
+      val = *reinterpret_cast<const float4*>(qb + (q0 + r) * qs.s + 4 * c4);
+      val = make_float4(__fmul_rn(val.x, scale), __fmul_rn(val.y, scale),
+                        __fmul_rn(val.z, scale), __fmul_rn(val.w, scale));
+    }
+    *reinterpret_cast<float4*>(q_s + r * C::kQStride + 4 * c4) = val;
   }
 
-  stage_transposed<T, D>(q_t, qb, qs.s, q0, sq, scale, true);
-
-  float m[4], l[4], acc[4][kCols];
+  float m[4], l[4], acc[4][kCols], s[4][kKJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNegInf;
     l[i] = 0.0f;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.0f;
+#pragma unroll
+    for (int jj = 0; jj < kKJ; ++jj) s[i][jj] = 0.0f;
   }
 
-  for (int kt = lo; kt <= hi; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();                            // the previous tile is consumed
-    stage_transposed<T, D>(k_t, kb, ks.s, k0, sk, 1.0f, false);
-    stage_rows<T, D>(v_s, vb, vs.s, k0, sk);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(q_t + d * kBQ + 4 * ty);
-      const float4 c = *reinterpret_cast<const float4*>(k_t + d * kBK + 4 * tx);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
+  for (int c = 0; c < n_chunks; ++c) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
+    __syncthreads();               // chunk c has landed; chunk c - 1's slot is free
+    const int cn = c + kStages - 1;
+    if (cn < n_chunks) {
+      issue_chunk<D>(ring + (cn % kStages) * kSlot, kb, vb, ks.s, vs.s,
+                     (t_begin + cn / C::kChunks) * kBK, cn % C::kChunks, sk);
     }
-
-    float p[4][4];
+    asm volatile("cp.async.commit_group;\n" ::);
+    const float* slot = ring + (c % kStages) * kSlot;
+    const int j = c % C::kChunks;
+    if (j < C::kKChunks) {
+      // S += Q[:, 32 j .. 32 j + 31] K_chunk^T, in d order
+      const float* qrow = q_s + ty * C::kQStride + j * kKC;
+      const float* krow = slot + tx * kKStride;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * ty + i;
-      bool ok[4];
-      float mx = kNegInf;
+      for (int dq = 0; dq < kKC / 4; ++dq) {
+        float4 kv[kKJ];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + 4 * tx + j;
-        ok[j] = col < sk && (!causal || col <= row) && (window <= 0 || col > row - window);
-        if (!ok[j]) s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max16(mx));
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p[i][j] = ok[j] ? expf(s[i][j] - m_new) : 0.0f;
-        sum += p[i][j];
-      }
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + row_sum16(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] *= corr;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      *reinterpret_cast<float4*>(p_t + (4 * tx + j) * kBQ + 4 * ty) =
-          make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int c = 0; c < kBK; ++c) {
-      const float4 pr = *reinterpret_cast<const float4*>(p_t + c * kBQ + 4 * ty);
-      const float pv[4] = {pr.x, pr.y, pr.z, pr.w};
-#pragma unroll
-      for (int jj = 0; jj < kCols / 4; ++jj) {
-        const float4 vv = *reinterpret_cast<const float4*>(v_s + c * D + 4 * tx + 64 * jj);
+        for (int jj = 0; jj < kKJ; ++jj) {
+          kv[jj] = *reinterpret_cast<const float4*>(krow + 16 * jj * kKStride + 4 * dq);
+        }
+float4 qv[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          acc[i][4 * jj + 0] = fmaf(pv[i], vv.x, acc[i][4 * jj + 0]);
-          acc[i][4 * jj + 1] = fmaf(pv[i], vv.y, acc[i][4 * jj + 1]);
-          acc[i][4 * jj + 2] = fmaf(pv[i], vv.z, acc[i][4 * jj + 2]);
-          acc[i][4 * jj + 3] = fmaf(pv[i], vv.w, acc[i][4 * jj + 3]);
+          qv[i] = *reinterpret_cast<const float4*>(qrow + 16 * i * C::kQStride + 4 * dq);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < kKJ; ++jj) s[i][jj] = fmaf(qv[i].x, kv[jj].x, s[i][jj]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < kKJ; ++jj) s[i][jj] = fmaf(qv[i].y, kv[jj].y, s[i][jj]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < kKJ; ++jj) s[i][jj] = fmaf(qv[i].z, kv[jj].z, s[i][jj]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < kKJ; ++jj) s[i][jj] = fmaf(qv[i].w, kv[jj].w, s[i][jj]);
+      }
+      if (j == C::kKChunks - 1) {
+        // the key tile's online softmax; P to shared memory
+        const int k0 = (t_begin + c / C::kChunks) * kBK;
+        float p[4][kKJ];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = q0 + ty + 16 * i;
+          bool ok[kKJ];
+          float mx = kNegInf;
+#pragma unroll
+          for (int jj = 0; jj < kKJ; ++jj) {
+            const int col = k0 + tx + 16 * jj;
+            ok[jj] = col < sk && (!causal || col <= row) && (window <= 0 || col > row - window);
+            if (!ok[jj]) s[i][jj] = kNegInf;
+            mx = fmaxf(mx, s[i][jj]);
+          }
+          const float m_new = fmaxf(m[i], row_max16(mx));
+          float sum = 0.0f;
+#pragma unroll
+          for (int jj = 0; jj < kKJ; ++jj) {
+            p[i][jj] = ok[jj] ? expf(s[i][jj] - m_new) : 0.0f;
+            sum += p[i][jj];
+            s[i][jj] = 0.0f;
+          }
+          const float corr = expf(m[i] - m_new);
+          l[i] = l[i] * corr + row_sum16(sum);
+          m[i] = m_new;
+#pragma unroll
+          for (int cc = 0; cc < kCols; ++cc) acc[i][cc] *= corr;
+        }
+#pragma unroll
+        for (int jj = 0; jj < kKJ; ++jj) {
+          *reinterpret_cast<float4*>(p_s + (tx + 16 * jj) * kPStride + 4 * ty) =
+              make_float4(p[0][jj], p[1][jj], p[2][jj], p[3][jj]);
+        }
+      }
+    } else {
+      // O += P[:, this chunk's keys] V_chunk, in key order
+      const int key0 = (j - C::kKChunks) * C::kVC;
+#pragma unroll
+      for (int kk = 0; kk < C::kVC; ++kk) {
+        const float4 pr =
+            *reinterpret_cast<const float4*>(p_s + (key0 + kk) * kPStride + 4 * ty);
+        const float pv[4] = {pr.x, pr.y, pr.z, pr.w};
+#pragma unroll
+        for (int jj = 0; jj < kCols / 4; ++jj) {
+          const float4 vv = *reinterpret_cast<const float4*>(slot + kk * D + 4 * tx + 64 * jj);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[i][4 * jj + 0] = fmaf(pv[i], vv.x, acc[i][4 * jj + 0]);
+            acc[i][4 * jj + 1] = fmaf(pv[i], vv.y, acc[i][4 * jj + 1]);
+            acc[i][4 * jj + 2] = fmaf(pv[i], vv.z, acc[i][4 * jj + 2]);
+            acc[i][4 * jj + 3] = fmaf(pv[i], vv.w, acc[i][4 * jj + 3]);
+          }
         }
       }
     }
   }
+  asm volatile("cp.async.wait_all;\n" ::);
 
-  T* ob = o + b * os.b + h * os.h;
+  float* ob = o + b * os.b + h * os.h;
+  if (splits > 1) {
+    // A split writes its (m, l) and unnormalised O; the last split of the
+    // query tile to finish (a ticket) combines them all in split order, so
+    // the result does not depend on which split is last.
+    const long long first = static_cast<long long>(split_base) * n_bh + bh;
+    float* mine = part_o + ((first + static_cast<long long>(split) * n_bh) * kBQ) * D;
+    float2* mine_ml = part_ml + (first + static_cast<long long>(split) * n_bh) * kBQ;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      if (tx == 0) mine_ml[r] = make_float2(m[i], l[i]);
+#pragma unroll
+      for (int jj = 0; jj < kCols / 4; ++jj) {
+        *reinterpret_cast<float4*>(mine + r * D + 4 * tx + 64 * jj) = make_float4(
+            acc[i][4 * jj], acc[i][4 * jj + 1], acc[i][4 * jj + 2], acc[i][4 * jj + 3]);
+      }
+    }
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      last_split = atomicAdd(tickets + static_cast<long long>(qi) * n_bh + bh, 1) == splits - 1;
+    }
+    __syncthreads();
+    if (!last_split) return;
+    __threadfence();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      float mm = kNegInf;
+      for (int sp = 0; sp < splits; ++sp) {
+        mm = fmaxf(mm, __ldcg(part_ml + (first + static_cast<long long>(sp) * n_bh) * kBQ + r).x);
+      }
+      float ll = 0.0f;
+#pragma unroll
+      for (int cc = 0; cc < kCols; ++cc) acc[i][cc] = 0.0f;
+      for (int sp = 0; sp < splits; ++sp) {
+        const long long at = (first + static_cast<long long>(sp) * n_bh) * kBQ + r;
+        const float2 ml = __ldcg(part_ml + at);
+        const float w = expf(ml.x - mm);
+        ll = fmaf(ml.y, w, ll);
+#pragma unroll
+        for (int jj = 0; jj < kCols / 4; ++jj) {
+          const float4 pv = __ldcg(reinterpret_cast<const float4*>(part_o + at * D + 4 * tx +
+                                                                   64 * jj));
+          acc[i][4 * jj + 0] = fmaf(pv.x, w, acc[i][4 * jj + 0]);
+          acc[i][4 * jj + 1] = fmaf(pv.y, w, acc[i][4 * jj + 1]);
+          acc[i][4 * jj + 2] = fmaf(pv.z, w, acc[i][4 * jj + 2]);
+          acc[i][4 * jj + 3] = fmaf(pv.w, w, acc[i][4 * jj + 3]);
+        }
+      }
+      l[i] = ll;
+    }
+  }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
+    const int row = q0 + ty + 16 * i;
     if (row >= sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int jj = 0; jj < kCols / 4; ++jj) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        ob[row * os.s + 4 * tx + 64 * jj + e] = from_f32<T>(__fdiv_rn(acc[i][4 * jj + e], denom));
-      }
+      *reinterpret_cast<float4*>(ob + row * os.s + 4 * tx + 64 * jj) = make_float4(
+          __fdiv_rn(acc[i][4 * jj], denom), __fdiv_rn(acc[i][4 * jj + 1], denom),
+          __fdiv_rn(acc[i][4 * jj + 2], denom), __fdiv_rn(acc[i][4 * jj + 3], denom));
     }
   }
+}
+
+// Resident blocks of flash_kernel<D> on `device` (cached per device).
+template <int D>
+cudaError_t resident_blocks(int device, int* out) {
+  static int cached[64] = {};
+  if (device >= 0 && device < 64 && cached[device] > 0) {
+    *out = cached[device];
+    return cudaSuccess;
+  }
+  auto kernel = flash_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(Cfg<D>::kSmem));
+  if (err != cudaSuccess) return err;
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, Cfg<D>::kSmem);
+  if (err != cudaSuccess) return err;
+  *out = sms * (per_sm > 0 ? per_sm : 1);
+  if (device >= 0 && device < 64) cached[device] = *out;
+  return cudaSuccess;
+}
+
+// The plan of one call: the most key tiles a unit takes, the units and the
+// split units of one (b, head), and the workspace bytes (tickets, then
+// each split unit's (m, l) and O).
+struct Plan {
+  int max_tiles = 1;
+  long long units = 0, split_units = 0, ticket_bytes = 0, ws_bytes = 0;
+};
+
+template <int D>
+cudaError_t plan(int n_bh, int sq, int sk, int causal, int window, int device, Plan* p) {
+  int resident = 0;
+  const cudaError_t err = resident_blocks<D>(device, &resident);
+  if (err != cudaSuccess) return err;
+  const int n_q = (sq + kBQ - 1) / kBQ;
+  long long work = 0;
+  int lo = 0;
+  for (int qi = 0; qi < n_q; ++qi) work += key_tiles(qi, sq, sk, causal, window, &lo);
+  work *= n_bh;
+  const long long aim = static_cast<long long>(kWaves) * resident;
+  const long long t = (work + aim - 1) / aim;
+  p->max_tiles = t < 1 ? 1 : static_cast<int>(t);
+  for (int qi = 0; qi < n_q; ++qi) {
+    const int ns = n_splits(key_tiles(qi, sq, sk, causal, window, &lo), p->max_tiles);
+    p->units += ns;
+    if (ns > 1) p->split_units += ns;
+  }
+  if (p->split_units > 0) {
+    p->ticket_bytes = static_cast<long long>(n_q) * n_bh * sizeof(int);
+    p->ws_bytes = (p->ticket_bytes + 255) / 256 * 256 +
+                  p->split_units * n_bh * kBQ * (sizeof(float2) + D * sizeof(float));
+  }
+  return cudaSuccess;
+}
+
+template <int D>
+int workspace(int batch, int heads, int sq, int sk, int causal, int window, int device,
+              long long* bytes) {
+  Plan p;
+  const cudaError_t err = plan<D>(batch * heads, sq, sk, causal, window, device, &p);
+  *bytes = p.ws_bytes;
+  return static_cast<int>(err);
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int batch, int heads,
            int kv_heads, int sq, int sk, const long long* st, float scale, int causal,
-           int window, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * D * 64 + 64 * D + 64 * 64);
-  auto kernel = flash_kernel<float, D>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+           int window, void* ws, long long ws_bytes, int device, cudaStream_t stream) {
+  const int n_bh = batch * heads;
+  Plan p;
+  cudaError_t err = plan<D>(n_bh, sq, sk, causal, window, device, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (ws_bytes < p.ws_bytes || (p.ws_bytes > 0 && ws == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int* tickets = nullptr;
+  float2* part_ml = nullptr;
+  float* part_o = nullptr;
+  if (p.split_units > 0) {
+    tickets = static_cast<int*>(ws);
+    part_ml = reinterpret_cast<float2*>(static_cast<char*>(ws) +
+                                        (p.ticket_bytes + 255) / 256 * 256);
+    part_o = reinterpret_cast<float*>(part_ml + p.split_units * n_bh * kBQ);
+    err = cudaMemsetAsync(tickets, 0, p.ticket_bytes, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]}, vs{st[6], st[7], st[8]},
       os{st[9], st[10], st[11]};
-  const dim3 grid(static_cast<unsigned int>((sq + kBQ - 1) / kBQ),
-                  static_cast<unsigned int>(batch * heads));
-  kernel<<<grid, kThreads, smem, stream>>>(
+  flash_kernel<D><<<static_cast<unsigned>(p.units * n_bh), kThreads, Cfg<D>::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), heads, kv_heads, sq, sk, qs, ks, vs, os, scale, causal, window);
+      static_cast<float*>(o), n_bh, heads, kv_heads, sq, sk, qs, ks, vs, os, scale, causal,
+      window, p.max_tiles, tickets, part_ml, part_o);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -853,7 +1067,7 @@ int make_map(CUtensorMap* map, Order* order, const void* ptr, int d, int seq, in
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int batch, int heads,
            int kv_heads, int sq, int sk, const long long* st, float scale, int causal,
-           int window, cudaStream_t stream) {
+           int window, void*, long long, int, cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
   Order qo, ko, vo;
   int rc = make_map(&qmap, &qo, q, D, sq, heads, batch, st, kBQ);
@@ -877,7 +1091,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
 }  // namespace tc
 
 using Launch = int (*)(const void*, const void*, const void*, void*, int, int, int, int, int,
-                       const long long*, float, int, int, cudaStream_t);
+                       const long long*, float, int, int, void*, long long, int, cudaStream_t);
 
 // The launcher for operand type `dtype` (0 float32, 1 bfloat16) at head dim
 // d; nullptr when there is none.
@@ -895,15 +1109,18 @@ Launch launcher(int dtype, int d) {
 // 1 bfloat16 (flash_tc_kernel), for q, k, v and o alike.  d in {64, 128,
 // 256}; heads a multiple of kv_heads.  strides: 12 element strides, (b,
 // head, position) of q, k, v, o in that order; the D axis is contiguous and
-// every row 16-byte aligned.  window <= 0 means no window.  Returns the
-// CUDA error of the device selection, the shared-memory attribute or the
-// launch (0 = launched); for bfloat16 also -1000 when the driver has no
-// cuTensorMapEncodeTiled and minus its CUresult when a tensor map is
-// refused.
+// every row 16-byte aligned.  window <= 0 means no window.  workspace:
+// flash_attention_workspace bytes for the same arguments (float32; unused
+// for bfloat16).  Returns the CUDA error of the device
+// selection, the shared-memory attribute, the memset or the launch (0 =
+// launched; cudaErrorInvalidValue for a workspace too small); for bfloat16
+// also -1000 when the driver has no cuTensorMapEncodeTiled and minus its
+// CUresult when a tensor map is refused.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o,
                                int dtype, int batch, int heads, int kv_heads, int sq, int sk,
                                int d, const long long* strides, float scale, int causal,
-                               int window, int device, void* stream) {
+                               int window, void* workspace, long long workspace_bytes,
+                               int device, void* stream) {
   if (heads <= 0 || kv_heads <= 0 || heads % kv_heads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -913,5 +1130,23 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   return launch(q, k, v, o, batch, heads, kv_heads, sq, sk, strides, scale, causal, window,
-                static_cast<cudaStream_t>(stream));
+                workspace, workspace_bytes, device, static_cast<cudaStream_t>(stream));
+}
+
+// The workspace bytes that flash_attention needs for float32 operands with
+// these arguments, into *bytes: the split units' partial results and
+// tickets (0 when no query tile is split; bfloat16 needs none).  Returns a
+// CUDA error (0 = success).
+extern "C" int flash_attention_workspace(int batch, int heads, int sq, int sk, int d, int causal,
+                                         int window, int device, long long* bytes) {
+  *bytes = 0;
+  if (batch <= 0 || heads <= 0 || sq <= 0 || sk <= 0) return 0;
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  switch (d) {
+    case 64: return f32::workspace<64>(batch, heads, sq, sk, causal, window, device, bytes);
+    case 128: return f32::workspace<128>(batch, heads, sq, sk, causal, window, device, bytes);
+    case 256: return f32::workspace<256>(batch, heads, sq, sk, causal, window, device, bytes);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -127,7 +127,8 @@ LIBRARIES = {
         "sr_quantize": (_I, (_P, _P, _I, _P, _LL, _LL, _U, _U, _I, _P)),
     },
     "topk_threshold": {
-        "topk_threshold": (_I, (_P, _P, _P, _I, _LL, _I, _I, _P)),
+        "topk_threshold": (_I, (_P, _P, _P, _P, _P, _I, _LL, _I, _LL, _I,
+                                _P)),
     },
 }
 

@@ -31,20 +31,26 @@ deterministic basis from a seeded CPU ``torch.Generator``: the reference
 draws ``jax.random.normal``, which no PyTorch stream reproduces, so parity
 tests hand the port the reference's basis.
 
-:func:`topk_threshold` is the one-sweep magnitude histogram that brackets
-the k-th largest ``|x|`` (``topk_threshold_2d``): counts of ``|x| >=
-tau_b`` for geometric thresholds ``tau_b = max(amax, 1e-30) * span^(b /
-(n_bins - 1))``, the smallest ``tau`` whose count is ``<= k``.  The counts
-come from the CUDA kernel ``csrc/topk_threshold.cu`` on CUDA tensors and
-from its plain version on CPU tensors; amax, the thresholds and the pick
-are plain PyTorch in float32, as the reference computes them outside its
-Pallas call.  The counts are exact integers (the reference sums them in
-float32, exact only below 2^24 elements) and the pick compares them
-exactly; they are returned as float32, as the reference returns them.
+:func:`topk_threshold` is the magnitude histogram that brackets the k-th
+largest ``|x|`` (``topk_threshold_2d``): counts of ``|x| >= tau_b`` for
+geometric thresholds ``tau_b = max(amax, 1e-30) * span^(b / (n_bins -
+1))``, the smallest ``tau`` whose count is ``<= k``.  On CUDA tensors the
+whole function runs on the device (``csrc/topk_threshold.cu``: one memset
+and two launches, amax then the counts and the pick; the ratios are
+rounded to float32 on the host once and passed by value, so the call
+copies nothing to the device and waits for nothing).  On CPU tensors it
+runs the plain version: :func:`threshold_taus`, the counts of
+:func:`.ref.topk_threshold_counts_ref` and the pick in PyTorch, which
+the kernels equal bit for bit.  The counts are exact integers (the
+reference sums them in float32, exact only below 2^24 elements) and the
+pick compares them exactly; they are returned as float32, as the
+reference returns them.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import numpy as np
@@ -131,13 +137,34 @@ def _agents(x: torch.Tensor, name: str = "x") -> torch.Tensor:
     return x[None] if x.dim() == 2 else x
 
 
+@functools.cache
+def _ratios(n_bins: int, span: float) -> np.ndarray:
+    """``f32(span ** (b / (n_bins - 1)))``, computed in float64 and rounded
+    once, as the reference builds them."""
+    return np.asarray([span ** (b / max(n_bins - 1, 1)) for b in range(n_bins)],
+                      np.float32)
+
+
+@functools.cache
+def _c_ratios(n_bins: int, span: float):
+    """The ratios as a ctypes array (kept alive by the cache) and its
+    address, for the kernel's by-value parameter."""
+    arr = (ctypes.c_float * n_bins)(*_ratios(n_bins, span).tolist())
+    return arr, ctypes.addressof(arr)
+
+
+@functools.cache
+def _threshold_fn():
+    """The ``topk_threshold`` C function, its library built on first use."""
+    return cu.library("topk_threshold").topk_threshold
+
+
 def threshold_taus(x: torch.Tensor, n_bins: int = 16,
                    span: float = 1e-4) -> torch.Tensor:
     """The ``(A, n_bins)`` float32 thresholds ``max(amax_a, 1e-30) *
-    f32(span ** (b / (n_bins - 1)))`` of ``x (A, rows, 128)``."""
-    ratios = torch.tensor(
-        np.asarray([span ** (b / max(n_bins - 1, 1)) for b in range(n_bins)],
-                   np.float32), device=x.device)
+    f32(span ** (b / (n_bins - 1)))`` of ``x (A, rows, 128)`` (the plain
+    version's)."""
+    ratios = torch.from_numpy(_ratios(n_bins, span)).to(x.device)
     amax = x.float().abs().amax(dim=(1, 2))
     floor = torch.tensor(np.float32(1e-30), device=x.device)
     return torch.maximum(amax, floor)[:, None] * ratios[None]
@@ -145,38 +172,51 @@ def threshold_taus(x: torch.Tensor, n_bins: int = 16,
 
 def topk_threshold(x: torch.Tensor, k: int, *, n_bins: int = 16,
                    span: float = 1e-4):
-    """Bracket the k-th largest ``|x|`` of each agent's bucket in one sweep.
+    """Bracket the k-th largest ``|x|`` of each agent's bucket.
 
     ``x`` is ``(A, rows, 128)`` float32 (or one ``(rows, 128)`` bucket);
     ``n_bins`` is at most 16, the reference's count.  Returns ``(tau,
     counts)``: ``tau (A,)`` the smallest threshold whose count of ``|x| >=
     tau`` is ``<= k`` (the first, ``amax``, when none is),
     ``counts (A, n_bins)`` float32, nondecreasing in ``b``; for a 2-D
-    ``x`` a scalar and ``(n_bins,)``.  CUDA tensors launch the kernel (one
-    launch for all agents), CPU tensors count with the plain version.
+    ``x`` a scalar and ``(n_bins,)``.  CUDA tensors run the whole function
+    on the device (one call: a memset and two launches, counted once, no
+    copy to the device and no wait); CPU tensors run the plain version.
     """
-    xs = _agents(x)
+    if not isinstance(x, torch.Tensor) or x.dim() not in (2, 3) \
+            or x.shape[-1] != LANE:
+        raise ValueError(f"x must be a (rows, 128) or (A, rows, 128) "
+                         f"tensor, got {getattr(x, 'shape', type(x))}")
     if not 1 <= n_bins <= 16:
         raise ValueError(f"n_bins must be in [1, 16], got {n_bins}")
-    a_count, rows = xs.shape[0], xs.shape[1]
-    device = xs.device
-    cu._check("x", xs, (a_count, rows, LANE), device)
-    cu._check_placement([("x", xs)], [], device)
+    if x.dtype != torch.float32:
+        raise TypeError(f"x must be torch.float32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    a_count = x.shape[0] if x.dim() == 3 else 1
+    rows = x.shape[-2]
     if rows == 0:
         raise ValueError("x has no rows")
-    taus = threshold_taus(xs, n_bins, span)
-    if device.type == "cpu":
-        counts = ref.topk_threshold_counts_ref(xs, taus)
-    else:
-        icounts = torch.zeros((a_count, n_bins), dtype=torch.int32,
-                              device=device)
-        rc = cu.library("topk_threshold").topk_threshold(
-            xs.data_ptr(), taus.data_ptr(), icounts.data_ptr(), a_count,
-            rows * LANE // 4, n_bins, device.index, cu._stream(device))
+    device = x.device
+    if device.type == "cuda":
+        if x.data_ptr() % 16:
+            raise ValueError("x is not 16-byte aligned")
+        lead = x.shape[:-2]
+        tau = x.new_empty(lead)
+        counts = x.new_empty((*lead, n_bins))
+        scratch = x.new_empty((a_count * 17 + 1,), dtype=torch.int32)
+        rc = _threshold_fn()(
+            x.data_ptr(), _c_ratios(n_bins, span)[1], tau.data_ptr(),
+            counts.data_ptr(), scratch.data_ptr(), a_count, rows * LANE // 4,
+            n_bins, k, device.index, cu._stream(device))
         cu._launch_check(rc, "topk_threshold")
         topk_threshold.launches += 1
-        # uint32 counts held in int32 storage: below 2^31 per bucket
-        counts = icounts.long()
+        return tau, counts
+    if device.type != "cpu":
+        raise ValueError(f"no top-k threshold kernel for device {device}")
+    xs = _agents(x)
+    taus = threshold_taus(xs, n_bins, span)
+    counts = ref.topk_threshold_counts_ref(xs, taus)
     ok = (counts <= k).sum(dim=1)
     idx = torch.clamp(ok - 1, min=0)
     tau = taus.gather(1, idx[:, None])[:, 0]

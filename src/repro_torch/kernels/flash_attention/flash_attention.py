@@ -6,7 +6,10 @@ online softmax, q ``(B, H, Sq, D)`` and k, v ``(B, KV, Sk, D)``, output in
 ``q.dtype`` (source ``csrc/flash_attention.cu``).  Dispatch is by type:
 bfloat16 operands run the tensor-core kernel (``flash_tc_kernel``: wgmma
 and TMA, P rounded to bfloat16 before the PV product), float32 operands
-the float32 kernel (``flash_kernel``, float32 arithmetic throughout).
+the float32 kernel (``flash_kernel``, float32 arithmetic throughout; it
+cuts the key loop of long query tiles over several blocks and combines
+their partial results in a workspace that the wrapper allocates at the
+size ``flash_attention_workspace`` returns: one launch, one count).
 
 The operands may be strided views (the D axis contiguous): the model's
 ``(b, s, heads, D)`` projections are passed transposed, without a copy,
@@ -32,6 +35,7 @@ requires grad raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -44,10 +48,13 @@ from repro_torch.kernels.flash_attention import ref
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 SIGNATURES = {
     "flash_attention": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                             ctypes.POINTER(ctypes.c_longlong), _F, _I, _I,
-                             _I, _P)),
+                             ctypes.POINTER(_LL), _F, _I, _I, _P, _LL, _I,
+                             _P)),
+    "flash_attention_workspace": (_I, (_I, _I, _I, _I, _I, _I, _I, _I,
+                                       ctypes.POINTER(_LL))),
 }
 #: operand dtype -> the kernel's code
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -129,18 +136,36 @@ def flash_attention_any_length(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         if t.data_ptr() % 16 or any((s * esize) % 16 for s in t.stride()[:3]):
             raise ValueError(f"{name}'s rows must be 16-byte aligned")
     b, h, sq, _ = q.shape
-    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
-                                       *v.stride()[:3], *out.stride()[:3])
-    rc = library().flash_attention(
+    lib = library()
+    causal, window = int(bool(causal)), 0 if window is None else int(window)
+    nbytes = 0 if q.dtype != torch.float32 else \
+        _workspace_bytes(device.index, b, h, sq, sk, d, causal, window)
+    # the float32 kernel's split units write partial results here
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes else None
+    strides = (_LL * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                         *out.stride()[:3])
+    rc = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         DTYPES[q.dtype], b, h, k.shape[1], sq, sk, d, strides,
-        float(np.float32(scale)), int(bool(causal)),
-        0 if window is None else int(window), device.index,
+        float(np.float32(scale)), causal, window,
+        None if ws is None else ws.data_ptr(), nbytes, device.index,
         build.current_stream(device))
     build.check_launch(rc, f"flash_attention ({VARIANTS[q.dtype]})")
     flash_attention.launches += 1
     flash_attention.launches_by_variant[VARIANTS[q.dtype]] += 1
     return out
+
+
+@functools.lru_cache(maxsize=256)
+def _workspace_bytes(device: int, b: int, h: int, sq: int, sk: int, d: int,
+                     causal: int, window: int) -> int:
+    """The float32 kernel's workspace bytes for one call's shape (its plan
+    depends on the shape and the card only)."""
+    nbytes = _LL(0)
+    build.check_launch(library().flash_attention_workspace(
+        b, h, sq, sk, d, causal, window, device, ctypes.byref(nbytes)),
+        "flash_attention_workspace")
+    return nbytes.value
 
 
 def reset_launches() -> None:

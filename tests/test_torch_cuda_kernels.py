@@ -12,8 +12,10 @@ operations in the same order (no FMA contraction in the kernel), so they
 are expected to agree exactly.  ``sr_quantize`` is held bit for bit: both
 draw the same Philox4x32-10 stream.  The sparse (top-k wire) update
 kernels are held against their ``index_add_`` plain versions on compact
-stacks that ``topk_compress_2d`` makes on the card; the threshold kernel's
-counts must be exact and its ``tau`` equal bit for bit.  The flash
+stacks that ``topk_compress_2d`` makes on the card; the threshold
+function (amax, thresholds, counts and pick, all on the card) must give
+exact counts and ``tau`` equal bit for bit to the plain path, with one
+count per call.  The flash
 attention and WKV6 kernels sum in another order than their plain versions:
 they are held at the reference's own tolerances, ``tol_for`` of
 ``tests/test_kernels.py`` for attention (2e-5 float32, 2e-2 bfloat16, abs
@@ -26,7 +28,8 @@ to bfloat16 before the PV product), float32 the float32 kernel; each case
 checks which ran on the per-kernel count, and covers D 64 / 128 / 256, GQA
 groups 1 / 2 / 4, ragged and unequal lengths (through the model path's
 any-length launch), both masks, b > 1 and the strided (b, s, heads, d)
-view.
+view; the float32 kernel also where its key splits fall (one, many and
+uneven splits, two calls giving the same bits).
 """
 
 import pytest
@@ -462,6 +465,52 @@ def test_threshold_kernel_matches_plain_version(a, rows, k):
         1, torch.clamp(ok8 - 1, min=0)[:, None])[:, 0])
 
 
+def _threshold_plain(x, k, n_bins=16):
+    """The plain path: thresholds, exact counts and the pick in PyTorch."""
+    taus = topk.threshold_taus(x, n_bins)
+    want = ref.topk_threshold_counts_ref(x, taus)
+    idx = torch.clamp((want <= k).sum(dim=1) - 1, min=0)
+    return taus.gather(1, idx[:, None])[:, 0], want.float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 1001, 16941])
+@pytest.mark.parametrize("a", [1, 5, 7, 16])
+def test_threshold_function_on_device_matches_plain_path(a, rows):
+    """The whole function on the card (amax, thresholds, counts, pick): tau
+    and counts bit for bit, one count per call, at agent counts whose
+    boundaries fall inside the blocks' chunks; an all-zero agent, elements
+    equal to thresholds (both signs) and negative zeros; two calls in a
+    row on one stream give the same bits (no stale scratch)."""
+    dev = _card()
+    x = _bucket(dev, a, rows + 1, 7 * a + rows)[:, 1:].contiguous() if rows == 1 \
+        else _bucket(dev, a, rows, 7 * a + rows)
+    if a > 1:
+        x[a // 2] = 0.0                           # an all-zero agent
+    taus = topk.threshold_taus(x)
+    for b in (0, 3, 8, 15):                       # elements on tau_b
+        x[0, -1, b] = taus[0, b]
+        x[-1, -1, 16 + b] = -taus[-1, b]
+    x[0, -1, 40:44] = -0.0
+    for k in (1, rows * 16, rows * 128):
+        n = topk.topk_threshold.launches
+        tau, counts = topk.topk_threshold(x, k)
+        tau2, counts2 = topk.topk_threshold(x, k)
+        torch.cuda.synchronize()
+        assert topk.topk_threshold.launches == n + 2
+        want_tau, want = _threshold_plain(x, k)
+        assert torch.equal(counts, want) and torch.equal(tau, want_tau), k
+        assert torch.equal(counts2, counts) and torch.equal(tau2, tau)
+    for n_bins in (1, 5):
+        tau, counts = topk.topk_threshold(x, rows, n_bins=n_bins)
+        want_tau, want = _threshold_plain(x, rows, n_bins)
+        assert torch.equal(counts, want) and torch.equal(tau, want_tau)
+    tau1, counts1 = topk.topk_threshold(x[0], rows)       # one (rows, 128) bucket
+    want_tau, want = _threshold_plain(x[:1], rows)
+    assert tau1.shape == () and torch.equal(counts1, want[0])
+    assert torch.equal(tau1, want_tau[0])
+
+
 def _tol(dtype):
     return (dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16
             else dict(rtol=2e-5, atol=2e-5))
@@ -524,6 +573,31 @@ def test_flash_kernel_matches_plain_version(b, h, kv, sq, sk, d, causal, window,
     assert fa.flash_attention.launches_by_variant == by
     want = attention_ref(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(out.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh", [1, 16])
+@pytest.mark.parametrize("window", [1, 63, 512, None])
+@pytest.mark.parametrize("s", [64, 65, 640, 2048])
+def test_flash_f32_key_splits_match_plain_version(s, window, bh):
+    """The float32 kernel where its key splits fall: one key tile, one row
+    past it, the split card-vs-CPU length and the prefill length, windows
+    inside a tile, just under one, the model's and none, at b * h 1 and 16
+    (4 query heads on one KV head); a second call gives the same bits."""
+    dev = _card()
+    b, h = (1, 1) if bh == 1 else (4, 4)
+    gen = torch.Generator(device=dev).manual_seed(s + bh)
+    q = torch.randn((b, h, s, 256), generator=gen, device=dev)
+    k, v = (torch.randn((b, 1, s, 256), generator=gen, device=dev) for _ in range(2))
+    by = dict(fa.flash_attention.launches_by_variant)
+    out = fa.flash_attention_any_length(q, k, v, window=window)
+    again = fa.flash_attention_any_length(q, k, v, window=window)
+    torch.cuda.synchronize()
+    by["f32"] += 2
+    assert fa.flash_attention.launches_by_variant == by
+    torch.testing.assert_close(out, attention_ref(q, k, v, window=window),
+                               **_tol(torch.float32))
+    assert torch.equal(out, again)
 
 
 @pytest.mark.cuda

@@ -165,6 +165,28 @@ def test_any_length_matches_ref_at_ragged_lengths(sq, sk, causal, window, dt):
           + ", ".join(f"{x:.3e}" for x in gaps))
 
 
+@pytest.mark.parametrize("window", [512, None])
+@pytest.mark.parametrize("s", [640, 704, 200])
+def test_float32_at_lengths_split_unevenly(s, window):
+    """float32 at lengths whose query tiles the card's kernel cuts into
+    key splits of unequal sizes (640: 10 key tiles of 64 in the last query
+    tile; 704: 11; 200: a ragged last tile), the 512 window and the global
+    mask, against the Pallas kernel in interpret mode (blocks of 64, or
+    padded to 128 and cropped where 64 does not divide the length)."""
+    (jq, jk, jv), (tq, tk, tv) = _ragged_inputs(s, s, "float32", h=4, kv=1, seed=s)
+    got = fa.flash_attention_any_length(tq, tk, tv, window=window).numpy()
+    if s % 64 == 0:
+        kernel = j_flash(jq, jk, jv, window=window, block_q=64, block_k=64,
+                         interpret=True)
+    else:
+        pad = -s % 128
+        jp = [jnp.pad(x, ((0, 0), (0, 0), (0, pad), (0, 0))) for x in (jq, jk, jv)]
+        kernel = j_flash(*jp, window=window, interpret=True)[:, :, :s]
+    print(f"flash float32 s={s} window={window}: port vs Pallas interpret "
+          f"{_gap(got, kernel):.3e}")
+    np.testing.assert_allclose(got, np.asarray(kernel, np.float32), **tol_for("float32"))
+
+
 @pytest.mark.parametrize("s", [130, 200, 320])
 @pytest.mark.parametrize("window", [None, 48])
 def test_bshd_wrapper_matches_model_blockwise_at_ragged_lengths(s, window):

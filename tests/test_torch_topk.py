@@ -243,6 +243,61 @@ def test_threshold_matches_pallas_interpret(case):
     print(f"threshold {case}: tau bitwise and counts exact for k in {ks}")
 
 
+def _on_taus(rows, seed, bins=(0, 2, 7, 11, 15)):
+    """A bucket with elements placed exactly on several thresholds tau_b
+    (both signs; tau_0 is the bucket's own amax), negative zeros and ties."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, 128)).astype(np.float32)
+    amax = np.float32(np.abs(x).max())
+    ratios = np.asarray([1e-4 ** (b / 15) for b in range(16)], np.float32)
+    taus = np.maximum(amax, np.float32(1e-30)) * ratios
+    for i, b in enumerate(bins):
+        x[1, 8 * i:8 * i + 4] = taus[b]
+        x[2, 8 * i:8 * i + 3] = -taus[b]
+    x[3, :5] = -0.0
+    return x
+
+
+def _stacked(seed):
+    """Four agents six decades apart in magnitude, the third all zero."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((4, 9, 128)).astype(np.float32)
+    x *= np.asarray([1e-3, 1.0, 0.0, 1e3], np.float32)[:, None, None]
+    return x
+
+
+THRESHOLD_DEVICE_CASES = {   # x, n_bins, ks
+    "on-taus": (lambda: _on_taus(10, 3), 16, (1, 9, 40, 640, 1280)),
+    "n_bins-1": (lambda: _on_taus(6, 4), 1, (0, 1, 768)),
+    "n_bins-5": (lambda: _on_taus(6, 5), 5, (1, 30, 300)),
+    "n_bins-16": (lambda: _on_taus(6, 6), 16, (2, 64, 500)),
+    "stacked-magnitudes": (lambda: _stacked(7), 16, (1, 100, 1152)),
+}
+
+
+@pytest.mark.parametrize("case", list(THRESHOLD_DEVICE_CASES))
+def test_threshold_function_matches_pallas_at_edges(case):
+    """The threshold function the card now runs whole (amax, thresholds,
+    counts, pick), held on its edges against ``topk_threshold_2d`` in
+    interpret mode, agent by agent: elements exactly on tau_b (an element
+    equal to tau_b counts for b), 1, 5 and 16 bins, and stacked agents of
+    different magnitudes with an all-zero one.  tau and counts bit for
+    bit."""
+    make, n_bins, ks = THRESHOLD_DEVICE_CASES[case]
+    x = make()
+    xs = x if x.ndim == 3 else x[None]
+    for k in ks:
+        tau, counts = ttk.topk_threshold(torch.from_numpy(xs), k, n_bins=n_bins)
+        assert tuple(counts.shape) == (xs.shape[0], n_bins)
+        for a in range(xs.shape[0]):
+            jtau, jcounts = jtk.topk_threshold_2d(jnp.asarray(xs[a]), k,
+                                                  n_bins=n_bins, interpret=True)
+            np.testing.assert_array_equal(counts[a].numpy(), np.asarray(jcounts))
+            assert np.float32(tau[a].item()).tobytes() == \
+                np.asarray(jtau, np.float32).tobytes(), (case, k, a)
+    print(f"threshold {case}: tau bitwise and counts exact for k in {ks}")
+
+
 def test_threshold_stacked_agents_and_bracketing():
     """Per-agent thresholds from one call; tau selects <= k and the K-th
     magnitude lies within one geometric bin below it."""
