@@ -142,6 +142,36 @@ call (at most two kernels and one memset, no copy: held) and a
 all its kernels, at most 0.035 ms, and the wrapper's host time per call
 over 1,000 unsynchronized calls), met or not, not held.
 
+The strategies-and-benchmarks slice (the MixingProgram's time-varying and
+multi-round strategies, the bounded-staleness ring with fault schedules,
+FedAvg's partial participation, and the paper's benchmarks) adds, each
+path with its launch counts set to 0 before it and read after it:
+
+4b. ``MIXING_RUNS``: the full-width CNN on 5 agents, 3 steps each —
+    time-varying f32 CDSGD over ``alternating:ring:star`` (the weights
+    ``Pi_t`` the exchange hands the kernel checked to change with the
+    step), int8 CDMSGD and f32 CDSGD with 2 and 3 consensus rounds, int8
+    overlap CDMSGD on a depth-2 ring under ``straggler:1:1,drop:0:2``,
+    int8 EF CDSGD over ``gossip:8``, int8 overlap Nesterov on a depth-4
+    ring under ``stall:2:1:3``, and FedAvg (E = 2) with agent 1 absent
+    every second step (no kernel; the partial sync leaves every agent
+    equal).  Launches exact per step (one ``_q`` update, ``k`` quantizes
+    a step per payload, one more at overlap init); wire bytes against the
+    accounting (``k`` rounds move ``k`` times the bytes, a schedule its
+    mean degree), the ring's one generation whatever its depth;
+9.  the paper's benchmarks through ``repro_torch.benchmarks``: fig1a and
+    fig1b at the reference's step counts (150 / 200; their CSV rows as the
+    reference prints them), fig1a's CDSGD and fig1b's CDMSGD again fused
+    (exactly one update launch a step), each row's steady step time beside
+    the card's name and power limit; fig1b's CDMSGD unfused and fused
+    against the CPU over 20 steps (loss and consensus within 1e-4
+    relative) and Proposition 1's benchmark against its CPU run (1e-4).
+    Phase 5 adds run 2's update phase, card against CPU from one state
+    with the card's gradients (both rounds' int8 wires and the round-1 mix
+    bit for bit, params and momentum within 1e-6), and run 4 over 3 steps
+    from the card's state (the ring's slots bit for bit, ``send_age`` and
+    ``ages`` equal, params within 1e-4).
+
 Any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 float32 matmuls and convolutions run in full float32 (TF32 off).
@@ -166,12 +196,17 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+from repro_torch.benchmarks import common as bench  # noqa: E402
+from repro_torch.benchmarks import consensus_radius  # noqa: E402
+from repro_torch.benchmarks import fig1a_cdsgd_vs_sgd, fig1b_cdmsgd_vs_fedavg  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import make_optimizer, make_topology  # noqa: E402
 from repro_torch.core.consensus import (  # noqa: E402
+    WireRing,
     _self_separated_weights,
     widen_with_momentum,
 )
+from repro_torch.core.faults import make_fault_schedule  # noqa: E402
 from repro_torch.core.engine import wire_bytes_per_neighbor  # noqa: E402
 from repro_torch.core.flatbuf import make_flat_spec  # noqa: E402
 from repro_torch.core.trainer import CollaborativeTrainer, TrainState  # noqa: E402
@@ -363,6 +398,31 @@ COMPRESSED_RUNS = (
 )
 # the optimizers without a kernel (plain PyTorch)
 BASELINES = ("gossip", "cdsgd_tv", "sgd", "msgd", "fedavg")
+# phase 4b, the MixingProgram strategies, the staleness ring and FedAvg's
+# partial participation (5 agents, fully connected, 3 steps each):
+# (optimizer, exchange, schedule, trainer knobs)
+MIXING_RUNS = (
+    ("cdsgd", "f32", "sync", {"mixing_strategy": "time_varying",
+                              "topology_schedule": "alternating:ring:star"}),
+    ("cdmsgd", "int8", "sync", {"consensus_rounds": 2}),
+    ("cdsgd", "f32", "sync", {"consensus_rounds": 3}),
+    ("cdmsgd", "int8", "overlap", {"staleness": 2,
+                                   "fault_schedule": "straggler:1:1,drop:0:2"}),
+    ("cdsgd", "int8", "sync", {"error_feedback": True,
+                               "mixing_strategy": "time_varying",
+                               "topology_schedule": "gossip:8"}),
+    ("cdmsgd_nesterov", "int8", "overlap", {"staleness": 4,
+                                            "fault_schedule": "stall:2:1:3"}),
+    ("fedavg", "f32", "sync", {}),
+)
+MIXING_STEPS = 3
+FEDAVG_FAULTS = "straggler:1:1"    # agent 1 misses every second step
+# phase 9, the paper's benchmarks: the fused reruns (name, optimizer, steps,
+# optimizer knobs, the kernel they launch once a step)
+BENCH_FUSED = (("fig1a/cdsgd_fused", "cdsgd", 150, {}, "cdsgd_update"),
+               ("fig1b/cdmsgd_fused", "cdmsgd", 200, {"mu": MU}, "cdmsgd_update"))
+BENCH_PARITY_STEPS = 20
+BENCH_TOL = 1e-4               # relative: loss, consensus, Prop. 1's numbers
 
 
 def card_line() -> str:
@@ -1137,6 +1197,220 @@ def threshold_on_carried(tr) -> None:
                                  "K-th magnitude within one bin")
 
 
+def expected_mixing_launches(name: str, exchange: str, schedule: str,
+                             rounds: int) -> tuple:
+    """(at trainer init, per step) launch counts of one ``MIXING_RUNS`` run,
+    from ``MixingStrategy.continue_from_wire``: a non-trivial program feeds
+    the ``_q`` kernel once a step; a quantized wire quantizes ``k`` times a
+    step (sync: round 1 and the ``k - 1`` inner rounds; overlap:
+    ``advance_wire`` once and the ``k - 1`` inner rounds) and once more at
+    overlap init."""
+    init = {k: 0 for k in cu.KERNELS}
+    step = dict(init)
+    if name in BASELINES:
+        return init, step
+    step[f"{name}_update_q"] = 1
+    if exchange in ("int8", "fp8"):
+        step["sr_quantize"] = rounds
+        init["sr_quantize"] = 1 if schedule == "overlap" else 0
+    return init, step
+
+
+def _mixing_trainer(params, name, exchange, schedule, knobs, device=None):
+    loss = functools.partial(classifier_loss, cnn_classifier_apply)
+    if name == "fedavg":
+        opt = make_optimizer("fedavg", LR, local_steps=2, mu=MU,
+                             faults=make_fault_schedule(FEDAVG_FAULTS, AGENTS))
+    else:
+        opt = make_run_optimizer(name)
+    return CollaborativeTrainer(loss, params, make_topology("fully_connected", AGENTS),
+                                opt, device=device, exchange=exchange,
+                                schedule=schedule, **knobs)
+
+
+def mixing_main_path(params, train) -> dict:
+    """Phase 4b: every run of ``MIXING_RUNS``, launch counts checked per step
+    against ``expected_mixing_launches``, the byte accounting against the
+    buffers of the wire the trainer sends (``k`` rounds move ``k`` times
+    the bytes, a schedule its mean degree, the staleness ring one
+    generation whatever its depth)."""
+    total = {k: 0 for k in cu.KERNELS}
+    ring_bytes = {}
+    for name, exchange, schedule, knobs in MIXING_RUNS:
+        rounds = knobs.get("consensus_rounds", 1)
+        what = " ".join([name, exchange, schedule]
+                        + [f"{k}={v}" for k, v in knobs.items()]
+                        + ([f"faults={FEDAVG_FAULTS} E=2"] if name == "fedavg" else []))
+        init, per_step = expected_mixing_launches(name, exchange, schedule, rounds)
+        torch.cuda.reset_peak_memory_stats()
+        cu.reset_launch_counts()
+        tr = _mixing_trainer(params, name, exchange, schedule, knobs)
+        if cu.launch_counts() != init:
+            raise AssertionError(f"{what}: init launched {cu.launch_counts()}, "
+                                 f"expected {init}")
+        spec = make_flat_spec(tr.state.params, lead=1)
+        prog = tr.program
+        note = ""
+        batches = AgentPartitioner(train, AGENTS, seed=0).batches(64)
+        times, ms = [], []
+        for i in range(MIXING_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = tr.step(next(batches))
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            ms.append(m)
+            counts = cu.launch_counts()
+            want = {k: init[k] + (i + 1) * per_step[k] for k in counts}
+            if counts != want:
+                raise AssertionError(f"{what} step {i}: launched {counts}, "
+                                     f"expected {want}")
+            if not np.isfinite(m["loss"]):
+                raise AssertionError(f"{what} step {i}: loss {m['loss']}")
+            if name == "fedavg" and i == 1:
+                # step 1 syncs over the 4 present agents and broadcasts
+                if not all(torch.equal(t[0].expand_as(t), t)
+                           for t in tree_leaves(tr.state.params)):
+                    raise AssertionError(f"{what}: the agents differ after "
+                                         "the partial sync")
+        for k in total:
+            total[k] += counts[k]
+        wire = tr.state.opt_state.wire
+        if name != "fedavg":
+            # the accounting against the bytes of a wire the trainer sends:
+            # the carried one (overlap), else the one this state sends in
+            # round 1 (every round's wire has its shapes)
+            fl = tr.comm.flat
+            sent = wire if len(wire) else fl.strategy.quantize_stage(
+                fl.pack(tr.state.params, spec), MIXING_STEPS)
+            per = wire_bytes_per_neighbor(sent)
+            degree = (prog.schedule.mean_degree() if prog.strategy == "time_varying"
+                      else tr.topology.degree())
+            if tr.wire_bytes_per_step != int(per * degree * rounds):
+                raise AssertionError(f"{what}: {tr.wire_bytes_per_step} wire B/step, "
+                                     f"the wire holds {per} B a neighbour x "
+                                     f"{degree:g} neighbours x {rounds} rounds")
+            note = (f" ({per} B a neighbour on the wire x {degree:g} neighbours "
+                    f"x {rounds} round(s))")
+        if rounds > 1:
+            # one inner-round mix (``combine``) on this state's operands;
+            # after the counts, and it launches no counted kernel
+            sg, bufs = fl.strategy, fl.pack(tr.state.params, spec)
+            nb, w, sc = sg.exchange_stage(sent, MIXING_STEPS)
+            mix_ms = cuda_ms(lambda: sg.combine(nb, w, sc, bufs), iters=20)
+            note += (f"; inner-round mix {mix_ms:.5f} ms a round (CUDA events, "
+                     f"{rounds - 1} a step)")
+        if prog.strategy == "time_varying" and exchange == "f32":
+            # the step selects Pi_t: the weights the exchange hands the kernel
+            rows = [fl.strategy.exchange_stage(sent, t)[1] for t in range(2)]
+            for t, w in enumerate(rows):
+                want_w = torch.tensor(_self_separated_weights(
+                    prog.schedule.topology_at(t).pi), dtype=torch.float32,
+                    device=w.device)
+                if not torch.equal(w, want_w):
+                    raise AssertionError(f"{what}: step {t}'s weights are not Pi_{t}'s")
+            if torch.equal(rows[0], rows[1]):
+                raise AssertionError(f"{what}: the weights do not change with the step")
+            note += f"; weights Pi_t change with the step (period {prog.schedule.period})"
+        if isinstance(wire, WireRing):
+            depth = wire.slots[0][0].shape[1]
+            if per != spec.exchange_bytes(exchange):
+                raise AssertionError(f"{what}: the ring moves {per} B/neighbour, "
+                                     f"one generation is {spec.exchange_bytes(exchange)}")
+            ring_bytes[depth] = per
+            note += (f"; ring depth {depth}, {per} B/neighbour (one generation), "
+                     f"send_age {wire.send_age.tolist()}, ages row 0 "
+                     f"{wire.ages[0].tolist()}")
+        if name == "fedavg":
+            note += (f"; every agent's params equal bit for bit after the "
+                     f"partial sync (consensus_error {ms[1]['consensus_error']:.3e}"
+                     ", the rounding of the mean)")
+        launched = ", ".join(f"{k} {v}" for k, v in counts.items() if v) or "none"
+        print(f"mixing {what}: {MIXING_STEPS} steps, cnn, {AGENTS} agents, batch "
+              f"64/agent: loss {ms[0]['loss']:.4f} -> {ms[-1]['loss']:.4f}, "
+              f"consensus_error {ms[-1]['consensus_error']:.3e}, wire "
+              f"{tr.wire_bytes_per_step} B/step{note}, first step {times[0]:.2f} ms, "
+              f"steady median {float(np.median(times[1:])):.3f} ms, "
+              f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} "
+              f"MiB, launches: {launched}")
+        del tr
+    if len(set(ring_bytes.values())) != 1:
+        raise AssertionError(f"ring bytes depend on the depth: {ring_bytes}")
+    print(f"mixing: the staleness ring moves {set(ring_bytes.values()).pop()} B "
+          f"per neighbour at depths {sorted(ring_bytes)}")
+    return total
+
+
+def paper_benchmarks() -> dict:
+    """Phase 9: the paper's benchmarks through ``repro_torch.benchmarks``
+    on the card: fig1a and fig1b at the reference's step counts (their rows
+    printed as the reference prints them, unfused: no kernel), fig1a's
+    CDSGD and fig1b's CDMSGD again fused (one update launch a step),
+    fig1b's CDMSGD unfused and fused against the CPU over 20 steps, and
+    Proposition 1's benchmark against its CPU run."""
+    card = card_line()
+    total = {k: 0 for k in cu.KERNELS}
+    cu.reset_launch_counts()
+    rows = fig1a_cdsgd_vs_sgd.run() + fig1b_cdmsgd_vs_fedavg.run()
+    if any(cu.launch_counts().values()):
+        raise AssertionError(f"unfused benchmark rows launched {cu.launch_counts()}")
+    for name, opt, steps, kw, kernel in BENCH_FUSED:
+        cu.reset_launch_counts()
+        r = bench.run_experiment(name, opt, steps=steps, fused=True, **kw)
+        counts = cu.launch_counts()
+        want = {k: steps if k == kernel else 0 for k in counts}
+        if counts != want:
+            raise AssertionError(f"{name}: launched {counts}, expected {want}")
+        total[kernel] += steps
+        bench.emit([r])
+        rows.append(r)
+    # where a benchmark step's time goes: one profiled fused CDMSGD step of
+    # the MLP, after two warm-up steps (not a counted launch)
+    tr = CollaborativeTrainer(bench.MLP_LOSS, bench.base_params("flat"),
+                              make_topology("fully_connected", AGENTS),
+                              make_optimizer("cdmsgd", 0.05, mu=MU, fused=True))
+    batches = AgentPartitioner(bench.dataset("flat")[0], AGENTS, seed=0).batches(64)
+    for _ in range(2):
+        tr.step(next(batches))
+    profile_step(tr, next(batches), "fig1b/cdmsgd fused (the benchmark MLP)")
+    del tr
+    for r in rows:
+        if not (np.isfinite(r["loss"]) and 0.0 <= r["val_acc"] <= 1.0):
+            raise AssertionError(f"{r['name']}: {r}")
+        print(f"bench {r['name']}: steady step {r['us_per_call'] / 1e3:.4f} ms "
+              f"(mean over steps 2..N, evaluations included), loss "
+              f"{r['loss']:.5f}, val_acc {r['val_acc']:.4f}, consensus "
+              f"{r['consensus']:.4e}; {card}")
+    for fused in (False, True):
+        g, c = (bench.run_experiment("fig1b/cdmsgd", "cdmsgd", steps=BENCH_PARITY_STEPS,
+                                     mu=MU, fused=fused, device=d)
+                for d in ("cuda", "cpu"))
+        rel = {k: abs(g[k] - c[k]) / max(abs(c[k]), 1e-30)
+               for k in ("loss", "consensus")}
+        print(f"bench parity fig1b/cdmsgd{' fused' if fused else ''} card vs cpu, "
+              f"{BENCH_PARITY_STEPS} steps from the same init: loss {g['loss']:.7f} / "
+              f"{c['loss']:.7f}, consensus {g['consensus']:.6e} / {c['consensus']:.6e}, "
+              + ", ".join(f"{k} rel {v:.2e}" for k, v in rel.items())
+              + f" (tol {BENCH_TOL:g})")
+        if not max(rel.values()) <= BENCH_TOL:
+            raise AssertionError(f"fig1b/cdmsgd card/CPU: {rel}")
+    t0 = time.perf_counter()
+    got = consensus_radius.measure(device="cuda")
+    card_s = time.perf_counter() - t0
+    want = consensus_radius.measure(device="cpu")
+    worst = 0.0
+    for (name, e, b), (_, ec, bc) in zip(got, want):
+        worst = max(worst, abs(e - ec) / abs(ec), abs(b - bc) / abs(bc))
+        if not e <= b:
+            raise AssertionError(f"{name}: measured {e} above the bound {b}")
+    print(f"bench prop1 card vs cpu: {len(got)} rows, worst relative gap of "
+          f"measured and bound {worst:.2e} (tol {BENCH_TOL:g}); every measured "
+          f"error under its bound; card run {card_s:.2f} s")
+    if not worst <= BENCH_TOL:
+        raise AssertionError(f"prop1 card/CPU: {worst}")
+    return total
+
+
 def _max_param_diff(trainers) -> float:
     gpu, cpu = (tr.state.params for tr in trainers)
     return max(float((gpu[k][j].cpu() - cpu[k][j]).abs().max())
@@ -1374,6 +1648,82 @@ def parity_compressed_update(params, train, compressor: str, tol: float) -> floa
     if not max(gaps.values()) <= tol:
         raise AssertionError(f"{compressor} card/CPU update phase: {gaps}")
     return gaps["params"]
+
+
+def parity_multi_round_update(params, train) -> float:
+    """Phase 5: ``MIXING_RUNS``' run 2 (CDMSGD, int8, sync, two rounds): its
+    update phase on the card and on the CPU from the same state with the
+    card's gradients; both rounds' int8 wires equal bit for bit, and the
+    round-1 mix between them too; params and momentum within 1e-6."""
+    name, exchange, schedule, knobs = MIXING_RUNS[1]
+    gpu, cpu = (_mixing_trainer(params, name, exchange, schedule, knobs, device=d)
+                for d in ("cuda", "cpu"))
+    batches = AgentPartitioner(train, AGENTS, seed=6).batches(64)
+    for _ in range(2):
+        gpu.step(next(batches))
+    _copy_state(gpu, cpu)
+    batch = {k: torch.as_tensor(v, device=gpu.device)
+             for k, v in next(batches).items()}
+    _, grads = gpu._program.grad_phase(
+        gpu.optimizer.grad_params(gpu.state.params, gpu.state.opt_state), batch)
+    grads = tree_map(lambda t: t.detach(), grads)
+    stages = []
+    for tr in (gpu, cpu):
+        fl, st = tr.comm.flat, tr.state
+        sg, step = fl.strategy, st.opt_state.step
+        bufs = fl.pack(st.params, fl.spec(st.params))
+        w1 = sg._quantize_payloads(bufs, step)
+        nb, w, sc = sg.exchange_stage(w1, step)
+        mix = sg.combine(nb, w, sc, bufs)
+        stages.append((w1, mix, sg._quantize_payloads(mix, step, rnd=1)))
+    for what, g, c in zip(("round-1 wire", "round-1 mix", "round-2 wire"), *stages):
+        if not _same_bits(g, c):
+            raise AssertionError(f"multi-round update phase: the {what} differs "
+                                 "between the card and the CPU")
+    (pg, sg_), (pc, sc_) = _update(gpu, grads), _update(cpu, grads)
+    gaps = {"params": _gap(pg, pc), "momentum": _gap(sg_.inner, sc_.inner)}
+    codes = sum(q.numel() for q, _ in stages[0][0]) * 2
+    print(f"parity cdmsgd int8 sync consensus_rounds=2 update phase card vs cpu, "
+          f"same state and gradients: both rounds' wires and the round-1 mix "
+          f"equal bit for bit ({codes} codes), "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+          + f" (tol {UPDATE_TOL:g})")
+    if not max(gaps.values()) <= UPDATE_TOL:
+        raise AssertionError(f"multi-round update phase card/CPU: {gaps}")
+    return gaps["params"]
+
+
+def parity_ring(params, train) -> float:
+    """Phase 5: ``MIXING_RUNS``' run 4 (CDMSGD, int8, overlap, staleness 2,
+    a straggler and a dropped link) over 3 steps, card against CPU, the
+    card's state copied to the CPU before each step: the ring's slots equal
+    bit for bit after every step, ``send_age`` and ``ages`` equal, params
+    within 1e-4."""
+    name, exchange, schedule, knobs = MIXING_RUNS[3]
+    gpu, cpu = (_mixing_trainer(params, name, exchange, schedule, knobs, device=d)
+                for d in ("cuda", "cpu"))
+    batches = AgentPartitioner(train, AGENTS, seed=7).batches(64)
+    worst, ages = 0.0, []
+    for step in range(3):
+        _copy_state(gpu, cpu)
+        b = next(batches)
+        gpu.step(b)
+        cpu.step(b)
+        wg, wc = gpu.state.opt_state.wire, cpu.state.opt_state.wire
+        if not (_same_bits(wg.slots, wc.slots)
+                and torch.equal(wg.send_age.cpu(), wc.send_age)
+                and torch.equal(wg.ages.cpu(), wc.ages)):
+            raise AssertionError(f"staleness ring step {step}: the card's ring "
+                                 "differs from the CPU's")
+        ages.append(wc.send_age.tolist())
+        worst = max(worst, _max_param_diff((gpu, cpu)))
+    print(f"parity cdmsgd int8 overlap staleness=2 faults "
+          f"{knobs['fault_schedule']} card vs cpu, 3 steps each from the card's "
+          f"state: ring slots equal bit for bit, send_age {ages} and ages equal, "
+          f"max param abs diff {worst:.3e} (tol {PARITY_TOL:g})")
+    if not worst <= PARITY_TOL:
+        raise AssertionError(f"staleness ring card/CPU: {worst}")
+    return worst
 
 
 def _close_err(got: torch.Tensor, want: torch.Tensor, tol: float):
@@ -1880,6 +2230,9 @@ def main() -> None:
     train, _ = make_classification(4096, n_classes=10, image_hw=32, seed=0)
     params = init_params(cnn_classifier_template(32, 3, 10), seed=0)
     counts = train_main_path(params, train)
+    for path in (lambda: mixing_main_path(params, train), paper_benchmarks):
+        for k, v in path().items():
+            counts[k] += v
 
     t0 = time.perf_counter()
     serving = {arch: init_params(tt.model_template(get_config(arch)), seed=0,
@@ -1909,6 +2262,8 @@ def main() -> None:
     parity_sparse_dense(params, train)
     parity_compressed_update(params, train, f"topk:{TOPK_P}", UPDATE_TOL)
     parity_compressed_update(params, train, "rank:4", RANK_TOL)
+    parity_multi_round_update(params, train)
+    parity_ring(params, train)
     parity_models()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -2,7 +2,12 @@
 and the stacked-simulation trainer (see :mod:`repro.core` for the reference).
 """
 
-from repro_torch.core.topology import Topology, make_topology
+from repro_torch.core.topology import (
+    Topology,
+    TopologySchedule,
+    make_topology,
+    make_topology_schedule,
+)
 from repro_torch.core.engine import StepProgram
 from repro_torch.core.optim import (
     CDSGD,
@@ -22,7 +27,9 @@ from repro_torch.core import schedules
 
 __all__ = [
     "Topology",
+    "TopologySchedule",
     "make_topology",
+    "make_topology_schedule",
     "StepProgram",
     "CDSGD",
     "CDMSGD",

@@ -1,37 +1,54 @@
 """Consensus mixing ``w = Pi x`` over agent-stacked tensors, and its wire.
 
-The stacked-simulation slice of :mod:`repro.core.consensus`:
+The stacked-simulation half of :mod:`repro.core.consensus`:
 
 * :func:`mix_stacked` / :func:`mix_pytree_stacked` — every leaf carries a
   leading agent axis ``(N, ...)``; mixing is a dense matmul with ``Pi``
   (the per-leaf reference path of the unfused optimizers);
 * :class:`MixingProgram` / :func:`make_mixing_program` — what the exchange
-  does each step: the static strategy over one fixed ``Pi``, a wire
-  precision (``exchange`` f32 | bf16 | int8 | fp8), optional error
-  feedback and ``momentum_mixing`` (``"mixed"``: the momentum buffer rides
-  the wire next to the params), validated at config time;
-* :class:`StaticMixing` — the strategy's stages: ``quantize_stage``
-  (packed buckets to the wire state, one ``(payload, row scales)`` pair
-  per bucket), ``exchange_stage`` (wire state to the self-separated
-  kernel operands), ``continue_from_wire``, the one-shot ``gather``, the
-  overlap hooks ``initial_wire`` / ``advance_wire`` and the error-feedback
-  ``quantize_ef`` / ``residual_init``;
+  does each step: a strategy (``static``, ``time_varying`` over a
+  :class:`~repro_torch.core.topology.TopologySchedule`, ``multi_round``
+  with ``rounds`` inner consensus rounds), a wire precision (``exchange``
+  f32 | bf16 | int8 | fp8), optional error feedback and
+  ``momentum_mixing`` (``"mixed"``: the momentum buffer rides the wire next
+  to the params), the bounded-staleness ring (``staleness``, ``faults``)
+  and the compressor axis, validated at config time;
+* :class:`MixingStrategy` (:class:`StaticMixing`,
+  :class:`TimeVaryingMixing`, :class:`MultiRoundMixing`) — the strategy's
+  stages: ``quantize_stage`` (packed buckets to the wire state, one
+  ``(payload, row scales)`` pair per bucket), ``exchange_stage`` (wire
+  state to the self-separated kernel operands under the step's ``Pi_t``,
+  arrival-masked on the fault path), ``continue_from_wire`` (rounds
+  ``1..k``), the one-shot ``gather``, the overlap hooks ``initial_wire`` /
+  ``advance_wire`` (which push a :class:`WireRing` on the fault path) and
+  the error-feedback ``quantize_ef`` / ``residual_init``;
 * :func:`stacked_flat_comm` — the fused path's :class:`FlatComm`;
 * :func:`wire_seed` — the stochastic-rounding seed of one wire payload;
 * :func:`widen_with_momentum` — the bucket list of a momentum-mixing
   program: the params' buckets, then the momentum's;
 * :func:`initial_wire_state` / :func:`initial_residual_state`, the wire
-  byte accounting and :func:`consensus_error_pytree`.
+  byte accounting (:func:`exchange_bytes_per_step`,
+  :func:`describe_exchange_cost`) and :func:`consensus_error_pytree`.
 
-Quantized wires quantize each packed bucket once per step with
+Quantized wires quantize each packed bucket once per step and round with
 :func:`repro_torch.kernels.consensus_update.sr_quantize` (one launch for
 all agents, per-agent seeds) and hand the fused ``_q`` kernels the native
-self stack with ``[diag(Pi) | zero-diag Pi]`` weights, so agent ``j``
+self stack with ``[diag(Pi_t) | zero-diag Pi_t]`` weights, so agent ``j``
 mixes its own exact parameters and the dequantized payloads of the others
 — what the sharded exchange delivers, where the self buffer never crosses
-the wire.  The f32 and bf16 wires keep the legacy dense form under the
-sync schedule: the whole stack (cast to bf16 for ``"bf16"``, self
-included) with the dense ``Pi``.
+the wire.  The f32 and bf16 wires of the trivial program keep the legacy
+dense form under the sync schedule: the whole stack (cast to bf16 for
+``"bf16"``, self included) with the dense ``Pi``; every other program
+carries f32 / bf16 payloads with unit scales into the same ``_q`` kernels.
+
+Every per-step table — the ``(A, A+1)`` weights of each schedule entry,
+the fault path's arrival-masked weights, straggle and age rows — is built
+on the host once and moved to the device with the comm (each weight row
+its own, 16-byte aligned, tensor); a step (a Python int) selects its row
+on the host, so no table crosses a device sync.  Inner rounds mix in full
+precision between re-quantizations (:meth:`MixingStrategy.combine`, float64
+elementwise in a fixed order and rounded once, so the card and the CPU
+agree bit for bit) and the last round is fused into the update kernel.
 
 With ``momentum_mixing="mixed"`` every bucket list the strategy sees is
 ``params_bufs + momentum_bufs`` (equal halves); the momentum half is
@@ -51,9 +68,8 @@ as a :class:`~repro_torch.kernels.consensus_update.ops.SparseNeighbors`;
 otherwise compressed entries decompress to dense f32 stacks with unit
 scales for the ``_q`` kernels.
 
-Time-varying and multi-round strategies, staleness rings, fault schedules
-and the sharded mode are later slices; asking for them raises
-``NotImplementedError`` naming the ROADMAP item.
+The sharded mode (its ``TimeVaryingMixing`` and ring) is a later slice
+(ROADMAP A16).
 """
 
 from __future__ import annotations
@@ -65,7 +81,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import flatbuf
-from repro_torch.core.topology import Topology
+from repro_torch.core.faults import (MAX_FAULT_PERIOD, FaultSchedule,
+                                     arrival_masked_pi, trivial_faults)
+from repro_torch.core.topology import Topology, TopologySchedule, fixed_schedule
 from repro_torch.device import resolve_device
 from repro_torch.kernels.consensus_update import sr_quantize
 from repro_torch.kernels.consensus_update import topk as tk
@@ -156,14 +174,32 @@ def parse_compressor(spec: str):
 class MixingProgram:
     """What the consensus exchange does each optimizer step.
 
-    The ported slice is the static strategy: one fixed ``Pi``, one round,
-    on a wire of precision ``exchange``.  ``error_feedback`` quantizes
-    ``residual + payload`` instead of the raw payload and carries the
-    quantization error in ``OptState.residual`` (it needs an int8 / fp8
-    wire).  ``momentum_mixing="mixed"`` widens the wire to two payload
-    trees: the momentum buffer (CDAdam: the first moment) rides next to
-    the params and is mixed with the same ``Pi``, ``v' = mu (Pi v) -
-    alpha g``; it doubles the wire bytes at equal precision.
+    * ``strategy="static"`` — one fixed ``Pi``, one round (the paper's
+      setting);
+    * ``strategy="time_varying"`` — ``Pi_t = schedule[t % period]``
+      selected by the optimizer step (B-connected sequences, gossip pairs);
+    * ``strategy="multi_round"`` — ``rounds`` inner consensus rounds per
+      gradient step, re-quantizing between rounds: ``x' = Pi^k x - a g``
+      (i-CDSGD, Jiang et al. 1805.12120).  ``rounds`` also composes with
+      ``time_varying`` (``Pi_t`` applied ``k`` times).
+
+    ``error_feedback`` quantizes ``residual + payload`` instead of the raw
+    payload and carries the quantization error in ``OptState.residual``
+    (it needs an int8 / fp8 wire or a biased compressor).
+    ``momentum_mixing="mixed"`` widens the wire to two payload trees: the
+    momentum buffer (CDAdam: the first moment) rides next to the params
+    and is mixed with the same ``Pi``, ``v' = mu (Pi v) - alpha g``; it
+    doubles the wire bytes at equal precision.
+
+    ``staleness=S`` / ``faults`` engage the bounded-staleness ring
+    (``schedule="overlap"`` only): the overlap wire becomes a depth-``S``
+    ring of each agent's last ``S`` quantized generations
+    (:class:`WireRing`); under the injected
+    :class:`~repro_torch.core.faults.FaultSchedule` each sender contributes
+    its freshest generation that arrived (up to ``S`` steps stale) and the
+    weights renormalize over arrived neighbours — a dropped or over-stale
+    neighbour's mass folds into the receiver's self term.  The per-step
+    wire bytes do not depend on ``S``.
 
     ``compressor`` is the compressor axis: the dense aliases ``"int8"`` /
     ``"fp8"`` (they set ``exchange`` and change nothing else) or the
@@ -174,12 +210,22 @@ class MixingProgram:
     :func:`make_mixing_program`.
     """
 
-    topology: Topology
-    exchange: str = "f32"
+    schedule: TopologySchedule
+    strategy: str = "static"
+    rounds: int = 1
     error_feedback: bool = False
+    exchange: str = "f32"
     momentum_mixing: str = "none"
+    staleness: int = 1
+    faults: Optional[FaultSchedule] = None
     compressor: str = "none"
     sparse_update: bool = False
+
+    @property
+    def fault_tolerant(self) -> bool:
+        """True iff the depth-S staleness ring / arrival-masked weight path
+        is engaged (``staleness > 1`` or an injected fault schedule)."""
+        return self.staleness > 1 or self.faults is not None
 
     @property
     def compressor_kind(self) -> str:
@@ -198,8 +244,12 @@ class MixingProgram:
 
     @property
     def is_trivial(self) -> bool:
-        """True iff this is the legacy single-round fixed-``Pi`` program."""
-        return (not self.error_feedback and self.momentum_mixing == "none"
+        """True iff this is exactly the legacy single-round fixed-``Pi``
+        program."""
+        return (self.strategy == "static" and self.rounds == 1
+                and not self.error_feedback
+                and self.momentum_mixing == "none"
+                and not self.fault_tolerant
                 and not self.compressed)
 
     @property
@@ -208,24 +258,23 @@ class MixingProgram:
         return 2 if self.momentum_mixing == "mixed" else 1
 
     def describe(self) -> dict:
-        """The JAX package's description keys, for the ported slice."""
         return {
-            "strategy": "static",
-            "schedule": f"fixed:{self.topology.name}",
-            "period": 1,
-            "rounds": 1,
+            "strategy": self.strategy,
+            "schedule": self.schedule.name,
+            "period": self.schedule.period,
+            "rounds": self.rounds,
             "error_feedback": self.error_feedback,
             "exchange": self.exchange,
             "momentum_mixing": self.momentum_mixing,
-            "staleness": 1,
-            "faults": None,
+            "staleness": self.staleness,
+            "faults": self.faults.describe() if self.faults else None,
             "compressor": self.compressor,
             "sparse_update": self.sparse_update,
         }
 
 
 def make_mixing_program(
-    topology: Topology,
+    topology_or_schedule,
     *,
     strategy: str = "static",
     rounds: int = 1,
@@ -233,22 +282,25 @@ def make_mixing_program(
     exchange: str = "f32",
     momentum_mixing: str = "none",
     staleness: int = 1,
-    faults=None,
+    faults: Optional[FaultSchedule] = None,
     compressor: str = "none",
     sparse_update: Optional[bool] = None,
 ) -> MixingProgram:
     """Validate and build a :class:`MixingProgram` at config time.
 
-    The knobs are the JAX package's.  ``compressor="int8"|"fp8"`` are dense
-    aliases that set ``exchange``; ``"topk:p"`` / ``"topk:auto:B"`` /
-    ``"rank:r"`` need ``error_feedback=True`` and exclude staleness, inner
-    rounds and momentum mixing; top-k sets ``exchange="int8"`` (its
-    compact values) and rank keeps ``"f32"``.  ``sparse_update=None``
-    resolves to True exactly for top-k.  ``strategy="multi_round"`` with
-    ``rounds=1`` is the static strategy.  Values outside the ported slice
-    raise ``NotImplementedError`` naming their ROADMAP item; bad values and
-    combinations raise the JAX package's ``ValueError``, checked in its
-    order.
+    Takes a :class:`Topology` (wrapped in a period-1 schedule) or a
+    :class:`TopologySchedule`.  The knobs are the JAX package's, checked
+    in its order with its ``ValueError`` / ``TypeError``:
+    ``strategy="static"`` with ``rounds > 1`` becomes ``"multi_round"``
+    and ``"multi_round"`` with ``rounds=1`` becomes ``"static"``; the fixed
+    strategies reject a schedule of period > 1; a trivial fault schedule is
+    dropped; error feedback excludes the staleness ring.
+    ``compressor="int8"|"fp8"`` are dense aliases that set ``exchange``;
+    ``"topk:p"`` / ``"topk:auto:B"`` / ``"rank:r"`` need
+    ``error_feedback=True`` and exclude staleness, inner rounds and
+    momentum mixing; top-k sets ``exchange="int8"`` (its compact values)
+    and rank keeps ``"f32"``.  ``sparse_update=None`` resolves to True
+    exactly for top-k.
     """
     _check_exchange(exchange)
     ckind, _ = parse_compressor(compressor)
@@ -272,18 +324,27 @@ def make_mixing_program(
         exchange = _check_compressed(compressor, ckind, error_feedback,
                                      exchange, staleness, faults, rounds,
                                      strategy, momentum_mixing)
-    if not isinstance(topology, Topology):
-        raise TypeError(f"expected a Topology, got {type(topology).__name__} "
-                        "(TopologySchedule is ROADMAP A13)")
+    if isinstance(topology_or_schedule, Topology):
+        schedule = fixed_schedule(topology_or_schedule)
+    elif isinstance(topology_or_schedule, TopologySchedule):
+        schedule = topology_or_schedule
+    else:
+        raise TypeError(f"expected Topology or TopologySchedule, got "
+                        f"{type(topology_or_schedule).__name__}")
     if not isinstance(rounds, int) or rounds < 1:
         raise ValueError(f"consensus rounds must be an int >= 1, got {rounds!r}")
     if strategy not in MIXING_STRATEGIES:
         raise ValueError(f"unknown mixing strategy {strategy!r}; expected one "
                          f"of {MIXING_STRATEGIES}")
-    if strategy == "time_varying" or rounds > 1:
-        raise NotImplementedError(
-            f"mixing strategy {strategy!r} with rounds={rounds} is not "
-            "ported yet: ROADMAP A13 (time-varying / multi-round mixing)")
+    if strategy == "static" and rounds > 1:
+        strategy = "multi_round"
+    if strategy == "multi_round" and rounds == 1:
+        strategy = "static"
+    if strategy in ("static", "multi_round") and schedule.period != 1:
+        raise ValueError(
+            f"strategy={strategy!r} takes a fixed topology but the schedule "
+            f"{schedule.name!r} has period {schedule.period}; use "
+            "strategy='time_varying'")
     if error_feedback and exchange not in ("int8", "fp8") \
             and ckind not in ("topk", "rank"):
         raise ValueError(
@@ -296,13 +357,28 @@ def make_mixing_program(
                          f"expected one of {MOMENTUM_MIXINGS}")
     if not isinstance(staleness, int) or staleness < 1:
         raise ValueError(f"staleness must be an int >= 1, got {staleness!r}")
-    if staleness > 1 or faults is not None:
-        raise NotImplementedError(
-            "staleness > 1 and fault schedules are not ported yet: ROADMAP "
-            "A13 (bounded-staleness wire ring, fault schedules)")
-    return MixingProgram(topology=topology, exchange=exchange,
+    if faults is not None:
+        if not isinstance(faults, FaultSchedule):
+            raise TypeError(f"faults must be a FaultSchedule, got "
+                            f"{type(faults).__name__}")
+        if faults.n_agents != schedule.n_agents:
+            raise ValueError(f"fault schedule covers {faults.n_agents} agents "
+                             f"but the topology has {schedule.n_agents}")
+        faults.validate()
+        if faults.is_trivial:
+            faults = None           # the all-arrive schedule: no fault layer
+    if error_feedback and (staleness > 1 or faults is not None):
+        raise ValueError(
+            "--error-feedback is incompatible with --staleness > 1 / "
+            "--fault-schedule: the residual telescoping assumes every "
+            "carried wire payload is consumed exactly one step later, which "
+            "bounded staleness breaks by design — drop --error-feedback "
+            "(plain SR quantization is unbiased) or run staleness=1 with "
+            "no fault schedule")
+    return MixingProgram(schedule=schedule, strategy=strategy, rounds=rounds,
                          error_feedback=bool(error_feedback),
-                         momentum_mixing=momentum_mixing,
+                         exchange=exchange, momentum_mixing=momentum_mixing,
+                         staleness=staleness, faults=faults,
                          compressor=compressor,
                          sparse_update=bool(sparse_update))
 
@@ -394,15 +470,17 @@ def _wire_payload(buf: torch.Tensor, exchange: str) -> torch.Tensor:
     return buf.to(torch.bfloat16) if exchange == "bf16" else buf
 
 
-def _quantize_wire_stacked(bufs, seed: int, exchange: str, payload: int = 0):
+def _quantize_wire_stacked(bufs, seed: int, exchange: str, payload: int = 0,
+                           rnd: int = 0):
     """Quantize agent-stacked ``(A, rows, 128)`` buckets for the wire.
 
     Returns the wire state: one ``(payload, (A, rows, 1) f32 scales)`` pair
     per bucket.  int8 / fp8 run one :func:`sr_quantize` launch per bucket
     for all agents, agent ``a`` of bucket ``bi`` seeded with
-    ``wire_seed(seed, agent=a, bucket=bi, payload=payload)``.  f32 / bf16
-    wires cast and carry unit scales (the ``_q`` kernels' dequant multiply
-    is then the identity), so every precision shares one wire layout.
+    ``wire_seed(seed, agent=a, bucket=bi, rnd=rnd, payload=payload)``
+    (``rnd``: the inner consensus round).  f32 / bf16 wires cast and carry
+    unit scales (the ``_q`` kernels' dequant multiply is then the
+    identity), so every precision shares one wire layout.
     """
     if exchange in ("f32", "bf16"):
         return tuple(
@@ -410,8 +488,8 @@ def _quantize_wire_stacked(bufs, seed: int, exchange: str, payload: int = 0):
              torch.ones(b.shape[:-1] + (1,), dtype=torch.float32,
                         device=b.device)) for b in bufs)
     return tuple(
-        sr_quantize(b, wire_seed(seed, bucket=bi, payload=payload), exchange,
-                    agent_stride=_SEED_AGENT_STRIDE)
+        sr_quantize(b, wire_seed(seed, bucket=bi, rnd=rnd, payload=payload),
+                    exchange, agent_stride=_SEED_AGENT_STRIDE)
         for bi, b in enumerate(bufs))
 
 
@@ -504,32 +582,145 @@ def _qwarm_init_stacked(bufs, program: MixingProgram) -> tuple:
 
 
 # --------------------------------------------------------------------------
-# the mixing strategy (stacked simulation)
+# bounded-staleness wire ring (fault-tolerant overlap schedule)
+# --------------------------------------------------------------------------
+
+
+class WireRing(NamedTuple):
+    """The overlap wire state of a fault-tolerant program, depth ``S``.
+
+    * ``slots`` — one ``(payload, scales)`` pair per bucket (x payload
+      tree), with a ring axis after the agent axis: ``(A, S, rows, 128)``.
+      Ring index 0 is the agent's freshest quantized generation, index
+      ``k`` is ``k`` steps older.  Slots are never re-quantized: each
+      generation keeps the stochastic-rounding bits it was born with.
+    * ``send_age`` — ``(A,)`` int32: the ring index each agent contributes
+      this step (its freshest generation that escaped the straggler
+      delays; ``S`` means nothing within the ring arrived and receivers
+      mask it out).  One generation per sender, for all receivers.
+    * ``ages`` — ``(A, A)`` int32: receiver row ``i``, the staleness minus
+      one of what sender ``j`` delivered (sentinel ``S``: masked by a drop
+      or over-stale; diagonal 0, the self term is always fresh).
+    """
+
+    slots: tuple
+    send_age: torch.Tensor
+    ages: torch.Tensor
+
+
+def _ring_select(ring: WireRing, staleness: int):
+    """Sender-side slot selection: ring -> plain per-bucket wire pairs.
+    Each agent contributes ``ring[min(send_age, S-1)]``; a fully masked
+    sender (``send_age == S``) selects the oldest slot, which every
+    receiver weights zero."""
+    sel = torch.clamp(ring.send_age.long(), max=staleness - 1)
+    agents = torch.arange(sel.shape[0], device=sel.device)
+    return tuple((p[agents, sel], sc[agents, sel]) for p, sc in ring.slots)
+
+
+def _ring_push(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """Shift one ring buffer: the fresh generation in, the oldest out."""
+    return torch.cat([new[:, None], old[:, :-1]], dim=1)
+
+
+def _fault_tables(program: MixingProgram) -> dict:
+    """The fault path's host tables over the combined period ``P`` =
+    lcm(schedule period, fault period), indexed by ``step % P``:
+
+    * ``send_age (P, A)`` — steady state of the carried ``send_age``
+      recurrence (valid because ``straggle[0]`` is all-False);
+    * ``arrive (P, A, A)`` — receiver ``i`` uses sender ``j`` this step;
+    * ``weights (P, A, A+1)`` — the arrival-masked, renormalized
+      self-separated weights (:func:`~repro_torch.core.faults.
+      arrival_masked_pi` of each schedule entry's ``Pi``);
+    * ``ages (P, A, A)`` — the :class:`WireRing` bookkeeping rows;
+    * ``straggle (P, A)`` — each agent's own straggle bit.
+    """
+    s = program.staleness
+    sched = program.schedule
+    f = program.faults or trivial_faults(sched.n_agents)
+    tb = f.tables(s)
+    pw = int(np.lcm(sched.period, f.period))
+    if pw > MAX_FAULT_PERIOD:
+        raise ValueError(
+            f"combined schedule x fault period {pw} exceeds "
+            f"{MAX_FAULT_PERIOD}; align the fault period with the "
+            "topology schedule period")
+    ts = np.arange(pw)
+    straggle = f.straggle[ts % f.period]
+    send_age = tb["send_age"][ts % f.period]
+    arrive = tb["arrive"][ts % f.period]
+    weights = np.stack([
+        _self_separated_weights(arrival_masked_pi(
+            sched.topologies[t % sched.period].pi, arrive[t]))
+        for t in range(pw)])
+    ages = np.where(arrive, send_age[:, None, :], s).astype(np.int32)
+    di = np.arange(sched.n_agents)
+    ages[:, di, di] = 0
+    return {"period": pw, "S": s, "straggle": straggle,
+            "send_age": send_age, "arrive": arrive,
+            "weights": weights, "ages": ages}
+
+
+class _FaultOps(NamedTuple):
+    """The fault tables on the device, each selected by ``step % period``
+    (a host int): ``weights``, one ``(A, A+1)`` f32 tensor per period step
+    (each its own allocation: the kernels read weights 16-byte aligned),
+    ``straggle (P, A)`` bool, ``ages (P, A, A)`` int32."""
+
+    period: int
+    S: int
+    weights: tuple
+    straggle: torch.Tensor
+    ages: torch.Tensor
+
+
+def _weight_rows(stack: np.ndarray, device) -> tuple:
+    """One float32 device tensor per leading index of ``stack``: a row
+    of a stacked table would start at any multiple of its size, and the
+    update kernels take their weights 16-byte aligned."""
+    return tuple(torch.tensor(w, dtype=torch.float32, device=device)
+                 for w in stack)
+
+
+# --------------------------------------------------------------------------
+# the mixing strategies (stacked simulation)
 # --------------------------------------------------------------------------
 
 
 class MixingStrategy:
-    """One consensus round of a fixed ``Pi`` over the agent stack.
+    """One consensus round of a (possibly step-indexed) ``Pi`` over the
+    agent stack.
 
-    ``pi`` is the dense ``(A, A)`` float32 ``Pi`` and ``pi_q`` the
-    self-separated ``(A, A+1)`` weights, both on the device the buffers
-    live on.  The wire state is a tuple of ``(payload, scales)`` per
-    bucket with the leading agent axis kept; under momentum mixing it
-    holds the params' pairs, then the momentum's; under a compressor, one
-    :class:`TopKWire` / :class:`RankWire` per bucket.
+    ``pi`` is the dense ``(A, A)`` float32 ``Pi`` of the schedule's first
+    entry (the trivial program's legacy form) and ``pi_q`` the
+    self-separated ``(A, A+1)`` weights of every schedule entry (a tuple,
+    one tensor per entry), all on the device the buffers live on; ``fault_ops`` carries the
+    fault path's tables (``None``: fault-free).  The wire state is a tuple
+    of ``(payload, scales)`` per bucket with the leading agent axis kept
+    (under momentum mixing the params' pairs, then the momentum's; under a
+    compressor, one :class:`TopKWire` / :class:`RankWire` per bucket), or
+    a :class:`WireRing` of them on the fault path.
     """
 
     name = "static"
 
     def __init__(self, program: MixingProgram, pi: torch.Tensor,
-                 pi_q: torch.Tensor):
+                 pi_q: tuple, fault_ops: Optional[_FaultOps] = None):
         self.program = program
+        self.rounds = program.rounds
         self.pi = pi
         self.pi_q = pi_q
+        self.fault_ops = fault_ops
         self.compressed = program.compressed
         # the dense row count of every bucket: the compact top-k payload
         # cannot recover it, so every bufs-seeing stage records it
         self._rows = None
+
+    # -- schedule indexing ---------------------------------------------------
+    def _entry(self, step) -> int:
+        """The schedule entry of optimizer step ``step`` (static: 0)."""
+        return 0
 
     def _note_bufs(self, bufs):
         """Record the dense bucket row counts the decompressors need."""
@@ -544,36 +735,41 @@ class MixingStrategy:
                 "the strategy records the dense bucket row counts")
         return self._rows[bi]
 
+    def _quantize_payloads(self, bufs, seed: int, rnd: int = 0):
+        """Quantize the wire payload(s) of round ``rnd``: params, plus (under
+        momentum mixing, ``bufs = params_bufs + momentum_bufs``) the
+        momentum half at ``payload=1`` (seed stride 2750161), so the two
+        payloads' rounding stays independent."""
+        exchange = self.program.exchange
+        if self.program.momentum_mixing != "mixed":
+            return _quantize_wire_stacked(bufs, seed, exchange, rnd=rnd)
+        b = len(bufs) // 2
+        return (_quantize_wire_stacked(bufs[:b], seed, exchange, rnd=rnd)
+                + _quantize_wire_stacked(bufs[b:], seed, exchange, payload=1,
+                                         rnd=rnd))
+
     def quantize_stage(self, bufs, seed: int):
         """Packed buckets -> the wire state (seed: the optimizer step).
 
-        Under momentum mixing ``bufs`` is ``params_bufs + momentum_bufs``
-        and the momentum half draws its streams at ``payload=1`` (seed
-        stride 2750161), so the two payloads' rounding stays independent.
         A compressed program reaches this only from :meth:`initial_wire`
         (the seed -1 priming; every step compresses through
         :meth:`compress_ef`), with the initial warm start.
         """
-        exchange = self.program.exchange
         if self.compressed:
             self._note_bufs(bufs)
             wire, _ = _compress_wire_stacked(
                 bufs, seed, self.program,
                 _qwarm_init_stacked(bufs, self.program))
             return wire
-        if self.program.momentum_mixing != "mixed":
-            return _quantize_wire_stacked(bufs, seed, exchange)
-        b = len(bufs) // 2
-        return (_quantize_wire_stacked(bufs[:b], seed, exchange)
-                + _quantize_wire_stacked(bufs[b:], seed, exchange, payload=1))
+        return self._quantize_payloads(bufs, seed)
 
-    def exchange_stage(self, wire, step=None):
-        """Wire state -> ``(payloads, weights_q, scales)``: in the stacked
+    def _exchange_t(self, wire, t: int):
+        """One round of exchange under schedule entry ``t``: in the stacked
         simulation every agent already sees the whole stack, so the
         exchange hands the payloads to the kernels with the self-separated
-        weights.  A top-k entry under ``sparse_update`` becomes a
-        :class:`SparseNeighbors` (scales ``None``: they ride inside); other
-        compressed entries decompress to dense f32 stacks with unit
+        weights ``pi_q[t]``.  A top-k entry under ``sparse_update`` becomes
+        a :class:`SparseNeighbors` (scales ``None``: they ride inside);
+        other compressed entries decompress to dense f32 stacks with unit
         scales."""
         nbrs, scs = [], []
         for bi, e in enumerate(wire):
@@ -588,42 +784,129 @@ class MixingStrategy:
             else:
                 nbrs.append(e[0])
                 scs.append(e[1])
-        return nbrs, self.pi_q, scs
+        return nbrs, self.pi_q[t], scs
 
+    def exchange_stage(self, wire, step=None):
+        """Wire state -> ``(payloads, weights_q, scales)`` of one round.
+
+        On the fault path ``wire`` is the carried :class:`WireRing` (round
+        1: each sender's selected slot is exchanged) or a freshly quantized
+        tuple (inner rounds: a masked sender's live transmissions miss the
+        whole step, so the same arrival mask applies); either way the
+        weights are the step's arrival-masked row.
+        """
+        fo = self.fault_ops
+        if fo is None:
+            return self._exchange_t(wire, self._entry(step))
+        if step is None:
+            raise ValueError("fault-tolerant mixing needs the optimizer "
+                             "step; exchange_stage(wire, step)")
+        if isinstance(wire, WireRing):
+            wire = _ring_select(wire, fo.S)
+        nbrs, _, scs = self._exchange_t(wire, self._entry(step))
+        return nbrs, fo.weights[step % fo.period], scs
+
+    def combine(self, nbrs, weights_q, scales, selfs):
+        """Full-precision one-round mix of the agent stack (inner rounds):
+        ``mixed_j = sum_l w[j,1+l] dequant(payload_l) + w[j,0] self_j``, the
+        sum the fused kernels evaluate, materialized because the next
+        round re-quantizes it.  The sum runs in float64 in ``l`` order and
+        rounds to float32 once: a float32 weight times a float32 operand is
+        exact in float64, so each ``addcmul_`` rounds once whether or not
+        the device fuses it, and the card and the CPU produce the same bits
+        (and re-quantize the mix to the same codes).  The sum is also
+        nearly the exact one, which keeps it next to the reference's
+        float32 einsum: a float32 sum rounded term by term differs from
+        that in the last bits, which after 10 steps of two-round CDSGD (5
+        agents, a 6 x 50 MLP) left the parameters 2.1e-5 from the
+        reference's (float64: 3.0e-7)."""
+        out = []
+        w = weights_q.double()[:, :, None, None]             # (A, S+1, 1, 1)
+        for p, sc, sf in zip(nbrs, scales, selfs):
+            mixed = w[:, 1] * (p[0].float() * sc[0]).double()
+            for l in range(1, p.shape[0]):
+                mixed.addcmul_(w[:, 1 + l], (p[l].float() * sc[l]).double())
+            mixed.addcmul_(w[:, 0], sf.double())
+            out.append(mixed.to(sf.dtype))
+        return out
+
+    # -- carried wire state (schedule="overlap") -----------------------------
     def advance_wire(self, bufs, old_wire, step: int):
-        """The wire state step ``step + 1`` consumes (overlap): the current
-        buckets, quantized; the old wire is dropped."""
-        return self.quantize_stage(bufs, step)
+        """The wire state step ``step + 1`` consumes (overlap).
+
+        Fault-free: the current buckets, quantized; the old wire is
+        dropped.  Fault path: the fresh generation is pushed into the
+        :class:`WireRing` and the age counters advance by the recurrence
+        whose steady state is the ``send_age`` table (``a' = min(a + 1,
+        S)`` while straggling, else 0).
+        """
+        fresh = self.quantize_stage(bufs, step)
+        fo = self.fault_ops
+        if fo is None:
+            return fresh
+        slots = tuple((_ring_push(op, p), _ring_push(osc, sc))
+                      for (op, osc), (p, sc) in zip(old_wire.slots, fresh))
+        t1 = (step + 1) % fo.period
+        send_age = torch.where(
+            fo.straggle[t1], torch.clamp(old_wire.send_age + 1, max=fo.S),
+            torch.zeros_like(old_wire.send_age)).to(torch.int32)
+        return WireRing(slots=slots, send_age=send_age, ages=fo.ages[t1])
 
     def initial_wire(self, bufs):
-        """The wire state priming step 0: ``x_{-1} := x_0``, seed ``-1``."""
-        return self.quantize_stage(bufs, -1)
+        """The wire state priming step 0: ``x_{-1} := x_0``, seed ``-1``.
+        Fault path: that one generation replicated across the ring slots
+        (one draw, copied), ``send_age`` 0 for every agent (``straggle[0]``
+        is all-False) and the first ages row."""
+        wire = self.quantize_stage(bufs, -1)
+        fo = self.fault_ops
+        if fo is None:
+            return wire
+        slots = tuple((torch.repeat_interleave(p[:, None], fo.S, dim=1),
+                       torch.repeat_interleave(sc[:, None], fo.S, dim=1))
+                      for p, sc in wire)
+        n = slots[0][0].shape[0]
+        send_age = torch.zeros((n,), dtype=torch.int32,
+                               device=slots[0][0].device)
+        return WireRing(slots=slots, send_age=send_age, ages=fo.ages[0])
 
     def continue_from_wire(self, bufs, wire, step):
-        """The kernel operands ``(nbrs, weights, scales, selfs)`` of the
-        one round, from ``wire`` (fresh under sync, carried under
-        overlap); ``selfs`` are the fresh native buckets."""
+        """Rounds ``1..k`` of the step, round 1 from ``wire`` (fresh under
+        sync, carried under overlap).  Returns the last round's kernel
+        operands ``(nbrs, weights, scales, selfs)``, ``selfs`` the round
+        ``k-1`` mix (the fresh native buckets for one round): the fused
+        kernel applies round ``k`` and the gradient in one launch.  Round
+        ``r`` (0-based) re-quantizes at ``wire_seed(step, rnd=r)``."""
         self._note_bufs(bufs)
         nbrs, w, sc = self.exchange_stage(wire, step)
-        return nbrs, w, sc, list(bufs)
+        if self.rounds == 1:
+            return nbrs, w, sc, list(bufs)
+        b = self.combine(nbrs, w, sc, bufs)                     # round 1
+        for r in range(1, self.rounds - 1):
+            wire_r = self._quantize_payloads(b, step, rnd=r)
+            nb, wr, scr = self.exchange_stage(wire_r, step)
+            b = self.combine(nb, wr, scr, b)
+        wire_k = self._quantize_payloads(b, step, rnd=self.rounds - 1)
+        nbrs, w, sc = self.exchange_stage(wire_k, step)
+        return nbrs, w, sc, b
 
     def gather(self, bufs, seed: int):
-        """One-shot sync form.  f32 / bf16: the legacy dense operands (the
-        whole stack, cast for bf16, with the dense ``Pi``; no scales, no
-        selfs).  int8 / fp8: quantize the current buckets and continue.
-        A momentum-mixing program has no one-shot form: its momentum
-        payload comes from the optimizer state, which the engine packs."""
+        """One-shot sync form.  The trivial program on an f32 / bf16 wire:
+        the legacy dense operands (the whole stack, cast for bf16, with the
+        dense ``Pi``; no scales, no selfs).  Otherwise: quantize the
+        current buckets and run every round.  A momentum-mixing program
+        has no one-shot form: its momentum payload comes from the
+        optimizer state, which the engine packs."""
         if self.program.momentum_mixing == "mixed":
             raise ValueError(
                 "momentum_mixing='mixed' needs the StepProgram engine's "
                 "staged exchange (CollaborativeTrainer); the optimizer "
                 "cannot gather the momentum payload itself")
         exchange = self.program.exchange
-        if exchange in ("f32", "bf16"):
+        if self.program.is_trivial and exchange in ("f32", "bf16"):
             return ([_wire_payload(b, exchange) for b in bufs], self.pi,
                     [None] * len(bufs), [None] * len(bufs))
-        return self.continue_from_wire(bufs, self.quantize_stage(bufs, seed),
-                                       seed)
+        return self.continue_from_wire(
+            bufs, self._quantize_payloads(bufs, seed), seed)
 
     def wire_to_bufs(self, wire):
         """Local dequantization (decompression) of a wire state, f32."""
@@ -634,7 +917,9 @@ class MixingStrategy:
     def quantize_ef(self, bufs, seed: int, residual):
         """Error-feedback quantization ``Q(x + e)``: returns ``(wire,
         new_residual)`` with ``new_residual = (x + e) - dequant(Q(x + e))``,
-        so the quantization error telescopes instead of accumulating."""
+        so the quantization error telescopes instead of accumulating.  It
+        applies to the round-1 payload(s) only: inner rounds' payloads are
+        fresh each step."""
         carried = [b.float() + e for b, e in zip(bufs, residual)]
         wire = self.quantize_stage(carried, seed)
         deq = self.wire_to_bufs(wire)
@@ -678,6 +963,36 @@ class StaticMixing(MixingStrategy):
     name = "static"
 
 
+class TimeVaryingMixing(MixingStrategy):
+    """``Pi_t = schedule[t % period]`` selected by the optimizer step: the
+    self-separated weights are entry ``t % period`` of ``pi_q``."""
+
+    name = "time_varying"
+
+    def _entry(self, step) -> int:
+        if step is None:
+            raise ValueError("TimeVaryingMixing needs the optimizer step to "
+                             "select Pi_t; exchange_stage(wire, step)")
+        return step % self.program.schedule.period
+
+
+class MultiRoundMixing(MixingStrategy):
+    """``rounds`` inner consensus rounds per gradient step (i-CDSGD):
+    ``x' = Pi^k x - alpha g``; rounds ``1..k-1`` mix in full precision
+    between re-quantizations, round ``k`` is fused into the update kernel.
+    The wire moves exactly ``k`` times the single-round bytes."""
+
+    name = "multi_round"
+
+
+def _make_strategy(program: MixingProgram, *args, **kw) -> MixingStrategy:
+    if program.strategy == "time_varying":
+        return TimeVaryingMixing(program, *args, **kw)
+    if program.strategy == "multi_round" and program.rounds > 1:
+        return MultiRoundMixing(program, *args, **kw)
+    return StaticMixing(program, *args, **kw)
+
+
 @dataclasses.dataclass(frozen=True)
 class FlatComm:
     """Whole-model fused-update support carried inside ``CommOps``.
@@ -710,16 +1025,29 @@ def stacked_flat_comm(topology: Topology, *, exchange: str = "f32",
                       device=None) -> FlatComm:
     """FlatComm for agent-stacked trees (dense ``Pi``, any topology) on
     ``device`` (``cuda`` unless ``device`` says otherwise).  ``program``
-    defaults to the trivial static program over ``topology``."""
+    defaults to the trivial static program over ``topology``; its schedule
+    supplies the per-step ``Pi_t`` of a time-varying strategy, and a
+    fault-tolerant program's tables (:func:`_fault_tables`) go to the
+    device here, once."""
     if program is None:
         program = make_mixing_program(topology, exchange=exchange)
     dev = resolve_device(device)
-    pi = program.topology.pi
-    strategy = StaticMixing(
+    schedule = program.schedule
+    pi_q = np.stack([_self_separated_weights(t.pi)
+                     for t in schedule.topologies])
+    fault_ops = None
+    if program.fault_tolerant:
+        ft = _fault_tables(program)
+        fault_ops = _FaultOps(
+            period=ft["period"], S=ft["S"],
+            weights=_weight_rows(ft["weights"], dev),
+            straggle=torch.tensor(ft["straggle"], device=dev),
+            ages=torch.tensor(ft["ages"], dtype=torch.int32, device=dev))
+    strategy = _make_strategy(
         program,
-        torch.tensor(pi, dtype=torch.float32, device=dev),
-        torch.tensor(_self_separated_weights(pi), dtype=torch.float32,
-                     device=dev))
+        torch.tensor(schedule.topologies[0].pi, dtype=torch.float32,
+                     device=dev),
+        _weight_rows(pi_q, dev), fault_ops)
     return FlatComm(lead=1, gather=strategy.gather, strategy=strategy,
                     program=program)
 
@@ -812,19 +1140,22 @@ def program_bytes_per_neighbor(spec: flatbuf.FlatSpec,
     return int(total * program.n_payloads)
 
 
-def exchange_bytes_per_step(spec: flatbuf.FlatSpec, topology: Topology,
-                            exchange: str = "f32", payloads: int = 1,
+def exchange_bytes_per_step(spec: flatbuf.FlatSpec, topology,
+                            exchange: str = "f32", rounds: int = 1,
+                            payloads: int = 1,
                             program: Optional[MixingProgram] = None) -> dict:
     """Per-step bytes-on-wire of the fused consensus exchange.
 
     The paper's fixed-topology cost model (eq. 5/6): each agent sends and
     receives ``degree`` whole-model transfers per step, priced by
-    :func:`program_bytes_per_neighbor`.  ``payloads`` counts the trees on
-    the wire per transfer (``momentum_mixing="mixed"`` moves params +
-    momentum = 2; a ``program`` sets it, and ``exchange``, itself); error
-    feedback moves zero extra.  The keys are the JAX package's (a
-    compressed program reports its compressor spec as ``exchange``);
-    ``rounds`` is the constant 1 of the ported static strategy.
+    :func:`program_bytes_per_neighbor`.  ``topology`` may be a
+    :class:`~repro_torch.core.topology.TopologySchedule` (degree = the mean
+    over its period); ``rounds`` inner consensus rounds multiply every
+    transfer; ``payloads`` counts the trees on the wire per transfer
+    (``momentum_mixing="mixed"`` moves params + momentum = 2; a ``program``
+    sets it, and ``exchange``, itself); error feedback moves zero extra.
+    The keys are the JAX package's (a compressed program reports its
+    compressor spec as ``exchange``).
     """
     per_neighbor = program_bytes_per_neighbor(spec, program, exchange,
                                               payloads)
@@ -832,16 +1163,19 @@ def exchange_bytes_per_step(spec: flatbuf.FlatSpec, topology: Topology,
         exchange = (program.compressor if program.compressed
                     else program.exchange)
         payloads = program.n_payloads
-    degree = topology.degree()
+    if isinstance(topology, TopologySchedule):
+        degree = topology.mean_degree()
+    else:
+        degree = topology.degree()
     return {
         "exchange": exchange,
         "degree": degree,
-        "rounds": 1,
+        "rounds": rounds,
         "payloads": payloads,
         "per_neighbor_bytes": per_neighbor,
-        "per_step_bytes": int(per_neighbor * degree),
+        "per_step_bytes": int(per_neighbor * degree * rounds),
         "native_per_step_bytes": int(spec.exchange_bytes("f32") * payloads
-                                     * degree),
+                                     * degree * rounds),
     }
 
 
@@ -863,6 +1197,38 @@ def mean_exchange_bytes_per_step(spec: flatbuf.FlatSpec, n_agents: int,
         "per_sync_bytes": int(per_sync),
         "per_step_bytes": int(per_sync / max(period, 1)),
     }
+
+
+def describe_exchange_cost(params: PyTree, topology, exchange: str = "f32",
+                           *, lead: int = 1, rounds: int = 1,
+                           payloads: int = 1,
+                           program: Optional[MixingProgram] = None) -> str:
+    """One-line human-readable :func:`exchange_bytes_per_step` report, in
+    the JAX package's words."""
+    spec = flatbuf.make_flat_spec(params, lead=lead)
+    wire = exchange_bytes_per_step(spec, topology, exchange, rounds,
+                                   payloads, program=program)
+    per_round = "" if rounds == 1 else f" x {rounds} rounds"
+    per_payload = "" if payloads == 1 else f" ({payloads} payload trees)"
+    auto = ""
+    if program is not None and program.compressor_kind == "topk" \
+            and isinstance(program.compressor_param, tuple):
+        # topk:auto:B — the per-bucket densities the budget solver chose
+        rows_list = [b.rows for b in spec.buckets]
+        k_list = tk.topk_k_rows_for(rows_list, program.compressor_param)
+        dens = ", ".join(f"{k / r:.3g}" for k, r in zip(k_list, rows_list))
+        auto = f"; auto per-bucket p=[{dens}]"
+    return (f"exchange={wire['exchange']}: "
+            f"{wire['per_step_bytes']:,} bytes/agent/step "
+            f"on the wire ({wire['degree']:g} neighbors x "
+            f"{wire['per_neighbor_bytes']:,} B{per_round}{per_payload}; native "
+            f"{wire['native_per_step_bytes']:,} B){auto}")
+
+
+def consensus_error_stacked(x: torch.Tensor) -> torch.Tensor:
+    """``mean_j ||x_j - mean(x)||`` for an agent-stacked leaf (Prop. 1 LHS)."""
+    diff = (x - x.mean(dim=0, keepdim=True)).reshape(x.shape[0], -1)
+    return torch.mean(torch.linalg.vector_norm(diff.float(), dim=1))
 
 
 def consensus_error_pytree(tree: PyTree) -> torch.Tensor:

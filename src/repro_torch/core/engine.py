@@ -29,7 +29,11 @@ payload quantized at step ``t-1``:
 with the self term always fresh and native (it never crosses the wire), and
 ``x_{-1} := x_0`` quantized at seed ``-1``.  The staleness rides entirely in
 which buffers feed the self-separated ``_q`` kernels.  Under momentum mixing
-the wire carries ``(x_t, v_t)`` (``v_{-1} := v_0 = 0``).
+the wire carries ``(x_t, v_t)`` (``v_{-1} := v_0 = 0``).  A fault-tolerant
+program (``staleness > 1`` or a fault schedule) carries a depth-``S``
+:class:`~repro_torch.core.consensus.WireRing` instead, through the
+strategy's ``initial_wire`` / ``advance_wire`` hooks; the sync schedule
+rejects it.
 
 Both error-feedback sites go through ``strategy.compress_ef``, which
 threads ``OptState.qwarm`` (the rank compressor's warm start) and, for a
@@ -42,6 +46,7 @@ Gradient accumulation over microbatches is not ported yet (ROADMAP A9).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -100,9 +105,10 @@ def check_overlap_support(optimizer: DistributedOptimizer,
 
 def check_program_support(optimizer: DistributedOptimizer,
                           comm: CommOps) -> consensus.FlatComm:
-    """A non-trivial MixingProgram (error feedback, momentum mixing) needs
-    the fused path: the reference path would silently mix the dense ``Pi``
-    instead.  Momentum mixing also needs an optimizer with a mixable
+    """A non-trivial MixingProgram (time-varying, multi-round, error
+    feedback, momentum mixing, the staleness ring, a compressor) needs the
+    fused path: the reference path would silently mix the fixed dense
+    ``Pi`` instead.  Momentum mixing also needs an optimizer with a mixable
     momentum (the CDMSGD family, CDAdam)."""
     fl = comm.flat
     p = fl.program
@@ -110,7 +116,8 @@ def check_program_support(optimizer: DistributedOptimizer,
         return fl
     fl = _check_fused_flat(
         optimizer, comm,
-        f"mixing strategy 'static' (error_feedback={p.error_feedback}, "
+        f"mixing strategy {p.strategy!r} (rounds={p.rounds}, "
+        f"error_feedback={p.error_feedback}, "
         f"momentum_mixing={p.momentum_mixing})")
     if p.momentum_mixing == "mixed" and not optimizer.has_mixable_momentum:
         raise ValueError(
@@ -155,16 +162,27 @@ def make_update_phase(optimizer: DistributedOptimizer, comm: CommOps,
                       schedule: str = "sync") -> Callable:
     """The update phase group: ``(params, grads, state) -> (params', state')``.
 
-    ``sync``: the optimizer gathers on the current params (staged here with
-    error feedback, whose quantizer threads ``OptState.residual``, and with
-    momentum mixing, whose momentum payload comes from the state).
-    ``overlap``: exchange the carried one-step-stale wire, update, then
+    ``sync``: the optimizer gathers on the current params, running
+    whatever strategy the program carries (``Pi_t`` selected by the step,
+    ``k`` inner rounds); staged here with error feedback, whose quantizer
+    threads ``OptState.residual``, and with momentum mixing, whose momentum
+    payload comes from the state.  ``overlap``: exchange the carried
+    one-step-stale wire (round 1, the only round off the critical path),
+    run rounds ``2..k`` on the partially mixed buffers, update, then
     quantize the current params (and momentum) (EF-compressed when the
-    program asks) as the wire of the next step.
+    program asks) as the wire of the next step; on the fault path
+    ``advance_wire`` pushes that generation into the :class:`~repro_torch.
+    core.consensus.WireRing`.  A fault-tolerant program needs ``overlap``.
     """
     if schedule not in SCHEDULES:
         raise ValueError(f"unknown schedule {schedule!r}; expected one of "
                          f"{SCHEDULES}")
+    fl = comm.flat
+    if fl.program.fault_tolerant and schedule != "overlap":
+        raise ValueError(
+            "staleness > 1 / fault injection needs schedule='overlap': the "
+            "staleness ring generalizes the overlap wire double-buffer — a "
+            "sync exchange has no carried wire state to be stale in")
     fl = check_program_support(optimizer, comm)
     error_feedback = fl.program.error_feedback
     mixed = fl.program.momentum_mixing == "mixed"
@@ -277,14 +295,20 @@ def wire_bytes_per_neighbor(wire) -> int:
     synthesized after the exchange, so they cost nothing.  A compressed
     entry (:class:`~repro_torch.core.consensus.TopKWire` /
     :class:`~repro_torch.core.consensus.RankWire`) counts every field: the
-    receivers can rebuild none of them."""
+    receivers can rebuild none of them.  A :class:`~repro_torch.core.
+    consensus.WireRing` counts ONE ring generation — the sender-selected
+    slot is all that is exchanged, so the bytes do not depend on the ring
+    depth; the stale slots and the age counters are local state."""
+    ring = isinstance(wire, consensus.WireRing)
+    drop = 2 if ring else 1         # the agent axis, and the ring axis
     total = 0
-    for entry in wire:
+    for entry in (wire.slots if ring else wire):
         if isinstance(entry, (consensus.TopKWire, consensus.RankWire)):
             fields = list(entry)
         else:
             payload, scales = entry
             fields = [payload, scales] if payload.element_size() == 1 \
                 else [payload]
-        total += sum(x[0].numel() * x.element_size() for x in fields)
+        total += sum(math.prod(x.shape[drop:]) * x.element_size()
+                     for x in fields)
     return total

@@ -11,6 +11,7 @@ operations on the agent axis, as in :mod:`repro.core.optim`:
     CDMSGD (Nesterov): same, with g evaluated at x_k + mu v_k
     CDAdam:            x_{k+1} = Pi x_k - a_k adam_dir(g), moments local
     FedAvg:            E local SGD(+momentum) steps, then x <- mean(x)
+                       (over the present agents, with ``faults=``)
     Centralized SGD:   g <- mean(g) every step; x_{k+1} = x_k - a_k g
     Gossip SGD:        x <- (x + x[perm_k]) / 2 - a_k g, a random partner
     Time-varying:      CDSGD with Pi_k cycling through a list
@@ -27,8 +28,6 @@ schedule, momentum mixing, the compressors); quantized wires feed the
 self-separated ``_q`` kernels, a mixed momentum the ``_qm`` kernels, the
 top-k wire's compact fields the ``_sparse`` kernels.  The baselines have
 no fused path: they run :meth:`apply` whatever ``fused`` says.
-
-Not ported yet: FedAvg's partial participation (``faults=``, ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -101,17 +100,19 @@ class ExchangeResult:
     ``DistributedOptimizer.update(..., exchanged=...)`` consumes this
     instead of calling ``comm.flat.gather``: the engine ran pack / quantize
     / exchange itself (possibly against the one-step-stale carried wire).
-    ``selfs`` are the fresh native packed params: the self term never
-    crosses the wire and never goes stale.
+    ``selfs`` are the fresh native packed params (under a multi-round
+    program the round ``k-1`` mix): the self term never crosses the wire
+    and never goes stale.
 
     With ``momentum_mixing="mixed"`` the wire carried a second payload
     tree: ``mom_neighbors`` / ``mom_scales`` / ``mom_selfs`` are the
     momentum's operands (same weights as the params), ``None`` otherwise.
     ``mom_selfs`` are the packed momentum buckets the wire was quantized
-    from; the fused kernels write ``v'`` in place, so the optimizers hand
-    them a fresh pack of the same momentum instead and leave these intact
-    (under an f32 wire they are the payload stacks themselves, and the
-    overlap schedule quantizes them as the next step's wire).
+    from (the round ``k-1`` mix of the momentum under a multi-round
+    program); the fused kernels write ``v'`` in place, so the optimizers
+    hand them a copy and leave these intact (under an f32 wire they are
+    the payload stacks themselves, and the overlap schedule quantizes the
+    packed momentum as the next step's wire).
 
     The sparse operand form of the top-k wire: a bucket's ``neighbors``
     entry is a :class:`~repro_torch.kernels.consensus_update.ops.
@@ -223,6 +224,17 @@ def _flat_setup(fl: consensus.FlatComm, params, step, *trees, exchanged=None):
     return spec, nbrs, weights, scales, selfs, others
 
 
+def _mom_bufs(fl: consensus.FlatComm, spec, mom, exchanged):
+    """The momentum buffers the kernels update in place: under momentum
+    mixing a copy of the engine's ``mom_selfs`` (the packed momentum, or the
+    round ``k-1`` mix of a multi-round program; copied, because an f32
+    wire's momentum payload is that very buffer), else a fresh pack of the
+    local momentum tree ``mom``."""
+    if exchanged is not None and exchanged.momentum_mixed:
+        return [m.clone() for m in exchanged.mom_selfs]
+    return fl.pack(mom, spec)
+
+
 def _mom_operands(exchanged: Optional[ExchangeResult], n: int):
     """Per-bucket ``(mom_neighbors, mom_scales)``: the mixed momentum's wire
     operands, or ``None`` pairs when the momentum stays local."""
@@ -284,8 +296,9 @@ class CDMSGD(DistributedOptimizer):
     def apply_fused(self, params, grads, v, alpha, comm, step, *,
                     exchanged=None):
         fl = comm.flat
-        spec, nbrs, w, scs, sfs, (g, vb) = _flat_setup(
-            fl, params, step, grads, v, exchanged=exchanged)
+        spec, nbrs, w, scs, sfs, (g,) = _flat_setup(
+            fl, params, step, grads, exchanged=exchanged)
+        vb = _mom_bufs(fl, spec, v, exchanged)
         pairs = [kops.cdmsgd_update_flat(nb, w, gb, vi, alpha, self.mu,
                                          scales=sc, self_buf=sf,
                                          mom_neighbors=mnb, mom_scales=msc)
@@ -328,8 +341,9 @@ class CDMSGDNesterov(CDMSGD):
     def apply_fused(self, params, grads, inner, alpha, comm, step, *,
                     exchanged=None):
         fl = comm.flat
-        spec, nbrs, w, scs, sfs, (g, vb) = _flat_setup(
-            fl, params, step, grads, inner[0], exchanged=exchanged)
+        spec, nbrs, w, scs, sfs, (g,) = _flat_setup(
+            fl, params, step, grads, exchanged=exchanged)
+        vb = _mom_bufs(fl, spec, inner[0], exchanged)
         triples = [kops.cdmsgd_nesterov_update_flat(
                        nb, w, gb, vi, alpha, self.mu, scales=sc, self_buf=sf,
                        mom_neighbors=mnb, mom_scales=msc)
@@ -391,8 +405,9 @@ class CDAdam(DistributedOptimizer):
         fl = comm.flat
         m, v = inner
         bc1, bc2 = bias_corrections(self.b1, self.b2, step)
-        spec, nbrs, w, scs, sfs, (g, mb, vb) = _flat_setup(
-            fl, params, step, grads, m, v, exchanged=exchanged)
+        spec, nbrs, w, scs, sfs, (g, vb) = _flat_setup(
+            fl, params, step, grads, v, exchanged=exchanged)
+        mb = _mom_bufs(fl, spec, m, exchanged)
         triples = [kops.cdadam_update_flat(
                        nb, w, gb, mi, vi, alpha, self.b1, self.b2, self.eps,
                        bc1, bc2, scales=sc, self_buf=sf, mom_neighbors=mnb,
@@ -456,28 +471,59 @@ class FedAvg(DistributedOptimizer):
     Each agent takes local SGD(+momentum) steps; every ``local_steps``
     steps the parameters AND the momentum are replaced by their global
     averages (the momentum only when ``mu != 0``: with ``mu = 0`` it is
-    ``-alpha g``, already consumed).  Partial participation (``faults=``)
-    is ROADMAP A13.
+    ``-alpha g``, already consumed).
+
+    ``faults`` (a :class:`~repro_torch.core.faults.FaultSchedule`) enables
+    partial participation: at a sync step the server averages over the
+    ``k`` of ``N`` agents present (not straggling at that step; link drops
+    do not apply to the server round-trip), the masked sum renormalized by
+    ``N / k``, and broadcasts the result to everyone; the momentum average
+    is masked the same way.  A sync step where nobody is present keeps
+    every agent's local parameters.  The step is a host int, so the
+    presence row and ``k`` are read on the host; the row's device copy is
+    made once per device.
     """
 
     def __init__(self, schedule, local_steps: int = 1, mu: float = 0.0,
                  faults=None, **kw):
         super().__init__(schedule, **kw)
-        if faults is not None:
-            raise NotImplementedError(
-                "FedAvg(faults=...) (partial participation) is not ported "
-                "yet: ROADMAP A13 (core/faults.py)")
         self.local_steps = int(local_steps)
         self.mu = mu
+        self.faults = faults
+        if faults is not None:
+            faults.validate()
+            self._present = (~faults.straggle).astype(np.float32)   # (P, A)
+            self._present_on = {}
 
     def init_inner(self, params):
         return tree_zeros_like(params)
+
+    def _present_row(self, step: int, device) -> tuple:
+        """``(m (A,) f32 on device, k)``: who reports in at ``step``."""
+        if device not in self._present_on:
+            self._present_on[device] = torch.tensor(self._present,
+                                                    device=device)
+        tp = step % self.faults.period
+        return (self._present_on[device][tp],
+                float(self._present[tp].sum()))
 
     def apply(self, params, grads, v, alpha, comm, step):
         local, new_v = _momentum_step(params, grads, v, alpha, self.mu)
         if self.local_steps > 1 and (step + 1) % self.local_steps:
             return local, new_v
-        return comm.mean(local), (comm.mean(new_v) if self.mu else new_v)
+        if self.faults is None:
+            return comm.mean(local), (comm.mean(new_v) if self.mu else new_v)
+        m, k = self._present_row(step, tree_leaves(local)[0].device)
+        if k == 0:                  # nobody reported in: no sync happened
+            return local, new_v
+        scale = m.shape[0] / k
+
+        def masked_mean(tree):
+            wsum = comm.mean(tree_map(
+                lambda x: x * m.reshape((-1,) + (1,) * (x.dim() - 1)), tree))
+            return tree_map(lambda mn, x: (mn * scale).to(x.dtype), wsum, tree)
+
+        return masked_mean(local), (masked_mean(new_v) if self.mu else new_v)
 
     @property
     def uses_consensus(self):

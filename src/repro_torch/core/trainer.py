@@ -19,9 +19,15 @@ bf16 | int8 | fp8, or the ``compressor="int8"|"fp8"`` aliases),
 (sync | overlap), and the biased compressors on the error-feedback rail,
 ``compressor="topk:p" | "topk:auto:B" | "rank:r"`` with ``sparse_update``
 (default on for top-k: the update kernels read the compact top-k wire;
-``False`` decompresses it for the ``_q`` kernels).  Knobs outside this
-slice raise ``NotImplementedError`` naming their ROADMAP item:
-microbatches, time-varying and multi-round mixing, staleness and faults.
+``False`` decompresses it for the ``_q`` kernels).  ``mixing_strategy``
+(static | time_varying | multi_round) with ``topology_schedule`` (a
+:class:`~repro_torch.core.topology.TopologySchedule` or a spec such as
+``"alternating:ring:torus"`` / ``"gossip:8"``) and ``consensus_rounds``
+select the strategy; ``staleness`` and ``fault_schedule`` (a
+:class:`~repro_torch.core.faults.FaultSchedule` or a spec such as
+``"stall:1:1:3,drop:0:2"``) engage the bounded-staleness ring under
+``schedule="overlap"``.  Microbatches raise ``NotImplementedError``
+(ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -49,7 +55,8 @@ from repro_torch.core.optim import (
     FedAvg,
     stacked_comm_ops,
 )
-from repro_torch.core.topology import Topology
+from repro_torch.core.faults import make_fault_schedule
+from repro_torch.core.topology import Topology, make_topology_schedule
 from repro_torch.device import resolve_device
 from repro_torch.utils.metrics import MetricHistory
 from repro_torch.utils.tree import tree_map
@@ -100,17 +107,26 @@ class CollaborativeTrainer:
         compressor: str = "none",
         sparse_update: Optional[bool] = None,
     ):
-        if topology_schedule is not None:
-            raise NotImplementedError(
-                "topology_schedule is not ported yet: ROADMAP A13 "
-                "(TopologySchedule)")
+        if isinstance(topology_schedule, str):
+            topology_schedule = make_topology_schedule(topology_schedule,
+                                                       topology.n_agents)
+        if topology_schedule is not None and \
+                topology_schedule.n_agents != topology.n_agents:
+            raise ValueError(
+                f"topology_schedule spans {topology_schedule.n_agents} agents "
+                f"but the topology has {topology.n_agents}")
+        if isinstance(fault_schedule, str):
+            fault_schedule = make_fault_schedule(fault_schedule,
+                                                 topology.n_agents)
         self.program: MixingProgram = make_mixing_program(
-            topology, strategy=mixing_strategy, rounds=consensus_rounds,
+            topology_schedule if topology_schedule is not None else topology,
+            strategy=mixing_strategy, rounds=consensus_rounds,
             error_feedback=error_feedback, exchange=exchange,
             momentum_mixing=momentum_mixing, staleness=staleness,
             faults=fault_schedule, compressor=compressor,
             sparse_update=sparse_update)
         self.exchange = self.program.exchange
+        self.faults = self.program.faults
         self.schedule = schedule
         if self.exchange != "f32" and not getattr(optimizer, "fused", False):
             warnings.warn(
@@ -139,15 +155,19 @@ class CollaborativeTrainer:
                                 opt_state=self._program.init_state(stacked))
         self.history = MetricHistory()
         # per-step bytes on the wire (estimate): the neighbor exchange of a
-        # consensus optimizer (momentum mixing doubles the payload trees; a
-        # compressor prices its carried fields);
-        # none for the centralized baselines; FedAvg's whole-model
-        # all-reduce once per local_steps, amortized per step
+        # consensus optimizer (k rounds move k x the bytes, a time-varying
+        # schedule its period-mean degree, momentum mixing doubles the
+        # payload trees, a compressor prices its carried fields); none for
+        # the centralized baselines; FedAvg's whole-model all-reduce once
+        # per local_steps, amortized per step
         spec = flatbuf.make_flat_spec(stacked, lead=1)
         self.wire_bytes_per_step = 0
         if optimizer.uses_consensus:
+            sched = self.program.schedule
             self.wire_bytes_per_step = exchange_bytes_per_step(
-                spec, topology, program=self.program)["per_step_bytes"]
+                spec, topology if sched.is_static else sched,
+                rounds=self.program.rounds,
+                program=self.program)["per_step_bytes"]
         elif isinstance(optimizer, FedAvg):
             self.wire_bytes_per_step = mean_exchange_bytes_per_step(
                 spec, topology.n_agents, period=optimizer.local_steps,

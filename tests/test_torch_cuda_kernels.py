@@ -793,3 +793,84 @@ def test_wkv6_kernel_rejects_what_it_cannot_take_on_card():
         rs.wkv6(r, r, r, r.bfloat16(), torch.zeros((2, 64), device=dev))
     with pytest.raises(RuntimeError, match="no backward"):
         rs.wkv6(r.clone().requires_grad_(), r, r, r, torch.zeros((2, 64), device=dev))
+
+
+def _masked_weight_rows(dev):
+    """The fault path's device weight table of a time-varying program with
+    dropped links: row ``t`` is what step ``t`` hands the ``_q`` kernels."""
+    from repro_torch.core.consensus import make_mixing_program, stacked_flat_comm
+    from repro_torch.core.faults import make_fault_schedule
+    from repro_torch.core.topology import make_topology_schedule
+
+    prog = make_mixing_program(
+        make_topology_schedule("alternating:ring:fully_connected", 5),
+        strategy="time_varying", exchange="int8", staleness=2,
+        faults=make_fault_schedule("drop:0:2,droplink:3:1:1:2,straggler:4:1", 5))
+    return stacked_flat_comm(None, program=prog, device=dev).strategy.fault_ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", [0, 1, 3])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float32], ids=str)
+@pytest.mark.parametrize("name", ["cdsgd_update_q", "cdmsgd_update_q",
+                                  "cdmsgd_nesterov_update_q", "cdadam_update_q"])
+def test_q_kernels_take_a_step_indexed_masked_weight_row(name, dtype, step):
+    """The ``(A, A+1)`` arrival-masked weight row that step ``step`` hands
+    the kernels (one device tensor per period step, 16-byte aligned), its
+    zero weights from dropped links and a masked straggler: the kernels
+    agree with their plain versions."""
+    dev = _card()
+    fo = _masked_weight_rows(dev)
+    w = fo.weights[step % fo.period]
+    assert w.shape == (5, 6) and w.data_ptr() % 16 == 0
+    assert float(w[0, 1 + 2]) == 0.0                  # link 0 <- 2 is down
+    torch.testing.assert_close(w.sum(dim=1), torch.ones(5, device=dev))
+    rows = 1001
+    if name in B4:
+        mix, state, scalars = _b4_operands(dev, name, 5, 5, rows, dtype, seed=step)
+        plain = B4[name][0]
+    else:
+        _, slf, q, sc, g, v = _q_operands(dev, 5, 5, rows, dtype, seed=step)
+        mix, state, scalars = [None, slf, q, sc], [g, v], (ALPHA, MU)
+        plain = {"cdsgd_update_q": ref.cdsgd_update_q_ref,
+                 "cdmsgd_update_q": ref.cdmsgd_update_q_ref}[name]
+        if name == "cdsgd_update_q":
+            state, scalars = [g], (ALPHA,)
+    mix[0] = w
+    want = plain(*mix, *state, *scalars)
+    want = want if isinstance(want, tuple) else (want,)
+    outs = [t.clone() for t in state]
+    n = cu.KERNELS[name].launches
+    got = cu.KERNELS[name](*mix, *outs, *scalars)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    assert cu.KERNELS[name].launches == n + 1
+    for g, ww in zip(got, want):
+        assert float((g - ww).abs().max()) <= ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exchange", ["int8", "fp8"])
+@pytest.mark.parametrize("step", [0, 7, 2148, 2**31 - 5])
+def test_sr_quantize_at_round_seeds_matches_plain_version(exchange, step):
+    """The inner consensus rounds of a multi-round program quantize at
+    ``wire_seed(step, rnd=r)`` (the round stride 611953, wrapping int32
+    once): codes and scales bit for bit for rounds 0..2, and the rounds'
+    int8 streams differ."""
+    from repro_torch.core.consensus import wire_seed
+
+    dev = _card()
+    x = _bucket(dev, 5, 1001, seed=step % 977)
+    codes = []
+    for r in range(3):
+        seed = wire_seed(step, rnd=r)
+        assert seed == wire_seed(step + 611953 * r)
+        q, sc = cu.sr_quantize(x, seed, exchange, agent_stride=104729)
+        torch.cuda.synchronize()
+        want_q, want_sc = ref.sr_quantize_ref(x, seed, exchange, 104729)
+        assert torch.equal(q.view(torch.uint8), want_q.view(torch.uint8))
+        assert torch.equal(sc, want_sc)
+        codes.append(q)
+    if exchange == "int8":
+        assert not torch.equal(codes[0], codes[1])
+        assert not torch.equal(codes[1], codes[2])

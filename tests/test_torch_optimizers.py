@@ -30,6 +30,7 @@ from repro.core.trainer import CollaborativeTrainer as JTrainer  # noqa: E402
 from repro.nn import paper_models as jpm  # noqa: E402
 from repro.nn.param import init_params as jinit  # noqa: E402
 from repro_torch.core import make_topology  # noqa: E402
+from repro_torch.core import faults as tfaults  # noqa: E402
 from repro_torch.core import optim as toptim  # noqa: E402
 from repro_torch.core.trainer import CollaborativeTrainer, train_loop  # noqa: E402
 from repro_torch.data import AgentPartitioner, make_classification  # noqa: E402
@@ -243,8 +244,17 @@ def test_fedavg_matches_handrolled_e_step_reference(setup):
         np.testing.assert_allclose(p["w"].numpy(), x, rtol=0, atol=TRAJ_ATOL)
         np.testing.assert_allclose(st.inner["w"].numpy(), v, rtol=0,
                                    atol=TRAJ_ATOL)
-    with pytest.raises(NotImplementedError, match="A13"):
-        toptim.FedAvg(ALPHA, faults=object())
+    # partial participation (ROADMAP A13, ported): with every agent present
+    # the masked mean is the plain one
+    full = toptim.FedAvg(ALPHA, local_steps=e, mu=mu,
+                         faults=tfaults.trivial_faults(N))
+    pf, sf = _t(x0), full.init(_t(x0))
+    pp, sp = _t(x0), opt.init(_t(x0))
+    for t in range(e):
+        pf, sf = full.update(pf, _t(g0), sf, tcomm)
+        pp, sp = opt.update(pp, _t(g0), sp, tcomm)
+    np.testing.assert_allclose(pf["w"].numpy(), pp["w"].numpy(), rtol=0,
+                               atol=TRAJ_ATOL)
 
 
 def test_make_optimizer_table():

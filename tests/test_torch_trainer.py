@@ -29,6 +29,7 @@ from repro.data import AgentPartitioner as JPartitioner  # noqa: E402
 from repro.nn import paper_models as jpm  # noqa: E402
 from repro.nn.param import init_params as jinit  # noqa: E402
 from repro_torch.core import make_optimizer, make_topology, stacked_comm_ops  # noqa: E402
+from repro_torch.core.faults import make_fault_schedule  # noqa: E402
 from repro_torch.core.trainer import CollaborativeTrainer, train_loop  # noqa: E402
 from repro_torch.data import AgentPartitioner, make_classification  # noqa: E402
 from repro_torch.nn import paper_models as tpm  # noqa: E402
@@ -125,19 +126,41 @@ def test_trainer_without_device_raises_without_cuda(setup, monkeypatch):
     ({"error_feedback": True}, ValueError, "lossy wire"),
 ])
 def test_unported_knobs_raise(setup, knob, err, item):
+    """Knobs outside the port raise; the ``A13`` rows name the refusal
+    these knobs raised before ROADMAP A13 was ported: now each builds, or
+    raises the JAX trainer's own ``ValueError`` (``staleness=2`` under the
+    sync schedule)."""
     _, _, jp = setup
-    with pytest.raises(err, match=item):
-        CollaborativeTrainer(
-            functools.partial(tpm.classifier_loss, tpm.mlp_classifier_apply),
-            params_from_numpy(jax.tree.map(np.asarray, jp), "cpu"),
-            make_topology("ring", 5), make_optimizer("cdsgd", 0.05, fused=True),
-            device="cpu", **knob)
+    build = functools.partial(
+        CollaborativeTrainer,
+        functools.partial(tpm.classifier_loss, tpm.mlp_classifier_apply),
+        params_from_numpy(jax.tree.map(np.asarray, jp), "cpu"),
+        make_topology("ring", 5), make_optimizer("cdsgd", 0.05, fused=True),
+        device="cpu", **knob)
+    if item != "A13":
+        with pytest.raises(err, match=item):
+            build()
+        return
+    try:
+        JTrainer(functools.partial(jpm.classifier_loss, jpm.mlp_classifier_apply),
+                 jp, jmake_topology("ring", 5),
+                 jmake_optimizer("cdsgd", 0.05, fused=True), **knob)
+    except ValueError as e:
+        with pytest.raises(ValueError, match="schedule='overlap'"):
+            build()
+        assert "schedule='overlap'" in str(e)
+        return
+    tr = build()
+    assert tr.program.rounds == knob.get("consensus_rounds", 1)
+    assert tr.program.strategy == "multi_round"
 
 
 def test_make_optimizer_names():
     assert type(make_optimizer("CDSGD", 0.1)).__name__ == "CDSGD"
     assert type(make_optimizer("cdadam", 0.1)).__name__ == "CDAdam"
-    with pytest.raises(NotImplementedError, match="A13"):
-        make_optimizer("fedavg", 0.1, faults=object())
+    # partial participation (ROADMAP A13): a fault schedule is taken
+    fed = make_optimizer("fedavg", 0.1, faults=make_fault_schedule(
+        "straggler:1:1", 5))
+    assert type(fed).__name__ == "FedAvg" and fed.faults.period == 2
     with pytest.raises(ValueError, match="unknown optimizer"):
         make_optimizer("adamw", 0.1)

@@ -195,12 +195,19 @@ def test_mixing_program_knobs():
         ({"strategy": "gossip"}, ValueError, "unknown mixing strategy"),
         ({"rounds": 0}, ValueError, "rounds"),
         ({"sparse_update": True}, ValueError, "sparse_update"),
-        ({"exchange": "int8", "rounds": 2}, NotImplementedError, "A13"),
-        ({"strategy": "time_varying"}, NotImplementedError, "A13"),
+        # ROADMAP A13, ported: these build (err None), as in the reference
+        ({"exchange": "int8", "rounds": 2}, None, "multi_round"),
+        ({"strategy": "time_varying"}, None, "time_varying"),
         ({"momentum_mixing": "both"}, ValueError, "momentum_mixing"),
-        ({"staleness": 3}, NotImplementedError, "A13"),
+        ({"staleness": 3}, None, "static"),
         ({"compressor": "rank:4"}, ValueError, "needs --error-feedback"),
     ]:
+        if err is None:
+            p = tcons.make_mixing_program(topo, **kw)
+            assert p.strategy == match and not p.is_trivial
+            assert p.describe() == jcons.make_mixing_program(
+                jtopo.make_topology("ring", A), **kw).describe()
+            continue
         with pytest.raises(err, match=match):
             tcons.make_mixing_program(topo, **kw)
 
