@@ -172,6 +172,40 @@ path with its launch counts set to 0 before it and read after it:
     from the card's state (the ring's slots bit for bit, ``send_age`` and
     ``ages`` equal, params within 1e-4).
 
+The LM training slice (the model zoo trained through
+``repro_torch.launch.train``, with bf16 parameter buckets in the update and
+quantize kernels, and checkpoint / resume) adds:
+
+3c. the dense and ``_q`` forms of CDSGD / CDMSGD and ``sr_quantize`` on
+    bf16 buckets (``BF16_FORMS``) against their plain versions bit for bit
+    on 1/16 of gemma3-1b's bucket (488,190 of 7,811,037 rows, A = S = 4 on
+    a ring) and at 1,001 rows, every neighbour / payload / code type; then
+    timed at the whole bucket (CUDA events, kernel-only from the profiler)
+    beside the bf16 byte bound and the plain version over the bucket in 16
+    row slices; each a ``:bf16`` entry of the ``kernels`` line, its
+    launches the bf16-bucket launches of phases 10-12;
+10. gemma3-1b at full width and depth through ``repro_torch.launch.train.
+    main`` (``--preset full --agents 3 --topology ring --batch 1 --seq
+    1024``: 22 banded local layers, 4 blockwise global ones; 4 agents ran
+    out of the card's memory): fused CDMSGD
+    on the f32 wire (one ``cdmsgd_update`` a step), CDSGD on the int8 wire
+    with the overlap schedule (one ``sr_quantize`` and one
+    ``cdsgd_update_q`` a step, one ``sr_quantize`` at init), fused CDMSGD
+    with 2 microbatches (batch 2); 5 steps each, every launch on the bf16
+    bucket, no flash or WKV6 launch, finite losses, the steady median step,
+    tokens/s, peak memory, wire bytes against the accounting and one
+    profiled step with the update kernels' share;
+11. rwkv6-1.6b the same way (2 agents fully connected, batch 2, seq 128:
+    the chunked WKV; fused CDSGD, 3 steps);
+12. resume: gemma3-1b at full width with 2 layers, 2 agents, CDMSGD int8
+    overlap with error feedback: 4 uninterrupted steps equal 2 +
+    checkpoint + ``--resume`` + 2 bit for bit (params, momentum, wire,
+    residual), the checkpoint restored on the CPU equal too (a temporary
+    directory, removed);
+13. card against CPU on reduced gemma3-1b: two float32 steps within 1e-4
+    on ``live_weights``; the bf16 update phase (f32-wire CDMSGD, int8-wire
+    CDSGD) from one state with the card's gradients, bit for bit.
+
 Any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 float32 matmuls and convolutions run in full float32 (TF32 off).
@@ -179,17 +213,26 @@ float32 matmuls and convolutions run in full float32 (TF32 off).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# the LM phases hold a 1 B-parameter model's buckets (8 GB each at 4
+# agents) beside freed activations of every size: without expandable
+# segments the caching allocator's reserved blocks fragment and an 8 GB
+# request fails with 27 GB reserved but free (an H100 80GB)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -199,7 +242,8 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from repro_torch.benchmarks import common as bench  # noqa: E402
 from repro_torch.benchmarks import consensus_radius  # noqa: E402
 from repro_torch.benchmarks import fig1a_cdsgd_vs_sgd, fig1b_cdmsgd_vs_fedavg  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.checkpoint import restore_train_state  # noqa: E402
+from repro_torch.configs import ARCH_CONFIGS, get_config  # noqa: E402
 from repro_torch.core import make_optimizer, make_topology  # noqa: E402
 from repro_torch.core.consensus import (  # noqa: E402
     WireRing,
@@ -210,7 +254,12 @@ from repro_torch.core.faults import make_fault_schedule  # noqa: E402
 from repro_torch.core.engine import wire_bytes_per_neighbor  # noqa: E402
 from repro_torch.core.flatbuf import make_flat_spec  # noqa: E402
 from repro_torch.core.trainer import CollaborativeTrainer, TrainState  # noqa: E402
-from repro_torch.data import AgentPartitioner, make_classification  # noqa: E402
+from repro_torch.data import (  # noqa: E402
+    AgentPartitioner,
+    lm_agent_batches,
+    make_classification,
+    make_lm_tokens,
+)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.consensus_update import consensus_update as cu  # noqa: E402
 from repro_torch.kernels.consensus_update import ref  # noqa: E402
@@ -219,6 +268,7 @@ from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.rwkv_scan import rwkv_scan as rs  # noqa: E402
 from repro_torch.kernels.rwkv_scan.ref import wkv6_ref  # noqa: E402
+from repro_torch.launch import train as lm_train  # noqa: E402
 from repro_torch.launch.serve import make_prompt, serve  # noqa: E402
 from repro_torch.nn import transformer as tt  # noqa: E402
 from repro_torch.nn.param import count_params, init_params  # noqa: E402
@@ -423,6 +473,47 @@ BENCH_FUSED = (("fig1a/cdsgd_fused", "cdsgd", 150, {}, "cdsgd_update"),
                ("fig1b/cdmsgd_fused", "cdmsgd", 200, {"mu": MU}, "cdmsgd_update"))
 BENCH_PARITY_STEPS = 20
 BENCH_TOL = 1e-4               # relative: loss, consensus, Prop. 1's numbers
+# phase 3c, the bf16 parameter buckets of the model zoo's training path:
+# name in the kernels line -> (wrapper, CUDA kernel symbol, the TPU kernel)
+BF16_FORMS = {
+    "cdsgd_update:bf16": ("cdsgd_update", "cdsgd_kernel", f"{_TPU}:687"),
+    "cdmsgd_update:bf16": ("cdmsgd_update", "cdmsgd_kernel", f"{_TPU}:729"),
+    "cdsgd_update_q:bf16": ("cdsgd_update_q", "cdsgd_q_kernel", f"{_TPU}:257"),
+    "cdmsgd_update_q:bf16": ("cdmsgd_update_q", "cdmsgd_q_kernel", f"{_TPU}:276"),
+    "sr_quantize:bf16": ("sr_quantize", "sr_quantize_kernel", f"{_TPU}:130"),
+}
+LM_AGENTS = 4                  # gemma3-1b's bucket at A = S = 4 (ring)
+# gemma3-1b trains on 3 agents: at 4 (batch 1, seq 1024) the grad phase ran
+# out of the H100's 80 GB (77.67 GiB allocated: 8 GB of bf16 params, 8 of
+# momentum, 8 of gradients, the saved activations and the float32 loss of
+# a 262,144-token vocabulary for 4 agents at once under vmap)
+GEMMA_TRAIN_AGENTS = 3
+CARD = "cuda"                  # the LM phases' device
+LM_SLICES = 16                 # the plain versions run on 1/16 of its rows
+# phases 10-11, training through repro_torch.launch.train.main: (label,
+# arch, agents, topology, batch per agent, seq, steps, flags, launches at
+# init, launches per step); every launch on the bf16 bucket
+LM_RUNS = (
+    ("gemma3-1b cdmsgd f32 sync", "gemma3-1b", GEMMA_TRAIN_AGENTS, "ring", 1, 1024, 5,
+     ["--optimizer", "cdmsgd", "--fused"], {}, {"cdmsgd_update": 1}),
+    ("gemma3-1b cdsgd int8 overlap", "gemma3-1b", GEMMA_TRAIN_AGENTS, "ring", 1, 1024,
+     5,
+     ["--optimizer", "cdsgd", "--exchange", "int8", "--schedule", "overlap"],
+     {"sr_quantize": 1}, {"sr_quantize": 1, "cdsgd_update_q": 1}),
+    # microbatches split each agent's batch: 2 sequences of 1024 per agent
+    ("gemma3-1b cdmsgd f32 sync microbatch 2", "gemma3-1b", GEMMA_TRAIN_AGENTS,
+     "ring", 2, 1024, 5, ["--optimizer", "cdmsgd", "--fused", "--microbatch", "2"], {},
+     {"cdmsgd_update": 1}),
+    ("rwkv6-1.6b cdsgd f32 sync", "rwkv6-1.6b", 2, "fully_connected", 2, 128, 3,
+     ["--optimizer", "cdsgd", "--fused"], {}, {"cdsgd_update": 1}),
+)
+# phase 12, resume: gemma3-1b at full width with 2 layers (0.36 B
+# parameters), 2 agents, CDMSGD int8 overlap with error feedback; the
+# whole run's steps, and the split run's before its checkpoint
+RESUME_STEPS, RESUME_SPLIT = 4, 2
+RESUME_FLAGS = ["--agents", "2", "--topology", "fully_connected", "--batch", "1",
+                "--seq", "1024", "--optimizer", "cdmsgd", "--exchange", "int8",
+                "--schedule", "overlap", "--error-feedback"]
 
 
 def card_line() -> str:
@@ -493,10 +584,13 @@ def _family(name: str) -> str:
 
 
 def bound(name: str, a_out: int, s: int, rows: int,
-          dtype: torch.dtype = torch.float32, k_rows: int = 0):
+          dtype: torch.dtype = torch.float32, k_rows: int = 0,
+          bucket: torch.dtype = torch.float32):
     """(bound_ms, bound_by): least bytes over HBM rate vs float32 operations
     over the f32 peak.  ``dtype`` is the neighbour / payload / code type;
-    every other operand is float32.  The ``_qm`` forms read two payloads.
+    ``bucket`` the type of the self, gradient, momentum and output buffers
+    (``sr_quantize``: of its input); weights and scales are float32.  The
+    ``_qm`` forms read two payloads.
     For ``sr_quantize`` ``a_out`` is the agent count (Philox's integer work
     is not counted: the table gives no int32 rate, and the float work alone
     is far under the byte time).  Adam's divisions and square root count
@@ -508,6 +602,7 @@ def bound(name: str, a_out: int, s: int, rows: int,
     float32 operations, its integer adds not."""
     n = rows * 128
     esize = torch.empty((), dtype=dtype).element_size()
+    bsize = torch.empty((), dtype=bucket).element_size()
     state = STATE[_family(name)]
     tail = TAIL_FLOPS[_family(name)]
     payloads = 2 if name.endswith("_qm") else 1
@@ -520,15 +615,15 @@ def bound(name: str, a_out: int, s: int, rows: int,
                   + 4 * a_out * n + 4 * state * a_out * n)
         flops = a_out * n * (1 + tail) + s * kk * (1 + 2 * a_out)
     elif name == "sr_quantize":
-        nbytes = a_out * (4 * n + esize * n + 4 * rows)
+        nbytes = a_out * (bsize * n + esize * n + 4 * rows)
         flops = a_out * n * 8      # |x|, max, divide, + u, floor, 2 clamps, cast
     elif name.endswith(("_q", "_qm")):
-        nbytes = (4 * a_out * (s + 1) + 4 * a_out * n
+        nbytes = (4 * a_out * (s + 1) + bsize * a_out * n
                   + payloads * (esize * s * n + 4 * s * rows)
-                  + 4 * state * a_out * n)
+                  + bsize * state * a_out * n)
         flops = a_out * n * (payloads * (1 + 3 * s) + tail)
     else:
-        nbytes = 4 * a_out * s + esize * s * n + 4 * state * a_out * n
+        nbytes = 4 * a_out * s + esize * s * n + bsize * state * a_out * n
         flops = a_out * n * (2 * s + tail)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -2188,6 +2283,444 @@ def _card_vs_cpu(cfg, cpu_params, toks):
     return _rel_gap(got, want), _serving_counts(), cpu_s
 
 
+# ---------------------------------------------------------------------------
+# the model zoo's training path: bf16 parameter buckets (phases 3c, 10-13)
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_bucket_rows(arch: str = "gemma3-1b") -> int:
+    """Rows of the architecture's one bf16 parameter bucket (per agent)."""
+    spec = make_flat_spec(tt.model_template(get_config(arch)))
+    if [b.dtype for b in spec.buckets] != [torch.bfloat16]:
+        raise AssertionError(f"{arch}: expected one bf16 bucket, got "
+                             f"{[b.dtype for b in spec.buckets]}")
+    return spec.buckets[0].rows
+
+
+def _bf16_rows(gen, a: int, rows: int) -> torch.Tensor:
+    """``_bucket`` rounded to bf16: rows over six decades, row 0 zero."""
+    return _bucket(gen, a, rows).to(torch.bfloat16)
+
+
+def _equal_bits(got, want) -> bool:
+    """Two tensors on one device with equal dtype, shape and bytes."""
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and torch.equal(got.view(torch.uint8), want.view(torch.uint8)))
+
+
+def _bf16_form_calls(name, w, wq, x, q, sc, slf, g, v, seed):
+    """``(kernel call, plain version call, outputs-written-in-place)`` of one
+    bf16-bucket form on the given operands (the kernel writes into ``g``,
+    ``v``)."""
+    if name == "cdsgd_update:bf16":
+        return (lambda: (cu.cdsgd_update(w, x, g, LR),),
+                lambda: (ref.cdsgd_update_ref(w, x, g, LR),))
+    if name == "cdmsgd_update:bf16":
+        return (lambda: cu.cdmsgd_update(w, x, g, v, LR, MU),
+                lambda: ref.cdmsgd_update_ref(w, x, g, v, LR, MU))
+    if name == "cdsgd_update_q:bf16":
+        return (lambda: (cu.cdsgd_update_q(wq, slf, q, sc, g, LR),),
+                lambda: (ref.cdsgd_update_q_ref(wq, slf, q, sc, g, LR),))
+    if name == "cdmsgd_update_q:bf16":
+        return (lambda: cu.cdmsgd_update_q(wq, slf, q, sc, g, v, LR, MU),
+                lambda: ref.cdmsgd_update_q_ref(wq, slf, q, sc, g, v, LR, MU))
+    return (lambda: cu.sr_quantize(x, seed, "int8", agent_stride=104729),
+            lambda: ref.sr_quantize_ref(x, seed, "int8", 104729))
+
+
+def check_bf16_buckets(results: dict, gen) -> None:
+    """Phase 3c: the forms of the model zoo's training path on bf16
+    parameter buckets (gemma3-1b's one bucket, A = S = 4 on a ring).  Each
+    against its plain version bit for bit on 1/16 of the bucket's rows
+    (the plain versions' float32 temporaries at the whole bucket would take
+    16 GB each) and at 1,001 rows, with f32 and bf16 neighbours, int8, fp8
+    and bf16 payloads, int8 and fp8 codes; then CUDA-event and kernel-only
+    (``torch.profiler``) times at the whole bucket beside the byte bound,
+    and the plain version's time over the whole bucket in 16 row slices."""
+    dev = torch.device(CARD)
+    a, full = LM_AGENTS, lm_bucket_rows()
+    pi = make_topology("ring", a).pi
+    w = torch.tensor(pi, dtype=torch.float32, device=dev)
+    wq = torch.tensor(_self_separated_weights(pi), dtype=torch.float32, device=dev)
+    part = -(-full // LM_SLICES)
+    for rows in (part, 1001):
+        x = _bf16_rows(gen, a, rows)
+        slf, g, v = (_bf16_rows(gen, a, rows) for _ in range(3))
+        for name in BF16_FORMS:
+            variants = [("bf16", x)]
+            if name.startswith("cdsgd_update:") or name.startswith("cdmsgd_update:"):
+                variants.append(("f32 neighbours", x.float()))
+            elif name.endswith("_q:bf16"):
+                variants = [(k, None) for k in ("int8", "fp8", "bf16")]
+            elif name == "sr_quantize:bf16":
+                variants.append(("fp8", x))
+            for label, xv in variants:
+                q, sc = None, None
+                if label in ("int8", "fp8") and name != "sr_quantize:bf16":
+                    q, sc = cu.sr_quantize(x, 5, label, agent_stride=104729)
+                elif label == "bf16" and name.endswith("_q:bf16"):
+                    q, sc = x, torch.ones((a, rows, 1), device=dev)
+                outs = [g.clone(), v.clone()]
+                kernel, plain = _bf16_form_calls(name, w, wq, xv, q, sc, slf,
+                                                 *outs, rows)
+                if name == "sr_quantize:bf16" and label == "fp8":
+                    kernel = lambda: cu.sr_quantize(x, rows, "fp8")   # noqa: E731
+                    plain = lambda: ref.sr_quantize_ref(x, rows, "fp8")  # noqa: E731
+                want = [t.clone() for t in plain()]
+                got = kernel()
+                torch.cuda.synchronize()
+                if not all(_equal_bits(gt, wt) for gt, wt in zip(got, want)):
+                    raise AssertionError(f"{name} [{label} rows={rows}] differs "
+                                         "from its plain version")
+                if name != "sr_quantize:bf16" and got[0].data_ptr() != outs[0].data_ptr():
+                    raise AssertionError(f"{name} did not write its output in place")
+        del x, slf, g, v
+    print(f"kernel bf16 buckets: every form bit for bit against its plain version "
+          f"at A = S = {a}, rows {part} (1/{LM_SLICES} of gemma3-1b's {full}) and "
+          "1001 (f32 / bf16 neighbours; int8 / fp8 / bf16 payloads; int8 / fp8 codes)")
+    _free()
+    # the whole bucket: 4 x 7,811,037 x 128 bf16 per operand (8.0 GB)
+    x = torch.randn((a, full, 128), generator=gen, device=dev, dtype=torch.bfloat16)
+    slf, g, v = (torch.randn((a, full, 128), generator=gen, device=dev,
+                             dtype=torch.bfloat16) for _ in range(3))
+    q, sc = cu.sr_quantize(x, 11, "int8", agent_stride=104729)
+    bounds = {"cdsgd_update:bf16": bound("cdsgd_update", a, a, full, torch.bfloat16,
+                                         bucket=torch.bfloat16),
+              "cdmsgd_update:bf16": bound("cdmsgd_update", a, a, full, torch.bfloat16,
+                                          bucket=torch.bfloat16),
+              "cdsgd_update_q:bf16": bound("cdsgd_update_q", a, a, full, torch.int8,
+                                           bucket=torch.bfloat16),
+              "cdmsgd_update_q:bf16": bound("cdmsgd_update_q", a, a, full, torch.int8,
+                                            bucket=torch.bfloat16),
+              "sr_quantize:bf16": bound("sr_quantize", a, 0, full, torch.int8,
+                                        bucket=torch.bfloat16)}
+    cuts = [(i * part, min(full, (i + 1) * part)) for i in range(LM_SLICES)]
+    for name, (wrapper, symbol, _) in BF16_FORMS.items():
+        kernel, _ = _bf16_form_calls(name, w, wq, x, q, sc, slf, g, v, 11)
+
+        def plain(name=name):
+            for r0, r1 in cuts:
+                _bf16_form_calls(name, w, wq, x[:, r0:r1], q[:, r0:r1],
+                                 sc[:, r0:r1], slf[:, r0:r1], g[:, r0:r1],
+                                 v[:, r0:r1], 11)[1]()
+
+        ms = cuda_ms(kernel, iters=10, warmup=2)
+        # sr_quantize's plain version draws its Philox stream in int64
+        # tensors: seconds over the whole bucket, so one timed call
+        plain_ms = (cuda_ms(plain, iters=1, warmup=0) if wrapper == "sr_quantize"
+                    else cuda_ms(plain, iters=2, warmup=1))
+        dev_ms = device_ms(kernel, symbol, iters=5)
+        b_ms, b_by = bounds[name]
+        results[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        print(f"kernel {name} [bucket] A={a} rows={full} bf16 bucket "
+              f"({'int8 payload' if name.endswith('_q:bf16') else 'bf16 neighbours' if wrapper != 'sr_quantize' else 'int8 codes'}): "
+              f"bit for bit (above) ms={ms:.5f} plain_ms={plain_ms:.5f} (the whole "
+              f"bucket in {LM_SLICES} row slices) library_ms=none bound_ms={b_ms:.5f} "
+              f"({b_by}) bound_share={b_ms / ms:.3f} kernel_only_ms="
+              f"{'not measured' if dev_ms is None else f'{dev_ms:.5f}'}")
+    del x, slf, g, v, q, sc
+    _free()
+
+
+@contextlib.contextmanager
+def timed_steps(record: list):
+    """Wrap ``CollaborativeTrainer.step`` while a training entry point runs:
+    each step synchronized and timed, with its loss and the launch counts
+    after it, appended to ``record``."""
+    original = CollaborativeTrainer.step
+
+    def step(self, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = original(self, batch)
+        torch.cuda.synchronize()
+        record.append({"ms": 1e3 * (time.perf_counter() - t0), "loss": out["loss"],
+                       "counts": cu.launch_counts()})
+        return out
+
+    CollaborativeTrainer.step = step
+    try:
+        yield
+    finally:
+        CollaborativeTrainer.step = original
+
+
+@contextlib.contextmanager
+def live_init(cfg):
+    """The training entry point draws its weights (``init_params``, seed as
+    given) and makes them well conditioned with :func:`live_weights` before
+    they go to the card.  The template's ``scaled`` init reads the head
+    axis of the attention projections as their fan-in, and gemma3-1b's
+    gradient grows with depth from it (a float32 loss at seq 128: norm
+    1.5e3 at 2 layers, 5.2e5 at 7, on a CPU): at full depth one step at lr
+    0.01 left the agents 4.6e11 apart and the loss NaN two steps later."""
+    original = lm_train.init_params
+
+    def init(template, seed, device=None):
+        return tree_map(lambda t: t.to(device),
+                        live_weights(cfg, original(template, seed), seed + 1))
+
+    lm_train.init_params = init
+    try:
+        yield
+    finally:
+        lm_train.init_params = original
+
+
+def profile_lm_step(tr, batch, what: str, symbols) -> None:
+    """One more training step under ``torch.profiler`` (after the counts):
+    its device time and the share of the update kernels (``symbols``)."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.step(batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    update = sum(t for n, t in by_name.items() if any(sym in n for sym in symbols))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    print(f"profile {what}: one step, wall {wall_ms:.1f} ms, device {busy:.1f} ms "
+          f"({busy / wall_ms:.1%} busy); update kernels {update:.3f} ms "
+          f"({update / max(busy, 1e-9):.2%} of device time); top: "
+          + "; ".join(f"{n[:40]} {t:.1f} ms" for n, t in top))
+
+
+def _want_counts(init: dict, per_step: dict, steps: int) -> dict:
+    return {k: init.get(k, 0) + steps * per_step.get(k, 0) for k in cu.KERNELS}
+
+
+def lm_train_path() -> dict:
+    """Phases 10-11: gemma3-1b (full width and depth; f32 wire CDMSGD, int8
+    overlap CDSGD, CDMSGD with 2 microbatches) and rwkv6-1.6b (CDSGD)
+    trained through ``repro_torch.launch.train.main`` on the card, each run
+    with every launch count set to 0 before it and read after it: exact
+    launches a step, all on the bf16 bucket, no flash / WKV6 launch,
+    finite losses, wire bytes against the accounting.  Returns the runs'
+    launches by kernel and bucket type."""
+    total = {k: {"float32": 0, "bfloat16": 0} for k in cu.KERNELS}
+    for (label, arch, agents, topo, batch, seq, steps, flags, init,
+         per_step) in LM_RUNS:
+        argv = ["--arch", arch, "--preset", "full", "--agents", str(agents),
+                "--topology", topo, "--batch", str(batch), "--seq", str(seq),
+                "--steps", str(steps), "--log-every", "0", "--device", CARD, *flags]
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        record = []
+        cu.reset_launch_counts()
+        _reset_serving_counts()
+        t0 = time.perf_counter()
+        with timed_steps(record), live_init(get_config(arch)):
+            tr = lm_train.main(argv)
+        wall = time.perf_counter() - t0
+        counts, buckets, serving = (cu.launch_counts(), cu.bucket_launch_counts(),
+                                    _serving_counts())
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for i, r in enumerate(record):
+            if r["counts"] != _want_counts(init, per_step, i + 1):
+                raise AssertionError(f"train {label} step {i}: launched "
+                                     f"{r['counts']}, expected "
+                                     f"{_want_counts(init, per_step, i + 1)}")
+            if not np.isfinite(r["loss"]):
+                raise AssertionError(f"train {label} step {i}: loss {r['loss']}")
+        if len(record) != steps or any(serving.values()):
+            raise AssertionError(f"train {label}: {len(record)} steps, flash / "
+                                 f"WKV6 launches {serving} (expected none)")
+        for k, by in buckets.items():
+            if by["bfloat16"] != counts[k] or by["float32"]:
+                raise AssertionError(f"train {label}: {k} launches {by}, all "
+                                     "expected on the bf16 bucket")
+            total[k]["bfloat16"] += by["bfloat16"]
+        spec = make_flat_spec(tr.state.params, lead=1)
+        degree = make_topology(topo, agents).degree()
+        exchange = "int8" if "int8" in flags else "f32"
+        want_wire = degree * spec.exchange_bytes(exchange)
+        wire_note = ""
+        if tr.wire_bytes_per_step != want_wire:
+            raise AssertionError(f"train {label}: {tr.wire_bytes_per_step} wire "
+                                 f"B/step, the bf16 bucket's accounting {want_wire}")
+        if "overlap" in flags:
+            carried = wire_bytes_per_neighbor(tr.state.opt_state.wire) * degree
+            if carried != want_wire:
+                raise AssertionError(f"train {label}: the carried wire moves "
+                                     f"{carried} B/step, the accounting {want_wire}")
+            wire_note = ", equal to the carried wire's buffers"
+        steady = [r["ms"] for r in record[1:]]
+        med = float(np.median(steady))
+        tokens = agents * batch * seq
+        launched = ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+        cons = tr.history.series("consensus_error")
+        losses = ", ".join(f"{r['loss']:.4f}" for r in record)
+        print(f"train {label}: {steps} steps through repro_torch.launch.train, "
+              f"{count_params(tt.model_template(get_config(arch))):,} params x "
+              f"{agents} agents on {topo}, batch {batch} x seq {seq} per agent "
+              f"(live_init weights): losses {losses}, "
+              f"consensus_error {cons[0]:.3e} -> {cons[-1]:.3e}; first step "
+              f"{record[0]['ms']:.1f} ms, steady median {med:.1f} ms "
+              f"(steps 2-{steps}), {tokens / med * 1e3:,.0f} tokens/s; "
+              f"max_memory_allocated {peak:.2f} GiB; wire {tr.wire_bytes_per_step:,} "
+              f"B/step (bf16 bucket, {exchange} wire{wire_note}); launches "
+              f"(all bf16 bucket): {launched}; flash / WKV6 launches 0; entry "
+              f"point wall {wall:.1f} s")
+        vocab = tr.state.params["embed"]["table"].shape[1]
+        stream = lm_agent_batches(make_lm_tokens(1 << 15, vocab=vocab, seed=0),
+                                  agents, batch, seq, seed=0)
+        symbols = [BF16_FORMS[f"{k}:bf16"][1] for k in per_step]
+        profile_lm_step(tr, next(stream), label, symbols)
+        del tr, stream
+    _free()
+    return total
+
+
+def _cpu_like(tree):
+    """Empty CPU tensors shaped and typed like ``tree``'s (ints kept)."""
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype)
+                    if isinstance(t, torch.Tensor) else t, tree)
+
+
+def lm_resume() -> dict:
+    """Phase 12: gemma3-1b at full width with 2 layers (0.36 B parameters),
+    2 agents, CDMSGD int8 overlap with error feedback, through
+    ``repro_torch.launch.train.main``: four uninterrupted steps against two,
+    ``--checkpoint-dir``, ``--resume`` and two more, bit for bit in the
+    params, momentum, wire and residual; the final checkpoint restored on
+    the CPU equal to the card's state.  Returns the launches by bucket."""
+    cfg = dataclasses.replace(get_config("gemma3-1b"), n_layers=2,
+                              name="gemma3-1b-2layers")
+    ARCH_CONFIGS[cfg.name] = cfg
+    base = ["--arch", cfg.name, "--preset", "full", "--log-every", "0",
+            "--device", CARD, *RESUME_FLAGS]
+    total = {k: {"float32": 0, "bfloat16": 0} for k in cu.KERNELS}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as d:
+            cu.reset_launch_counts()
+            _reset_serving_counts()
+            t0 = time.perf_counter()
+            with live_init(cfg):
+                whole = lm_train.main([*base, "--steps", str(RESUME_STEPS)])
+                lm_train.main([*base, "--steps", str(RESUME_SPLIT),
+                               "--checkpoint-dir", d])
+                resumed = lm_train.main([*base, "--steps",
+                                         str(RESUME_STEPS - RESUME_SPLIT),
+                                         "--checkpoint-dir", d, "--resume"])
+            wall = time.perf_counter() - t0
+            for k, by in cu.bucket_launch_counts().items():
+                for bucket, n in by.items():
+                    total[k][bucket] += n
+            if any(_serving_counts().values()):
+                raise AssertionError("resume: flash / WKV6 launched in training")
+            if resumed.state.step != RESUME_STEPS:
+                raise AssertionError(f"resume: ended at step {resumed.state.step}")
+            parts = {"params": (whole.state.params, resumed.state.params),
+                     "momentum": (whole.state.opt_state.inner,
+                                  resumed.state.opt_state.inner),
+                     "wire": (whole.state.opt_state.wire, resumed.state.opt_state.wire),
+                     "residual": (whole.state.opt_state.residual,
+                                  resumed.state.opt_state.residual)}
+            for part, (a, b) in parts.items():
+                la, lb = tree_leaves(a), tree_leaves(b)
+                if not la or len(la) != len(lb) or \
+                        not all(_equal_bits(x, y) for x, y in zip(la, lb)):
+                    raise AssertionError(f"resume: the {part} differ from the "
+                                         "uninterrupted run's")
+            st = resumed.state
+            p_cpu, o_cpu = restore_train_state(d, _cpu_like(st.params),
+                                               _cpu_like(st.opt_state))
+            if o_cpu.step != RESUME_STEPS or not all(
+                    _equal_bits(x.cpu(), y) for x, y in
+                    zip(tree_leaves((st.params, st.opt_state)),
+                        tree_leaves((p_cpu, o_cpu))) if isinstance(x, torch.Tensor)):
+                raise AssertionError("resume: the checkpoint restored on the CPU "
+                                     "differs from the card's state")
+            n_bytes = sum(f.stat().st_size for f in Path(d).glob("ckpt_*.npz"))
+        n = count_params(tt.model_template(cfg))
+        print(f"resume gemma3-1b full width 2 layers ({n:,} params) x 2 agents, "
+              f"CDMSGD int8 overlap EF: {RESUME_STEPS} uninterrupted steps equal "
+              f"{RESUME_SPLIT} + checkpoint + --resume + "
+              f"{RESUME_STEPS - RESUME_SPLIT} bit for bit (params, momentum, wire, "
+              f"residual: {len(tree_leaves(st.params))} + "
+              f"{len(tree_leaves(st.opt_state.inner))} + "
+              f"{len(tree_leaves(st.opt_state.wire))} + "
+              f"{len(tree_leaves(st.opt_state.residual))} leaves); the final "
+              f"checkpoint loads on the CPU and equals the card's state; two "
+              f"checkpoints {n_bytes / 2**30:.2f} GiB; three entry-point runs "
+              f"{wall:.1f} s")
+    finally:
+        del ARCH_CONFIGS[cfg.name]
+    _free()
+    return total
+
+
+def _to(tree, device):
+    return tree_map(lambda t: t.to(device) if isinstance(t, torch.Tensor) else t, tree)
+
+
+def parity_lm() -> None:
+    """Phase 13: reduced gemma3-1b, card against CPU.  float32 weights made
+    live (:func:`live_weights`), fused CDMSGD on a ring of 4, two whole
+    steps within 1e-4; then bf16 weights, the update phase (CDMSGD on the
+    f32 wire: the dense kernel; CDSGD on the int8 wire: ``sr_quantize`` and
+    the ``_q`` kernel) from one state with the card's gradients, new
+    params, momentum and wire bit for bit."""
+    def loss_of(cfg):
+        return lambda p, b: tt.loss_fn(cfg, p, b)
+
+    cfg32 = dataclasses.replace(get_config("gemma3-1b").reduced(),
+                                param_dtype="float32")
+    params = live_weights(cfg32, init_params(tt.model_template(cfg32), seed=5), seed=6)
+    stream = lm_agent_batches(make_lm_tokens(1 << 14, vocab=cfg32.vocab_size, seed=1),
+                              LM_AGENTS, 2, 32, seed=1)
+    batches = [next(stream) for _ in range(2)]
+    trs = [CollaborativeTrainer(loss_of(cfg32), params, make_topology("ring", LM_AGENTS),
+                                make_optimizer("cdmsgd", LR, mu=MU, fused=True),
+                                device=d) for d in ("cpu", CARD)]
+    for b in batches:
+        for tr in trs:
+            tr.step(b)
+    gap = max(float((x.cpu() - y).abs().max()) for x, y in
+              zip(tree_leaves(trs[1].state.params), tree_leaves(trs[0].state.params)))
+    print(f"parity gemma3-1b reduced float32 LM, fused CDMSGD on a ring of "
+          f"{LM_AGENTS}, 2 steps card vs cpu: max |param diff| {gap:.3e} "
+          f"(tol {PARITY_TOL:g})")
+    if not gap <= PARITY_TOL:
+        raise AssertionError(f"LM card/CPU whole steps: {gap} > {PARITY_TOL}")
+    cfg16 = get_config("gemma3-1b").reduced()
+    params16 = tree_map(lambda t: t.to(torch.bfloat16), params)
+    for name, exchange in (("cdmsgd", "f32"), ("cdsgd", "int8")):
+        kw = {"mu": MU} if name == "cdmsgd" else {}
+        trs = [CollaborativeTrainer(loss_of(cfg16), params16,
+                                    make_topology("ring", LM_AGENTS),
+                                    make_optimizer(name, LR, fused=True, **kw),
+                                    exchange=exchange, device=d)
+               for d in ("cpu", CARD)]
+        cpu, card = trs
+        card.step(batches[0])                            # a state past init
+        st = card.state
+        gp = card.optimizer.grad_params(st.params, st.opt_state)
+        _, grads = card._program.grad_phase(gp, {k: torch.as_tensor(v, device=CARD)
+                                                 for k, v in batches[1].items()})
+        with torch.no_grad():
+            got = card._program.update_phase(st.params, grads, st.opt_state)
+            want = cpu._program.update_phase(_to(st.params, "cpu"), _to(grads, "cpu"),
+                                             _to(st.opt_state, "cpu"))
+        leaves = [(x, y) for x, y in zip(tree_leaves(got), tree_leaves(want))
+                  if isinstance(x, torch.Tensor)]
+        if not all(_equal_bits(x.cpu(), y) for x, y in leaves):
+            raise AssertionError(f"bf16 {name} {exchange} update phase: card and "
+                                 "CPU differ")
+        print(f"parity gemma3-1b reduced bf16 {name} {exchange} update phase card vs "
+              f"cpu, same state and gradients: {len(leaves)} tensors (params"
+              f"{', momentum' if name == 'cdmsgd' else ''}) bit for bit")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -2226,6 +2759,7 @@ def main() -> None:
     check_threshold(measured, gen)
     check_flash(measured, gen)
     check_wkv(measured, gen)
+    check_bf16_buckets(measured, gen)
 
     train, _ = make_classification(4096, n_classes=10, image_hw=32, seed=0)
     params = init_params(cnn_classifier_template(32, 3, 10), seed=0)
@@ -2242,8 +2776,19 @@ def main() -> None:
     counts.update(prefill_path(serving))
     serve_path(serving)
     del serving
+    _free()
+    lm = lm_train_path()
+    for k, by in lm_resume().items():
+        for bucket, n in by.items():
+            lm[k][bucket] += n
+    for name, (wrapper, _, _) in BF16_FORMS.items():
+        counts[name] = lm[wrapper]["bfloat16"]
+    for k, by in lm.items():
+        counts[k] += by["float32"]
     kernels = []
-    for name, (lib, _, replaces) in KERNELS.items():
+    for name, (lib, _, replaces) in [*KERNELS.items(),
+                                     *((n, (KERNELS[w][0], sym, rep)) for n, (w, sym, rep)
+                                       in BF16_FORMS.items())]:
         if counts[name] < 1:
             raise AssertionError(f"{name} never launched on the main path")
         m = measured[name]
@@ -2265,6 +2810,7 @@ def main() -> None:
     parity_multi_round_update(params, train)
     parity_ring(params, train)
     parity_models()
+    parity_lm()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
 

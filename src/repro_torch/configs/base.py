@@ -48,6 +48,7 @@ class ArchConfig:
     mlp_gated: bool = True
     tie_embeddings: bool = False
     param_dtype: str = "float32"
+    attn_chunk: int = 512            # blockwise / banded attention chunk
     source: str = ""                 # citation from the assignment table
 
     # ---- derived -----------------------------------------------------------
@@ -95,4 +96,5 @@ class ArchConfig:
             window=min(self.window, 8) if self.window else 0,
             local_global_period=min(self.local_global_period, 2)
             if self.local_global_period else 0,
+            attn_chunk=16,
         )

@@ -3,8 +3,9 @@
 The stacked-simulation slice of :mod:`repro.core.engine`.  A step is
 
 * ``grad``   — one per-agent value-and-grad over the leading agent axis of
-  the stacked params (``torch.func.vmap`` of ``torch.func.grad_and_value``;
-  :func:`make_grad_phase`);
+  the stacked params (``torch.func.vmap`` of ``torch.func.grad_and_value``),
+  looped over microbatches with float32 accumulation when ``microbatches >
+  1`` (:func:`make_grad_phase`);
 * ``update`` — pack, quantize, exchange and the fused consensus-update
   kernel per bucket (:func:`make_update_phase`).
 
@@ -39,8 +40,6 @@ Both error-feedback sites go through ``strategy.compress_ef``, which
 threads ``OptState.qwarm`` (the rank compressor's warm start) and, for a
 top-k / rank-r program, carries a :class:`~repro_torch.core.consensus.
 TopKWire` / :class:`~repro_torch.core.consensus.RankWire` per bucket.
-
-Gradient accumulation over microbatches is not ported yet (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -49,6 +48,7 @@ import dataclasses
 import math
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch.func import grad_and_value, vmap
 
@@ -59,6 +59,7 @@ from repro_torch.core.optim import (
     ExchangeResult,
     OptState,
 )
+from repro_torch.utils.tree import tree_map
 
 PyTree = Any
 
@@ -70,19 +71,56 @@ def make_grad_phase(agent_loss: Callable, microbatches: int = 1) -> Callable:
 
     ``agent_loss(params, batch) -> (loss, metrics)`` is the single-agent
     loss; the phase maps its value-and-grad over the leading agent axis of
-    both the params and the batch.
+    both the params and the batch.  ``microbatches = M > 1`` splits every
+    batch leaf ``(A, B, ...)`` into ``M`` microbatches ``(A, B/M, ...)``
+    (microbatch ``m`` takes rows ``m B/M .. (m+1) B/M - 1``), accumulates
+    the gradients in float32 in microbatch order and scales the sum by
+    ``float32(1 / M)`` (the reference's ``/ M`` as XLA compiles it); losses
+    and metrics keep a leading microbatch axis ``(M, A)``
+    (callers reduce with ``torch.mean`` either way), as the reference's
+    ``lax.scan`` does.
     """
-    if microbatches != 1:
-        raise NotImplementedError(
-            "microbatches > 1 (gradient accumulation) is not ported yet: "
-            "ROADMAP A9")
     per_agent = vmap(grad_and_value(agent_loss, has_aux=True))
 
     def grad_phase(gp, batch):
         grads, (losses, metrics) = per_agent(gp, batch)
         return (losses, metrics), grads
 
-    return grad_phase
+    if microbatches == 1:
+        return grad_phase
+
+    def split(x, m: int):
+        a, b = x.shape[:2]
+        if b % microbatches:
+            raise ValueError(f"batch {b} per agent does not split into "
+                             f"{microbatches} microbatches")
+        n = b // microbatches
+        return x[:, m * n:(m + 1) * n]
+
+    # the reference divides the float32 sum by M inside its jitted step,
+    # where XLA multiplies by the float32 reciprocal instead: so does the port
+    inv_m = float(np.float32(1.0) / np.float32(microbatches))
+
+    def accumulated(gp, batch):
+        # the sum is accumulated in place: at a 1 B-parameter model on 4
+        # agents each float32 copy of the gradients is 16 GB
+        gsum, losses, metrics = None, [], []
+        for m in range(microbatches):
+            (loss, met), g = grad_phase(
+                gp, {k: split(v, m) for k, v in batch.items()})
+            if gsum is None:     # 0 + g, as the reference's zero-started sum
+                gsum = tree_map(lambda t: t.float().add_(0.0), g)
+            else:
+                tree_map(lambda a, t: a.add_(t), gsum, g)
+            del g
+            losses.append(loss)
+            metrics.append(met)
+        grads = tree_map(lambda t: t.mul_(inv_m), gsum)
+        stacked = {k: torch.stack([met[k] for met in metrics])
+                   for k in metrics[0]}
+        return (torch.stack(losses), stacked), grads
+
+    return accumulated
 
 
 def _check_fused_flat(optimizer: DistributedOptimizer, comm: CommOps,

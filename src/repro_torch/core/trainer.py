@@ -26,8 +26,9 @@ bf16 | int8 | fp8, or the ``compressor="int8"|"fp8"`` aliases),
 select the strategy; ``staleness`` and ``fault_schedule`` (a
 :class:`~repro_torch.core.faults.FaultSchedule` or a spec such as
 ``"stall:1:1:3,drop:0:2"``) engage the bounded-staleness ring under
-``schedule="overlap"``.  Microbatches raise ``NotImplementedError``
-(ROADMAP A9).
+``schedule="overlap"``.  ``microbatches`` splits each agent's batch and
+accumulates the gradients in float32 (:func:`~repro_torch.core.engine.
+make_grad_phase`).
 """
 
 from __future__ import annotations
@@ -70,6 +71,20 @@ def broadcast_to_agents(params: PyTree, n_agents: int) -> PyTree:
     """Replicate a single parameter set to all agents (common init)."""
     return tree_map(
         lambda x: x[None].expand((n_agents,) + tuple(x.shape)).clone(), params)
+
+
+def perturb_per_agent(params: PyTree, gen: torch.Generator,
+                      scale: float = 0.01) -> PyTree:
+    """De-synchronize agent initializations: ``x + scale * n`` per leaf,
+    ``n`` standard normal of the leaf's shape and dtype, drawn from ``gen``
+    (on its device) leaf by leaf in tree order.  The JAX package draws from
+    split ``jax.random`` keys instead; the two streams differ."""
+    return tree_map(lambda x: x + scale * _normal_like(x, gen), params)
+
+
+def _normal_like(x: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    return torch.randn(x.shape, generator=gen, device=gen.device,
+                       dtype=x.dtype).to(x.device)
 
 
 def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:

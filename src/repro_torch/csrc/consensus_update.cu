@@ -1,5 +1,5 @@
-// Fused consensus updates (paper eq. 5, Algorithms 1-2) on packed float32
-// (rows, 128) buckets, for Hopper (sm_90a).
+// Fused consensus updates (paper eq. 5, Algorithms 1-2) on packed (rows,
+// 128) parameter buckets, for Hopper (sm_90a).
 //
 // Dense form (the f32 / bf16 legacy wire: every neighbor, self included,
 // arrives in one stack):
@@ -7,16 +7,26 @@
 //   cdmsgd_update:   v'     = mu V[a] - alpha G[a]
 //                    out[a] = sum_s W[a,s] X[s] + v'
 // W is (A_out, S), X is (S, rows, 128) float32 or bfloat16, G and V are
-// (A_out, rows, 128) float32.
+// (A_out, rows, 128) in the bucket's type (see "Bucket types" below).
 //
 // Self-separated form (the quantized wire and the overlap schedule's carried
 // wire: the self buffer never crosses the wire and stays native):
 //   mix_q[a] = W[a,0] SELF[a] + sum_s W[a,1+s] (float(Q[s]) * SC[s, row])
 //   cdsgd_update_q:  out[a] = mix_q[a] - alpha G[a]
 //   cdmsgd_update_q: v' = mu V[a] - alpha G[a];  out[a] = mix_q[a] + v'
-// W is (A_out, S+1), SELF is (A_out, rows, 128) float32, Q is the wire
-// payload (S, rows, 128) in int8, float8_e4m3fn, bfloat16 or float32, SC its
-// per-row scales (S, rows, 1) float32 (ones for bf16 / f32 payloads).
+// W is (A_out, S+1), SELF is (A_out, rows, 128) in the bucket's type, Q is
+// the wire payload (S, rows, 128) in int8, float8_e4m3fn, bfloat16 or
+// float32, SC its per-row scales (S, rows, 1) float32 (ones for bf16 / f32
+// payloads).
+//
+// Bucket types.  The dense and _q forms of CDSGD and CDMSGD take a float32
+// or a bfloat16 bucket (G, V, SELF and the outputs of one type, a template
+// parameter B): a bf16 element is widened exactly, the float32 expression
+// above runs unchanged (same _rn operations, same stencil order), and each
+// output is rounded once to bf16, to nearest even (__float2bfloat16_rn), as
+// the Pallas bodies store float32 results into out_ref.dtype.  Every other
+// form takes float32 buckets only; its wrapper refuses a bf16 one before
+// any work.
 //
 // Mixed-momentum form (_qm: the momentum buffer rode the wire too, as a
 // second payload VQ / VSC of the same type; the local momentum is its self
@@ -71,7 +81,11 @@
 // MB (~104 us) f32 payload; cdadam_update 303.6 MB (~91 us) f32, _q 314.8
 // MB (~94 us) and _qm 325.9 MB (~97 us) int8, 391.0 MB (~117 us) f32
 // payload.  Adam's divisions and square root (about 30 flops per element
-// with the mix) stay far under the f32 rate.
+// with the mix) stay far under the f32 rate.  At gemma3-1b's bf16 bucket (A = S = 4,
+// 7,811,037 rows: 2 bytes per element of X, G, V, SELF and the outputs):
+// cdsgd_update 24.00 GB (~7.16 ms), cdmsgd_update 39.99 GB (~11.94 ms),
+// cdsgd_update_q with an int8 payload 28.12 GB (~8.39 ms), cdmsgd_update_q
+// 44.12 GB (~13.17 ms).
 //
 // Design (dense, _q and sparse forms): one thread owns one float4 (4 lanes)
 // of a row for all A_out outputs, so G, V and SELF are read once and
@@ -90,6 +104,7 @@
 // two payloads per output and loops the other way round (see qm_tiles):
 // with f32 payloads the per-output re-reads no longer fit L1.
 
+#include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
@@ -163,27 +178,51 @@ __device__ __forceinline__ float4 dequant(const void* __restrict__ q,
   return scale4(sc[s * rows + (p >> 5)], load4<K>(q, s * n4 + p));
 }
 
-// w[0] * self[p] + sum_s w[1+s] * (float(q[s * n4 + p]) * sc[s * rows + p / 32])
-template <int K>
+// a bucket's two float32 values as one word of two bfloat16s, each rounded
+// to nearest even (x in the low half: the first element at the lower address)
+__device__ __forceinline__ uint32_t bf16x2_rn(float x, float y) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(x))) |
+         static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(y))) << 16;
+}
+
+// store float4 position i of a bucket of type B (float32, or rounded once
+// to bfloat16)
+template <int B>
+__device__ __forceinline__ void store4(void* base, long long i, const float4& x) {
+  if constexpr (B == kF32) {
+    static_cast<float4*>(base)[i] = x;
+  } else {
+    static_cast<uint2*>(base)[i] = make_uint2(bf16x2_rn(x.x, x.y), bf16x2_rn(x.z, x.w));
+  }
+}
+
+// w[0] * self[si] + sum_s w[1+s] * (float(q[s * n4 + p]) * sc[s * rows + p / 32]),
+// self a bucket of type B read at float4 position si
+template <int K, int B = kF32>
 __device__ __forceinline__ float4 mix_q(const float* __restrict__ w,
-                                        const float4* __restrict__ self, const void* q,
+                                        const void* __restrict__ self, long long si,
+                                        const void* q,
                                         const float* __restrict__ sc, int s_count,
                                         long long rows, long long n4, long long p) {
-  float4 acc = scale4(w[0], self[p]);
+  float4 acc = scale4(w[0], load4<B>(self, si));
   for (int s = 0; s < s_count; ++s) {
     axpy_rn(acc, w[1 + s], dequant<K>(q, sc, s, rows, n4, p));
   }
   return acc;
 }
 
-// *g <- acc - alpha * g
-__device__ __forceinline__ void sgd_out(float4 acc, float4* g, float alpha) {
-  const float4 gv = *g;
+// acc - alpha * gv
+__device__ __forceinline__ float4 sgd_step(float4 acc, const float4& gv, float alpha) {
   acc.x = __fsub_rn(acc.x, __fmul_rn(alpha, gv.x));
   acc.y = __fsub_rn(acc.y, __fmul_rn(alpha, gv.y));
   acc.z = __fsub_rn(acc.z, __fmul_rn(alpha, gv.z));
   acc.w = __fsub_rn(acc.w, __fmul_rn(alpha, gv.w));
-  *g = acc;
+  return acc;
+}
+
+// *g <- acc - alpha * g
+__device__ __forceinline__ void sgd_out(const float4& acc, float4* g, float alpha) {
+  *g = sgd_step(acc, *g, alpha);
 }
 
 // mu vin - alpha g
@@ -253,61 +292,78 @@ __device__ __forceinline__ void adam_out(const float4& acc, const float4& m_in,
   *v = nv;
 }
 
-template <int K>
+// G (params out) and V (momentum in and out) of bucket type B at float4
+// position i: out = acc - alpha g (CDSGD) ...
+template <int B>
+__device__ __forceinline__ void sgd_store(const float4& acc, void* g, long long i,
+                                          float alpha) {
+  store4<B>(g, i, sgd_step(acc, load4<B>(g, i), alpha));
+}
+
+// ... or v' = mu v - alpha g, out = acc + v' (CDMSGD), each rounded once
+template <int B>
+__device__ __forceinline__ void msgd_store(const float4& acc, void* g, void* v,
+                                           long long i, float alpha, float mu) {
+  const float4 nv = mom_step(load4<B>(v, i), load4<B>(g, i), alpha, mu);
+  store4<B>(g, i, add4(acc, nv));
+  store4<B>(v, i, nv);
+}
+
+template <int K, int B>
 __global__ void __launch_bounds__(kThreads)
-cdsgd_kernel(const float* __restrict__ w, const void* x, float4* __restrict__ g,
+cdsgd_kernel(const float* __restrict__ w, const void* x, void* __restrict__ g,
              int a_out, int s_count, long long n4, float alpha) {
   const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (p >= n4) return;
   for (int a = 0; a < a_out; ++a) {
-    sgd_out(mix<K>(w + static_cast<long long>(a) * s_count, x, s_count, n4, p),
-            g + a * n4 + p, alpha);
+    sgd_store<B>(mix<K>(w + static_cast<long long>(a) * s_count, x, s_count, n4, p), g,
+                 a * n4 + p, alpha);
   }
 }
 
-template <int K>
+template <int K, int B>
 __global__ void __launch_bounds__(kThreads)
-cdmsgd_kernel(const float* __restrict__ w, const void* x, float4* __restrict__ g,
-              float4* __restrict__ v, int a_out, int s_count, long long n4,
-              float alpha, float mu) {
+cdmsgd_kernel(const float* __restrict__ w, const void* x, void* __restrict__ g,
+              void* __restrict__ v, int a_out, int s_count, long long n4, float alpha,
+              float mu) {
   const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (p >= n4) return;
   for (int a = 0; a < a_out; ++a) {
-    const long long i = a * n4 + p;
-    msgd_out(mix<K>(w + static_cast<long long>(a) * s_count, x, s_count, n4, p), v[i],
-             g[i], g + i, v + i, alpha, mu);
+    msgd_store<B>(mix<K>(w + static_cast<long long>(a) * s_count, x, s_count, n4, p), g, v,
+                  a * n4 + p, alpha, mu);
   }
 }
 
-template <int K>
+template <int K, int B>
 __global__ void __launch_bounds__(kThreads)
-cdsgd_q_kernel(const float* __restrict__ w, const float4* __restrict__ self,
-               const void* q, const float* __restrict__ sc, float4* __restrict__ g,
-               int a_out, int s_count, long long rows, float alpha) {
-  const long long n4 = rows * 32;
-  const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (p >= n4) return;
-  for (int a = 0; a < a_out; ++a) {
-    sgd_out(mix_q<K>(w + static_cast<long long>(a) * (s_count + 1), self + a * n4, q,
-                     sc, s_count, rows, n4, p),
-            g + a * n4 + p, alpha);
-  }
-}
-
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-cdmsgd_q_kernel(const float* __restrict__ w, const float4* __restrict__ self,
-                const void* q, const float* __restrict__ sc, float4* __restrict__ g,
-                float4* __restrict__ v, int a_out, int s_count, long long rows,
-                float alpha, float mu) {
+cdsgd_q_kernel(const float* __restrict__ w, const void* __restrict__ self, const void* q,
+               const float* __restrict__ sc, void* __restrict__ g, int a_out,
+               int s_count, long long rows, float alpha) {
   const long long n4 = rows * 32;
   const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (p >= n4) return;
   for (int a = 0; a < a_out; ++a) {
     const long long i = a * n4 + p;
-    msgd_out(mix_q<K>(w + static_cast<long long>(a) * (s_count + 1), self + a * n4, q,
-                      sc, s_count, rows, n4, p),
-             v[i], g[i], g + i, v + i, alpha, mu);
+    sgd_store<B>(mix_q<K, B>(w + static_cast<long long>(a) * (s_count + 1), self, i, q, sc,
+                             s_count, rows, n4, p),
+                 g, i, alpha);
+  }
+}
+
+template <int K, int B>
+__global__ void __launch_bounds__(kThreads)
+cdmsgd_q_kernel(const float* __restrict__ w, const void* __restrict__ self,
+                const void* q, const float* __restrict__ sc, void* __restrict__ g,
+                void* __restrict__ v, int a_out, int s_count, long long rows, float alpha,
+                float mu) {
+  const long long n4 = rows * 32;
+  const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (p >= n4) return;
+  for (int a = 0; a < a_out; ++a) {
+    const long long i = a * n4 + p;
+    msgd_store<B>(mix_q<K, B>(w + static_cast<long long>(a) * (s_count + 1), self, i, q,
+                              sc, s_count, rows, n4, p),
+                  g, v, i, alpha, mu);
   }
 }
 
@@ -336,8 +392,8 @@ nesterov_q_kernel(const float* __restrict__ w, const float4* __restrict__ self,
   if (p >= n4) return;
   for (int a = 0; a < a_out; ++a) {
     const long long i = a * n4 + p;
-    nesterov_out(mix_q<K>(w + static_cast<long long>(a) * (s_count + 1), self + a * n4,
-                          q, sc, s_count, rows, n4, p),
+    nesterov_out(mix_q<K>(w + static_cast<long long>(a) * (s_count + 1), self, i, q, sc,
+                          s_count, rows, n4, p),
                  v[i], g[i], g + i, v + i, look + i, alpha, mu);
   }
 }
@@ -367,8 +423,8 @@ adam_q_kernel(const float* __restrict__ w, const float4* __restrict__ self,
   if (p >= n4) return;
   for (int a = 0; a < a_out; ++a) {
     const long long i = a * n4 + p;
-    adam_out(mix_q<K>(w + static_cast<long long>(a) * (s_count + 1), self + a * n4, q,
-                      sc, s_count, rows, n4, p),
+    adam_out(mix_q<K>(w + static_cast<long long>(a) * (s_count + 1), self, i, q, sc,
+                      s_count, rows, n4, p),
              m[i], g[i], v[i], g + i, m + i, v + i, c);
   }
 }
@@ -714,70 +770,85 @@ int launch_kind(int kind, bool quantized_kinds, int device, Launch launch) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// launch_kind for the bucket type too: launch(k, b) with b the compile-time
+// bucket type (kF32 or kBF16)
+template <typename Launch>
+int launch_bucket(int kind, int bucket, bool quantized_kinds, int device,
+                  Launch launch) {
+  switch (bucket) {
+    case kF32:
+      return launch_kind(kind, quantized_kinds, device, [&](auto k) {
+        launch(k, std::integral_constant<int, kF32>{});
+      });
+    case kBF16:
+      return launch_kind(kind, quantized_kinds, device, [&](auto k) {
+        launch(k, std::integral_constant<int, kBF16>{});
+      });
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  device is the CUDA device ordinal
 // the tensors live on (this library links its own CUDA runtime, so it
 // selects the device itself); stream is PyTorch's current stream there.
 // kind is the neighbor / payload type: 0 float32, 1 bfloat16, 2 int8,
-// 3 float8_e4m3fn (the dense form takes 0 and 1 only).  n4 is the number
-// of float4s per output buffer (rows * 32).  Pointers must be 16-byte
+// 3 float8_e4m3fn (the dense form takes 0 and 1 only).  bucket is the
+// type of G, V and SELF in the forms that take one (cdsgd_update,
+// cdmsgd_update and their _q forms): 0 float32, 1 bfloat16; the other forms
+// take float32 buckets.  n4 is the number of float4 positions (4 elements)
+// per output buffer (rows * 32).  Pointers must be 16-byte
 // aligned; X, Q, SELF and SC must not overlap G or V (the wrapper checks).
 // Returns the CUDA error of the device selection or of the launch
 // (0 = launched); a call with nothing to do launches nothing.  The _qm forms
 // take the momentum payload VQ in the same kind as Q; LOOK and the Adam
 // moments M, V are float32 like G and must not overlap any operand either.
-extern "C" int cdsgd_update(const float* w, const void* x, int kind, float* g,
-                            int a_out, int s_count, long long n4, float alpha,
-                            int device, void* stream) {
+extern "C" int cdsgd_update(const float* w, const void* x, int kind, void* g,
+                            int bucket, int a_out, int s_count, long long n4,
+                            float alpha, int device, void* stream) {
   if (n4 <= 0 || a_out <= 0) return 0;
-  auto* g4 = reinterpret_cast<float4*>(g);
   auto st = static_cast<cudaStream_t>(stream);
-  return launch_kind(kind, false, device, [&](auto k) {
-    cdsgd_kernel<decltype(k)::value><<<blocks_for(n4), kThreads, 0, st>>>(
-        w, x, g4, a_out, s_count, n4, alpha);
+  return launch_bucket(kind, bucket, false, device, [&](auto k, auto b) {
+    cdsgd_kernel<decltype(k)::value, decltype(b)::value>
+        <<<blocks_for(n4), kThreads, 0, st>>>(w, x, g, a_out, s_count, n4, alpha);
   });
 }
 
-extern "C" int cdmsgd_update(const float* w, const void* x, int kind, float* g,
-                             float* v, int a_out, int s_count, long long n4,
+extern "C" int cdmsgd_update(const float* w, const void* x, int kind, void* g, void* v,
+                             int bucket, int a_out, int s_count, long long n4,
                              float alpha, float mu, int device, void* stream) {
   if (n4 <= 0 || a_out <= 0) return 0;
-  auto* g4 = reinterpret_cast<float4*>(g);
-  auto* v4 = reinterpret_cast<float4*>(v);
   auto st = static_cast<cudaStream_t>(stream);
-  return launch_kind(kind, false, device, [&](auto k) {
-    cdmsgd_kernel<decltype(k)::value><<<blocks_for(n4), kThreads, 0, st>>>(
-        w, x, g4, v4, a_out, s_count, n4, alpha, mu);
+  return launch_bucket(kind, bucket, false, device, [&](auto k, auto b) {
+    cdmsgd_kernel<decltype(k)::value, decltype(b)::value>
+        <<<blocks_for(n4), kThreads, 0, st>>>(w, x, g, v, a_out, s_count, n4, alpha, mu);
   });
 }
 
-extern "C" int cdsgd_update_q(const float* w, const float* self, const void* q,
-                              int kind, const float* sc, float* g, int a_out,
+extern "C" int cdsgd_update_q(const float* w, const void* self, const void* q, int kind,
+                              const float* sc, void* g, int bucket, int a_out,
                               int s_count, long long rows, float alpha, int device,
                               void* stream) {
   if (rows <= 0 || a_out <= 0) return 0;
-  const auto* self4 = reinterpret_cast<const float4*>(self);
-  auto* g4 = reinterpret_cast<float4*>(g);
   auto st = static_cast<cudaStream_t>(stream);
-  return launch_kind(kind, true, device, [&](auto k) {
-    cdsgd_q_kernel<decltype(k)::value><<<blocks_for(rows * 32), kThreads, 0, st>>>(
-        w, self4, q, sc, g4, a_out, s_count, rows, alpha);
+  return launch_bucket(kind, bucket, true, device, [&](auto k, auto b) {
+    cdsgd_q_kernel<decltype(k)::value, decltype(b)::value>
+        <<<blocks_for(rows * 32), kThreads, 0, st>>>(w, self, q, sc, g, a_out, s_count,
+                                                     rows, alpha);
   });
 }
 
-extern "C" int cdmsgd_update_q(const float* w, const float* self, const void* q,
-                               int kind, const float* sc, float* g, float* v,
-                               int a_out, int s_count, long long rows, float alpha,
-                               float mu, int device, void* stream) {
+extern "C" int cdmsgd_update_q(const float* w, const void* self, const void* q, int kind,
+                               const float* sc, void* g, void* v, int bucket, int a_out,
+                               int s_count, long long rows, float alpha, float mu,
+                               int device, void* stream) {
   if (rows <= 0 || a_out <= 0) return 0;
-  const auto* self4 = reinterpret_cast<const float4*>(self);
-  auto* g4 = reinterpret_cast<float4*>(g);
-  auto* v4 = reinterpret_cast<float4*>(v);
   auto st = static_cast<cudaStream_t>(stream);
-  return launch_kind(kind, true, device, [&](auto k) {
-    cdmsgd_q_kernel<decltype(k)::value><<<blocks_for(rows * 32), kThreads, 0, st>>>(
-        w, self4, q, sc, g4, v4, a_out, s_count, rows, alpha, mu);
+  return launch_bucket(kind, bucket, true, device, [&](auto k, auto b) {
+    cdmsgd_q_kernel<decltype(k)::value, decltype(b)::value>
+        <<<blocks_for(rows * 32), kThreads, 0, st>>>(w, self, q, sc, g, v, a_out, s_count,
+                                                     rows, alpha, mu);
   });
 }
 

@@ -1,11 +1,15 @@
-// Per-row scaled quantization of packed float32 (rows, 128) buckets for the
-// consensus wire, for Hopper (sm_90a).
+// Per-row scaled quantization of packed float32 or bfloat16 (rows, 128)
+// buckets for the consensus wire, for Hopper (sm_90a).
 //
 //   scale[r] = amax_r * (1/qmax)  (qmax 127 int8, 448 fp8; 1.0 if amax_r == 0)
 //   int8:  q = clip(floor(x / scale + u), -127, 127)   (stochastic rounding)
 //   fp8:   q = e4m3fn(x / scale)                       (nearest, saturating)
 //
-// x is (A, rows, 128): one bucket of every agent, one launch.  Agent a draws
+// x is (A, rows, 128): one bucket of every agent, one launch.  A bfloat16
+// bucket (the template parameter XB) is widened to float32 exactly as it is
+// loaded, and everything after the load is the float32 kernel: the same
+// scales, the same Philox counter, the same codes as the float32 bucket of
+// those values (the Pallas kernel's x_ref[...].astype(float32)).  Agent a draws
 // its uniforms from the 32-bit seed  seed + agent_stride * a  (wrapping), so
 // the caller passes one seed per agent as a base and a stride.
 //
@@ -28,7 +32,8 @@
 // integer and float operations (Philox's 10 rounds amortized over 4
 // elements, the abs-max, a divide, an add and a floor), far below the
 // ridge.  At the training path's shape (A = 5, 16,941 rows): 43.37 MB read,
-// 11.18 MB written, ~16.3 us.
+// 11.18 MB written, ~16.3 us.  At gemma3-1b's bf16 bucket (A = 4, 7,811,037
+// rows, 2 bytes read per element): 8.00 GB read, 4.12 GB written, ~3.62 ms.
 //
 // Scale arithmetic.  The JAX source writes amax / qmax, but XLA, compiling
 // the JAX trainer's step, folds a division by a literal into a multiply by
@@ -69,7 +74,9 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRowsPerBlock = kThreads / 32;
-constexpr int kKindInt8 = 2;      // the wrapper's payload kind codes
+constexpr int kKindF32 = 0;       // the wrapper's kind codes: bucket types ...
+constexpr int kKindBF16 = 1;
+constexpr int kKindInt8 = 2;      // ... and payload types
 constexpr int kKindFp8 = 3;
 
 constexpr unsigned kPhiloxM0 = 0xD2511F53u;
@@ -107,6 +114,18 @@ __device__ __forceinline__ uint32_t rn_fp8(float y) {
   return static_cast<uint32_t>(__nv_cvt_float_to_fp8(y, __NV_SATFINITE, __NV_E4M3));
 }
 
+// float4 position i of a bucket of type XB, widened exactly to float32
+template <int XB>
+__device__ __forceinline__ float4 load_x(const void* __restrict__ x, size_t i) {
+  if constexpr (XB == kKindF32) {
+    return static_cast<const float4*>(x)[i];
+  } else {
+    const uint2 u = static_cast<const uint2*>(x)[i];
+    return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+  }
+}
+
 // quantize row v of agent a, row r within the agent (launch row grow)
 template <bool kStochastic>
 __device__ __forceinline__ void quantize_row(const float4& v, unsigned grow, unsigned a,
@@ -140,9 +159,9 @@ __device__ __forceinline__ void quantize_row(const float4& v, unsigned grow, uns
 
 // Row indices are 32-bit (the host takes fewer than 2^31 rows), addresses
 // 64-bit.
-template <bool kStochastic>
+template <bool kStochastic, int XB>
 __global__ void __launch_bounds__(kThreads)
-sr_quantize_kernel(const float4* __restrict__ x, uint32_t* __restrict__ q,
+sr_quantize_kernel(const void* __restrict__ x, uint32_t* __restrict__ q,
                    float* __restrict__ scales, unsigned total_rows, unsigned rows,
                    unsigned seed, unsigned agent_stride) {
   const unsigned lane = threadIdx.x & 31;
@@ -154,12 +173,12 @@ sr_quantize_kernel(const float4* __restrict__ x, uint32_t* __restrict__ q,
   unsigned r = grow - a * rows;
   const unsigned da = stride / rows;
   const unsigned dr = stride - da * rows;
-  float4 v = x[static_cast<size_t>(grow) * 32 + lane];
+  float4 v = load_x<XB>(x, static_cast<size_t>(grow) * 32 + lane);
   for (;;) {
     const unsigned next = grow + stride;
     const bool more = next < total_rows;
     float4 nv;
-    if (more) nv = x[static_cast<size_t>(next) * 32 + lane];  // in flight meanwhile
+    if (more) nv = load_x<XB>(x, static_cast<size_t>(next) * 32 + lane);  // in flight
     quantize_row<kStochastic>(v, grow, a, r, lane, q, scales, seed, agent_stride);
     if (!more) break;
     grow = next;
@@ -173,10 +192,10 @@ sr_quantize_kernel(const float4* __restrict__ x, uint32_t* __restrict__ q,
   }
 }
 
-// blocks of sr_quantize_kernel<kStochastic> resident on device at once
+// blocks of sr_quantize_kernel<kStochastic, XB> resident on device at once
 // (cached per device: the card's SM count and the kernel's occupancy do not
 // change in a process)
-template <bool kStochastic>
+template <bool kStochastic, int XB>
 cudaError_t resident_blocks(int device, long long* out) {
   static long long cached[64] = {};
   if (device >= 0 && device < 64 && cached[device] > 0) {
@@ -187,42 +206,46 @@ cudaError_t resident_blocks(int device, long long* out) {
   cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, sr_quantize_kernel<kStochastic>, kThreads, 0);
+      &per_sm, sr_quantize_kernel<kStochastic, XB>, kThreads, 0);
   if (err != cudaSuccess) return err;
   *out = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   if (device >= 0 && device < 64) cached[device] = *out;
   return cudaSuccess;
 }
 
-template <bool kStochastic>
-int launch(const float* x, void* q, float* scales, long long total_rows, long long rows,
+template <bool kStochastic, int XB>
+int launch(const void* x, void* q, float* scales, long long total_rows, long long rows,
            unsigned seed, unsigned agent_stride, int device, cudaStream_t st) {
   long long resident = 0;
-  const cudaError_t err = resident_blocks<kStochastic>(device, &resident);
+  const cudaError_t err = resident_blocks<kStochastic, XB>(device, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long needed = (total_rows + kRowsPerBlock - 1) / kRowsPerBlock;
   const auto blocks = static_cast<unsigned>(needed < resident ? needed : resident);
-  sr_quantize_kernel<kStochastic><<<blocks, kThreads, 0, st>>>(
-      reinterpret_cast<const float4*>(x), static_cast<uint32_t*>(q), scales,
+  sr_quantize_kernel<kStochastic, XB><<<blocks, kThreads, 0, st>>>(
+      x, static_cast<uint32_t*>(q), scales,
       static_cast<unsigned>(total_rows), static_cast<unsigned>(rows), seed, agent_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C interface, loaded with ctypes.  x is (A, rows, 128) float32, q the
+// Plain C interface, loaded with ctypes.  x is (A, rows, 128) float32
+// (x_kind 0) or bfloat16 (x_kind 1), q the
 // (A, rows, 128) one-byte output (kind 2 = int8, 3 = float8_e4m3fn),
 // scales the (A, rows, 1) float32 output; total_rows = A * rows.  device is
 // the CUDA device ordinal of the tensors (this library links its own CUDA
 // runtime and selects the device itself); stream is PyTorch's current
-// stream there.  x must be 16-byte aligned and q 4-byte aligned (the
-// wrapper checks).  Returns the CUDA error of the device selection or of
+// stream there.  x must be 16-byte aligned (8 for bfloat16) and q 4-byte
+// aligned (the wrapper checks 16 for both).  Returns the CUDA error of the device selection or of
 // the launch (0 = launched); a call with nothing to do launches nothing.
-extern "C" int sr_quantize(const float* x, void* q, int kind, float* scales,
+extern "C" int sr_quantize(const void* x, int x_kind, void* q, int kind, float* scales,
                            long long total_rows, long long rows, unsigned seed,
                            unsigned agent_stride, int device, void* stream) {
   if (total_rows <= 0 || rows <= 0) return 0;
   if (kind != kKindInt8 && kind != kKindFp8) return static_cast<int>(cudaErrorInvalidValue);
+  if (x_kind != kKindF32 && x_kind != kKindBF16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (total_rows > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   int current = -1;  // make device current unless it already is
   if (cudaGetDevice(&current) != cudaSuccess || current != device) {
@@ -230,7 +253,16 @@ extern "C" int sr_quantize(const float* x, void* q, int kind, float* scales,
     if (set != cudaSuccess) return static_cast<int>(set);
   }
   auto st = static_cast<cudaStream_t>(stream);
+  if (x_kind == kKindF32) {
+    return kind == kKindInt8
+               ? launch<true, kKindF32>(x, q, scales, total_rows, rows, seed, agent_stride,
+                                        device, st)
+               : launch<false, kKindF32>(x, q, scales, total_rows, rows, seed,
+                                         agent_stride, device, st);
+  }
   return kind == kKindInt8
-             ? launch<true>(x, q, scales, total_rows, rows, seed, agent_stride, device, st)
-             : launch<false>(x, q, scales, total_rows, rows, seed, agent_stride, device, st);
+             ? launch<true, kKindBF16>(x, q, scales, total_rows, rows, seed, agent_stride,
+                                       device, st)
+             : launch<false, kKindBF16>(x, q, scales, total_rows, rows, seed,
+                                        agent_stride, device, st);
 }

@@ -3,10 +3,11 @@
 from repro_torch.data.synthetic import (
     AgentPartitioner,
     Dataset,
+    lm_agent_batches,
     lm_batches,
     make_classification,
     make_lm_tokens,
 )
 
-__all__ = ["AgentPartitioner", "Dataset", "lm_batches", "make_classification",
-           "make_lm_tokens"]
+__all__ = ["AgentPartitioner", "Dataset", "lm_agent_batches", "lm_batches",
+           "make_classification", "make_lm_tokens"]

@@ -126,3 +126,20 @@ class AgentPartitioner:
         """(A, K) label counts per agent — used to verify non-IID skew."""
         k = int(self.ds.y.max()) + 1
         return np.stack([np.bincount(self.ds.y[s], minlength=k) for s in self.shards])
+
+
+def lm_agent_batches(
+    tokens: np.ndarray, n_agents: int, batch_per_agent: int, seq: int, *, seed: int = 0
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Per-agent LM batches ``{"inputs", "targets"}`` of shape ``(A, b,
+    seq)``: agent j samples windows only from its token shard."""
+    shards = np.array_split(tokens, n_agents)
+    rng = np.random.default_rng(seed)
+    while True:
+        inp, tgt = [], []
+        for sh in shards:
+            n = sh.shape[0] - seq - 1
+            starts = rng.integers(0, n, size=batch_per_agent)
+            inp.append(np.stack([sh[s : s + seq] for s in starts]))
+            tgt.append(np.stack([sh[s + 1 : s + seq + 1] for s in starts]))
+        yield {"inputs": np.stack(inp), "targets": np.stack(tgt)}

@@ -46,8 +46,13 @@ replace the Pallas TPU kernels of :mod:`repro.kernels.consensus_update`:
 The top-k threshold kernel's wrapper lives in :mod:`.topk` with the rest of
 the compressor; its library is built from here like the others.
 
-Gradient, momentum and self buffers are float32 (bf16 parameter buckets
-are not ported yet); every operand is contiguous and on one device.
+Gradient, momentum and self buffers are the parameter bucket's type:
+float32, or bfloat16 in the dense and ``_q`` forms of CDSGD and CDMSGD and
+in :func:`sr_quantize` (:data:`BUCKET_DTYPES`; the kernels compute in
+float32 and round each output once to bf16, as the Pallas kernels store
+into the bucket's dtype).  The Nesterov, CDAdam, ``_qm`` and sparse forms
+take float32 buckets and refuse a bf16 one with a ``TypeError`` before any
+work (ROADMAP A21).  Every operand is contiguous and on one device.
 ``A_out = 1`` is one agent's stencil; ``A_out = S = A`` is the whole
 stacked simulation in one launch.
 
@@ -59,8 +64,9 @@ output, allocated by the wrapper.
 
 Dispatch is by the tensors' device: CUDA tensors launch the kernel (a
 launch error raises), CPU tensors run the plain version in :mod:`.ref`.
-Each wrapper counts its kernel launches in its ``launches`` attribute; the
-CPU path launches nothing and counts nothing.
+Each wrapper counts its kernel launches in its ``launches`` attribute (the
+bf16-capable ones also by bucket type, in ``launches_by_bucket``); the CPU
+path launches nothing and counts nothing.
 """
 
 from __future__ import annotations
@@ -84,6 +90,10 @@ KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
          torch.float8_e4m3fn: 3}
 NEIGHBOR_DTYPES = (torch.float32, torch.bfloat16)
 F32 = (torch.float32,)
+#: parameter bucket types of the forms that take bf16 buckets
+BUCKET_DTYPES = (torch.float32, torch.bfloat16)
+#: where the other forms' bf16 buckets are queued
+BF16_ITEM = "ROADMAP A21"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -93,11 +103,13 @@ _U = ctypes.c_uint
 #: library name (``csrc/<name>.cu``) -> its C functions' signatures
 LIBRARIES = {
     "consensus_update": {
-        "cdsgd_update": (_I, (_P, _P, _I, _P, _I, _I, _LL, _F, _I, _P)),
-        "cdmsgd_update": (_I, (_P, _P, _I, _P, _P, _I, _I, _LL, _F, _F, _I, _P)),
-        "cdsgd_update_q": (_I, (_P, _P, _P, _I, _P, _P, _I, _I, _LL, _F, _I, _P)),
-        "cdmsgd_update_q": (_I, (_P, _P, _P, _I, _P, _P, _P, _I, _I, _LL, _F, _F,
-                                 _I, _P)),
+        "cdsgd_update": (_I, (_P, _P, _I, _P, _I, _I, _I, _LL, _F, _I, _P)),
+        "cdmsgd_update": (_I, (_P, _P, _I, _P, _P, _I, _I, _I, _LL, _F, _F, _I,
+                               _P)),
+        "cdsgd_update_q": (_I, (_P, _P, _P, _I, _P, _P, _I, _I, _I, _LL, _F, _I,
+                                _P)),
+        "cdmsgd_update_q": (_I, (_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _LL,
+                                 _F, _F, _I, _P)),
         "cdmsgd_update_qm": (_I, (_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
                                   _LL, _F, _F, _I, _P)),
         "cdmsgd_nesterov_update": (_I, (_P, _P, _I, _P, _P, _P, _I, _I, _LL,
@@ -124,7 +136,7 @@ LIBRARIES = {
                                       _P)),
     },
     "sr_quantize": {
-        "sr_quantize": (_I, (_P, _P, _I, _P, _LL, _LL, _U, _U, _I, _P)),
+        "sr_quantize": (_I, (_P, _I, _P, _I, _P, _LL, _LL, _U, _U, _I, _P)),
     },
     "topk_threshold": {
         "topk_threshold": (_I, (_P, _P, _P, _P, _P, _I, _LL, _I, _LL, _I,
@@ -154,8 +166,8 @@ def _check(name: str, t: torch.Tensor, shape, device: torch.device,
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
     if t.dtype not in dtypes:
-        note = " (bf16 parameter buckets are not ported yet)" \
-            if dtypes == F32 else ""
+        note = f" (bf16 parameter buckets in this form: {BF16_ITEM})" \
+            if dtypes == F32 and t.dtype == torch.bfloat16 else ""
         raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}"
                         f"{note}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -165,6 +177,16 @@ def _check(name: str, t: torch.Tensor, shape, device: torch.device,
         raise ValueError(f"{name} must be contiguous")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def _bucket_of(outs, buckets) -> tuple:
+    """The one bucket type every output (and the self buffer) must have:
+    ``grad``'s when it is one of ``buckets``, else float32 (whose check
+    then names what ``grad`` should be)."""
+    g = outs[0][1]
+    if isinstance(g, torch.Tensor) and g.dtype in buckets:
+        return (g.dtype,)
+    return F32
 
 
 def _stack(name: str, t) -> tuple:
@@ -197,8 +219,9 @@ def _check_placement(reads, outs, device: torch.device) -> None:
         raise ValueError(f"no consensus-update kernel for device {device}")
 
 
-def _check_operands(weights, neighbors, outs):
-    """Validate the dense operand form; returns ``(a_out, s, rows, device)``."""
+def _check_operands(weights, neighbors, outs, buckets=F32):
+    """Validate the dense operand form (bucket types ``buckets``); returns
+    ``(a_out, s, rows, device)``."""
     s, rows = _stack("neighbors", neighbors)
     device = neighbors.device
     if not isinstance(weights, torch.Tensor) or weights.dim() != 2:
@@ -206,17 +229,19 @@ def _check_operands(weights, neighbors, outs):
     a_out = weights.shape[0]
     _check("weights", weights, (a_out, s), device)
     _check("neighbors", neighbors, (s, rows, LANE), device, NEIGHBOR_DTYPES)
+    bucket = _bucket_of(outs, buckets)
     for name, t in outs:
-        _check(name, t, (a_out, rows, LANE), device)
+        _check(name, t, (a_out, rows, LANE), device, bucket)
     _check_placement([("weights", weights), ("neighbors", neighbors)], outs,
                      device)
     return a_out, s, rows, device
 
 
 def _check_q_operands(weights, self_buf, payload, scales, outs,
-                      mom_payload=None, mom_scales=None):
+                      mom_payload=None, mom_scales=None, buckets=F32):
     """Validate the self-separated operand form (with the momentum payload
-    of the ``_qm`` form when given); returns ``(a_out, s, rows, device)``."""
+    of the ``_qm`` form when given; bucket types ``buckets``); returns
+    ``(a_out, s, rows, device)``."""
     s, rows = _stack("payload", payload)
     device = payload.device
     if not isinstance(weights, torch.Tensor) or weights.dim() != 2:
@@ -225,7 +250,8 @@ def _check_q_operands(weights, self_buf, payload, scales, outs,
     _check("weights", weights, (a_out, s + 1), device)
     _check("payload", payload, (s, rows, LANE), device, tuple(KINDS))
     _check("scales", scales, (s, rows, 1), device)
-    _check("self_buf", self_buf, (a_out, rows, LANE), device)
+    bucket = _bucket_of(outs, buckets)
+    _check("self_buf", self_buf, (a_out, rows, LANE), device, bucket)
     reads = [("weights", weights), ("self_buf", self_buf),
              ("payload", payload), ("scales", scales)]
     if mom_payload is not None:
@@ -234,7 +260,7 @@ def _check_q_operands(weights, self_buf, payload, scales, outs,
         _check("mom_scales", mom_scales, (s, rows, 1), device)
         reads += [("mom_payload", mom_payload), ("mom_scales", mom_scales)]
     for name, t in outs:
-        _check(name, t, (a_out, rows, LANE), device)
+        _check(name, t, (a_out, rows, LANE), device, bucket)
     _check_placement(reads, outs, device)
     return a_out, s, rows, device
 
@@ -243,11 +269,17 @@ _stream = build.current_stream
 _launch_check = build.check_launch
 
 
+def _count(fn, bucket: torch.dtype) -> None:
+    """One launch of ``fn``'s kernel on a ``bucket`` bucket."""
+    fn.launches += 1
+    fn.launches_by_bucket[str(bucket)[6:]] += 1
+
+
 def cdsgd_update(weights: torch.Tensor, neighbors: torch.Tensor,
                  grad: torch.Tensor, alpha) -> torch.Tensor:
     """``grad[a] <- sum_s weights[a,s] neighbors[s] - alpha grad[a]``."""
     a_out, s, rows, device = _check_operands(weights, neighbors,
-                                             [("grad", grad)])
+                                             [("grad", grad)], BUCKET_DTYPES)
     alpha = _f32(alpha)
     if device.type == "cpu":
         grad.copy_(ref.cdsgd_update_ref(weights, neighbors, grad, alpha))
@@ -256,10 +288,10 @@ def cdsgd_update(weights: torch.Tensor, neighbors: torch.Tensor,
         return grad
     rc = library().cdsgd_update(
         weights.data_ptr(), neighbors.data_ptr(), KINDS[neighbors.dtype],
-        grad.data_ptr(), a_out, s, rows * LANE // 4, alpha, device.index,
-        _stream(device))
+        grad.data_ptr(), KINDS[grad.dtype], a_out, s, rows * LANE // 4, alpha,
+        device.index, _stream(device))
     _launch_check(rc, "cdsgd_update")
-    cdsgd_update.launches += 1
+    _count(cdsgd_update, grad.dtype)
     return grad
 
 
@@ -271,7 +303,8 @@ def cdmsgd_update(weights: torch.Tensor, neighbors: torch.Tensor,
     Returns ``(grad, momentum)``, both updated in place.
     """
     a_out, s, rows, device = _check_operands(
-        weights, neighbors, [("grad", grad), ("momentum", momentum)])
+        weights, neighbors, [("grad", grad), ("momentum", momentum)],
+        BUCKET_DTYPES)
     alpha, mu = _f32(alpha), _f32(mu)
     if device.type == "cpu":
         out, new_v = ref.cdmsgd_update_ref(weights, neighbors, grad, momentum,
@@ -283,10 +316,10 @@ def cdmsgd_update(weights: torch.Tensor, neighbors: torch.Tensor,
         return grad, momentum
     rc = library().cdmsgd_update(
         weights.data_ptr(), neighbors.data_ptr(), KINDS[neighbors.dtype],
-        grad.data_ptr(), momentum.data_ptr(), a_out, s, rows * LANE // 4,
-        alpha, mu, device.index, _stream(device))
+        grad.data_ptr(), momentum.data_ptr(), KINDS[grad.dtype], a_out, s,
+        rows * LANE // 4, alpha, mu, device.index, _stream(device))
     _launch_check(rc, "cdmsgd_update")
-    cdmsgd_update.launches += 1
+    _count(cdmsgd_update, grad.dtype)
     return grad, momentum
 
 
@@ -295,8 +328,9 @@ def cdsgd_update_q(weights: torch.Tensor, self_buf: torch.Tensor,
                    grad: torch.Tensor, alpha) -> torch.Tensor:
     """``grad[a] <- w[a,0] self[a] + sum_s w[a,1+s] (payload[s] * scales[s])
     - alpha grad[a]``."""
-    a_out, s, rows, device = _check_q_operands(weights, self_buf, payload,
-                                               scales, [("grad", grad)])
+    a_out, s, rows, device = _check_q_operands(
+        weights, self_buf, payload, scales, [("grad", grad)],
+        buckets=BUCKET_DTYPES)
     alpha = _f32(alpha)
     if device.type == "cpu":
         grad.copy_(ref.cdsgd_update_q_ref(weights, self_buf, payload, scales,
@@ -306,10 +340,11 @@ def cdsgd_update_q(weights: torch.Tensor, self_buf: torch.Tensor,
         return grad
     rc = library().cdsgd_update_q(
         weights.data_ptr(), self_buf.data_ptr(), payload.data_ptr(),
-        KINDS[payload.dtype], scales.data_ptr(), grad.data_ptr(), a_out, s,
-        rows, alpha, device.index, _stream(device))
+        KINDS[payload.dtype], scales.data_ptr(), grad.data_ptr(),
+        KINDS[grad.dtype], a_out, s, rows, alpha, device.index,
+        _stream(device))
     _launch_check(rc, "cdsgd_update_q")
-    cdsgd_update_q.launches += 1
+    _count(cdsgd_update_q, grad.dtype)
     return grad
 
 
@@ -322,7 +357,7 @@ def cdmsgd_update_q(weights: torch.Tensor, self_buf: torch.Tensor,
     """
     a_out, s, rows, device = _check_q_operands(
         weights, self_buf, payload, scales,
-        [("grad", grad), ("momentum", momentum)])
+        [("grad", grad), ("momentum", momentum)], buckets=BUCKET_DTYPES)
     alpha, mu = _f32(alpha), _f32(mu)
     if device.type == "cpu":
         out, new_v = ref.cdmsgd_update_q_ref(weights, self_buf, payload,
@@ -335,10 +370,10 @@ def cdmsgd_update_q(weights: torch.Tensor, self_buf: torch.Tensor,
     rc = library().cdmsgd_update_q(
         weights.data_ptr(), self_buf.data_ptr(), payload.data_ptr(),
         KINDS[payload.dtype], scales.data_ptr(), grad.data_ptr(),
-        momentum.data_ptr(), a_out, s, rows, alpha, mu, device.index,
-        _stream(device))
+        momentum.data_ptr(), KINDS[grad.dtype], a_out, s, rows, alpha, mu,
+        device.index, _stream(device))
     _launch_check(rc, "cdmsgd_update_q")
-    cdmsgd_update_q.launches += 1
+    _count(cdmsgd_update_q, grad.dtype)
     return grad, momentum
 
 
@@ -683,7 +718,9 @@ def cdadam_update_sparse(weights: torch.Tensor, self_buf: torch.Tensor,
 
 def sr_quantize(x: torch.Tensor, seed: int, exchange: str, *,
                 agent_stride: int = 0):
-    """Quantize ``x (A, rows, 128)`` float32 for the wire.
+    """Quantize ``x (A, rows, 128)`` float32 or bfloat16 for the wire (a
+    bf16 bucket is widened exactly: the codes and scales of the float32
+    bucket of the same values).
 
     Returns ``(q, scales)``: ``q (A, rows, 128)`` int8 (``exchange="int8"``,
     stochastic rounding) or float8_e4m3fn (``"fp8"``, nearest), ``scales
@@ -704,7 +741,7 @@ def sr_quantize(x: torch.Tensor, seed: int, exchange: str, *,
                          f"{exchange!r}")
     a_count, rows = _stack("x", x)
     device = x.device
-    _check("x", x, (a_count, rows, LANE), device)
+    _check("x", x, (a_count, rows, LANE), device, BUCKET_DTYPES)
     if a_count * rows > MAX_QUANTIZE_ROWS:
         raise ValueError(f"sr_quantize takes at most {MAX_QUANTIZE_ROWS} rows "
                          f"per launch, got {a_count * rows}")
@@ -712,15 +749,15 @@ def sr_quantize(x: torch.Tensor, seed: int, exchange: str, *,
         return ref.sr_quantize_ref(x, seed, exchange, agent_stride)
     _check_placement([("x", x)], [], device)
     q = torch.empty_like(x, dtype=qdtype)
-    scales = x.new_empty((a_count, rows, 1))
+    scales = x.new_empty((a_count, rows, 1), dtype=torch.float32)
     if a_count == 0 or rows == 0:
         return q, scales
     rc = _sr_quantize_fn()(
-        x.data_ptr(), q.data_ptr(), KINDS[qdtype], scales.data_ptr(),
-        a_count * rows, rows, seed & 0xFFFFFFFF, agent_stride & 0xFFFFFFFF,
-        device.index, _stream(device))
+        x.data_ptr(), KINDS[x.dtype], q.data_ptr(), KINDS[qdtype],
+        scales.data_ptr(), a_count * rows, rows, seed & 0xFFFFFFFF,
+        agent_stride & 0xFFFFFFFF, device.index, _stream(device))
     _launch_check(rc, "sr_quantize")
-    sr_quantize.launches += 1
+    _count(sr_quantize, x.dtype)
     return q, scales
 
 
@@ -749,13 +786,28 @@ KERNELS = {"cdsgd_update": cdsgd_update, "cdmsgd_update": cdmsgd_update,
 # is imported, before any caller can read it)
 
 
+#: the wrappers that take bf16 parameter buckets (``launches_by_bucket``)
+BUCKET_KERNELS = {name: KERNELS[name] for name in (
+    "cdsgd_update", "cdmsgd_update", "cdsgd_update_q", "cdmsgd_update_q",
+    "sr_quantize")}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    for fn in BUCKET_KERNELS.values():
+        fn.launches_by_bucket = {str(d)[6:]: 0 for d in BUCKET_DTYPES}
 
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def bucket_launch_counts() -> dict:
+    """``{kernel: {"float32": n, "bfloat16": m}}`` of the bf16-capable
+    wrappers."""
+    return {name: dict(fn.launches_by_bucket)
+            for name, fn in BUCKET_KERNELS.items()}
 
 
 reset_launch_counts()

@@ -43,6 +43,13 @@ CUDA kernel computes the same stream in registers; this module computes it
 with int64 tensors.  Every draw goes through :func:`uniforms`, so a test
 can substitute another stream (the JAX package's ``jax.random`` draws).
 
+A bfloat16 parameter bucket (the dense and ``_q`` forms of CDSGD and CDMSGD,
+and ``sr_quantize_ref``) is widened exactly by ``.float()``; the same
+float32 operations follow, and each output is rounded once to the
+bucket's dtype (``.to(grad.dtype)``: round to nearest even), as the Pallas
+kernels store into ``out_ref.dtype`` and the CUDA kernels round with
+``__float2bfloat16_rn``.
+
 Scalars enter as float32 (``1 - b1`` is a float32 subtraction).  A
 division by a scalar divides by a float32 tensor on the operand's device:
 PyTorch's CUDA ``tensor / python_scalar`` multiplies by the reciprocal,

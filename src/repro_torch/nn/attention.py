@@ -1,24 +1,27 @@
-"""Grouped-query attention for prefill and cached decode, as the GQA part of
-:mod:`repro.nn.attention`.
+"""Grouped-query attention for prefill, training and cached decode, as the
+GQA part of :mod:`repro.nn.attention`.
 
 * Prefill (:func:`gqa_attention`, causal self-attention) runs the flash
   kernel (:func:`repro_torch.kernels.flash_attention.ops.
   flash_attention_bshd`) with the layer's static window: a sliding-window
   layer and a global one are the same kernel with and without ``window``.
-  The reference computes the same function with ``banded_attention``
-  (static window below ``s``) or ``blockwise_attention`` (otherwise).
-  Any length is taken: the kernel masks ragged tiles (the reference's
-  ``blockwise_attention`` pads KV to its chunk).  bfloat16 runs the
-  tensor-core kernel, float32 the float32 one; nothing falls back to
-  plain code.
+  Any length is taken: the kernel masks ragged tiles.  bfloat16 runs the
+  tensor-core kernel, float32 the float32 one; nothing falls back to plain
+  code.  The kernel is forward-only, as the reference's is.
+* Training (``gqa_attention(..., differentiable=True)``, which the LM
+  loss asks for) computes the reference's own training attention in plain,
+  differentiable PyTorch, with the reference's choice between them:
+  :func:`banded_attention` when the window is static and below ``s`` and
+  ``s`` is a multiple of the chunk, :func:`blockwise_attention` (online
+  softmax over KV chunks, KV padded to a chunk multiple) otherwise.  Both
+  compute in float32 and cast to the query's dtype, as the reference does.
 * Decode (:func:`gqa_decode`) writes the new token's K/V into the cache
   **in place** and attends over it with :func:`decode_attention`, a plain
   einsum pair as in the reference (no kernel there either).
 
 GQA groups query heads over KV heads; no KV repetition is materialized.
-The reference's ``blockwise_attention`` and ``banded_attention`` as
-functions of their own, MLA, cross-attention and context parallelism are
-not ported yet (ROADMAP A17).
+MLA, cross-attention and context parallelism are not ported yet (ROADMAP
+A17).
 """
 
 from __future__ import annotations
@@ -54,6 +57,98 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     return out.reshape(b, 1, h, hdv).to(q.dtype)
 
 
+def _allowed_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
+                  window) -> torch.Tensor:
+    """``(q, k)`` bool mask from position indices."""
+    allowed = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                         device=q_pos.device)
+    if causal:
+        allowed = allowed & (k_pos[None, :] <= q_pos[:, None])
+    if window is not None:
+        allowed = allowed & (k_pos[None, :] > (q_pos[:, None] - window))
+    return allowed
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        q_positions: Optional[torch.Tensor] = None,
+                        k_positions: Optional[torch.Tensor] = None,
+                        chunk: int = 512) -> torch.Tensor:
+    """Online-softmax attention of ``q (b, sq, H, hd)`` over ``k (b, sk, KV,
+    hd)`` / ``v (b, sk, KV, hdv)`` in KV chunks of ``chunk`` (the last
+    padded; padded keys are masked out), float32 throughout, differentiable:
+    the reference's ``blockwise_attention`` step by step (running max
+    ``m``, running sum ``l``, accumulator, chunks in order)."""
+    b, sq, h, hd = q.shape
+    sk, kv, hdv = k.shape[1], k.shape[2], v.shape[3]
+    group = h // kv
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    q_pos = q_positions if q_positions is not None else torch.arange(sq, device=dev)
+    k_pos = k_positions if k_positions is not None else torch.arange(sk, device=dev)
+    chunk = min(chunk, sk)
+    n_chunks, rem = divmod(sk, chunk)
+    if rem:
+        pad = chunk - rem
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = torch.cat([k_pos, torch.full((pad,), 2**31 - 2,
+                                             dtype=k_pos.dtype, device=dev)])
+        n_chunks += 1
+    qg = q.reshape(b, sq, kv, group, hd).float() * scale
+    kf, vf = k.float(), v.float()
+    m = torch.full((b, sq, kv, group), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, sq, kv, group), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, sq, kv, group, hdv), dtype=torch.float32, device=dev)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        logits = torch.einsum("bqngd,bcnd->bqngc", qg, kf[:, sl])
+        allowed = _allowed_mask(q_pos, k_pos[sl], causal=causal, window=window)
+        lg = torch.where(allowed[None, :, None, None, :], logits, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(lg, dim=-1))
+        p = torch.exp(lg - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bqngc,bcne->bqnge", p, vf[:, sl])
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, sq, h, hdv).to(q.dtype)
+
+
+def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     window: int, q_chunk: int = 512) -> torch.Tensor:
+    """Causal sliding-window attention that computes only the band: per
+    query chunk, the KV span ``[chunk_end - span, chunk_end)`` with ``span
+    = q_chunk + ceil(window / q_chunk) q_chunk`` (at most ``s``), float32,
+    differentiable (the reference's ``banded_attention``).  Needs a static
+    ``window`` and ``s % q_chunk == 0``."""
+    b, s, h, hd = q.shape
+    kv, hdv = k.shape[2], v.shape[3]
+    g = h // kv
+    scale = 1.0 / math.sqrt(hd)
+    q_chunk = min(q_chunk, s)
+    if s % q_chunk:
+        raise ValueError(f"seq {s} must divide q_chunk {q_chunk}")
+    n_ch = s // q_chunk
+    span = min(q_chunk + -(-window // q_chunk) * q_chunk, s)
+    starts = [max(0, (i + 1) * q_chunk - span) for i in range(n_ch)]
+    k_sp = torch.stack([k[:, st:st + span] for st in starts], dim=1)
+    v_sp = torch.stack([v[:, st:st + span] for st in starts], dim=1)
+    qc = q.reshape(b, n_ch, q_chunk, kv, g, hd).float() * scale
+    logits = torch.einsum("bmqngd,bmcnd->bmngqc", qc, k_sp.float())
+    dev = q.device
+    q_pos = (torch.arange(n_ch, device=dev) * q_chunk)[:, None] \
+        + torch.arange(q_chunk, device=dev)[None]
+    k_pos = torch.tensor(starts, device=dev)[:, None] \
+        + torch.arange(span, device=dev)[None]
+    allowed = (k_pos[:, None, :] <= q_pos[:, :, None]) \
+        & (k_pos[:, None, :] > q_pos[:, :, None] - window)
+    logits = torch.where(allowed[None, :, None, None], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bmngqc,bmcne->bmqnge", p, v_sp.float())
+    return out.reshape(b, s, h, hdv).to(q.dtype)
+
+
 def gqa_template(d: int, n_heads: int, n_kv: int, head_dim: int,
                  dtype=torch.float32) -> Dict[str, ParamDef]:
     return {
@@ -75,15 +170,29 @@ def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 
 
 def gqa_attention(params, x: torch.Tensor, positions: torch.Tensor, *,
-                  window: Optional[int] = None,
-                  rope_theta: float = 1e4) -> torch.Tensor:
+                  window: Optional[int] = None, rope_theta: float = 1e4,
+                  chunk: int = 512, differentiable: bool = False) -> torch.Tensor:
     """Causal self-attention of ``x (b, s, d)``; ``window`` None (global) or
-    a static int (sliding window).  The mask is built from position indices
-    ``0 .. s-1`` (the forward's ``positions``); rope reads ``positions``."""
+    a static int (sliding window); rope reads ``positions``.
+
+    ``differentiable=False`` (prefill) runs the forward-only flash kernel,
+    its mask built from position indices ``0 .. s-1``.
+    ``differentiable=True`` (training) computes the reference's plain
+    attention: :func:`banded_attention` for a window below ``s`` when ``s``
+    is a multiple of ``min(chunk, s)``, else :func:`blockwise_attention`
+    over ``positions``, both with ``chunk``."""
     q = apply_rope(_project(x, params["wq"]), positions, rope_theta)
     k = apply_rope(_project(x, params["wk"]), positions, rope_theta)
     v = _project(x, params["wv"])
-    out = flash_ops.flash_attention_bshd(q, k, v, causal=True, window=window)
+    s = x.shape[1]
+    if not differentiable:
+        out = flash_ops.flash_attention_bshd(q, k, v, causal=True, window=window)
+    elif window and s % min(chunk, s) == 0 and window < s:
+        out = banded_attention(q, k, v, window=window, q_chunk=chunk)
+    else:
+        out = blockwise_attention(q, k, v, causal=True, window=window,
+                                  q_positions=positions, k_positions=positions,
+                                  chunk=chunk)
     return _out(out, params["wo"])
 
 

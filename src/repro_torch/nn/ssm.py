@@ -3,13 +3,19 @@
 token-shift coefficients, an RMS output norm; the data-dependent decay
 LoRA kept).
 
-A stateless prefill (``state is None``) runs the WKV recurrence through
-the CUDA kernel (:func:`repro_torch.kernels.rwkv_scan.ops.wkv6_bsnh`);
-where the reference takes its chunked matmul form (``wkv6_chunked``) for
-long sequences, the kernel computes the same recurrence step by step.  A
-carried state (decode) takes :func:`wkv6_scan` in plain PyTorch, as in the
-reference (it has no kernel there either).  ``wkv6_chunked`` and the
-Mamba layers are not ported yet (ROADMAP A17).
+The WKV recurrence takes one of three forms:
+
+* a stateless prefill (``state is None``) runs the forward-only CUDA
+  kernel (:func:`repro_torch.kernels.rwkv_scan.ops.wkv6_bsnh`), step by
+  step at any length;
+* training (``differentiable=True``, which the LM loss asks for) takes
+  the reference's own choice in plain, differentiable PyTorch:
+  :func:`wkv6_chunked` (the chunked matmul form) when ``s >= 64`` and ``s``
+  is a multiple of the chunk, :func:`wkv6_scan` otherwise;
+* a carried state (decode) takes :func:`wkv6_scan`, as in the reference
+  (it has no kernel there either).
+
+The Mamba layers are not ported yet (ROADMAP A17).
 """
 
 from __future__ import annotations
@@ -76,18 +82,71 @@ def wkv6_scan(r, k, v, w, u, state0=None):
     u = u.float()
     S = (torch.zeros((b, n_h, hs, hs), dtype=torch.float32, device=r.device)
          if state0 is None else state0.float())
-    ys = torch.empty((b, s, n_h, hs), dtype=torch.float32, device=r.device)
+    ys = []                       # stacked, not written in place: vmap-able
     for t in range(s):
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]          # (b, n_h, hs, hs)
-        ys[:, t] = torch.einsum("bhi,bhij->bhj", r[:, t], S + u[None, :, :, None] * kv)
+        ys.append(torch.einsum("bhi,bhij->bhj", r[:, t], S + u[None, :, :, None] * kv))
         S = w[:, t, :, :, None] * S + kv
-    return ys, S
+    return torch.stack(ys, dim=1), S
+
+
+def wkv6_chunked(r, k, v, w, u, state0=None, *, chunk: int = 32):
+    """The WKV6 recurrence in the reference's chunked matmul form (float32,
+    differentiable): chunks of ``chunk`` steps carry the state, and within
+    a chunk ``sub``-step blocks (16, or the largest divisor of ``chunk``
+    below it) use cumulative decays ``A_t = prod_{tau <= t} w_tau`` in log
+    space, shifted by the block's middle step:
+
+        y_t = (r_t A_{t-1}) . S_0 + sum_{tau < t} [(r_t A_{t-1} / A_tau) .
+              k_tau] v_tau + (r_t . (u k_t)) v_t
+        S'  = diag(A_C) S_0 + sum_tau diag(A_C / A_tau) k_tau v_tau^T
+
+    ``r, k, v, w (b, s, n_h, hs)`` with ``s % chunk == 0``; returns ``(y
+    (b, s, n_h, hs), final state)``.
+    """
+    b, s, n_h, hs = r.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"seq {s} must be a multiple of chunk {chunk}")
+    sub = min(16, chunk)
+    while chunk % sub:
+        sub -= 1
+    r, k, v, w = (a.float() for a in (r, k, v, w))
+    u = u.float()
+    S = (torch.zeros((b, n_h, hs, hs), dtype=torch.float32, device=r.device)
+         if state0 is None else state0.float())
+    mask = torch.tril(torch.ones((sub, sub), dtype=torch.bool, device=r.device), -1)
+    ys = []
+    for t0 in range(0, s, sub):              # the chunks' sub-blocks, in order
+        sl = slice(t0, t0 + sub)
+        rb, kb, vb, wb = r[:, sl], k[:, sl], v[:, sl], w[:, sl]
+        lw = torch.log(torch.clamp(wb, min=1e-38))
+        l_inc = torch.cumsum(lw, dim=1)              # log A_t (inclusive)
+        mid = l_inc[:, sub // 2: sub // 2 + 1]       # per-(b, h, hs) shift
+        a_inc = torch.exp(l_inc - mid)
+        a_exc = torch.exp(l_inc - lw - mid)          # A_{t-1} (exclusive)
+        r_dec = rb * a_exc
+        k_dec = kb / a_inc
+        s_shift = torch.exp(mid[:, 0])[..., None] * S
+        y_inter = torch.einsum("bchi,bhij->bchj", r_dec, s_shift)
+        p = torch.einsum("bthi,bchi->bhtc", r_dec, k_dec)
+        p = torch.where(mask[None, None], p, 0.0)
+        y_intra = torch.einsum("bhtc,bchj->bthj", p, vb)
+        y_diag = vb * torch.sum(rb * u[None, None] * kb, -1, keepdim=True)
+        ys.append(y_inter + y_intra + y_diag)
+        a_last = torch.exp(l_inc[:, -1])             # (b, n_h, hs)
+        k_scaled = kb * (a_inc[:, -1:] / a_inc)
+        S = a_last[..., None] * S + torch.einsum("bchi,bchj->bhij", k_scaled, vb)
+    return torch.cat(ys, dim=1), S
 
 
 def rwkv6_time_mix(params, x: torch.Tensor, *, head_size: int = 64,
-                   state: Optional[Dict[str, torch.Tensor]] = None):
+                   state: Optional[Dict[str, torch.Tensor]] = None,
+                   chunk: int = 32, differentiable: bool = False):
     """Returns ``(y, new_state)``; state = ``{"shift": (b, d), "S": (b, n_h,
-    hs, hs)}``."""
+    hs, hs)}``.  ``differentiable=True`` (training) takes
+    :func:`wkv6_chunked` when ``s >= 64`` and ``s % chunk == 0``, else
+    :func:`wkv6_scan`; otherwise a stateless call runs the WKV6 kernel."""
     b, s, d = x.shape
     n_h = d // head_size
     prev = None if state is None else state["shift"]
@@ -108,10 +167,13 @@ def rwkv6_time_mix(params, x: torch.Tensor, *, head_size: int = 64,
     w = w.reshape(b, s, n_h, head_size)
 
     u = params["u"].float()
-    if state is None:
-        y, S = wkv_ops.wkv6_bsnh(r, k, v, w, u)
+    s0 = None if state is None else state["S"]
+    if differentiable and s >= 64 and s % chunk == 0:
+        y, S = wkv6_chunked(r, k, v, w, u, s0, chunk=chunk)
+    elif differentiable or state is not None:
+        y, S = wkv6_scan(r, k, v, w, u, s0)
     else:
-        y, S = wkv6_scan(r, k, v, w, u, state["S"])
+        y, S = wkv_ops.wkv6_bsnh(r, k, v, w, u)
     y = rmsnorm(params["ln_out"], y.reshape(b, s, d).to(x.dtype)) * g
     out = torch.matmul(y, params["wo"])
     return out, {"shift": x[:, -1, :], "S": S}

@@ -11,7 +11,10 @@ per sub-layer) and a tail (``lg_tail``).  Where the reference scans over a
 stack (``lax.scan``) the port loops over its layer slices in Python.
 
 Prefill attention runs the flash kernel and the RWKV6 prefill the WKV6
-kernel (see :mod:`.attention`, :mod:`.ssm`).  Decode carries per-layer
+kernel (see :mod:`.attention`, :mod:`.ssm`); both are forward-only.  The
+loss is the training path: :func:`loss_fn` asks the layers for the
+reference's differentiable attention (banded / blockwise) and WKV
+(chunked / scan), in plain PyTorch.  Decode carries per-layer
 caches with the same stacked layout; the port writes them **in place**
 (views of the stacked tensors) and returns the same tree.  MoE, hybrid,
 encoder-decoder, MLA and frontend families raise ``NotImplementedError``
@@ -20,7 +23,7 @@ encoder-decoder, MLA and frontend families raise ``NotImplementedError``
 Public API:
   model_template(cfg)                       -> ParamDef tree
   forward(cfg, params, batch)               -> (logits, aux)  [prefill]
-  loss_fn(cfg, params, batch)               -> (scalar, metrics)
+  loss_fn(cfg, params, batch)               -> (scalar, metrics)  [training]
   init_cache(cfg, batch, max_len)           -> cache tree
   decode_step(cfg, params, cache, tok, idx) -> (logits, cache)
 """
@@ -162,17 +165,20 @@ def _sublayers(cfg, name: str, stacked: PyTree):
 # --------------------------------------------------------------------------
 
 
-def _block_apply(cfg, group: str, params, x, positions, window):
+def _block_apply(cfg, group: str, params, x, positions, window,
+                 differentiable: bool):
     _, norm = _norm(cfg)
     if group == "rwkv":
         y, _ = ssm_lib.rwkv6_time_mix(params["time_mix"], norm(params["ln1"], x),
-                                      head_size=min(64, cfg.d_model))
+                                      head_size=min(64, cfg.d_model),
+                                      differentiable=differentiable)
         x = x + y
         y, _ = ssm_lib.rwkv6_channel_mix(params["channel_mix"], norm(params["ln2"], x))
         return x + y
     h = norm(params["ln1"], x)
     x = x + attn.gqa_attention(params["attn"], h, positions, window=window,
-                               rope_theta=cfg.rope_theta)
+                               rope_theta=cfg.rope_theta, chunk=cfg.attn_chunk,
+                               differentiable=differentiable)
     return x + mlp(params["mlp"], norm(params["ln2"], x), act=cfg.act)
 
 
@@ -184,9 +190,12 @@ def _logits(cfg, params, x):
     return unembed(params["unembed"], x)
 
 
-def forward(cfg, params, batch):
-    """Prefill forward of ``batch["inputs"] (b, s)`` tokens.  Returns
-    ``(logits (b, s, vocab), aux)``; ``aux["moe_aux"]`` is 0 (no MoE)."""
+def forward(cfg, params, batch, *, differentiable: bool = False):
+    """Forward of ``batch["inputs"] (b, s)`` tokens.  Returns ``(logits (b,
+    s, vocab), aux)``; ``aux["moe_aux"]`` is 0 (no MoE).  Prefill
+    (``differentiable=False``) runs the forward-only attention and WKV6
+    kernels; ``differentiable=True`` (the loss) their plain, differentiable
+    training forms."""
     x = embed(params["embed"], batch["inputs"])
     pos = torch.arange(x.shape[1], device=x.device)
     for name, count, _ in layer_groups(cfg):
@@ -194,7 +203,7 @@ def forward(cfg, params, batch):
             continue
         group = "rwkv" if name == "rwkv" else "dense"
         for p, window in _sublayers(cfg, name, params["groups"][name]):
-            x = _block_apply(cfg, group, p, x, pos, window)
+            x = _block_apply(cfg, group, p, x, pos, window, differentiable)
     logits = _logits(cfg, params, x)
     return logits, {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
 
@@ -211,8 +220,9 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask=None) -> tor
 
 
 def loss_fn(cfg, params, batch):
-    """``(loss, metrics)``: mean next-token cross entropy over the batch."""
-    logits, aux = forward(cfg, params, batch)
+    """``(loss, metrics)``: mean next-token cross entropy over the batch,
+    through the differentiable (training) forward."""
+    logits, aux = forward(cfg, params, batch, differentiable=True)
     loss = cross_entropy(logits, batch["targets"], batch.get("mask"))
     return loss, {"ce": loss, "moe_aux": aux["moe_aux"]}
 

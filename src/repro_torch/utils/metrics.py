@@ -1,7 +1,10 @@
-"""Lightweight in-memory metric history (copy of :mod:`repro.utils.metrics`)."""
+"""Lightweight metric logging: CSV and in-memory history (copy of
+:mod:`repro.utils.metrics`)."""
 
 from __future__ import annotations
 
+import csv
+import os
 from typing import Dict, List, Optional
 
 
@@ -34,3 +37,24 @@ class MetricHistory:
             lo = max(0, i - window + 1)
             out.append(sum(s[lo : i + 1]) / (i - lo + 1))
         return out
+
+
+class CSVLogger:
+    """Append-only CSV metric logger (creates header lazily)."""
+
+    def __init__(self, path: str) -> None:
+        self.path = path
+        self._fields: Optional[List[str]] = None
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+
+    def log(self, **metrics) -> None:
+        first = self._fields is None
+        if first:
+            self._fields = list(metrics.keys())
+        with open(self.path, "a", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=self._fields, extrasaction="ignore")
+            if first:
+                w.writeheader()
+            w.writerow(metrics)

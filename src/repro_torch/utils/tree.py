@@ -10,7 +10,7 @@ entry such as ``TopKWire``) keeps its type.
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Sequence, Tuple
 
 import torch
 
@@ -78,3 +78,81 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
 
 def tree_zeros_like(tree: PyTree) -> PyTree:
     return tree_map(torch.zeros_like, tree)
+
+
+def tree_flatten_with_path(tree: PyTree) -> List[Tuple[tuple, Any]]:
+    """``[(path, leaf)]`` in :func:`tree_flatten`'s order.  A path entry is
+    a dict key, a list / tuple index, or ``".name"`` for a named tuple's
+    field (``str`` of JAX's ``GetAttrKey``)."""
+    out: List[Tuple[tuple, Any]] = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], path + (k,))
+        elif isinstance(t, (list, tuple)):
+            names = getattr(t, "_fields", None)
+            for i, x in enumerate(t):
+                walk(x, path + ((f".{names[i]}" if names else i),))
+        elif t is not None:
+            out.append((path, t))
+
+    walk(tree, ())
+    return out
+
+
+def tree_add(a: PyTree, b: PyTree) -> PyTree:
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a: PyTree, b: PyTree) -> PyTree:
+    return tree_map(torch.sub, a, b)
+
+
+def tree_scale(s, tree: PyTree) -> PyTree:
+    return tree_map(lambda x: s * x, tree)
+
+
+def tree_axpy(a, x: PyTree, y: PyTree) -> PyTree:
+    """``a * x + y``, leaf-wise."""
+    return tree_map(lambda xi, yi: a * xi + yi, x, y)
+
+
+def tree_weighted_sum(weights: Sequence, trees: Sequence[PyTree]) -> PyTree:
+    """``sum_i weights[i] * trees[i]``, leaf-wise, in ``i`` order: one row
+    of ``(Pi x)_j = sum_l pi_jl x_l`` (paper eq. 5)."""
+    if len(weights) != len(trees):
+        raise ValueError(f"{len(weights)} weights vs {len(trees)} trees")
+
+    def leaf(*leaves):
+        acc = weights[0] * leaves[0]
+        for w, x in zip(weights[1:], leaves[1:]):
+            acc = acc + w * x
+        return acc
+
+    return tree_map(leaf, *trees)
+
+
+def tree_dot(a: PyTree, b: PyTree) -> torch.Tensor:
+    """Inner product over all leaves, in float32 (one sum per leaf, then
+    the sum of those)."""
+    sums = [torch.sum(x.float() * y.float())
+            for x, y in zip(tree_leaves(a), tree_leaves(b))]
+    return torch.sum(torch.stack(sums)) if sums else torch.tensor(0.0)
+
+
+def tree_l2_norm(tree: PyTree) -> torch.Tensor:
+    return torch.sqrt(tree_dot(tree, tree))
+
+
+def tree_cast(tree: PyTree, dtype) -> PyTree:
+    return tree_map(lambda x: x.to(dtype), tree)
+
+
+def tree_size(tree: PyTree) -> int:
+    """Total number of scalar parameters."""
+    return sum(x.numel() for x in tree_leaves(tree))
+
+
+def tree_bytes(tree: PyTree) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))

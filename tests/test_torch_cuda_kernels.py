@@ -10,7 +10,10 @@ so it also runs on a machine with PyTorch alone:
 Tolerance 1e-6 abs: kernel and plain version do the same float32
 operations in the same order (no FMA contraction in the kernel), so they
 are expected to agree exactly.  ``sr_quantize`` is held bit for bit: both
-draw the same Philox4x32-10 stream.  The sparse (top-k wire) update
+draw the same Philox4x32-10 stream.  On bf16 parameter buckets the dense
+and ``_q`` CDSGD / CDMSGD kernels and ``sr_quantize`` are held bit for bit
+(ragged, stencil and path row counts, every neighbour and payload type),
+and the other forms refuse a bf16 bucket.  The sparse (top-k wire) update
 kernels are held against their ``index_add_`` plain versions on compact
 stacks that ``topk_compress_2d`` makes on the card; the threshold
 function (amax, thresholds, counts and pick, all on the card) must give
@@ -874,3 +877,100 @@ def test_sr_quantize_at_round_seeds_matches_plain_version(exchange, step):
     if exchange == "int8":
         assert not torch.equal(codes[0], codes[1])
         assert not torch.equal(codes[1], codes[2])
+
+
+# bf16 parameter buckets: the dense and _q forms of CDSGD / CDMSGD and
+# sr_quantize (the model zoo's training path)
+BF16_ROWS = [(4, 4, 1001), (1, 3, 37), (4, 4, 16941)]
+
+
+def _bf16_bucket(gen, shape, dev):
+    """bf16 values whose rows span six decades, row 0 all zero."""
+    x = torch.randn(shape, generator=gen, device=dev)
+    x = x * 10.0 ** (6 * torch.rand(shape[:-1] + (1,), generator=gen,
+                                    device=dev) - 3)
+    x[..., 0, :] = 0.0
+    return x.to(torch.bfloat16).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_out,s,rows", BF16_ROWS, ids=["ragged", "stencil", "path"])
+@pytest.mark.parametrize("neighbors", NEIGHBOR_DTYPES, ids=str)
+def test_dense_kernels_on_bf16_buckets_bitwise(neighbors, a_out, s, rows):
+    """bf16 grad and momentum, f32 or bf16 neighbours: every output bit of
+    the plain version, written in place, counted as a bf16 launch."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(rows + s)
+    w = torch.rand((a_out, s), generator=gen, device=dev)
+    w = (w / w.sum(dim=1, keepdim=True)).contiguous()
+    x = _bf16_bucket(gen, (s, rows, 128), dev).to(neighbors)
+    g, v = (_bf16_bucket(gen, (a_out, rows, 128), dev) for _ in range(2))
+    n = cu.cdsgd_update.launches_by_bucket["bfloat16"]
+    g1 = g.clone()
+    out = cu.cdsgd_update(w, x, g1, ALPHA)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == g1.data_ptr()
+    assert cu.cdsgd_update.launches_by_bucket["bfloat16"] == n + 1
+    assert torch.equal(out.view(torch.int16),
+                       ref.cdsgd_update_ref(w, x, g, ALPHA).view(torch.int16))
+    want_p, want_v = ref.cdmsgd_update_ref(w, x, g, v, ALPHA, MU)
+    p, nv = cu.cdmsgd_update(w, x, g.clone(), v.clone(), ALPHA, MU)
+    torch.cuda.synchronize()
+    assert torch.equal(p.view(torch.int16), want_p.view(torch.int16))
+    assert torch.equal(nv.view(torch.int16), want_v.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_out,s,rows", BF16_ROWS, ids=["ragged", "stencil", "path"])
+@pytest.mark.parametrize("dtype", PAYLOADS, ids=str)
+def test_q_kernels_on_bf16_buckets_bitwise(dtype, a_out, s, rows):
+    """bf16 self, grad and momentum, every payload type."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(rows * 7 + s)
+    w = torch.rand((a_out, s + 1), generator=gen, device=dev)
+    w = (w / w.sum(dim=1, keepdim=True)).contiguous()
+    x = _bf16_bucket(gen, (s, rows, 128), dev)
+    if dtype in (torch.int8, torch.float8_e4m3fn):
+        q, sc = cu.sr_quantize(x, rows, "int8" if dtype == torch.int8 else "fp8")
+    else:
+        q, sc = x.to(dtype), torch.ones((s, rows, 1), device=dev)
+    slf, g, v = (_bf16_bucket(gen, (a_out, rows, 128), dev) for _ in range(3))
+    out = cu.cdsgd_update_q(w, slf, q, sc, g.clone(), ALPHA)
+    p, nv = cu.cdmsgd_update_q(w, slf, q, sc, g.clone(), v.clone(), ALPHA, MU)
+    torch.cuda.synchronize()
+    want = ref.cdsgd_update_q_ref(w, slf, q, sc, g, ALPHA)
+    want_p, want_v = ref.cdmsgd_update_q_ref(w, slf, q, sc, g, v, ALPHA, MU)
+    for got, exp in ((out, want), (p, want_p), (nv, want_v)):
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got.view(torch.int16), exp.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 37, 16941])
+@pytest.mark.parametrize("exchange", ["int8", "fp8"])
+def test_sr_quantize_of_a_bf16_bucket_bitwise(exchange, rows):
+    """A bf16 bucket quantizes to the codes and scales of its float32
+    widening (the kernel widens as it loads), equal to the plain version."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    x = _bf16_bucket(gen, (4, rows, 128), dev)
+    n = cu.sr_quantize.launches_by_bucket["bfloat16"]
+    q, sc = cu.sr_quantize(x, 99, exchange, agent_stride=104729)
+    qf, scf = cu.sr_quantize(x.float(), 99, exchange, agent_stride=104729)
+    torch.cuda.synchronize()
+    assert cu.sr_quantize.launches_by_bucket["bfloat16"] == n + 1
+    want_q, want_sc = ref.sr_quantize_ref(x, 99, exchange, 104729)
+    assert torch.equal(q.view(torch.uint8), qf.view(torch.uint8))
+    assert torch.equal(q.view(torch.uint8), want_q.view(torch.uint8))
+    assert torch.equal(sc, scf) and torch.equal(sc, want_sc)
+
+
+@pytest.mark.cuda
+def test_other_forms_refuse_bf16_buckets_on_card():
+    dev = _card()
+    w, x, g, v = _operands(dev, 2, 2, 8)
+    gb, vb = g.bfloat16(), v.bfloat16()
+    with pytest.raises(TypeError, match="ROADMAP A21"):
+        cu.cdmsgd_nesterov_update(w, x, gb, vb, ALPHA, MU)
+    with pytest.raises(TypeError, match="ROADMAP A21"):
+        cu.cdadam_update(w, x, gb, vb, vb.clone(), 1e-3, 0.9, 0.999, 1e-8, 0.1, 0.001)

@@ -127,9 +127,9 @@ def test_trainer_without_device_raises_without_cuda(setup, monkeypatch):
 ])
 def test_unported_knobs_raise(setup, knob, err, item):
     """Knobs outside the port raise; the ``A13`` rows name the refusal
-    these knobs raised before ROADMAP A13 was ported: now each builds, or
-    raises the JAX trainer's own ``ValueError`` (``staleness=2`` under the
-    sync schedule)."""
+    these knobs raised before ROADMAP A13 was ported (``A9``: microbatches,
+    before ROADMAP A17.1): now each builds, or raises the JAX trainer's own
+    ``ValueError`` (``staleness=2`` under the sync schedule)."""
     _, _, jp = setup
     build = functools.partial(
         CollaborativeTrainer,
@@ -137,7 +137,7 @@ def test_unported_knobs_raise(setup, knob, err, item):
         params_from_numpy(jax.tree.map(np.asarray, jp), "cpu"),
         make_topology("ring", 5), make_optimizer("cdsgd", 0.05, fused=True),
         device="cpu", **knob)
-    if item != "A13":
+    if item not in ("A13", "A9"):
         with pytest.raises(err, match=item):
             build()
         return
@@ -152,6 +152,9 @@ def test_unported_knobs_raise(setup, knob, err, item):
         return
     tr = build()
     assert tr.program.rounds == knob.get("consensus_rounds", 1)
+    if item == "A9":              # microbatches: the grad phase accumulates
+        assert tr.program.strategy == "static"
+        return
     assert tr.program.strategy == "multi_round"
 
 
