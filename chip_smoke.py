@@ -206,6 +206,25 @@ quantize kernels, and checkpoint / resume) adds:
     on ``live_weights``; the bf16 update phase (f32-wire CDMSGD, int8-wire
     CDSGD) from one state with the card's gradients, bit for bit.
 
+The sharded slice (one process per agent, ``repro_torch.launch.steps.
+build_train_step``) adds:
+
+14. (run right after the build, while this process holds little of the
+    card's memory) three ``gloo`` ranks, all on the one card, spawned through
+    ``repro_torch.launch.mesh.spawn_agents`` (payloads staged through
+    pinned host buffers): gemma3-1b at full width and depth on a ring of 3
+    (``live_weights``, phase 10's draw; batch 1 x 1024 of each rank's
+    token shard), CDMSGD on the f32 wire (sync) and CDSGD on the int8 wire
+    (overlap), 3 steps each: per rank the step ms, the exchange's host ms
+    (staging plus gloo), the bytes posted a step against
+    ``program_bytes_per_neighbor`` x 2 neighbours, exact launches (one
+    update a step, one ``sr_quantize`` more on int8 and one at overlap
+    init, no flash / WKV6), peak memory, finite losses; then at full width
+    with 2 layers in float32, each rank's update phase against the
+    stacked trainer's (one rank at a time builds it) from one seeded state,
+    bit for bit, and one whole step within 1e-5 of max |param|.  A rank
+    that fails or hangs past its limit fails the phase.
+
 Any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 float32 matmuls and convolutions run in full float32 (TF32 off).
@@ -220,6 +239,7 @@ import gc
 import json
 import math
 import os
+import resource
 import subprocess
 import sys
 import tempfile
@@ -236,6 +256,7 @@ os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
@@ -243,11 +264,12 @@ from repro_torch.benchmarks import common as bench  # noqa: E402
 from repro_torch.benchmarks import consensus_radius  # noqa: E402
 from repro_torch.benchmarks import fig1a_cdsgd_vs_sgd, fig1b_cdmsgd_vs_fedavg  # noqa: E402
 from repro_torch.checkpoint import restore_train_state  # noqa: E402
-from repro_torch.configs import ARCH_CONFIGS, get_config  # noqa: E402
+from repro_torch.configs import ARCH_CONFIGS, InputShape, get_config  # noqa: E402
 from repro_torch.core import make_optimizer, make_topology  # noqa: E402
 from repro_torch.core.consensus import (  # noqa: E402
     WireRing,
     _self_separated_weights,
+    program_bytes_per_neighbor,
     widen_with_momentum,
 )
 from repro_torch.core.faults import make_fault_schedule  # noqa: E402
@@ -269,6 +291,9 @@ from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.rwkv_scan import rwkv_scan as rs  # noqa: E402
 from repro_torch.kernels.rwkv_scan.ref import wkv6_ref  # noqa: E402
 from repro_torch.launch import train as lm_train  # noqa: E402
+from repro_torch.launch.mesh import spawn_agents  # noqa: E402
+from repro_torch.launch.sharding import local_batch  # noqa: E402
+from repro_torch.launch.steps import build_train_step, local_train_state  # noqa: E402
 from repro_torch.launch.serve import make_prompt, serve  # noqa: E402
 from repro_torch.nn import transformer as tt  # noqa: E402
 from repro_torch.nn.param import count_params, init_params  # noqa: E402
@@ -511,6 +536,27 @@ LM_RUNS = (
 # parameters), 2 agents, CDMSGD int8 overlap with error feedback; the
 # whole run's steps, and the split run's before its checkpoint
 RESUME_STEPS, RESUME_SPLIT = 4, 2
+# phase 14, the sharded mode: gemma3-1b at full width and depth, one gloo
+# rank per agent on a ring, all on the one card; (label, optimizer, knobs,
+# launches at init, launches per step), every launch on the bf16 bucket
+SHARDED_AGENTS = 3
+SHARDED_RUNS = (
+    ("cdmsgd f32 sync", "cdmsgd", {"exchange": "f32", "schedule": "sync"}, {},
+     {"cdmsgd_update": 1}),
+    ("cdsgd int8 overlap", "cdsgd", {"exchange": "int8", "schedule": "overlap"},
+     {"sr_quantize": 1}, {"sr_quantize": 1, "cdsgd_update_q": 1}),
+)
+SHARDED_STEPS, SHARDED_SEQ = 3, 1024        # batch 1 x 1024 per rank
+SHARDED_PARITY_LAYERS, SHARDED_PARITY_SEQ = 2, 128
+SHARDED_TOL = 1e-5             # of max |param|: a whole step, sharded vs stacked
+# each rank's allocator is capped in the full-depth runs at its share of
+# the card's free memory less a CUDA context (sharded_path): three peaks of
+# 22.4 GiB (an H100 80GB) fit in its 79 GiB only when no rank hoards freed
+# blocks that another needs (uncapped, a rank's backward can find the card
+# full); capped, a rank frees its own cache and retries before it fails
+SHARDED_HEADROOM = 512 << 20   # B per rank beyond a CUDA context
+SHARDED_PG_TIMEOUT = 120.0     # s, each collective in the ranks
+SHARDED_JOIN_S = 600.0         # s, the whole phase
 RESUME_FLAGS = ["--agents", "2", "--topology", "fully_connected", "--batch", "1",
                 "--seq", "1024", "--optimizer", "cdmsgd", "--exchange", "int8",
                 "--schedule", "overlap", "--error-feedback"]
@@ -2312,10 +2358,10 @@ def _equal_bits(got, want) -> bool:
             and torch.equal(got.view(torch.uint8), want.view(torch.uint8)))
 
 
-def _bf16_form_calls(name, w, wq, x, q, sc, slf, g, v, seed):
-    """``(kernel call, plain version call, outputs-written-in-place)`` of one
-    bf16-bucket form on the given operands (the kernel writes into ``g``,
-    ``v``)."""
+def _bf16_form_calls(name, w, wq, x, q, sc, slf, g, v, seed, exchange="int8"):
+    """``(kernel call, plain version call)`` of one bf16-bucket form on the
+    given operands (the kernel writes into ``g``, ``v``; ``sr_quantize``
+    codes ``x`` to ``exchange``)."""
     if name == "cdsgd_update:bf16":
         return (lambda: (cu.cdsgd_update(w, x, g, LR),),
                 lambda: (ref.cdsgd_update_ref(w, x, g, LR),))
@@ -2328,8 +2374,25 @@ def _bf16_form_calls(name, w, wq, x, q, sc, slf, g, v, seed):
     if name == "cdmsgd_update_q:bf16":
         return (lambda: cu.cdmsgd_update_q(wq, slf, q, sc, g, v, LR, MU),
                 lambda: ref.cdmsgd_update_q_ref(wq, slf, q, sc, g, v, LR, MU))
-    return (lambda: cu.sr_quantize(x, seed, "int8", agent_stride=104729),
-            lambda: ref.sr_quantize_ref(x, seed, "int8", 104729))
+    return (lambda: cu.sr_quantize(x, seed, exchange, agent_stride=104729),
+            lambda: ref.sr_quantize_ref(x, seed, exchange, 104729))
+
+
+def _bf16_bitwise(name, label, rows, w, wq, x, q, sc, slf, g, v) -> None:
+    """One bf16-bucket form's kernel against its plain version, bit for bit,
+    the update kernels writing their outputs in place."""
+    outs = [g.clone(), v.clone()]
+    exchange = "fp8" if label.endswith("fp8") else "int8"
+    kernel, plain = _bf16_form_calls(name, w, wq, x, q, sc, slf, *outs, rows,
+                                     exchange)
+    want = [t.clone() for t in plain()]
+    got = kernel()
+    torch.cuda.synchronize()
+    if not all(_equal_bits(gt, wt) for gt, wt in zip(got, want)):
+        raise AssertionError(f"{name} [{label} rows={rows}] differs "
+                             "from its plain version")
+    if name != "sr_quantize:bf16" and got[0].data_ptr() != outs[0].data_ptr():
+        raise AssertionError(f"{name} did not write its output in place")
 
 
 def check_bf16_buckets(results: dict, gen) -> None:
@@ -2364,24 +2427,42 @@ def check_bf16_buckets(results: dict, gen) -> None:
                     q, sc = cu.sr_quantize(x, 5, label, agent_stride=104729)
                 elif label == "bf16" and name.endswith("_q:bf16"):
                     q, sc = x, torch.ones((a, rows, 1), device=dev)
-                outs = [g.clone(), v.clone()]
-                kernel, plain = _bf16_form_calls(name, w, wq, xv, q, sc, slf,
-                                                 *outs, rows)
-                if name == "sr_quantize:bf16" and label == "fp8":
-                    kernel = lambda: cu.sr_quantize(x, rows, "fp8")   # noqa: E731
-                    plain = lambda: ref.sr_quantize_ref(x, rows, "fp8")  # noqa: E731
-                want = [t.clone() for t in plain()]
-                got = kernel()
-                torch.cuda.synchronize()
-                if not all(_equal_bits(gt, wt) for gt, wt in zip(got, want)):
-                    raise AssertionError(f"{name} [{label} rows={rows}] differs "
-                                         "from its plain version")
-                if name != "sr_quantize:bf16" and got[0].data_ptr() != outs[0].data_ptr():
-                    raise AssertionError(f"{name} did not write its output in place")
+                _bf16_bitwise(name, label, rows, w, wq, xv, q, sc, slf, g, v)
         del x, slf, g, v
+    # phase 14's one-agent stencil forms (the sharded mode, agent 1 of a ring
+    # of SHARDED_AGENTS): one output agent; the dense forms over its row's
+    # three senders in sender order, (1, 3); the _q forms over the self
+    # bucket and the two received payloads, (1, 1 + 2); one agent's codes
+    row = make_topology("ring", SHARDED_AGENTS).pi[1]
+    w1 = torch.tensor(row[None], dtype=torch.float32, device=dev)
+    wq1 = torch.tensor([[row[1], row[0], row[2]]], dtype=torch.float32, device=dev)
+    for rows in (part, 1001):
+        x3 = _bf16_rows(gen, SHARDED_AGENTS, rows)
+        slf, g, v = (_bf16_rows(gen, 1, rows) for _ in range(3))
+        for name in BF16_FORMS:
+            if name.endswith("_q:bf16"):
+                for label in ("int8", "fp8", "bf16"):
+                    if label == "bf16":
+                        q, sc = x3[:2], torch.ones((2, rows, 1), device=dev)
+                    else:
+                        q, sc = cu.sr_quantize(x3[:2], 5, label, agent_stride=104729)
+                    _bf16_bitwise(name, f"one agent, {label}", rows, w1, wq1, None,
+                                  q, sc, slf, g, v)
+            elif name == "sr_quantize:bf16":
+                for label in ("one agent, int8", "one agent, fp8"):
+                    _bf16_bitwise(name, label, rows, w1, wq1, slf, None, None,
+                                  slf, g, v)
+            else:
+                for label, xv in (("one agent, bf16", x3),
+                                  ("one agent, f32 neighbours", x3.float())):
+                    _bf16_bitwise(name, label, rows, w1, wq1, xv, None, None,
+                                  slf, g, v)
+        del x3, slf, g, v
     print(f"kernel bf16 buckets: every form bit for bit against its plain version "
-          f"at A = S = {a}, rows {part} (1/{LM_SLICES} of gemma3-1b's {full}) and "
-          "1001 (f32 / bf16 neighbours; int8 / fp8 / bf16 payloads; int8 / fp8 codes)")
+          f"at A = S = {a} and at phase 14's one-agent stencil forms (dense (1, "
+          f"{SHARDED_AGENTS}), _q (1, 1 + {SHARDED_AGENTS - 1}), sr_quantize A = 1), "
+          f"rows {part} (1/{LM_SLICES} of gemma3-1b's {full}) and 1001 (f32 / bf16 "
+          "neighbours; int8 / fp8 / bf16 payloads; int8 / fp8 codes)")
     _free()
     # the whole bucket: 4 x 7,811,037 x 128 bf16 per operand (8.0 GB)
     x = torch.randn((a, full, 128), generator=gen, device=dev, dtype=torch.bfloat16)
@@ -2721,6 +2802,308 @@ def parity_lm() -> None:
               f"{', momentum' if name == 'cdmsgd' else ''}) bit for bit")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the sharded mode, one process per agent on one card
+
+
+def _seeded_like(tree, device, agent: int, salt: int, scale: float):
+    """``scale * N(0, 1)`` shaped like ``tree``'s leaves, drawn on the card
+    from a generator seeded by ``(agent, salt)`` leaf by leaf in tree
+    order: the same bits in every process."""
+    gen = torch.Generator(device=device).manual_seed(1000 * salt + agent)
+    return tree_map(lambda x: scale * torch.randn(x.shape, generator=gen,
+                                                  device=device), tree)
+
+
+def _stacked_rows(tr, base, batch, n: int, rank: int, momentum: bool) -> dict:
+    """The stacked trainer ``tr`` (on the card) from a seeded state past
+    init: params ``base + 0.01 N`` per agent, the overlap wire quantized
+    from another such draw, a seeded momentum and gradients (the same bits
+    in every rank).  Returns agent ``rank``'s share of that state and of
+    the trainer's update phase and whole step from it (on the card)."""
+    dev = tr.device
+    stack = lambda rows: tree_map(lambda *xs: torch.stack(xs), *rows)  # noqa: E731
+    base_d = tree_map(lambda t: t.to(dev), base)
+    params = stack([tree_map(torch.add, base_d, _seeded_like(base_d, dev, a, 1, 0.01))
+                    for a in range(n)])
+    prev = stack([tree_map(torch.add, base_d, _seeded_like(base_d, dev, a, 2, 0.01))
+                  for a in range(n)])
+    del base_d
+    prog = tr._program
+    state = prog.init_state(prev)._replace(step=1)
+    del prev
+    one = tree_map(lambda x: x[0], params)
+    if momentum:
+        state = state._replace(inner=stack([_seeded_like(one, dev, a, 3, 0.01)
+                                            for a in range(n)]))
+    grads = stack([_seeded_like(one, dev, a, 4, 0.1) for a in range(n)])
+    clone = lambda tree: tree_map(  # noqa: E731
+        lambda t: t.clone() if isinstance(t, torch.Tensor) else t, tree)
+    rows = {"state": local_train_state(params, state, rank),
+            "grads": tree_map(lambda x: x[rank].clone(), grads)}
+    with torch.no_grad():
+        up, us = prog.update_phase(clone(params), grads, clone(state))
+    rows["update"] = local_train_state(up, us, rank)
+    del up, us, grads
+    wp, _, _ = prog.step_fn(params, state, {k: torch.as_tensor(v, device=dev)
+                                            for k, v in batch.items()})
+    rows["step"] = tree_map(lambda x: x[rank].clone(), wp)
+    return rows
+
+
+def _sharded_optimizer(name: str):
+    return make_optimizer(name, LR, fused=True, **({"mu": MU} if name == "cdmsgd"
+                                                    else {}))
+
+
+def _sharded_run(mesh, cfg, params, batches, label, opt_name, knobs, init,
+                 per_step, cap: int) -> dict:
+    """One full-width run of phase 14 on this rank: ``SHARDED_STEPS`` steps
+    through ``build_train_step``, each timed, with its launches, exchange
+    census and loss; checked here (exact launches, bytes against the
+    accounting, finite losses, no flash / WKV6 launch, the allocator's
+    peak within ``cap`` bytes)."""
+    _free()
+    dev = mesh.device
+    census = mesh.census
+    torch.cuda.reset_peak_memory_stats(dev)
+    cu.reset_launch_counts()
+    _reset_serving_counts()
+    census.reset()
+    shape = InputShape("phase14", SHARDED_SEQ, mesh.size, "train")
+    bundle = build_train_step(cfg, shape, mesh, _sharded_optimizer(opt_name),
+                              topology_name="ring", mixing="ppermute_fused",
+                              **knobs)
+    state = bundle.init_state(params)
+    torch.cuda.synchronize(dev)
+    if cu.launch_counts() != _want_counts(init, per_step, 0):
+        raise AssertionError(f"sharded {label} rank {mesh.rank}: init launched "
+                             f"{cu.launch_counts()}, expected {init}")
+    spec = make_flat_spec(params)
+    degree = bundle.topology.degree()
+    want_bytes = program_bytes_per_neighbor(spec, bundle.mixing_program) * degree
+    steps, p = [], params
+    for i, b in enumerate(batches):
+        census.reset()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        p, state, metrics = bundle.step_fn(p, state, local_batch(b, mesh))
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize(dev)
+        steps.append({"ms": 1e3 * (time.perf_counter() - t0), "loss": loss,
+                      "exchange_ms": 1e3 * census.seconds,
+                      "census": census.snapshot(), "counts": cu.launch_counts()})
+        what = f"sharded {label} rank {mesh.rank} step {i}"
+        if steps[-1]["counts"] != _want_counts(init, per_step, i + 1):
+            raise AssertionError(f"{what}: launched {steps[-1]['counts']}, "
+                                 f"expected {_want_counts(init, per_step, i + 1)}")
+        c = steps[-1]["census"]
+        if c["bytes_sent"] != want_bytes or c["bytes_received"] != want_bytes:
+            raise AssertionError(f"{what}: posted {c['bytes_sent']} B, received "
+                                 f"{c['bytes_received']} B, the accounting "
+                                 f"{want_bytes} B ({degree} neighbours)")
+        if not np.isfinite(loss):
+            raise AssertionError(f"{what}: loss {loss}")
+    if any(_serving_counts().values()):
+        raise AssertionError(f"sharded {label}: flash / WKV6 launched in training")
+    for k, by in cu.bucket_launch_counts().items():
+        if by["float32"]:
+            raise AssertionError(f"sharded {label}: {k} launched on an f32 bucket "
+                                 f"{by}; the model is one bf16 bucket")
+    carried = (wire_bytes_per_neighbor(state.wire) * degree
+               if bundle.schedule == "overlap" else None)
+    if carried is not None and carried != want_bytes:
+        raise AssertionError(f"sharded {label}: the carried wire moves {carried} "
+                             f"B a step, the accounting {want_bytes}")
+    peak_reserved = torch.cuda.max_memory_reserved(dev)
+    if peak_reserved > cap:
+        raise AssertionError(f"sharded {label} rank {mesh.rank}: reserved "
+                             f"{peak_reserved / 2**30:.2f} GiB, over its cap "
+                             f"{cap / 2**30:.2f} GiB")
+    out = {"label": label, "steps": steps, "want_bytes": want_bytes,
+           "degree": degree, "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "peak_reserved_gib": peak_reserved / 2**30, "cap_gib": cap / 2**30,
+           "exchange": bundle.exchange, "schedule": bundle.schedule,
+           "init": dict(init), "per_step": dict(per_step)}
+    del bundle, state, p
+    return out
+
+
+def _parity_config():
+    return dataclasses.replace(get_config("gemma3-1b"), n_layers=SHARDED_PARITY_LAYERS,
+                               param_dtype="float32", name="gemma3-1b-2layers-f32")
+
+
+def _sharded_parity(mesh, base, batch, label, opt_name, knobs,
+                    fraction: float) -> dict:
+    """Phase 14's parity on this rank: gemma3-1b at full width with
+    ``SHARDED_PARITY_LAYERS`` layers in float32, the stacked trainer (one
+    rank at a time builds it for every agent, its allocator uncapped: about
+    30 GiB) against this rank's sharded step from the same seeded state
+    (all ranks at once, each capped at ``fraction`` of the card): the update
+    phase with the same gradients and wire bit for bit, the whole step on
+    the same batch within ``SHARDED_TOL`` of max |param|."""
+    cfg = _parity_config()
+    n, dev = mesh.size, mesh.device
+    t0 = time.perf_counter()
+    rows = None
+    for r in range(n):
+        dist.barrier()
+        if mesh.rank == r:
+            _free()
+            torch.cuda.set_per_process_memory_fraction(1.0, dev)
+            tr = CollaborativeTrainer(lambda p, b: tt.loss_fn(cfg, p, b), base,
+                                      make_topology("ring", n),
+                                      _sharded_optimizer(opt_name), device=dev,
+                                      **knobs)
+            tr.state = None
+            rows = _stacked_rows(tr, base, batch, n, r, opt_name == "cdmsgd")
+            del tr
+            _free()
+            torch.cuda.set_per_process_memory_fraction(fraction, dev)
+    dist.barrier()
+    stacked_s = time.perf_counter() - t0
+    bundle = build_train_step(cfg, InputShape("phase14-parity", SHARDED_PARITY_SEQ, n,
+                                              "train"),
+                              mesh, _sharded_optimizer(opt_name),
+                              topology_name="ring", mixing="ppermute_fused", **knobs)
+    params, state = rows["state"]
+    with torch.no_grad():
+        got = bundle.update_phase(tree_map(torch.clone, params), rows["grads"],
+                                  tree_map(lambda t: t.clone()
+                                           if isinstance(t, torch.Tensor) else t,
+                                           state))
+    want = rows["update"]
+    pairs = [(x, y) for x, y in zip(tree_leaves(got), tree_leaves(want))
+             if isinstance(x, torch.Tensor)]
+    if len(tree_leaves(got)) != len(tree_leaves(want)) or \
+            not all(_equal_bits(x, y) for x, y in pairs):
+        raise AssertionError(f"sharded parity {label} rank {mesh.rank}: the update "
+                             "phase differs from the stacked trainer's")
+    del got
+    wp, _, _ = bundle.step_fn(params, state, local_batch(batch, mesh))
+    top = max(float(y.abs().max()) for y in tree_leaves(rows["step"]))
+    gap = max(float((x - y).abs().max())
+              for x, y in zip(tree_leaves(wp), tree_leaves(rows["step"])))
+    if not gap <= SHARDED_TOL * top:
+        raise AssertionError(f"sharded parity {label} rank {mesh.rank}: whole step "
+                             f"{gap} from the stacked trainer's, max |param| {top}")
+    del wp, bundle, params, state, rows
+    _free()
+    return {"label": label, "tensors": len(pairs), "gap": gap, "max_param": top,
+            "stacked_s": stacked_s, "params": count_params(tt.model_template(cfg))}
+
+
+def sharded_rank(mesh, cap: int) -> dict:
+    """Phase 14, one rank (agent ``mesh.rank`` of ``SHARDED_AGENTS``, all on
+    the one card over gloo): gemma3-1b at full width and depth on
+    ``live_weights`` (phase 10's draw), batch 1 x 1024 of its own token
+    shard, the runs of ``SHARDED_RUNS`` with the allocator capped at
+    ``cap`` bytes; then the 2-layer parity."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    total = torch.cuda.get_device_properties(mesh.device).total_memory
+    torch.cuda.set_per_process_memory_fraction(cap / total, mesh.device)
+    t0 = time.perf_counter()
+    cfg = get_config("gemma3-1b")
+    params = tree_map(lambda t: t.to(mesh.device),
+                      live_weights(cfg, init_params(tt.model_template(cfg), seed=0), 1))
+    stream = lm_agent_batches(make_lm_tokens(1 << 15, vocab=cfg.vocab_size, seed=0),
+                              mesh.size, 1, SHARDED_SEQ, seed=0)
+    batches = [next(stream) for _ in range(SHARDED_STEPS)]
+    out = {"init_s": time.perf_counter() - t0, "runs": [], "parity": []}
+    for label, opt_name, knobs, init, per_step in SHARDED_RUNS:
+        out["runs"].append(_sharded_run(mesh, cfg, params, batches, label, opt_name,
+                                        knobs, init, per_step, cap))
+    del params
+    _free()
+    pcfg = _parity_config()
+    base = live_weights(pcfg, init_params(tt.model_template(pcfg), seed=2), 3)
+    batch = next(lm_agent_batches(make_lm_tokens(1 << 14, vocab=pcfg.vocab_size,
+                                                 seed=1),
+                                  mesh.size, 1, SHARDED_PARITY_SEQ, seed=1))
+    for label, opt_name, knobs, _, _ in SHARDED_RUNS:
+        out["parity"].append(_sharded_parity(mesh, base, batch, label, opt_name,
+                                             knobs, cap / total))
+    out["pinned_gib"] = sum(b.numel() for b in mesh.pinned.values()) / 2**30
+    out["max_rss_gib"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    return out
+
+
+def _host_available_gib() -> float:
+    """The host's MemAvailable (``/proc/meminfo``), GiB."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def sharded_path() -> None:
+    """Phase 14: the sharded mode on the card, ``SHARDED_AGENTS`` gloo ranks
+    (one process per agent, one card), through ``spawn_agents``; every
+    check runs in the ranks, and a failing or hung rank fails the phase."""
+    a = torch.ones((256, 256), device=CARD)
+    float((a @ a).sum())            # load cuBLAS here, as each rank will
+    del a
+    _free()
+    free, total = torch.cuda.mem_get_info()
+    # this process's CUDA context and loaded modules: what the card holds
+    # beyond its allocator's pool (every kernel library is loaded here, so
+    # a rank's context, which loads fewer, takes about as much), plus a
+    # headroom for what a rank loads lazily in its grad phase
+    context = total - free - torch.cuda.memory_reserved()
+    cap = (free - SHARDED_AGENTS * (context + SHARDED_HEADROOM)) // SHARDED_AGENTS
+    print(f"sharded phase: the card has {free / 2**30:.2f} of {total / 2**30:.2f} GiB "
+          f"free before the ranks start (this process: "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved, context "
+          f"{context / 2**30:.2f} GiB); each rank's allocator capped at "
+          f"{cap / 2**30:.2f} GiB; host {_host_available_gib():.1f} GiB available",
+          flush=True)
+    t0 = time.perf_counter()
+    results = spawn_agents(sharded_rank, SHARDED_AGENTS, args=(cap,), backend="gloo",
+                           device="cuda", timeout=SHARDED_PG_TIMEOUT,
+                           join_timeout=SHARDED_JOIN_S, threads=2)
+    wall = time.perf_counter() - t0
+    card = card_line()
+    n_params = count_params(tt.model_template(get_config("gemma3-1b")))
+    for r, res in enumerate(results):
+        for run in res["runs"]:
+            steps = run["steps"]
+            steady = [s["ms"] for s in steps[1:]]
+            xch = [s["exchange_ms"] for s in steps[1:]]
+            c = steps[-1]["census"]
+            per_step = ", ".join(f"{k} {v}" for k, v in run["per_step"].items())
+            init = ", ".join(f"{k} {v}" for k, v in run["init"].items()) or "none"
+            losses = ", ".join(f"{s['loss']:.4f}" for s in steps)
+            step_ms = ", ".join(f"{s['ms']:.1f}" for s in steps)
+            xch_ms = ", ".join(f"{s['exchange_ms']:.1f}" for s in steps)
+            print(f"sharded rank {r}/{SHARDED_AGENTS} gemma3-1b full width and depth "
+                  f"({n_params:,} params, one bf16 bucket) {run['label']} on a ring: "
+                  f"losses {losses}; step ms {step_ms} (steady median "
+                  f"{float(np.median(steady)):.1f}); exchange host ms {xch_ms} "
+                  f"(steady median {float(np.median(xch)):.1f}: staging plus gloo); posted "
+                  f"{c['bytes_sent']:,} B a step in {c['sends']} transfers / "
+                  f"{c['messages']} messages = program_bytes_per_neighbor x "
+                  f"{run['degree']} ({run['want_bytes']:,} B); staged {c['staged_bytes']:,} "
+                  f"B; launches a step {per_step} (init: {init}), flash / WKV6 0; "
+                  f"max_memory_allocated {run['peak_gib']:.2f} GiB, reserved "
+                  f"{run['peak_reserved_gib']:.2f} of its cap {run['cap_gib']:.2f} GiB "
+                  f"(margin {run['cap_gib'] - run['peak_reserved_gib']:.2f} GiB) [{card}]")
+        for par in res["parity"]:
+            print(f"sharded parity rank {r} gemma3-1b full width {SHARDED_PARITY_LAYERS} "
+                  f"layers float32 ({par['params']:,} params) {par['label']}: update "
+                  f"phase bit for bit against the stacked trainer ({par['tensors']} "
+                  f"tensors: params and optimizer state), whole step max |diff| "
+                  f"{par['gap']:.3e} (max |param| {par['max_param']:.3e}, tol "
+                  f"{SHARDED_TOL:g} of it); stacked references {par['stacked_s']:.1f} s")
+        print(f"sharded rank {r}: weights drawn and moved in {res['init_s']:.1f} s; "
+              f"pinned staging {res['pinned_gib']:.2f} GiB; peak host RSS "
+              f"{res['max_rss_gib']:.2f} GiB")
+    print(f"sharded phase: {SHARDED_AGENTS} gloo ranks on one card, wall {wall:.1f} s "
+          f"(spawn, build check, both runs and the parity); host "
+          f"{_host_available_gib():.1f} GiB available after [{card}]")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -2748,6 +3131,9 @@ def main() -> None:
             if any(w in line for w in ("registers", "spill", "Compiling entry",
                                        "Performance Loss")):
                 print(f"  ptxas {lib}: {line.strip()}")
+    # phase 14 first: its three ranks need the card's memory, which the
+    # later phases' caches in this process would hold
+    sharded_path()
 
     measured = {}
     gen = torch.Generator(device="cuda").manual_seed(0)

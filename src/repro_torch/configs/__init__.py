@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from typing import Dict, List
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import INPUT_SHAPES, ArchConfig, InputShape, RunConfig
 from repro_torch.configs.gemma3_1b import CONFIG as _gemma3
 from repro_torch.configs.rwkv6_1_6b import CONFIG as _rwkv6
 
@@ -31,4 +31,5 @@ def list_archs() -> List[str]:
     return sorted(ARCH_CONFIGS)
 
 
-__all__ = ["ArchConfig", "ARCH_CONFIGS", "get_config", "list_archs"]
+__all__ = ["ArchConfig", "ARCH_CONFIGS", "INPUT_SHAPES", "InputShape",
+           "RunConfig", "get_config", "list_archs"]

@@ -3,9 +3,10 @@
 The port's own copy of :class:`ArchConfig` with the fields that the ported
 families read (dense GQA with local/global windows, RWKV6), and the
 discriminators of the families it does not run yet, on which the model
-raises.  :attr:`ArchConfig.dtype` is a ``torch.dtype``.  The reference's
-MLA, MoE, SSM-state, encoder and frontend sizes, ``InputShape`` and
-``RunConfig`` are not ported.
+raises.  :attr:`ArchConfig.dtype` is a ``torch.dtype``.  :class:`InputShape`
+(the four assigned global input shapes, :data:`INPUT_SHAPES`) and
+:class:`RunConfig` are the reference's.  The reference's MLA, MoE,
+SSM-state, encoder and frontend sizes are not ported.
 """
 
 from __future__ import annotations
@@ -98,3 +99,44 @@ class ArchConfig:
             if self.local_global_period else 0,
             attn_chunk=16,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """One of the four assigned global input shapes."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """CDSGD run settings (shared across architectures)."""
+
+    n_agents: int = 5                    # paper default
+    topology: str = "fully_connected"    # paper default
+    lazy_beta: Optional[float] = None
+    optimizer: str = "cdsgd"
+    step_size: float = 0.01              # paper default
+    momentum: float = 0.9
+    schedule: str = "fixed"              # fixed | diminishing
+    diminishing_eps: float = 1.0
+    diminishing_t: float = 1.0
+    fedavg_local_steps: int = 1          # E (paper comparison uses E=1)
+    batch_size: int = 128                # per paper (mini-batch 128)
+    seed: int = 0
+    non_iid: bool = False                # label-skew partition

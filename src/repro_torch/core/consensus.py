@@ -68,8 +68,15 @@ as a :class:`~repro_torch.kernels.consensus_update.ops.SparseNeighbors`;
 otherwise compressed entries decompress to dense f32 stacks with unit
 scales for the ``_q`` kernels.
 
-The sharded mode (its ``TimeVaryingMixing`` and ring) is a later slice
-(ROADMAP A16).
+The sharded mode (one process per agent, :mod:`repro_torch.launch.steps`)
+has its own strategy, :class:`ShardedMixing`, built by
+:func:`sharded_flat_comm`: the same stages over one agent's buckets, with
+the exchange a point-to-point permutation per circulant shift
+(:func:`repro_torch.core.collectives.ppermute`) and the received stencil
+ordered by sender.  :func:`make_sharded_mix_fn` and
+:func:`make_sharded_mean_fn` are its per-leaf mixing and mean for the
+unfused optimizers.  Its staleness ring, fault schedules and compressors
+are ROADMAP A16.2.
 """
 
 from __future__ import annotations
@@ -80,7 +87,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import flatbuf
+from repro_torch.core import collectives, flatbuf
 from repro_torch.core.faults import (MAX_FAULT_PERIOD, FaultSchedule,
                                      arrival_masked_pi, trivial_faults)
 from repro_torch.core.topology import Topology, TopologySchedule, fixed_schedule
@@ -89,7 +96,8 @@ from repro_torch.kernels.consensus_update import sr_quantize
 from repro_torch.kernels.consensus_update import topk as tk
 from repro_torch.kernels.consensus_update.ops import SparseNeighbors
 from repro_torch.kernels.consensus_update.ref import as_int32
-from repro_torch.utils.tree import tree_leaves, tree_map
+from repro_torch.utils.tree import (tree_flatten, tree_leaves, tree_map,
+                                    tree_unflatten)
 
 PyTree = Any
 
@@ -786,6 +794,12 @@ class MixingStrategy:
                 scs.append(e[1])
         return nbrs, self.pi_q[t], scs
 
+    def post_exchange(self, wire, step):
+        """Start the exchange of a carried ``wire`` before the grad phase
+        (the overlap schedule).  The stacked simulation has nothing to
+        move: the wire itself is the exchange's input."""
+        return wire
+
     def exchange_stage(self, wire, step=None):
         """Wire state -> ``(payloads, weights_q, scales)`` of one round.
 
@@ -1096,6 +1110,308 @@ def initial_qwarm_state(fl: FlatComm, params: PyTree) -> tuple:
     if not fl.program.compressed:
         return ()
     return fl.strategy.qwarm_init(_packed(fl, params))
+
+
+# --------------------------------------------------------------------------
+# the sharded mode: one agent per process
+# --------------------------------------------------------------------------
+
+#: where the sharded mode's staleness ring, faults and compressors are queued
+SHARDED_LATER = "ROADMAP A16.2"
+
+
+class _StencilPlan(NamedTuple):
+    """One schedule entry's exchange, seen from one agent ``a``:
+
+    * ``shifts`` — the non-identity circulant shifts, ordered by their
+      sender ``(a + s) mod n`` (``senders``, ascending);
+    * ``weights_q`` — ``(U+1,)`` float32: ``Pi[a, a]``, then ``Pi[a,
+      sender]`` in that order (the self-separated ``_q`` form);
+    * ``stencil`` / ``weights`` — the legacy dense form: the senders and
+      ``a`` itself in ascending order, and ``Pi[a, j]`` over them.
+
+    Ordered by sender, the kernels' ``acc + w x`` sum runs over the terms
+    of the stacked simulation's row ``a`` in the same order, minus its
+    zero-weight terms, which add exact zeros: the same float32 result."""
+
+    shifts: tuple
+    senders: tuple
+    weights_q: torch.Tensor
+    stencil: tuple
+    weights: torch.Tensor
+
+
+def _stencil_plan(topology: Topology, agent: int, device) -> _StencilPlan:
+    n = topology.n_agents
+    shifts = topology.shift_weights()
+    if shifts is None:
+        raise ValueError(
+            f"topology {topology.name!r} is not circulant; the sharded "
+            "exchange permutes along circulant shifts (use mixing='ppermute' "
+            "or 'dense' for a general Pi)")
+    wire = sorted((s for s in shifts if s % n), key=lambda s: (agent + s) % n)
+    if not wire:
+        raise ValueError(f"topology {topology.name!r} has no neighbours: the "
+                         "exchange needs at least one wire-crossing shift")
+    senders = tuple((agent + s) % n for s in wire)
+    pi = topology.pi
+    stencil = tuple(sorted(senders + (agent,)))
+    return _StencilPlan(
+        shifts=tuple(wire), senders=senders,
+        weights_q=torch.tensor([pi[agent, agent]] + [pi[agent, j]
+                                                      for j in senders],
+                               dtype=torch.float32, device=device),
+        stencil=stencil,
+        weights=torch.tensor([pi[agent, j] for j in stencil],
+                             dtype=torch.float32, device=device))
+
+
+class _PostedWire(NamedTuple):
+    """A wire exchange in flight: the schedule entry, the pending transfers
+    and the stacks they land in (payloads ``(U, rows, 128)``, scales ``(U,
+    rows, 1)``, in sender order)."""
+
+    entry: int
+    pending: Any
+    payloads: list
+    scales: list
+
+
+def _as_lead(b: torch.Tensor) -> torch.Tensor:
+    """A local bucket ``(rows, 128)`` (or already ``(1, rows, 128)``) with
+    the size-1 agent axis the wire state keeps."""
+    return b.reshape((1,) + tuple(b.shape[-2:]))
+
+
+class ShardedMixing(MixingStrategy):
+    """The mixing strategy of one agent (``mesh.rank``) of the sharded mode.
+
+    The stages of :class:`MixingStrategy` over this agent's packed buckets
+    ``(rows, 128)``; the wire state keeps a leading agent axis of 1 (one
+    ``(payload (1, rows, 128), scales (1, rows, 1))`` pair per bucket, the
+    reference's ``_restore_lead``), as do the error-feedback residuals.
+
+    * quantization seeds agent ``rank``'s stream, ``wire_seed(step,
+      agent=rank, bucket, rnd, payload)``: ``sr_quantize``'s counter is the
+      index within the agent's own bucket, so the codes equal the stacked
+      launch's codes for this agent bit for bit;
+    * the exchange posts one transfer per non-identity shift of the step's
+      schedule entry per bucket per payload (and per row-scale tensor on an
+      int8 / fp8 wire; unit scales are made locally) in one
+      :func:`~repro_torch.core.collectives.ppermute`, and hands the fused
+      kernels the received stencil in sender order with this agent's row
+      of ``pi_q[t]`` restricted to its senders (:class:`_StencilPlan`);
+    * :meth:`post_exchange` starts the exchange of a carried wire before
+      the grad phase (overlap); :meth:`exchange_stage` waits on it;
+    * the trivial program on an f32 / bf16 wire keeps the legacy dense form
+      under the sync schedule: the stencil ``senders + self`` in ascending
+      order with the dense row of ``Pi``.
+    """
+
+    def __init__(self, program: MixingProgram, mesh, plans):
+        super().__init__(program, pi=None, pi_q=None)
+        self.name = program.strategy
+        self.mesh = mesh
+        self.plans = plans
+
+    def _entry(self, step) -> int:
+        if self.program.strategy != "time_varying":
+            return 0
+        if step is None:
+            raise ValueError("time-varying mixing needs the optimizer step "
+                             "to select Pi_t; exchange_stage(wire, step)")
+        return step % self.program.schedule.period
+
+    def _quantize_payloads(self, bufs, seed: int, rnd: int = 0):
+        exchange = self.program.exchange
+        agent = self.mesh.rank
+
+        def quantize(bs, payload):
+            out = []
+            for bi, b in enumerate(bs):
+                b = _as_lead(b)
+                if exchange in ("f32", "bf16"):
+                    out.append((_wire_payload(b, exchange),
+                                torch.ones(b.shape[:-1] + (1,),
+                                           dtype=torch.float32,
+                                           device=b.device)))
+                else:
+                    out.append(sr_quantize(
+                        b, wire_seed(seed, agent=agent, bucket=bi, rnd=rnd,
+                                     payload=payload), exchange))
+            return tuple(out)
+
+        if self.program.momentum_mixing != "mixed":
+            return quantize(bufs, 0)
+        half = len(bufs) // 2
+        return quantize(bufs[:half], 0) + quantize(bufs[half:], 1)
+
+    def _post(self, wire, t: int) -> _PostedWire:
+        plan = self.plans[t]
+        u = len(plan.shifts)
+        quantized = self.program.exchange in ("int8", "fp8")
+        items, outs, payloads, scales = [], [], [], []
+        for p, sc in wire:
+            p, sc = p[0], sc[0]
+            stack = p.new_empty((u,) + tuple(p.shape))
+            payloads.append(stack)
+            items.append(p)
+            outs.append(list(stack.unbind(0)))
+            if quantized:
+                sstack = sc.new_empty((u,) + tuple(sc.shape))
+                items.append(sc)
+                outs.append(list(sstack.unbind(0)))
+            else:
+                sstack = torch.ones((u,) + tuple(sc.shape),
+                                    dtype=torch.float32, device=sc.device)
+            scales.append(sstack)
+        pending = collectives.ppermute(self.mesh, items, plan.shifts, out=outs)
+        return _PostedWire(t, pending, payloads, scales)
+
+    def post_exchange(self, wire, step):
+        return self._post(wire, self._entry(step))
+
+    def _exchange_t(self, wire, t: int):
+        posted = wire if isinstance(wire, _PostedWire) else self._post(wire, t)
+        if posted.entry != t:
+            raise ValueError(f"the wire was posted for schedule entry "
+                             f"{posted.entry}, consumed at entry {t}")
+        posted.pending.wait()
+        return list(posted.payloads), self.plans[t].weights_q, \
+            list(posted.scales)
+
+    def combine(self, nbrs, weights_q, scales, selfs):
+        """The stacked :meth:`MixingStrategy.combine` of this agent's row:
+        float64 over the senders in order, then the self term, rounded
+        once."""
+        out = []
+        w = weights_q.double()
+        for p, sc, sf in zip(nbrs, scales, selfs):
+            mixed = w[1] * (p[0].float() * sc[0]).double()
+            for k in range(1, p.shape[0]):
+                mixed.addcmul_(w[1 + k], (p[k].float() * sc[k]).double())
+            mixed.addcmul_(w[0], sf.double())
+            out.append(mixed.to(sf.dtype))
+        return out
+
+    def gather(self, bufs, seed: int):
+        exchange = self.program.exchange
+        if self.program.momentum_mixing == "mixed" or not (
+                self.program.is_trivial and exchange in ("f32", "bf16")):
+            return super().gather(bufs, seed)
+        plan = self.plans[0]
+        me = plan.stencil.index(self.mesh.rank)
+        where = [plan.stencil.index(j) for j in plan.senders]
+        items, outs, stencils = [], [], []
+        for b in bufs:
+            x = _wire_payload(b, exchange)
+            st = x.new_empty((len(plan.stencil),) + tuple(x.shape))
+            st[me].copy_(x)
+            items.append(x)
+            outs.append([st[i] for i in where])
+            stencils.append(st)
+        collectives.ppermute(self.mesh, items, plan.shifts, out=outs).wait()
+        return stencils, plan.weights, [None] * len(bufs), [None] * len(bufs)
+
+    def residual_init(self, bufs):
+        self._note_bufs(bufs)
+        return tuple(torch.zeros(_as_lead(b).shape, dtype=torch.float32,
+                                 device=b.device) for b in bufs)
+
+
+def sharded_flat_comm(topology: Topology, mesh, *, exchange: str = "f32",
+                      program: Optional[MixingProgram] = None) -> FlatComm:
+    """FlatComm of agent ``mesh.rank`` of the sharded mode, circulant
+    topologies only (the reference's single-axis ``sharded_flat_comm``).
+
+    ``program`` defaults to the trivial static program over ``topology``;
+    a time-varying one exchanges each step along its entry's shifts only.
+    The staleness ring, fault schedules and the biased compressors raise
+    ``NotImplementedError`` (ROADMAP A16.2), here, before any work."""
+    if program is None:
+        program = make_mixing_program(topology, exchange=exchange)
+    if program.fault_tolerant:
+        raise NotImplementedError(
+            "the staleness ring and fault schedules of the sharded mode (each "
+            f"sender selecting its own ring slot) are {SHARDED_LATER}")
+    if program.compressed:
+        raise NotImplementedError(
+            f"compressor {program.compressor!r} in the sharded mode (and its "
+            f"sparse kernels) is {SHARDED_LATER}")
+    if program.schedule.n_agents != mesh.size:
+        raise ValueError(f"the topology spans {program.schedule.n_agents} "
+                         f"agents, the mesh {mesh.size} ranks")
+    plans = tuple(_stencil_plan(t, mesh.rank, mesh.device)
+                  for t in program.schedule.topologies)
+    strategy = ShardedMixing(program, mesh, plans)
+    return FlatComm(lead=0, gather=strategy.gather, strategy=strategy,
+                    program=program)
+
+
+def make_sharded_mix_fn(topology: Topology, mesh) -> Callable:
+    """Per-leaf mixing of agent ``mesh.rank``'s tree, for the unfused
+    optimizers.  A circulant ``Pi``: ``sum_s w_s * shift_s(x)`` in shift
+    order, in the leaf's dtype (the reference's ``_circulant_mix_leaf``),
+    every leaf and shift in one posted permutation.  Otherwise an
+    all-gather and this agent's row of ``Pi`` in float32
+    (``_general_mix_leaf``)."""
+    n = topology.n_agents
+    if n == 1:
+        return lambda tree: tree
+    shifts = topology.shift_weights()
+    if shifts is not None:
+        items = sorted(shifts.items())
+        wire = [s for s, _ in items if s % n]
+
+        def mix(tree):
+            leaves, treedef = tree_flatten(tree)
+            got = collectives.ppermute(
+                mesh, [x.contiguous() for x in leaves], wire).wait()
+            out = []
+            for x, recv in zip(leaves, got):
+                acc, k = None, 0
+                for s, w in items:
+                    w = torch.tensor(w, dtype=x.dtype, device=x.device)
+                    if s % n == 0:
+                        term = w * x
+                    else:
+                        term = w * recv[k]
+                        k += 1
+                    acc = term if acc is None else acc + term
+                out.append(acc)
+            return tree_unflatten(treedef, out)
+
+        return mix
+    return make_gathered_mix_fn(topology, mesh)
+
+
+def make_gathered_mix_fn(topology: Topology, mesh) -> Callable:
+    """Per-leaf mixing of agent ``mesh.rank``'s tree for any ``Pi``: an
+    all-gather of the leaf and this agent's row of ``Pi`` in float32 (the
+    reference's ``_general_mix_leaf``; ``mixing="dense"``)."""
+    row = torch.tensor(topology.pi[mesh.rank], dtype=torch.float32,
+                       device=mesh.device)
+
+    def mix(tree):
+        def leaf(x):
+            gathered = collectives.all_gather(mesh, x.contiguous())
+            flat = gathered.reshape(gathered.shape[0], -1).float()
+            return (row @ flat).to(x.dtype).reshape(x.shape)
+        return tree_map(leaf, tree)
+
+    return mix
+
+
+def make_sharded_mean_fn(mesh) -> Callable:
+    """The exact mean over the agents of each leaf (FedAvg's server,
+    centralized SGD): one all-reduce for the whole tree."""
+
+    def mean(tree):
+        leaves, treedef = tree_flatten(tree)
+        return tree_unflatten(treedef,
+                              collectives.all_reduce_mean(mesh, leaves))
+
+    return mean
 
 
 # --------------------------------------------------------------------------

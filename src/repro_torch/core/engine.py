@@ -12,6 +12,17 @@ The stacked-simulation slice of :mod:`repro.core.engine`.  A step is
 The gradient is taken at ``optimizer.grad_params(params, state)``: the
 params, or Nesterov's lookahead point.
 
+The sharded mode (one agent per process, :mod:`repro_torch.launch.steps`)
+assembles the same phases around one agent's tensors: the grad phase
+without ``vmap`` (``make_grad_phase(..., per_agent=False)``), the wire and
+residual state of its one-agent strategy (the reference's
+:func:`make_local_wire_init` / :func:`make_local_residual_init`), and
+under the overlap schedule the step posts the exchange of the carried
+wire (``strategy.post_exchange``) before the grad phase and waits on it
+in the update phase, so the transfers run while the gradients are
+computed: the exchange reads only carried wire state, never the current
+params or batch.
+
 Schedules
 ---------
 ``schedule="sync"`` quantizes and exchanges the *current* params inside the
@@ -45,6 +56,7 @@ TopKWire` / :class:`~repro_torch.core.consensus.RankWire` per bucket.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, Optional
 
@@ -66,12 +78,15 @@ PyTree = Any
 SCHEDULES = ("sync", "overlap")
 
 
-def make_grad_phase(agent_loss: Callable, microbatches: int = 1) -> Callable:
+def make_grad_phase(agent_loss: Callable, microbatches: int = 1, *,
+                    per_agent: bool = True) -> Callable:
     """The ``grad`` phase: ``(gp, batch) -> ((losses, metrics), grads)``.
 
     ``agent_loss(params, batch) -> (loss, metrics)`` is the single-agent
     loss; the phase maps its value-and-grad over the leading agent axis of
-    both the params and the batch.  ``microbatches = M > 1`` splits every
+    both the params and the batch (``per_agent=False``: one agent's params
+    and batch, no agent axis and no ``vmap``, the sharded mode).
+    ``microbatches = M > 1`` splits every
     batch leaf ``(A, B, ...)`` into ``M`` microbatches ``(A, B/M, ...)``
     (microbatch ``m`` takes rows ``m B/M .. (m+1) B/M - 1``), accumulates
     the gradients in float32 in microbatch order and scales the sum by
@@ -80,22 +95,25 @@ def make_grad_phase(agent_loss: Callable, microbatches: int = 1) -> Callable:
     (callers reduce with ``torch.mean`` either way), as the reference's
     ``lax.scan`` does.
     """
-    per_agent = vmap(grad_and_value(agent_loss, has_aux=True))
+    value_and_grad = grad_and_value(agent_loss, has_aux=True)
+    if per_agent:
+        value_and_grad = vmap(value_and_grad)
 
     def grad_phase(gp, batch):
-        grads, (losses, metrics) = per_agent(gp, batch)
+        grads, (losses, metrics) = value_and_grad(gp, batch)
         return (losses, metrics), grads
 
     if microbatches == 1:
         return grad_phase
+    bdim = 1 if per_agent else 0
 
     def split(x, m: int):
-        a, b = x.shape[:2]
+        b = x.shape[bdim]
         if b % microbatches:
             raise ValueError(f"batch {b} per agent does not split into "
                              f"{microbatches} microbatches")
         n = b // microbatches
-        return x[:, m * n:(m + 1) * n]
+        return x.narrow(bdim, m * n, n)
 
     # the reference divides the float32 sum by M inside its jitted step,
     # where XLA multiplies by the float32 reciprocal instead: so does the port
@@ -149,6 +167,8 @@ def check_program_support(optimizer: DistributedOptimizer,
     ``Pi`` instead.  Momentum mixing also needs an optimizer with a mixable
     momentum (the CDMSGD family, CDAdam)."""
     fl = comm.flat
+    if fl is None:
+        return None
     p = fl.program
     if p.is_trivial:
         return fl
@@ -216,6 +236,14 @@ def make_update_phase(optimizer: DistributedOptimizer, comm: CommOps,
         raise ValueError(f"unknown schedule {schedule!r}; expected one of "
                          f"{SCHEDULES}")
     fl = comm.flat
+    if fl is None:          # per-leaf mixing: no flat buffers, no staging
+        if schedule != "sync":
+            raise ValueError("schedule='overlap' needs the flat-buffer "
+                             "exchange (a FlatComm)")
+
+        def update_plain(params, grads, state):
+            return optimizer.update(params, grads, state, comm)
+        return update_plain
     if fl.program.fault_tolerant and schedule != "overlap":
         raise ValueError(
             "staleness > 1 / fault injection needs schedule='overlap': the "
@@ -275,6 +303,20 @@ def make_update_phase(optimizer: DistributedOptimizer, comm: CommOps,
     return update_overlap
 
 
+def make_local_wire_init(fl: consensus.FlatComm) -> Callable:
+    """One agent's overlap wire initializer, the reference's name for
+    :func:`consensus.initial_wire_state` on a sharded ``fl``: its strategy
+    packs and quantizes the agent's own params (seed ``-1``), the wire
+    keeping its leading agent axis of 1."""
+    return functools.partial(consensus.initial_wire_state, fl)
+
+
+def make_local_residual_init(fl: consensus.FlatComm) -> Callable:
+    """One agent's error-feedback residuals, the reference's name for
+    :func:`consensus.initial_residual_state` on a sharded ``fl``."""
+    return functools.partial(consensus.initial_residual_state, fl)
+
+
 @dataclasses.dataclass
 class StepProgram:
     """One training step assembled from the named phases.
@@ -297,6 +339,8 @@ class StepProgram:
         (under both schedules) filled in."""
         state = self.optimizer.init(params)
         fl = self.comm.flat
+        if fl is None:
+            return state
         if self.schedule == "overlap":
             check_overlap_support(self.optimizer, self.comm)
             state = state._replace(wire=consensus.initial_wire_state(fl, params))
@@ -316,6 +360,12 @@ class StepProgram:
         return new_params, new_state, extra
 
     def step_fn(self, params: PyTree, opt_state: OptState, batch):
+        if self.schedule == "overlap":
+            # the carried wire's exchange starts before the gradients (a
+            # no-op in the stacked simulation, whose wire moves nowhere)
+            opt_state = opt_state._replace(
+                wire=self.comm.flat.strategy.post_exchange(opt_state.wire,
+                                                           opt_state.step))
         gp = self.optimizer.grad_params(params, opt_state)
         (losses, metrics), grads = self.grad_phase(gp, batch)
         new_params, new_state, extra = self._update(params, grads, opt_state)

@@ -53,7 +53,8 @@ class CommOps:
 
     mix: MixFn                    # w = Pi x  (fixed topology), per leaf
     mean: MixFn                   # exact global average, per leaf
-    flat: consensus.FlatComm      # whole-model fused-update support
+    # whole-model fused-update support (None: per-leaf mixing only)
+    flat: Optional[consensus.FlatComm]
 
 
 def stacked_comm_ops(topology, *, exchange: str = "f32",
@@ -74,6 +75,16 @@ def stacked_comm_ops(topology, *, exchange: str = "f32",
                         .clone(), tree)
 
     return CommOps(mix=mix, mean=mean, flat=flat)
+
+
+def sharded_comm_ops(topology, mesh) -> CommOps:
+    """CommOps of agent ``mesh.rank`` in the sharded mode (one agent per
+    process): the per-leaf permutation (circulant ``Pi``) or all-gather
+    mixing and the all-reduce mean, without flat-buffer support (the
+    fused path's comm is :func:`repro_torch.launch.steps.
+    make_local_fused_comm`)."""
+    return CommOps(mix=consensus.make_sharded_mix_fn(topology, mesh),
+                   mean=consensus.make_sharded_mean_fn(mesh), flat=None)
 
 
 class OptState(NamedTuple):
@@ -169,6 +180,11 @@ class DistributedOptimizer:
         them)."""
         alpha = self.schedule(state.step)
         if self.fused and self.has_fused:
+            if comm.flat is None:
+                raise ValueError(
+                    f"{type(self).__name__}(fused=True) needs flat-buffer "
+                    "support in its comm (the sharded mode: "
+                    "mixing='ppermute_fused')")
             new_params, new_inner = self.apply_fused(
                 params, grads, state.inner, alpha, comm, state.step,
                 exchanged=exchanged)

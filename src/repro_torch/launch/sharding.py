@@ -1,0 +1,117 @@
+"""Sharding resolution of the sharded mode: logical axes to the agent axis.
+
+The agent-axis part of :mod:`repro.launch.sharding`.  In ``train`` mode
+every agent is one rank of the :class:`~repro_torch.launch.mesh.AgentMesh`
+(the reference's ``data`` axis): params carry a leading ``agent`` axis
+sharded there, and every other logical axis replicates.  The reference's
+non-agent axes (``tp`` / ``expert`` over ``model``, ``fsdp`` over ``data``
+in ``train_hier``) and the ``serve`` mode are ROADMAP A16.2 and raise.
+
+A rank holds slice ``rank`` of every agent-stacked tensor: its params
+(the template without the agent axis) and its batch
+(:func:`local_batch` of what :func:`repro_torch.data.lm_agent_batches`
+makes).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig, InputShape
+from repro_torch.launch.mesh import AGENT_AXIS
+from repro_torch.nn.param import (MODEL_AXIS_ITEM, ParamDef, PartitionSpec,
+                                  partition_specs)
+from repro_torch.utils.tree import tree_map
+
+MODES = ("train", "train_hier", "serve")
+
+
+def rules_for_mode(mode: str, mesh) -> Dict[str, Any]:
+    """Logical axis -> mesh axes.  ``train``: the agents on the mesh's one
+    axis, every other logical axis replicated.  ``train_hier`` and
+    ``serve`` shard model weights over non-agent axes: ROADMAP A16.2."""
+    if mode == "train":
+        return {"agent": (AGENT_AXIS,), "tp": None, "expert": None,
+                "fsdp": None}
+    if mode in ("train_hier", "serve"):
+        raise NotImplementedError(
+            f"mode {mode!r} shards weights over non-agent mesh axes "
+            f"(fsdp / model): {MODEL_AXIS_ITEM}")
+    raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
+
+
+def _axes_size(mesh, entry) -> int:
+    if entry is None:
+        return 1
+    if isinstance(entry, str):
+        return mesh.shape[entry]
+    return math.prod(mesh.shape[a] for a in entry)
+
+
+def agent_count(mesh, mode: str) -> int:
+    rules = rules_for_mode(mode, mesh)
+    if "agent" not in rules:
+        return 1
+    return _axes_size(mesh, rules["agent"])
+
+
+def safe_partition_specs(template, rules: Dict[str, Any], mesh):
+    """:func:`~repro_torch.nn.param.partition_specs` with the reference's
+    divisibility fallback: a dimension whose size does not divide its mesh
+    axes replicates."""
+
+    def leaf(pd: ParamDef, spec: PartitionSpec) -> PartitionSpec:
+        resolved = [m if m is None or dim % _axes_size(mesh, m) == 0 else None
+                    for dim, m in zip(pd.shape, spec.axes)]
+        while resolved and resolved[-1] is None:
+            resolved.pop()
+        return PartitionSpec(tuple(resolved))
+
+    return tree_map(leaf, template, partition_specs(template, rules))
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """The global (agent-stacked) shape, dtype and per-dimension mesh axes
+    of one batch leaf; a rank holds ``shape[1:]``."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    spec: PartitionSpec
+
+
+def train_batch_specs(cfg: ArchConfig, shape: InputShape, mesh, mode: str):
+    """Per-agent stacked batch ``{"inputs", "targets"}``: ``(agents,
+    global_batch / agents, seq)`` int32, the agent dimension sharded."""
+    rules = rules_for_mode(mode, mesh)
+    a = agent_count(mesh, mode)
+    if shape.global_batch % a:
+        raise ValueError(f"global_batch {shape.global_batch} not divisible by "
+                         f"{a} agents")
+    if cfg.modality != "text":
+        raise NotImplementedError(f"modality {cfg.modality!r}: the port runs "
+                                  "text models only (ROADMAP A17)")
+    spec = PartitionSpec((rules["agent"], None, None))
+    dims = (a, shape.global_batch // a, shape.seq_len)
+    return {"inputs": TensorSpec(dims, torch.int32, spec),
+            "targets": TensorSpec(dims, torch.int32, spec)}
+
+
+def local_batch(batch: Dict[str, Any], mesh) -> Dict[str, torch.Tensor]:
+    """This rank's slice of an agent-stacked batch (numpy or tensors), on
+    the rank's device."""
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] != mesh.size:
+            raise ValueError(f"batch leaf {k!r} has {v.shape[0]} agents, the "
+                             f"mesh {mesh.size}")
+        row = v[mesh.rank]
+        out[k] = torch.as_tensor(np.ascontiguousarray(row)
+                                 if isinstance(row, np.ndarray) else row,
+                                 device=mesh.device)
+    return out

@@ -7,6 +7,13 @@ A model is described by a **template** tree whose leaves are
 comparison between the packages starts from the JAX package's parameters
 carried over with :func:`params_from_numpy` (a dtype/device move: the port
 keeps JAX's layouts, HWIO conv kernels and ``(in, out)`` dense weights).
+
+:func:`stack_agent_axis` and :func:`partition_specs` serve the sharded mode
+(:mod:`repro_torch.launch.steps`): a :class:`PartitionSpec` names, per
+dimension, the mesh axes it shards over or ``None``.  The port's mesh has the agent
+axis alone; a rule that maps another logical axis to a mesh axis (the
+reference's tensor / expert parallel ``model`` axis, or ``fsdp``) raises
+``NotImplementedError`` (ROADMAP A16.2).
 """
 
 from __future__ import annotations
@@ -88,6 +95,50 @@ def torch_dtype(name: str) -> torch.dtype:
     if name not in DTYPES:
         raise ValueError(f"unknown dtype {name!r}; known: {sorted(DTYPES)}")
     return DTYPES[name]
+
+
+def stack_agent_axis(template: PyTree, n_agents: int) -> PyTree:
+    """Prefix every ParamDef with a leading ``agent`` axis (CDSGD replicas)."""
+    return tree_map(lambda pd: ParamDef((n_agents,) + pd.shape,
+                                        ("agent",) + pd.axes, init=pd.init,
+                                        scale=pd.scale, dtype=pd.dtype),
+                    template)
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitionSpec:
+    """Per-dimension mesh axes of one sharded tensor (trailing
+    replicated dimensions dropped), the reference's ``PartitionSpec``; a
+    leaf of the port's trees."""
+
+    axes: tuple = ()
+
+
+#: where the sharded mode's non-agent mesh axes are queued
+MODEL_AXIS_ITEM = "ROADMAP A16.2"
+
+
+def partition_specs(template: PyTree, rules) -> PyTree:
+    """Resolve logical axes to mesh axes via ``rules`` (logical name ->
+    mesh axis name, tuple of names, or None); missing names replicate.
+    Returns one :class:`PartitionSpec` per leaf.  Only the ``agent`` axis
+    may shard."""
+
+    def leaf(pd: ParamDef) -> PartitionSpec:
+        resolved = []
+        for ax in pd.axes:
+            m = rules.get(ax) if ax is not None else None
+            if m is not None and ax != "agent":
+                raise NotImplementedError(
+                    f"logical axis {ax!r} sharded over mesh axis {m!r}: the "
+                    "sharded mode shards the agent axis only; model-parallel "
+                    f"and fsdp axes are {MODEL_AXIS_ITEM}")
+            resolved.append(m)
+        while resolved and resolved[-1] is None:
+            resolved.pop()
+        return PartitionSpec(tuple(resolved))
+
+    return tree_map(leaf, template)
 
 
 def count_params(template: PyTree) -> int:

@@ -1,5 +1,6 @@
 """The CUDA consensus-update, wire-quantize, flash-attention and WKV6
-kernels on the card, against their plain versions.
+kernels on the card, against their plain versions, and the sharded mode's
+staged exchange between two ranks sharing the card.
 
 Card-only: every test carries the ``cuda`` marker and skips when no CUDA
 device is present (decided inside the test).  This file imports no JAX,
@@ -34,6 +35,9 @@ any-length launch), both masks, b > 1 and the strided (b, s, heads, d)
 view; the float32 kernel also where its key splits fall (one, many and
 uneven splits, two calls giving the same bits).
 """
+
+import os
+import sys
 
 import pytest
 
@@ -974,3 +978,35 @@ def test_other_forms_refuse_bf16_buckets_on_card():
         cu.cdmsgd_nesterov_update(w, x, gb, vb, ALPHA, MU)
     with pytest.raises(TypeError, match="ROADMAP A21"):
         cu.cdadam_update(w, x, gb, vb, vb.clone(), 1e-3, 0.9, 0.999, 1e-8, 0.1, 0.001)
+
+
+@pytest.mark.cuda
+def test_staged_exchange_and_q_stencil_update_on_card():
+    """Two ``gloo`` ranks on the card (the sharded mode's one-card layout):
+    a 1,001-row f32 bucket and its int8 wire (codes and row scales) cross
+    through pinned host buffers in 64 KiB messages (8 + 2 + 1 of them), bit
+    for bit, and each rank's ``_q`` stencil update of the received wire
+    equals the plain version on the CPU, bit for bit."""
+    _card()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_sharded_ranks as ranks
+
+    from repro_torch.launch.mesh import spawn_agents
+
+    got = spawn_agents(ranks.staged_exchange, 2, args=(1001, 64 << 10),
+                       backend="gloo", device="cuda", timeout=60,
+                       join_timeout=300)
+    for r in range(2):
+        mine, peer = got[r], got[1 - r]
+        assert torch.equal(mine["received"][0], peer["x"])
+        assert torch.equal(mine["received_q"][0].view(torch.uint8),
+                           peer["q"].view(torch.uint8))
+        assert torch.equal(mine["received_sc"][0], peer["sc"])
+        want = ref.cdsgd_update_q_ref(
+            mine["weights"][None], mine["x"][None],
+            torch.stack(mine["received_q"]), torch.stack(mine["received_sc"]),
+            mine["grad"][None], ALPHA)[0]
+        assert torch.equal(mine["update"], want)
+        c = mine["census"]
+        assert c["sends"] == 3 and c["messages"] == 8 + 2 + 1
+        assert c["staged_bytes"] == 2 * (1001 * 128 * 5 + 1001 * 4)
