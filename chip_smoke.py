@@ -225,6 +225,31 @@ build_train_step``) adds:
     bit for bit, and one whole step within 1e-5 of max |param|.  A rank
     that fails or hangs past its limit fails the phase.
 
+The bf16-optimizer and dense-configs slice (every update form on bf16
+parameter buckets; h2o-danube-3-4b, granite-3-8b and starcoder2-7b, with
+flash attention at head dim 120) adds:
+
+3.  flash attention at h2o-danube's prefill shape (B 4, H 32 on KV 8, S
+    2048, D 120, window 4096), at a ragged s = 200 with a window, and in
+    float32 (b 1, s 640), against the plain version (``FLASH_D120``, its own
+    row of the ``kernels`` line, SDPA causal beside it);
+3c. (``BF16_FORMS``) the ``_qm``, Nesterov, CDAdam and sparse forms as well,
+    bit for bit at A = S = 4 and at the one-agent stencil shapes, every
+    payload type (the ``_qm`` forms with a second payload), the sparse forms
+    on int8 compact stacks at ``topk:0.01``; timed at the whole bucket;
+6-7. (``DENSE_ARCHS``) each of the three archs at published size, one at a
+    time, bf16 weights drawn on the card: the counted 4 x 2048 prefill (24,
+    40, 32 flash launches, all on ``flash_tc_kernel``), the serve loop, and
+    decode against the forward on the first 2 layers;
+8.  each of them card against CPU in float32 at full width and 2 layers;
+10. gemma3-1b at full depth also with fused Nesterov (f32 wire), CDAdam
+    (int8 overlap) and mixed-momentum CDMSGD (int8: ``cdmsgd_update_qm``);
+10b. (``LM_SMALL_RUNS``) gemma3-1b at full width with 2 layers, 2 agents:
+    the four top-k sparse forms (``topk:0.01`` with error feedback; the
+    compact values' ``sr_quantize`` on float32), Nesterov's ``_q`` and
+    ``_qm`` forms and CDAdam's dense and ``_qm`` forms, 3 steps each, with
+    exact launches and finite losses.
+
 Any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 float32 matmuls and convolutions run in full float32 (TF32 off).
@@ -343,13 +368,13 @@ KERNELS = {   # name -> (library, CUDA kernel symbol, the TPU kernel it replaces
     "cdadam_update": ("consensus_update", "adam_kernel", f"{_TPU}:842"),
     "cdadam_update_q": ("consensus_update", "adam_q_kernel", f"{_TPU}:369"),
     "cdadam_update_qm": ("consensus_update", "adam_qm_kernel", f"{_TPU}:375"),
-    "cdsgd_update_sparse": ("consensus_update", "sparse_kernel<0>",
+    "cdsgd_update_sparse": ("consensus_update", "sparse_kernel<0",
                             f"{_TPU}:507"),
-    "cdmsgd_update_sparse": ("consensus_update", "sparse_kernel<1>",
+    "cdmsgd_update_sparse": ("consensus_update", "sparse_kernel<1",
                              f"{_TPU}:545"),
-    "cdmsgd_nesterov_update_sparse": ("consensus_update", "sparse_kernel<2>",
+    "cdmsgd_nesterov_update_sparse": ("consensus_update", "sparse_kernel<2",
                                       f"{_TPU}:590"),
-    "cdadam_update_sparse": ("consensus_update", "sparse_kernel<3>",
+    "cdadam_update_sparse": ("consensus_update", "sparse_kernel<3",
                              f"{_TPU}:636"),
     # both of the function's kernels (threshold_amax_kernel, then
     # threshold_count_kernel): kernel-only is the function's device time
@@ -392,7 +417,18 @@ TOPK_EVENT_MS, TOPK_COUNT_MS, TOPK_DEVICE_MS = 0.05, 0.018, 0.035
 FLASH_F32_MS, FLASH_F32_GOAL_MS, FLASH_F32_BOUND_SHARE = 0.08, 0.05, 0.40
 # the serving path: (arch, its kernel, launches per prefill = layers)
 SERVE_ARCHS = (("gemma3-1b", "flash_attention", 26), ("rwkv6-1.6b", "wkv6", 24))
+# the other dense configs, served one at a time (weights drawn on the card):
+# (arch, its kernel, launches per prefill = layers); h2o-danube's head dim
+# of 120 runs flash attention's width-128 kernels zero-padded, its own row
+# of the kernels line
+DENSE_ARCHS = (("h2o-danube-3-4b", "flash_attention", 24),
+               ("granite-3-8b", "flash_attention", 40),
+               ("starcoder2-7b", "flash_attention", 32))
+FLASH_D120 = "flash_attention:d120"
 PREFILL_BATCH, PREFILL_LEN = 4, 2048
+# h2o-danube-3-4b's prefill attention: H 32 on KV 8, D 120, window 4096
+# (above the prefill's 2048: causal)
+D120_HEADS, D120_KV, D120_WINDOW = 32, 8, 4096
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 8, 16
 DECODE_CHECK = (2, 64)         # batch, positions: decode against forward
 DECODE_TOL = 5e-2              # of max |logit|: tests/test_models.py's bound, 2 layers
@@ -401,10 +437,15 @@ DECODE_F32_TOL = 1e-3          # of max |logit|: float32 decode vs forward, full
 # the bf16 forward's own: decode rounds like the forward, no worse
 DECODE_BF16_RATIO = 2.0
 # the bf16 decode check's depths (layers of the full-width weights)
-DECODE_DEPTHS = {"gemma3-1b": (2, 7, 13, 26), "rwkv6-1.6b": (2, 6, 12, 24)}
+DECODE_DEPTHS = {"gemma3-1b": (2, 7, 13, 26), "rwkv6-1.6b": (2, 6, 12, 24),
+                 "h2o-danube-3-4b": (2,), "granite-3-8b": (2,), "starcoder2-7b": (2,)}
+# the other dense configs' decode checks run on their first layers
+DENSE_CHECK_LAYERS = 2
 MODEL_TOL = 1e-4               # of max |logit|: card vs CPU, f32 weights
 # card vs CPU at full width, reduced depth: (arch, layers, batch, seq)
-MODEL_PARITY = (("gemma3-1b", 7, 1, 640), ("rwkv6-1.6b", 2, 1, 256))
+MODEL_PARITY = (("gemma3-1b", 7, 1, 640), ("rwkv6-1.6b", 2, 1, 256),
+                ("h2o-danube-3-4b", 2, 1, 256), ("granite-3-8b", 2, 1, 256),
+                ("starcoder2-7b", 2, 1, 256))
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}   # tol_for, abs and rel
 # besides FLASH_TOL, the bf16 kernel's max abs error against the plain
 # version is at most this many times SDPA's on the same operands (or one
@@ -500,13 +541,13 @@ BENCH_PARITY_STEPS = 20
 BENCH_TOL = 1e-4               # relative: loss, consensus, Prop. 1's numbers
 # phase 3c, the bf16 parameter buckets of the model zoo's training path:
 # name in the kernels line -> (wrapper, CUDA kernel symbol, the TPU kernel)
-BF16_FORMS = {
-    "cdsgd_update:bf16": ("cdsgd_update", "cdsgd_kernel", f"{_TPU}:687"),
-    "cdmsgd_update:bf16": ("cdmsgd_update", "cdmsgd_kernel", f"{_TPU}:729"),
-    "cdsgd_update_q:bf16": ("cdsgd_update_q", "cdsgd_q_kernel", f"{_TPU}:257"),
-    "cdmsgd_update_q:bf16": ("cdmsgd_update_q", "cdmsgd_q_kernel", f"{_TPU}:276"),
-    "sr_quantize:bf16": ("sr_quantize", "sr_quantize_kernel", f"{_TPU}:130"),
-}
+BF16_FORMS = {f"{name}:bf16": (name, *KERNELS[name][1:]) for name in (
+    "cdsgd_update", "cdmsgd_update", "cdsgd_update_q", "cdmsgd_update_q",
+    "sr_quantize", "cdmsgd_update_qm", "cdmsgd_nesterov_update",
+    "cdmsgd_nesterov_update_q", "cdmsgd_nesterov_update_qm", "cdadam_update",
+    "cdadam_update_q", "cdadam_update_qm", "cdsgd_update_sparse",
+    "cdmsgd_update_sparse", "cdmsgd_nesterov_update_sparse",
+    "cdadam_update_sparse")}
 LM_AGENTS = 4                  # gemma3-1b's bucket at A = S = 4 (ring)
 # gemma3-1b trains on 3 agents: at 4 (batch 1, seq 1024) the grad phase ran
 # out of the H100's 80 GB (77.67 GiB allocated: 8 GB of bf16 params, 8 of
@@ -515,9 +556,14 @@ LM_AGENTS = 4                  # gemma3-1b's bucket at A = S = 4 (ring)
 GEMMA_TRAIN_AGENTS = 3
 CARD = "cuda"                  # the LM phases' device
 LM_SLICES = 16                 # the plain versions run on 1/16 of its rows
-# phases 10-11, training through repro_torch.launch.train.main: (label,
-# arch, agents, topology, batch per agent, seq, steps, flags, launches at
-# init, launches per step); every launch on the bf16 bucket
+# gemma3-1b at full width with 2 layers (0.36 B parameters): phases 10b
+# and 12, where the full depth would not fit or is not needed
+GEMMA_2L = "gemma3-1b-2layers"
+# phases 10, 10b and 11, training through repro_torch.launch.train.main:
+# (label, arch, agents, topology, batch per agent, seq, steps, flags,
+# launches at init, launches per step); every update and quantize launch on
+# the bf16 bucket, except a top-k wire's one sr_quantize a step, which codes
+# the float32 compact values
 LM_RUNS = (
     ("gemma3-1b cdmsgd f32 sync", "gemma3-1b", GEMMA_TRAIN_AGENTS, "ring", 1, 1024, 5,
      ["--optimizer", "cdmsgd", "--fused"], {}, {"cdmsgd_update": 1}),
@@ -531,7 +577,53 @@ LM_RUNS = (
      {"cdmsgd_update": 1}),
     ("rwkv6-1.6b cdsgd f32 sync", "rwkv6-1.6b", 2, "fully_connected", 2, 128, 3,
      ["--optimizer", "cdsgd", "--fused"], {}, {"cdsgd_update": 1}),
+    # every optimizer fused on the bf16 bucket: Nesterov's dense kernel with
+    # its lookahead, CDAdam's _q kernel behind an int8 overlap wire, CDMSGD's
+    # _qm kernel (the momentum rides the int8 wire too)
+    ("gemma3-1b cdmsgd_nesterov f32 sync", "gemma3-1b", GEMMA_TRAIN_AGENTS, "ring",
+     1, 1024, 5, ["--optimizer", "cdmsgd_nesterov", "--fused"], {},
+     {"cdmsgd_nesterov_update": 1}),
+    ("gemma3-1b cdadam int8 overlap", "gemma3-1b", GEMMA_TRAIN_AGENTS, "ring", 1,
+     1024, 5, ["--optimizer", "cdadam", "--lr", str(ADAM_LR), "--fused",
+               "--exchange", "int8", "--schedule", "overlap"],
+     {"sr_quantize": 1}, {"sr_quantize": 1, "cdadam_update_q": 1}),
+    ("gemma3-1b cdmsgd int8 mixed", "gemma3-1b", GEMMA_TRAIN_AGENTS, "ring", 1, 1024,
+     5, ["--optimizer", "cdmsgd", "--exchange", "int8", "--momentum-mixing",
+         "mixed"], {}, {"sr_quantize": 2, "cdmsgd_update_qm": 1}),
 )
+# phase 10b, the other fused forms on gemma3-1b's bf16 bucket at 2 layers,
+# 2 agents fully connected, batch 1 x 1024, 3 steps each: the top-k wire
+# through the sparse kernels (its exact selection, torch.topk over a float32
+# copy of every agent's bucket, would hold a further 4 GB an agent at full
+# depth), and the Nesterov / CDAdam forms the full-depth runs leave out
+TOPK = f"topk:{TOPK_P}"
+LM_SMALL_RUNS = tuple(
+    (f"gemma3-1b 2 layers {label}", GEMMA_2L, 2, "fully_connected", 1, 1024, 3,
+     ["--optimizer", opt, *(["--lr", str(ADAM_LR)] if opt == "cdadam" else []),
+      *flags], init, per_step)
+    for label, opt, flags, init, per_step in (
+        ("cdsgd topk", "cdsgd", ["--compressor", TOPK, "--error-feedback"], {},
+         {"sr_quantize": 1, "cdsgd_update_sparse": 1}),
+        ("cdadam topk", "cdadam", ["--compressor", TOPK, "--error-feedback"], {},
+         {"sr_quantize": 1, "cdadam_update_sparse": 1}),
+        ("cdmsgd topk", "cdmsgd", ["--compressor", TOPK, "--error-feedback"], {},
+         {"sr_quantize": 1, "cdmsgd_update_sparse": 1}),
+        ("cdmsgd_nesterov topk", "cdmsgd_nesterov",
+         ["--compressor", TOPK, "--error-feedback"], {},
+         {"sr_quantize": 1, "cdmsgd_nesterov_update_sparse": 1}),
+        ("cdmsgd_nesterov int8 sync", "cdmsgd_nesterov", ["--exchange", "int8"], {},
+         {"sr_quantize": 1, "cdmsgd_nesterov_update_q": 1}),
+        ("cdmsgd_nesterov int8 mixed overlap", "cdmsgd_nesterov",
+         ["--exchange", "int8", "--schedule", "overlap", "--momentum-mixing",
+          "mixed"], {"sr_quantize": 2},
+         {"sr_quantize": 2, "cdmsgd_nesterov_update_qm": 1}),
+        ("cdadam f32 sync", "cdadam", ["--fused"], {}, {"cdadam_update": 1}),
+        ("cdadam fp8 mixed", "cdadam", ["--exchange", "fp8", "--momentum-mixing",
+                                        "mixed"], {},
+         {"sr_quantize": 2, "cdadam_update_qm": 1})))
+# the runs whose profiled step is printed (the others are checked the same
+# way, launches, losses and wire, without one)
+LM_PROFILED = ("cdsgd topk", "cdadam topk")
 # phase 12, resume: gemma3-1b at full width with 2 layers (0.36 B
 # parameters), 2 agents, CDMSGD int8 overlap with error feedback; the
 # whole run's steps, and the split run's before its checkpoint
@@ -602,7 +694,11 @@ def device_ms(fn, symbol: str, iters: int = 20):
     """Mean device time per call of the kernels named ``symbol`` that ``fn``
     launches, from a ``torch.profiler`` trace of ``iters`` calls: the
     kernel alone, without the host time between launches that the
-    CUDA-event figure includes.  None when the trace shows no such kernel."""
+    CUDA-event figure includes.  None when the trace shows no such kernel.
+    A trace can lose a kernel's record (seen: 4 of 5 calls of a 19 ms
+    kernel, which read as a time under its byte bound), so the time is
+    per recorded call: the spans over the calls they make up, at the
+    kernels per call that the count of spans shows."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -611,7 +707,10 @@ def device_ms(fn, symbol: str, iters: int = 20):
         torch.cuda.synchronize()
     spans = [e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == DeviceType.CUDA and symbol in e.name]
-    return sum(spans) / 1e3 / iters if spans else None
+    if not spans:
+        return None
+    per_call = max(1, round(len(spans) / iters))
+    return sum(spans) / 1e3 / (len(spans) / per_call)
 
 
 # per update family: per-agent float32 streams read or written besides the
@@ -658,7 +757,7 @@ def bound(name: str, a_out: int, s: int, rows: int,
     elif name.endswith("_sparse"):
         kk = k_rows * 128
         nbytes = (4 * a_out * (s + 1) + s * (5 * kk + 4 * k_rows)
-                  + 4 * a_out * n + 4 * state * a_out * n)
+                  + bsize * a_out * n + bsize * state * a_out * n)
         flops = a_out * n * (1 + tail) + s * kk * (1 + 2 * a_out)
     elif name == "sr_quantize":
         nbytes = a_out * (bsize * n + esize * n + 4 * rows)
@@ -1920,23 +2019,36 @@ def check_flash(results: dict, gen) -> None:
     tensor-core kernel at the gemma3-1b prefill shape (bf16; the 512-window
     local layer is the ``path`` row, the global layer beside it) and at a
     ragged s = 200 (both masks, through the model path's any-length
-    launch), the float32 kernel at the float32 card-vs-CPU shape;
-    ``scaled_dot_product_attention`` on the same operands (GQA, causal or a
+    launch), the float32 kernel at the float32 card-vs-CPU shape; the
+    other dense configs' prefill shapes (h2o-danube-3-4b's head dim 120,
+    bf16 and float32; granite-3-8b's and starcoder2-7b's bf16 GQA groups of
+    4 and 9 at D 128); ``scaled_dot_product_attention`` on the same operands (GQA, causal or a
     boolean band mask) as the library yardstick.  Then the bf16 speed
     criteria, printed (met or not), not held."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = torch.device("cuda")
     times = {}
-    for label, b, s, dtype, window in (
-            ("path", PREFILL_BATCH, PREFILL_LEN, torch.bfloat16, 512),
-            ("path-global", PREFILL_BATCH, PREFILL_LEN, torch.bfloat16, None),
-            ("ragged", PREFILL_BATCH, 200, torch.bfloat16, 512),
-            ("ragged-global", PREFILL_BATCH, 200, torch.bfloat16, None),
-            ("f32-local", 1, 640, torch.float32, 512),
-            ("f32-global", 1, 640, torch.float32, None),
-            ("path-f32", PREFILL_BATCH, PREFILL_LEN, torch.float32, 512),
-            ("path-f32-global", PREFILL_BATCH, PREFILL_LEN, torch.float32, None)):
-        h, kv, d = 4, 1, 256
+    gemma = ("flash_attention", 4, 1, 256)
+    h2o = (FLASH_D120, D120_HEADS, D120_KV, 120)
+    # granite-3-8b's and starcoder2-7b's global prefill layers: D 128 on GQA
+    # groups of 4 and 9
+    granite, starcoder = (("flash_attention", c.n_heads, c.n_kv_heads, c.head_dim_)
+                          for c in map(get_config, ("granite-3-8b", "starcoder2-7b")))
+    for (name, h, kv, d), label, b, s, dtype, window in (
+            (gemma, "path", PREFILL_BATCH, PREFILL_LEN, torch.bfloat16, 512),
+            (gemma, "path-global", PREFILL_BATCH, PREFILL_LEN, torch.bfloat16, None),
+            (gemma, "ragged", PREFILL_BATCH, 200, torch.bfloat16, 512),
+            (gemma, "ragged-global", PREFILL_BATCH, 200, torch.bfloat16, None),
+            (gemma, "f32-local", 1, 640, torch.float32, 512),
+            (gemma, "f32-global", 1, 640, torch.float32, None),
+            (gemma, "path-f32", PREFILL_BATCH, PREFILL_LEN, torch.float32, 512),
+            (gemma, "path-f32-global", PREFILL_BATCH, PREFILL_LEN, torch.float32, None),
+            # h2o-danube-3-4b's prefill at head dim 120, and float32 at it
+            (h2o, "path", PREFILL_BATCH, PREFILL_LEN, torch.bfloat16, D120_WINDOW),
+            (h2o, "ragged", PREFILL_BATCH, 200, torch.bfloat16, 64),
+            (h2o, "f32", 1, 640, torch.float32, D120_WINDOW),
+            (granite, "granite", PREFILL_BATCH, PREFILL_LEN, torch.bfloat16, None),
+            (starcoder, "starcoder2", PREFILL_BATCH, PREFILL_LEN, torch.bfloat16, None)):
         q = torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
         k = torch.randn((b, kv, s, d), generator=gen, device=dev).to(dtype)
         v = torch.randn((b, kv, s, d), generator=gen, device=dev).to(dtype)
@@ -1957,7 +2069,7 @@ def check_flash(results: dict, gen) -> None:
         if not ok or out.dtype != dtype:
             raise AssertionError(f"flash_attention [{label}] differs from its "
                                  f"plain version: max abs err {err}")
-        if window is None:
+        if window is None or window >= s:
             library = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
         else:
             pos = torch.arange(s, device=dev)
@@ -1973,8 +2085,8 @@ def check_flash(results: dict, gen) -> None:
                     f"flash_attention [{label}]: max abs err {err:.3e} above "
                     f"{FLASH_BF16_SDPA_ERR_RATIO:g} x SDPA's {lib_err:.3e}")
         esize = q.element_size()
-        times[label] = _report_serving(
-            results, "flash_attention", label,
+        times[label if name == "flash_attention" else f"d120-{label}"] = _report_serving(
+            results, name, label,
             f"q ({b},{h},{s},{d}) k,v ({b},{kv},{s},{d}) {str(dtype)[6:]} "
             f"window={window} ({symbol})", err, FLASH_TOL[dtype],
             lambda: launch(q, k, v, window=window),
@@ -2008,6 +2120,10 @@ def check_flash(results: dict, gen) -> None:
                      f"{FLASH_F32_BOUND_SHARE:g}: {share >= FLASH_F32_BOUND_SHARE} "
                      f"(SDPA float32 {t['library_ms']:.5f})")
     print("flash f32 speed criteria: " + "; ".join(parts))
+    t = times["d120-path"]
+    print(f"flash bf16 head dim 120 (h2o-danube-3-4b prefill): {t['ms']:.5f} ms, "
+          f"SDPA causal {t['library_ms']:.5f} (ratio {t['ms'] / t['library_ms']:.3f}), "
+          f"bound share {t['bound_ms'] / t['ms']:.3f}; not held")
 
 
 def wkv_flops(bh: int, s: int, hs: int) -> float:
@@ -2083,11 +2199,12 @@ def _rel_gap(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max() / (want.abs().max() + 1e-6))
 
 
-def prefill_path(params_by_arch: dict) -> dict:
+def prefill_path(params_by_arch: dict, archs=SERVE_ARCHS) -> dict:
     """Phase 6: one counted forward per arch at full width, then the timed
-    and the profiled ones; returns each kernel's launches per forward."""
+    and the profiled ones; returns each kernel's launches per forward,
+    summed over the archs."""
     counts = {}
-    for arch, kernel, per_forward in SERVE_ARCHS:
+    for arch, kernel, per_forward in archs:
         cfg = get_config(arch)
         params = params_by_arch[arch]
         tokens = torch.as_tensor(make_prompt(cfg, PREFILL_BATCH, PREFILL_LEN, 0),
@@ -2109,7 +2226,7 @@ def prefill_path(params_by_arch: dict) -> dict:
         if got != want or variants != want_variants:
             raise AssertionError(f"prefill {arch}: launched {got}, flash by kernel "
                                  f"{variants}; expected {want}, {want_variants}")
-        counts[kernel] = got[kernel]
+        counts[kernel] = counts.get(kernel, 0) + got[kernel]
         finite = bool(torch.isfinite(logits).all())
         if tuple(logits.shape) != (PREFILL_BATCH, PREFILL_LEN, cfg.vocab_size) \
                 or not finite:
@@ -2155,7 +2272,8 @@ def prefill_path(params_by_arch: dict) -> dict:
               f"{PREFILL_LEN} tokens: first forward {first_ms:.2f} ms, wall median "
               f"{wall:.3f} ms over {len(walls)} ({[round(x, 3) for x in walls]}), "
               f"{tokens_n / wall * 1e3:.1f} prefill tokens/s, max_memory_allocated "
-              f"{peak:.1f} MiB (both archs' weights resident), logits finite; "
+              f"{peak:.1f} MiB ({', '.join(params_by_arch)} weights resident), "
+              f"logits finite; "
               f"{kernel} launches per forward "
               f"{got[kernel]} (trace: {len(mine)} {symbol}, {sum(mine):.3f} ms of "
               f"{busy:.3f} ms device time, {100 * sum(mine) / busy:.1f}%"
@@ -2166,11 +2284,12 @@ def prefill_path(params_by_arch: dict) -> dict:
     return counts
 
 
-def serve_path(params_by_arch: dict) -> None:
+def serve_path(params_by_arch: dict, archs=SERVE_ARCHS, check_layers=None) -> None:
     """Phase 7: the ``serve`` loop at full width (no kernel launches in
     decode), then decode against the kernel-backed forward over 64
-    teacher-forced positions."""
-    for arch, _, _ in SERVE_ARCHS:
+    teacher-forced positions (on the first ``check_layers`` layers when
+    given, else at full depth)."""
+    for arch, _, _ in archs:
         cfg = get_config(arch)
         params = params_by_arch[arch]
         prompt = make_prompt(cfg, SERVE_BATCH, SERVE_PROMPT, 0)
@@ -2188,6 +2307,8 @@ def serve_path(params_by_arch: dict) -> None:
               f"{stats['decode_tokens_per_s']:.1f}, tokens_per_s (the reference's "
               f"figure) {stats['tokens_per_s']:.1f}; first sequence {seqs[0].tolist()}")
         toks = torch.as_tensor(make_prompt(cfg, *DECODE_CHECK, 1), device="cuda")
+        if check_layers is not None:
+            cfg, params = first_layers(cfg, params, check_layers)
         cfg32 = dataclasses.replace(cfg, param_dtype="float32")
         params32 = tree_map(lambda t: t.float(), params)
         template_gaps = (_rel_gap(*_decode_and_forward(cfg, params, toks)),
@@ -2196,7 +2317,8 @@ def serve_path(params_by_arch: dict) -> None:
         dec32, fwd32 = _decode_and_forward(cfg32, live, toks)
         gap = _rel_gap(dec32, fwd32)
         print(f"serve {arch}: decode vs the kernel-backed forward over "
-              f"{DECODE_CHECK[1]} teacher-forced positions (b={DECODE_CHECK[0]}), "
+              f"{DECODE_CHECK[1]} teacher-forced positions (b={DECODE_CHECK[0]}, "
+              f"{cfg.n_layers} layers), "
               f"max |diff| / max |logit|: live float32 weights {gap:.3e} (tol "
               f"{DECODE_F32_TOL:g}); not held: the template's draw "
               f"{template_gaps[0]:.3e} in bf16 and {template_gaps[1]:.3e} in float32")
@@ -2205,6 +2327,34 @@ def serve_path(params_by_arch: dict) -> None:
         del dec32, fwd32
         decode_bf16_by_depth(arch, cfg, live, toks)
         del live, params32
+
+
+def dense_serving_path() -> dict:
+    """Phases 6-7 for the other dense configs, one arch at a time (the bf16
+    weights of all three would take 39 GB): full-width weights drawn on the
+    card (``init_params`` with a CUDA generator, seed 0), the counted,
+    timed and profiled 4 x 2048 prefill (h2o-danube's at head dim 120), the
+    serve loop, and decode against the forward on the first
+    ``DENSE_CHECK_LAYERS`` layers.  Returns the flash launches: head dim 120
+    under ``FLASH_D120``, the others under ``flash_attention``."""
+    counts = {"flash_attention": 0, FLASH_D120: 0}
+    for spec in DENSE_ARCHS:
+        arch = spec[0]
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = init_params(tt.model_template(cfg),
+                             torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda")
+        torch.cuda.synchronize()
+        print(f"{arch}: full-width bf16 weights ({cfg.param_count():,} params, "
+              f"head dim {cfg.head_dim_}) drawn on the card (seed 0): "
+              f"{time.perf_counter() - t0:.1f} s")
+        got = prefill_path({arch: params}, (spec,))["flash_attention"]
+        counts[FLASH_D120 if cfg.head_dim_ == 120 else "flash_attention"] += got
+        serve_path({arch: params}, (spec,), check_layers=DENSE_CHECK_LAYERS)
+        del params
+        _free()
+    return counts
 
 
 def first_layers(cfg, params, depth: int):
@@ -2358,50 +2508,145 @@ def _equal_bits(got, want) -> bool:
             and torch.equal(got.view(torch.uint8), want.view(torch.uint8)))
 
 
-def _bf16_form_calls(name, w, wq, x, q, sc, slf, g, v, seed, exchange="int8"):
+def _compact(gen, s: int, rows: int, k_rows: int, r0: int = 0) -> tuple:
+    """Top-k compact stacks of ``s`` neighbours, made on the card: int8
+    values, float32 row scales, and ``k_rows * 128`` sorted unique int32
+    flat positions per neighbour, one in each equal stride of rows ``r0 ..
+    r0 + rows`` of the bucket."""
+    dev = torch.device(CARD)
+    kk = k_rows * 128
+    stride = rows * 128 // kk
+    base = r0 * 128 + stride * torch.arange(kk, device=dev)
+    idx = (base + torch.randint(0, stride, (s, kk), generator=gen, device=dev))
+    vals = torch.randint(-127, 128, (s, k_rows, 128), generator=gen, device=dev,
+                         dtype=torch.int8)
+    scales = 1e-5 + 0.03 * torch.rand((s, k_rows, 1), generator=gen, device=dev)
+    return vals, idx.to(torch.int32).view(s, k_rows, 128), scales
+
+
+def _bf16_operands(gen, a_out: int, s: int, rows: int, x=None) -> dict:
+    """The operands of every bf16-bucket form at ``a_out`` outputs over
+    ``s`` neighbours: the neighbours ``x`` (bf16, the ``s`` senders), the
+    self, grad, momentum and Adam's second moment ``v2`` (bf16 buckets,
+    rows over six decades, row 0 zero), and the top-k compact stacks at
+    ``topk:0.01``; the weights are added by the caller."""
+    o = {"x": _bf16_rows(gen, s, rows) if x is None else x}
+    for k in ("slf", "g", "v"):
+        o[k] = _bf16_rows(gen, a_out, rows)
+    o["v2"] = (o["v"].abs() * 0.01).contiguous()
+    o["comp"] = _compact(gen, s, rows, tk.topk_k_rows(rows, TOPK_P))
+    return o
+
+
+def _bf16_args(wrapper: str, o: dict) -> tuple:
+    """``(mix operands, names of the state operands, scalars)`` of one
+    update form: the dense form over ``o["w"]`` and ``x``, the _q form over
+    ``o["wq"]``, ``slf`` and the payload ``q``, ``sc``, the _qm form with the
+    momentum's payload ``mq``, ``msc`` too, the sparse form over the compact
+    stacks; CDAdam's first moment is ``v`` and its second ``v2``."""
+    fam = _family(wrapper)
+    if wrapper.endswith("_sparse"):
+        mix = [o["wq"], o["slf"], *o["comp"]]
+    elif wrapper.endswith("_qm"):
+        mix = [o["wq"], o["slf"], o["q"], o["sc"], o["mq"], o["msc"]]
+    elif wrapper.endswith("_q"):
+        mix = [o["wq"], o["slf"], o["q"], o["sc"]]
+    else:
+        mix = [o["w"], o["x"]]
+    state = {"cdsgd": ("g",), "cdmsgd": ("g", "v"), "nesterov": ("g", "v"),
+             "adam": ("g", "v", "v2")}[fam]
+    scalars = {"cdsgd": (LR,), "cdmsgd": (LR, MU), "nesterov": (LR, MU),
+               "adam": ADAM}[fam]
+    return mix, state, scalars
+
+
+def _bf16_form_calls(name: str, o: dict, seed: int, exchange: str = "int8"):
     """``(kernel call, plain version call)`` of one bf16-bucket form on the
-    given operands (the kernel writes into ``g``, ``v``; ``sr_quantize``
-    codes ``x`` to ``exchange``)."""
-    if name == "cdsgd_update:bf16":
-        return (lambda: (cu.cdsgd_update(w, x, g, LR),),
-                lambda: (ref.cdsgd_update_ref(w, x, g, LR),))
-    if name == "cdmsgd_update:bf16":
-        return (lambda: cu.cdmsgd_update(w, x, g, v, LR, MU),
-                lambda: ref.cdmsgd_update_ref(w, x, g, v, LR, MU))
-    if name == "cdsgd_update_q:bf16":
-        return (lambda: (cu.cdsgd_update_q(wq, slf, q, sc, g, LR),),
-                lambda: (ref.cdsgd_update_q_ref(wq, slf, q, sc, g, LR),))
-    if name == "cdmsgd_update_q:bf16":
-        return (lambda: cu.cdmsgd_update_q(wq, slf, q, sc, g, v, LR, MU),
-                lambda: ref.cdmsgd_update_q_ref(wq, slf, q, sc, g, v, LR, MU))
-    return (lambda: cu.sr_quantize(x, seed, exchange, agent_stride=104729),
-            lambda: ref.sr_quantize_ref(x, seed, exchange, 104729))
+    operands ``o`` (the kernel writes into its state tensors in place;
+    ``sr_quantize`` codes ``o["x"]`` to ``exchange``); each returns a tuple."""
+    wrapper = BF16_FORMS[name][0]
+    if wrapper == "sr_quantize":
+        return (lambda: cu.sr_quantize(o["x"], seed, exchange, agent_stride=104729),
+                lambda: ref.sr_quantize_ref(o["x"], seed, exchange, 104729))
+    mix, state, scalars = _bf16_args(wrapper, o)
+
+    def call(fn):
+        out = fn(*mix, *[o[k] for k in state], *scalars)
+        return out if isinstance(out, tuple) else (out,)
+
+    return (lambda: call(cu.KERNELS[wrapper]),
+            lambda: call(getattr(ref, f"{wrapper}_ref")))
 
 
-def _bf16_bitwise(name, label, rows, w, wq, x, q, sc, slf, g, v) -> None:
+def _bf16_bitwise(name: str, label: str, rows: int, o: dict) -> None:
     """One bf16-bucket form's kernel against its plain version, bit for bit,
     the update kernels writing their outputs in place."""
-    outs = [g.clone(), v.clone()]
     exchange = "fp8" if label.endswith("fp8") else "int8"
-    kernel, plain = _bf16_form_calls(name, w, wq, x, q, sc, slf, *outs, rows,
-                                     exchange)
+    o = {**o, **{k: o[k].clone() for k in ("g", "v", "v2")}}
+    kernel, plain = _bf16_form_calls(name, o, rows, exchange)
     want = [t.clone() for t in plain()]
     got = kernel()
     torch.cuda.synchronize()
-    if not all(_equal_bits(gt, wt) for gt, wt in zip(got, want)):
+    if len(got) != len(want) or not all(_equal_bits(gt, wt)
+                                        for gt, wt in zip(got, want)):
         raise AssertionError(f"{name} [{label} rows={rows}] differs "
                              "from its plain version")
-    if name != "sr_quantize:bf16" and got[0].data_ptr() != outs[0].data_ptr():
+    if name != "sr_quantize:bf16" and got[0].data_ptr() != o["g"].data_ptr():
         raise AssertionError(f"{name} did not write its output in place")
 
 
+def _bf16_variants(name: str, o: dict, stencil: bool) -> list:
+    """``(label, operands)`` of one form's bit-for-bit checks: f32 and bf16
+    neighbours (dense: ``o["xd"]`` where the senders differ from the
+    payload stack), int8 / fp8 / bf16 payloads of ``o["x"]`` (_q, _qm), the
+    compact stacks (sparse), int8 / fp8 codes (``sr_quantize``, of the self
+    bucket in the stencil form)."""
+    wrapper = BF16_FORMS[name][0]
+    pre = "one agent, " if stencil else ""
+    if wrapper == "sr_quantize":
+        x = o["slf"] if stencil else o["x"]
+        return [(f"{pre}{k}", {**o, "x": x}) for k in ("int8", "fp8")]
+    if wrapper.endswith("_sparse"):
+        return [(f"{pre}int8 compact", o)]
+    if wrapper.endswith(("_q", "_qm")):
+        out = []
+        for k in ("int8", "fp8", "bf16"):
+            # the momentum's payload (the _qm forms): the negated stack's
+            payload = {}
+            for key, x in (("", o["x"]), ("m", -o["x"])):
+                if k == "bf16":
+                    q, sc = x, torch.ones(x.shape[:-1] + (1,), device=CARD)
+                else:
+                    q, sc = cu.sr_quantize(x, 5, k, agent_stride=104729)
+                payload.update({f"{key}q": q, f"{key}sc": sc})
+            out.append((f"{pre}{k}", {**o, **payload}))
+        return out
+    x = o.get("xd", o["x"])
+    return [(f"{pre}bf16", {**o, "x": x}), (f"{pre}f32 neighbours", {**o, "x": x.float()})]
+
+
+def _bf16_bucket_slices(gen, full: int, part: int):
+    """The whole bucket's compact stacks made of one stack per row slice of
+    ``part`` rows (each slice's own share of ``topk:0.01``), and each
+    slice's stacks with its positions made slice-local, so the plain
+    version can run slice by slice."""
+    cuts = [(i * part, min(full, (i + 1) * part)) for i in range(LM_SLICES)]
+    per = [_compact(gen, LM_AGENTS, r1 - r0, tk.topk_k_rows(r1 - r0, TOPK_P), r0)
+           for r0, r1 in cuts]
+    whole = tuple(torch.cat(parts, dim=1) for parts in zip(*per))
+    local = [(v, i - r0 * 128, sc) for (v, i, sc), (r0, _) in zip(per, cuts)]
+    return cuts, whole, local
+
+
 def check_bf16_buckets(results: dict, gen) -> None:
-    """Phase 3c: the forms of the model zoo's training path on bf16
-    parameter buckets (gemma3-1b's one bucket, A = S = 4 on a ring).  Each
-    against its plain version bit for bit on 1/16 of the bucket's rows
-    (the plain versions' float32 temporaries at the whole bucket would take
-    16 GB each) and at 1,001 rows, with f32 and bf16 neighbours, int8, fp8
-    and bf16 payloads, int8 and fp8 codes; then CUDA-event and kernel-only
+    """Phase 3c: every update form (dense, _q, _qm and sparse, of CDSGD,
+    CDMSGD, Nesterov and CDAdam) and ``sr_quantize`` on bf16 parameter
+    buckets (gemma3-1b's one bucket, A = S = 4 on a ring).  Each against
+    its plain version bit for bit on 1/16 of the bucket's rows (the plain
+    versions' float32 temporaries at the whole bucket would take 16 GB
+    each) and at 1,001 rows, with f32 and bf16 neighbours, int8, fp8 and
+    bf16 payloads, int8 compact stacks, int8 and fp8 codes, and at phase
+    14's one-agent stencil shapes; then CUDA-event and kernel-only
     (``torch.profiler``) times at the whole bucket beside the byte bound,
     and the plain version's time over the whole bucket in 16 row slices."""
     dev = torch.device(CARD)
@@ -2410,84 +2655,61 @@ def check_bf16_buckets(results: dict, gen) -> None:
     w = torch.tensor(pi, dtype=torch.float32, device=dev)
     wq = torch.tensor(_self_separated_weights(pi), dtype=torch.float32, device=dev)
     part = -(-full // LM_SLICES)
-    for rows in (part, 1001):
-        x = _bf16_rows(gen, a, rows)
-        slf, g, v = (_bf16_rows(gen, a, rows) for _ in range(3))
-        for name in BF16_FORMS:
-            variants = [("bf16", x)]
-            if name.startswith("cdsgd_update:") or name.startswith("cdmsgd_update:"):
-                variants.append(("f32 neighbours", x.float()))
-            elif name.endswith("_q:bf16"):
-                variants = [(k, None) for k in ("int8", "fp8", "bf16")]
-            elif name == "sr_quantize:bf16":
-                variants.append(("fp8", x))
-            for label, xv in variants:
-                q, sc = None, None
-                if label in ("int8", "fp8") and name != "sr_quantize:bf16":
-                    q, sc = cu.sr_quantize(x, 5, label, agent_stride=104729)
-                elif label == "bf16" and name.endswith("_q:bf16"):
-                    q, sc = x, torch.ones((a, rows, 1), device=dev)
-                _bf16_bitwise(name, label, rows, w, wq, xv, q, sc, slf, g, v)
-        del x, slf, g, v
     # phase 14's one-agent stencil forms (the sharded mode, agent 1 of a ring
     # of SHARDED_AGENTS): one output agent; the dense forms over its row's
-    # three senders in sender order, (1, 3); the _q forms over the self
-    # bucket and the two received payloads, (1, 1 + 2); one agent's codes
+    # three senders in sender order, (1, 3); the _q, _qm and sparse forms
+    # over the self bucket and the two received payloads, (1, 1 + 2)
     row = make_topology("ring", SHARDED_AGENTS).pi[1]
     w1 = torch.tensor(row[None], dtype=torch.float32, device=dev)
     wq1 = torch.tensor([[row[1], row[0], row[2]]], dtype=torch.float32, device=dev)
     for rows in (part, 1001):
-        x3 = _bf16_rows(gen, SHARDED_AGENTS, rows)
-        slf, g, v = (_bf16_rows(gen, 1, rows) for _ in range(3))
-        for name in BF16_FORMS:
-            if name.endswith("_q:bf16"):
-                for label in ("int8", "fp8", "bf16"):
-                    if label == "bf16":
-                        q, sc = x3[:2], torch.ones((2, rows, 1), device=dev)
-                    else:
-                        q, sc = cu.sr_quantize(x3[:2], 5, label, agent_stride=104729)
-                    _bf16_bitwise(name, f"one agent, {label}", rows, w1, wq1, None,
-                                  q, sc, slf, g, v)
-            elif name == "sr_quantize:bf16":
-                for label in ("one agent, int8", "one agent, fp8"):
-                    _bf16_bitwise(name, label, rows, w1, wq1, slf, None, None,
-                                  slf, g, v)
+        for stencil in (False, True):
+            if stencil:
+                x3 = _bf16_rows(gen, SHARDED_AGENTS, rows)
+                o = {**_bf16_operands(gen, 1, SHARDED_AGENTS - 1, rows, x3[:2]),
+                     "w": w1, "wq": wq1, "xd": x3}
             else:
-                for label, xv in (("one agent, bf16", x3),
-                                  ("one agent, f32 neighbours", x3.float())):
-                    _bf16_bitwise(name, label, rows, w1, wq1, xv, None, None,
-                                  slf, g, v)
-        del x3, slf, g, v
+                o = {**_bf16_operands(gen, a, a, rows), "w": w, "wq": wq}
+            for name in BF16_FORMS:
+                for label, ov in _bf16_variants(name, o, stencil):
+                    _bf16_bitwise(name, label, rows, ov)
+            del o
     print(f"kernel bf16 buckets: every form bit for bit against its plain version "
           f"at A = S = {a} and at phase 14's one-agent stencil forms (dense (1, "
-          f"{SHARDED_AGENTS}), _q (1, 1 + {SHARDED_AGENTS - 1}), sr_quantize A = 1), "
-          f"rows {part} (1/{LM_SLICES} of gemma3-1b's {full}) and 1001 (f32 / bf16 "
-          "neighbours; int8 / fp8 / bf16 payloads; int8 / fp8 codes)")
+          f"{SHARDED_AGENTS}), _q / _qm / sparse (1, 1 + {SHARDED_AGENTS - 1}), "
+          f"sr_quantize A = 1), rows {part} (1/{LM_SLICES} of gemma3-1b's {full}) "
+          "and 1001 (f32 / bf16 neighbours; int8 / fp8 / bf16 payloads; int8 "
+          f"compact stacks at {TOPK}; int8 / fp8 codes)")
     _free()
-    # the whole bucket: 4 x 7,811,037 x 128 bf16 per operand (8.0 GB)
-    x = torch.randn((a, full, 128), generator=gen, device=dev, dtype=torch.bfloat16)
-    slf, g, v = (torch.randn((a, full, 128), generator=gen, device=dev,
-                             dtype=torch.bfloat16) for _ in range(3))
-    q, sc = cu.sr_quantize(x, 11, "int8", agent_stride=104729)
-    bounds = {"cdsgd_update:bf16": bound("cdsgd_update", a, a, full, torch.bfloat16,
-                                         bucket=torch.bfloat16),
-              "cdmsgd_update:bf16": bound("cdmsgd_update", a, a, full, torch.bfloat16,
-                                          bucket=torch.bfloat16),
-              "cdsgd_update_q:bf16": bound("cdsgd_update_q", a, a, full, torch.int8,
-                                           bucket=torch.bfloat16),
-              "cdmsgd_update_q:bf16": bound("cdmsgd_update_q", a, a, full, torch.int8,
-                                            bucket=torch.bfloat16),
-              "sr_quantize:bf16": bound("sr_quantize", a, 0, full, torch.int8,
-                                        bucket=torch.bfloat16)}
-    cuts = [(i * part, min(full, (i + 1) * part)) for i in range(LM_SLICES)]
-    for name, (wrapper, symbol, _) in BF16_FORMS.items():
-        kernel, _ = _bf16_form_calls(name, w, wq, x, q, sc, slf, g, v, 11)
+    # the whole bucket: 4 x 7,811,037 x 128 bf16 per operand (8.0 GB); the
+    # forms that read the neighbour stack x first, then (x freed) the
+    # momentum's own int8 payload for the _qm forms
+    o = {"w": w, "wq": wq}
+    for k in ("x", "slf", "g", "v"):
+        o[k] = torch.randn((a, full, 128), generator=gen, device=dev, dtype=torch.bfloat16)
+    o["v2"] = (o["v"].abs() * 0.01).contiguous()
+    o["q"], o["sc"] = cu.sr_quantize(o["x"], 11, "int8", agent_stride=104729)
+    cuts, o["comp"], local = _bf16_bucket_slices(gen, full, part)
+    k_rows = o["comp"][0].shape[1]
+    reads_x = [n for n, (wr, _, _) in BF16_FORMS.items()
+               if wr == "sr_quantize" or not wr.endswith(("_q", "_qm", "_sparse"))]
+    for name in reads_x + [n for n in BF16_FORMS if n not in reads_x]:
+        wrapper, symbol, _ = BF16_FORMS[name]
+        if "x" in o and name not in reads_x:
+            del o["x"]
+            _free()
+            o["mq"], o["msc"] = cu.sr_quantize(o["slf"], 12, "int8",
+                                               agent_stride=104729)
+        kernel, _ = _bf16_form_calls(name, o, 11)
+        sparse = wrapper.endswith("_sparse")
 
-        def plain(name=name):
-            for r0, r1 in cuts:
-                _bf16_form_calls(name, w, wq, x[:, r0:r1], q[:, r0:r1],
-                                 sc[:, r0:r1], slf[:, r0:r1], g[:, r0:r1],
-                                 v[:, r0:r1], 11)[1]()
+        def plain(name=name, sparse=sparse):
+            for (r0, r1), comp in zip(cuts, local):
+                sl = {k: (t[:, r0:r1] if isinstance(t, torch.Tensor) and t.dim() == 3
+                          else t) for k, t in o.items()}
+                if sparse:
+                    sl["comp"] = comp
+                _bf16_form_calls(name, sl, 11)[1]()
 
         ms = cuda_ms(kernel, iters=10, warmup=2)
         # sr_quantize's plain version draws its Philox stream in int64
@@ -2495,16 +2717,21 @@ def check_bf16_buckets(results: dict, gen) -> None:
         plain_ms = (cuda_ms(plain, iters=1, warmup=0) if wrapper == "sr_quantize"
                     else cuda_ms(plain, iters=2, warmup=1))
         dev_ms = device_ms(kernel, symbol, iters=5)
-        b_ms, b_by = bounds[name]
+        kind = (torch.bfloat16 if not wrapper.endswith(("_q", "_qm", "_sparse"))
+                and wrapper != "sr_quantize" else torch.int8)
+        b_ms, b_by = bound(wrapper, a, 0 if wrapper == "sr_quantize" else a, full,
+                           kind, k_rows if sparse else 0, bucket=torch.bfloat16)
         results[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-        print(f"kernel {name} [bucket] A={a} rows={full} bf16 bucket "
-              f"({'int8 payload' if name.endswith('_q:bf16') else 'bf16 neighbours' if wrapper != 'sr_quantize' else 'int8 codes'}): "
+        operand = ("int8 compact stacks, k_rows=" + str(k_rows) if sparse else
+                   "int8 payload" if kind == torch.int8 and wrapper != "sr_quantize"
+                   else "int8 codes" if wrapper == "sr_quantize" else "bf16 neighbours")
+        print(f"kernel {name} [bucket] A={a} rows={full} bf16 bucket ({operand}): "
               f"bit for bit (above) ms={ms:.5f} plain_ms={plain_ms:.5f} (the whole "
               f"bucket in {LM_SLICES} row slices) library_ms=none bound_ms={b_ms:.5f} "
               f"({b_by}) bound_share={b_ms / ms:.3f} kernel_only_ms="
               f"{'not measured' if dev_ms is None else f'{dev_ms:.5f}'}")
-    del x, slf, g, v, q, sc
+    del o
     _free()
 
 
@@ -2579,86 +2806,118 @@ def _want_counts(init: dict, per_step: dict, steps: int) -> dict:
     return {k: init.get(k, 0) + steps * per_step.get(k, 0) for k in cu.KERNELS}
 
 
+@contextlib.contextmanager
+def gemma_2layers():
+    """gemma3-1b at full width with 2 layers, registered as ``GEMMA_2L``
+    while the block runs."""
+    cfg = dataclasses.replace(get_config("gemma3-1b"), n_layers=2, name=GEMMA_2L)
+    ARCH_CONFIGS[cfg.name] = cfg
+    try:
+        yield cfg
+    finally:
+        del ARCH_CONFIGS[cfg.name]
+
+
 def lm_train_path() -> dict:
-    """Phases 10-11: gemma3-1b (full width and depth; f32 wire CDMSGD, int8
-    overlap CDSGD, CDMSGD with 2 microbatches) and rwkv6-1.6b (CDSGD)
-    trained through ``repro_torch.launch.train.main`` on the card, each run
-    with every launch count set to 0 before it and read after it: exact
-    launches a step, all on the bf16 bucket, no flash / WKV6 launch,
-    finite losses, wire bytes against the accounting.  Returns the runs'
-    launches by kernel and bucket type."""
+    """Phases 10, 10b and 11: gemma3-1b (full width and depth; f32 wire
+    CDMSGD, int8 overlap CDSGD, CDMSGD with 2 microbatches, f32 wire
+    Nesterov, int8 overlap CDAdam, int8 mixed-momentum CDMSGD), gemma3-1b
+    at 2 layers (the four top-k sparse forms, Nesterov's _q and _qm, CDAdam's
+    dense and _qm forms) and rwkv6-1.6b (CDSGD) trained through
+    ``repro_torch.launch.train.main`` on the card, each run with every
+    launch count set to 0 before it and read after it: exact launches a
+    step, on the bf16 bucket (a top-k wire's sr_quantize on its float32
+    compact values), no flash / WKV6 launch, finite losses, wire bytes
+    against the accounting.  Returns the runs' launches by kernel and bucket
+    type."""
     total = {k: {"float32": 0, "bfloat16": 0} for k in cu.KERNELS}
-    for (label, arch, agents, topo, batch, seq, steps, flags, init,
-         per_step) in LM_RUNS:
-        argv = ["--arch", arch, "--preset", "full", "--agents", str(agents),
-                "--topology", topo, "--batch", str(batch), "--seq", str(seq),
-                "--steps", str(steps), "--log-every", "0", "--device", CARD, *flags]
-        _free()
-        torch.cuda.reset_peak_memory_stats()
-        record = []
-        cu.reset_launch_counts()
-        _reset_serving_counts()
-        t0 = time.perf_counter()
-        with timed_steps(record), live_init(get_config(arch)):
-            tr = lm_train.main(argv)
-        wall = time.perf_counter() - t0
-        counts, buckets, serving = (cu.launch_counts(), cu.bucket_launch_counts(),
-                                    _serving_counts())
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        for i, r in enumerate(record):
-            if r["counts"] != _want_counts(init, per_step, i + 1):
-                raise AssertionError(f"train {label} step {i}: launched "
-                                     f"{r['counts']}, expected "
-                                     f"{_want_counts(init, per_step, i + 1)}")
-            if not np.isfinite(r["loss"]):
-                raise AssertionError(f"train {label} step {i}: loss {r['loss']}")
-        if len(record) != steps or any(serving.values()):
-            raise AssertionError(f"train {label}: {len(record)} steps, flash / "
-                                 f"WKV6 launches {serving} (expected none)")
-        for k, by in buckets.items():
-            if by["bfloat16"] != counts[k] or by["float32"]:
-                raise AssertionError(f"train {label}: {k} launches {by}, all "
-                                     "expected on the bf16 bucket")
-            total[k]["bfloat16"] += by["bfloat16"]
-        spec = make_flat_spec(tr.state.params, lead=1)
-        degree = make_topology(topo, agents).degree()
-        exchange = "int8" if "int8" in flags else "f32"
-        want_wire = degree * spec.exchange_bytes(exchange)
-        wire_note = ""
-        if tr.wire_bytes_per_step != want_wire:
-            raise AssertionError(f"train {label}: {tr.wire_bytes_per_step} wire "
-                                 f"B/step, the bf16 bucket's accounting {want_wire}")
-        if "overlap" in flags:
-            carried = wire_bytes_per_neighbor(tr.state.opt_state.wire) * degree
-            if carried != want_wire:
-                raise AssertionError(f"train {label}: the carried wire moves "
-                                     f"{carried} B/step, the accounting {want_wire}")
-            wire_note = ", equal to the carried wire's buffers"
-        steady = [r["ms"] for r in record[1:]]
-        med = float(np.median(steady))
-        tokens = agents * batch * seq
-        launched = ", ".join(f"{k} {v}" for k, v in counts.items() if v)
-        cons = tr.history.series("consensus_error")
-        losses = ", ".join(f"{r['loss']:.4f}" for r in record)
-        print(f"train {label}: {steps} steps through repro_torch.launch.train, "
-              f"{count_params(tt.model_template(get_config(arch))):,} params x "
-              f"{agents} agents on {topo}, batch {batch} x seq {seq} per agent "
-              f"(live_init weights): losses {losses}, "
-              f"consensus_error {cons[0]:.3e} -> {cons[-1]:.3e}; first step "
-              f"{record[0]['ms']:.1f} ms, steady median {med:.1f} ms "
-              f"(steps 2-{steps}), {tokens / med * 1e3:,.0f} tokens/s; "
-              f"max_memory_allocated {peak:.2f} GiB; wire {tr.wire_bytes_per_step:,} "
-              f"B/step (bf16 bucket, {exchange} wire{wire_note}); launches "
-              f"(all bf16 bucket): {launched}; flash / WKV6 launches 0; entry "
-              f"point wall {wall:.1f} s")
+    with gemma_2layers():
+        for run in (*LM_RUNS, *LM_SMALL_RUNS):
+            for k, by in lm_run(*run).items():
+                for bucket, n in by.items():
+                    total[k][bucket] += n
+    return total
+
+
+def lm_run(label, arch, agents, topo, batch, seq, steps, flags, init,
+           per_step) -> dict:
+    """One training run of ``lm_train_path``; returns its launches by
+    kernel and bucket type."""
+    argv = ["--arch", arch, "--preset", "full", "--agents", str(agents),
+            "--topology", topo, "--batch", str(batch), "--seq", str(seq),
+            "--steps", str(steps), "--log-every", "0", "--device", CARD, *flags]
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    record = []
+    cu.reset_launch_counts()
+    _reset_serving_counts()
+    t0 = time.perf_counter()
+    with timed_steps(record), live_init(get_config(arch)):
+        tr = lm_train.main(argv)
+    wall = time.perf_counter() - t0
+    counts, buckets, serving = (cu.launch_counts(), cu.bucket_launch_counts(),
+                                _serving_counts())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, r in enumerate(record):
+        if r["counts"] != _want_counts(init, per_step, i + 1):
+            raise AssertionError(f"train {label} step {i}: launched "
+                                 f"{r['counts']}, expected "
+                                 f"{_want_counts(init, per_step, i + 1)}")
+        if not np.isfinite(r["loss"]):
+            raise AssertionError(f"train {label} step {i}: loss {r['loss']}")
+    if len(record) != steps or any(serving.values()):
+        raise AssertionError(f"train {label}: {len(record)} steps, flash / "
+                             f"WKV6 launches {serving} (expected none)")
+    # a top-k wire codes the float32 compact values of the bucket
+    on_f32 = {"sr_quantize"} if "--compressor" in flags else set()
+    out = {}
+    for k, by in buckets.items():
+        bucket = "float32" if k in on_f32 else "bfloat16"
+        if by[bucket] != counts[k] or sum(by.values()) != counts[k]:
+            raise AssertionError(f"train {label}: {k} launches {by}, all "
+                                 f"expected on the {bucket} bucket")
+        out[k] = {bucket: by[bucket]}
+    spec = make_flat_spec(tr.state.params, lead=1)
+    degree = make_topology(topo, agents).degree()
+    want_wire = degree * program_bytes_per_neighbor(spec, tr.program)
+    wire_note = ""
+    if tr.wire_bytes_per_step != want_wire:
+        raise AssertionError(f"train {label}: {tr.wire_bytes_per_step} wire "
+                             f"B/step, the bf16 bucket's accounting {want_wire}")
+    if "overlap" in flags:
+        carried = wire_bytes_per_neighbor(tr.state.opt_state.wire) * degree
+        if carried != want_wire:
+            raise AssertionError(f"train {label}: the carried wire moves "
+                                 f"{carried} B/step, the accounting {want_wire}")
+        wire_note = ", equal to the carried wire's buffers"
+    steady = [r["ms"] for r in record[1:]]
+    med = float(np.median(steady))
+    tokens = agents * batch * seq
+    launched = ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+    cons = tr.history.series("consensus_error")
+    losses = ", ".join(f"{r['loss']:.4f}" for r in record)
+    print(f"train {label}: {steps} steps through repro_torch.launch.train, "
+          f"{count_params(tt.model_template(get_config(arch))):,} params x "
+          f"{agents} agents on {topo}, batch {batch} x seq {seq} per agent "
+          f"(live_init weights): losses {losses}, "
+          f"consensus_error {cons[0]:.3e} -> {cons[-1]:.3e}; first step "
+          f"{record[0]['ms']:.1f} ms, steady median {med:.1f} ms "
+          f"(steps 2-{steps}), {tokens / med * 1e3:,.0f} tokens/s; "
+          f"max_memory_allocated {peak:.2f} GiB; wire {tr.wire_bytes_per_step:,} "
+          f"B/step ({tr.program.describe()}{wire_note}); launches at init "
+          f"{init or 'none'}, per step {per_step} (bf16 bucket"
+          f"{', sr_quantize on the float32 compact values' if on_f32 else ''}): "
+          f"{launched}; flash / WKV6 launches 0; entry point wall {wall:.1f} s")
+    if arch != GEMMA_2L or label.endswith(LM_PROFILED):
         vocab = tr.state.params["embed"]["table"].shape[1]
         stream = lm_agent_batches(make_lm_tokens(1 << 15, vocab=vocab, seed=0),
                                   agents, batch, seq, seed=0)
         symbols = [BF16_FORMS[f"{k}:bf16"][1] for k in per_step]
         profile_lm_step(tr, next(stream), label, symbols)
-        del tr, stream
+        del stream
+    del tr
     _free()
-    return total
+    return out
 
 
 def _cpu_like(tree):
@@ -2674,13 +2933,10 @@ def lm_resume() -> dict:
     ``--checkpoint-dir``, ``--resume`` and two more, bit for bit in the
     params, momentum, wire and residual; the final checkpoint restored on
     the CPU equal to the card's state.  Returns the launches by bucket."""
-    cfg = dataclasses.replace(get_config("gemma3-1b"), n_layers=2,
-                              name="gemma3-1b-2layers")
-    ARCH_CONFIGS[cfg.name] = cfg
-    base = ["--arch", cfg.name, "--preset", "full", "--log-every", "0",
-            "--device", CARD, *RESUME_FLAGS]
     total = {k: {"float32": 0, "bfloat16": 0} for k in cu.KERNELS}
-    try:
+    with gemma_2layers() as cfg:
+        base = ["--arch", cfg.name, "--preset", "full", "--log-every", "0",
+                "--device", CARD, *RESUME_FLAGS]
         with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as d:
             cu.reset_launch_counts()
             _reset_serving_counts()
@@ -2734,8 +2990,6 @@ def lm_resume() -> dict:
               f"checkpoint loads on the CPU and equals the card's state; two "
               f"checkpoints {n_bytes / 2**30:.2f} GiB; three entry-point runs "
               f"{wall:.1f} s")
-    finally:
-        del ARCH_CONFIGS[cfg.name]
     _free()
     return total
 
@@ -3131,42 +3385,59 @@ def main() -> None:
             if any(w in line for w in ("registers", "spill", "Compiling entry",
                                        "Performance Loss")):
                 print(f"  ptxas {lib}: {line.strip()}")
+    walls = {}
+
+    @contextlib.contextmanager
+    def phase(name):
+        t = time.perf_counter()
+        yield
+        walls[name] = time.perf_counter() - t
+
     # phase 14 first: its three ranks need the card's memory, which the
     # later phases' caches in this process would hold
-    sharded_path()
+    with phase("14 sharded"):
+        sharded_path()
 
     measured = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    check_dense(measured, gen)
-    check_sr_quantize(measured, gen)
-    check_q(measured, gen)
-    check_b4(measured, gen)
-    check_sparse(measured, gen)
-    check_threshold(measured, gen)
-    check_flash(measured, gen)
-    check_wkv(measured, gen)
-    check_bf16_buckets(measured, gen)
+    with phase("3 kernels"):
+        check_dense(measured, gen)
+        check_sr_quantize(measured, gen)
+        check_q(measured, gen)
+        check_b4(measured, gen)
+        check_sparse(measured, gen)
+        check_threshold(measured, gen)
+        check_flash(measured, gen)
+        check_wkv(measured, gen)
+    with phase("3c bf16 buckets"):
+        check_bf16_buckets(measured, gen)
 
     train, _ = make_classification(4096, n_classes=10, image_hw=32, seed=0)
     params = init_params(cnn_classifier_template(32, 3, 10), seed=0)
-    counts = train_main_path(params, train)
-    for path in (lambda: mixing_main_path(params, train), paper_benchmarks):
-        for k, v in path().items():
-            counts[k] += v
+    with phase("4, 4b, 9 CNN and benchmarks"):
+        counts = train_main_path(params, train)
+        for path in (lambda: mixing_main_path(params, train), paper_benchmarks):
+            for k, v in path().items():
+                counts[k] += v
 
-    t0 = time.perf_counter()
-    serving = {arch: init_params(tt.model_template(get_config(arch)), seed=0,
-                                 device="cuda") for arch, _, _ in SERVE_ARCHS}
-    print(f"full-width bf16 weights of {', '.join(serving)} drawn (seed 0) and "
-          f"moved to the card: {time.perf_counter() - t0:.1f} s")
-    counts.update(prefill_path(serving))
-    serve_path(serving)
-    del serving
-    _free()
-    lm = lm_train_path()
-    for k, by in lm_resume().items():
-        for bucket, n in by.items():
-            lm[k][bucket] += n
+    with phase("6-7 gemma3-1b, rwkv6-1.6b serving"):
+        t0 = time.perf_counter()
+        serving = {arch: init_params(tt.model_template(get_config(arch)), seed=0,
+                                     device="cuda") for arch, _, _ in SERVE_ARCHS}
+        print(f"full-width bf16 weights of {', '.join(serving)} drawn (seed 0) and "
+              f"moved to the card: {time.perf_counter() - t0:.1f} s")
+        counts.update(prefill_path(serving))
+        serve_path(serving)
+        del serving
+        _free()
+    with phase("6-7 dense configs serving"):
+        for k, n in dense_serving_path().items():
+            counts[k] = counts.get(k, 0) + n
+    with phase("10-12 LM training and resume"):
+        lm = lm_train_path()
+        for k, by in lm_resume().items():
+            for bucket, n in by.items():
+                lm[k][bucket] += n
     for name, (wrapper, _, _) in BF16_FORMS.items():
         counts[name] = lm[wrapper]["bfloat16"]
     for k, by in lm.items():
@@ -3174,7 +3445,8 @@ def main() -> None:
     kernels = []
     for name, (lib, _, replaces) in [*KERNELS.items(),
                                      *((n, (KERNELS[w][0], sym, rep)) for n, (w, sym, rep)
-                                       in BF16_FORMS.items())]:
+                                       in BF16_FORMS.items()),
+                                     (FLASH_D120, KERNELS["flash_attention"])]:
         if counts[name] < 1:
             raise AssertionError(f"{name} never launched on the main path")
         m = measured[name]
@@ -3185,6 +3457,15 @@ def main() -> None:
                         "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
     print(json.dumps({"kernels": kernels}))
 
+    with phase("5, 8, 13 parity"):
+        parities(params, train)
+    print("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": count}}))
+
+
+def parities(params, train) -> None:
+    """Phases 5, 8 and 13: card against CPU."""
     parity(params, train, 3)
     parity(params, train, 3, schedule="overlap")
     parity(params, train, 1, exchange="int8")
@@ -3197,8 +3478,6 @@ def main() -> None:
     parity_ring(params, train)
     parity_models()
     parity_lm()
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                             "count": count}}))
 
 
 if __name__ == "__main__":

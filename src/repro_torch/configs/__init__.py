@@ -1,9 +1,12 @@
 """Config registry: ``get_config("<arch-id>")`` / ``--arch <id>`` on CLIs.
 
-The ported architectures only (the model zoo's serving path): gemma3-1b
-(dense GQA, local/global sliding windows) and rwkv6-1.6b (RWKV6).  A
+The ported architectures only: the dense GQA transformers gemma3-1b
+(local/global sliding windows), h2o-danube-3-4b (a 4096-token sliding
+window, head dim 120), granite-3-8b (global attention, tied embeddings)
+and starcoder2-7b (LayerNorm, a plain GELU MLP), and rwkv6-1.6b (RWKV6).  A
 ``-reduced`` suffix gives the smoke-test variant.  The reference's other
-eight architectures wait for ROADMAP A17.
+families (MLA, MoE, hybrid, SSM, encoder-decoder, the frontends) wait for
+ROADMAP A17.3.
 """
 
 from __future__ import annotations
@@ -12,9 +15,13 @@ from typing import Dict, List
 
 from repro_torch.configs.base import INPUT_SHAPES, ArchConfig, InputShape, RunConfig
 from repro_torch.configs.gemma3_1b import CONFIG as _gemma3
+from repro_torch.configs.granite_3_8b import CONFIG as _granite3
+from repro_torch.configs.h2o_danube_3_4b import CONFIG as _danube3
 from repro_torch.configs.rwkv6_1_6b import CONFIG as _rwkv6
+from repro_torch.configs.starcoder2_7b import CONFIG as _starcoder2
 
-ARCH_CONFIGS: Dict[str, ArchConfig] = {c.name: c for c in [_rwkv6, _gemma3]}
+ARCH_CONFIGS: Dict[str, ArchConfig] = {
+    c.name: c for c in [_rwkv6, _gemma3, _danube3, _granite3, _starcoder2]}
 
 
 def get_config(name: str) -> ArchConfig:
@@ -23,7 +30,7 @@ def get_config(name: str) -> ArchConfig:
     if name not in ARCH_CONFIGS:
         raise KeyError(f"unknown or unported arch {name!r}; the port has "
                        f"{sorted(ARCH_CONFIGS)} (the other architectures of "
-                       "the JAX package are ROADMAP A17)")
+                       "the JAX package are ROADMAP A17.3)")
     return ARCH_CONFIGS[name]
 
 

@@ -19,14 +19,14 @@
 // float32, SC its per-row scales (S, rows, 1) float32 (ones for bf16 / f32
 // payloads).
 //
-// Bucket types.  The dense and _q forms of CDSGD and CDMSGD take a float32
-// or a bfloat16 bucket (G, V, SELF and the outputs of one type, a template
-// parameter B): a bf16 element is widened exactly, the float32 expression
-// above runs unchanged (same _rn operations, same stencil order), and each
-// output is rounded once to bf16, to nearest even (__float2bfloat16_rn), as
-// the Pallas bodies store float32 results into out_ref.dtype.  Every other
-// form takes float32 buckets only; its wrapper refuses a bf16 one before
-// any work.
+// Bucket types.  Every form takes a float32 or a bfloat16 bucket (G, SELF
+// and every state and output buffer of one type, a template parameter B):
+// a bf16 element is widened exactly, the float32 expression above runs
+// unchanged (same _rn operations, same stencil order), and each output is
+// rounded once to bf16, to nearest even (__float2bfloat16_rn), as the Pallas
+// bodies store float32 results into out_ref.dtype.  An output that another
+// output's expression uses (Nesterov's x' and v' in LOOK, Adam's m' and v'
+// in out) enters it unrounded, as in the Pallas bodies.
 //
 // Mixed-momentum form (_qm: the momentum buffer rode the wire too, as a
 // second payload VQ / VSC of the same type; the local momentum is its self
@@ -39,7 +39,9 @@
 //     (the next step's lookahead point, a new output buffer);
 //   cdadam_update*: m' = b1 M[a] + (1 - b1) G[a]     (_qm: b1 mix_q(M; ..))
 //                   v' = b2 V[a] + ((1 - b2) G[a]) G[a]
-//                   out[a] = mix - alpha ((m' / bc1) / (sqrt(v' / bc2) + eps))
+//                   out[a] = mix - alpha ((m' / bc1) / (sqrt(v' / bc2) + eps)),
+//     its divisions taken as m' / (bc1 (sqrt(v' / bc2) + eps)), the form XLA
+//     compiles the Pallas body's expression into,
 //     with the scalars alpha, b1, b2, eps, bc1 = 1 - b1^t, bc2 = 1 - b2^t
 //     passed in float32 (the Pallas kernel's packed scal operand).
 //
@@ -220,11 +222,6 @@ __device__ __forceinline__ float4 sgd_step(float4 acc, const float4& gv, float a
   return acc;
 }
 
-// *g <- acc - alpha * g
-__device__ __forceinline__ void sgd_out(const float4& acc, float4* g, float alpha) {
-  *g = sgd_step(acc, *g, alpha);
-}
-
 // mu vin - alpha g
 __device__ __forceinline__ float4 mom_step(const float4& vin, const float4& gv,
                                            float alpha, float mu) {
@@ -239,27 +236,6 @@ __device__ __forceinline__ float4 add4(const float4& a, const float4& b) {
                      __fadd_rn(a.w, b.w));
 }
 
-// *v <- mu vin - alpha gv;  *g <- acc + v'   (gv: *g; vin: *v, or the
-// momentum mix)
-__device__ __forceinline__ void msgd_out(const float4& acc, const float4& vin,
-                                         const float4& gv, float4* g, float4* v,
-                                         float alpha, float mu) {
-  const float4 nv = mom_step(vin, gv, alpha, mu);
-  *g = add4(acc, nv);
-  *v = nv;
-}
-
-// msgd_out, and *look <- (acc + v') + mu v'
-__device__ __forceinline__ void nesterov_out(const float4& acc, const float4& vin,
-                                             const float4& gv, float4* g, float4* v,
-                                             float4* look, float alpha, float mu) {
-  const float4 nv = mom_step(vin, gv, alpha, mu);
-  const float4 x = add4(acc, nv);
-  *g = x;
-  *v = nv;
-  *look = add4(x, scale4(mu, nv));
-}
-
 struct AdamScalars {
   float alpha, b1, b2, eps, bc1, bc2;
 };
@@ -269,43 +245,63 @@ __device__ __forceinline__ float adam_lane(float acc, float m_in, float gv, floa
   const float m = __fadd_rn(__fmul_rn(c.b1, m_in), __fmul_rn(__fsub_rn(1.f, c.b1), gv));
   const float v = __fadd_rn(__fmul_rn(c.b2, vv),
                             __fmul_rn(__fmul_rn(__fsub_rn(1.f, c.b2), gv), gv));
-  const float dir = __fdiv_rn(__fdiv_rn(m, c.bc1),
-                              __fadd_rn(__fsqrt_rn(__fdiv_rn(v, c.bc2)), c.eps));
+  // (m / bc1) / (sqrt(v / bc2) + eps) as XLA compiles the Pallas body: its
+  // simplifier folds (A / B) / C into A / (B * C)
+  const float dir = __fdiv_rn(m, __fmul_rn(c.bc1, __fadd_rn(__fsqrt_rn(__fdiv_rn(v, c.bc2)),
+                                                            c.eps)));
   *nm = m;
   *nv = v;
   return __fsub_rn(acc, __fmul_rn(c.alpha, dir));
 }
 
-// *m <- b1 m_in + (1-b1) gv;  *v <- b2 vv + ((1-b2) gv) gv;
-// *g <- acc - alpha ((m'/bc1) / (sqrt(v'/bc2) + eps))
-// (gv: *g, vv: *v; m_in: *m, or its mix)
+// The epilogues.  Outputs are buckets of type B written at float4 position
+// i, each computed in float32 and rounded once (store4<B>); every output is
+// computed from the unrounded float32 values, as the Pallas bodies compute
+// theirs before the stores.  gv is G's tile, vin V's (or the momentum mix).
+// CDSGD: g <- acc - alpha gv
+template <int B>
+__device__ __forceinline__ void sgd_out(const float4& acc, const float4& gv, void* g,
+                                        long long i, float alpha) {
+  store4<B>(g, i, sgd_step(acc, gv, alpha));
+}
+
+// CDMSGD: v <- v' = mu vin - alpha gv;  g <- acc + v'
+template <int B>
+__device__ __forceinline__ void msgd_out(const float4& acc, const float4& vin,
+                                         const float4& gv, void* g, void* v, long long i,
+                                         float alpha, float mu) {
+  const float4 nv = mom_step(vin, gv, alpha, mu);
+  store4<B>(g, i, add4(acc, nv));
+  store4<B>(v, i, nv);
+}
+
+// Nesterov: msgd_out, and look <- (acc + v') + mu v' (from the float32 x'
+// and v', not from their rounded stores)
+template <int B>
+__device__ __forceinline__ void nesterov_out(const float4& acc, const float4& vin,
+                                             const float4& gv, void* g, void* v, void* look,
+                                             long long i, float alpha, float mu) {
+  const float4 nv = mom_step(vin, gv, alpha, mu);
+  const float4 x = add4(acc, nv);
+  store4<B>(g, i, x);
+  store4<B>(v, i, nv);
+  store4<B>(look, i, add4(x, scale4(mu, nv)));
+}
+
+// CDAdam: m <- b1 m_in + (1-b1) gv;  v <- b2 vv + ((1-b2) gv) gv;
+// g <- acc - alpha ((m'/bc1) / (sqrt(v'/bc2) + eps))  (m_in: M's tile, or
+// its mix; vv: V's tile)
+template <int B>
 __device__ __forceinline__ void adam_out(const float4& acc, const float4& m_in,
-                                         const float4& gv, const float4& vv, float4* g,
-                                         float4* m, float4* v, const AdamScalars& c) {
+                                         const float4& gv, const float4& vv, void* g, void* m,
+                                         void* v, long long i, const AdamScalars& c) {
   float4 out, nm, nv;
   out.x = adam_lane(acc.x, m_in.x, gv.x, vv.x, c, &nm.x, &nv.x);
   out.y = adam_lane(acc.y, m_in.y, gv.y, vv.y, c, &nm.y, &nv.y);
   out.z = adam_lane(acc.z, m_in.z, gv.z, vv.z, c, &nm.z, &nv.z);
   out.w = adam_lane(acc.w, m_in.w, gv.w, vv.w, c, &nm.w, &nv.w);
-  *g = out;
-  *m = nm;
-  *v = nv;
-}
-
-// G (params out) and V (momentum in and out) of bucket type B at float4
-// position i: out = acc - alpha g (CDSGD) ...
-template <int B>
-__device__ __forceinline__ void sgd_store(const float4& acc, void* g, long long i,
-                                          float alpha) {
-  store4<B>(g, i, sgd_step(acc, load4<B>(g, i), alpha));
-}
-
-// ... or v' = mu v - alpha g, out = acc + v' (CDMSGD), each rounded once
-template <int B>
-__device__ __forceinline__ void msgd_store(const float4& acc, void* g, void* v,
-                                           long long i, float alpha, float mu) {
-  const float4 nv = mom_step(load4<B>(v, i), load4<B>(g, i), alpha, mu);
-  store4<B>(g, i, add4(acc, nv));
+  store4<B>(g, i, out);
+  store4<B>(m, i, nm);
   store4<B>(v, i, nv);
 }
 
@@ -316,8 +312,9 @@ cdsgd_kernel(const float* __restrict__ w, const void* x, void* __restrict__ g,
   const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (p >= n4) return;
   for (int a = 0; a < a_out; ++a) {
-    sgd_store<B>(mix<K>(w + static_cast<long long>(a) * s_count, x, s_count, n4, p), g,
-                 a * n4 + p, alpha);
+    const long long i = a * n4 + p;
+    sgd_out<B>(mix<K>(w + static_cast<long long>(a) * s_count, x, s_count, n4, p),
+               load4<B>(g, i), g, i, alpha);
   }
 }
 
@@ -329,8 +326,9 @@ cdmsgd_kernel(const float* __restrict__ w, const void* x, void* __restrict__ g,
   const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (p >= n4) return;
   for (int a = 0; a < a_out; ++a) {
-    msgd_store<B>(mix<K>(w + static_cast<long long>(a) * s_count, x, s_count, n4, p), g, v,
-                  a * n4 + p, alpha, mu);
+    const long long i = a * n4 + p;
+    msgd_out<B>(mix<K>(w + static_cast<long long>(a) * s_count, x, s_count, n4, p),
+                load4<B>(v, i), load4<B>(g, i), g, v, i, alpha, mu);
   }
 }
 
@@ -344,9 +342,9 @@ cdsgd_q_kernel(const float* __restrict__ w, const void* __restrict__ self, const
   if (p >= n4) return;
   for (int a = 0; a < a_out; ++a) {
     const long long i = a * n4 + p;
-    sgd_store<B>(mix_q<K, B>(w + static_cast<long long>(a) * (s_count + 1), self, i, q, sc,
-                             s_count, rows, n4, p),
-                 g, i, alpha);
+    sgd_out<B>(mix_q<K, B>(w + static_cast<long long>(a) * (s_count + 1), self, i, q, sc,
+                           s_count, rows, n4, p),
+               load4<B>(g, i), g, i, alpha);
   }
 }
 
@@ -361,71 +359,71 @@ cdmsgd_q_kernel(const float* __restrict__ w, const void* __restrict__ self,
   if (p >= n4) return;
   for (int a = 0; a < a_out; ++a) {
     const long long i = a * n4 + p;
-    msgd_store<B>(mix_q<K, B>(w + static_cast<long long>(a) * (s_count + 1), self, i, q,
-                              sc, s_count, rows, n4, p),
-                  g, v, i, alpha, mu);
+    msgd_out<B>(mix_q<K, B>(w + static_cast<long long>(a) * (s_count + 1), self, i, q,
+                            sc, s_count, rows, n4, p),
+                load4<B>(v, i), load4<B>(g, i), g, v, i, alpha, mu);
   }
 }
 
-template <int K>
+template <int K, int B>
 __global__ void __launch_bounds__(kThreads)
-nesterov_kernel(const float* __restrict__ w, const void* x, float4* __restrict__ g,
-                float4* __restrict__ v, float4* __restrict__ look, int a_out,
-                int s_count, long long n4, float alpha, float mu) {
+nesterov_kernel(const float* __restrict__ w, const void* x, void* __restrict__ g,
+                void* __restrict__ v, void* __restrict__ look, int a_out, int s_count,
+                long long n4, float alpha, float mu) {
   const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (p >= n4) return;
   for (int a = 0; a < a_out; ++a) {
     const long long i = a * n4 + p;
-    nesterov_out(mix<K>(w + static_cast<long long>(a) * s_count, x, s_count, n4, p),
-                 v[i], g[i], g + i, v + i, look + i, alpha, mu);
+    nesterov_out<B>(mix<K>(w + static_cast<long long>(a) * s_count, x, s_count, n4, p),
+                    load4<B>(v, i), load4<B>(g, i), g, v, look, i, alpha, mu);
   }
 }
 
-template <int K>
+template <int K, int B>
 __global__ void __launch_bounds__(kThreads)
-nesterov_q_kernel(const float* __restrict__ w, const float4* __restrict__ self,
-                  const void* q, const float* __restrict__ sc, float4* __restrict__ g,
-                  float4* __restrict__ v, float4* __restrict__ look, int a_out,
-                  int s_count, long long rows, float alpha, float mu) {
+nesterov_q_kernel(const float* __restrict__ w, const void* __restrict__ self,
+                  const void* q, const float* __restrict__ sc, void* __restrict__ g,
+                  void* __restrict__ v, void* __restrict__ look, int a_out, int s_count,
+                  long long rows, float alpha, float mu) {
   const long long n4 = rows * 32;
   const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (p >= n4) return;
   for (int a = 0; a < a_out; ++a) {
     const long long i = a * n4 + p;
-    nesterov_out(mix_q<K>(w + static_cast<long long>(a) * (s_count + 1), self, i, q, sc,
-                          s_count, rows, n4, p),
-                 v[i], g[i], g + i, v + i, look + i, alpha, mu);
+    nesterov_out<B>(mix_q<K, B>(w + static_cast<long long>(a) * (s_count + 1), self, i, q,
+                                sc, s_count, rows, n4, p),
+                    load4<B>(v, i), load4<B>(g, i), g, v, look, i, alpha, mu);
   }
 }
 
-template <int K>
+template <int K, int B>
 __global__ void __launch_bounds__(kThreads)
-adam_kernel(const float* __restrict__ w, const void* x, float4* __restrict__ g,
-            float4* __restrict__ m, float4* __restrict__ v, int a_out, int s_count,
+adam_kernel(const float* __restrict__ w, const void* x, void* __restrict__ g,
+            void* __restrict__ m, void* __restrict__ v, int a_out, int s_count,
             long long n4, AdamScalars c) {
   const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (p >= n4) return;
   for (int a = 0; a < a_out; ++a) {
     const long long i = a * n4 + p;
-    adam_out(mix<K>(w + static_cast<long long>(a) * s_count, x, s_count, n4, p), m[i],
-             g[i], v[i], g + i, m + i, v + i, c);
+    adam_out<B>(mix<K>(w + static_cast<long long>(a) * s_count, x, s_count, n4, p),
+                load4<B>(m, i), load4<B>(g, i), load4<B>(v, i), g, m, v, i, c);
   }
 }
 
-template <int K>
+template <int K, int B>
 __global__ void __launch_bounds__(kThreads)
-adam_q_kernel(const float* __restrict__ w, const float4* __restrict__ self,
-              const void* q, const float* __restrict__ sc, float4* __restrict__ g,
-              float4* __restrict__ m, float4* __restrict__ v, int a_out, int s_count,
-              long long rows, AdamScalars c) {
+adam_q_kernel(const float* __restrict__ w, const void* __restrict__ self, const void* q,
+              const float* __restrict__ sc, void* __restrict__ g, void* __restrict__ m,
+              void* __restrict__ v, int a_out, int s_count, long long rows,
+              AdamScalars c) {
   const long long n4 = rows * 32;
   const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (p >= n4) return;
   for (int a = 0; a < a_out; ++a) {
     const long long i = a * n4 + p;
-    adam_out(mix_q<K>(w + static_cast<long long>(a) * (s_count + 1), self, i, q, sc,
-                      s_count, rows, n4, p),
-             m[i], g[i], v[i], g + i, m + i, v + i, c);
+    adam_out<B>(mix_q<K, B>(w + static_cast<long long>(a) * (s_count + 1), self, i, q, sc,
+                            s_count, rows, n4, p),
+                load4<B>(m, i), load4<B>(g, i), load4<B>(v, i), g, m, v, i, c);
   }
 }
 
@@ -457,14 +455,16 @@ constexpr int kMsgd = 1;
 constexpr int kNesterov = 2;
 constexpr int kAdam = 3;
 
-// per payload kind K and family F (chosen by measurement on an H100 with
-// chip_smoke's phase 3): outputs per register tile, whether the tile's G
-// (and Adam's V) load before the mix loop or after it, and the mix loop's
-// unroll.  f32 payloads take 4-output tiles (8 outputs cost 150-210
-// registers and half the occupancy); CDAdam's f32 tile loads G and V after
-// the mix, with the mix loop unrolled twice (four float4 arrays per output
-// in registers cost more occupancy than that); narrow payloads take one
-// output per tile.
+// per payload kind K, family F and bucket type B (chosen by measurement on
+// an H100 with chip_smoke's phase 3, on float32 buckets): outputs per
+// register tile, whether the tile's G (and Adam's V) load before the mix
+// loop or after it, and the mix loop's unroll.  f32 payloads take 4-output
+// tiles (8 outputs cost 150-210 registers and half the occupancy); CDAdam's
+// f32 tile loads G and V after the mix, with the mix loop unrolled twice
+// (four float4 arrays per output in registers cost more occupancy than
+// that); narrow payloads take one output per tile.  The choice follows the
+// payload, whose re-reads it saves, not the bucket type: a bf16 bucket (half
+// the G / SELF / state bytes, the same float4 registers once widened) keeps it.
 template <int K, int F>
 struct QmPlan {
   static constexpr bool kWide = K == kF32;
@@ -475,15 +475,15 @@ struct QmPlan {
 
 struct QmArgs {
   const float* w;        // (a_out, s_count + 1)
-  const float4* self;    // (a_out, rows * 32)
+  const void* self;      // (a_out, rows * 32) float4 positions of the bucket type
   const void* q;         // (s_count, rows * 32) float4 positions of the kind
   const float* sc;       // (s_count, rows)
   const void* mq;        // the momentum payload and its scales, same shapes
   const float* msc;
-  float4* g;             // grad in, params out
-  float4* m;             // momentum (Adam: first moment) in, mixed update out
-  float4* v;             // Adam: second moment
-  float4* look;          // Nesterov: lookahead out
+  void* g;               // grad in, params out
+  void* m;               // momentum (Adam: first moment) in, mixed update out
+  void* v;               // Adam: second moment
+  void* look;            // Nesterov: lookahead out
   int a_out;
   int s_count;
   long long rows;
@@ -491,19 +491,19 @@ struct QmArgs {
   AdamScalars adam;
 };
 
-template <int F>
+template <int F, int B>
 __device__ __forceinline__ void qm_out(const QmArgs& p, const float4& ax, const float4& am,
                                        const float4& gv, const float4& vv, long long j) {
   if constexpr (F == kMsgd) {
-    msgd_out(ax, am, gv, p.g + j, p.m + j, p.alpha, p.mu);
+    msgd_out<B>(ax, am, gv, p.g, p.m, j, p.alpha, p.mu);
   } else if constexpr (F == kNesterov) {
-    nesterov_out(ax, am, gv, p.g + j, p.m + j, p.look + j, p.alpha, p.mu);
+    nesterov_out<B>(ax, am, gv, p.g, p.m, p.look, j, p.alpha, p.mu);
   } else {
-    adam_out(ax, am, gv, vv, p.g + j, p.m + j, p.v + j, p.adam);
+    adam_out<B>(ax, am, gv, vv, p.g, p.m, p.v, j, p.adam);
   }
 }
 
-template <int K, int F>
+template <int K, int F, int B>
 __device__ __forceinline__ void qm_tiles(const QmArgs& p) {
   using Plan = QmPlan<K, F>;
   constexpr int T = Plan::kTile;
@@ -520,11 +520,11 @@ __device__ __forceinline__ void qm_tiles(const QmArgs& p) {
       if (t < na) {
         const long long j = (a0 + t) * n4 + i;
         const float w0 = w[t * sw];
-        ax[t] = scale4(w0, p.self[j]);
-        am[t] = scale4(w0, p.m[j]);
+        ax[t] = scale4(w0, load4<B>(p.self, j));
+        am[t] = scale4(w0, load4<B>(p.m, j));
         if constexpr (Plan::kLoadFirst) {
-          gv[t] = p.g[j];
-          if constexpr (F == kAdam) vv[t] = p.v[j];
+          gv[t] = load4<B>(p.g, j);
+          if constexpr (F == kAdam) vv[t] = load4<B>(p.v, j);
         }
       }
     }
@@ -546,31 +546,31 @@ __device__ __forceinline__ void qm_tiles(const QmArgs& p) {
       if (t < na) {
         const long long j = (a0 + t) * n4 + i;
         if constexpr (!Plan::kLoadFirst) {
-          gv[t] = p.g[j];
-          if constexpr (F == kAdam) vv[t] = p.v[j];
+          gv[t] = load4<B>(p.g, j);
+          if constexpr (F == kAdam) vv[t] = load4<B>(p.v, j);
         }
-        qm_out<F>(p, ax[t], am[t], gv[t], vv[t], j);
+        qm_out<F, B>(p, ax[t], am[t], gv[t], vv[t], j);
       }
     }
   }
 }
 
 // v' = mu mix_q(M; MQ, MSC) - alpha G;  out = mix_q(SELF; Q, SC) + v'
-template <int K>
+template <int K, int B>
 __global__ void __launch_bounds__(kThreads) cdmsgd_qm_kernel(const QmArgs p) {
-  qm_tiles<K, kMsgd>(p);
+  qm_tiles<K, kMsgd, B>(p);
 }
 
 // as cdmsgd_qm_kernel, and LOOK = out + mu v'
-template <int K>
+template <int K, int B>
 __global__ void __launch_bounds__(kThreads) nesterov_qm_kernel(const QmArgs p) {
-  qm_tiles<K, kNesterov>(p);
+  qm_tiles<K, kNesterov, B>(p);
 }
 
 // m' = b1 mix_q(M; MQ, MSC) + (1 - b1) G, Adam's epilogue on mix_q(SELF; Q, SC)
-template <int K>
+template <int K, int B>
 __global__ void __launch_bounds__(kThreads) adam_qm_kernel(const QmArgs p) {
-  qm_tiles<K, kAdam>(p);
+  qm_tiles<K, kAdam, B>(p);
 }
 
 // ---------------------------------------------------------------------------
@@ -588,21 +588,23 @@ __global__ void __launch_bounds__(kThreads) adam_qm_kernel(const QmArgs p) {
 // scatter-added into acc for every agent, and a __syncthreads() separates
 // neighbours.  Indices are unique within a neighbour, so no two threads
 // touch one element between two barriers, and the per-element order is the
-// stencil order of the Pallas body (_sparse_stencil).
+// stencil order of the Pallas body (_sparse_stencil).  SELF, G and the state
+// buffers are of the bucket type B; the compact values stay int8 with
+// float32 scales (the wire compresses a float32 copy of the bucket).
 
 constexpr int kSparseElems = kThreads * 4;     // 8 rows of 128 lanes
 constexpr int kAgentsPerCta = 8;               // 32 KB of acc at most
 
 struct SparseArgs {
   const float* w;            // (a_out, s_count + 1)
-  const float4* self;        // (a_out, rows * 32)
+  const void* self;          // (a_out, rows * 32) float4 positions of the bucket type
   const int8_t* vals;        // (s_count, k_rows * 128)
   const int* idx;            // (s_count, k_rows * 128)
   const float* sc;           // (s_count, k_rows)
-  float4* g;                 // grad in, params out
-  float4* s1;                // momentum (Adam: first moment)
-  float4* s2;                // Adam: second moment
-  float4* look;              // Nesterov: lookahead out
+  void* g;                   // grad in, params out
+  void* s1;                  // momentum (Adam: first moment)
+  void* s2;                  // Adam: second moment
+  void* look;                // Nesterov: lookahead out
   int a_out;
   int s_count;
   long long k_rows;
@@ -611,7 +613,7 @@ struct SparseArgs {
   AdamScalars adam;
 };
 
-template <int F>
+template <int F, int B>
 __global__ void __launch_bounds__(kThreads) sparse_kernel(const SparseArgs p) {
   extern __shared__ float4 smem[];
   const int a0 = blockIdx.y * kAgentsPerCta;
@@ -641,10 +643,7 @@ __global__ void __launch_bounds__(kThreads) sparse_kernel(const SparseArgs p) {
   for (int a = 0; a < ca; ++a) {
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (live) {
-      const float w0 = p.w[static_cast<long long>(a0 + a) * sw];
-      const float4 sv = p.self[(a0 + a) * n4 + q];
-      v = make_float4(__fmul_rn(w0, sv.x), __fmul_rn(w0, sv.y), __fmul_rn(w0, sv.z),
-                      __fmul_rn(w0, sv.w));
+      v = scale4(p.w[static_cast<long long>(a0 + a) * sw], load4<B>(p.self, (a0 + a) * n4 + q));
     }
     acc4[a * kThreads + threadIdx.x] = v;
   }
@@ -668,15 +667,16 @@ __global__ void __launch_bounds__(kThreads) sparse_kernel(const SparseArgs p) {
   for (int a = 0; a < ca; ++a) {
     const long long i = (a0 + a) * n4 + q;
     const float4 mix = acc4[a * kThreads + threadIdx.x];
+    const float4 gv = load4<B>(p.g, i);
     if constexpr (F == kSgd) {
-      sgd_out(mix, p.g + i, p.alpha);
+      sgd_out<B>(mix, gv, p.g, i, p.alpha);
     } else if constexpr (F == kMsgd) {
-      msgd_out(mix, p.s1[i], p.g[i], p.g + i, p.s1 + i, p.alpha, p.mu);
+      msgd_out<B>(mix, load4<B>(p.s1, i), gv, p.g, p.s1, i, p.alpha, p.mu);
     } else if constexpr (F == kNesterov) {
-      nesterov_out(mix, p.s1[i], p.g[i], p.g + i, p.s1 + i, p.look + i, p.alpha,
-                   p.mu);
+      nesterov_out<B>(mix, load4<B>(p.s1, i), gv, p.g, p.s1, p.look, i, p.alpha, p.mu);
     } else {
-      adam_out(mix, p.s1[i], p.g[i], p.s2[i], p.g + i, p.s1 + i, p.s2 + i, p.adam);
+      adam_out<B>(mix, load4<B>(p.s1, i), gv, load4<B>(p.s2, i), p.g, p.s1, p.s2, i,
+                  p.adam);
     }
   }
 }
@@ -689,36 +689,49 @@ cudaError_t select_device(int device) {
   return cudaSetDevice(device);
 }
 
+// f(b) with b the compile-time bucket type (kF32 or kBF16); its result, or
+// cudaErrorInvalidValue for another bucket code
+template <typename F>
+int with_bucket(int bucket, F f) {
+  switch (bucket) {
+    case kF32: return f(std::integral_constant<int, kF32>{});
+    case kBF16: return f(std::integral_constant<int, kBF16>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <int F>
-int launch_sparse(const SparseArgs& p, int device, void* stream) {
+int launch_sparse(const SparseArgs& p, int bucket, int device, void* stream) {
   if (p.rows <= 0 || p.a_out <= 0) return 0;
   const cudaError_t set = select_device(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const int ca = p.a_out < kAgentsPerCta ? p.a_out : kAgentsPerCta;
   const size_t smem = static_cast<size_t>(ca) * kSparseElems * sizeof(float) +
                       2 * static_cast<size_t>(p.s_count) * sizeof(long long);
-  if (smem > 48 * 1024) {
-    const cudaError_t attr = cudaFuncSetAttribute(
-        sparse_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-  }
   const dim3 grid(static_cast<unsigned int>((p.rows * 128 + kSparseElems - 1) / kSparseElems),
                   static_cast<unsigned int>((p.a_out + kAgentsPerCta - 1) / kAgentsPerCta));
-  sparse_kernel<F><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return with_bucket(bucket, [&](auto b) {
+    auto kernel = sparse_kernel<F, decltype(b)::value>;
+    if (smem > 48 * 1024) {
+      const cudaError_t attr = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (attr != cudaSuccess) return static_cast<int>(attr);
+    }
+    kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
-SparseArgs sparse_args(const float* w, const float* self, const void* vals,
-                       const int* idx, const float* sc, float* g, int a_out, int s_count,
+SparseArgs sparse_args(const float* w, const void* self, const void* vals,
+                       const int* idx, const float* sc, void* g, int a_out, int s_count,
                        long long k_rows, long long rows) {
   SparseArgs p{};
   p.w = w;
-  p.self = reinterpret_cast<const float4*>(self);
+  p.self = self;
   p.vals = static_cast<const int8_t*>(vals);
   p.idx = idx;
   p.sc = sc;
-  p.g = reinterpret_cast<float4*>(g);
+  p.g = g;
   p.a_out = a_out;
   p.s_count = s_count;
   p.k_rows = k_rows;
@@ -726,18 +739,18 @@ SparseArgs sparse_args(const float* w, const float* self, const void* vals,
   return p;
 }
 
-QmArgs qm_args(const float* w, const float* self, const void* q, const void* mq,
-               const float* sc, const float* msc, float* g, float* m, int a_out,
+QmArgs qm_args(const float* w, const void* self, const void* q, const void* mq,
+               const float* sc, const float* msc, void* g, void* m, int a_out,
                int s_count, long long rows) {
   QmArgs p{};
   p.w = w;
-  p.self = reinterpret_cast<const float4*>(self);
+  p.self = self;
   p.q = q;
   p.sc = sc;
   p.mq = mq;
   p.msc = msc;
-  p.g = reinterpret_cast<float4*>(g);
-  p.m = reinterpret_cast<float4*>(m);
+  p.g = g;
+  p.m = m;
   p.a_out = a_out;
   p.s_count = s_count;
   p.rows = rows;
@@ -748,44 +761,30 @@ unsigned int blocks_for(long long n4) {
   return static_cast<unsigned int>((n4 + kThreads - 1) / kThreads);
 }
 
-// Select the device, then launch(k) with k the compile-time kind; returns
-// the CUDA error of the selection or of the launch.
-template <typename Launch>
-int launch_kind(int kind, bool quantized_kinds, int device, Launch launch) {
-  const cudaError_t set = select_device(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  switch (kind) {
-    case kF32: launch(std::integral_constant<int, kF32>{}); break;
-    case kBF16: launch(std::integral_constant<int, kBF16>{}); break;
-    case kI8:
-      if (!quantized_kinds) return static_cast<int>(cudaErrorInvalidValue);
-      launch(std::integral_constant<int, kI8>{});
-      break;
-    case kFP8:
-      if (!quantized_kinds) return static_cast<int>(cudaErrorInvalidValue);
-      launch(std::integral_constant<int, kFP8>{});
-      break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// launch_kind for the bucket type too: launch(k, b) with b the compile-time
-// bucket type (kF32 or kBF16)
+// Select the device, then launch(k, b) with k the compile-time kind and b
+// the compile-time bucket type; returns the CUDA error of the selection or
+// of the launch.  Only the quantized forms take int8 and fp8 kinds.
 template <typename Launch>
 int launch_bucket(int kind, int bucket, bool quantized_kinds, int device,
                   Launch launch) {
-  switch (bucket) {
-    case kF32:
-      return launch_kind(kind, quantized_kinds, device, [&](auto k) {
-        launch(k, std::integral_constant<int, kF32>{});
-      });
-    case kBF16:
-      return launch_kind(kind, quantized_kinds, device, [&](auto k) {
-        launch(k, std::integral_constant<int, kBF16>{});
-      });
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return with_bucket(bucket, [&](auto b) {
+    const cudaError_t set = select_device(device);
+    if (set != cudaSuccess) return static_cast<int>(set);
+    switch (kind) {
+      case kF32: launch(std::integral_constant<int, kF32>{}, b); break;
+      case kBF16: launch(std::integral_constant<int, kBF16>{}, b); break;
+      case kI8:
+        if (!quantized_kinds) return static_cast<int>(cudaErrorInvalidValue);
+        launch(std::integral_constant<int, kI8>{}, b);
+        break;
+      case kFP8:
+        if (!quantized_kinds) return static_cast<int>(cudaErrorInvalidValue);
+        launch(std::integral_constant<int, kFP8>{}, b);
+        break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace
@@ -795,22 +794,22 @@ int launch_bucket(int kind, int bucket, bool quantized_kinds, int device,
 // selects the device itself); stream is PyTorch's current stream there.
 // kind is the neighbor / payload type: 0 float32, 1 bfloat16, 2 int8,
 // 3 float8_e4m3fn (the dense form takes 0 and 1 only).  bucket is the
-// type of G, V and SELF in the forms that take one (cdsgd_update,
-// cdmsgd_update and their _q forms): 0 float32, 1 bfloat16; the other forms
-// take float32 buckets.  n4 is the number of float4 positions (4 elements)
-// per output buffer (rows * 32).  Pointers must be 16-byte
-// aligned; X, Q, SELF and SC must not overlap G or V (the wrapper checks).
-// Returns the CUDA error of the device selection or of the launch
-// (0 = launched); a call with nothing to do launches nothing.  The _qm forms
-// take the momentum payload VQ in the same kind as Q; LOOK and the Adam
-// moments M, V are float32 like G and must not overlap any operand either.
+// type of G, SELF and every state and output buffer (V, M, LOOK): 0
+// float32, 1 bfloat16.  n4 is the number of float4 positions (4 elements)
+// per output buffer (rows * 32).  Pointers must be 16-byte aligned; X, Q,
+// SELF and SC must not overlap G, V, M or LOOK, nor the outputs one another
+// (the wrapper checks).  Returns the CUDA error of the device selection or
+// of the launch (0 = launched); a call with nothing to do launches nothing.
+// The _qm forms take the momentum payload VQ in the same kind as Q.
+#define KIND_AND_BUCKET decltype(k)::value, decltype(b)::value
+
 extern "C" int cdsgd_update(const float* w, const void* x, int kind, void* g,
                             int bucket, int a_out, int s_count, long long n4,
                             float alpha, int device, void* stream) {
   if (n4 <= 0 || a_out <= 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
   return launch_bucket(kind, bucket, false, device, [&](auto k, auto b) {
-    cdsgd_kernel<decltype(k)::value, decltype(b)::value>
+    cdsgd_kernel<KIND_AND_BUCKET>
         <<<blocks_for(n4), kThreads, 0, st>>>(w, x, g, a_out, s_count, n4, alpha);
   });
 }
@@ -821,7 +820,7 @@ extern "C" int cdmsgd_update(const float* w, const void* x, int kind, void* g, v
   if (n4 <= 0 || a_out <= 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
   return launch_bucket(kind, bucket, false, device, [&](auto k, auto b) {
-    cdmsgd_kernel<decltype(k)::value, decltype(b)::value>
+    cdmsgd_kernel<KIND_AND_BUCKET>
         <<<blocks_for(n4), kThreads, 0, st>>>(w, x, g, v, a_out, s_count, n4, alpha, mu);
   });
 }
@@ -833,7 +832,7 @@ extern "C" int cdsgd_update_q(const float* w, const void* self, const void* q, i
   if (rows <= 0 || a_out <= 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
   return launch_bucket(kind, bucket, true, device, [&](auto k, auto b) {
-    cdsgd_q_kernel<decltype(k)::value, decltype(b)::value>
+    cdsgd_q_kernel<KIND_AND_BUCKET>
         <<<blocks_for(rows * 32), kThreads, 0, st>>>(w, self, q, sc, g, a_out, s_count,
                                                      rows, alpha);
   });
@@ -846,15 +845,15 @@ extern "C" int cdmsgd_update_q(const float* w, const void* self, const void* q, 
   if (rows <= 0 || a_out <= 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
   return launch_bucket(kind, bucket, true, device, [&](auto k, auto b) {
-    cdmsgd_q_kernel<decltype(k)::value, decltype(b)::value>
+    cdmsgd_q_kernel<KIND_AND_BUCKET>
         <<<blocks_for(rows * 32), kThreads, 0, st>>>(w, self, q, sc, g, v, a_out, s_count,
                                                      rows, alpha, mu);
   });
 }
 
-extern "C" int cdmsgd_update_qm(const float* w, const float* self, const void* q,
+extern "C" int cdmsgd_update_qm(const float* w, const void* self, const void* q,
                                 const void* vq, int kind, const float* sc,
-                                const float* vsc, float* g, float* v, int a_out,
+                                const float* vsc, void* g, void* v, int bucket, int a_out,
                                 int s_count, long long rows, float alpha, float mu,
                                 int device, void* stream) {
   if (rows <= 0 || a_out <= 0) return 0;
@@ -862,160 +861,148 @@ extern "C" int cdmsgd_update_qm(const float* w, const float* self, const void* q
   p.alpha = alpha;
   p.mu = mu;
   auto st = static_cast<cudaStream_t>(stream);
-  return launch_kind(kind, true, device, [&](auto k) {
-    cdmsgd_qm_kernel<decltype(k)::value><<<blocks_for(rows * 32), kThreads, 0, st>>>(p);
+  return launch_bucket(kind, bucket, true, device, [&](auto k, auto b) {
+    cdmsgd_qm_kernel<KIND_AND_BUCKET><<<blocks_for(rows * 32), kThreads, 0, st>>>(p);
   });
 }
 
-extern "C" int cdmsgd_nesterov_update(const float* w, const void* x, int kind, float* g,
-                                      float* v, float* look, int a_out, int s_count,
-                                      long long n4, float alpha, float mu, int device,
-                                      void* stream) {
+extern "C" int cdmsgd_nesterov_update(const float* w, const void* x, int kind, void* g,
+                                      void* v, void* look, int bucket, int a_out,
+                                      int s_count, long long n4, float alpha, float mu,
+                                      int device, void* stream) {
   if (n4 <= 0 || a_out <= 0) return 0;
-  auto* g4 = reinterpret_cast<float4*>(g);
-  auto* v4 = reinterpret_cast<float4*>(v);
-  auto* l4 = reinterpret_cast<float4*>(look);
   auto st = static_cast<cudaStream_t>(stream);
-  return launch_kind(kind, false, device, [&](auto k) {
-    nesterov_kernel<decltype(k)::value><<<blocks_for(n4), kThreads, 0, st>>>(
-        w, x, g4, v4, l4, a_out, s_count, n4, alpha, mu);
+  return launch_bucket(kind, bucket, false, device, [&](auto k, auto b) {
+    nesterov_kernel<KIND_AND_BUCKET><<<blocks_for(n4), kThreads, 0, st>>>(
+        w, x, g, v, look, a_out, s_count, n4, alpha, mu);
   });
 }
 
-extern "C" int cdmsgd_nesterov_update_q(const float* w, const float* self, const void* q,
-                                        int kind, const float* sc, float* g, float* v,
-                                        float* look, int a_out, int s_count,
+extern "C" int cdmsgd_nesterov_update_q(const float* w, const void* self, const void* q,
+                                        int kind, const float* sc, void* g, void* v,
+                                        void* look, int bucket, int a_out, int s_count,
                                         long long rows, float alpha, float mu,
                                         int device, void* stream) {
   if (rows <= 0 || a_out <= 0) return 0;
-  const auto* self4 = reinterpret_cast<const float4*>(self);
-  auto* g4 = reinterpret_cast<float4*>(g);
-  auto* v4 = reinterpret_cast<float4*>(v);
-  auto* l4 = reinterpret_cast<float4*>(look);
   auto st = static_cast<cudaStream_t>(stream);
-  return launch_kind(kind, true, device, [&](auto k) {
-    nesterov_q_kernel<decltype(k)::value><<<blocks_for(rows * 32), kThreads, 0, st>>>(
-        w, self4, q, sc, g4, v4, l4, a_out, s_count, rows, alpha, mu);
+  return launch_bucket(kind, bucket, true, device, [&](auto k, auto b) {
+    nesterov_q_kernel<KIND_AND_BUCKET><<<blocks_for(rows * 32), kThreads, 0, st>>>(
+        w, self, q, sc, g, v, look, a_out, s_count, rows, alpha, mu);
   });
 }
 
-extern "C" int cdmsgd_nesterov_update_qm(const float* w, const float* self,
+extern "C" int cdmsgd_nesterov_update_qm(const float* w, const void* self,
                                          const void* q, const void* vq, int kind,
-                                         const float* sc, const float* vsc, float* g,
-                                         float* v, float* look, int a_out, int s_count,
-                                         long long rows, float alpha, float mu,
-                                         int device, void* stream) {
+                                         const float* sc, const float* vsc, void* g,
+                                         void* v, void* look, int bucket, int a_out,
+                                         int s_count, long long rows, float alpha,
+                                         float mu, int device, void* stream) {
   if (rows <= 0 || a_out <= 0) return 0;
   QmArgs p = qm_args(w, self, q, vq, sc, vsc, g, v, a_out, s_count, rows);
-  p.look = reinterpret_cast<float4*>(look);
+  p.look = look;
   p.alpha = alpha;
   p.mu = mu;
   auto st = static_cast<cudaStream_t>(stream);
-  return launch_kind(kind, true, device, [&](auto k) {
-    nesterov_qm_kernel<decltype(k)::value><<<blocks_for(rows * 32), kThreads, 0, st>>>(p);
+  return launch_bucket(kind, bucket, true, device, [&](auto k, auto b) {
+    nesterov_qm_kernel<KIND_AND_BUCKET><<<blocks_for(rows * 32), kThreads, 0, st>>>(p);
   });
 }
 
-extern "C" int cdadam_update(const float* w, const void* x, int kind, float* g,
-                             float* m, float* v, int a_out, int s_count, long long n4,
+extern "C" int cdadam_update(const float* w, const void* x, int kind, void* g, void* m,
+                             void* v, int bucket, int a_out, int s_count, long long n4,
                              float alpha, float b1, float b2, float eps, float bc1,
                              float bc2, int device, void* stream) {
   if (n4 <= 0 || a_out <= 0) return 0;
-  auto* g4 = reinterpret_cast<float4*>(g);
-  auto* m4 = reinterpret_cast<float4*>(m);
-  auto* v4 = reinterpret_cast<float4*>(v);
   const AdamScalars c{alpha, b1, b2, eps, bc1, bc2};
   auto st = static_cast<cudaStream_t>(stream);
-  return launch_kind(kind, false, device, [&](auto k) {
-    adam_kernel<decltype(k)::value><<<blocks_for(n4), kThreads, 0, st>>>(
-        w, x, g4, m4, v4, a_out, s_count, n4, c);
+  return launch_bucket(kind, bucket, false, device, [&](auto k, auto b) {
+    adam_kernel<KIND_AND_BUCKET><<<blocks_for(n4), kThreads, 0, st>>>(
+        w, x, g, m, v, a_out, s_count, n4, c);
   });
 }
 
-extern "C" int cdadam_update_q(const float* w, const float* self, const void* q,
-                               int kind, const float* sc, float* g, float* m, float* v,
-                               int a_out, int s_count, long long rows, float alpha,
-                               float b1, float b2, float eps, float bc1, float bc2,
-                               int device, void* stream) {
+extern "C" int cdadam_update_q(const float* w, const void* self, const void* q,
+                               int kind, const float* sc, void* g, void* m, void* v,
+                               int bucket, int a_out, int s_count, long long rows,
+                               float alpha, float b1, float b2, float eps, float bc1,
+                               float bc2, int device, void* stream) {
   if (rows <= 0 || a_out <= 0) return 0;
-  const auto* self4 = reinterpret_cast<const float4*>(self);
-  auto* g4 = reinterpret_cast<float4*>(g);
-  auto* m4 = reinterpret_cast<float4*>(m);
-  auto* v4 = reinterpret_cast<float4*>(v);
   const AdamScalars c{alpha, b1, b2, eps, bc1, bc2};
   auto st = static_cast<cudaStream_t>(stream);
-  return launch_kind(kind, true, device, [&](auto k) {
-    adam_q_kernel<decltype(k)::value><<<blocks_for(rows * 32), kThreads, 0, st>>>(
-        w, self4, q, sc, g4, m4, v4, a_out, s_count, rows, c);
+  return launch_bucket(kind, bucket, true, device, [&](auto k, auto b) {
+    adam_q_kernel<KIND_AND_BUCKET><<<blocks_for(rows * 32), kThreads, 0, st>>>(
+        w, self, q, sc, g, m, v, a_out, s_count, rows, c);
   });
 }
 
-extern "C" int cdadam_update_qm(const float* w, const float* self, const void* q,
+extern "C" int cdadam_update_qm(const float* w, const void* self, const void* q,
                                 const void* mq, int kind, const float* sc,
-                                const float* msc, float* g, float* m, float* v,
+                                const float* msc, void* g, void* m, void* v, int bucket,
                                 int a_out, int s_count, long long rows, float alpha,
                                 float b1, float b2, float eps, float bc1, float bc2,
                                 int device, void* stream) {
   if (rows <= 0 || a_out <= 0) return 0;
   QmArgs p = qm_args(w, self, q, mq, sc, msc, g, m, a_out, s_count, rows);
-  p.v = reinterpret_cast<float4*>(v);
+  p.v = v;
   p.adam = AdamScalars{alpha, b1, b2, eps, bc1, bc2};
   auto st = static_cast<cudaStream_t>(stream);
-  return launch_kind(kind, true, device, [&](auto k) {
-    adam_qm_kernel<decltype(k)::value><<<blocks_for(rows * 32), kThreads, 0, st>>>(p);
+  return launch_bucket(kind, bucket, true, device, [&](auto k, auto b) {
+    adam_qm_kernel<KIND_AND_BUCKET><<<blocks_for(rows * 32), kThreads, 0, st>>>(p);
   });
 }
+
+#undef KIND_AND_BUCKET
 
 // The sparse operand form: VALS int8, IDX int32 (sorted ascending and unique
 // within each neighbour, every value in [0, rows * 128)), SC float32 per
 // compact row; W is (A_out, S+1) with the self weight first, SELF (A_out,
 // rows, 128).  Outputs as the _q forms: out into G, v' into V (Adam: m' into
 // M, v' into V), Nesterov's lookahead into LOOK.
-extern "C" int cdsgd_update_sparse(const float* w, const float* self, const void* vals,
-                                   const int* idx, const float* sc, float* g, int a_out,
-                                   int s_count, long long k_rows, long long rows,
-                                   float alpha, int device, void* stream) {
+extern "C" int cdsgd_update_sparse(const float* w, const void* self, const void* vals,
+                                   const int* idx, const float* sc, void* g, int bucket,
+                                   int a_out, int s_count, long long k_rows,
+                                   long long rows, float alpha, int device, void* stream) {
   SparseArgs p = sparse_args(w, self, vals, idx, sc, g, a_out, s_count, k_rows, rows);
   p.alpha = alpha;
-  return launch_sparse<kSgd>(p, device, stream);
+  return launch_sparse<kSgd>(p, bucket, device, stream);
 }
 
-extern "C" int cdmsgd_update_sparse(const float* w, const float* self, const void* vals,
-                                    const int* idx, const float* sc, float* g, float* v,
-                                    int a_out, int s_count, long long k_rows,
+extern "C" int cdmsgd_update_sparse(const float* w, const void* self, const void* vals,
+                                    const int* idx, const float* sc, void* g, void* v,
+                                    int bucket, int a_out, int s_count, long long k_rows,
                                     long long rows, float alpha, float mu, int device,
                                     void* stream) {
   SparseArgs p = sparse_args(w, self, vals, idx, sc, g, a_out, s_count, k_rows, rows);
-  p.s1 = reinterpret_cast<float4*>(v);
+  p.s1 = v;
   p.alpha = alpha;
   p.mu = mu;
-  return launch_sparse<kMsgd>(p, device, stream);
+  return launch_sparse<kMsgd>(p, bucket, device, stream);
 }
 
-extern "C" int cdmsgd_nesterov_update_sparse(const float* w, const float* self,
+extern "C" int cdmsgd_nesterov_update_sparse(const float* w, const void* self,
                                              const void* vals, const int* idx,
-                                             const float* sc, float* g, float* v,
-                                             float* look, int a_out, int s_count,
+                                             const float* sc, void* g, void* v, void* look,
+                                             int bucket, int a_out, int s_count,
                                              long long k_rows, long long rows,
                                              float alpha, float mu, int device,
                                              void* stream) {
   SparseArgs p = sparse_args(w, self, vals, idx, sc, g, a_out, s_count, k_rows, rows);
-  p.s1 = reinterpret_cast<float4*>(v);
-  p.look = reinterpret_cast<float4*>(look);
+  p.s1 = v;
+  p.look = look;
   p.alpha = alpha;
   p.mu = mu;
-  return launch_sparse<kNesterov>(p, device, stream);
+  return launch_sparse<kNesterov>(p, bucket, device, stream);
 }
 
-extern "C" int cdadam_update_sparse(const float* w, const float* self, const void* vals,
-                                    const int* idx, const float* sc, float* g, float* m,
-                                    float* v, int a_out, int s_count, long long k_rows,
-                                    long long rows, float alpha, float b1, float b2,
-                                    float eps, float bc1, float bc2, int device,
-                                    void* stream) {
+extern "C" int cdadam_update_sparse(const float* w, const void* self, const void* vals,
+                                    const int* idx, const float* sc, void* g, void* m,
+                                    void* v, int bucket, int a_out, int s_count,
+                                    long long k_rows, long long rows, float alpha,
+                                    float b1, float b2, float eps, float bc1, float bc2,
+                                    int device, void* stream) {
   SparseArgs p = sparse_args(w, self, vals, idx, sc, g, a_out, s_count, k_rows, rows);
-  p.s1 = reinterpret_cast<float4*>(m);
-  p.s2 = reinterpret_cast<float4*>(v);
+  p.s1 = m;
+  p.s2 = v;
   p.adam = AdamScalars{alpha, b1, b2, eps, bc1, bc2};
-  return launch_sparse<kAdam>(p, device, stream);
+  return launch_sparse<kAdam>(p, bucket, device, stream);
 }

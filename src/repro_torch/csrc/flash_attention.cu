@@ -11,6 +11,10 @@
 // model's (b, s, heads, D) tensors are read and written in place without a
 // transpose.  Any Sq, Sk >= 1.  q, k, v and o share one type: float32 runs
 // flash_kernel (CUDA cores), bfloat16 runs flash_tc_kernel (tensor cores).
+// D is 64, 128 or 256, or 120 (h2o-danube-3-4b), which runs the kernels of
+// width 128 with columns 120-127 zero-filled as they land (wgmma's bf16 K
+// step is 16, and flash_kernel's tiles are 64 columns wide): the zeros add
+// exact zero terms to Q K^T, P V's padded columns are dropped at the store.
 //
 // Replaces: src/repro/kernels/flash_attention/flash_attention.py
 //   flash_attention (line 74; pallas_call line 107; body _flash_kernel,
@@ -182,9 +186,11 @@ __device__ __forceinline__ float row_sum16(float x) {
 
 // Copy ring chunk j of the key tile at k0 into `slot`: a K chunk (its kBK
 // keys, D columns kKC j .. kKC j + kKC - 1, padded rows) or a V chunk (kVC
-// keys, all of D).  Keys at or past sk arrive as zeros.  A thread copies
-// 16 bytes at a fixed column of rows r, r + kRows, ...
-template <int D>
+// keys, all of D).  Keys at or past sk, and columns at or past the operands'
+// head dim DR (a head dim padded to D), arrive as zeros (a copy of source
+// size 0).  A thread copies 16 bytes at a fixed column of rows r, r + kRows,
+// ...
+template <int D, int DR>
 __device__ __forceinline__ void issue_chunk(float* slot, const float* kb, const float* vb,
                                             long long ks_s, long long vs_s, int k0, int j,
                                             int sk) {
@@ -192,28 +198,33 @@ __device__ __forceinline__ void issue_chunk(float* slot, const float* kb, const 
   if (j < C::kKChunks) {
     constexpr int kPer = kKC / 4, kRows = kThreads / kPer;
     const int r = threadIdx.x / kPer, c4 = threadIdx.x % kPer;
+    const bool col_ok = j * kKC + 4 * c4 < DR;
     const float* src = kb + (k0 + r) * ks_s + j * kKC + 4 * c4;
     float* dst = slot + r * kKStride + 4 * c4;
 #pragma unroll
     for (int it = 0; it < kBK / kRows; ++it) {
-      const bool ok = k0 + r + it * kRows < sk;
+      const bool ok = col_ok && k0 + r + it * kRows < sk;
       cp_async16(dst + it * kRows * kKStride, ok ? src + it * kRows * ks_s : kb, ok);
     }
   } else {
     constexpr int kPer = D / 4, kRows = kThreads / kPer;
     const int key0 = k0 + (j - C::kKChunks) * C::kVC;
     const int r = threadIdx.x / kPer, c4 = threadIdx.x % kPer;
+    const bool col_ok = 4 * c4 < DR;
     const float* src = vb + (key0 + r) * vs_s + 4 * c4;
     float* dst = slot + r * D + 4 * c4;
 #pragma unroll
     for (int it = 0; it < C::kVC / kRows; ++it) {
-      const bool ok = key0 + r + it * kRows < sk;
+      const bool ok = col_ok && key0 + r + it * kRows < sk;
       cp_async16(dst + it * kRows * D, ok ? src + it * kRows * vs_s : vb, ok);
     }
   }
 }
 
-template <int D>
+// D is the tile width (64, 128 or 256); DR <= D the operands' head dim:
+// columns DR .. D - 1 of Q, K and V are zeros in shared memory, add exact
+// zeros to every score, give zero output columns and are not stored.
+template <int D, int DR>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o, int n_bh, int heads,
@@ -260,8 +271,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int c = 0; c < kStages - 1; ++c) {
     if (c < n_chunks) {
-      issue_chunk<D>(ring + c * kSlot, kb, vb, ks.s, vs.s, (t_begin + c / C::kChunks) * kBK,
-                     c % C::kChunks, sk);
+      issue_chunk<D, DR>(ring + c * kSlot, kb, vb, ks.s, vs.s,
+                         (t_begin + c / C::kChunks) * kBK, c % C::kChunks, sk);
     }
     asm volatile("cp.async.commit_group;\n" ::);
   }
@@ -269,7 +280,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int idx = threadIdx.x; idx < kBQ * D / 4; idx += kThreads) {
     const int r = idx / (D / 4), c4 = idx % (D / 4);
     float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (q0 + r < sq) {
+    if (q0 + r < sq && 4 * c4 < DR) {
       val = *reinterpret_cast<const float4*>(qb + (q0 + r) * qs.s + 4 * c4);
       val = make_float4(__fmul_rn(val.x, scale), __fmul_rn(val.y, scale),
                         __fmul_rn(val.z, scale), __fmul_rn(val.w, scale));
@@ -293,8 +304,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();               // chunk c has landed; chunk c - 1's slot is free
     const int cn = c + kStages - 1;
     if (cn < n_chunks) {
-      issue_chunk<D>(ring + (cn % kStages) * kSlot, kb, vb, ks.s, vs.s,
-                     (t_begin + cn / C::kChunks) * kBK, cn % C::kChunks, sk);
+      issue_chunk<D, DR>(ring + (cn % kStages) * kSlot, kb, vb, ks.s, vs.s,
+                         (t_begin + cn / C::kChunks) * kBK, cn % C::kChunks, sk);
     }
     asm volatile("cp.async.commit_group;\n" ::);
     const float* slot = ring + (c % kStages) * kSlot;
@@ -453,6 +464,7 @@ float4 qv[4];
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int jj = 0; jj < kCols / 4; ++jj) {
+      if (4 * tx + 64 * jj >= DR) continue;
       *reinterpret_cast<float4*>(ob + row * os.s + 4 * tx + 64 * jj) = make_float4(
           __fdiv_rn(acc[i][4 * jj], denom), __fdiv_rn(acc[i][4 * jj + 1], denom),
           __fdiv_rn(acc[i][4 * jj + 2], denom), __fdiv_rn(acc[i][4 * jj + 3], denom));
@@ -460,15 +472,16 @@ float4 qv[4];
   }
 }
 
-// Resident blocks of flash_kernel<D> on `device` (cached per device).
-template <int D>
+// Resident blocks of flash_kernel<D, DR> on `device` (cached per device; the
+// call also lifts the kernel's shared-memory limit).
+template <int D, int DR>
 cudaError_t resident_blocks(int device, int* out) {
   static int cached[64] = {};
   if (device >= 0 && device < 64 && cached[device] > 0) {
     *out = cached[device];
     return cudaSuccess;
   }
-  auto kernel = flash_kernel<D>;
+  auto kernel = flash_kernel<D, DR>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(Cfg<D>::kSmem));
   if (err != cudaSuccess) return err;
@@ -490,10 +503,10 @@ struct Plan {
   long long units = 0, split_units = 0, ticket_bytes = 0, ws_bytes = 0;
 };
 
-template <int D>
+template <int D, int DR>
 cudaError_t plan(int n_bh, int sq, int sk, int causal, int window, int device, Plan* p) {
   int resident = 0;
-  const cudaError_t err = resident_blocks<D>(device, &resident);
+  const cudaError_t err = resident_blocks<D, DR>(device, &resident);
   if (err != cudaSuccess) return err;
   const int n_q = (sq + kBQ - 1) / kBQ;
   long long work = 0;
@@ -516,22 +529,22 @@ cudaError_t plan(int n_bh, int sq, int sk, int causal, int window, int device, P
   return cudaSuccess;
 }
 
-template <int D>
+template <int D, int DR = D>
 int workspace(int batch, int heads, int sq, int sk, int causal, int window, int device,
               long long* bytes) {
   Plan p;
-  const cudaError_t err = plan<D>(batch * heads, sq, sk, causal, window, device, &p);
+  const cudaError_t err = plan<D, DR>(batch * heads, sq, sk, causal, window, device, &p);
   *bytes = p.ws_bytes;
   return static_cast<int>(err);
 }
 
-template <int D>
+template <int D, int DR = D>
 int launch(const void* q, const void* k, const void* v, void* o, int batch, int heads,
            int kv_heads, int sq, int sk, const long long* st, float scale, int causal,
            int window, void* ws, long long ws_bytes, int device, cudaStream_t stream) {
   const int n_bh = batch * heads;
   Plan p;
-  cudaError_t err = plan<D>(n_bh, sq, sk, causal, window, device, &p);
+  cudaError_t err = plan<D, DR>(n_bh, sq, sk, causal, window, device, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (ws_bytes < p.ws_bytes || (p.ws_bytes > 0 && ws == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -549,7 +562,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
   }
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]}, vs{st[6], st[7], st[8]},
       os{st[9], st[10], st[11]};
-  flash_kernel<D><<<static_cast<unsigned>(p.units * n_bh), kThreads, Cfg<D>::kSmem, stream>>>(
+  flash_kernel<D, DR><<<static_cast<unsigned>(p.units * n_bh), kThreads, Cfg<D>::kSmem,
+                        stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), n_bh, heads, kv_heads, sq, sk, qs, ks, vs, os, scale, causal,
       window, p.max_tiles, tickets, part_ml, part_o);
@@ -736,8 +750,12 @@ __device__ __forceinline__ void tile_range(int r0, int sq, int sk, int causal, i
 
 // Accumulator layout of wgmma.m64nNk16 (f32), per warpgroup: register i of
 // lane `lane` in warp `w` holds row 16 w + lane / 4 + 8 ((i / 2) % 2),
-// column 8 (i / 4) + 2 (lane % 4) + i % 2.
-template <int D>
+// column 8 (i / 4) + 2 (lane % 4) + i % 2.  D is the tile width (64, 128
+// or 256, a multiple of wgmma's bf16 K step of 16); DR <= D the operands'
+// head dim (a multiple of 8): the tensor maps' inner extent is DR, so TMA
+// fills columns DR .. D - 1 with zeros, Q K^T gains exact zero terms, and
+// P V's extra output columns are not stored.
+template <int D, int DR>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap, Order qo, Order ko, Order vo,
@@ -995,6 +1013,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
     for (int c = 0; c < kBoxes; ++c)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
+        if (kBox * c + 8 * j >= DR) continue;        // a padded column group
         *reinterpret_cast<uint32_t*>(orow + kBox * c + 8 * j) =
             pack_bf16(acc[c][4 * j + 2 * r] * inv, acc[c][4 * j + 2 * r + 1] * inv);
       }
@@ -1064,18 +1083,18 @@ int make_map(CUtensorMap* map, Order* order, const void* ptr, int d, int seq, in
   return r == CUDA_SUCCESS ? 0 : -static_cast<int>(r);
 }
 
-template <int D>
+template <int D, int DR = D>
 int launch(const void* q, const void* k, const void* v, void* o, int batch, int heads,
            int kv_heads, int sq, int sk, const long long* st, float scale, int causal,
            int window, void*, long long, int, cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
   Order qo, ko, vo;
-  int rc = make_map(&qmap, &qo, q, D, sq, heads, batch, st, kBQ);
-  if (rc == 0) rc = make_map(&kmap, &ko, k, D, sk, kv_heads, batch, st + 3, kBK);
-  if (rc == 0) rc = make_map(&vmap, &vo, v, D, sk, kv_heads, batch, st + 6, kBK);
+  int rc = make_map(&qmap, &qo, q, DR, sq, heads, batch, st, kBQ);
+  if (rc == 0) rc = make_map(&kmap, &ko, k, DR, sk, kv_heads, batch, st + 3, kBK);
+  if (rc == 0) rc = make_map(&vmap, &vo, v, DR, sk, kv_heads, batch, st + 6, kBK);
   if (rc != 0) return rc;
   const size_t smem = 1024 + (kBQ + 4 * kBK) * D * sizeof(__nv_bfloat16) + 9 * 8;
-  auto kernel = flash_tc_kernel<D>;
+  auto kernel = flash_tc_kernel<D, DR>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1094,20 +1113,22 @@ using Launch = int (*)(const void*, const void*, const void*, void*, int, int, i
                        const long long*, float, int, int, void*, long long, int, cudaStream_t);
 
 // The launcher for operand type `dtype` (0 float32, 1 bfloat16) at head dim
-// d; nullptr when there is none.
+// d; nullptr when there is none.  Head dim 120 (h2o-danube-3-4b) runs the
+// D = 128 kernels with its last 8 columns zero-filled.
 Launch launcher(int dtype, int d) {
-  const int slot = d == 64 ? 0 : d == 128 ? 1 : d == 256 ? 2 : -1;
+  const int slot = d == 64 ? 0 : d == 128 ? 1 : d == 256 ? 2 : d == 120 ? 3 : -1;
   if (slot < 0 || dtype < 0 || dtype > 1) return nullptr;
-  static const Launch table[2][3] = {{f32::launch<64>, f32::launch<128>, f32::launch<256>},
-                                     {tc::launch<64>, tc::launch<128>, tc::launch<256>}};
+  static const Launch table[2][4] = {
+      {f32::launch<64>, f32::launch<128>, f32::launch<256>, f32::launch<128, 120>},
+      {tc::launch<64>, tc::launch<128>, tc::launch<256>, tc::launch<128, 120>}};
   return table[dtype][slot];
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  dtype: 0 float32 (flash_kernel),
-// 1 bfloat16 (flash_tc_kernel), for q, k, v and o alike.  d in {64, 128,
-// 256}; heads a multiple of kv_heads.  strides: 12 element strides, (b,
+// 1 bfloat16 (flash_tc_kernel), for q, k, v and o alike.  d in {64, 120,
+// 128, 256}; heads a multiple of kv_heads.  strides: 12 element strides, (b,
 // head, position) of q, k, v, o in that order; the D axis is contiguous and
 // every row 16-byte aligned.  window <= 0 means no window.  workspace:
 // flash_attention_workspace bytes for the same arguments (float32; unused
@@ -1147,6 +1168,8 @@ extern "C" int flash_attention_workspace(int batch, int heads, int sq, int sk, i
     case 64: return f32::workspace<64>(batch, heads, sq, sk, causal, window, device, bytes);
     case 128: return f32::workspace<128>(batch, heads, sq, sk, causal, window, device, bytes);
     case 256: return f32::workspace<256>(batch, heads, sq, sk, causal, window, device, bytes);
+    case 120:
+      return f32::workspace<128, 120>(batch, heads, sq, sk, causal, window, device, bytes);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -46,13 +46,11 @@ replace the Pallas TPU kernels of :mod:`repro.kernels.consensus_update`:
 The top-k threshold kernel's wrapper lives in :mod:`.topk` with the rest of
 the compressor; its library is built from here like the others.
 
-Gradient, momentum and self buffers are the parameter bucket's type:
-float32, or bfloat16 in the dense and ``_q`` forms of CDSGD and CDMSGD and
-in :func:`sr_quantize` (:data:`BUCKET_DTYPES`; the kernels compute in
-float32 and round each output once to bf16, as the Pallas kernels store
-into the bucket's dtype).  The Nesterov, CDAdam, ``_qm`` and sparse forms
-take float32 buckets and refuse a bf16 one with a ``TypeError`` before any
-work (ROADMAP A21).  Every operand is contiguous and on one device.
+Gradient, momentum, moment, lookahead and self buffers are the parameter
+bucket's type, float32 or bfloat16, in every form and in
+:func:`sr_quantize` (:data:`BUCKET_DTYPES`; the kernels compute in float32
+and round each output once to bf16, as the Pallas kernels store into the
+bucket's dtype).  Every operand is contiguous and on one device.
 ``A_out = 1`` is one agent's stencil; ``A_out = S = A`` is the whole
 stacked simulation in one launch.
 
@@ -64,9 +62,9 @@ output, allocated by the wrapper.
 
 Dispatch is by the tensors' device: CUDA tensors launch the kernel (a
 launch error raises), CPU tensors run the plain version in :mod:`.ref`.
-Each wrapper counts its kernel launches in its ``launches`` attribute (the
-bf16-capable ones also by bucket type, in ``launches_by_bucket``); the CPU
-path launches nothing and counts nothing.
+Each wrapper counts its kernel launches in its ``launches`` attribute, and
+by bucket type in ``launches_by_bucket``; the CPU path launches nothing and
+counts nothing.
 """
 
 from __future__ import annotations
@@ -90,10 +88,8 @@ KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
          torch.float8_e4m3fn: 3}
 NEIGHBOR_DTYPES = (torch.float32, torch.bfloat16)
 F32 = (torch.float32,)
-#: parameter bucket types of the forms that take bf16 buckets
+#: parameter bucket types
 BUCKET_DTYPES = (torch.float32, torch.bfloat16)
-#: where the other forms' bf16 buckets are queued
-BF16_ITEM = "ROADMAP A21"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -111,29 +107,31 @@ LIBRARIES = {
         "cdmsgd_update_q": (_I, (_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _LL,
                                  _F, _F, _I, _P)),
         "cdmsgd_update_qm": (_I, (_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
-                                  _LL, _F, _F, _I, _P)),
-        "cdmsgd_nesterov_update": (_I, (_P, _P, _I, _P, _P, _P, _I, _I, _LL,
-                                        _F, _F, _I, _P)),
+                                  _I, _LL, _F, _F, _I, _P)),
+        "cdmsgd_nesterov_update": (_I, (_P, _P, _I, _P, _P, _P, _I, _I, _I,
+                                        _LL, _F, _F, _I, _P)),
         "cdmsgd_nesterov_update_q": (_I, (_P, _P, _P, _I, _P, _P, _P, _P, _I,
-                                          _I, _LL, _F, _F, _I, _P)),
+                                          _I, _I, _LL, _F, _F, _I, _P)),
         "cdmsgd_nesterov_update_qm": (_I, (_P, _P, _P, _P, _I, _P, _P, _P, _P,
-                                           _P, _I, _I, _LL, _F, _F, _I, _P)),
-        "cdadam_update": (_I, (_P, _P, _I, _P, _P, _P, _I, _I, _LL,
+                                           _P, _I, _I, _I, _LL, _F, _F, _I,
+                                           _P)),
+        "cdadam_update": (_I, (_P, _P, _I, _P, _P, _P, _I, _I, _I, _LL,
                                _F, _F, _F, _F, _F, _F, _I, _P)),
-        "cdadam_update_q": (_I, (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _LL,
-                                 _F, _F, _F, _F, _F, _F, _I, _P)),
+        "cdadam_update_q": (_I, (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
+                                 _LL, _F, _F, _F, _F, _F, _F, _I, _P)),
         "cdadam_update_qm": (_I, (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
-                                  _I, _LL, _F, _F, _F, _F, _F, _F, _I, _P)),
-        "cdsgd_update_sparse": (_I, (_P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL,
-                                     _F, _I, _P)),
-        "cdmsgd_update_sparse": (_I, (_P, _P, _P, _P, _P, _P, _P, _I, _I, _LL,
-                                      _LL, _F, _F, _I, _P)),
+                                  _I, _I, _LL, _F, _F, _F, _F, _F, _F, _I,
+                                  _P)),
+        "cdsgd_update_sparse": (_I, (_P, _P, _P, _P, _P, _P, _I, _I, _I, _LL,
+                                     _LL, _F, _I, _P)),
+        "cdmsgd_update_sparse": (_I, (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                      _LL, _LL, _F, _F, _I, _P)),
         "cdmsgd_nesterov_update_sparse": (_I, (_P, _P, _P, _P, _P, _P, _P, _P,
-                                               _I, _I, _LL, _LL, _F, _F, _I,
-                                               _P)),
+                                               _I, _I, _I, _LL, _LL, _F, _F,
+                                               _I, _P)),
         "cdadam_update_sparse": (_I, (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                      _LL, _LL, _F, _F, _F, _F, _F, _F, _I,
-                                      _P)),
+                                      _I, _LL, _LL, _F, _F, _F, _F, _F, _F,
+                                      _I, _P)),
     },
     "sr_quantize": {
         "sr_quantize": (_I, (_P, _I, _P, _I, _P, _LL, _LL, _U, _U, _I, _P)),
@@ -166,10 +164,8 @@ def _check(name: str, t: torch.Tensor, shape, device: torch.device,
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
     if t.dtype not in dtypes:
-        note = f" (bf16 parameter buckets in this form: {BF16_ITEM})" \
-            if dtypes == F32 and t.dtype == torch.bfloat16 else ""
-        raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}"
-                        f"{note}, got {t.dtype}")
+        raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}, "
+                        f"got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
@@ -179,14 +175,14 @@ def _check(name: str, t: torch.Tensor, shape, device: torch.device,
         raise ValueError(f"{name} is on {t.device}, expected {device}")
 
 
-def _bucket_of(outs, buckets) -> tuple:
+def _bucket_of(outs) -> tuple:
     """The one bucket type every output (and the self buffer) must have:
-    ``grad``'s when it is one of ``buckets``, else float32 (whose check
-    then names what ``grad`` should be)."""
+    ``grad``'s when it is one of :data:`BUCKET_DTYPES`, else both (whose
+    check then names what ``grad`` should be)."""
     g = outs[0][1]
-    if isinstance(g, torch.Tensor) and g.dtype in buckets:
+    if isinstance(g, torch.Tensor) and g.dtype in BUCKET_DTYPES:
         return (g.dtype,)
-    return F32
+    return BUCKET_DTYPES
 
 
 def _stack(name: str, t) -> tuple:
@@ -219,9 +215,9 @@ def _check_placement(reads, outs, device: torch.device) -> None:
         raise ValueError(f"no consensus-update kernel for device {device}")
 
 
-def _check_operands(weights, neighbors, outs, buckets=F32):
-    """Validate the dense operand form (bucket types ``buckets``); returns
-    ``(a_out, s, rows, device)``."""
+def _check_operands(weights, neighbors, outs):
+    """Validate the dense operand form; returns ``(a_out, s, rows,
+    device)``."""
     s, rows = _stack("neighbors", neighbors)
     device = neighbors.device
     if not isinstance(weights, torch.Tensor) or weights.dim() != 2:
@@ -229,7 +225,7 @@ def _check_operands(weights, neighbors, outs, buckets=F32):
     a_out = weights.shape[0]
     _check("weights", weights, (a_out, s), device)
     _check("neighbors", neighbors, (s, rows, LANE), device, NEIGHBOR_DTYPES)
-    bucket = _bucket_of(outs, buckets)
+    bucket = _bucket_of(outs)
     for name, t in outs:
         _check(name, t, (a_out, rows, LANE), device, bucket)
     _check_placement([("weights", weights), ("neighbors", neighbors)], outs,
@@ -238,10 +234,10 @@ def _check_operands(weights, neighbors, outs, buckets=F32):
 
 
 def _check_q_operands(weights, self_buf, payload, scales, outs,
-                      mom_payload=None, mom_scales=None, buckets=F32):
+                      mom_payload=None, mom_scales=None):
     """Validate the self-separated operand form (with the momentum payload
-    of the ``_qm`` form when given; bucket types ``buckets``); returns
-    ``(a_out, s, rows, device)``."""
+    of the ``_qm`` form when given); returns ``(a_out, s, rows,
+    device)``."""
     s, rows = _stack("payload", payload)
     device = payload.device
     if not isinstance(weights, torch.Tensor) or weights.dim() != 2:
@@ -250,7 +246,7 @@ def _check_q_operands(weights, self_buf, payload, scales, outs,
     _check("weights", weights, (a_out, s + 1), device)
     _check("payload", payload, (s, rows, LANE), device, tuple(KINDS))
     _check("scales", scales, (s, rows, 1), device)
-    bucket = _bucket_of(outs, buckets)
+    bucket = _bucket_of(outs)
     _check("self_buf", self_buf, (a_out, rows, LANE), device, bucket)
     reads = [("weights", weights), ("self_buf", self_buf),
              ("payload", payload), ("scales", scales)]
@@ -279,7 +275,7 @@ def cdsgd_update(weights: torch.Tensor, neighbors: torch.Tensor,
                  grad: torch.Tensor, alpha) -> torch.Tensor:
     """``grad[a] <- sum_s weights[a,s] neighbors[s] - alpha grad[a]``."""
     a_out, s, rows, device = _check_operands(weights, neighbors,
-                                             [("grad", grad)], BUCKET_DTYPES)
+                                             [("grad", grad)])
     alpha = _f32(alpha)
     if device.type == "cpu":
         grad.copy_(ref.cdsgd_update_ref(weights, neighbors, grad, alpha))
@@ -303,8 +299,7 @@ def cdmsgd_update(weights: torch.Tensor, neighbors: torch.Tensor,
     Returns ``(grad, momentum)``, both updated in place.
     """
     a_out, s, rows, device = _check_operands(
-        weights, neighbors, [("grad", grad), ("momentum", momentum)],
-        BUCKET_DTYPES)
+        weights, neighbors, [("grad", grad), ("momentum", momentum)])
     alpha, mu = _f32(alpha), _f32(mu)
     if device.type == "cpu":
         out, new_v = ref.cdmsgd_update_ref(weights, neighbors, grad, momentum,
@@ -329,8 +324,7 @@ def cdsgd_update_q(weights: torch.Tensor, self_buf: torch.Tensor,
     """``grad[a] <- w[a,0] self[a] + sum_s w[a,1+s] (payload[s] * scales[s])
     - alpha grad[a]``."""
     a_out, s, rows, device = _check_q_operands(
-        weights, self_buf, payload, scales, [("grad", grad)],
-        buckets=BUCKET_DTYPES)
+        weights, self_buf, payload, scales, [("grad", grad)])
     alpha = _f32(alpha)
     if device.type == "cpu":
         grad.copy_(ref.cdsgd_update_q_ref(weights, self_buf, payload, scales,
@@ -357,7 +351,7 @@ def cdmsgd_update_q(weights: torch.Tensor, self_buf: torch.Tensor,
     """
     a_out, s, rows, device = _check_q_operands(
         weights, self_buf, payload, scales,
-        [("grad", grad), ("momentum", momentum)], buckets=BUCKET_DTYPES)
+        [("grad", grad), ("momentum", momentum)])
     alpha, mu = _f32(alpha), _f32(mu)
     if device.type == "cpu":
         out, new_v = ref.cdmsgd_update_q_ref(weights, self_buf, payload,
@@ -402,10 +396,11 @@ def cdmsgd_update_qm(weights: torch.Tensor, self_buf: torch.Tensor,
     rc = library().cdmsgd_update_qm(
         weights.data_ptr(), self_buf.data_ptr(), payload.data_ptr(),
         mom_payload.data_ptr(), KINDS[payload.dtype], scales.data_ptr(),
-        mom_scales.data_ptr(), grad.data_ptr(), momentum.data_ptr(), a_out, s,
-        rows, alpha, mu, device.index, _stream(device))
+        mom_scales.data_ptr(), grad.data_ptr(), momentum.data_ptr(),
+        KINDS[grad.dtype], a_out, s, rows, alpha, mu, device.index,
+        _stream(device))
     _launch_check(rc, "cdmsgd_update_qm")
-    cdmsgd_update_qm.launches += 1
+    _count(cdmsgd_update_qm, grad.dtype)
     return grad, momentum
 
 
@@ -439,10 +434,11 @@ def cdmsgd_nesterov_update(weights: torch.Tensor, neighbors: torch.Tensor,
         return grad, momentum, look
     rc = library().cdmsgd_nesterov_update(
         weights.data_ptr(), neighbors.data_ptr(), KINDS[neighbors.dtype],
-        grad.data_ptr(), momentum.data_ptr(), look.data_ptr(), a_out, s,
-        rows * LANE // 4, alpha, mu, device.index, _stream(device))
+        grad.data_ptr(), momentum.data_ptr(), look.data_ptr(),
+        KINDS[grad.dtype], a_out, s, rows * LANE // 4, alpha, mu, device.index,
+        _stream(device))
     _launch_check(rc, "cdmsgd_nesterov_update")
-    cdmsgd_nesterov_update.launches += 1
+    _count(cdmsgd_nesterov_update, grad.dtype)
     return grad, momentum, look
 
 
@@ -465,10 +461,10 @@ def cdmsgd_nesterov_update_q(weights: torch.Tensor, self_buf: torch.Tensor,
     rc = library().cdmsgd_nesterov_update_q(
         weights.data_ptr(), self_buf.data_ptr(), payload.data_ptr(),
         KINDS[payload.dtype], scales.data_ptr(), grad.data_ptr(),
-        momentum.data_ptr(), look.data_ptr(), a_out, s, rows, alpha, mu,
-        device.index, _stream(device))
+        momentum.data_ptr(), look.data_ptr(), KINDS[grad.dtype], a_out, s,
+        rows, alpha, mu, device.index, _stream(device))
     _launch_check(rc, "cdmsgd_nesterov_update_q")
-    cdmsgd_nesterov_update_q.launches += 1
+    _count(cdmsgd_nesterov_update_q, grad.dtype)
     return grad, momentum, look
 
 
@@ -494,10 +490,10 @@ def cdmsgd_nesterov_update_qm(weights: torch.Tensor, self_buf: torch.Tensor,
         weights.data_ptr(), self_buf.data_ptr(), payload.data_ptr(),
         mom_payload.data_ptr(), KINDS[payload.dtype], scales.data_ptr(),
         mom_scales.data_ptr(), grad.data_ptr(), momentum.data_ptr(),
-        look.data_ptr(), a_out, s, rows, alpha, mu, device.index,
-        _stream(device))
+        look.data_ptr(), KINDS[grad.dtype], a_out, s, rows, alpha, mu,
+        device.index, _stream(device))
     _launch_check(rc, "cdmsgd_nesterov_update_qm")
-    cdmsgd_nesterov_update_qm.launches += 1
+    _count(cdmsgd_nesterov_update_qm, grad.dtype)
     return grad, momentum, look
 
 
@@ -521,10 +517,10 @@ def cdadam_update(weights: torch.Tensor, neighbors: torch.Tensor,
         return grad, m, v
     rc = library().cdadam_update(
         weights.data_ptr(), neighbors.data_ptr(), KINDS[neighbors.dtype],
-        grad.data_ptr(), m.data_ptr(), v.data_ptr(), a_out, s,
-        rows * LANE // 4, *scal, device.index, _stream(device))
+        grad.data_ptr(), m.data_ptr(), v.data_ptr(), KINDS[grad.dtype], a_out,
+        s, rows * LANE // 4, *scal, device.index, _stream(device))
     _launch_check(rc, "cdadam_update")
-    cdadam_update.launches += 1
+    _count(cdadam_update, grad.dtype)
     return grad, m, v
 
 
@@ -545,10 +541,10 @@ def cdadam_update_q(weights: torch.Tensor, self_buf: torch.Tensor,
     rc = library().cdadam_update_q(
         weights.data_ptr(), self_buf.data_ptr(), payload.data_ptr(),
         KINDS[payload.dtype], scales.data_ptr(), grad.data_ptr(),
-        m.data_ptr(), v.data_ptr(), a_out, s, rows, *scal, device.index,
-        _stream(device))
+        m.data_ptr(), v.data_ptr(), KINDS[grad.dtype], a_out, s, rows, *scal,
+        device.index, _stream(device))
     _launch_check(rc, "cdadam_update_q")
-    cdadam_update_q.launches += 1
+    _count(cdadam_update_q, grad.dtype)
     return grad, m, v
 
 
@@ -574,9 +570,10 @@ def cdadam_update_qm(weights: torch.Tensor, self_buf: torch.Tensor,
         weights.data_ptr(), self_buf.data_ptr(), payload.data_ptr(),
         mom_payload.data_ptr(), KINDS[payload.dtype], scales.data_ptr(),
         mom_scales.data_ptr(), grad.data_ptr(), m.data_ptr(), v.data_ptr(),
-        a_out, s, rows, *scal, device.index, _stream(device))
+        KINDS[grad.dtype], a_out, s, rows, *scal, device.index,
+        _stream(device))
     _launch_check(rc, "cdadam_update_qm")
-    cdadam_update_qm.launches += 1
+    _count(cdadam_update_qm, grad.dtype)
     return grad, m, v
 
 
@@ -595,11 +592,12 @@ def _check_sparse_operands(weights, self_buf, values, indices, scales, outs):
     if not isinstance(self_buf, torch.Tensor) or self_buf.dim() != 3:
         raise ValueError("self_buf must be an (A_out, rows, 128) tensor")
     rows = self_buf.shape[1]
-    _check("self_buf", self_buf, (a_out, rows, LANE), device)
+    bucket = _bucket_of(outs)
+    _check("self_buf", self_buf, (a_out, rows, LANE), device, bucket)
     if k_rows > rows:
         raise ValueError(f"{k_rows} compact rows for a bucket of {rows} rows")
     for name, t in outs:
-        _check(name, t, (a_out, rows, LANE), device)
+        _check(name, t, (a_out, rows, LANE), device, bucket)
     _check_placement([("weights", weights), ("self_buf", self_buf),
                       ("values", values), ("indices", indices),
                       ("scales", scales)], outs, device)
@@ -632,10 +630,10 @@ def cdsgd_update_sparse(weights: torch.Tensor, self_buf: torch.Tensor,
         return grad
     rc = library().cdsgd_update_sparse(
         *_sparse_ptrs(weights, self_buf, values, indices, scales),
-        grad.data_ptr(), a_out, s, k_rows, rows, alpha, device.index,
-        _stream(device))
+        grad.data_ptr(), KINDS[grad.dtype], a_out, s, k_rows, rows, alpha,
+        device.index, _stream(device))
     _launch_check(rc, "cdsgd_update_sparse")
-    cdsgd_update_sparse.launches += 1
+    _count(cdsgd_update_sparse, grad.dtype)
     return grad
 
 
@@ -657,10 +655,10 @@ def cdmsgd_update_sparse(weights: torch.Tensor, self_buf: torch.Tensor,
         return grad, momentum
     rc = library().cdmsgd_update_sparse(
         *_sparse_ptrs(weights, self_buf, values, indices, scales),
-        grad.data_ptr(), momentum.data_ptr(), a_out, s, k_rows, rows, alpha,
-        mu, device.index, _stream(device))
+        grad.data_ptr(), momentum.data_ptr(), KINDS[grad.dtype], a_out, s,
+        k_rows, rows, alpha, mu, device.index, _stream(device))
     _launch_check(rc, "cdmsgd_update_sparse")
-    cdmsgd_update_sparse.launches += 1
+    _count(cdmsgd_update_sparse, grad.dtype)
     return grad, momentum
 
 
@@ -684,10 +682,11 @@ def cdmsgd_nesterov_update_sparse(weights: torch.Tensor,
         return grad, momentum, look
     rc = library().cdmsgd_nesterov_update_sparse(
         *_sparse_ptrs(weights, self_buf, values, indices, scales),
-        grad.data_ptr(), momentum.data_ptr(), look.data_ptr(), a_out, s,
-        k_rows, rows, alpha, mu, device.index, _stream(device))
+        grad.data_ptr(), momentum.data_ptr(), look.data_ptr(),
+        KINDS[grad.dtype], a_out, s, k_rows, rows, alpha, mu, device.index,
+        _stream(device))
     _launch_check(rc, "cdmsgd_nesterov_update_sparse")
-    cdmsgd_nesterov_update_sparse.launches += 1
+    _count(cdmsgd_nesterov_update_sparse, grad.dtype)
     return grad, momentum, look
 
 
@@ -709,10 +708,10 @@ def cdadam_update_sparse(weights: torch.Tensor, self_buf: torch.Tensor,
         return grad, m, v
     rc = library().cdadam_update_sparse(
         *_sparse_ptrs(weights, self_buf, values, indices, scales),
-        grad.data_ptr(), m.data_ptr(), v.data_ptr(), a_out, s, k_rows, rows,
-        *scal, device.index, _stream(device))
+        grad.data_ptr(), m.data_ptr(), v.data_ptr(), KINDS[grad.dtype], a_out,
+        s, k_rows, rows, *scal, device.index, _stream(device))
     _launch_check(rc, "cdadam_update_sparse")
-    cdadam_update_sparse.launches += 1
+    _count(cdadam_update_sparse, grad.dtype)
     return grad, m, v
 
 
@@ -786,16 +785,9 @@ KERNELS = {"cdsgd_update": cdsgd_update, "cdmsgd_update": cdmsgd_update,
 # is imported, before any caller can read it)
 
 
-#: the wrappers that take bf16 parameter buckets (``launches_by_bucket``)
-BUCKET_KERNELS = {name: KERNELS[name] for name in (
-    "cdsgd_update", "cdmsgd_update", "cdsgd_update_q", "cdmsgd_update_q",
-    "sr_quantize")}
-
-
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
-    for fn in BUCKET_KERNELS.values():
         fn.launches_by_bucket = {str(d)[6:]: 0 for d in BUCKET_DTYPES}
 
 
@@ -804,10 +796,8 @@ def launch_counts() -> dict:
 
 
 def bucket_launch_counts() -> dict:
-    """``{kernel: {"float32": n, "bfloat16": m}}`` of the bf16-capable
-    wrappers."""
-    return {name: dict(fn.launches_by_bucket)
-            for name, fn in BUCKET_KERNELS.items()}
+    """``{kernel: {"float32": n, "bfloat16": m}}`` of every kernel."""
+    return {name: dict(fn.launches_by_bucket) for name, fn in KERNELS.items()}
 
 
 reset_launch_counts()

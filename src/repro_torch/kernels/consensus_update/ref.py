@@ -24,7 +24,9 @@ kernel and plain version agree to the last bit:
 * ``cdadam_update{,_q,_qm}_ref`` — mixing plus a local Adam step:
   ``m' = b1 m + (1 - b1) G``, ``v' = b2 v + ((1 - b2) G) G``,
   ``x' = mix - alpha ((m' / bc1) / (sqrt(v' / bc2) + eps))``, in the
-  order of the Pallas bodies (``_cdadam_body``); ``_qm`` mixes ``m``.
+  order of the Pallas bodies (``_cdadam_body``) as XLA compiles them: its
+  algebraic simplifier folds ``(A / B) / C`` into ``A / (B * C)``, so the
+  step is ``m' / (bc1 (sqrt(v' / bc2) + eps))``; ``_qm`` mixes ``m``.
   The bias corrections ``bc = 1 - beta^t`` come in as operands.
 * ``sr_quantize_ref`` — per-128-lane-row scaled quantization for the wire
   (``_quantize_math`` of the JAX package): ``scale = amax * (1 / qmax)``
@@ -43,12 +45,15 @@ CUDA kernel computes the same stream in registers; this module computes it
 with int64 tensors.  Every draw goes through :func:`uniforms`, so a test
 can substitute another stream (the JAX package's ``jax.random`` draws).
 
-A bfloat16 parameter bucket (the dense and ``_q`` forms of CDSGD and CDMSGD,
-and ``sr_quantize_ref``) is widened exactly by ``.float()``; the same
-float32 operations follow, and each output is rounded once to the
-bucket's dtype (``.to(grad.dtype)``: round to nearest even), as the Pallas
-kernels store into ``out_ref.dtype`` and the CUDA kernels round with
-``__float2bfloat16_rn``.
+A bfloat16 parameter bucket (every update form, and ``sr_quantize_ref``)
+is widened exactly by ``.float()``; the same float32 operations follow,
+and each output is rounded once to the bucket's dtype (``.to(grad.dtype)``:
+round to nearest even), as the Pallas kernels store into ``out_ref.dtype``
+and the CUDA kernels round with ``__float2bfloat16_rn``.  An output that
+feeds another (Nesterov's ``x'`` and ``v'`` in the lookahead, Adam's
+``m'`` and ``v'`` in the step) enters it unrounded, as in the Pallas
+bodies.  The top-k compact values are int8 with float32 scales whatever
+the bucket (the wire compresses a float32 copy of it).
 
 Scalars enter as float32 (``1 - b1`` is a float32 subtraction).  A
 division by a scalar divides by a float32 tensor on the operand's device:
@@ -283,7 +288,10 @@ def _adam(acc, m_in, grad, m, v, alpha, b1, b2, eps, bc1, bc2):
     dev = g.device
     bc1_t = torch.tensor(_f32(bc1), dtype=torch.float32, device=dev)
     bc2_t = torch.tensor(_f32(bc2), dtype=torch.float32, device=dev)
-    step_dir = (new_m / bc1_t) / (sqrt_rn(new_v / bc2_t) + eps)
+    # the Pallas body's (m'/bc1) / (sqrt(v'/bc2) + eps) as XLA compiles it
+    # (its simplifier folds (A / B) / C into A / (B * C)), a difference by
+    # design from the TPU kernel, which Mosaic compiles as written
+    step_dir = new_m / (bc1_t * (sqrt_rn(new_v / bc2_t) + eps))
     out = acc - alpha * step_dir
     return out.to(grad.dtype), new_m.to(m.dtype), new_v.to(v.dtype)
 

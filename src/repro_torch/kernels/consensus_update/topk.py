@@ -211,6 +211,7 @@ def topk_threshold(x: torch.Tensor, k: int, *, n_bins: int = 16,
             n_bins, k, device.index, cu._stream(device))
         cu._launch_check(rc, "topk_threshold")
         topk_threshold.launches += 1
+        topk_threshold.launches_by_bucket["float32"] += 1
         return tau, counts
     if device.type != "cpu":
         raise ValueError(f"no top-k threshold kernel for device {device}")
@@ -226,8 +227,8 @@ def topk_threshold(x: torch.Tensor, k: int, *, n_bins: int = 16,
     return tau, counts
 
 
-topk_threshold.launches = 0
 cu.KERNELS["topk_threshold"] = topk_threshold
+cu.reset_launch_counts()
 
 
 # --------------------------------------------------------------------------

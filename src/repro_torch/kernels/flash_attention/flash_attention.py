@@ -14,7 +14,8 @@ size ``flash_attention_workspace`` returns: one launch, one count).
 The operands may be strided views (the D axis contiguous): the model's
 ``(b, s, heads, D)`` projections are passed transposed, without a copy,
 and the output is allocated with ``q``'s strides.  The kernels take D in
-{64, 128, 256}.
+{64, 120, 128, 256} (120 runs the width-128 kernels with the last 8
+columns zero-filled).
 
 :func:`flash_attention` keeps the reference kernel's contract: at its
 default blocks of :data:`BLOCK` rows, a length above ``BLOCK`` must be a
@@ -60,7 +61,7 @@ SIGNATURES = {
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: operand dtype -> the kernel that runs it (keys of ``launches_by_variant``)
 VARIANTS = {torch.bfloat16: "tc", torch.float32: "f32"}
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 120, 128, 256)
 #: the reference kernel's default block_q / block_k
 BLOCK = 128
 

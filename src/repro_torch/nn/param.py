@@ -46,10 +46,11 @@ class ParamDef:
 
 
 def _init_leaf(pd: ParamDef, gen: torch.Generator) -> torch.Tensor:
+    dev = gen.device
     if pd.init == "zeros":
-        return torch.zeros(pd.shape, dtype=pd.dtype)
+        return torch.zeros(pd.shape, dtype=pd.dtype, device=dev)
     if pd.init == "ones":
-        return torch.ones(pd.shape, dtype=pd.dtype)
+        return torch.ones(pd.shape, dtype=pd.dtype, device=dev)
     if pd.init == "normal":
         std = 0.02
     elif pd.init == "embed":
@@ -61,7 +62,7 @@ def _init_leaf(pd: ParamDef, gen: torch.Generator) -> torch.Tensor:
         std = pd.scale / math.sqrt(max(math.prod(pd.shape[:-1]), 1))
     else:
         raise ValueError(f"unknown init {pd.init!r}")
-    x = torch.randn(pd.shape, generator=gen, dtype=torch.float32)
+    x = torch.randn(pd.shape, generator=gen, dtype=torch.float32, device=dev)
     return (std * x).to(pd.dtype)
 
 
@@ -69,8 +70,10 @@ def init_params(template: PyTree, seed: Union[int, torch.Generator] = 0,
                 device=None) -> PyTree:
     """Materialize ``template``; leaves drawn in tree order from one generator.
 
-    The draws happen on the CPU and the result is moved to ``device``, so a
-    seed gives the same values on every device.
+    A seed draws on the CPU and the result is moved to ``device``, so a seed
+    gives the same values on every device.  A ``torch.Generator`` draws on
+    its own device (a CUDA generator on the card: another stream than the
+    CPU's, and much faster for a model of billions of parameters).
     """
     gen = seed if isinstance(seed, torch.Generator) else \
         torch.Generator().manual_seed(int(seed))

@@ -20,42 +20,47 @@ _LEAF = ("leaf",)
 _NONE = ("none",)
 
 
+# The walks below are module-level functions that take their accumulator
+# as an argument.  A recursive closure refers to itself through its own
+# cell, a reference cycle that holds the leaves it gathered (views of whole
+# parameter buckets) until Python's cyclic collector runs, steps later.
+
+def _flatten(t, leaves: List[Any]) -> tuple:
+    if isinstance(t, dict):
+        keys = tuple(sorted(t))
+        return ("dict", keys, tuple(_flatten(t[k], leaves) for k in keys))
+    if isinstance(t, (list, tuple)):
+        kind = type(t) if hasattr(t, "_fields") else type(t).__name__
+        return (kind, tuple(_flatten(x, leaves) for x in t))
+    if t is None:
+        return _NONE
+    leaves.append(t)
+    return _LEAF
+
+
 def tree_flatten(tree: PyTree) -> Tuple[List[Any], tuple]:
     """``(leaves, treedef)``; ``treedef`` is a hashable nested tuple."""
     leaves: List[Any] = []
+    return leaves, _flatten(tree, leaves)
 
-    def walk(t):
-        if isinstance(t, dict):
-            keys = tuple(sorted(t))
-            return ("dict", keys, tuple(walk(t[k]) for k in keys))
-        if isinstance(t, (list, tuple)):
-            kind = type(t) if hasattr(t, "_fields") else type(t).__name__
-            return (kind, tuple(walk(x) for x in t))
-        if t is None:
-            return _NONE
-        leaves.append(t)
-        return _LEAF
 
-    return leaves, walk(tree)
+def _build(d: tuple, it) -> PyTree:
+    kind = d[0]
+    if kind == "leaf":
+        return next(it)
+    if kind == "none":
+        return None
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in zip(d[1], d[2])}
+    children = [_build(c, it) for c in d[1]]
+    if isinstance(kind, type):
+        return kind._make(children)
+    return children if kind == "list" else tuple(children)
 
 
 def tree_unflatten(treedef: tuple, leaves) -> PyTree:
     it = iter(leaves)
-
-    def build(d):
-        kind = d[0]
-        if kind == "leaf":
-            return next(it)
-        if kind == "none":
-            return None
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(d[1], d[2])}
-        children = [build(c) for c in d[1]]
-        if isinstance(kind, type):
-            return kind._make(children)
-        return children if kind == "list" else tuple(children)
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree structure holds")
     return out
@@ -80,24 +85,24 @@ def tree_zeros_like(tree: PyTree) -> PyTree:
     return tree_map(torch.zeros_like, tree)
 
 
+def _with_path(t, path: tuple, out: List[Tuple[tuple, Any]]) -> None:
+    if isinstance(t, dict):
+        for k in sorted(t):
+            _with_path(t[k], path + (k,), out)
+    elif isinstance(t, (list, tuple)):
+        names = getattr(t, "_fields", None)
+        for i, x in enumerate(t):
+            _with_path(x, path + ((f".{names[i]}" if names else i),), out)
+    elif t is not None:
+        out.append((path, t))
+
+
 def tree_flatten_with_path(tree: PyTree) -> List[Tuple[tuple, Any]]:
     """``[(path, leaf)]`` in :func:`tree_flatten`'s order.  A path entry is
     a dict key, a list / tuple index, or ``".name"`` for a named tuple's
     field (``str`` of JAX's ``GetAttrKey``)."""
     out: List[Tuple[tuple, Any]] = []
-
-    def walk(t, path):
-        if isinstance(t, dict):
-            for k in sorted(t):
-                walk(t[k], path + (k,))
-        elif isinstance(t, (list, tuple)):
-            names = getattr(t, "_fields", None)
-            for i, x in enumerate(t):
-                walk(x, path + ((f".{names[i]}" if names else i),))
-        elif t is not None:
-            out.append((path, t))
-
-    walk(tree, ())
+    _with_path(tree, (), out)
     return out
 
 

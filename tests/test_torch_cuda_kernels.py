@@ -11,10 +11,11 @@ so it also runs on a machine with PyTorch alone:
 Tolerance 1e-6 abs: kernel and plain version do the same float32
 operations in the same order (no FMA contraction in the kernel), so they
 are expected to agree exactly.  ``sr_quantize`` is held bit for bit: both
-draw the same Philox4x32-10 stream.  On bf16 parameter buckets the dense
-and ``_q`` CDSGD / CDMSGD kernels and ``sr_quantize`` are held bit for bit
-(ragged, stencil and path row counts, every neighbour and payload type),
-and the other forms refuse a bf16 bucket.  The sparse (top-k wire) update
+draw the same Philox4x32-10 stream.  On bf16 parameter buckets every
+update form (dense, ``_q``, ``_qm`` and sparse, of CDSGD, CDMSGD, Nesterov
+and CDAdam) and ``sr_quantize`` are held bit for bit (ragged, stencil and
+path row counts, every neighbour and payload type), each launch counted
+as a bf16 one.  The sparse (top-k wire) update
 kernels are held against their ``index_add_`` plain versions on compact
 stacks that ``topk_compress_2d`` makes on the card; the threshold
 function (amax, thresholds, counts and pick, all on the card) must give
@@ -29,7 +30,7 @@ inside its staged chunks, at prime BH, in the model's layout, at decays
 near 0 and 1, on rows off 16 bytes, and to equal bits on a second
 launch.  bfloat16 attention runs the tensor-core kernel (it also rounds P
 to bfloat16 before the PV product), float32 the float32 kernel; each case
-checks which ran on the per-kernel count, and covers D 64 / 128 / 256, GQA
+checks which ran on the per-kernel count, and covers D 64 / 120 / 128 / 256, GQA
 groups 1 / 2 / 4, ragged and unequal lengths (through the model path's
 any-length launch), both masks, b > 1 and the strided (b, s, heads, d)
 view; the float32 kernel also where its key splits fall (one, many and
@@ -533,7 +534,7 @@ FLASH_CASES = [   # b, h, kv, sq, sk, d, causal, window, dtype
     (1, 4, 1, 384, 384, 256, True, None, torch.float32),    # gemma3 global
     (2, 2, 1, 100, 100, 64, True, 16, torch.float32),       # one ragged tile
     (1, 2, 1, 64, 128, 128, False, 40, torch.float32),      # sq != sk
-    # the tensor-core kernel: D 64 / 128 / 256, GQA groups 1 / 2 / 4,
+    # the tensor-core kernel: D 64 / 128 / 256, GQA groups 1 / 2 / 4 / 9,
     # ragged and unequal lengths, both masks, windows below a tile and off
     # its multiples, b > 1
     (2, 4, 2, 256, 256, 128, True, None, torch.bfloat16),   # group 2, b 2
@@ -547,6 +548,19 @@ FLASH_CASES = [   # b, h, kv, sq, sk, d, causal, window, dtype
     (2, 4, 1, 200, 130, 256, True, None, torch.bfloat16),   # sq > sk, causal
     (1, 4, 2, 64, 320, 128, True, None, torch.bfloat16),    # sq < sk, causal
     (1, 2, 1, 1, 1, 64, True, None, torch.bfloat16),        # one row
+    # GQA group 9 (starcoder2-7b: 36 heads on 4), group 4 at D 128 (granite-3-8b)
+    (1, 9, 1, 256, 256, 128, True, None, torch.bfloat16),
+    (2, 18, 2, 200, 200, 128, True, None, torch.bfloat16),  # ragged, b 2
+    (1, 8, 2, 256, 256, 128, True, None, torch.bfloat16),   # group 4
+    (1, 9, 1, 256, 256, 128, True, None, torch.float32),
+    # head dim 120 (h2o-danube-3-4b): the width-128 kernels, columns
+    # 120-127 zero-filled and not stored
+    (1, 8, 2, 256, 256, 120, True, None, torch.bfloat16),   # group 4
+    (2, 4, 1, 200, 200, 120, True, 64, torch.bfloat16),     # ragged, window
+    (1, 4, 4, 100, 200, 120, False, 40, torch.bfloat16),    # sq < sk
+    (1, 8, 2, 256, 256, 120, True, None, torch.float32),
+    (2, 4, 1, 200, 200, 120, True, 64, torch.float32),
+    (1, 4, 4, 64, 320, 120, True, None, torch.float32),     # sq < sk
 ]
 
 
@@ -969,15 +983,65 @@ def test_sr_quantize_of_a_bf16_bucket_bitwise(exchange, rows):
     assert torch.equal(sc, scf) and torch.equal(sc, want_sc)
 
 
+def _bf16_equal(got, want) -> bool:
+    return (got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+            and torch.equal(got.view(torch.int16), want.view(torch.int16)))
+
+
 @pytest.mark.cuda
-def test_other_forms_refuse_bf16_buckets_on_card():
+@pytest.mark.parametrize("a_out,s,rows", BF16_ROWS, ids=["ragged", "stencil", "path"])
+@pytest.mark.parametrize("name,dtype", B4_CASES,
+                         ids=[f"{n}-{str(d)[6:]}" for n, d in B4_CASES])
+def test_b4_kernels_on_bf16_buckets_bitwise(name, dtype, a_out, s, rows):
+    """Nesterov, CDAdam (dense, ``_q``, ``_qm``) and ``cdmsgd_update_qm`` on
+    bf16 self, grad, momentum, moments and lookahead: every output bit of
+    the plain version (the lookahead and the Adam step from unrounded
+    float32 values), written in place, counted as a bf16 launch."""
     dev = _card()
-    w, x, g, v = _operands(dev, 2, 2, 8)
-    gb, vb = g.bfloat16(), v.bfloat16()
-    with pytest.raises(TypeError, match="ROADMAP A21"):
-        cu.cdmsgd_nesterov_update(w, x, gb, vb, ALPHA, MU)
-    with pytest.raises(TypeError, match="ROADMAP A21"):
-        cu.cdadam_update(w, x, gb, vb, vb.clone(), 1e-3, 0.9, 0.999, 1e-8, 0.1, 0.001)
+    plain, n_state, form = B4[name]
+    mix, state, scalars = _b4_operands(dev, name, a_out, s, rows, dtype, rows + 3)
+    state = [t.to(torch.bfloat16) for t in state]
+    if form != "dense":
+        mix[1] = mix[1].to(torch.bfloat16)                # the self bucket
+    want = plain(*mix, *state, *scalars)
+    outs = [t.clone() for t in state]
+    fn = cu.KERNELS[name]
+    n = fn.launches_by_bucket["bfloat16"]
+    got = fn(*mix, *outs, *scalars)
+    torch.cuda.synchronize()
+    assert fn.launches_by_bucket["bfloat16"] == n + 1
+    assert [t.data_ptr() for t in got[:n_state]] == [t.data_ptr() for t in outs]
+    assert len(got) == len(want)
+    assert all(_bf16_equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_out,s,rows,k_rows", [
+    (4, 4, 16941, 170), (1, 3, 1001, 11), (12, 12, 300, 3)],
+    ids=["path", "stencil", "agent-chunks"])
+@pytest.mark.parametrize("name", list(SPARSE))
+def test_sparse_kernels_on_bf16_buckets_bitwise(name, a_out, s, rows, k_rows):
+    """The four sparse forms on bf16 self, grad and state (int8 compact
+    values, float32 row scales): every output bit of the plain version,
+    written in place, counted as a bf16 launch."""
+    dev = _card()
+    plain, n_state = SPARSE[name]
+    mix, state, scalars = _sparse_operands(dev, name, a_out, s, rows, k_rows,
+                                           seed=rows + 2 * s)
+    mix[1] = mix[1].to(torch.bfloat16)
+    state = [t.to(torch.bfloat16) for t in state]
+    want = plain(*mix, *state, *scalars)
+    want = want if isinstance(want, tuple) else (want,)
+    outs = [t.clone() for t in state]
+    fn = cu.KERNELS[name]
+    n = fn.launches_by_bucket["bfloat16"]
+    got = fn(*mix, *outs, *scalars)
+    got = got if isinstance(got, tuple) else (got,)
+    torch.cuda.synchronize()
+    assert fn.launches_by_bucket["bfloat16"] == n + 1
+    assert [t.data_ptr() for t in got[:n_state]] == [t.data_ptr() for t in outs]
+    assert len(got) == len(want)
+    assert all(_bf16_equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.cuda

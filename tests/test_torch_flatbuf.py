@@ -5,6 +5,9 @@ same dtype buckets, offsets and tail padding, so the packed buffers must
 be equal bit for bit (tolerance 0) and the slot metadata identical.
 """
 
+import gc
+import weakref
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -18,7 +21,8 @@ from repro.nn import paper_models as jpm  # noqa: E402
 from repro.nn.param import init_params as jinit  # noqa: E402
 from repro_torch.core import flatbuf as tfb  # noqa: E402
 from repro_torch.nn.param import params_from_numpy, params_to_numpy  # noqa: E402
-from repro_torch.utils.tree import tree_flatten, tree_leaves  # noqa: E402
+from repro_torch.utils.tree import (  # noqa: E402
+    tree_flatten, tree_flatten_with_path, tree_leaves, tree_unflatten)
 
 
 def _bits(x) -> np.ndarray:
@@ -132,3 +136,28 @@ def test_unpack_returns_views_and_carry_over_round_trips():
     host = params_to_numpy(back)
     for a, b in zip(jax.tree.leaves(tree), tree_leaves(host)):
         np.testing.assert_array_equal(np.asarray(a, np.float32), b)
+
+
+@pytest.mark.parametrize("walk", [
+    lambda t: tree_flatten(t)[0],
+    lambda t: tree_unflatten(tree_flatten(t)[1], tree_flatten(t)[0]),
+    tree_flatten_with_path,
+], ids=["flatten", "unflatten", "with_path"])
+def test_tree_walks_free_their_leaves_by_refcount(walk):
+    """A walk holds no reference to its leaves once its result is dropped,
+    with the cyclic collector off: a recursive closure over its own name
+    and its accumulator is a reference cycle that kept a step's parameter
+    views, and so whole buckets, alive until the collector ran."""
+    tree = {"b": [torch.ones(3), {"c": torch.zeros(2)}],
+            "a": (torch.ones(1), None)}
+    refs = [weakref.ref(x) for x in tree_leaves(tree)]
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        out = walk(tree)
+        assert out
+        del out, tree
+        assert [r() for r in refs] == [None] * 3
+    finally:
+        if enabled:
+            gc.enable()

@@ -203,9 +203,11 @@ def test_lm_token_streams_are_identical():
 
 def test_registry_holds_the_ported_archs_only():
     assert sorted(get_config(n).name for n in ARCHS) == ARCHS
+    dense = ["granite-3-8b", "h2o-danube-3-4b", "starcoder2-7b"]
+    assert [get_config(n).name for n in dense] == dense
     assert get_config("rwkv6-1.6b-reduced").n_layers == 2
     with pytest.raises(KeyError, match="A17"):
-        get_config("granite-3-8b")
+        get_config("hymba-1.5b")
     moe = ArchConfig(name="moe", family="moe", n_layers=2, d_model=64, n_heads=4,
                      n_kv_heads=4, d_ff=128, vocab_size=64, n_experts=4)
     with pytest.raises(NotImplementedError, match="A17"):

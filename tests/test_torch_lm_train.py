@@ -34,6 +34,7 @@
 
 import dataclasses
 import functools
+import gc
 import math
 import os
 import subprocess
@@ -355,10 +356,11 @@ def _setup(arch, param_dtype):
     return jc, tc, jp, batches
 
 
-def _jax_trainer(jc, jp):
+def _jax_trainer(jc, jp, optimizer="cdmsgd"):
+    kw = {"mu": MU} if optimizer == "cdmsgd" else {}
     return jtrainer.CollaborativeTrainer(
         lambda p, b: jt.loss_fn(jc, p, b), jp, jmake_topology("ring", AGENTS),
-        jmake_optimizer("cdmsgd", LR, mu=MU, fused=True), donate=False)
+        jmake_optimizer(optimizer, LR, fused=True, **kw), donate=False)
 
 
 def _port_trainer(tc, tp):
@@ -383,13 +385,18 @@ def test_lm_trainer_matches_jax_float32(arch):
     assert max(gaps) <= STEP_TOL
 
 
+#: the JAX trainer's bf16 trajectories: (arch, optimizer), fused on a ring
+ORACLE_RUNS = (("gemma3-1b", "cdmsgd"), ("rwkv6-1.6b", "cdmsgd"),
+               ("gemma3-1b", "cdadam"))
+
+
 def write_oracle(path: str) -> None:
-    """The JAX trainer's bf16 trajectory, three steps: per step the state
-    before, the gradients and the state after, as JAX checkpoints under
-    ``path/<arch>`` (step = the step index)."""
-    for arch in ("gemma3-1b", "rwkv6-1.6b"):
+    """The JAX trainer's bf16 trajectories, three steps each: per step the
+    state before, the gradients and the state after, as JAX checkpoints
+    under ``path/<arch>-<optimizer>`` (step = the step index)."""
+    for arch, optimizer in ORACLE_RUNS:
         jc, _, jp, batches = _setup(arch, "bfloat16")
-        tr = _jax_trainer(jc, jp)
+        tr = _jax_trainer(jc, jp, optimizer)
         prog = tr._program
         grad_fn, update_fn = jax.jit(prog.grad_phase), jax.jit(prog.update_phase)
         for i, b in enumerate(batches):
@@ -397,7 +404,7 @@ def write_oracle(path: str) -> None:
             gp = tr.optimizer.grad_params(st.params, st.opt_state)
             _, grads = grad_fn(gp, jax.tree.map(jnp.asarray, b))
             new_p, new_o = update_fn(st.params, grads, st.opt_state)
-            jckpt.save_checkpoint(os.path.join(path, arch), i, {
+            jckpt.save_checkpoint(os.path.join(path, f"{arch}-{optimizer}"), i, {
                 "before": {"params": st.params, "opt_state": st.opt_state},
                 "grads": grads,
                 "after": {"params": new_p, "opt_state": new_o}})
@@ -424,24 +431,33 @@ def test_lm_trainer_bf16_update_phase_bitwise(bf16_oracle, arch):
     and the new params and momentum equal JAX's bit for bit."""
     _, tc, jp, _ = _setup(arch, "bfloat16")
     tr = _port_trainer(tc, params_from_numpy(jax.tree.map(np.asarray, jp), "cpu"))
+    _teacher_forced_bitwise(tr, os.path.join(bf16_oracle, f"{arch}-cdmsgd"), arch)
+    print(f"{arch} bf16 update phase, 3 teacher-forced steps: bit for bit")
+
+
+def _teacher_forced_bitwise(tr, oracle_dir, what) -> None:
+    """The JAX trainer's three steps (state before, gradients) through the
+    port trainer's update phase: new params and optimizer state (momentum;
+    Adam's two moments) equal to JAX's bit for bit, all bf16."""
     params0 = tr.state.params
     assert {t.dtype for t in ttree.tree_leaves(params0)} == {torch.bfloat16}
     like = {"before": {"params": params0, "opt_state": tr.state.opt_state},
             "grads": params0,
             "after": {"params": params0, "opt_state": tr.state.opt_state}}
     for i in range(3):
-        c = tckpt.restore_checkpoint(os.path.join(bf16_oracle, arch), like, step=i)
+        c = tckpt.restore_checkpoint(oracle_dir, like, step=i)
         with torch.no_grad():
             new_p, new_o = tr._program.update_phase(
                 c["before"]["params"], c["grads"], c["before"]["opt_state"])
         assert new_o.step == c["after"]["opt_state"].step == i + 1
         for got, want in ((new_p, c["after"]["params"]),
                           (new_o.inner, c["after"]["opt_state"].inner)):
-            for a, b in zip(ttree.tree_leaves(got), ttree.tree_leaves(want)):
+            leaves = list(zip(ttree.tree_leaves(got), ttree.tree_leaves(want)))
+            assert leaves
+            for a, b in leaves:
                 assert a.dtype == b.dtype == torch.bfloat16
                 assert torch.equal(a.view(torch.int16), b.view(torch.int16)), \
-                    f"{arch} step {i}: not bit for bit"
-    print(f"{arch} bf16 update phase, 3 teacher-forced steps: bit for bit")
+                    f"{what} step {i}: not bit for bit"
 
 
 # --------------------------------------------------------------------------
@@ -459,6 +475,67 @@ def test_train_cli_runs_on_cpu(arch, capsys):
     assert len(losses) == 4 and all(np.isfinite(losses))
     assert "bytes/agent/step on the wire" in out and "[train] done:" in out
     assert {t.dtype for t in ttree.tree_leaves(tr.state.params)} == {torch.bfloat16}
+
+
+@pytest.mark.parametrize("flags", [
+    ["--optimizer", "cdmsgd_nesterov", "--fused"],
+    ["--optimizer", "cdadam", "--fused", "--exchange", "int8", "--schedule",
+     "overlap"],
+    ["--optimizer", "cdmsgd", "--exchange", "int8", "--momentum-mixing",
+     "mixed"],
+], ids=["nesterov", "cdadam-int8-overlap", "cdmsgd-int8-mixed"])
+def test_train_steps_leave_no_tensor_in_a_reference_cycle(flags, monkeypatch):
+    """Every buffer a step lets go of is freed at once, by reference
+    counting: no tensor of a finished step waits in a reference cycle for
+    Python's cyclic collector.  (On the card a cycle held a whole parameter
+    bucket's views for several steps, so the allocator grew its segments
+    and flushed its cache in the steps' time.)"""
+    cyclic = []
+    step = CollaborativeTrainer.step
+
+    def checked(self, batch):
+        out = step(self, batch)
+        gc.set_debug(gc.DEBUG_SAVEALL)
+        try:
+            gc.collect()
+            cyclic.extend(tuple(o.shape) for o in gc.garbage
+                          if isinstance(o, torch.Tensor))
+        finally:
+            gc.set_debug(0)
+            gc.garbage.clear()
+        return out
+
+    gc.collect()
+    monkeypatch.setattr(CollaborativeTrainer, "step", checked)
+    tr = tlaunch.main(["--arch", "gemma3-1b", "--preset", "tiny", "--device",
+                       "cpu", "--agents", "3", "--topology", "ring",
+                       "--steps", "2", "--log-every", "0", *flags])
+    assert tr.state.step == 2 and not cyclic, cyclic
+
+
+def test_train_cli_cdadam_bf16_update_phases_bitwise(bf16_oracle, monkeypatch):
+    """``launch/train.py --optimizer cdadam --fused`` on reduced gemma3-1b
+    (one bf16 bucket; the carried weights in place of its seeded draw),
+    three steps on the CPU with finite losses; then its trainer's update
+    phase (the dense CDAdam kernel's plain version on the bf16 bucket)
+    teacher-forced on the JAX trainer's three fused CDAdam steps: params
+    and both moments bit for bit."""
+    _, _, jp, _ = _setup("gemma3-1b", "bfloat16")
+    carried = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    monkeypatch.setattr(tlaunch, "init_params",
+                        lambda template, seed, device=None: carried)
+    tr = tlaunch.main(["--arch", "gemma3-1b", "--preset", "tiny", "--device", "cpu",
+                       "--agents", str(AGENTS), "--topology", "ring",
+                       "--optimizer", "cdadam", "--fused", "--lr", str(LR),
+                       "--batch", str(BATCH), "--seq", str(SEQ["gemma3-1b"]),
+                       "--steps", "3", "--log-every", "0"])
+    losses = tr.history.series("loss")
+    assert tr.state.step == 3 and len(losses) == 3 and all(np.isfinite(losses))
+    assert type(tr.optimizer).__name__ == "CDAdam" and tr.optimizer.fused
+    _teacher_forced_bitwise(tr, os.path.join(bf16_oracle, "gemma3-1b-cdadam"),
+                            "the CLI's CDAdam")
+    print("launch/train.py cdadam --fused, bf16 update phase, 3 teacher-forced "
+          "steps: bit for bit")
 
 
 def _cli(ckpt, steps, extra, resume=False):
