@@ -250,6 +250,14 @@ flash attention at head dim 120) adds:
     ``_qm`` forms and CDAdam's dense and ``_qm`` forms, 3 steps each, with
     exact launches and finite losses.
 
+The sparse-kernel redesign (persistent CTAs with a carried cursor into each
+neighbour's indices) adds to phases 3 and 3c a ``clustered`` index layout
+(each neighbour's entries in three runs, most tiles empty), bit for bit
+like the others, and a ``sparse speed criteria`` line: each sparse form's
+share of its byte bound at the path shape (CUDA events and kernel-only) and
+at gemma3-1b's bf16 bucket against the 0.75 goal, and its time against the
+parent kernel's (``SPARSE_BEFORE_MS``), met or not, not held.
+
 Any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 float32 matmuls and convolutions run in full float32 (TF32 off).
@@ -368,13 +376,13 @@ KERNELS = {   # name -> (library, CUDA kernel symbol, the TPU kernel it replaces
     "cdadam_update": ("consensus_update", "adam_kernel", f"{_TPU}:842"),
     "cdadam_update_q": ("consensus_update", "adam_q_kernel", f"{_TPU}:369"),
     "cdadam_update_qm": ("consensus_update", "adam_qm_kernel", f"{_TPU}:375"),
-    "cdsgd_update_sparse": ("consensus_update", "sparse_kernel<0",
+    "cdsgd_update_sparse": ("consensus_update", "sparse_",
                             f"{_TPU}:507"),
-    "cdmsgd_update_sparse": ("consensus_update", "sparse_kernel<1",
+    "cdmsgd_update_sparse": ("consensus_update", "sparse_",
                              f"{_TPU}:545"),
-    "cdmsgd_nesterov_update_sparse": ("consensus_update", "sparse_kernel<2",
+    "cdmsgd_nesterov_update_sparse": ("consensus_update", "sparse_",
                                       f"{_TPU}:590"),
-    "cdadam_update_sparse": ("consensus_update", "sparse_kernel<3",
+    "cdadam_update_sparse": ("consensus_update", "sparse_",
                              f"{_TPU}:636"),
     # both of the function's kernels (threshold_amax_kernel, then
     # threshold_count_kernel): kernel-only is the function's device time
@@ -459,6 +467,17 @@ SPARSE = {
     "cdmsgd_update_sparse": (ref.cdmsgd_update_sparse_ref, 2),
     "cdmsgd_nesterov_update_sparse": (ref.cdmsgd_nesterov_update_sparse_ref, 2),
     "cdadam_update_sparse": (ref.cdadam_update_sparse_ref, 3),
+}
+# the sparse kernels' speed goal: this share of the byte bound at the path
+# shape and at gemma3-1b's bf16 bucket; and their times before the
+# persistent-CTA kernel (CUDA events, this script on an H100 at 700 W):
+# (path ms, bf16 bucket ms)
+SPARSE_BOUND_SHARE = 0.75
+SPARSE_BEFORE_MS = {
+    "cdsgd_update_sparse": (0.06945, 15.38492),
+    "cdmsgd_update_sparse": (0.09089, 18.96276),
+    "cdmsgd_nesterov_update_sparse": (0.10636, 22.73006),
+    "cdadam_update_sparse": (0.12906, 27.33769),
 }
 # the Nesterov / CDAdam / mixed-momentum kernels: plain version, number of
 # per-agent operands written in place (grad, momentum / moments), form
@@ -1096,31 +1115,38 @@ def check_sr_quantize(results: dict, gen) -> None:
           "(1, 8, 128), no synchronize)")
 
 
-def check_sparse(results: dict, gen) -> None:
+def check_sparse(results: dict, gen) -> dict:
     """Phase 3, the sparse (top-k wire) update kernels: every output against
     the plain version (``index_add_`` per neighbour), on compact stacks
     that ``topk_compress_2d`` makes at ``topk:0.01``; the fully connected
     and the ring's self-separated weights at the path shape, a one-agent
-    stencil, and the ring at 1,001 rows."""
+    stencil, the ring at 1,001 rows, and the fully connected weights on
+    ``_clustered_compact``'s layout (most tiles empty).  Returns the rows'
+    times by (kernel, label)."""
     dev = torch.device("cuda")
     q_w = {t: torch.tensor(_self_separated_weights(make_topology(t, AGENTS).pi),
                            dtype=torch.float32, device=dev)
            for t in ("fully_connected", "ring")}
+    times = {}
     for name, (plain, n_state) in SPARSE.items():
         for label, a_out, s, rows in (("path", AGENTS, AGENTS, PATH_ROWS),
                                       ("ring", AGENTS, AGENTS, PATH_ROWS),
                                       ("stencil", 1, 3, PATH_ROWS),
-                                      ("ragged-ring", AGENTS, AGENTS, 1001)):
+                                      ("ragged-ring", AGENTS, AGENTS, 1001),
+                                      ("clustered", AGENTS, AGENTS, PATH_ROWS)):
             k_rows = tk.topk_k_rows(rows, TOPK_P)
-            if label == "path":
+            if label in ("path", "clustered"):
                 w = q_w["fully_connected"]
             elif "ring" in label:
                 w = q_w["ring"]
             else:
                 w = torch.rand((a_out, s + 1), generator=gen, device=dev)
                 w = (w / w.sum(dim=1, keepdim=True)).contiguous()
-            compact = tk.topk_compress_2d(_bucket(gen, s, rows), k_rows, rows,
-                                          agent_stride=104729)
+            if label == "clustered":
+                compact = _clustered_compact(gen, s, rows, k_rows)
+            else:
+                compact = tk.topk_compress_2d(_bucket(gen, s, rows), k_rows, rows,
+                                              agent_stride=104729)
             mix = [w, torch.randn((a_out, rows, 128), generator=gen,
                                   device=dev), *compact]
             state = [_bucket(gen, a_out, rows) for _ in range(n_state)]
@@ -1138,14 +1164,41 @@ def check_sparse(results: dict, gen) -> None:
             torch.cuda.synchronize()
             err = max(float((g - r).abs().max()) for g, r in zip(got, want))
             _check(name, label, err, ok_ptr)
-            _report(results, name, label,
-                    f"W=({a_out},{s + 1}) int8 compact k_rows={k_rows} "
-                    f"rows={rows}", err, lambda: fn(*mix, *outs, *scalars),
-                    lambda: plain(*mix, *state, *scalars), None,
-                    bound(name, a_out, s, rows, torch.int8, k_rows))
+            times[(name, label)] = _report(
+                results, name, label,
+                f"W=({a_out},{s + 1}) int8 compact k_rows={k_rows} rows={rows}"
+                + (" clustered" if label == "clustered" else ""), err,
+                lambda: fn(*mix, *outs, *scalars),
+                lambda: plain(*mix, *state, *scalars), None,
+                bound(name, a_out, s, rows, torch.int8, k_rows))
     print("library_ms none for the sparse kernels: no one PyTorch call "
           "computes the function (index_add_ scatters one neighbour's "
           "products, without the self term or the optimizer epilogue)")
+    return times
+
+
+def sparse_criteria(results: dict, times: dict) -> None:
+    """Print the sparse kernels' speed criteria, met or not (not held):
+    each form's share of its byte bound at the path shape (CUDA events and
+    kernel-only) and at gemma3-1b's bf16 bucket, against
+    ``SPARSE_BOUND_SHARE``, and its times against ``SPARSE_BEFORE_MS``."""
+    parts = []
+    for name, (path_before, bucket_before) in SPARSE_BEFORE_MS.items():
+        t, b = times[(name, "path")], results[f"{name}:bf16"]
+        share, b_share = t["bound_ms"] / t["ms"], b["bound_ms"] / b["ms"]
+        only, b_only = t["kernel_only_ms"], b.get("kernel_only_ms")
+        parts.append(
+            f"{name} [path] {t['ms']:.5f} ms, share {share:.3f} >= "
+            f"{SPARSE_BOUND_SHARE:g}: {share >= SPARSE_BOUND_SHARE}, kernel-only "
+            + ("not measured" if only is None else
+               f"{only:.5f} (share {t['bound_ms'] / only:.3f})")
+            + f", <= {path_before:g} before: {t['ms'] <= path_before}; [bucket] "
+            f"{b['ms']:.5f} ms, share {b_share:.3f} >= {SPARSE_BOUND_SHARE:g}: "
+            f"{b_share >= SPARSE_BOUND_SHARE}, kernel-only "
+            + ("not measured" if b_only is None else
+               f"{b_only:.5f} (share {b['bound_ms'] / b_only:.3f})")
+            + f", <= {bucket_before:g} before: {b['ms'] <= bucket_before}")
+    print("sparse speed criteria: " + "; ".join(parts))
 
 
 def _trace_counts(fn, iters: int = 10) -> dict:
@@ -2524,17 +2577,41 @@ def _compact(gen, s: int, rows: int, k_rows: int, r0: int = 0) -> tuple:
     return vals, idx.to(torch.int32).view(s, k_rows, 128), scales
 
 
+def _clustered_compact(gen, s: int, rows: int, k_rows: int) -> tuple:
+    """Compact stacks like ``_compact``'s whose positions each neighbour
+    keeps in three runs, one at a random place in each third of the bucket:
+    most 1,024-element tiles hold no entry, and a run fills whole tiles."""
+    dev = torch.device(CARD)
+    n, kk = rows * 128, k_rows * 128
+    cuts = [n * i // 3 for i in range(4)]
+    lens = [kk * (i + 1) // 3 - kk * i // 3 for i in range(3)]
+    idx = []
+    for _ in range(s):
+        starts = [c + int(torch.randint(0, cuts[i + 1] - c - lens[i] + 1, (1,),
+                                        generator=gen, device=dev))
+                  for i, c in enumerate(cuts[:3])]
+        idx.append(torch.cat([torch.arange(a, a + ln, device=dev)
+                              for a, ln in zip(starts, lens)]))
+    vals = torch.randint(-127, 128, (s, k_rows, 128), generator=gen, device=dev,
+                         dtype=torch.int8)
+    scales = 1e-5 + 0.03 * torch.rand((s, k_rows, 1), generator=gen, device=dev)
+    return vals, torch.stack(idx).to(torch.int32).view(s, k_rows, 128), scales
+
+
 def _bf16_operands(gen, a_out: int, s: int, rows: int, x=None) -> dict:
     """The operands of every bf16-bucket form at ``a_out`` outputs over
     ``s`` neighbours: the neighbours ``x`` (bf16, the ``s`` senders), the
     self, grad, momentum and Adam's second moment ``v2`` (bf16 buckets,
     rows over six decades, row 0 zero), and the top-k compact stacks at
-    ``topk:0.01``; the weights are added by the caller."""
+    ``topk:0.01``, spread (``comp``) and clustered (``compc``); the weights
+    are added by the caller."""
     o = {"x": _bf16_rows(gen, s, rows) if x is None else x}
     for k in ("slf", "g", "v"):
         o[k] = _bf16_rows(gen, a_out, rows)
     o["v2"] = (o["v"].abs() * 0.01).contiguous()
-    o["comp"] = _compact(gen, s, rows, tk.topk_k_rows(rows, TOPK_P))
+    k_rows = tk.topk_k_rows(rows, TOPK_P)
+    o["comp"] = _compact(gen, s, rows, k_rows)
+    o["compc"] = _clustered_compact(gen, s, rows, k_rows)
     return o
 
 
@@ -2599,7 +2676,7 @@ def _bf16_variants(name: str, o: dict, stencil: bool) -> list:
     """``(label, operands)`` of one form's bit-for-bit checks: f32 and bf16
     neighbours (dense: ``o["xd"]`` where the senders differ from the
     payload stack), int8 / fp8 / bf16 payloads of ``o["x"]`` (_q, _qm), the
-    compact stacks (sparse), int8 / fp8 codes (``sr_quantize``, of the self
+    compact stacks, spread and clustered (sparse), int8 / fp8 codes (``sr_quantize``, of the self
     bucket in the stencil form)."""
     wrapper = BF16_FORMS[name][0]
     pre = "one agent, " if stencil else ""
@@ -2607,7 +2684,8 @@ def _bf16_variants(name: str, o: dict, stencil: bool) -> list:
         x = o["slf"] if stencil else o["x"]
         return [(f"{pre}{k}", {**o, "x": x}) for k in ("int8", "fp8")]
     if wrapper.endswith("_sparse"):
-        return [(f"{pre}int8 compact", o)]
+        return [(f"{pre}int8 compact", o),
+                (f"{pre}int8 compact clustered", {**o, "comp": o["compc"]})]
     if wrapper.endswith(("_q", "_qm")):
         out = []
         for k in ("int8", "fp8", "bf16"):
@@ -2679,7 +2757,7 @@ def check_bf16_buckets(results: dict, gen) -> None:
           f"{SHARDED_AGENTS}), _q / _qm / sparse (1, 1 + {SHARDED_AGENTS - 1}), "
           f"sr_quantize A = 1), rows {part} (1/{LM_SLICES} of gemma3-1b's {full}) "
           "and 1001 (f32 / bf16 neighbours; int8 / fp8 / bf16 payloads; int8 "
-          f"compact stacks at {TOPK}; int8 / fp8 codes)")
+          f"compact stacks at {TOPK}, spread and clustered; int8 / fp8 codes)")
     _free()
     # the whole bucket: 4 x 7,811,037 x 128 bf16 per operand (8.0 GB); the
     # forms that read the neighbour stack x first, then (x freed) the
@@ -2722,7 +2800,8 @@ def check_bf16_buckets(results: dict, gen) -> None:
         b_ms, b_by = bound(wrapper, a, 0 if wrapper == "sr_quantize" else a, full,
                            kind, k_rows if sparse else 0, bucket=torch.bfloat16)
         results[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                         "kernel_only_ms": dev_ms}
         operand = ("int8 compact stacks, k_rows=" + str(k_rows) if sparse else
                    "int8 payload" if kind == torch.int8 and wrapper != "sr_quantize"
                    else "int8 codes" if wrapper == "sr_quantize" else "bf16 neighbours")
@@ -3405,12 +3484,13 @@ def main() -> None:
         check_sr_quantize(measured, gen)
         check_q(measured, gen)
         check_b4(measured, gen)
-        check_sparse(measured, gen)
+        sparse_times = check_sparse(measured, gen)
         check_threshold(measured, gen)
         check_flash(measured, gen)
         check_wkv(measured, gen)
     with phase("3c bf16 buckets"):
         check_bf16_buckets(measured, gen)
+        sparse_criteria(measured, sparse_times)
 
     train, _ = make_classification(4096, n_classes=10, image_hw=32, seed=0)
     params = init_params(cnn_classifier_template(32, 3, 10), seed=0)

@@ -3,7 +3,8 @@
 A subprocess with ``sys.modules["jax"] = None`` and
 ``sys.modules["repro"] = None`` (any import of either then fails) imports
 every module of ``repro_torch`` and ``chip_smoke.py``'s imports; a source
-scan finds no ``jax`` / ``repro.`` import in the port or the script.
+scan finds no ``jax`` / ``repro.`` import in the port, the script or
+``sparse_update_bench.py``.
 """
 
 import ast
@@ -61,7 +62,8 @@ def _imported_names(path: Path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py", ROOT / "sparse_update_bench.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax_and_no_repro(path):
     for name in _imported_names(path):

@@ -17,7 +17,9 @@ and CDAdam) and ``sr_quantize`` are held bit for bit (ragged, stencil and
 path row counts, every neighbour and payload type), each launch counted
 as a bf16 one.  The sparse (top-k wire) update
 kernels are held against their ``index_add_`` plain versions on compact
-stacks that ``topk_compress_2d`` makes on the card; the threshold
+stacks that ``topk_compress_2d`` makes on the card and on index layouts
+that stress their persistent CTAs' carried cursors (clustered runs,
+entries at the tiles' edges, dense tiles, 16 neighbours); the threshold
 function (amax, thresholds, counts and pick, all on the card) must give
 exact counts and ``tau`` equal bit for bit to the plain path, with one
 count per call.  The flash
@@ -358,12 +360,50 @@ RING5 = [[1 / 3, 0, 1 / 3, 0, 0, 1 / 3], [1 / 3, 1 / 3, 0, 1 / 3, 0, 0],
          [1 / 3, 1 / 3, 0, 0, 1 / 3, 0]]     # [diag | zero-diag Pi], ring of 5
 
 
-def _sparse_operands(dev, name, a_out, s, rows, k_rows, seed, ring=False):
-    """Compact stacks of ``s`` random buckets (all-zero row 0), self and
-    per-agent state, and the self-separated weights."""
+def _layout_compact(dev, gen, s, rows, k_rows, layout):
+    """Compact stacks (int8 values, float32 row scales) whose sorted unique
+    positions stress the kernel's carried cursor: ``"clustered"`` puts each
+    neighbour's entries in three runs, one in each third of the bucket (most
+    1,024-element tiles hold none, a run may fill whole tiles);
+    ``"boundaries"`` draws them near the tile edges (within 8 elements),
+    where the persistent CTAs' ranges meet, a few elsewhere."""
+    n, kk = rows * 128, k_rows * 128
+    idx = []
+    for _ in range(s):
+        if layout == "clustered":
+            cuts = [n * i // 3 for i in range(4)]
+            runs = []
+            for i in range(3):
+                length = kk * (i + 1) // 3 - kk * i // 3
+                seg = cuts[i + 1] - cuts[i]
+                assert length <= seg
+                start = cuts[i] + int(torch.randint(0, seg - length + 1, (1,),
+                                                    generator=gen, device=dev))
+                runs.append(torch.arange(start, start + length, device=dev))
+            idx.append(torch.cat(runs))
+        else:
+            d = torch.arange(n, device=dev) % 1024
+            w = torch.where(torch.minimum(d, 1024 - d) < 8, 1.0, 1e-3)
+            pick = torch.multinomial(w, kk, replacement=False, generator=gen)
+            idx.append(torch.sort(pick).values)
+    idx = torch.stack(idx).to(torch.int32).view(s, k_rows, 128)
+    vals = torch.randint(-127, 128, (s, k_rows, 128), generator=gen, device=dev,
+                         dtype=torch.int8)
+    sc = 1e-5 + 0.03 * torch.rand((s, k_rows, 1), generator=gen, device=dev)
+    return vals, idx.contiguous(), sc
+
+
+def _sparse_operands(dev, name, a_out, s, rows, k_rows, seed, ring=False,
+                     layout="topk"):
+    """Compact stacks of ``s`` random buckets (all-zero row 0; or of
+    ``_layout_compact``'s layout), self and per-agent state, and the
+    self-separated weights."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    x = _bucket(dev, s, rows, seed)
-    vals, idx, sc = topk.topk_compress_2d(x, k_rows, seed, agent_stride=104729)
+    if layout == "topk":
+        x = _bucket(dev, s, rows, seed)
+        vals, idx, sc = topk.topk_compress_2d(x, k_rows, seed, agent_stride=104729)
+    else:
+        vals, idx, sc = _layout_compact(dev, gen, s, rows, k_rows, layout)
     if ring:
         w = torch.tensor(RING5, dtype=torch.float32, device=dev)
     else:
@@ -379,20 +419,37 @@ def _sparse_operands(dev, name, a_out, s, rows, k_rows, seed, ring=False):
     return [w, slf, vals, idx, sc], state, scalars
 
 
+# 16,885 rows: 2,111 tiles of 8 rows (a prime: no persistent grid smaller
+# than the tile count divides it), the last tile 5 rows
+PRIME_TILES_ROWS = 2111 * 8 - 3
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("a_out,s,rows,k_rows,ring", [
-    (5, 5, 16941, 170, False), (5, 5, 16941, 170, True),
-    (5, 5, 1001, 11, True), (1, 3, 1001, 1001, False), (1, 1, 1, 1, False),
-    (12, 12, 300, 3, False)],
+@pytest.mark.parametrize("a_out,s,rows,k_rows,ring,layout", [
+    (5, 5, 16941, 170, False, "topk"), (5, 5, 16941, 170, True, "topk"),
+    (5, 5, 1001, 11, True, "topk"), (1, 3, 1001, 1001, False, "topk"),
+    (1, 1, 1, 1, False, "topk"), (12, 12, 300, 3, False, "topk"),
+    (5, 5, 16941, 170, False, "clustered"), (1, 3, 16941, 170, False, "clustered"),
+    (5, 5, PRIME_TILES_ROWS, 169, False, "boundaries"),
+    (5, 5, PRIME_TILES_ROWS, 169, True, "topk"),
+    (3, 3, 2001, 1000, False, "boundaries"), (16, 16, 1001, 11, False, "topk"),
+    (16, 16, 1001, 11, False, "clustered")],
     ids=["path", "path-ring", "1001-ring", "stencil-full", "one-row",
-         "agent-chunks"])
+         "agent-chunks", "clustered", "stencil-clustered", "boundaries",
+         "prime-tiles-ring", "dense-boundaries", "s16", "s16-clustered"])
 @pytest.mark.parametrize("name", list(SPARSE))
 def test_sparse_kernels_match_plain_versions_in_place(name, a_out, s, rows,
-                                                      k_rows, ring):
+                                                      k_rows, ring, layout):
+    """Every output of the plain version, written in place, one launch a
+    call; also on index layouts that stress the carried cursor (clustered
+    runs with most tiles empty, entries on both sides of the persistent
+    CTAs' range edges, a dense tile), a tile count that no persistent grid
+    divides, and 16 neighbours over agent chunks."""
     dev = _card()
     plain, n_state = SPARSE[name]
     mix, state, scalars = _sparse_operands(dev, name, a_out, s, rows, k_rows,
-                                           seed=rows + s, ring=ring)
+                                           seed=rows + s, ring=ring,
+                                           layout=layout)
     want = plain(*mix, *state, *scalars)
     want = want if isinstance(want, tuple) else (want,)
     outs = [t.clone() for t in state]
@@ -1016,18 +1073,23 @@ def test_b4_kernels_on_bf16_buckets_bitwise(name, dtype, a_out, s, rows):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("a_out,s,rows,k_rows", [
-    (4, 4, 16941, 170), (1, 3, 1001, 11), (12, 12, 300, 3)],
-    ids=["path", "stencil", "agent-chunks"])
+@pytest.mark.parametrize("a_out,s,rows,k_rows,layout", [
+    (4, 4, 16941, 170, "topk"), (1, 3, 1001, 11, "topk"), (12, 12, 300, 3, "topk"),
+    (4, 4, 16941, 170, "clustered"), (4, 4, PRIME_TILES_ROWS, 169, "boundaries"),
+    (4, 4, 1001, 1001, "topk"), (16, 16, 1001, 11, "clustered")],
+    ids=["path", "stencil", "agent-chunks", "clustered", "boundaries",
+         "full-density", "s16"])
 @pytest.mark.parametrize("name", list(SPARSE))
-def test_sparse_kernels_on_bf16_buckets_bitwise(name, a_out, s, rows, k_rows):
+def test_sparse_kernels_on_bf16_buckets_bitwise(name, a_out, s, rows, k_rows,
+                                                layout):
     """The four sparse forms on bf16 self, grad and state (int8 compact
     values, float32 row scales): every output bit of the plain version,
-    written in place, counted as a bf16 launch."""
+    written in place, counted as a bf16 launch; also on the cursor layouts,
+    at full density and at 16 neighbours."""
     dev = _card()
     plain, n_state = SPARSE[name]
     mix, state, scalars = _sparse_operands(dev, name, a_out, s, rows, k_rows,
-                                           seed=rows + 2 * s)
+                                           seed=rows + 2 * s, layout=layout)
     mix[1] = mix[1].to(torch.bfloat16)
     state = [t.to(torch.bfloat16) for t in state]
     want = plain(*mix, *state, *scalars)

@@ -12,7 +12,10 @@ Covered: CDSGD, CDMSGD, Nesterov and CDAdam; the one-agent ``(S+1,)``
 stencil form and the stacked ``(A, A+1)`` form (JAX's vmap, the port's one
 launch); a ring ``Pi`` with zero weights; indices on the Pallas and CUDA
 block edges (Pallas with 4-row blocks; CUDA blocks of 8 rows = 1,024
-elements); ``k_rows = rows``.  Each sparse plain version is also held
+elements); ``k_rows = rows``; index layouts that stress the CUDA
+kernel's carried cursor (entries clustered in a few runs, entries on both
+sides of the 1,024-element tile edges, sparse and at half density).  Each
+sparse plain version is also held
 against the port's own decompress-then-``_q`` plain version (the dense
 oracle of the JAX package's tests), within 1e-6.  ``pytest -s`` prints the
 gaps.
@@ -165,6 +168,52 @@ def test_block_edges_and_full_density_pallas_blocks():
         print(f"cdsgd sparse rows={rows} k_rows={k_rows} 4-row Pallas "
               f"blocks: max gap {gap:.2e}")
         assert gap <= ATOL
+
+
+def _layout_indices(rng, s, k_rows, rows, layout):
+    """Sorted unique flat positions per neighbour laid out to stress a
+    kernel that walks the bucket in 1,024-element tiles with one cursor per
+    neighbour: ``"clustered"`` puts each neighbour's entries in three runs,
+    one in each third of the bucket, so most tiles hold none and a run may
+    fill whole tiles; ``"boundaries"`` draws them near the tile edges (within
+    8 elements, where the CUDA kernel's persistent CTAs' ranges meet), a few
+    elsewhere."""
+    n, kk = rows * 128, k_rows * 128
+    out = []
+    for _ in range(s):
+        if layout == "clustered":
+            cuts = [n * i // 3 for i in range(4)]
+            parts = []
+            for i in range(3):
+                length = kk * (i + 1) // 3 - kk * i // 3
+                seg = cuts[i + 1] - cuts[i]
+                assert length <= seg
+                start = cuts[i] + rng.integers(0, seg - length + 1)
+                parts.append(np.arange(start, start + length))
+            idx = np.concatenate(parts)
+        else:
+            d = np.arange(n) % 1024
+            w = np.where(np.minimum(d, 1024 - d) < 8, 1.0, 1e-3)
+            idx = np.sort(rng.choice(n, kk, replace=False, p=w / w.sum()))
+        out.append(idx.astype(np.int32).reshape(k_rows, 128))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("stencil", [False, True], ids=["stacked", "stencil"])
+@pytest.mark.parametrize("layout,rows,k_rows", [
+    ("clustered", 40, 2), ("boundaries", 40, 3), ("boundaries", 24, 12)],
+    ids=["clustered", "boundaries", "dense-boundaries"])
+def test_cursor_layouts_match_pallas(layout, rows, k_rows, stencil, family):
+    """Index layouts that stress the CUDA kernel's carried cursor (its plain
+    version here, the kernel on the card): entries clustered into a few
+    runs with most 8-row tiles empty, and entries on both sides of the tile
+    edges, sparse and at half density (more than 32 entries a tile)."""
+    s, a_out = 3, 1 if stencil else 3
+    vals, _, scs, w, pa = _operands(s, a_out, rows, k_rows, seed=rows + k_rows)
+    idx = _layout_indices(np.random.default_rng(k_rows), s, k_rows, rows, layout)
+    _check(family, vals, idx, scs, w, pa, stencil,
+           f"{layout} S={s} A_out={a_out} rows={rows} k_rows={k_rows}")
 
 
 def test_sparse_form_rejects_bad_operands():
