@@ -258,6 +258,29 @@ share of its byte bound at the path shape (CUDA events and kernel-only) and
 at gemma3-1b's bf16 bucket against the 0.75 goal, and its time against the
 parent kernel's (``SPARSE_BEFORE_MS``), met or not, not held.
 
+The sharded mode's agent axis (the staleness ring and fault schedules,
+the compressors, factored ``pod x data`` meshes) adds:
+
+3c. the four sparse forms at one output agent over ``U`` received compact
+    stacks (weights ``(1, 1 + U)``, U = 2 and 3; f32 and bf16 buckets; the
+    2-layer gemma3-1b bucket's rows and 1,001 rows), bit for bit, timed at
+    the 2-layer rows beside their byte bound;
+14. (``SHARDED_SMALL_RUNS``) gemma3-1b at full width with 2 layers on the
+    same 3 ranks: CDSGD int8 overlap (the baseline at that depth), CDSGD
+    ``topk:0.01`` with error feedback under overlap (``cdsgd_update_sparse``
+    at one output agent, the compact fields on the wire), CDSGD int8
+    overlap with the staleness ring at depth 2 under
+    ``straggler:1:1,drop:0:1``, CDMSGD ``rank:4`` with error feedback
+    (sync), and (``SHARDED_SPARSE_RUNS``) CDMSGD, Nesterov and CDAdam on
+    ``topk:0.01`` with error feedback (sync: the other three sparse forms
+    at one output agent); each checked like the full-depth runs and
+    printed against the baseline (``sharded 2 layers ...`` lines); the
+    parity of all but ``SHARDED_SPARSE_RUNS`` at 2 float32 layers (rank-r
+    within ``RANK_TOL``); then 4 ranks on ``pod 2 x data
+    2`` (``FACTORED_AXES``), CDMSGD int8 sync, parity only against the
+    stacked trainer on ``kron(Pi_pod, Pi_data)``.  The sharded runs'
+    launches join the ``kernels`` line.
+
 Any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 float32 matmuls and convolutions run in full float32 (TF32 off).
@@ -326,7 +349,11 @@ from repro_torch.kernels.rwkv_scan.ref import wkv6_ref  # noqa: E402
 from repro_torch.launch import train as lm_train  # noqa: E402
 from repro_torch.launch.mesh import spawn_agents  # noqa: E402
 from repro_torch.launch.sharding import local_batch  # noqa: E402
-from repro_torch.launch.steps import build_train_step, local_train_state  # noqa: E402
+from repro_torch.launch.steps import (  # noqa: E402
+    _agent_factors,
+    build_train_step,
+    local_train_state,
+)
 from repro_torch.launch.serve import make_prompt, serve  # noqa: E402
 from repro_torch.nn import transformer as tt  # noqa: E402
 from repro_torch.nn.param import count_params, init_params  # noqa: E402
@@ -657,9 +684,37 @@ SHARDED_RUNS = (
     ("cdsgd int8 overlap", "cdsgd", {"exchange": "int8", "schedule": "overlap"},
      {"sr_quantize": 1}, {"sr_quantize": 1, "cdsgd_update_q": 1}),
 )
+# the agent-axis rest of the sharded mode at 2 layers (gemma3-1b at full
+# width, phase 10b's depth, live weights): the int8 overlap baseline at that
+# depth, the top-k wire through cdsgd_update_sparse at one output agent, the
+# staleness ring under a straggler and a dropped ring link, rank-r
+SHARDED_FAULTS = "straggler:1:1,drop:0:1"
+SHARDED_SMALL_LAYERS = 2
+SHARDED_SMALL_RUNS = (
+    ("cdsgd int8 overlap", "cdsgd", {"exchange": "int8", "schedule": "overlap"},
+     {"sr_quantize": 1}, {"sr_quantize": 1, "cdsgd_update_q": 1}),
+    (f"cdsgd {TOPK} EF overlap", "cdsgd",
+     {"compressor": TOPK, "error_feedback": True, "schedule": "overlap"},
+     {"sr_quantize": 1}, {"sr_quantize": 1, "cdsgd_update_sparse": 1}),
+    (f"cdsgd int8 overlap staleness 2 {SHARDED_FAULTS}", "cdsgd",
+     {"exchange": "int8", "schedule": "overlap", "staleness": 2,
+      "fault_schedule": SHARDED_FAULTS},
+     {"sr_quantize": 1}, {"sr_quantize": 1, "cdsgd_update_q": 1}),
+    ("cdmsgd rank:4 EF sync", "cdmsgd",
+     {"compressor": "rank:4", "error_feedback": True}, {}, {"cdmsgd_update_q": 1}),
+)
+# the other three sparse forms at one output agent on the sharded path:
+# timed and counted like the runs above, held by phase 3c (no parity)
+SHARDED_SPARSE_RUNS = tuple(
+    (f"{name} {TOPK} EF sync", name, {"compressor": TOPK, "error_feedback": True},
+     {}, {"sr_quantize": 1, f"{name}_update_sparse": 1})
+    for name in ("cdmsgd", "cdmsgd_nesterov", "cdadam"))
 SHARDED_STEPS, SHARDED_SEQ = 3, 1024        # batch 1 x 1024 per rank
 SHARDED_PARITY_LAYERS, SHARDED_PARITY_SEQ = 2, 128
 SHARDED_TOL = 1e-5             # of max |param|: a whole step, sharded vs stacked
+# the factored agent mesh: 4 gloo ranks on pod 2 x data 2, parity only
+FACTORED_AXES = {"pod": 2, "data": 2}
+FACTORED_RUN = ("cdmsgd int8 sync pod 2 x data 2", "cdmsgd", {"exchange": "int8"})
 # each rank's allocator is capped in the full-depth runs at its share of
 # the card's free memory less a CUDA context (sharded_path): three peaks of
 # 22.4 GiB (an H100 80GB) fit in its 79 GiB only when no rank hoards freed
@@ -2814,6 +2869,80 @@ def check_bf16_buckets(results: dict, gen) -> None:
     _free()
 
 
+SPARSE_FORMS = ("cdsgd_update_sparse", "cdmsgd_update_sparse",
+                "cdmsgd_nesterov_update_sparse", "cdadam_update_sparse")
+
+
+def check_sparse_one_agent(gen) -> None:
+    """Phase 3c: the four sparse forms at one output agent, the sharded
+    mode's top-k path: ``weights (1, 1 + U)`` over ``U`` received compact
+    stacks in sender order (U = 2: agent 1 of a ring of 3; U = 3: an agent
+    of ``pod 2 x data 2``, every product weight 1/4), on f32 and bf16
+    buckets at the 2-layer gemma3-1b bucket's rows (phase 14's) and at
+    1,001 rows; each against its plain version bit for bit, then timed at
+    the 2-layer rows (CUDA events, kernel-only, the plain version) beside
+    its byte bound.  Nothing here counts toward the kernels line."""
+    dev = torch.device(CARD)
+    cfg2 = dataclasses.replace(get_config("gemma3-1b"), n_layers=SHARDED_SMALL_LAYERS)
+    rows2 = make_flat_spec(tt.model_template(cfg2)).buckets[0].rows
+    ring = make_topology("ring", SHARDED_AGENTS).pi[1]
+    stencils = {2: [ring[1], ring[0], ring[2]],
+                3: list(make_topology("fully_connected", 4).pi[0])}
+    card = card_line()
+    for bucket in (torch.float32, torch.bfloat16):
+        for u, row in stencils.items():
+            wq = torch.tensor([row], dtype=torch.float32, device=dev)
+            for rows in (rows2, 1001):
+                k_rows = tk.topk_k_rows(rows, TOPK_P)
+                o = {k: _bucket(gen, 1, rows).to(bucket) for k in ("slf", "g", "v")}
+                o["v2"] = (o["v"].abs() * 0.01).contiguous()
+                o["wq"], o["comp"] = wq, _compact(gen, u, rows, k_rows)
+                for wrapper in SPARSE_FORMS:
+                    mix, state, scalars = _bf16_args(wrapper, o)
+                    want = getattr(ref, f"{wrapper}_ref")(*mix, *[o[k] for k in state],
+                                                          *scalars)
+                    want = want if isinstance(want, tuple) else (want,)
+                    outs = [o[k].clone() for k in state]
+                    got = cu.KERNELS[wrapper](*mix, *outs, *scalars)
+                    got = got if isinstance(got, tuple) else (got,)
+                    torch.cuda.synchronize()
+                    if len(got) != len(want) or not all(
+                            _equal_bits(g, w.to(g.dtype)) for g, w in zip(got, want)):
+                        raise AssertionError(
+                            f"{wrapper} [one agent, U={u}, {bucket}, rows={rows}] "
+                            "differs from its plain version")
+                    if got[0].data_ptr() != outs[0].data_ptr():
+                        raise AssertionError(f"{wrapper} did not write in place")
+                    if rows != rows2:
+                        continue
+
+                    def kernel(wrapper=wrapper, mix=mix, outs=outs, scalars=scalars):
+                        cu.KERNELS[wrapper](*mix, *outs, *scalars)
+
+                    def plain(wrapper=wrapper, mix=mix, state=state, scalars=scalars):
+                        getattr(ref, f"{wrapper}_ref")(*mix, *[o[k] for k in state],
+                                                       *scalars)
+
+                    ms = cuda_ms(kernel, iters=20, warmup=3)
+                    plain_ms = cuda_ms(plain, iters=3, warmup=1)
+                    dev_ms = device_ms(kernel, KERNELS[wrapper][1], iters=10)
+                    b_ms, b_by = bound(wrapper, 1, u, rows, torch.int8, k_rows,
+                                       bucket=bucket)
+                    print(f"kernel {wrapper} [one agent] A_out=1 U={u} rows={rows} "
+                          f"{str(bucket).replace('torch.', '')} bucket (int8 compact "
+                          f"stacks, k_rows={k_rows}): bit for bit ms={ms:.5f} "
+                          f"plain_ms={plain_ms:.5f} library_ms=none bound_ms={b_ms:.5f} "
+                          f"({b_by}) bound_share={b_ms / ms:.3f} kernel_only_ms="
+                          f"{'not measured' if dev_ms is None else f'{dev_ms:.5f}'} "
+                          f"[{card}]")
+                del o
+    print(f"kernel sparse forms at one output agent: bit for bit against their plain "
+          f"versions, weights (1, 1 + U) for U = {', '.join(map(str, stencils))}, f32 "
+          f"and bf16 buckets, rows {rows2} ({SHARDED_SMALL_LAYERS}-layer gemma3-1b) "
+          "and 1001")
+    _free()
+
+
 @contextlib.contextmanager
 def timed_steps(record: list):
     """Wrap ``CollaborativeTrainer.step`` while a training entry point runs:
@@ -2837,6 +2966,9 @@ def timed_steps(record: list):
         CollaborativeTrainer.step = original
 
 
+_LIVE_DRAWS = {}      # (config name, layers, seed) -> live_init's host draw
+
+
 @contextlib.contextmanager
 def live_init(cfg):
     """The training entry point draws its weights (``init_params``, seed as
@@ -2845,12 +2977,16 @@ def live_init(cfg):
     axis of the attention projections as their fan-in, and gemma3-1b's
     gradient grows with depth from it (a float32 loss at seq 128: norm
     1.5e3 at 2 layers, 5.2e5 at 7, on a CPU): at full depth one step at lr
-    0.01 left the agents 4.6e11 apart and the loss NaN two steps later."""
+    0.01 left the agents 4.6e11 apart and the loss NaN two steps later.
+    A draw is kept on the host for the next run of the same config and
+    seed (a billion parameters take about ten seconds to draw there)."""
     original = lm_train.init_params
 
     def init(template, seed, device=None):
-        return tree_map(lambda t: t.to(device),
-                        live_weights(cfg, original(template, seed), seed + 1))
+        key = (cfg.name, cfg.n_layers, seed)
+        if key not in _LIVE_DRAWS:
+            _LIVE_DRAWS[key] = live_weights(cfg, original(template, seed), seed + 1)
+        return tree_map(lambda t: t.to(device, copy=True), _LIVE_DRAWS[key])
 
     lm_train.init_params = init
     try:
@@ -3185,8 +3321,10 @@ def _stacked_rows(tr, base, batch, n: int, rank: int, momentum: bool) -> dict:
 
 
 def _sharded_optimizer(name: str):
-    return make_optimizer(name, LR, fused=True, **({"mu": MU} if name == "cdmsgd"
-                                                    else {}))
+    if name == "cdadam":
+        return make_optimizer(name, ADAM_LR, fused=True)
+    return make_optimizer(name, LR, fused=True,
+                          **({"mu": MU} if name.startswith("cdmsgd") else {}))
 
 
 def _sharded_run(mesh, cfg, params, batches, label, opt_name, knobs, init,
@@ -3239,8 +3377,12 @@ def _sharded_run(mesh, cfg, params, batches, label, opt_name, knobs, init,
             raise AssertionError(f"{what}: loss {loss}")
     if any(_serving_counts().values()):
         raise AssertionError(f"sharded {label}: flash / WKV6 launched in training")
-    for k, by in cu.bucket_launch_counts().items():
-        if by["float32"]:
+    by_bucket = cu.bucket_launch_counts()
+    # a top-k wire's one sr_quantize a step codes the float32 compact values
+    f32_ok = ({"sr_quantize"} if knobs.get("compressor", "").startswith("topk")
+              else set())
+    for k, by in by_bucket.items():
+        if by["float32"] and k not in f32_ok:
             raise AssertionError(f"sharded {label}: {k} launched on an f32 bucket "
                                  f"{by}; the model is one bf16 bucket")
     carried = (wire_bytes_per_neighbor(state.wire) * degree
@@ -3254,6 +3396,8 @@ def _sharded_run(mesh, cfg, params, batches, label, opt_name, knobs, init,
                              f"{peak_reserved / 2**30:.2f} GiB, over its cap "
                              f"{cap / 2**30:.2f} GiB")
     out = {"label": label, "steps": steps, "want_bytes": want_bytes,
+           "layers": cfg.n_layers, "by_bucket": by_bucket,
+           "params": count_params(tt.model_template(cfg)),
            "degree": degree, "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
            "peak_reserved_gib": peak_reserved / 2**30, "cap_gib": cap / 2**30,
            "exchange": bundle.exchange, "schedule": bundle.schedule,
@@ -3268,16 +3412,19 @@ def _parity_config():
 
 
 def _sharded_parity(mesh, base, batch, label, opt_name, knobs,
-                    fraction: float) -> dict:
+                    fraction: float, topology=None) -> dict:
     """Phase 14's parity on this rank: gemma3-1b at full width with
-    ``SHARDED_PARITY_LAYERS`` layers in float32, the stacked trainer (one
-    rank at a time builds it for every agent, its allocator uncapped: about
-    30 GiB) against this rank's sharded step from the same seeded state
-    (all ranks at once, each capped at ``fraction`` of the card): the update
-    phase with the same gradients and wire bit for bit, the whole step on
-    the same batch within ``SHARDED_TOL`` of max |param|."""
+    ``SHARDED_PARITY_LAYERS`` layers in float32, the stacked trainer on
+    ``topology`` (the ring by default; one rank at a time builds it for
+    every agent, its allocator uncapped: about 30 GiB) against this rank's
+    sharded step from the same seeded state (all ranks at once, each capped
+    at ``fraction`` of the card): the update phase with the same gradients
+    and wire bit for bit (a rank-r wire within ``RANK_TOL``: its float64
+    power iteration is a batched product in the stacked trainer), the whole
+    step on the same batch within ``SHARDED_TOL`` of max |param|."""
     cfg = _parity_config()
     n, dev = mesh.size, mesh.device
+    topology = topology or make_topology("ring", n)
     t0 = time.perf_counter()
     rows = None
     for r in range(n):
@@ -3286,11 +3433,16 @@ def _sharded_parity(mesh, base, batch, label, opt_name, knobs,
             _free()
             torch.cuda.set_per_process_memory_fraction(1.0, dev)
             tr = CollaborativeTrainer(lambda p, b: tt.loss_fn(cfg, p, b), base,
-                                      make_topology("ring", n),
-                                      _sharded_optimizer(opt_name), device=dev,
-                                      **knobs)
+                                      topology, _sharded_optimizer(opt_name),
+                                      device=dev, **knobs)
             tr.state = None
-            rows = _stacked_rows(tr, base, batch, n, r, opt_name == "cdmsgd")
+            # this rank's rows wait on the host: the next rank's stacked
+            # trainer needs the card (with two ranks' 2-layer float32 rows on
+            # it, a rank-r stacked update ran out of its memory), and this
+            # rank's capped sharded step its share (a rank-r step beside its
+            # rows ran out of it)
+            rows = _to(_stacked_rows(tr, base, batch, n, r, opt_name == "cdmsgd"),
+                       "cpu")
             del tr
             _free()
             torch.cuda.set_per_process_memory_fraction(fraction, dev)
@@ -3300,30 +3452,41 @@ def _sharded_parity(mesh, base, batch, label, opt_name, knobs,
                                               "train"),
                               mesh, _sharded_optimizer(opt_name),
                               topology_name="ring", mixing="ppermute_fused", **knobs)
-    params, state = rows["state"]
+    params, state = _to(rows["state"], dev)
     with torch.no_grad():
-        got = bundle.update_phase(tree_map(torch.clone, params), rows["grads"],
+        got = bundle.update_phase(tree_map(torch.clone, params),
+                                  _to(rows["grads"], dev),
                                   tree_map(lambda t: t.clone()
                                            if isinstance(t, torch.Tensor) else t,
                                            state))
     want = rows["update"]
-    pairs = [(x, y) for x, y in zip(tree_leaves(got), tree_leaves(want))
-             if isinstance(x, torch.Tensor)]
-    if len(tree_leaves(got)) != len(tree_leaves(want)) or \
-            not all(_equal_bits(x, y) for x, y in pairs):
+    rank_r = knobs.get("compressor", "").startswith("rank:")
+    n_tensors, update_gap, same = 0, 0.0, len(tree_leaves(got)) == len(tree_leaves(want))
+    for x, y in zip(tree_leaves(got), tree_leaves(want)):
+        if not isinstance(x, torch.Tensor):
+            continue
+        y = y.to(dev)
+        n_tensors += 1
+        if rank_r and x.is_floating_point():
+            update_gap = max(update_gap, float((x - y).abs().max()))
+        same = same and (x.shape == y.shape if rank_r else _equal_bits(x, y))
+    if not same or (rank_r and not update_gap <= RANK_TOL):
         raise AssertionError(f"sharded parity {label} rank {mesh.rank}: the update "
-                             "phase differs from the stacked trainer's")
-    del got
+                             f"phase differs from the stacked trainer's (max gap "
+                             f"{update_gap})")
+    del got, x, y
     wp, _, _ = bundle.step_fn(params, state, local_batch(batch, mesh))
-    top = max(float(y.abs().max()) for y in tree_leaves(rows["step"]))
+    step = _to(rows["step"], dev)
+    top = max(float(y.abs().max()) for y in tree_leaves(step))
     gap = max(float((x - y).abs().max())
-              for x, y in zip(tree_leaves(wp), tree_leaves(rows["step"])))
+              for x, y in zip(tree_leaves(wp), tree_leaves(step)))
     if not gap <= SHARDED_TOL * top:
         raise AssertionError(f"sharded parity {label} rank {mesh.rank}: whole step "
                              f"{gap} from the stacked trainer's, max |param| {top}")
-    del wp, bundle, params, state, rows
+    del wp, bundle, params, state, rows, step
     _free()
-    return {"label": label, "tensors": len(pairs), "gap": gap, "max_param": top,
+    return {"label": label, "tensors": n_tensors, "gap": gap, "max_param": top,
+            "update_gap": update_gap, "bitwise": not rank_r,
             "stacked_s": stacked_s, "params": count_params(tt.model_template(cfg))}
 
 
@@ -3350,17 +3513,63 @@ def sharded_rank(mesh, cap: int) -> dict:
                                         knobs, init, per_step, cap))
     del params
     _free()
+    cfg2 = dataclasses.replace(cfg, n_layers=SHARDED_SMALL_LAYERS)
+    params = tree_map(lambda t: t.to(mesh.device),
+                      live_weights(cfg2, init_params(tt.model_template(cfg2), seed=0),
+                                   1))
+    for label, opt_name, knobs, init, per_step in (SHARDED_SMALL_RUNS
+                                                   + SHARDED_SPARSE_RUNS):
+        out["runs"].append(_sharded_run(mesh, cfg2, params, batches, label, opt_name,
+                                        knobs, init, per_step, cap))
+    del params
+    _free()
     pcfg = _parity_config()
     base = live_weights(pcfg, init_params(tt.model_template(pcfg), seed=2), 3)
     batch = next(lm_agent_batches(make_lm_tokens(1 << 14, vocab=pcfg.vocab_size,
                                                  seed=1),
                                   mesh.size, 1, SHARDED_PARITY_SEQ, seed=1))
-    for label, opt_name, knobs, _, _ in SHARDED_RUNS:
+    done = set()
+    for label, opt_name, knobs, _, _ in SHARDED_RUNS + SHARDED_SMALL_RUNS:
+        if label in done:
+            continue
+        done.add(label)
         out["parity"].append(_sharded_parity(mesh, base, batch, label, opt_name,
                                              knobs, cap / total))
     out["pinned_gib"] = sum(b.numel() for b in mesh.pinned.values()) / 2**30
     out["max_rss_gib"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
     return out
+
+
+def sharded_factored_rank(mesh, cap: int) -> dict:
+    """Phase 14's factored mesh, one rank of ``pod 2 x data 2``: the 2-layer
+    float32 parity of ``FACTORED_RUN`` against the stacked trainer on
+    ``kron(Pi_pod, Pi_data)`` (the factors ``build_train_step`` picks)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    total = torch.cuda.get_device_properties(mesh.device).total_memory
+    torch.cuda.set_per_process_memory_fraction(cap / total, mesh.device)
+    pcfg = _parity_config()
+    base = live_weights(pcfg, init_params(tt.model_template(pcfg), seed=2), 3)
+    batch = next(lm_agent_batches(make_lm_tokens(1 << 14, vocab=pcfg.vocab_size,
+                                                 seed=1),
+                                  mesh.size, 1, SHARDED_PARITY_SEQ, seed=1))
+    factored = _agent_factors(mesh, tuple(mesh.shape)).topology()
+    label, opt_name, knobs = FACTORED_RUN
+    return _sharded_parity(mesh, base, batch, label, opt_name, knobs, cap / total,
+                           topology=factored)
+
+
+def _rank_cap(n: int) -> tuple:
+    """``(cap, free, total, context)``: each of ``n`` ranks' allocator cap,
+    its share of the card's free memory less a CUDA context and a
+    headroom per rank."""
+    free, total = torch.cuda.mem_get_info()
+    # this process's CUDA context and loaded modules: what the card holds
+    # beyond its allocator's pool (every kernel library is loaded here, so
+    # a rank's context, which loads fewer, takes about as much), plus a
+    # headroom for what a rank loads lazily in its grad phase
+    context = total - free - torch.cuda.memory_reserved()
+    return (free - n * (context + SHARDED_HEADROOM)) // n, free, total, context
 
 
 def _host_available_gib() -> float:
@@ -3371,21 +3580,17 @@ def _host_available_gib() -> float:
     return float("nan")
 
 
-def sharded_path() -> None:
+def sharded_path() -> dict:
     """Phase 14: the sharded mode on the card, ``SHARDED_AGENTS`` gloo ranks
-    (one process per agent, one card), through ``spawn_agents``; every
-    check runs in the ranks, and a failing or hung rank fails the phase."""
+    (one process per agent, one card), through ``spawn_agents``; then the
+    factored ``pod 2 x data 2`` mesh on 4 ranks.  Every check runs in the
+    ranks, and a failing or hung rank fails the phase.  Returns the update
+    and quantize kernels' launches of every rank's timed runs, by bucket."""
     a = torch.ones((256, 256), device=CARD)
     float((a @ a).sum())            # load cuBLAS here, as each rank will
     del a
     _free()
-    free, total = torch.cuda.mem_get_info()
-    # this process's CUDA context and loaded modules: what the card holds
-    # beyond its allocator's pool (every kernel library is loaded here, so
-    # a rank's context, which loads fewer, takes about as much), plus a
-    # headroom for what a rank loads lazily in its grad phase
-    context = total - free - torch.cuda.memory_reserved()
-    cap = (free - SHARDED_AGENTS * (context + SHARDED_HEADROOM)) // SHARDED_AGENTS
+    cap, free, total, context = _rank_cap(SHARDED_AGENTS)
     print(f"sharded phase: the card has {free / 2**30:.2f} of {total / 2**30:.2f} GiB "
           f"free before the ranks start (this process: "
           f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved, context "
@@ -3398,9 +3603,13 @@ def sharded_path() -> None:
                            join_timeout=SHARDED_JOIN_S, threads=2)
     wall = time.perf_counter() - t0
     card = card_line()
-    n_params = count_params(tt.model_template(get_config("gemma3-1b")))
+    n_layers = get_config("gemma3-1b").n_layers
+    launches = {k: {"float32": 0, "bfloat16": 0} for k in cu.KERNELS}
     for r, res in enumerate(results):
         for run in res["runs"]:
+            for k, by in run["by_bucket"].items():
+                for b, n in by.items():
+                    launches[k][b] += n
             steps = run["steps"]
             steady = [s["ms"] for s in steps[1:]]
             xch = [s["exchange_ms"] for s in steps[1:]]
@@ -3410,8 +3619,10 @@ def sharded_path() -> None:
             losses = ", ".join(f"{s['loss']:.4f}" for s in steps)
             step_ms = ", ".join(f"{s['ms']:.1f}" for s in steps)
             xch_ms = ", ".join(f"{s['exchange_ms']:.1f}" for s in steps)
-            print(f"sharded rank {r}/{SHARDED_AGENTS} gemma3-1b full width and depth "
-                  f"({n_params:,} params, one bf16 bucket) {run['label']} on a ring: "
+            depth = ("and depth" if run["layers"] == n_layers
+                     else f"{run['layers']} layers")
+            print(f"sharded rank {r}/{SHARDED_AGENTS} gemma3-1b full width {depth} "
+                  f"({run['params']:,} params, one bf16 bucket) {run['label']} on a ring: "
                   f"losses {losses}; step ms {step_ms} (steady median "
                   f"{float(np.median(steady)):.1f}); exchange host ms {xch_ms} "
                   f"(steady median {float(np.median(xch)):.1f}: staging plus gloo); posted "
@@ -3423,18 +3634,60 @@ def sharded_path() -> None:
                   f"{run['peak_reserved_gib']:.2f} of its cap {run['cap_gib']:.2f} GiB "
                   f"(margin {run['cap_gib'] - run['peak_reserved_gib']:.2f} GiB) [{card}]")
         for par in res["parity"]:
-            print(f"sharded parity rank {r} gemma3-1b full width {SHARDED_PARITY_LAYERS} "
-                  f"layers float32 ({par['params']:,} params) {par['label']}: update "
-                  f"phase bit for bit against the stacked trainer ({par['tensors']} "
-                  f"tensors: params and optimizer state), whole step max |diff| "
-                  f"{par['gap']:.3e} (max |param| {par['max_param']:.3e}, tol "
-                  f"{SHARDED_TOL:g} of it); stacked references {par['stacked_s']:.1f} s")
+            _print_parity(r, par, "a ring")
         print(f"sharded rank {r}: weights drawn and moved in {res['init_s']:.1f} s; "
               f"pinned staging {res['pinned_gib']:.2f} GiB; peak host RSS "
               f"{res['max_rss_gib']:.2f} GiB")
+    _compare_small_runs(results[0]["runs"], card)
     print(f"sharded phase: {SHARDED_AGENTS} gloo ranks on one card, wall {wall:.1f} s "
-          f"(spawn, build check, both runs and the parity); host "
-          f"{_host_available_gib():.1f} GiB available after [{card}]")
+          f"(spawn, build check, the {len(SHARDED_RUNS)} full-depth and "
+          f"{len(SHARDED_SMALL_RUNS + SHARDED_SPARSE_RUNS)} {SHARDED_SMALL_LAYERS}-layer "
+          "runs and the "
+          f"parity); host {_host_available_gib():.1f} GiB available after [{card}]",
+          flush=True)
+    n_f = math.prod(FACTORED_AXES.values())
+    _free()
+    cap_f, free, _, _ = _rank_cap(n_f)
+    t0 = time.perf_counter()
+    factored = spawn_agents(sharded_factored_rank, n_f, args=(cap_f,), backend="gloo",
+                            device="cuda", timeout=SHARDED_PG_TIMEOUT,
+                            join_timeout=SHARDED_JOIN_S, threads=2,
+                            axes=FACTORED_AXES)
+    for r, par in enumerate(factored):
+        _print_parity(r, par, "kron(Pi_pod, Pi_data) (fully connected factors)")
+    print(f"sharded factored phase: {n_f} gloo ranks on pod {FACTORED_AXES['pod']} x "
+          f"data {FACTORED_AXES['data']}, each capped at {cap_f / 2**30:.2f} GiB of "
+          f"{free / 2**30:.2f} free, wall {time.perf_counter() - t0:.1f} s [{card}]")
+    return launches
+
+
+def _print_parity(r: int, par: dict, topology: str) -> None:
+    held = ("bit for bit" if par["bitwise"] else
+            f"within {RANK_TOL:g} (max |diff| {par['update_gap']:.3e})")
+    print(f"sharded parity rank {r} gemma3-1b full width {SHARDED_PARITY_LAYERS} "
+          f"layers float32 ({par['params']:,} params) {par['label']} on {topology}: "
+          f"update phase {held} against the stacked trainer ({par['tensors']} "
+          f"tensors: params and optimizer state), whole step max |diff| "
+          f"{par['gap']:.3e} (max |param| {par['max_param']:.3e}, tol "
+          f"{SHARDED_TOL:g} of it); stacked references {par['stacked_s']:.1f} s")
+
+
+def _compare_small_runs(runs: list, card: str) -> None:
+    """The 2-layer runs of rank 0 beside the int8 overlap baseline at the
+    same depth: steady step and exchange medians, bytes a step."""
+    small = [r for r in runs if r["layers"] == SHARDED_SMALL_LAYERS]
+    base = small[0]
+
+    def med(run, key):
+        return float(np.median([s[key] for s in run["steps"][1:]]))
+
+    for run in small[1:]:
+        print(f"sharded {SHARDED_SMALL_LAYERS} layers rank 0 {run['label']} against "
+              f"{base['label']}: steady step {med(run, 'ms'):.1f} against "
+              f"{med(base, 'ms'):.1f} ms, exchange host {med(run, 'exchange_ms'):.1f} "
+              f"against {med(base, 'exchange_ms'):.1f} ms, posted "
+              f"{run['want_bytes']:,} against {base['want_bytes']:,} B a step "
+              f"({run['want_bytes'] / base['want_bytes']:.4f}) [{card}]")
 
 
 def main() -> None:
@@ -3475,7 +3728,7 @@ def main() -> None:
     # phase 14 first: its three ranks need the card's memory, which the
     # later phases' caches in this process would hold
     with phase("14 sharded"):
-        sharded_path()
+        sharded_launches = sharded_path()
 
     measured = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -3491,6 +3744,7 @@ def main() -> None:
     with phase("3c bf16 buckets"):
         check_bf16_buckets(measured, gen)
         sparse_criteria(measured, sparse_times)
+        check_sparse_one_agent(gen)
 
     train, _ = make_classification(4096, n_classes=10, image_hw=32, seed=0)
     params = init_params(cnn_classifier_template(32, 3, 10), seed=0)
@@ -3519,9 +3773,9 @@ def main() -> None:
             for bucket, n in by.items():
                 lm[k][bucket] += n
     for name, (wrapper, _, _) in BF16_FORMS.items():
-        counts[name] = lm[wrapper]["bfloat16"]
+        counts[name] = lm[wrapper]["bfloat16"] + sharded_launches[wrapper]["bfloat16"]
     for k, by in lm.items():
-        counts[k] += by["float32"]
+        counts[k] += by["float32"] + sharded_launches[k]["float32"]
     kernels = []
     for name, (lib, _, replaces) in [*KERNELS.items(),
                                      *((n, (KERNELS[w][0], sym, rep)) for n, (w, sym, rep)

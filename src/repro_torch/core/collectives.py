@@ -7,14 +7,17 @@ The counterparts of the reference's ``lax.ppermute`` / ``lax.all_gather`` /
 * :func:`ppermute` — for every tensor ``x_i`` and every shift ``s`` this
   rank sends ``x_i`` to rank ``(r - s) mod n`` and receives the same-shaped
   tensor of rank ``(r + s) mod n`` (agent ``j`` receives from agent ``(j +
-  s) mod n``, the reference's ``_shift_all``).  Every transfer of the call
+  s) mod n``, the reference's ``_shift_all``).  On a factored ``pod x
+  data`` mesh a shift is an offset along one named axis, or a tuple of
+  offsets, one per axis, moved as ONE transfer from the agent at that
+  offset (:meth:`~repro_torch.launch.mesh.AgentMesh.peers`).  Every transfer of the call
   is posted in one ``dist.batch_isend_irecv``; :meth:`Pending.wait` waits
   on them.  Each (tensor, shift, chunk) message carries its own tag: gloo
   matches messages by peer, tag and order, and a fully connected graph or a
   ring of two sends several messages between one pair of ranks.
 * :func:`all_gather` and :func:`all_reduce_mean` — the general
   (all-gather) mixing of the unfused path and the exact mean of the
-  baselines.
+  baselines, over every agent axis.
 
 Every payload crosses as a flat ``uint8`` view of its bytes, so every wire
 type (float32, bfloat16, int8, float8_e4m3fn) takes the same route.  Under
@@ -147,19 +150,22 @@ class Pending:
         return self.out
 
 
-def ppermute(mesh, tensors: Sequence[torch.Tensor], shifts: Sequence[int], *,
-             out: Optional[List[List[torch.Tensor]]] = None) -> Pending:
+def ppermute(mesh, tensors: Sequence[torch.Tensor], shifts: Sequence, *,
+             out: Optional[List[List[torch.Tensor]]] = None,
+             axis: Optional[str] = None) -> Pending:
     """Post the circulant permutations of ``tensors`` along ``shifts``.
 
-    For every ``x_i`` and shift ``s_k`` (``s_k mod n != 0``) this rank sends
+    For every ``x_i`` and shift ``s_k`` (not the identity) this rank sends
     ``x_i`` to ``(rank - s_k) mod n`` and receives into ``out[i][k]``
     (allocated like ``x_i`` when ``out`` is None) from ``(rank + s_k) mod
-    n``.  The tensors must be contiguous and must not change until
-    :meth:`Pending.wait` returns."""
+    n``.  A shift is an int along ``axis`` (None: the mesh's one axis) or
+    a tuple with one offset per agent axis.  The tensors must be
+    contiguous and must not change until :meth:`Pending.wait` returns."""
     t0 = time.perf_counter()
-    n, r = mesh.size, mesh.rank
+    n = mesh.size
     census = mesh.census
-    if any(s % n == 0 for s in shifts):
+    keys = [mesh.shift_key(s, axis) for s in shifts]
+    if 0 in keys:
         raise ValueError(f"shifts {list(shifts)} include the identity on "
                          f"{n} agents: the self term never crosses the wire")
     if out is None:
@@ -185,7 +191,8 @@ def ppermute(mesh, tensors: Sequence[torch.Tensor], shifts: Sequence[int], *,
         for k, s in enumerate(shifts):
             # the tag names the shift by value: ranks order their shifts
             # differently (by sender), both ends must agree
-            base = (i * n + s % n) << _CHUNK_BITS
+            base = (i * n + keys[k]) << _CHUNK_BITS
+            to, frm = mesh.peers(s, axis)
             dst = _bytes_view(out[i][k])
             if dst.numel() != nbytes:
                 raise ValueError(f"receive buffer of {dst.numel()} bytes for a "
@@ -193,10 +200,10 @@ def ppermute(mesh, tensors: Sequence[torch.Tensor], shifts: Sequence[int], *,
             land = _pinned(mesh, ("recv", i, k), nbytes) if staged else dst
             recv_ops = []
             for c, (lo, hi) in enumerate(ranges):
-                ops.append(dist.P2POp(dist.isend, src[lo:hi], (r - s) % n,
+                ops.append(dist.P2POp(dist.isend, src[lo:hi], to,
                                       mesh.group, base + c))
-                recv_ops.append(dist.P2POp(dist.irecv, land[lo:hi],
-                                           (r + s) % n, mesh.group, base + c))
+                recv_ops.append(dist.P2POp(dist.irecv, land[lo:hi], frm,
+                                           mesh.group, base + c))
             ops.extend(recv_ops)
             if staged:
                 landing.append((dst, land, ranges, len(ops) - len(recv_ops)))

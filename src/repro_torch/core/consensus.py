@@ -73,16 +73,22 @@ has its own strategy, :class:`ShardedMixing`, built by
 :func:`sharded_flat_comm`: the same stages over one agent's buckets, with
 the exchange a point-to-point permutation per circulant shift
 (:func:`repro_torch.core.collectives.ppermute`) and the received stencil
-ordered by sender.  :func:`make_sharded_mix_fn` and
+ordered by sender: the staleness ring (each rank keeps its own
+:class:`WireRing` and ships the slot it selects), the fault schedules (its
+row of the arrival-masked weights), the top-k and rank-r compressors (the
+compact fields cross the wire and feed the sparse kernels at one output
+agent) and the factored ``pod x data`` agent meshes (:class:`FactoredMix`:
+one transfer per non-identity shift combination, weights the products of
+the factors').  :func:`make_sharded_mix_fn` and
 :func:`make_sharded_mean_fn` are its per-leaf mixing and mean for the
-unfused optimizers.  Its staleness ring, fault schedules and compressors
-are ROADMAP A16.2.
+unfused optimizers.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple, Optional
+import itertools
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -549,12 +555,14 @@ def _decompress_entry(entry, rows: int) -> torch.Tensor:
     raise TypeError(f"not a compressed wire entry: {type(entry).__name__}")
 
 
-def _compress_wire_stacked(bufs, seed: int, program: MixingProgram, qwarm):
+def _compress_wire_stacked(bufs, seed: int, program: MixingProgram, qwarm,
+                           agent: int = 0):
     """Compress agent-stacked ``(A, rows, 128)`` buckets for the wire.
 
     Top-k: bucket ``bi``'s compact values take one ``sr_quantize`` launch
-    for all agents, agent ``a`` seeded ``wire_seed(seed, agent=a,
-    bucket=bi)`` (the dense int8 wire's composition).  Rank: one power
+    for all agents, agent ``a`` seeded ``wire_seed(seed, agent=agent + a,
+    bucket=bi)`` (the dense int8 wire's composition; ``agent``: the first
+    agent's index, the rank of a one-agent stack).  Rank: one power
     iteration per bucket from its warm start.  Returns ``(wire, qwarm')``
     (``qwarm`` is ``()`` in and out for top-k).
     """
@@ -563,7 +571,7 @@ def _compress_wire_stacked(bufs, seed: int, program: MixingProgram, qwarm):
         k_list = tk.topk_k_rows_for([b.shape[-2] for b in bufs], param)
         wire = tuple(
             TopKWire(*tk.topk_compress_2d(
-                b.float(), k_rows, wire_seed(seed, bucket=bi),
+                b.float(), k_rows, wire_seed(seed, agent=agent, bucket=bi),
                 agent_stride=_SEED_AGENT_STRIDE))
             for bi, (b, k_rows) in enumerate(zip(bufs, k_list)))
         return wire, ()
@@ -756,6 +764,13 @@ class MixingStrategy:
                 + _quantize_wire_stacked(bufs[b:], seed, exchange, payload=1,
                                          rnd=rnd))
 
+    def _compress(self, bufs, seed: int, qwarm):
+        """``(wire, qwarm')`` of the program's compressor on ``bufs``."""
+        return _compress_wire_stacked(bufs, seed, self.program, qwarm)
+
+    def _qwarm_init(self, bufs) -> tuple:
+        return _qwarm_init_stacked(bufs, self.program)
+
     def quantize_stage(self, bufs, seed: int):
         """Packed buckets -> the wire state (seed: the optimizer step).
 
@@ -765,9 +780,7 @@ class MixingStrategy:
         """
         if self.compressed:
             self._note_bufs(bufs)
-            wire, _ = _compress_wire_stacked(
-                bufs, seed, self.program,
-                _qwarm_init_stacked(bufs, self.program))
+            wire, _ = self._compress(bufs, seed, self._qwarm_init(bufs))
             return wire
         return self._quantize_payloads(bufs, seed)
 
@@ -775,12 +788,18 @@ class MixingStrategy:
         """One round of exchange under schedule entry ``t``: in the stacked
         simulation every agent already sees the whole stack, so the
         exchange hands the payloads to the kernels with the self-separated
-        weights ``pi_q[t]``.  A top-k entry under ``sparse_update`` becomes
-        a :class:`SparseNeighbors` (scales ``None``: they ride inside);
-        other compressed entries decompress to dense f32 stacks with unit
-        scales."""
+        weights ``pi_q[t]``."""
+        nbrs, scs = self._operands(wire)
+        return nbrs, self.pi_q[t], scs
+
+    def _operands(self, stacks):
+        """Wire entries stacked over the senders -> the kernels' neighbour
+        operands and scales, one per bucket.  A top-k entry under
+        ``sparse_update`` becomes a :class:`SparseNeighbors` (scales
+        ``None``: they ride inside); other compressed entries decompress to
+        dense f32 stacks with unit scales."""
         nbrs, scs = [], []
-        for bi, e in enumerate(wire):
+        for bi, e in enumerate(stacks):
             if isinstance(e, TopKWire) and self.program.sparse_update:
                 nbrs.append(SparseNeighbors(e.values, e.indices, e.scales))
                 scs.append(None)
@@ -792,7 +811,10 @@ class MixingStrategy:
             else:
                 nbrs.append(e[0])
                 scs.append(e[1])
-        return nbrs, self.pi_q[t], scs
+        return nbrs, scs
+
+    def _ring_select(self, ring: WireRing):
+        return _ring_select(ring, self.fault_ops.S)
 
     def post_exchange(self, wire, step):
         """Start the exchange of a carried ``wire`` before the grad phase
@@ -816,7 +838,7 @@ class MixingStrategy:
             raise ValueError("fault-tolerant mixing needs the optimizer "
                              "step; exchange_stage(wire, step)")
         if isinstance(wire, WireRing):
-            wire = _ring_select(wire, fo.S)
+            wire = self._ring_select(wire)
         nbrs, _, scs = self._exchange_t(wire, self._entry(step))
         return nbrs, fo.weights[step % fo.period], scs
 
@@ -950,8 +972,7 @@ class MixingStrategy:
             return wire, new_residual, qwarm
         self._note_bufs(bufs)
         carried = [b.float() + e for b, e in zip(bufs, residual)]
-        wire, new_qwarm = _compress_wire_stacked(carried, seed, self.program,
-                                                 qwarm)
+        wire, new_qwarm = self._compress(carried, seed, qwarm)
         deq = self.wire_to_bufs(wire)
         return (wire, tuple(c - d for c, d in zip(carried, deq)),
                 new_qwarm)
@@ -968,7 +989,7 @@ class MixingStrategy:
         if not self.compressed:
             return ()
         self._note_bufs(bufs)
-        return _qwarm_init_stacked(bufs, self.program)
+        return self._qwarm_init(bufs)
 
 
 class StaticMixing(MixingStrategy):
@@ -1116,15 +1137,16 @@ def initial_qwarm_state(fl: FlatComm, params: PyTree) -> tuple:
 # the sharded mode: one agent per process
 # --------------------------------------------------------------------------
 
-#: where the sharded mode's staleness ring, faults and compressors are queued
+#: where the sharded mode's non-agent model axes and serving steps are queued
 SHARDED_LATER = "ROADMAP A16.2"
 
 
 class _StencilPlan(NamedTuple):
     """One schedule entry's exchange, seen from one agent ``a``:
 
-    * ``shifts`` — the non-identity circulant shifts, ordered by their
-      sender ``(a + s) mod n`` (``senders``, ascending);
+    * ``shifts`` — the non-identity shifts (ints on a one-axis mesh, one
+      offset per agent axis on a factored mesh), ordered by their sender
+      (``senders``, ascending);
     * ``weights_q`` — ``(U+1,)`` float32: ``Pi[a, a]``, then ``Pi[a,
       sender]`` in that order (the self-separated ``_q`` form);
     * ``stencil`` / ``weights`` — the legacy dense form: the senders and
@@ -1141,40 +1163,65 @@ class _StencilPlan(NamedTuple):
     weights: torch.Tensor
 
 
-def _stencil_plan(topology: Topology, agent: int, device) -> _StencilPlan:
-    n = topology.n_agents
-    shifts = topology.shift_weights()
-    if shifts is None:
-        raise ValueError(
-            f"topology {topology.name!r} is not circulant; the sharded "
-            "exchange permutes along circulant shifts (use mixing='ppermute' "
-            "or 'dense' for a general Pi)")
-    wire = sorted((s for s in shifts if s % n), key=lambda s: (agent + s) % n)
+def _factor_shifts(factors, mesh) -> list:
+    """``[(shift, sender)]`` of this agent for every non-identity
+    combination of the factors' circulant shifts (the reference's
+    ``_combos``), ordered by sender: an int shift on a one-axis mesh, else
+    one offset per mesh axis.  A factor of one agent moves nothing."""
+    names, per_axis = [], []
+    for axis, topo in factors:
+        if topo.n_agents == 1:
+            continue
+        shifts = topo.shift_weights()
+        if shifts is None:
+            raise ValueError(
+                f"topology {topo.name!r} on axis {axis!r} is not circulant; "
+                "the sharded exchange permutes along circulant shifts (use "
+                "mixing='ppermute' or 'dense' for a general Pi)")
+        names.append(axis)
+        per_axis.append(sorted({s % topo.n_agents for s in shifts}))
+    out = []
+    for combo in itertools.product(*per_axis):
+        if not any(combo):
+            continue
+        by_axis = dict(zip(names, combo))
+        full = tuple(by_axis.get(a, 0) for a in mesh.axis_names)
+        shift = full[0] if len(full) == 1 else full
+        out.append((shift, mesh.peers(shift)[1]))
+    return sorted(out, key=lambda x: x[1])
+
+
+def _stencil_plan(pi: np.ndarray, factors, mesh, name: str) -> _StencilPlan:
+    agent = mesh.rank
+    wire = _factor_shifts(factors, mesh)
     if not wire:
-        raise ValueError(f"topology {topology.name!r} has no neighbours: the "
+        raise ValueError(f"topology {name!r} has no neighbours: the "
                          "exchange needs at least one wire-crossing shift")
-    senders = tuple((agent + s) % n for s in wire)
-    pi = topology.pi
+    senders = tuple(j for _, j in wire)
     stencil = tuple(sorted(senders + (agent,)))
+    dev = mesh.device
     return _StencilPlan(
-        shifts=tuple(wire), senders=senders,
+        shifts=tuple(s for s, _ in wire), senders=senders,
         weights_q=torch.tensor([pi[agent, agent]] + [pi[agent, j]
                                                       for j in senders],
-                               dtype=torch.float32, device=device),
+                               dtype=torch.float32, device=dev),
         stencil=stencil,
         weights=torch.tensor([pi[agent, j] for j in stencil],
-                             dtype=torch.float32, device=device))
+                             dtype=torch.float32, device=dev))
 
 
 class _PostedWire(NamedTuple):
-    """A wire exchange in flight: the schedule entry, the pending transfers
-    and the stacks they land in (payloads ``(U, rows, 128)``, scales ``(U,
-    rows, 1)``, in sender order)."""
+    """A wire exchange in flight: the schedule entry, the pending transfers,
+    what they land in (one entry per bucket, each field stacked over the
+    senders in sender order: ``(payloads (U, rows, 128), scales (U, rows,
+    1))``, a :class:`TopKWire` or a :class:`RankWire`) and the carried
+    wire state it was posted from (a :class:`WireRing` keeps its stale
+    slots)."""
 
     entry: int
     pending: Any
-    payloads: list
-    scales: list
+    received: list
+    source: Any
 
 
 def _as_lead(b: torch.Tensor) -> torch.Tensor:
@@ -1183,24 +1230,47 @@ def _as_lead(b: torch.Tensor) -> torch.Tensor:
     return b.reshape((1,) + tuple(b.shape[-2:]))
 
 
+def _wire_fields(entry, quantized: bool) -> list:
+    """The tensors of one wire entry that cross the wire, without the
+    agent axis: every field of a compressed entry, the payload and (int8 /
+    fp8) its row scales of a dense pair."""
+    if _is_compressed_entry(entry):
+        return [f[0] for f in entry]
+    p, sc = entry
+    return [p[0], sc[0]] if quantized else [p[0]]
+
+
 class ShardedMixing(MixingStrategy):
     """The mixing strategy of one agent (``mesh.rank``) of the sharded mode.
 
     The stages of :class:`MixingStrategy` over this agent's packed buckets
     ``(rows, 128)``; the wire state keeps a leading agent axis of 1 (one
     ``(payload (1, rows, 128), scales (1, rows, 1))`` pair per bucket, the
-    reference's ``_restore_lead``), as do the error-feedback residuals.
+    reference's ``_restore_lead``; a :class:`TopKWire` / :class:`RankWire`
+    of ``(1, ...)`` fields; a :class:`WireRing` of ``(1, S, rows, 128)``
+    slots with ``send_age (1,)`` and ``ages (1, A)``), as do the
+    error-feedback residuals and the rank compressor's ``(1, 128, r)``
+    warm start.
 
-    * quantization seeds agent ``rank``'s stream, ``wire_seed(step,
-      agent=rank, bucket, rnd, payload)``: ``sr_quantize``'s counter is the
-      index within the agent's own bucket, so the codes equal the stacked
-      launch's codes for this agent bit for bit;
-    * the exchange posts one transfer per non-identity shift of the step's
-      schedule entry per bucket per payload (and per row-scale tensor on an
-      int8 / fp8 wire; unit scales are made locally) in one
-      :func:`~repro_torch.core.collectives.ppermute`, and hands the fused
-      kernels the received stencil in sender order with this agent's row
-      of ``pi_q[t]`` restricted to its senders (:class:`_StencilPlan`);
+    * quantization and top-k compression seed agent ``rank``'s stream,
+      ``wire_seed(step, agent=rank, bucket, rnd, payload)``:
+      ``sr_quantize``'s counter is the index within the agent's own
+      bucket, so the codes equal the stacked launch's codes for this agent
+      bit for bit;
+    * the exchange posts one transfer per non-identity shift (combination,
+      on a factored mesh) of the step's schedule entry per bucket per wire
+      field (the payload, the row scales of an int8 / fp8 wire, the three
+      compact top-k fields, the two rank factors; unit scales are made
+      locally) in one :func:`~repro_torch.core.collectives.ppermute`, and
+      hands the fused kernels the received stencil in sender order with
+      this agent's row of the step's weights restricted to its senders
+      (:class:`_StencilPlan`); a top-k stack under ``sparse_update`` goes
+      to the sparse kernels at one output agent as it arrived;
+    * on the fault path the weights are this agent's row of the
+      arrival-masked table (the stacked simulation's row, the masked
+      senders' mass in the self weight), and the sender ships the slot of
+      its ring that it selects, ``ring[min(send_age, S - 1)]``, a view:
+      the ring deepens local state, never the wire;
     * :meth:`post_exchange` starts the exchange of a carried wire before
       the grad phase (overlap); :meth:`exchange_stage` waits on it;
     * the trivial program on an f32 / bf16 wire keeps the legacy dense form
@@ -1208,8 +1278,9 @@ class ShardedMixing(MixingStrategy):
       order with the dense row of ``Pi``.
     """
 
-    def __init__(self, program: MixingProgram, mesh, plans):
-        super().__init__(program, pi=None, pi_q=None)
+    def __init__(self, program: MixingProgram, mesh, plans,
+                 fault_ops: Optional[_FaultOps] = None):
+        super().__init__(program, pi=None, pi_q=None, fault_ops=fault_ops)
         self.name = program.strategy
         self.mesh = mesh
         self.plans = plans
@@ -1246,30 +1317,47 @@ class ShardedMixing(MixingStrategy):
         half = len(bufs) // 2
         return quantize(bufs[:half], 0) + quantize(bufs[half:], 1)
 
-    def _post(self, wire, t: int) -> _PostedWire:
+    def _compress(self, bufs, seed: int, qwarm):
+        return _compress_wire_stacked([_as_lead(b) for b in bufs], seed,
+                                      self.program, qwarm,
+                                      agent=self.mesh.rank)
+
+    def _qwarm_init(self, bufs) -> tuple:
+        return _qwarm_init_stacked([_as_lead(b) for b in bufs], self.program)
+
+    def _ring_select(self, ring: WireRing):
+        """This agent's slot of its ring, ``min(send_age, S - 1)``, as a
+        view of the slot (one ``(1, rows, 128)`` pair per bucket)."""
+        sel = min(int(ring.send_age[0]), self.fault_ops.S - 1)
+        return tuple((p[:, sel], sc[:, sel]) for p, sc in ring.slots)
+
+    def _post(self, wire, t: int, source=None) -> _PostedWire:
         plan = self.plans[t]
         u = len(plan.shifts)
         quantized = self.program.exchange in ("int8", "fp8")
-        items, outs, payloads, scales = [], [], [], []
-        for p, sc in wire:
-            p, sc = p[0], sc[0]
-            stack = p.new_empty((u,) + tuple(p.shape))
-            payloads.append(stack)
-            items.append(p)
-            outs.append(list(stack.unbind(0)))
-            if quantized:
-                sstack = sc.new_empty((u,) + tuple(sc.shape))
-                items.append(sc)
-                outs.append(list(sstack.unbind(0)))
+        items, outs, received = [], [], []
+        for e in wire:
+            fields = _wire_fields(e, quantized)
+            stacks = [x.new_empty((u,) + tuple(x.shape)) for x in fields]
+            items.extend(fields)
+            outs.extend(list(st.unbind(0)) for st in stacks)
+            if _is_compressed_entry(e):
+                received.append(type(e)(*stacks))
+            elif quantized:
+                received.append(tuple(stacks))
             else:
-                sstack = torch.ones((u,) + tuple(sc.shape),
-                                    dtype=torch.float32, device=sc.device)
-            scales.append(sstack)
+                sc = e[1][0]
+                received.append((stacks[0], torch.ones(
+                    (u,) + tuple(sc.shape), dtype=torch.float32,
+                    device=sc.device)))
         pending = collectives.ppermute(self.mesh, items, plan.shifts, out=outs)
-        return _PostedWire(t, pending, payloads, scales)
+        return _PostedWire(t, pending, received, source)
 
     def post_exchange(self, wire, step):
-        return self._post(wire, self._entry(step))
+        source = wire
+        if isinstance(wire, WireRing):
+            wire = self._ring_select(wire)
+        return self._post(wire, self._entry(step), source)
 
     def _exchange_t(self, wire, t: int):
         posted = wire if isinstance(wire, _PostedWire) else self._post(wire, t)
@@ -1277,8 +1365,13 @@ class ShardedMixing(MixingStrategy):
             raise ValueError(f"the wire was posted for schedule entry "
                              f"{posted.entry}, consumed at entry {t}")
         posted.pending.wait()
-        return list(posted.payloads), self.plans[t].weights_q, \
-            list(posted.scales)
+        nbrs, scs = self._operands(posted.received)
+        return nbrs, self.plans[t].weights_q, scs
+
+    def advance_wire(self, bufs, old_wire, step: int):
+        if isinstance(old_wire, _PostedWire):
+            old_wire = old_wire.source
+        return super().advance_wire(bufs, old_wire, step)
 
     def combine(self, nbrs, weights_q, scales, selfs):
         """The stacked :meth:`MixingStrategy.combine` of this agent's row:
@@ -1319,42 +1412,90 @@ class ShardedMixing(MixingStrategy):
                                  device=b.device) for b in bufs)
 
 
-def sharded_flat_comm(topology: Topology, mesh, *, exchange: str = "f32",
-                      program: Optional[MixingProgram] = None) -> FlatComm:
-    """FlatComm of agent ``mesh.rank`` of the sharded mode, circulant
-    topologies only (the reference's single-axis ``sharded_flat_comm``).
+def _sharded_fault_ops(program: MixingProgram, plans, agent: int,
+                       device) -> _FaultOps:
+    """Agent ``agent``'s share of :func:`_fault_tables`: per period step its
+    row of the arrival-masked self-separated weights restricted to the
+    step's senders in stencil order (the stacked row's values: masked
+    senders weigh 0, their mass is in the self weight), its straggle
+    column ``(P, 1)`` and its ages row ``(P, 1, A)``."""
+    ft = _fault_tables(program)
+    period = program.schedule.period
+    tv = program.strategy == "time_varying"
+    rows = []
+    for t in range(ft["period"]):
+        row = ft["weights"][t, agent]
+        plan = plans[t % period if tv else 0]
+        rows.append([row[0]] + [row[1 + j] for j in plan.senders])
+    return _FaultOps(
+        period=ft["period"], S=ft["S"],
+        weights=tuple(torch.tensor(r, dtype=torch.float32, device=device)
+                      for r in rows),
+        straggle=torch.tensor(ft["straggle"][:, agent:agent + 1],
+                              device=device),
+        ages=torch.tensor(ft["ages"][:, agent:agent + 1], dtype=torch.int32,
+                          device=device))
 
+
+def sharded_flat_comm(topology: Topology, mesh, *, exchange: str = "f32",
+                      program: Optional[MixingProgram] = None,
+                      factors: Optional[Sequence[Tuple[str, Topology]]] = None
+                      ) -> FlatComm:
+    """FlatComm of agent ``mesh.rank`` of the sharded mode, circulant
+    topologies only (the reference's ``sharded_flat_comm``).
+
+    ``factors`` (``[(axis, Topology)]``, one per agent axis of a factored
+    mesh, :class:`FactoredMix`) replaces ``topology``'s one circulant
+    factor on the mesh's one axis: each bucket then costs one transfer per
+    non-identity shift combination, weighted by the product of the factor
+    weights (``Pi = kron`` of the factors; ``topology`` is that product).
     ``program`` defaults to the trivial static program over ``topology``;
-    a time-varying one exchanges each step along its entry's shifts only.
-    The staleness ring, fault schedules and the biased compressors raise
-    ``NotImplementedError`` (ROADMAP A16.2), here, before any work."""
+    a time-varying one exchanges each step along its entry's shifts only,
+    and a fault-tolerant one weighs by this agent's row of the
+    arrival-masked table.  Both need a single agent mesh axis."""
     if program is None:
         program = make_mixing_program(topology, exchange=exchange)
-    if program.fault_tolerant:
-        raise NotImplementedError(
-            "the staleness ring and fault schedules of the sharded mode (each "
-            f"sender selecting its own ring slot) are {SHARDED_LATER}")
-    if program.compressed:
-        raise NotImplementedError(
-            f"compressor {program.compressor!r} in the sharded mode (and its "
-            f"sparse kernels) is {SHARDED_LATER}")
     if program.schedule.n_agents != mesh.size:
         raise ValueError(f"the topology spans {program.schedule.n_agents} "
                          f"agents, the mesh {mesh.size} ranks")
-    plans = tuple(_stencil_plan(t, mesh.rank, mesh.device)
-                  for t in program.schedule.topologies)
-    strategy = ShardedMixing(program, mesh, plans)
+    live = [a for a, t in (factors or ()) if t.n_agents > 1]
+    if len(live) > 1:
+        axes = [a for a, _ in factors]
+        if program.strategy == "time_varying":
+            raise ValueError(
+                "time-varying mixing supports a single agent mesh axis "
+                f"(got {axes}); factored multi-axis meshes need per-axis "
+                "schedules, which are not implemented")
+        if program.fault_tolerant:
+            raise ValueError(
+                "fault-tolerant mixing supports a single agent mesh axis "
+                f"(got {axes}); factored multi-axis meshes need per-axis "
+                "fault schedules, not implemented")
+    if factors is None:
+        if len(mesh.axis_names) != 1:
+            raise ValueError(f"the factored mesh {mesh.axis_names} needs the "
+                             "per-axis factors (FactoredMix)")
+        plans = tuple(_stencil_plan(t.pi, [(mesh.axis_names[0], t)], mesh,
+                                    t.name)
+                      for t in program.schedule.topologies)
+    else:
+        plans = (_stencil_plan(program.schedule.topologies[0].pi, factors,
+                               mesh, topology.name),)
+    fault_ops = (_sharded_fault_ops(program, plans, mesh.rank, mesh.device)
+                 if program.fault_tolerant else None)
+    strategy = ShardedMixing(program, mesh, plans, fault_ops)
     return FlatComm(lead=0, gather=strategy.gather, strategy=strategy,
                     program=program)
 
 
-def make_sharded_mix_fn(topology: Topology, mesh) -> Callable:
+def make_sharded_mix_fn(topology: Topology, mesh,
+                        axis: Optional[str] = None) -> Callable:
     """Per-leaf mixing of agent ``mesh.rank``'s tree, for the unfused
-    optimizers.  A circulant ``Pi``: ``sum_s w_s * shift_s(x)`` in shift
-    order, in the leaf's dtype (the reference's ``_circulant_mix_leaf``),
-    every leaf and shift in one posted permutation.  Otherwise an
-    all-gather and this agent's row of ``Pi`` in float32
-    (``_general_mix_leaf``)."""
+    optimizers, along the agent axis ``axis`` (None: the mesh's one axis).
+    A circulant ``Pi``: ``sum_s w_s * shift_s(x)`` in shift order, in the
+    leaf's dtype (the reference's ``_circulant_mix_leaf``), every leaf and
+    shift in one posted permutation.  Otherwise an all-gather and this
+    agent's row of ``Pi`` in float32 (``_general_mix_leaf``)."""
     n = topology.n_agents
     if n == 1:
         return lambda tree: tree
@@ -1366,7 +1507,7 @@ def make_sharded_mix_fn(topology: Topology, mesh) -> Callable:
         def mix(tree):
             leaves, treedef = tree_flatten(tree)
             got = collectives.ppermute(
-                mesh, [x.contiguous() for x in leaves], wire).wait()
+                mesh, [x.contiguous() for x in leaves], wire, axis=axis).wait()
             out = []
             for x, recv in zip(leaves, got):
                 acc, k = None, 0
@@ -1382,6 +1523,9 @@ def make_sharded_mix_fn(topology: Topology, mesh) -> Callable:
             return tree_unflatten(treedef, out)
 
         return mix
+    if len(mesh.axis_names) != 1:
+        raise ValueError(f"topology {topology.name!r} on axis {axis!r} is not "
+                         "circulant: a factored mesh mixes circulant factors")
     return make_gathered_mix_fn(topology, mesh)
 
 
@@ -1400,6 +1544,62 @@ def make_gathered_mix_fn(topology: Topology, mesh) -> Callable:
         return tree_map(leaf, tree)
 
     return mix
+
+
+@dataclasses.dataclass(frozen=True)
+class FactoredMix:
+    """A Kronecker-factored topology over the agent axes of a factored
+    mesh (the reference's ``FactoredMix``): ``factors`` is ``((axis,
+    Topology), ...)``; the agents interact by ``Pi = Pi_1 (x) Pi_2 (x)
+    ...``, doubly stochastic and symmetric when the factors are, with
+    ``lambda_2`` the largest factor ``lambda_2`` and ``lambda_n`` the
+    product of the factors'.  :meth:`make_mix_fn` mixes per leaf, one
+    factor (axis) after the other."""
+
+    factors: Tuple[Tuple[str, Topology], ...]
+
+    @property
+    def n_agents(self) -> int:
+        n = 1
+        for _, t in self.factors:
+            n *= t.n_agents
+        return n
+
+    def dense_pi(self) -> np.ndarray:
+        pi = np.array([[1.0]])
+        for _, t in self.factors:
+            pi = np.kron(pi, t.pi)
+        return pi
+
+    def topology(self) -> Topology:
+        """The product as one :class:`Topology` over the linearized agents
+        (rank ``pod * n_data + data``)."""
+        return Topology(name="factored(" + ",".join(
+            f"{a}:{t.name}" for a, t in self.factors) + ")",
+            pi=self.dense_pi())
+
+    @property
+    def lambda2(self) -> float:
+        lams = [t.lambda2 for _, t in self.factors if t.n_agents > 1]
+        return max(lams) if lams else 0.0
+
+    @property
+    def lambdan(self) -> float:
+        prod = 1.0
+        for _, t in self.factors:
+            prod *= t.lambdan
+        return prod
+
+    def make_mix_fn(self, mesh) -> Callable:
+        fns = [make_sharded_mix_fn(t, mesh, axis=a) for a, t in self.factors
+               if t.n_agents > 1]
+
+        def mix(tree):
+            for f in fns:
+                tree = f(tree)
+            return tree
+
+        return mix
 
 
 def make_sharded_mean_fn(mesh) -> Callable:

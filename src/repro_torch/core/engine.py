@@ -14,9 +14,10 @@ params, or Nesterov's lookahead point.
 
 The sharded mode (one agent per process, :mod:`repro_torch.launch.steps`)
 assembles the same phases around one agent's tensors: the grad phase
-without ``vmap`` (``make_grad_phase(..., per_agent=False)``), the wire and
-residual state of its one-agent strategy (the reference's
-:func:`make_local_wire_init` / :func:`make_local_residual_init`), and
+without ``vmap`` (``make_grad_phase(..., per_agent=False)``), the wire,
+residual and warm-start state of its one-agent strategy (the reference's
+:func:`make_local_wire_init` / :func:`make_local_residual_init` /
+:func:`make_local_qwarm_init`), and
 under the overlap schedule the step posts the exchange of the carried
 wire (``strategy.post_exchange``) before the grad phase and waits on it
 in the update phase, so the transfers run while the gradients are
@@ -315,6 +316,13 @@ def make_local_residual_init(fl: consensus.FlatComm) -> Callable:
     """One agent's error-feedback residuals, the reference's name for
     :func:`consensus.initial_residual_state` on a sharded ``fl``."""
     return functools.partial(consensus.initial_residual_state, fl)
+
+
+def make_local_qwarm_init(fl: consensus.FlatComm) -> Callable:
+    """One agent's rank-r warm-start bases (``(1, 128, r)`` per bucket),
+    the reference's name for :func:`consensus.initial_qwarm_state` on a
+    sharded ``fl``."""
+    return functools.partial(consensus.initial_qwarm_state, fl)
 
 
 @dataclasses.dataclass

@@ -55,6 +55,9 @@ class CommOps:
     mean: MixFn                   # exact global average, per leaf
     # whole-model fused-update support (None: per-leaf mixing only)
     flat: Optional[consensus.FlatComm]
+    # this process's agent in the sharded mode (its trees carry no agent
+    # axis); None in the stacked simulation
+    agent: Optional[int] = None
 
 
 def stacked_comm_ops(topology, *, exchange: str = "f32",
@@ -84,7 +87,17 @@ def sharded_comm_ops(topology, mesh) -> CommOps:
     fused path's comm is :func:`repro_torch.launch.steps.
     make_local_fused_comm`)."""
     return CommOps(mix=consensus.make_sharded_mix_fn(topology, mesh),
-                   mean=consensus.make_sharded_mean_fn(mesh), flat=None)
+                   mean=consensus.make_sharded_mean_fn(mesh), flat=None,
+                   agent=mesh.rank)
+
+
+def factored_comm_ops(factored: consensus.FactoredMix, mesh) -> CommOps:
+    """CommOps of agent ``mesh.rank`` on a factored ``pod x data`` mesh:
+    the per-leaf mixing one factor (axis) after the other and the mean
+    over every agent axis."""
+    return CommOps(mix=factored.make_mix_fn(mesh),
+                   mean=consensus.make_sharded_mean_fn(mesh), flat=None,
+                   agent=mesh.rank)
 
 
 class OptState(NamedTuple):
@@ -497,7 +510,9 @@ class FedAvg(DistributedOptimizer):
     is masked the same way.  A sync step where nobody is present keeps
     every agent's local parameters.  The step is a host int, so the
     presence row and ``k`` are read on the host; the row's device copy is
-    made once per device.
+    made once per device.  In the sharded mode (``comm.agent`` set) each
+    process scales its own tree by its presence ``m[agent]`` before the
+    all-reduce mean.
     """
 
     def __init__(self, schedule, local_steps: int = 1, mu: float = 0.0,
@@ -533,10 +548,13 @@ class FedAvg(DistributedOptimizer):
         if k == 0:                  # nobody reported in: no sync happened
             return local, new_v
         scale = m.shape[0] / k
+        if comm.agent is None:
+            weigh = lambda x: x * m.reshape((-1,) + (1,) * (x.dim() - 1))  # noqa: E731
+        else:
+            weigh = lambda x: x * m[comm.agent]  # noqa: E731
 
         def masked_mean(tree):
-            wsum = comm.mean(tree_map(
-                lambda x: x * m.reshape((-1,) + (1,) * (x.dim() - 1)), tree))
+            wsum = comm.mean(tree_map(weigh, tree))
             return tree_map(lambda mn, x: (mn * scale).to(x.dtype), wsum, tree)
 
         return masked_mean(local), (masked_mean(new_v) if self.mu else new_v)

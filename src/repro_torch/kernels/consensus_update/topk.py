@@ -251,7 +251,12 @@ def _row_cumsum(mask: torch.Tensor) -> torch.Tensor:
 def topk_indices(x: torch.Tensor, kk: int) -> torch.Tensor:
     """The ``kk`` largest-magnitude positions of every row of ``x (A, n)``,
     sorted ascending, ties at the K-th magnitude broken toward the lower
-    index (``lax.top_k``'s set): ``(A, kk)`` int32."""
+    index (``lax.top_k``'s set): ``(A, kk)`` int32.  The rows are selected
+    one at a time: the selection's temporaries take about 25 bytes an
+    element (27 GB at once for 3 agents' 2-layer gemma3-1b buckets)."""
+    if x.shape[0] > 1:
+        return torch.cat([topk_indices(x[a:a + 1], kk)
+                          for a in range(x.shape[0])])
     a_count, n = x.shape
     mag = x.float().abs()
     t = torch.topk(mag, kk, dim=1, sorted=False).values.amin(dim=1,

@@ -5,9 +5,10 @@ agents along the ``data`` axis of a device mesh and runs the step under
 ``shard_map``, the port runs one process per agent on ``torch.distributed``:
 
 * :class:`AgentMesh` — this process's rank (its agent index), the world
-  size, the backend, the process group, its device, the exchange's
-  :class:`~repro_torch.core.collectives.Census` and its pinned staging
-  buffers;
+  size, the agent axes (``data``, or the reference's factored ``pod x
+  data``: rank ``pod * n_data + data``), the backend, the process group,
+  its device, the exchange's :class:`~repro_torch.core.collectives.Census`
+  and its pinned staging buffers;
 * :func:`init_agent_mesh` — joins the process group (explicit backend,
   init method and time limit);
 * :func:`spawn_agents` — builds the kernels once in the parent, starts one
@@ -26,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import multiprocessing
 import multiprocessing.connection
 import os
@@ -33,7 +35,7 @@ import tempfile
 import time
 import traceback
 from pathlib import Path
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 import torch.distributed as dist
@@ -41,8 +43,25 @@ import torch.distributed as dist
 from repro_torch.core.collectives import Census
 
 BACKENDS = ("gloo", "nccl")
-#: the one mesh axis of the sharded mode: agents, as the reference's "data"
+#: the agent axis of the sharded mode, as the reference's "data"
 AGENT_AXIS = "data"
+#: the outer agent axis of a factored mesh, as the reference's "pod"
+POD_AXIS = "pod"
+
+
+def _check_axes(axes, n_agents: int) -> dict:
+    """``axes`` (None: one ``data`` axis of ``n_agents``) as an ordered
+    ``{name: size}``: ``{"data": n}`` or ``{"pod": p, "data": d}`` with
+    ``p * d == n_agents``."""
+    if axes is None:
+        return {AGENT_AXIS: n_agents}
+    axes = dict(axes)
+    if tuple(axes) not in ((AGENT_AXIS,), (POD_AXIS, AGENT_AXIS)):
+        raise ValueError(f"agent axes must be ('data',) or ('pod', 'data'), "
+                         f"got {tuple(axes)}")
+    if math.prod(axes.values()) != n_agents or min(axes.values()) < 1:
+        raise ValueError(f"agent axes {axes} do not cover {n_agents} agents")
+    return axes
 
 
 @dataclasses.dataclass
@@ -61,10 +80,65 @@ class AgentMesh:
     landed: Any = None
     # the exchange in flight, if any (collectives)
     pending: Any = None
+    # the agent axes, ordered: None for one ``data`` axis of ``size``
+    axes: Any = None
+
+    def __post_init__(self):
+        self.axes = _check_axes(self.axes, self.size)
 
     @property
     def shape(self) -> dict:
-        return {AGENT_AXIS: self.size}
+        """``{axis: size}`` of every agent axis, outermost first."""
+        return dict(self.axes)
+
+    @property
+    def axis_names(self) -> tuple:
+        return tuple(self.axes)
+
+    def coords(self, rank: int) -> tuple:
+        """Agent ``rank``'s index along each axis (row-major, the
+        reference's linearized agent index)."""
+        out = []
+        for size in reversed(list(self.axes.values())):
+            out.append(rank % size)
+            rank //= size
+        return tuple(reversed(out))
+
+    def rank_of(self, coords) -> int:
+        """The rank at ``coords``, each taken modulo its axis size."""
+        r = 0
+        for c, size in zip(coords, self.axes.values()):
+            r = r * size + c % size
+        return r
+
+    def full_shift(self, shift, axis: Optional[str] = None) -> tuple:
+        """A shift as one offset per agent axis: a tuple as is, an int
+        along ``axis`` (None: the only axis of a one-axis mesh)."""
+        if isinstance(shift, tuple):
+            if len(shift) != len(self.axes):
+                raise ValueError(f"shift {shift} for agent axes "
+                                 f"{self.axis_names}")
+            return shift
+        if axis is None:
+            if len(self.axes) != 1:
+                raise ValueError(f"an int shift on the factored mesh "
+                                 f"{self.axis_names} needs its axis")
+            axis = self.axis_names[0]
+        return tuple(shift if a == axis else 0 for a in self.axes)
+
+    def peers(self, shift, axis: Optional[str] = None) -> tuple:
+        """``(send_to, receive_from)`` of this rank along ``shift``: agent
+        ``j`` receives from the agent at ``coords(j) + shift`` (the
+        reference's ``_shift_all``, one transfer for the whole
+        combination)."""
+        s = self.full_shift(shift, axis)
+        c = self.coords(self.rank)
+        return (self.rank_of(tuple(x - d for x, d in zip(c, s))),
+                self.rank_of(tuple(x + d for x, d in zip(c, s))))
+
+    def shift_key(self, shift, axis: Optional[str] = None) -> int:
+        """A shift's index in ``[0, size)``: 0 is the identity."""
+        return self.rank_of(self.full_shift(shift, axis))
 
 
 def agent_device(rank: int, device: str = "cuda") -> torch.device:
@@ -83,13 +157,15 @@ def agent_device(rank: int, device: str = "cuda") -> torch.device:
 
 def init_agent_mesh(rank: int, n_agents: int, *, backend: str,
                     init_method: str, device: str = "cuda",
-                    timeout: float = 60.0) -> AgentMesh:
+                    timeout: float = 60.0, axes=None) -> AgentMesh:
     """Join the process group as agent ``rank`` of ``n_agents``.
 
     ``init_method`` is a ``torch.distributed`` URL (``file://...`` for a
     ``FileStore``, ``tcp://localhost:<port>``); ``timeout`` (seconds) bounds
     every collective, so a dead or hung peer fails the rank instead of
-    blocking it."""
+    blocking it.  ``axes`` lays the agents out on ``{"data": n}`` (the
+    default) or the factored ``{"pod": p, "data": d}``."""
+    axes = _check_axes(axes, n_agents)
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     dev = agent_device(rank, device)
@@ -107,18 +183,18 @@ def init_agent_mesh(rank: int, n_agents: int, *, backend: str,
                             world_size=n_agents, rank=rank,
                             timeout=datetime.timedelta(seconds=timeout))
     return AgentMesh(rank=rank, size=n_agents, backend=backend,
-                     group=dist.group.WORLD, device=dev)
+                     group=dist.group.WORLD, device=dev, axes=axes)
 
 
 def _agent_main(fn, rank, n_agents, backend, init_method, device, timeout,
-                threads, args, out_path):
+                threads, axes, args, out_path):
     """One rank: join, run ``fn(mesh, *args)``, save its result (or the
     traceback) next to ``out_path``, leave the group."""
     try:
         torch.set_num_threads(threads)
         mesh = init_agent_mesh(rank, n_agents, backend=backend,
                                init_method=init_method, device=device,
-                               timeout=timeout)
+                               timeout=timeout, axes=axes)
         try:
             result = fn(mesh, *args)
         finally:
@@ -145,7 +221,7 @@ def _stop(procs) -> None:
 def spawn_agents(fn: Callable, n_agents: int, *, args: tuple = (),
                  backend: str = "gloo", device: str = "cuda",
                  timeout: float = 60.0, join_timeout: float = 600.0,
-                 threads: int = 1) -> list:
+                 threads: int = 1, axes=None) -> list:
     """Run ``fn(mesh, *args)`` on ``n_agents`` processes, one per agent, and
     return their results in rank order.
 
@@ -155,8 +231,11 @@ def spawn_agents(fn: Callable, n_agents: int, *, args: tuple = (),
     quantize kernels' libraries are built here first, once, so the ranks
     load them instead of each running ``nvcc`` on the same sources.
     ``timeout`` bounds each collective inside the ranks, ``join_timeout``
-    the whole run; ``threads`` sets each rank's ``torch.set_num_threads``.  A rank that fails, or a run past its
+    the whole run; ``threads`` sets each rank's ``torch.set_num_threads``;
+    ``axes`` (e.g. ``{"pod": 2, "data": 2}``) factors the agents as
+    :func:`init_agent_mesh` does.  A rank that fails, or a run past its
     limit, stops every rank and raises here with the rank's traceback."""
+    axes = _check_axes(axes, n_agents)
     if device == "cuda":
         from repro_torch.kernels import build
         from repro_torch.kernels.consensus_update import consensus_update as cu
@@ -168,7 +247,7 @@ def spawn_agents(fn: Callable, n_agents: int, *, args: tuple = (),
         outs = [os.path.join(d, f"rank{r}.pt") for r in range(n_agents)]
         procs = [ctx.Process(target=_agent_main, name=f"agent{r}",
                              args=(fn, r, n_agents, backend, init_method, device,
-                                   timeout, threads, args, outs[r]))
+                                   timeout, threads, axes, args, outs[r]))
                  for r in range(n_agents)]
         for p in procs:
             p.start()

@@ -2,8 +2,9 @@
 
 The agent-axis part of :mod:`repro.launch.sharding`.  In ``train`` mode
 every agent is one rank of the :class:`~repro_torch.launch.mesh.AgentMesh`
-(the reference's ``data`` axis): params carry a leading ``agent`` axis
-sharded there, and every other logical axis replicates.  The reference's
+(the reference's ``data`` axis, or ``pod x data`` on a factored mesh):
+params carry a leading ``agent`` axis sharded there, and every other
+logical axis replicates.  The reference's
 non-agent axes (``tp`` / ``expert`` over ``model``, ``fsdp`` over ``data``
 in ``train_hier``) and the ``serve`` mode are ROADMAP A16.2 and raise.
 
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, InputShape
-from repro_torch.launch.mesh import AGENT_AXIS
+from repro_torch.launch.mesh import AGENT_AXIS, POD_AXIS
 from repro_torch.nn.param import (MODEL_AXIS_ITEM, ParamDef, PartitionSpec,
                                   partition_specs)
 from repro_torch.utils.tree import tree_map
@@ -32,12 +33,15 @@ MODES = ("train", "train_hier", "serve")
 
 
 def rules_for_mode(mode: str, mesh) -> Dict[str, Any]:
-    """Logical axis -> mesh axes.  ``train``: the agents on the mesh's one
-    axis, every other logical axis replicated.  ``train_hier`` and
-    ``serve`` shard model weights over non-agent axes: ROADMAP A16.2."""
+    """Logical axis -> mesh axes.  ``train``: the agents on ``("data",)``,
+    or ``("pod", "data")`` when the mesh has a ``pod`` axis (the
+    reference's multi-pod rule), every other logical axis replicated.
+    ``train_hier`` and ``serve`` shard model weights over non-agent axes:
+    ROADMAP A16.2."""
     if mode == "train":
-        return {"agent": (AGENT_AXIS,), "tp": None, "expert": None,
-                "fsdp": None}
+        agent = ((POD_AXIS, AGENT_AXIS) if POD_AXIS in mesh.shape
+                 else (AGENT_AXIS,))
+        return {"agent": agent, "tp": None, "expert": None, "fsdp": None}
     if mode in ("train_hier", "serve"):
         raise NotImplementedError(
             f"mode {mode!r} shards weights over non-agent mesh axes "

@@ -26,11 +26,20 @@ The fused path carries the stacked trainer's knobs: ``exchange`` (f32 |
 bf16 | int8 | fp8), ``schedule`` (``"overlap"`` posts the carried wire's
 exchange before the grad phase and waits on it in the update phase),
 ``mixing_strategy`` / ``topology_schedule`` / ``consensus_rounds``,
-``error_feedback`` and ``momentum_mixing``; ``microbatches`` splits the
-agent's batch.  What the sharded mode does not run yet raises at build
-time, before any work: the staleness ring and fault schedules, the
-compressors (ROADMAP A16.2), ``remat=True`` (ROADMAP A17.3), and a fused
-optimizer outside ``ppermute_fused``; ``build_prefill_step`` and
+``error_feedback``, ``momentum_mixing``, the staleness ring and fault
+schedules (``staleness`` / ``fault_schedule``: each rank carries its own
+ring and ships the slot it selects) and the compressors (``topk:p`` /
+``topk:auto:B``, with ``sparse_update`` the sparse kernels at one output
+agent, and ``rank:r``); ``microbatches`` splits the agent's batch.
+``FedAvg(faults=...)`` averages over the present agents.  A mesh with
+``pod`` and ``data`` agent axes (:class:`~repro_torch.launch.mesh.
+AgentMesh` ``axes``) mixes over the Kronecker product of one circulant
+factor per axis (:func:`_agent_factors`: a ring on an axis of more than 2
+agents, fully connected otherwise), ``topology_name`` aside, as the
+reference does.  What the sharded mode does not run yet raises at build
+time, before any work: ``remat=True`` (ROADMAP A17.3), a fused optimizer
+outside ``ppermute_fused``, and the non-agent model axes
+(``train_hier`` / ``serve``, ROADMAP A16.2); ``build_prefill_step`` and
 ``build_serve_step`` wait for A16.2.
 
 Usage, in each rank (see :func:`repro_torch.launch.mesh.spawn_agents`)::
@@ -56,7 +65,7 @@ from repro_torch.core import engine
 from repro_torch.core.faults import make_fault_schedule
 from repro_torch.core.optim import (CommOps, DistributedOptimizer, FedAvg,
                                     GossipSGD, OptState, TimeVaryingCDSGD,
-                                    sharded_comm_ops)
+                                    factored_comm_ops, sharded_comm_ops)
 from repro_torch.core.topology import (Topology, make_topology,
                                        make_topology_schedule)
 from repro_torch.launch import sharding as shlib
@@ -101,49 +110,58 @@ class TrainStepBundle:
                         self.param_template)
 
 
+def _agent_factors(mesh, agent_axes) -> consensus_lib.FactoredMix:
+    """One circulant factor per agent axis of a factored mesh: a ring on an
+    axis of more than 2 agents, fully connected otherwise (the
+    reference's ``_agent_factors``)."""
+    factors = []
+    for a in agent_axes:
+        n = mesh.shape[a]
+        factors.append((a, make_topology("ring" if n > 2 else "fully_connected",
+                                         n)))
+    return consensus_lib.FactoredMix(tuple(factors))
+
+
 def make_local_fused_comm(topology: Topology, mesh, *, exchange: str = "f32",
-                          program: Optional[consensus_lib.MixingProgram] = None
+                          program: Optional[consensus_lib.MixingProgram] = None,
+                          factored: Optional[consensus_lib.FactoredMix] = None
                           ) -> CommOps:
     """CommOps of this agent for the fused path: the flat-buffer exchange
-    (:func:`~repro_torch.core.consensus.sharded_flat_comm`) plus the
-    per-leaf mix and mean, so an unfused optimizer runs on the same
-    comm."""
-    flat = consensus_lib.sharded_flat_comm(topology, mesh, exchange=exchange,
-                                           program=program)
-    return dataclasses.replace(sharded_comm_ops(topology, mesh), flat=flat)
+    (:func:`~repro_torch.core.consensus.sharded_flat_comm`, over the
+    factors of ``factored`` on a ``pod x data`` mesh) plus the per-leaf mix
+    and mean, so an unfused optimizer runs on the same comm."""
+    flat = consensus_lib.sharded_flat_comm(
+        topology, mesh, exchange=exchange, program=program,
+        factors=None if factored is None else factored.factors)
+    return dataclasses.replace(make_mix_comm(topology, mesh, "ppermute",
+                                             factored), flat=flat)
 
 
-def make_mix_comm(topology: Topology, mesh, mixing: str) -> CommOps:
+def make_mix_comm(topology: Topology, mesh, mixing: str,
+                  factored: Optional[consensus_lib.FactoredMix] = None
+                  ) -> CommOps:
     """CommOps of this agent for the per-leaf mixings: ``dense`` (all-gather
-    and this agent's row of ``Pi``) or ``ppermute`` (circulant permutations;
-    a general ``Pi`` all-gathers, as the reference's
-    ``make_sharded_mix_fn``)."""
+    and this agent's row of ``Pi``) or ``ppermute`` (circulant permutations,
+    one factor per axis on a ``pod x data`` mesh; a general ``Pi``
+    all-gathers, as the reference's ``make_sharded_mix_fn``)."""
     if mixing == "dense":
         return CommOps(mix=consensus_lib.make_gathered_mix_fn(topology, mesh),
                        mean=consensus_lib.make_sharded_mean_fn(mesh),
-                       flat=None)
+                       flat=None, agent=mesh.rank)
     if mixing != "ppermute":
         raise ValueError(f"unknown mixing {mixing!r}; expected one of {MIXINGS}")
+    if factored is not None:
+        return factored_comm_ops(factored, mesh)
     return sharded_comm_ops(topology, mesh)
 
 
-def _check_sharded(optimizer, mixing, remat, staleness, fault_schedule,
-                   compressor, sparse_update, schedule):
-    """The knobs the sharded mode does not run yet, refused before any
+def _check_sharded(optimizer, mixing, remat, schedule, n_agents: int):
+    """The knobs the sharded mode does not run (yet), refused before any
     work."""
     if remat:
         raise NotImplementedError(
             f"remat=True: the port's loss has no rematerialization yet "
             f"({REMAT_ITEM}); pass remat=False")
-    if staleness != 1 or fault_schedule not in (None, "none"):
-        raise NotImplementedError(
-            "staleness > 1 / fault schedules in the sharded mode (the sender "
-            f"selects its own ring slot) are {consensus_lib.SHARDED_LATER}")
-    kind, _ = consensus_lib.parse_compressor(compressor)
-    if kind in ("topk", "rank") or sparse_update:
-        raise NotImplementedError(
-            f"compressor {compressor!r} (and the sparse update kernels) in "
-            f"the sharded mode is {consensus_lib.SHARDED_LATER}")
     if mixing not in MIXINGS:
         raise ValueError(f"unknown mixing {mixing!r}; expected one of {MIXINGS}")
     if schedule not in engine.SCHEDULES:
@@ -154,10 +172,11 @@ def _check_sharded(optimizer, mixing, remat, staleness, fault_schedule,
                          "optimizer (it indexes the agent stack); the sharded "
                          "mode runs the consensus optimizers and the "
                          "mean baselines")
-    if isinstance(optimizer, FedAvg) and optimizer.faults is not None:
-        raise NotImplementedError(
-            "FedAvg's partial participation (a fault schedule) in the "
-            f"sharded mode is {consensus_lib.SHARDED_LATER}")
+    if isinstance(optimizer, FedAvg) and optimizer.faults is not None \
+            and optimizer.faults.n_agents != n_agents:
+        raise ValueError(f"FedAvg's fault schedule covers "
+                         f"{optimizer.faults.n_agents} agents, the mesh "
+                         f"{n_agents}")
     if mixing != "ppermute_fused" and getattr(optimizer, "fused", False) \
             and optimizer.has_fused:
         raise ValueError(
@@ -191,11 +210,15 @@ def build_train_step(
 ) -> TrainStepBundle:
     """One rank's training step of the sharded mode (see the module
     docstring)."""
-    _check_sharded(optimizer, mixing, remat, staleness, fault_schedule,
-                   compressor, sparse_update, schedule)
     rules = shlib.rules_for_mode(mode, mesh)
     n_agents = shlib.agent_count(mesh, mode)
-    topology = make_topology(topology_name, n_agents)
+    _check_sharded(optimizer, mixing, remat, schedule, n_agents)
+    factored = None
+    if len(rules["agent"]) > 1:
+        factored = _agent_factors(mesh, rules["agent"])
+        topology = factored.topology()
+    else:
+        topology = make_topology(topology_name, n_agents)
     sched_obj = None
     if topology_schedule is not None:
         sched_obj = (make_topology_schedule(topology_schedule, n_agents)
@@ -235,14 +258,14 @@ def build_train_step(
                 "on the same comm; pass fused=True for the flat-buffer fast "
                 "path", stacklevel=2)
         comm = make_local_fused_comm(topology, mesh, exchange=exchange,
-                                     program=program)
+                                     program=program, factored=factored)
         engine.check_program_support(optimizer, comm)
     else:
         if exchange != "f32":
             warnings.warn(
                 f"exchange={exchange!r} only affects mixing='ppermute_fused'; "
                 f"mixing={mixing!r} moves native bytes", stacklevel=2)
-        comm = make_mix_comm(topology, mesh, mixing)
+        comm = make_mix_comm(topology, mesh, mixing, factored)
 
     if schedule == "overlap":
         engine.check_overlap_support(optimizer, comm)

@@ -1106,6 +1106,52 @@ def test_sparse_kernels_on_bf16_buckets_bitwise(name, a_out, s, rows, k_rows,
     assert all(_bf16_equal(g, w) for g, w in zip(got, want))
 
 
+# the sharded mode's top-k path: one output agent over U received compact
+# stacks, its weights (1 + U,) in sender order (agent 1 of a ring of 3;
+# an agent of pod 2 x data 2)
+ONE_AGENT_WEIGHTS = {2: [1 / 3, 1 / 3, 1 / 3], 3: [0.25, 0.25, 0.25, 0.25]}
+SPARSE_FLAT = {"cdsgd_update_sparse": ops.cdsgd_update_flat,
+               "cdmsgd_update_sparse": ops.cdmsgd_update_flat,
+               "cdmsgd_nesterov_update_sparse": ops.cdmsgd_nesterov_update_flat,
+               "cdadam_update_sparse": ops.cdadam_update_flat}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1001, 16941])
+@pytest.mark.parametrize("bucket", ["float32", "bfloat16"])
+@pytest.mark.parametrize("u", sorted(ONE_AGENT_WEIGHTS))
+@pytest.mark.parametrize("name", list(SPARSE))
+def test_sparse_kernels_at_one_output_agent_bitwise(name, u, bucket, rows):
+    """The four sparse forms through the stencil entry point the sharded
+    mode calls (``ops.*_update_flat`` with ``SparseNeighbors`` and 1-D
+    weights, so the kernel runs at ``A_out = 1`` over ``S = U`` senders):
+    every output bit of the plain version, one launch, in place."""
+    dev = _card()
+    dtype = getattr(torch, bucket)
+    plain, n_state = SPARSE[name]
+    mix, state, scalars = _sparse_operands(dev, name, 1, u, rows,
+                                           topk.topk_k_rows(rows, 0.01),
+                                           seed=rows + 7 * u)
+    w = torch.tensor([ONE_AGENT_WEIGHTS[u]], dtype=torch.float32, device=dev)
+    slf = mix[1].to(dtype)
+    state = [t.to(dtype) for t in state]
+    want = plain(w, slf, *mix[2:], *state, *scalars)
+    want = want if isinstance(want, tuple) else (want,)
+    outs = [t[0].clone() for t in state]
+    fn = cu.KERNELS[name]
+    n = fn.launches_by_bucket[bucket]
+    got = SPARSE_FLAT[name](ops.SparseNeighbors(*mix[2:]), w[0], *outs, *scalars,
+                            self_buf=slf[0])
+    got = got if isinstance(got, tuple) else (got,)
+    torch.cuda.synchronize()
+    assert fn.launches_by_bucket[bucket] == n + 1
+    assert [t.data_ptr() for t in got[:n_state]] == [t.data_ptr() for t in outs]
+    assert len(got) == len(want)
+    for g, wt in zip(got, want):
+        assert g.dtype == wt.dtype and torch.equal(g.view(torch.uint8),
+                                                   wt[0].view(torch.uint8))
+
+
 @pytest.mark.cuda
 def test_staged_exchange_and_q_stencil_update_on_card():
     """Two ``gloo`` ranks on the card (the sharded mode's one-card layout):

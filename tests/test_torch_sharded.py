@@ -14,13 +14,22 @@ de-synchronized initial state and ``lm_agent_batches`` as the stacked
 * three whole steps within 1e-5 (the grad phase without ``vmap`` rounds
   differently from the stacked one);
 * per step, the exchange's census against the closed form: one send per
-  non-identity shift per bucket per payload (x2 with the row scales of an
-  int8 / fp8 wire, x rounds), the bytes ``program_bytes_per_neighbor``
-  times the neighbours;
+  non-identity shift per bucket per payload per wire field (the payload;
+  x2 with the row scales of an int8 / fp8 wire; the three compact fields
+  of a top-k wire, the two factors of a rank-r wire; x rounds), the bytes
+  ``program_bytes_per_neighbor`` times the neighbours (the top-k wire's
+  compact bytes; the staleness ring's those of the plain overlap wire, one
+  generation, also counted from the carried ring);
 * under overlap, the tensors posted are the carried wire's (by
-  ``data_ptr``), posted before the grad phase;
+  ``data_ptr``: the ring's selected slot, the compact fields), posted
+  before the grad phase;
 * the per-leaf ``ppermute`` / ``dense`` mixings and the mean baselines
-  within 1e-6 of the stacked ones.
+  (FedAvg with partial participation too) within 1e-6 of the stacked
+  ones.
+
+The rank-r compressor's update phase is bit for bit too: its power
+iteration is a float64 product per agent, and the stacked trainer's
+batched product computes each agent's alone, as one agent's here.
 
 The knobs the sharded mode does not run yet raise at build time, naming
 their ROADMAP items; a failing rank fails the spawn with its traceback.
@@ -56,12 +65,14 @@ AGENTS, BATCH, SEQ, STEPS = 4, 2, 16, 3
 STEP_TOL = 1e-5          # abs, whole fused steps against the stacked trainer
 PLAIN_TOL = 1e-6         # abs, per-leaf mixings and mean baselines
 JOIN_S = 300             # the spawn's time limit (the ranks' collectives: 60 s)
+TOPK_AUTO = "topk:auto:65536"    # 101 of the bucket's 9,738 rows a neighbour
 
 
 def _cfg(optimizer, topology="ring", mixing="ppermute_fused", fused=True,
-         teacher=True, **knobs):
+         teacher=True, opt_faults=None, **knobs):
     return {"optimizer": optimizer, "topology": topology, "mixing": mixing,
-            "fused": fused, "teacher": teacher, "knobs": knobs}
+            "fused": fused, "teacher": teacher, "opt_faults": opt_faults,
+            "knobs": knobs}
 
 
 CONFIGS = {
@@ -85,6 +96,24 @@ CONFIGS = {
     "sgd": _cfg("sgd", mixing="dense", fused=False, teacher=False),
     "msgd": _cfg("msgd", mixing="ppermute", fused=False, teacher=False),
     "fedavg": _cfg("fedavg", mixing="dense", fused=False, teacher=False),
+    # the staleness ring under faults: the drop hits a ring neighbour
+    # (agent 0's link from agent 1; drop:0:2 would be vacuous on 4)
+    "cdsgd-int8-overlap-ring2-faults": _cfg(
+        "cdsgd", exchange="int8", schedule="overlap", staleness=2,
+        fault_schedule="straggler:1:1,drop:0:1"),
+    "cdmsgd-int8-overlap-stall": _cfg("cdmsgd", exchange="int8",
+                                      schedule="overlap", staleness=4,
+                                      fault_schedule="stall:2:1:3"),
+    "cdsgd-topk-ef-overlap": _cfg("cdsgd", compressor="topk:0.1",
+                                  error_feedback=True, schedule="overlap"),
+    "nesterov-topk-ef-sync-dense": _cfg("cdmsgd_nesterov", compressor="topk:0.1",
+                                        error_feedback=True, sparse_update=False),
+    "cdadam-topk-auto-ef-sync": _cfg("cdadam", compressor=TOPK_AUTO,
+                                     error_feedback=True),
+    "cdmsgd-rank4-ef-sync": _cfg("cdmsgd", compressor="rank:4",
+                                 error_feedback=True),
+    "fedavg-faults": _cfg("fedavg", mixing="dense", fused=False, teacher=False,
+                          opt_faults="straggler:1:1"),
 }
 FUSED = [k for k, v in CONFIGS.items() if v["mixing"] == "ppermute_fused"]
 PLAIN = [k for k, v in CONFIGS.items() if v["mixing"] != "ppermute_fused"]
@@ -100,8 +129,8 @@ def _stacked_trainer(name, p0):
     tr = CollaborativeTrainer(
         lambda p, b: tt.loss_fn(cfg, p, b), tree_map(lambda x: x[0], p0),
         make_topology(spec["topology"], AGENTS),
-        ranks.make_opt(spec["optimizer"], spec["fused"]), device="cpu",
-        **knobs)
+        ranks.make_opt(spec["optimizer"], spec["fused"], spec["opt_faults"],
+                       AGENTS), device="cpu", **knobs)
     tr.state = TrainState(params=tree_map(torch.clone, p0),
                           opt_state=tr._program.init_state(
                               tree_map(torch.clone, p0)))
@@ -185,6 +214,7 @@ def test_update_phase_bitwise(runs, name):
         assert ranks.leaves_equal(s.wire, ws.wire), f"{name}: rank {r} wire"
         assert ranks.leaves_equal(s.residual, ws.residual), \
             f"{name}: rank {r} residual"
+        assert ranks.leaves_equal(s.qwarm, ws.qwarm), f"{name}: rank {r} qwarm"
         assert s.step == ws.step
 
 
@@ -214,16 +244,25 @@ def test_plain_mixings_and_means_match_stacked(runs, name):
 def test_census_equals_closed_form(runs, name):
     expected, got = runs
     spec, program = expected[name]["spec"], expected[name]["program"]
-    quantized = program.exchange in ("int8", "fp8")
+    fields = {"topk": 3, "rank": 2, "int8": 2, "fp8": 2}.get(
+        program.compressor_kind if program.compressed else program.exchange, 1)
     per_neighbor = consensus_lib.program_bytes_per_neighbor(spec, program)
+    if program.fault_tolerant:      # the ring moves what plain overlap moves
+        plain = consensus_lib.make_mixing_program(
+            program.schedule, exchange=program.exchange)
+        assert consensus_lib.program_bytes_per_neighbor(spec, plain) \
+            == per_neighbor
     for step in range(STEPS):
         topo = program.schedule.topologies[step % program.schedule.period]
         n_shifts = sum(1 for s in topo.shift_weights() if s % AGENTS)
-        sends = (n_shifts * spec.n_buckets * program.n_payloads
-                 * (2 if quantized else 1) * program.rounds)
+        sends = (n_shifts * spec.n_buckets * program.n_payloads * fields
+                 * program.rounds)
         want_bytes = per_neighbor * n_shifts * program.rounds
         for r in range(AGENTS):
-            c = got[r][name]["steps"][step]["census"]
+            got_step = got[r][name]["steps"][step]
+            if got_step["wire_bytes"] is not None:
+                assert got_step["wire_bytes"] == per_neighbor, (name, step)
+            c = got_step["census"]
             assert c["sends"] == sends and c["recvs"] == sends, (name, step, c)
             assert c["bytes_sent"] == want_bytes == c["bytes_received"], \
                 (name, step, c, want_bytes)
@@ -251,9 +290,9 @@ def test_sync_exchange_follows_the_grad_phase(runs):
     assert [e[0] for e in events] == ["grad", "post", "wait"]
 
 
-def _mesh(rank=0, size=AGENTS):
+def _mesh(rank=0, size=AGENTS, axes=None):
     return mesh_lib.AgentMesh(rank=rank, size=size, backend="gloo", group=None,
-                              device=torch.device("cpu"))
+                              device=torch.device("cpu"), axes=axes)
 
 
 def _build(**kw):
@@ -266,19 +305,60 @@ def _build(**kw):
 
 @pytest.mark.parametrize("kw,err,item", [
     ({"remat": True}, NotImplementedError, "A17.3"),
-    ({"staleness": 2, "schedule": "overlap"}, NotImplementedError, "A16.2"),
-    ({"fault_schedule": "straggler:1:2", "schedule": "overlap"},
-     NotImplementedError, "A16.2"),
-    ({"compressor": "topk:0.01", "error_feedback": True}, NotImplementedError,
-     "A16.2"),
-    ({"compressor": "rank:4", "error_feedback": True}, NotImplementedError,
-     "A16.2"),
     ({"mode": "train_hier"}, NotImplementedError, "A16.2"),
     ({"mode": "serve"}, NotImplementedError, "A16.2"),
-], ids=["remat", "staleness", "faults", "topk", "rank", "train_hier", "serve"])
+], ids=["remat", "train_hier", "serve"])
 def test_later_knobs_raise_at_build(kw, err, item):
     with pytest.raises(err, match=item):
         _build(**kw)
+
+
+def _serve_step():
+    steps_lib.build_serve_step()
+
+
+def _prefill_step():
+    steps_lib.build_prefill_step()
+
+
+def _model_axes():
+    partition_specs(stack_agent_axis(tt.model_template(ranks.lm_config()),
+                                     AGENTS),
+                    {"agent": "data", "tp": "model", "heads": "model"})
+
+
+@pytest.mark.parametrize("kw,want", [
+    ({"staleness": 2, "schedule": "overlap", "exchange": "int8"}, "ring"),
+    ({"fault_schedule": "straggler:1:2", "schedule": "overlap",
+      "exchange": "int8"}, "ring"),
+    ({"compressor": "topk:0.01", "error_feedback": True}, "topk"),
+    ({"compressor": "topk:0.01", "error_feedback": True,
+      "sparse_update": False}, "topk"),
+    ({"compressor": "rank:4", "error_feedback": True}, "rank"),
+    ({"opt": ranks.make_opt("fedavg", False, "straggler:1:1", AGENTS),
+      "mixing": "dense"}, "fedavg"),
+    ({"mode": "train_hier"}, None),
+    ({"mode": "serve"}, None),
+    (_model_axes, None),
+    (_serve_step, None),
+    (_prefill_step, None),
+], ids=["staleness", "faults", "topk", "topk-dense", "rank", "fedavg-faults",
+        "train_hier", "serve", "model-axes", "serve-step", "prefill-step"])
+def test_agent_axis_knobs_build_and_model_axes_raise(kw, want):
+    """The agent-axis knobs of ROADMAP A16.2 build; what stays A16.2 (the
+    non-agent model axes, the serve and prefill steps) still raises it."""
+    if want is None:
+        with pytest.raises(NotImplementedError, match="A16.2"):
+            kw() if callable(kw) else _build(**kw)
+        return
+    b = _build(**kw)
+    p = b.mixing_program
+    if want == "ring":
+        assert p.fault_tolerant and b.comm.flat.strategy.fault_ops is not None
+    elif want == "fedavg":
+        assert p is None and b.comm.agent == 0 and b.optimizer.faults is not None
+    else:
+        assert p.compressor_kind == want and p.error_feedback
 
 
 def test_model_axis_raises():

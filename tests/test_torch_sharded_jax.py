@@ -8,11 +8,16 @@ gemma3-1b in float32, fused CDMSGD on a ring, from carried weights
 (``torch_sharded_ranks.live_params`` plus a per-agent perturbation) on the
 same ``lm_agent_batches``; the port's four ``gloo`` ranks run the same
 configuration through ``repro_torch.launch.steps.build_train_step``.  Three steps, sync and
-overlap on the f32 wire: params within 1e-5, losses within 1e-5
-relative.  The reference's stencil sums in shift order and the port's in
-sender order, so this check is not bit for bit (the port's sharded update
-phase is held bit for bit against its stacked one in
-``test_torch_sharded.py``).
+overlap on the f32 wire, the f32 staleness ring (``staleness=2``) under
+``straggler:1:1,drop:0:1``, CDMSGD on ``rank:4`` with error feedback (the
+JAX warm-start basis carried into the port's ``OptState.qwarm``: the
+port draws its own) and FedAvg (E = 2) with partial participation
+(``straggler:1:1``, ``mixing="dense"``): params within 1e-5, losses
+within 1e-5 relative.  None of these draws a random stream the two
+packages would draw differently.  The reference's stencil sums in shift
+order and the port's in sender order, so this check is not bit for bit
+(the port's sharded update phase is held bit for bit against its stacked
+one in ``test_torch_sharded.py``, the top-k wire among them).
 """
 
 import json
@@ -39,11 +44,22 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 AGENTS, BATCH, SEQ, STEPS = 4, 2, 16, 3
 STEP_TOL = 1e-5           # abs, params after three steps
 LOSS_TOL = 1e-5           # relative
+RANK = 4
 CONFIGS = {
     "cdmsgd-f32-sync": {"optimizer": "cdmsgd", "topology": "ring",
                         "knobs": {"schedule": "sync"}},
     "cdmsgd-f32-overlap": {"optimizer": "cdmsgd", "topology": "ring",
                            "knobs": {"schedule": "overlap"}},
+    "cdmsgd-f32-overlap-ring2-faults": {
+        "optimizer": "cdmsgd", "topology": "ring",
+        "knobs": {"schedule": "overlap", "staleness": 2,
+                  "fault_schedule": "straggler:1:1,drop:0:1"}},
+    "cdmsgd-rank4-ef-sync": {"optimizer": "cdmsgd", "topology": "ring",
+                             "knobs": {"compressor": f"rank:{RANK}",
+                                       "error_feedback": True}},
+    "fedavg-faults": {"optimizer": "fedavg", "topology": "ring",
+                      "mixing": "dense", "opt_faults": "straggler:1:1",
+                      "knobs": {}},
 }
 
 JAX_STEP = textwrap.dedent("""
@@ -51,6 +67,7 @@ JAX_STEP = textwrap.dedent("""
     import jax, jax.numpy as jnp, numpy as np
     from repro.configs import get_config
     from repro.configs.base import InputShape
+    from repro.core.faults import make_fault_schedule
     from repro.core.optim import make_optimizer
     from repro.launch.mesh import make_debug_mesh
     from repro.launch import steps as steps_lib
@@ -64,11 +81,17 @@ JAX_STEP = textwrap.dedent("""
     mesh = make_debug_mesh(4, 1)
     results = {}
     for name, c in spec["configs"].items():
-        opt = make_optimizer(c["optimizer"], spec["lr"], mu=spec["mu"],
-                             fused=True)
+        mixing = c.get("mixing", "ppermute_fused")
+        kw = {"mu": spec["mu"]}
+        if c["optimizer"] == "fedavg":
+            kw.update(local_steps=2, faults=make_fault_schedule(
+                c["opt_faults"], 4))
+        else:
+            kw["fused"] = True
+        opt = make_optimizer(c["optimizer"], spec["lr"], **kw)
         b = steps_lib.build_train_step(
             cfg, shape, mesh, opt, mode="train", topology_name=c["topology"],
-            mixing="ppermute_fused", remat=False, **c["knobs"])
+            mixing=mixing, remat=False, **c["knobs"])
         leaves, treedef = jax.tree.flatten(b.param_template,
             is_leaf=lambda x: hasattr(x, "axes") and hasattr(x, "init"))
         params = jax.tree.unflatten(treedef, [
@@ -124,6 +147,9 @@ def both(tmp_path_factory):
         arrays.update({f"b{i}/{k}": v for k, v in b.items()})
     spec = {"configs": CONFIGS, "keys": keys, "seq": SEQ, "batch": BATCH,
             "steps": STEPS, "lr": ranks.LR, "mu": ranks.MU}
+    # the reference's rank-r warm start, carried into the port's state
+    from repro.kernels.consensus_update.topk import rank_init_q
+    qwarm = torch.tensor(np.asarray(rank_init_q(RANK)))
     src, out = str(d / "inputs.npz"), str(d / "jax.npz")
     np.savez(src, spec=json.dumps(spec), **arrays)
     # XLA's intra-op thread pool spins for work: beside the other test
@@ -138,7 +164,7 @@ def both(tmp_path_factory):
     try:
         path = str(d / "port.pt")
         torch.save({"configs": CONFIGS, "batches": batches, "seq": SEQ,
-                    "batch": BATCH,
+                    "batch": BATCH, "qwarm": qwarm,
                     "P0": tree_map(torch.from_numpy, p0)}, path)
         port = mesh_lib.spawn_agents(ranks.run_jax_configs, AGENTS,
                                      args=(path,), backend="gloo",

@@ -18,8 +18,9 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import InputShape
-from repro_torch.core import make_optimizer
+from repro_torch.core import engine, make_optimizer
 from repro_torch.core import consensus as consensus_lib
+from repro_torch.core.faults import make_fault_schedule
 from repro_torch.kernels.consensus_update import sr_quantize
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.sharding import local_batch
@@ -65,12 +66,16 @@ def live_params(template, seed: int = 0) -> dict:
     return walk(template, ())
 
 
-def make_opt(name: str, fused: bool):
+def make_opt(name: str, fused: bool, faults=None, n_agents: int = 4):
+    """The optimizer of a configuration; ``faults`` (a spec) gives FedAvg
+    its partial participation over ``n_agents``."""
     kw = {}
     if name in ("cdmsgd", "cdmsgd_nesterov", "msgd"):
         kw["mu"] = MU
     if name == "fedavg":
         kw.update(local_steps=2, mu=MU)
+        if faults is not None:
+            kw["faults"] = make_fault_schedule(faults, n_agents)
     lr = ADAM_LR if name == "cdadam" else LR
     if name in ("cdsgd", "cdmsgd", "cdmsgd_nesterov", "cdadam"):
         kw["fused"] = fused
@@ -87,9 +92,19 @@ def _to(tree, device):
                     tree)
 
 
-def _wire_ptrs(wire, quantized: bool):
+def wire_ptrs(wire, quantized: bool):
+    """The ``data_ptr`` of every tensor a carried wire puts on the wire: a
+    ring's selected slot ``min(send_age, S - 1)``, every compact field of
+    a compressed entry, a dense pair's payload (and int8 / fp8 scales)."""
+    if isinstance(wire, consensus_lib.WireRing):
+        sel = min(int(wire.send_age[0]), wire.slots[0][0].shape[1] - 1)
+        wire = tuple((p[:, sel], sc[:, sel]) for p, sc in wire.slots)
     out = []
-    for p, sc in wire:
+    for e in wire:
+        if isinstance(e, (consensus_lib.TopKWire, consensus_lib.RankWire)):
+            out.extend(f.data_ptr() for f in e)
+            continue
+        p, sc = e
         out.append(p.data_ptr())
         if quantized:
             out.append(sc.data_ptr())
@@ -115,7 +130,8 @@ def run_configs(mesh, inputs_path: str) -> dict:
     out = {}
     for name, spec in data["configs"].items():
         bundle = steps_lib.build_train_step(
-            cfg, shape, mesh, make_opt(spec["optimizer"], spec["fused"]),
+            cfg, shape, mesh, make_opt(spec["optimizer"], spec["fused"],
+                                       spec.get("opt_faults"), mesh.size),
             topology_name=spec["topology"], mixing=spec["mixing"],
             **spec["knobs"])
         params = _to(tree_map(lambda x: x[mesh.rank].clone(), data["P0"]),
@@ -125,12 +141,15 @@ def run_configs(mesh, inputs_path: str) -> dict:
         steps = []
         for batch in data["batches"]:
             census.reset()
-            posted = (_wire_ptrs(state.wire, quantized)
-                      if bundle.schedule == "overlap" else None)
+            overlap = bundle.schedule == "overlap"
+            posted = wire_ptrs(state.wire, quantized) if overlap else None
+            wire_bytes = (engine.wire_bytes_per_neighbor(state.wire)
+                          if overlap else None)
             params, state, metrics = bundle.step_fn(
                 params, state, local_batch(batch, mesh))
             steps.append({"census": census.snapshot(),
                           "events": list(census.events), "posted": posted,
+                          "wire_bytes": wire_bytes,
                           "loss": float(metrics["loss"])})
         res = {"params": _cpu(params), "steps": steps}
         teacher = data["teacher"].get(name)
@@ -149,20 +168,26 @@ def run_configs(mesh, inputs_path: str) -> dict:
 
 def run_jax_configs(mesh, inputs_path: str) -> dict:
     """The configurations held against the JAX sharded step: whole steps
-    from the carried weights (row ``rank`` of ``P0``), final params."""
+    from the carried weights (row ``rank`` of ``P0``), final params; a
+    rank-r program starts from the reference's warm-start basis
+    (``qwarm``)."""
     data = torch.load(inputs_path, weights_only=False)
     cfg = lm_config()
     shape = InputShape("tiny_train", data["seq"], data["batch"] * mesh.size,
                        "train")
     out = {}
     for name, spec in data["configs"].items():
+        mixing = spec.get("mixing", "ppermute_fused")
         bundle = steps_lib.build_train_step(
-            cfg, shape, mesh, make_opt(spec["optimizer"], True),
-            topology_name=spec["topology"], mixing="ppermute_fused",
-            **spec["knobs"])
+            cfg, shape, mesh, make_opt(spec["optimizer"], True,
+                                       spec.get("opt_faults"), mesh.size),
+            topology_name=spec["topology"], mixing=mixing, **spec["knobs"])
         params = _to(tree_map(lambda x: x[mesh.rank].clone(), data["P0"]),
                      mesh.device)
         state = bundle.init_state(params)
+        if state.qwarm:
+            q = data["qwarm"].to(mesh.device)[None]
+            state = state._replace(qwarm=tuple(q.clone() for _ in state.qwarm))
         losses = []
         for batch in data["batches"]:
             params, state, metrics = bundle.step_fn(params, state,
@@ -221,3 +246,36 @@ def leaves_equal(a, b) -> bool:
     return len(la) == len(lb) and all(
         torch.equal(x, y) for x, y in zip(la, lb)
         if isinstance(x, torch.Tensor))
+
+
+def run_factored(mesh, inputs_path: str) -> dict:
+    """The factored ``pod x data`` mesh on this rank: fused int8 CDMSGD's
+    update phase teacher-forced from the stacked trainer's state, one
+    whole step with its census, and the per-leaf ``FactoredMix`` mixing of
+    this agent's params."""
+    data = torch.load(inputs_path, weights_only=False)
+    cfg = lm_config()
+    shape = InputShape("tiny_train", data["seq"], data["batch"] * mesh.size,
+                       "train")
+    bundle = steps_lib.build_train_step(
+        cfg, shape, mesh, make_opt("cdmsgd", True), mixing="ppermute_fused",
+        exchange="int8")
+    teacher = data["teacher"]
+    p1, s1 = steps_lib.local_train_state(teacher["params"],
+                                         teacher["opt_state"], mesh.rank)
+    grads = tree_map(lambda x: x[mesh.rank].clone(), teacher["grads"])
+    with torch.no_grad():
+        update = bundle.update_phase(p1, grads, s1)
+    params = tree_map(lambda x: x[mesh.rank].clone(), data["P0"])
+    state = bundle.init_state(params)
+    mesh.census.reset()
+    params, state, metrics = bundle.step_fn(params, state,
+                                            local_batch(data["batches"][0], mesh))
+    census = mesh.census.snapshot()
+    fm = steps_lib._agent_factors(mesh, ("pod", "data"))
+    mixed = fm.make_mix_fn(mesh)(tree_map(lambda x: x[mesh.rank].clone(),
+                                          data["P0"]))
+    return {"update": _cpu(update), "step": _cpu(params), "census": census,
+            "loss": float(metrics["loss"]),
+            "mixed": _cpu(mixed), "topology": bundle.topology.name,
+            "senders": bundle.comm.flat.strategy.plans[0].senders}
