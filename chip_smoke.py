@@ -281,6 +281,34 @@ the compressors, factored ``pod x data`` meshes) adds:
     stacked trainer on ``kron(Pi_pod, Pi_data)``.  The sharded runs'
     launches join the ``kernels`` line.
 
+The MoE, MLA and VLM slice (kimi-k2-1t-a32b: GQA and MoE; deepseek-v2-236b:
+MLA and MoE; internvl2-2b: a projected stub-patch frontend; the loss's
+remat and the router's aux term) adds:
+
+3.  flash attention at kimi-k2's and internvl2-2b's prefill shapes (B 4,
+    S 2048, D 128, causal; H 64 on KV 8 and H 16 on KV 8), against the
+    plain version, SDPA causal beside each;
+6-7. (``FAMILY_ARCHS``) each at published width, one at a time, weights
+    drawn on the card: internvl2-2b at full depth on 4 x (256 patches + 1792
+    tokens), kimi-k2 and deepseek-v2 at 2 layers (1 dense, 1 MoE) on 4 x
+    2048: the counted prefill (exactly 24, 2 and 0 flash launches, all on
+    ``flash_tc_kernel``: deepseek-v2's MLA is plain, as in the reference),
+    wall and device ms, the top kernels, peak memory and an MoE layer's
+    dispatch share (``moe dispatch`` lines); the serve loop;
+8.  each reduced in float32, card against CPU (the MoE routes compared
+    first, all alike) and decode against the forward on the card;
+10c. (``FAMILY_LM_RUNS``) internvl2-2b at full width on 2 agents, CDMSGD
+    f32 sync and CDSGD int8 overlap, each without and with remat (its first
+    step's update phase bit for bit with the run without; steady step,
+    tokens/s and peak memory of both); kimi-k2 and deepseek-v2 reduced on 2
+    agents, CDMSGD int8, an update and a quantize launch a step on each of
+    their two buckets (bf16 weights, float32 routers), ``moe_aux`` finite
+    and above 0;
+13. their update phases card against CPU bit for bit;
+14. the timed runs and their parity pass ``remat=False``; one more 2-layer
+    float32 parity at ``build_train_step``'s default ``remat=True``
+    (``SHARDED_REMAT_PARITY``).
+
 Any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 float32 matmuls and convolutions run in full float32 (TF32 off).
@@ -355,7 +383,9 @@ from repro_torch.launch.steps import (  # noqa: E402
     local_train_state,
 )
 from repro_torch.launch.serve import make_prompt, serve  # noqa: E402
+from repro_torch.nn import moe as moe_lib  # noqa: E402
 from repro_torch.nn import transformer as tt  # noqa: E402
+from repro_torch.nn.layers import _act, mlp  # noqa: E402
 from repro_torch.nn.param import count_params, init_params  # noqa: E402
 from repro_torch.nn.paper_models import (  # noqa: E402
     classifier_loss,
@@ -709,6 +739,10 @@ SHARDED_SPARSE_RUNS = tuple(
     (f"{name} {TOPK} EF sync", name, {"compressor": TOPK, "error_feedback": True},
      {}, {"sr_quantize": 1, f"{name}_update_sparse": 1})
     for name in ("cdmsgd", "cdmsgd_nesterov", "cdadam"))
+# the parity run at build_train_step's default remat=True (the runs above
+# pass remat=False, as before the loss had remat)
+SHARDED_REMAT_PARITY = ("cdsgd int8 overlap, remat (the default)", "cdsgd",
+                        {"exchange": "int8", "schedule": "overlap"})
 SHARDED_STEPS, SHARDED_SEQ = 3, 1024        # batch 1 x 1024 per rank
 SHARDED_PARITY_LAYERS, SHARDED_PARITY_SEQ = 2, 128
 SHARDED_TOL = 1e-5             # of max |param|: a whole step, sharded vs stacked
@@ -723,6 +757,39 @@ FACTORED_RUN = ("cdmsgd int8 sync pod 2 x data 2", "cdmsgd", {"exchange": "int8"
 SHARDED_HEADROOM = 512 << 20   # B per rank beyond a CUDA context
 SHARDED_PG_TIMEOUT = 120.0     # s, each collective in the ranks
 SHARDED_JOIN_S = 600.0         # s, the whole phase
+# the MoE, MLA and VLM families at published width (phases 6-7): (arch,
+# layers or None for the full depth, flash launches per 4 x 2048 prefill:
+# its GQA layers).  kimi-k2-1t-a32b's and deepseek-v2-236b's full depths
+# (2.1 TB and 472 GB of bf16 weights) fit no card: 2 layers each (1 dense,
+# 1 MoE: 37.2 and 9.98 GiB); deepseek-v2's MLA prefill runs the plain
+# blockwise attention (qk width 192, v 128), as the reference's does: no
+# flash launch
+FAMILY_ARCHS = (("internvl2-2b", None, 24), ("kimi-k2-1t-a32b", 2, 2),
+                ("deepseek-v2-236b", 2, 0))
+FAMILY_CHECK = (2, 32)         # phase 8, reduced: batch, positions
+# phase 10c, the families trained through repro_torch.launch.train.main:
+# internvl2-2b at full width and depth on 2 agents (a ring), batch 1 x 1024
+# positions (256 stub patches of ones + 768 tokens), 3 steps without and with
+# remat (the first step's update phase held bit for bit between them); kimi-k2 and
+# deepseek-v2 reduced on 2 agents, CDMSGD on the int8 wire: their bf16
+# weights and float32 routers are two buckets, an update and a quantize
+# launch a step on each.  (label, arch, agents, topology, batch, seq, steps,
+# flags, launches at init, launches per step, remat)
+VLM_ARCH = "internvl2-2b"
+FAMILY_LM_RUNS = tuple(
+    (f"{VLM_ARCH} {label}{' remat' if remat else ''}", VLM_ARCH, 2, "ring", 1, 768, 3,
+     flags, init, per_step, remat)
+    for label, flags, init, per_step in (
+        ("cdmsgd f32 sync", ["--optimizer", "cdmsgd", "--fused"], {},
+         {"cdmsgd_update": 1}),
+        ("cdsgd int8 overlap", ["--optimizer", "cdsgd", "--exchange", "int8",
+                                "--schedule", "overlap"],
+         {"sr_quantize": 1}, {"sr_quantize": 1, "cdsgd_update_q": 1}))
+    for remat in (False, True)) + tuple(
+    (f"{arch} reduced cdmsgd int8 sync", f"{arch}-reduced", 2, "fully_connected", 2,
+     64, 3, ["--optimizer", "cdmsgd", "--exchange", "int8"], {},
+     {"sr_quantize": 2, "cdmsgd_update_q": 2}, False)
+    for arch in ("kimi-k2-1t-a32b", "deepseek-v2-236b"))
 RESUME_FLAGS = ["--agents", "2", "--topology", "fully_connected", "--batch", "1",
                 "--seq", "1024", "--optimizer", "cdmsgd", "--exchange", "int8",
                 "--schedule", "overlap", "--error-feedback"]
@@ -2130,7 +2197,8 @@ def check_flash(results: dict, gen) -> None:
     launch), the float32 kernel at the float32 card-vs-CPU shape; the
     other dense configs' prefill shapes (h2o-danube-3-4b's head dim 120,
     bf16 and float32; granite-3-8b's and starcoder2-7b's bf16 GQA groups of
-    4 and 9 at D 128); ``scaled_dot_product_attention`` on the same operands (GQA, causal or a
+    4 and 9 at D 128; kimi-k2-1t-a32b's and internvl2-2b's, groups of 8 and
+    2 at D 128); ``scaled_dot_product_attention`` on the same operands (GQA, causal or a
     boolean band mask) as the library yardstick.  Then the bf16 speed
     criteria, printed (met or not), not held."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2142,6 +2210,10 @@ def check_flash(results: dict, gen) -> None:
     # groups of 4 and 9
     granite, starcoder = (("flash_attention", c.n_heads, c.n_kv_heads, c.head_dim_)
                           for c in map(get_config, ("granite-3-8b", "starcoder2-7b")))
+    # kimi-k2-1t-a32b's and internvl2-2b's prefill layers: D 128 on GQA groups
+    # of 8 (64 heads on 8) and 2 (16 on 8)
+    kimi, internvl = (("flash_attention", c.n_heads, c.n_kv_heads, c.head_dim_)
+                      for c in map(get_config, ("kimi-k2-1t-a32b", "internvl2-2b")))
     for (name, h, kv, d), label, b, s, dtype, window in (
             (gemma, "path", PREFILL_BATCH, PREFILL_LEN, torch.bfloat16, 512),
             (gemma, "path-global", PREFILL_BATCH, PREFILL_LEN, torch.bfloat16, None),
@@ -2156,7 +2228,9 @@ def check_flash(results: dict, gen) -> None:
             (h2o, "ragged", PREFILL_BATCH, 200, torch.bfloat16, 64),
             (h2o, "f32", 1, 640, torch.float32, D120_WINDOW),
             (granite, "granite", PREFILL_BATCH, PREFILL_LEN, torch.bfloat16, None),
-            (starcoder, "starcoder2", PREFILL_BATCH, PREFILL_LEN, torch.bfloat16, None)):
+            (starcoder, "starcoder2", PREFILL_BATCH, PREFILL_LEN, torch.bfloat16, None),
+            (kimi, "kimi-k2", PREFILL_BATCH, PREFILL_LEN, torch.bfloat16, None),
+            (internvl, "internvl2", PREFILL_BATCH, PREFILL_LEN, torch.bfloat16, None)):
         q = torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
         k = torch.randn((b, kv, s, d), generator=gen, device=dev).to(dtype)
         v = torch.randn((b, kv, s, d), generator=gen, device=dev).to(dtype)
@@ -2315,9 +2389,7 @@ def prefill_path(params_by_arch: dict, archs=SERVE_ARCHS) -> dict:
     for arch, kernel, per_forward in archs:
         cfg = get_config(arch)
         params = params_by_arch[arch]
-        tokens = torch.as_tensor(make_prompt(cfg, PREFILL_BATCH, PREFILL_LEN, 0),
-                                 device="cuda")
-        batch = {"inputs": tokens}
+        batch = prefill_batch(cfg)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_serving_counts()
@@ -2376,8 +2448,11 @@ def prefill_path(params_by_arch: dict, archs=SERVE_ARCHS) -> dict:
                                  f"{symbol} launches, expected {per_forward}")
         wall = float(np.median(walls))
         tokens_n = PREFILL_BATCH * PREFILL_LEN
+        text = batch["inputs"].shape[1]
+        split = "" if text == PREFILL_LEN else \
+            f" ({PREFILL_LEN - text} patches + {text} text)"
         print(f"prefill {arch}: {cfg.param_count()} params bf16, {PREFILL_BATCH}x"
-              f"{PREFILL_LEN} tokens: first forward {first_ms:.2f} ms, wall median "
+              f"{PREFILL_LEN} tokens{split}: first forward {first_ms:.2f} ms, wall median "
               f"{wall:.3f} ms over {len(walls)} ({[round(x, 3) for x in walls]}), "
               f"{tokens_n / wall * 1e3:.1f} prefill tokens/s, max_memory_allocated "
               f"{peak:.1f} MiB ({', '.join(params_by_arch)} weights resident), "
@@ -2389,14 +2464,76 @@ def prefill_path(params_by_arch: dict, archs=SERVE_ARCHS) -> dict:
               f"; top: " + "; ".join(
                   f"{n[:60]} {t:.3f} ms" for n, t in
                   sorted(by_name.items(), key=lambda kv: -kv[1])[:6]))
+        if cfg.is_moe:
+            moe_dispatch(cfg, params, batch, busy)
     return counts
 
 
-def serve_path(params_by_arch: dict, archs=SERVE_ARCHS, check_layers=None) -> None:
+def prefill_batch(cfg) -> dict:
+    """The 4 x 2048 prefill batch (``make_prompt``, seed 0) on the card; a
+    VLM spends ``min(frontend_tokens, PREFILL_LEN // 2)`` positions on stub
+    patch embeddings (seeded normal draws) and the rest on text."""
+    front = min(cfg.frontend_tokens, PREFILL_LEN // 2) if cfg.modality == "vlm" else 0
+    batch = {"inputs": torch.as_tensor(
+        make_prompt(cfg, PREFILL_BATCH, PREFILL_LEN - front, 0), device="cuda")}
+    if front:
+        batch["frontend"] = torch.randn(
+            (PREFILL_BATCH, front, cfg.frontend_dim), device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(0))
+    return batch
+
+
+def moe_dispatch(cfg, params, batch, forward_device_ms: float) -> None:
+    """An MoE layer of the prefill, timed (CUDA events) on its own input
+    (captured from one forward) beside its expert and shared FFNs alone on
+    buffers of the same shapes: the difference is the dispatch (router,
+    top-k sort, slots, scatter, gather, gate combine), printed as a share
+    of the layer and of the forward's device time."""
+    seen = {}
+    original = moe_lib.moe_apply
+
+    def capture(p, x, **kw):
+        seen.setdefault("call", (p, x.clone(), kw))
+        return original(p, x, **kw)
+
+    moe_lib.moe_apply = capture
+    try:
+        with torch.inference_mode():
+            tt.forward(cfg, params, batch)
+    finally:
+        moe_lib.moe_apply = original
+    p, x, kw = seen["call"]
+    b, s, d = x.shape
+    e, k = p["router"].shape[-1], kw["top_k"]
+    cap = moe_lib.capacity(b * s, k, e, kw["capacity_factor"])
+    buf = torch.randn((e, cap, d), device=x.device).to(x.dtype)
+    xf, act = x.reshape(b * s, d), _act(kw["act"])
+
+    def ffn():
+        h = act(torch.bmm(buf, p["wg"])) * torch.bmm(buf, p["wi"])
+        torch.bmm(h, p["wo"])
+        if "shared" in p:
+            mlp(p["shared"], xf, act=kw["act"])
+
+    with torch.inference_mode():
+        layer_ms = cuda_ms(lambda: original(p, x, **kw), iters=10, warmup=2)
+        ffn_ms = cuda_ms(ffn, iters=10, warmup=2)
+    dispatch = layer_ms - ffn_ms
+    print(f"moe dispatch {cfg.name}: one MoE layer on {b}x{s} tokens (top-{k} of {e} "
+          f"experts, capacity {cap}, {cfg.n_shared_experts} shared): {layer_ms:.3f} ms; "
+          f"its expert and shared FFNs alone {ffn_ms:.3f} ms; the dispatch {dispatch:.3f} "
+          f"ms, {dispatch / layer_ms:.1%} of the layer, "
+          f"{dispatch / forward_device_ms:.1%} of the forward's device time "
+          f"{forward_device_ms:.3f} ms [{card_line()}]")
+    del seen, x, buf
+
+
+def serve_path(params_by_arch: dict, archs=SERVE_ARCHS, check_layers=None,
+               decode_check: bool = True) -> None:
     """Phase 7: the ``serve`` loop at full width (no kernel launches in
-    decode), then decode against the kernel-backed forward over 64
-    teacher-forced positions (on the first ``check_layers`` layers when
-    given, else at full depth)."""
+    decode), then (``decode_check``) decode against the kernel-backed
+    forward over 64 teacher-forced positions (on the first ``check_layers``
+    layers when given, else at full depth)."""
     for arch, _, _ in archs:
         cfg = get_config(arch)
         params = params_by_arch[arch]
@@ -2414,6 +2551,8 @@ def serve_path(params_by_arch: dict, archs=SERVE_ARCHS, check_layers=None) -> No
               f"{stats['seconds'] * 1e3:.1f} ms, decode_tokens_per_s "
               f"{stats['decode_tokens_per_s']:.1f}, tokens_per_s (the reference's "
               f"figure) {stats['tokens_per_s']:.1f}; first sequence {seqs[0].tolist()}")
+        if not decode_check:
+            continue
         toks = torch.as_tensor(make_prompt(cfg, *DECODE_CHECK, 1), device="cuda")
         if check_layers is not None:
             cfg, params = first_layers(cfg, params, check_layers)
@@ -2465,6 +2604,177 @@ def dense_serving_path() -> dict:
     return counts
 
 
+@contextlib.contextmanager
+def registered(cfg):
+    """``cfg`` in the config registry under its name while the block runs
+    (a registered config stays)."""
+    added = cfg.name not in ARCH_CONFIGS
+    ARCH_CONFIGS.setdefault(cfg.name, cfg)
+    try:
+        yield cfg
+    finally:
+        if added:
+            del ARCH_CONFIGS[cfg.name]
+
+
+def family_config(arch: str, layers):
+    """``arch``'s config, cut to ``layers`` (named for it) unless None."""
+    cfg = get_config(arch)
+    if layers is None:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=layers, name=f"{arch}-{layers}layers")
+
+
+def family_serving_path() -> int:
+    """Phases 6-7 for the MoE, MLA and VLM configs at published width
+    (``FAMILY_ARCHS``), one at a time, bf16 weights drawn on the card (seed
+    0): the counted, timed and profiled 4 x 2048 prefill (internvl2-2b: 256
+    stub patches + 1792 tokens; exact flash launches, all on
+    ``flash_tc_kernel``; an MoE layer's dispatch share), its peak memory,
+    and the serve loop (no kernel launch in decode).  Returns the flash
+    launches."""
+    launches = 0
+    for arch, layers, per_forward in FAMILY_ARCHS:
+        with registered(family_config(arch, layers)) as cfg:
+            _free()
+            t0 = time.perf_counter()
+            params = init_params(tt.model_template(cfg),
+                                 torch.Generator(device="cuda").manual_seed(0),
+                                 device="cuda")
+            torch.cuda.synchronize()
+            gib = sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 2**30
+            print(f"{cfg.name}: full-width weights ({cfg.param_count():,} params, "
+                  f"{cfg.n_layers} layers, {gib:.2f} GiB: bf16, float32 routers) drawn "
+                  f"on the card (seed 0): {time.perf_counter() - t0:.1f} s")
+            spec = (cfg.name, "flash_attention", per_forward)
+            launches += prefill_path({cfg.name: params}, (spec,))["flash_attention"]
+            serve_path({cfg.name: params}, (spec,), decode_check=False)
+            del params
+            _free()
+    return launches
+
+
+def parity_families() -> None:
+    """Phase 8 for ``FAMILY_ARCHS``, reduced, in float32, on
+    ``live_weights``: the card's forward against the CPU's from the same
+    weights and batch (an MoE model's routes compared first: the share of
+    (token, layer) routes alike is printed and must be all; logits within
+    ``MODEL_TOL`` of max |logit|), then on the card decode against the
+    forward over ``FAMILY_CHECK`` teacher-forced positions within
+    ``DECODE_F32_TOL`` (an MoE model at a capacity factor of E / k, where
+    the forward drops no pair, as decode's one token a step never does; a
+    VLM's decode, text only, against its text decoder's forward)."""
+    b, n = FAMILY_CHECK
+    for arch, _, _ in FAMILY_ARCHS:
+        cfg = dataclasses.replace(get_config(arch).reduced(), param_dtype="float32")
+        cpu_params = live_weights(cfg, init_params(tt.model_template(cfg), seed=1),
+                                  seed=4)
+        toks = torch.as_tensor(make_prompt(cfg, b, n, 2))
+        batch = {"inputs": toks}
+        if cfg.modality == "vlm":
+            batch["frontend"] = torch.randn((b, cfg.frontend_tokens, cfg.frontend_dim),
+                                            generator=torch.Generator().manual_seed(5))
+        routes = []                  # per forward: the top-k indices of each layer
+        original = moe_lib.route
+
+        def record(router, xf, top_k):
+            out = original(router, xf, top_k)
+            routes[-1].append(out[2].cpu())
+            return out
+
+        card_params = _to(cpu_params, CARD)
+        moe_lib.route = record
+        try:
+            with torch.inference_mode():
+                routes.append([])
+                want, _ = tt.forward(cfg, cpu_params, batch)
+                _reset_serving_counts()
+                routes.append([])
+                got, _ = tt.forward(cfg, card_params, _to(batch, CARD))
+                torch.cuda.synchronize()
+        finally:
+            moe_lib.route = original
+        launched = _serving_counts()
+        alike = "no MoE layer"
+        if cfg.is_moe:
+            cpu_r, card_r = (torch.cat(r) for r in routes)
+            same = (cpu_r.sort(-1).values == card_r.sort(-1).values).all(-1)
+            alike = f"{int(same.sum())} of {same.numel()} MoE routes alike"
+            if not bool(same.all()):
+                raise AssertionError(f"card/CPU {arch} reduced: {alike}")
+        gap = _rel_gap(got, want)
+        fcfg = cfg
+        if cfg.modality == "vlm":
+            fcfg = dataclasses.replace(cfg, modality="text")
+        elif cfg.is_moe:
+            fcfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        dcfg = cfg if cfg.modality == "vlm" else fcfg
+        tc = toks.to(CARD)
+        with torch.inference_mode():
+            fwd, _ = tt.forward(fcfg, card_params, {"inputs": tc})
+            cache = tt.init_cache(dcfg, b, n, device=CARD)
+            dec = torch.stack([tt.decode_step(dcfg, card_params, cache, tc[:, t:t + 1],
+                                              t)[0].float().cpu() for t in range(n)], 1)
+        dgap = _rel_gap(dec, fwd)
+        print(f"parity {arch} reduced float32 b={b} s={n}"
+              f"{f' (+ {cfg.frontend_tokens} stub patches)' if cfg.modality == 'vlm' else ''}"
+              f" card vs cpu: {alike}; max |logit diff| / max |logit| {gap:.3e} (tol "
+              f"{MODEL_TOL:g}); card launches {launched}; decode vs forward on the card "
+              f"over {n} positions {dgap:.3e} (tol {DECODE_F32_TOL:g})")
+        if not gap <= MODEL_TOL or not dgap <= DECODE_F32_TOL:
+            raise AssertionError(f"{arch} reduced: card/CPU {gap}, decode/forward {dgap}")
+        del card_params, cpu_params
+
+
+def parity_moe_lm() -> None:
+    """Phase 13 for the MoE configs: kimi-k2 and deepseek-v2 reduced in
+    bf16 (a bf16 bucket and a float32 routers' bucket), CDMSGD on the int8
+    wire, 2 agents: one card step, then the update phase from its state
+    with the card's gradients on the card and on the CPU: the bf16 and int8
+    tensors bit for bit, the float32 ones within ``UPDATE_TOL``."""
+    stream = lm_agent_batches(make_lm_tokens(1 << 14, vocab=512, seed=1), 2, 2, 32,
+                              seed=1)
+    batches = [next(stream) for _ in range(2)]
+    for arch in ("kimi-k2-1t-a32b", "deepseek-v2-236b"):
+        cfg = get_config(arch).reduced()
+        params = live_weights(cfg, init_params(tt.model_template(cfg), seed=5), seed=6)
+        trs = [CollaborativeTrainer(lambda p, bt, c=cfg: tt.loss_fn(c, p, bt), params,
+                                    make_topology("fully_connected", 2),
+                                    make_optimizer("cdmsgd", LR, mu=MU, fused=True),
+                                    exchange="int8", device=d) for d in ("cpu", CARD)]
+        cpu, card = trs
+        out = card.step(batches[0])
+        st = card.state
+        gp = card.optimizer.grad_params(st.params, st.opt_state)
+        (_, metrics), grads = card._program.grad_phase(
+            gp, {k: torch.as_tensor(v, device=CARD) for k, v in batches[1].items()})
+        # the CPU's operands first: the kernels write their gradient and
+        # momentum operands in place, and a bucket of one leaf (the stacked
+        # routers) is a view of it
+        operands = (_to(st.params, "cpu"), _to(grads, "cpu"), _to(st.opt_state, "cpu"))
+        with torch.no_grad():
+            got = card._program.update_phase(st.params, grads, st.opt_state)
+            want = cpu._program.update_phase(*operands)
+        leaves = [(x.cpu(), y) for x, y in zip(tree_leaves(got), tree_leaves(want))
+                  if isinstance(x, torch.Tensor)]
+        # float32 (the routers' bucket, the wire's row scales) within
+        # UPDATE_TOL, as phase 5 holds float32 update phases; the rest bit for bit
+        f32 = [(x, y) for x, y in leaves if x.dtype == torch.float32]
+        other = [(x, y) for x, y in leaves if x.dtype != torch.float32]
+        f32_gap = max(float((x - y).abs().max()) for x, y in f32)
+        f32_same = sum(_equal_bits(x, y) for x, y in f32)
+        other_same = [_equal_bits(x, y) for x, y in other]
+        dtypes = sorted({str(x.dtype)[6:] for x, _ in other})
+        print(f"parity {arch} reduced bf16 cdmsgd int8 update phase card vs cpu, same "
+              f"state and gradients: {sum(other_same)} of {len(other)} "
+              f"{'/'.join(dtypes)} tensors bit for bit; float32 {f32_same} of {len(f32)} "
+              f"bit for bit, max |diff| {f32_gap:.3e} (tol {UPDATE_TOL:g}); step 1 "
+              f"loss {out['loss']:.4f}, moe_aux {out['moe_aux']:.4f}; grad phase "
+              f"moe_aux {[round(float(v), 4) for v in metrics['moe_aux']]}")
+        if not all(other_same) or not f32_gap <= UPDATE_TOL:
+            raise AssertionError(f"{arch} reduced int8 update phase: card and CPU differ")
+
+
 def first_layers(cfg, params, depth: int):
     """``(cfg with depth layers, views of params' first layers)``: each
     stacked group cut to the counts of that depth's template."""
@@ -2513,7 +2823,8 @@ def live_weights(cfg, params, seed: int):
     ``(d, heads, hd)`` projection as its fan-in (gemma3-1b: std 0.5 over d
     1152, so q and k entries have std ~17 and scores std ~290): attention
     is then an argmax that float32 summation order can flip, and the model
-    is chaotic.  Phases 7 and 8 print the template draw's gaps beside the
+    is chaotic.  MLA's ``(rank, heads, k)`` up-projections are rescaled to
+    variance 1 / rank the same way.  Phases 7 and 8 print the template draw's gaps beside the
     held ones."""
     gen = torch.Generator().manual_seed(seed)
 
@@ -2524,7 +2835,12 @@ def live_weights(cfg, params, seed: int):
         if "attn" in group:
             a = group["attn"]
             for n in ("wq", "wk", "wv"):
-                a[n].mul_(math.sqrt(a[n].shape[-2] / cfg.d_model))
+                if n in a:
+                    a[n].mul_(math.sqrt(a[n].shape[-2] / cfg.d_model))
+            # MLA's up-projections (rank, heads, k) contract over the rank
+            for n in ("wuq", "wuk", "wuv"):
+                if n in a:
+                    a[n].mul_(math.sqrt(a[n].shape[-2] / a[n].shape[-3]))
             a["wo"].mul_(1 / math.sqrt(cfg.n_heads))
         if "time_mix" in group:
             tm, cm = group["time_mix"], group["channel_mix"]
@@ -2944,10 +3260,11 @@ def check_sparse_one_agent(gen) -> None:
 
 
 @contextlib.contextmanager
-def timed_steps(record: list):
+def timed_steps(record: list, on_step1=None):
     """Wrap ``CollaborativeTrainer.step`` while a training entry point runs:
-    each step synchronized and timed, with its loss and the launch counts
-    after it, appended to ``record``."""
+    each step synchronized and timed, with its loss, MoE aux term and the
+    launch counts after it, appended to ``record``; ``on_step1(trainer)``
+    after the first step, outside its time."""
     original = CollaborativeTrainer.step
 
     def step(self, batch):
@@ -2956,7 +3273,9 @@ def timed_steps(record: list):
         out = original(self, batch)
         torch.cuda.synchronize()
         record.append({"ms": 1e3 * (time.perf_counter() - t0), "loss": out["loss"],
-                       "counts": cu.launch_counts()})
+                       "moe_aux": out.get("moe_aux", 0.0), "counts": cu.launch_counts()})
+        if on_step1 is not None and len(record) == 1:
+            on_step1(self)
         return out
 
     CollaborativeTrainer.step = step
@@ -2978,14 +3297,19 @@ def live_init(cfg):
     gradient grows with depth from it (a float32 loss at seq 128: norm
     1.5e3 at 2 layers, 5.2e5 at 7, on a CPU): at full depth one step at lr
     0.01 left the agents 4.6e11 apart and the loss NaN two steps later.
-    A draw is kept on the host for the next run of the same config and
-    seed (a billion parameters take about ten seconds to draw there)."""
+    The draw runs on the card (a CUDA generator: a billion parameters take
+    about ten seconds to draw on the host) and is kept on the host for the
+    next run of the same config and seed."""
     original = lm_train.init_params
 
     def init(template, seed, device=None):
         key = (cfg.name, cfg.n_layers, seed)
         if key not in _LIVE_DRAWS:
-            _LIVE_DRAWS[key] = live_weights(cfg, original(template, seed), seed + 1)
+            drawn = original(template, torch.Generator(device=CARD).manual_seed(seed),
+                             device=CARD)
+            _LIVE_DRAWS[key] = tree_map(lambda t: t.cpu(),
+                                        live_weights(cfg, drawn, seed + 1))
+            del drawn
         return tree_map(lambda t: t.to(device, copy=True), _LIVE_DRAWS[key])
 
     lm_train.init_params = init
@@ -3054,20 +3378,138 @@ def lm_train_path() -> dict:
     return total
 
 
+@contextlib.contextmanager
+def remat_loss(remat: bool):
+    """``launch.train``'s loss with ``remat`` while the block runs (its CLI,
+    as the reference's, has no flag)."""
+    original = lm_train.loss_fn
+    if remat:
+        lm_train.loss_fn = functools.partial(tt.loss_fn, remat=True)
+    try:
+        yield
+    finally:
+        lm_train.loss_fn = original
+
+
+def grad_phase_peak(tr, batch, label: str) -> None:
+    """One grad phase of ``tr`` on ``batch`` alone: its wall and the
+    allocator's peak above what the train state holds before it."""
+    st = tr.state
+    gp = tr.optimizer.grad_params(st.params, st.opt_state)
+    dev_batch = {k: torch.as_tensor(v, device=CARD) for k, v in batch.items()}
+    _free()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = tr._program.grad_phase(gp, dev_batch)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - base
+    grads = sum(t.numel() * t.element_size() for t in tree_leaves(out[1]))
+    del out, gp
+    _free()
+    print(f"grad phase {label}: {wall:.1f} ms, allocator peak {peak / 2**30:.2f} GiB "
+          f"above the {base / 2**30:.2f} GiB train state ({grads / 2**30:.2f} GiB of it "
+          f"the gradients they return) [{card_line()}]")
+
+
+def _first_step(store: dict, key: str, remat: bool, tr) -> None:
+    """After a run's first step: agent 0's params and optimizer state (the
+    update phase's output) kept on the host without remat, held bit for bit
+    with remat."""
+    leaves = [t[0] for t in tree_leaves((tr.state.params, tr.state.opt_state))
+              if isinstance(t, torch.Tensor) and t.dim()]
+    if not remat:
+        store[key] = [t.detach().cpu() for t in leaves]
+        return
+    want = store.pop(key)
+    if len(want) != len(leaves) or not all(
+            _equal_bits(x.detach().cpu(), y) for x, y in zip(leaves, want)):
+        raise AssertionError(f"train {key}: the first step's update phase with remat "
+                             "differs from the run without")
+    print(f"train {key}: the first step's update phase with remat equals the run "
+          f"without bit for bit (agent 0's {len(leaves)} tensors: params and "
+          "optimizer state)")
+
+
+def family_train_path() -> dict:
+    """Phase 10c: ``FAMILY_LM_RUNS`` through ``repro_torch.launch.train.main``,
+    each checked as
+    ``lm_run`` checks (exact launches on each bucket, finite losses, an MoE
+    model's aux term finite and above 0, wire bytes against the accounting);
+    internvl2-2b's runs with remat against those without (the first step's
+    update phase of agent 0 bit for bit; steady step, tokens/s and peak
+    memory of both, and for the CDMSGD pair one grad phase's own peak).
+    Returns the launches by kernel and bucket type."""
+    total = {k: {"float32": 0, "bfloat16": 0} for k in cu.KERNELS}
+    first = {}
+    for *run, remat in FAMILY_LM_RUNS:
+        label, arch = run[0], run[1]
+        hook = None
+        if arch == VLM_ARCH:
+            hook = functools.partial(_first_step, first, label.removesuffix(" remat"),
+                                     remat)
+        for k, by in lm_run(*run, remat=remat, on_step1=hook,
+                            grad_peak="cdmsgd f32" in label).items():
+            for bucket, n in by.items():
+                total[k][bucket] += n
+    _LIVE_DRAWS.clear()
+    if first:
+        raise AssertionError(f"runs without their remat twin: {sorted(first)}")
+    time_vlm_bucket()
+    return total
+
+
+def time_vlm_bucket() -> None:
+    """The update and quantize kernels of internvl2-2b's runs timed at its
+    whole bf16 bucket on 2 agents (A = S = 2, a ring of 2): dense CDMSGD on
+    bf16 neighbours, CDSGD's ``_q`` form on an int8 payload, ``sr_quantize``
+    to int8; CUDA events and kernel-only beside the byte bound (phase 3c
+    holds these forms bit for bit on gemma3-1b's bucket)."""
+    dev = torch.device(CARD)
+    a, rows = 2, lm_bucket_rows(VLM_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    pi = make_topology("ring", a).pi
+    o = {"w": torch.tensor(pi, dtype=torch.float32, device=dev),
+         "wq": torch.tensor(_self_separated_weights(pi), dtype=torch.float32, device=dev)}
+    for k in ("x", "slf", "g", "v"):
+        o[k] = torch.randn((a, rows, 128), generator=gen, device=dev, dtype=torch.bfloat16)
+    o["q"], o["sc"] = cu.sr_quantize(o["x"], 11, "int8", agent_stride=104729)
+    for name in ("cdmsgd_update:bf16", "cdsgd_update_q:bf16", "sr_quantize:bf16"):
+        wrapper, symbol, _ = BF16_FORMS[name]
+        kernel, _ = _bf16_form_calls(name, o, 11)
+        ms = cuda_ms(kernel, iters=10, warmup=2)
+        dev_ms = device_ms(kernel, symbol, iters=5)
+        kind = torch.bfloat16 if wrapper == "cdmsgd_update" else torch.int8
+        b_ms, b_by = bound(wrapper, a, 0 if wrapper == "sr_quantize" else a, rows,
+                           kind, bucket=torch.bfloat16)
+        print(f"kernel {name} [{VLM_ARCH} bucket] A={a} rows={rows}: ms={ms:.5f} "
+              f"bound_ms={b_ms:.5f} ({b_by}) bound_share={b_ms / ms:.3f} kernel_only_ms="
+              f"{'not measured' if dev_ms is None else f'{dev_ms:.5f}'} [{card_line()}]")
+    del o
+    _free()
+
+
 def lm_run(label, arch, agents, topo, batch, seq, steps, flags, init,
-           per_step) -> dict:
+           per_step, remat: bool = False, on_step1=None,
+           grad_peak: bool = False) -> dict:
     """One training run of ``lm_train_path``; returns its launches by
-    kernel and bucket type."""
+    kernel and bucket type.  An MoE model's launches fall half on its bf16
+    bucket, half on its float32 routers' bucket.  ``grad_peak``: after the
+    run, one grad phase alone, its allocator peak above the resident train
+    state (what remat trades)."""
     argv = ["--arch", arch, "--preset", "full", "--agents", str(agents),
             "--topology", topo, "--batch", str(batch), "--seq", str(seq),
             "--steps", str(steps), "--log-every", "0", "--device", CARD, *flags]
+    cfg = get_config(arch)
     _free()
     torch.cuda.reset_peak_memory_stats()
     record = []
     cu.reset_launch_counts()
     _reset_serving_counts()
     t0 = time.perf_counter()
-    with timed_steps(record), live_init(get_config(arch)):
+    with timed_steps(record, on_step1), live_init(cfg), remat_loss(remat):
         tr = lm_train.main(argv)
     wall = time.perf_counter() - t0
     counts, buckets, serving = (cu.launch_counts(), cu.bucket_launch_counts(),
@@ -3080,6 +3522,8 @@ def lm_run(label, arch, agents, topo, batch, seq, steps, flags, init,
                                  f"{_want_counts(init, per_step, i + 1)}")
         if not np.isfinite(r["loss"]):
             raise AssertionError(f"train {label} step {i}: loss {r['loss']}")
+        if cfg.is_moe and not (np.isfinite(r["moe_aux"]) and r["moe_aux"] > 0):
+            raise AssertionError(f"train {label} step {i}: moe_aux {r['moe_aux']}")
     if len(record) != steps or any(serving.values()):
         raise AssertionError(f"train {label}: {len(record)} steps, flash / "
                              f"WKV6 launches {serving} (expected none)")
@@ -3087,6 +3531,13 @@ def lm_run(label, arch, agents, topo, batch, seq, steps, flags, init,
     on_f32 = {"sr_quantize"} if "--compressor" in flags else set()
     out = {}
     for k, by in buckets.items():
+        if cfg.is_moe:
+            if by["bfloat16"] != by["float32"] or sum(by.values()) != counts[k]:
+                raise AssertionError(f"train {label}: {k} launches {by}, expected "
+                                     "half on the bf16 bucket, half on the float32 "
+                                     "routers' bucket")
+            out[k] = dict(by)
+            continue
         bucket = "float32" if k in on_f32 else "bfloat16"
         if by[bucket] != counts[k] or sum(by.values()) != counts[k]:
             raise AssertionError(f"train {label}: {k} launches {by}, all "
@@ -3111,24 +3562,34 @@ def lm_run(label, arch, agents, topo, batch, seq, steps, flags, init,
     launched = ", ".join(f"{k} {v}" for k, v in counts.items() if v)
     cons = tr.history.series("consensus_error")
     losses = ", ".join(f"{r['loss']:.4f}" for r in record)
+    if cfg.is_moe:
+        losses += "; moe_aux " + ", ".join(f"{r['moe_aux']:.4f}" for r in record)
     print(f"train {label}: {steps} steps through repro_torch.launch.train, "
           f"{count_params(tt.model_template(get_config(arch))):,} params x "
-          f"{agents} agents on {topo}, batch {batch} x seq {seq} per agent "
-          f"(live_init weights): losses {losses}, "
+          f"{agents} agents on {topo}, batch {batch} x seq {seq} per agent"
+          f"{f' (+ {cfg.frontend_tokens} stub patches)' if cfg.modality == 'vlm' else ''}"
+          f"{', remat' if remat else ''} (live_init weights): losses {losses}, "
           f"consensus_error {cons[0]:.3e} -> {cons[-1]:.3e}; first step "
           f"{record[0]['ms']:.1f} ms, steady median {med:.1f} ms "
           f"(steps 2-{steps}), {tokens / med * 1e3:,.0f} tokens/s; "
           f"max_memory_allocated {peak:.2f} GiB; wire {tr.wire_bytes_per_step:,} "
           f"B/step ({tr.program.describe()}{wire_note}); launches at init "
-          f"{init or 'none'}, per step {per_step} (bf16 bucket"
+          f"{init or 'none'}, per step {per_step} "
+          f"({'bf16 and float32 router buckets' if cfg.is_moe else 'bf16 bucket'}"
           f"{', sr_quantize on the float32 compact values' if on_f32 else ''}): "
           f"{launched}; flash / WKV6 launches 0; entry point wall {wall:.1f} s")
-    if arch != GEMMA_2L or label.endswith(LM_PROFILED):
+    profiled = arch != GEMMA_2L or label.endswith(LM_PROFILED)
+    if profiled or grad_peak:
         vocab = tr.state.params["embed"]["table"].shape[1]
         stream = lm_agent_batches(make_lm_tokens(1 << 15, vocab=vocab, seed=0),
                                   agents, batch, seq, seed=0)
-        symbols = [BF16_FORMS[f"{k}:bf16"][1] for k in per_step]
-        profile_lm_step(tr, next(stream), label, symbols)
+        extra = next(stream)
+        with remat_loss(remat):
+            if grad_peak:
+                grad_phase_peak(tr, extra, label)
+            if profiled:
+                symbols = [BF16_FORMS[f"{k}:bf16"][1] for k in per_step]
+                profile_lm_step(tr, extra, label, symbols)
         del stream
     del tr
     _free()
@@ -3344,7 +3805,7 @@ def _sharded_run(mesh, cfg, params, batches, label, opt_name, knobs, init,
     shape = InputShape("phase14", SHARDED_SEQ, mesh.size, "train")
     bundle = build_train_step(cfg, shape, mesh, _sharded_optimizer(opt_name),
                               topology_name="ring", mixing="ppermute_fused",
-                              **knobs)
+                              remat=False, **knobs)
     state = bundle.init_state(params)
     torch.cuda.synchronize(dev)
     if cu.launch_counts() != _want_counts(init, per_step, 0):
@@ -3412,7 +3873,7 @@ def _parity_config():
 
 
 def _sharded_parity(mesh, base, batch, label, opt_name, knobs,
-                    fraction: float, topology=None) -> dict:
+                    fraction: float, topology=None, remat=False) -> dict:
     """Phase 14's parity on this rank: gemma3-1b at full width with
     ``SHARDED_PARITY_LAYERS`` layers in float32, the stacked trainer on
     ``topology`` (the ring by default; one rank at a time builds it for
@@ -3421,7 +3882,9 @@ def _sharded_parity(mesh, base, batch, label, opt_name, knobs,
     at ``fraction`` of the card): the update phase with the same gradients
     and wire bit for bit (a rank-r wire within ``RANK_TOL``: its float64
     power iteration is a batched product in the stacked trainer), the whole
-    step on the same batch within ``SHARDED_TOL`` of max |param|."""
+    step on the same batch within ``SHARDED_TOL`` of max |param|.  The
+    sharded step's ``remat`` as given (None: ``build_train_step``'s
+    default, on); the stacked trainer's loss has none."""
     cfg = _parity_config()
     n, dev = mesh.size, mesh.device
     topology = topology or make_topology("ring", n)
@@ -3451,7 +3914,8 @@ def _sharded_parity(mesh, base, batch, label, opt_name, knobs,
     bundle = build_train_step(cfg, InputShape("phase14-parity", SHARDED_PARITY_SEQ, n,
                                               "train"),
                               mesh, _sharded_optimizer(opt_name),
-                              topology_name="ring", mixing="ppermute_fused", **knobs)
+                              topology_name="ring", mixing="ppermute_fused",
+                              **({} if remat is None else {"remat": remat}), **knobs)
     params, state = _to(rows["state"], dev)
     with torch.no_grad():
         got = bundle.update_phase(tree_map(torch.clone, params),
@@ -3486,7 +3950,7 @@ def _sharded_parity(mesh, base, batch, label, opt_name, knobs,
     del wp, bundle, params, state, rows, step
     _free()
     return {"label": label, "tensors": n_tensors, "gap": gap, "max_param": top,
-            "update_gap": update_gap, "bitwise": not rank_r,
+            "update_gap": update_gap, "bitwise": not rank_r, "remat": remat,
             "stacked_s": stacked_s, "params": count_params(tt.model_template(cfg))}
 
 
@@ -3535,6 +3999,9 @@ def sharded_rank(mesh, cap: int) -> dict:
         done.add(label)
         out["parity"].append(_sharded_parity(mesh, base, batch, label, opt_name,
                                              knobs, cap / total))
+    label, opt_name, knobs = SHARDED_REMAT_PARITY
+    out["parity"].append(_sharded_parity(mesh, base, batch, label, opt_name, knobs,
+                                         cap / total, remat=None))
     out["pinned_gib"] = sum(b.numel() for b in mesh.pinned.values()) / 2**30
     out["max_rss_gib"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
     return out
@@ -3665,7 +4132,8 @@ def _print_parity(r: int, par: dict, topology: str) -> None:
     held = ("bit for bit" if par["bitwise"] else
             f"within {RANK_TOL:g} (max |diff| {par['update_gap']:.3e})")
     print(f"sharded parity rank {r} gemma3-1b full width {SHARDED_PARITY_LAYERS} "
-          f"layers float32 ({par['params']:,} params) {par['label']} on {topology}: "
+          f"layers float32 ({par['params']:,} params) {par['label']} on {topology}"
+          f"{', build_train_step default remat=True' if par['remat'] is None else ', remat=False'}: "
           f"update phase {held} against the stacked trainer ({par['tensors']} "
           f"tensors: params and optimizer state), whole step max |diff| "
           f"{par['gap']:.3e} (max |param| {par['max_param']:.3e}, tol "
@@ -3767,9 +4235,15 @@ def main() -> None:
     with phase("6-7 dense configs serving"):
         for k, n in dense_serving_path().items():
             counts[k] = counts.get(k, 0) + n
+    with phase("6-7 MoE, MLA, VLM serving"):
+        counts["flash_attention"] += family_serving_path()
     with phase("10-12 LM training and resume"):
         lm = lm_train_path()
         for k, by in lm_resume().items():
+            for bucket, n in by.items():
+                lm[k][bucket] += n
+    with phase("10c MoE, MLA, VLM training"):
+        for k, by in family_train_path().items():
             for bucket, n in by.items():
                 lm[k][bucket] += n
     for name, (wrapper, _, _) in BF16_FORMS.items():
@@ -3799,7 +4273,8 @@ def main() -> None:
 
 
 def parities(params, train) -> None:
-    """Phases 5, 8 and 13: card against CPU."""
+    """Phases 5, 8 and 13: card against CPU (8 and 13 also for the MoE, MLA
+    and VLM configs)."""
     parity(params, train, 3)
     parity(params, train, 3, schedule="overlap")
     parity(params, train, 1, exchange="int8")
@@ -3811,7 +4286,9 @@ def parities(params, train) -> None:
     parity_multi_round_update(params, train)
     parity_ring(params, train)
     parity_models()
+    parity_families()
     parity_lm()
+    parity_moe_lm()
 
 
 if __name__ == "__main__":

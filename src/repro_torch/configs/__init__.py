@@ -3,10 +3,12 @@
 The ported architectures only: the dense GQA transformers gemma3-1b
 (local/global sliding windows), h2o-danube-3-4b (a 4096-token sliding
 window, head dim 120), granite-3-8b (global attention, tied embeddings)
-and starcoder2-7b (LayerNorm, a plain GELU MLP), and rwkv6-1.6b (RWKV6).  A
-``-reduced`` suffix gives the smoke-test variant.  The reference's other
-families (MLA, MoE, hybrid, SSM, encoder-decoder, the frontends) wait for
-ROADMAP A17.3.
+and starcoder2-7b (LayerNorm, a plain GELU MLP), rwkv6-1.6b (RWKV6),
+internvl2-2b (dense GQA behind a projected vision-patch frontend), and the
+MoE configs kimi-k2-1t-a32b (GQA) and deepseek-v2-236b (MLA).  A
+``-reduced`` suffix gives the smoke-test variant.  hymba-1.5b (hybrid
+attention + mamba) and seamless-m4t-medium (encoder-decoder, audio
+frontend) wait for ROADMAP A17.3.
 """
 
 from __future__ import annotations
@@ -14,14 +16,18 @@ from __future__ import annotations
 from typing import Dict, List
 
 from repro_torch.configs.base import INPUT_SHAPES, ArchConfig, InputShape, RunConfig
+from repro_torch.configs.deepseek_v2_236b import CONFIG as _deepseek_v2
 from repro_torch.configs.gemma3_1b import CONFIG as _gemma3
 from repro_torch.configs.granite_3_8b import CONFIG as _granite3
 from repro_torch.configs.h2o_danube_3_4b import CONFIG as _danube3
+from repro_torch.configs.internvl2_2b import CONFIG as _internvl2
+from repro_torch.configs.kimi_k2_1t_a32b import CONFIG as _kimi_k2
 from repro_torch.configs.rwkv6_1_6b import CONFIG as _rwkv6
 from repro_torch.configs.starcoder2_7b import CONFIG as _starcoder2
 
 ARCH_CONFIGS: Dict[str, ArchConfig] = {
-    c.name: c for c in [_rwkv6, _gemma3, _danube3, _granite3, _starcoder2]}
+    c.name: c for c in [_deepseek_v2, _kimi_k2, _rwkv6, _gemma3, _danube3,
+                        _granite3, _starcoder2, _internvl2]}
 
 
 def get_config(name: str) -> ArchConfig:
@@ -29,8 +35,9 @@ def get_config(name: str) -> ArchConfig:
         return get_config(name[: -len("-reduced")]).reduced()
     if name not in ARCH_CONFIGS:
         raise KeyError(f"unknown or unported arch {name!r}; the port has "
-                       f"{sorted(ARCH_CONFIGS)} (the other architectures of "
-                       "the JAX package are ROADMAP A17.3)")
+                       f"{sorted(ARCH_CONFIGS)} (hymba-1.5b and "
+                       "seamless-m4t-medium of the JAX package are ROADMAP "
+                       "A17.3)")
     return ARCH_CONFIGS[name]
 
 

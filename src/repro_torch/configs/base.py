@@ -1,12 +1,12 @@
 """Architecture configuration schema, as :mod:`repro.configs.base`.
 
-The port's own copy of :class:`ArchConfig` with the fields that the ported
-families read (dense GQA with local/global windows, RWKV6), and the
-discriminators of the families it does not run yet, on which the model
-raises.  :attr:`ArchConfig.dtype` is a ``torch.dtype``.  :class:`InputShape`
+The port's own copy of :class:`ArchConfig`, field for field the
+reference's (``compute_dtype`` aside, which nothing reads): dense GQA with
+local/global windows, RWKV6, MLA, MoE and the modality frontends, and the
+hybrid / encoder-decoder discriminators, on which the model raises (ROADMAP
+A17.3).  :attr:`ArchConfig.dtype` is a ``torch.dtype``.  :class:`InputShape`
 (the four assigned global input shapes, :data:`INPUT_SHAPES`) and
-:class:`RunConfig` are the reference's.  The reference's MLA, MoE,
-SSM-state, encoder and frontend sizes are not ported.
+:class:`RunConfig` are the reference's.
 """
 
 from __future__ import annotations
@@ -36,13 +36,36 @@ class ArchConfig:
     window: int = 0                  # swa / local layers
     local_global_period: int = 0     # every k-th layer is global (gemma3: 6)
 
-    # families the port does not run yet (the model raises on them)
-    n_experts: int = 0               # MoE
-    hybrid: bool = False             # parallel attention + mamba heads
-    is_encoder_decoder: bool = False
-    modality: str = "text"           # text | audio | vlm
+    # MLA (deepseek-v2)
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
 
+    # MoE
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    n_dense_layers: int = 0          # leading dense-FFN layers (deepseek/kimi: 1)
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
+    # SSM / hybrid (hybrid and mamba: not ported yet, the model raises)
     ssm_kind: str = "none"           # rwkv6 | mamba | none
+    ssm_state: int = 0
+    hybrid: bool = False             # parallel attention + mamba heads
+
+    # encoder-decoder (not ported yet, the model raises)
+    is_encoder_decoder: bool = False
+    enc_layers: int = 0
+
+    # modality frontends (stubs: the batch carries their embeddings)
+    modality: str = "text"           # text | audio | vlm
+    frontend_tokens: int = 0         # patches / audio frames fed by the stub
+    frontend_dim: int = 0            # embedding dim produced by the stub
+
     rope_theta: float = 1e4
     norm_kind: str = "rmsnorm"       # rmsnorm | layernorm
     act: str = "silu"
@@ -78,8 +101,18 @@ class ArchConfig:
         from repro_torch.nn.transformer import model_template
         return count_params(model_template(self))
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k + shared experts only)."""
+        if not self.is_moe:
+            return self.param_count()
+        per_expert = self.d_ff_expert * self.d_model * (3 if self.mlp_gated else 2)
+        n_moe_layers = self.n_layers - self.n_dense_layers
+        return self.param_count() - n_moe_layers * per_expert * (
+            self.n_experts - self.top_k)
+
     def reduced(self) -> "ArchConfig":
-        """Smoke-test variant: 2 layers, d_model <= 512 (the reference's)."""
+        """Smoke-test variant: 2 layers, d_model <= 512, <= 4 experts (the
+        reference's)."""
         n_heads = min(self.n_heads, 4)
         n_kv = min(self.n_kv_heads, n_heads)
         while n_heads % n_kv:
@@ -88,15 +121,28 @@ class ArchConfig:
             self,
             name=self.name + "-reduced",
             n_layers=2,
+            enc_layers=2 if self.is_encoder_decoder else 0,
             d_model=min(self.d_model, 256),
             n_heads=n_heads,
             n_kv_heads=n_kv,
             head_dim=64 if self.attn_kind != "mla" else None,
             d_ff=min(self.d_ff, 512),
             vocab_size=min(self.vocab_size, 512),
+            n_experts=min(self.n_experts, 4) if self.is_moe else 0,
+            n_shared_experts=min(self.n_shared_experts, 1),
+            top_k=min(self.top_k, 2) if self.is_moe else 0,
+            d_ff_expert=min(self.d_ff_expert, 128) if self.is_moe else 0,
+            n_dense_layers=min(self.n_dense_layers, 1),
+            kv_lora_rank=min(self.kv_lora_rank, 32),
+            q_lora_rank=min(self.q_lora_rank, 32),
+            qk_nope_head_dim=min(self.qk_nope_head_dim, 32),
+            qk_rope_head_dim=min(self.qk_rope_head_dim, 16),
+            v_head_dim=min(self.v_head_dim, 32),
             window=min(self.window, 8) if self.window else 0,
             local_global_period=min(self.local_global_period, 2)
             if self.local_global_period else 0,
+            frontend_tokens=min(self.frontend_tokens, 8),
+            frontend_dim=min(self.frontend_dim, 64) if self.frontend_dim else 0,
             attn_chunk=16,
         )
 

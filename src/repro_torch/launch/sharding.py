@@ -11,7 +11,9 @@ in ``train_hier``) and the ``serve`` mode are ROADMAP A16.2 and raise.
 A rank holds slice ``rank`` of every agent-stacked tensor: its params
 (the template without the agent axis) and its batch
 (:func:`local_batch` of what :func:`repro_torch.data.lm_agent_batches`
-makes).
+makes, plus a frontend model's stub embeddings).  A frontend model's
+sequence budget goes first to its stub embeddings (the reference's
+``min(frontend_tokens, seq // 2)``), the rest to text.
 """
 
 from __future__ import annotations
@@ -89,21 +91,66 @@ class TensorSpec:
     spec: PartitionSpec
 
 
+def _frontend_budget(cfg: ArchConfig, seq: int) -> Tuple[int, int]:
+    """``(frontend tokens, text tokens)`` of a ``seq``-token budget: a
+    frontend model spends ``min(frontend_tokens, seq // 2)`` on its stub
+    embeddings and the rest on text (an encoder-decoder's text keeps all)."""
+    front = 0
+    if cfg.modality in ("audio", "vlm"):
+        front = min(cfg.frontend_tokens, seq // 2)
+        if not cfg.is_encoder_decoder:
+            seq = seq - front
+    return front, seq
+
+
 def train_batch_specs(cfg: ArchConfig, shape: InputShape, mesh, mode: str):
-    """Per-agent stacked batch ``{"inputs", "targets"}``: ``(agents,
-    global_batch / agents, seq)`` int32, the agent dimension sharded."""
+    """Per-agent stacked batch ``{"inputs", "targets"[, "frontend"]}``:
+    ``(agents, global_batch / agents, text)`` int32 and a frontend model's
+    ``(agents, global_batch / agents, front, frontend_dim)`` bfloat16 stub
+    embeddings (:func:`_frontend_budget`), the agent dimension sharded."""
     rules = rules_for_mode(mode, mesh)
     a = agent_count(mesh, mode)
     if shape.global_batch % a:
         raise ValueError(f"global_batch {shape.global_batch} not divisible by "
                          f"{a} agents")
-    if cfg.modality != "text":
-        raise NotImplementedError(f"modality {cfg.modality!r}: the port runs "
-                                  "text models only (ROADMAP A17)")
+    b_local = shape.global_batch // a
+    front, seq = _frontend_budget(cfg, shape.seq_len)
     spec = PartitionSpec((rules["agent"], None, None))
-    dims = (a, shape.global_batch // a, shape.seq_len)
-    return {"inputs": TensorSpec(dims, torch.int32, spec),
-            "targets": TensorSpec(dims, torch.int32, spec)}
+    dims = (a, b_local, seq)
+    out = {"inputs": TensorSpec(dims, torch.int32, spec),
+           "targets": TensorSpec(dims, torch.int32, spec)}
+    if front:
+        out["frontend"] = TensorSpec((a, b_local, front, cfg.frontend_dim),
+                                     torch.bfloat16,
+                                     PartitionSpec((rules["agent"], None, None, None)))
+    return out
+
+
+def serve_batch_count(shape: InputShape, mesh) -> Tuple[int, Any]:
+    """``(batch, batch mesh axes)`` of serving: the batch over every agent
+    axis when it divides, else over ``data``, else replicated."""
+    axes = [a for a in (POD_AXIS, AGENT_AXIS) if a in mesh.shape]
+    b = shape.global_batch
+    if b % math.prod(mesh.shape[a] for a in axes) == 0:
+        return b, tuple(axes)
+    if b % mesh.shape[AGENT_AXIS] == 0:
+        return b, (AGENT_AXIS,)
+    return b, None
+
+
+def prefill_batch_specs(cfg: ArchConfig, shape: InputShape, mesh):
+    """Prefill batch ``{"inputs", "targets"[, "frontend"]}``: ``(b, text)``
+    int32 and a frontend model's ``(b, front, frontend_dim)`` bfloat16, the
+    batch over :func:`serve_batch_count`'s axes."""
+    b, b_ax = serve_batch_count(shape, mesh)
+    front, seq = _frontend_budget(cfg, shape.seq_len)
+    spec = PartitionSpec((b_ax, None))
+    out = {"inputs": TensorSpec((b, seq), torch.int32, spec),
+           "targets": TensorSpec((b, seq), torch.int32, spec)}
+    if front:
+        out["frontend"] = TensorSpec((b, front, cfg.frontend_dim), torch.bfloat16,
+                                     PartitionSpec((b_ax, None, None)))
+    return out
 
 
 def local_batch(batch: Dict[str, Any], mesh) -> Dict[str, torch.Tensor]:

@@ -36,11 +36,12 @@ agent, and ``rank:r``); ``microbatches`` splits the agent's batch.
 AgentMesh` ``axes``) mixes over the Kronecker product of one circulant
 factor per axis (:func:`_agent_factors`: a ring on an axis of more than 2
 agents, fully connected otherwise), ``topology_name`` aside, as the
-reference does.  What the sharded mode does not run yet raises at build
-time, before any work: ``remat=True`` (ROADMAP A17.3), a fused optimizer
-outside ``ppermute_fused``, and the non-agent model axes
-(``train_hier`` / ``serve``, ROADMAP A16.2); ``build_prefill_step`` and
-``build_serve_step`` wait for A16.2.
+reference does.  ``remat`` (the reference's default, on) recomputes each
+block of the loss in the backward pass (:func:`repro_torch.nn.transformer.
+forward`).  What the sharded mode does not run yet raises at build time,
+before any work: a fused optimizer outside ``ppermute_fused``, and the
+non-agent model axes (``train_hier`` / ``serve``, ROADMAP A16.2);
+``build_prefill_step`` and ``build_serve_step`` wait for A16.2.
 
 Usage, in each rank (see :func:`repro_torch.launch.mesh.spawn_agents`)::
 
@@ -75,8 +76,6 @@ from repro_torch.utils.tree import tree_map
 
 PyTree = Any
 MIXINGS = ("dense", "ppermute", "ppermute_fused")
-#: where the loss's rematerialization is queued
-REMAT_ITEM = "ROADMAP A17.3"
 
 
 @dataclasses.dataclass
@@ -155,13 +154,9 @@ def make_mix_comm(topology: Topology, mesh, mixing: str,
     return sharded_comm_ops(topology, mesh)
 
 
-def _check_sharded(optimizer, mixing, remat, schedule, n_agents: int):
+def _check_sharded(optimizer, mixing, schedule, n_agents: int):
     """The knobs the sharded mode does not run (yet), refused before any
     work."""
-    if remat:
-        raise NotImplementedError(
-            f"remat=True: the port's loss has no rematerialization yet "
-            f"({REMAT_ITEM}); pass remat=False")
     if mixing not in MIXINGS:
         raise ValueError(f"unknown mixing {mixing!r}; expected one of {MIXINGS}")
     if schedule not in engine.SCHEDULES:
@@ -194,7 +189,7 @@ def build_train_step(
     mode: str = "train",
     topology_name: str = "ring",
     mixing: str = "dense",
-    remat: bool = False,
+    remat: bool = True,
     microbatches: int = 1,
     exchange: str = "f32",
     schedule: str = "sync",
@@ -212,7 +207,7 @@ def build_train_step(
     docstring)."""
     rules = shlib.rules_for_mode(mode, mesh)
     n_agents = shlib.agent_count(mesh, mode)
-    _check_sharded(optimizer, mixing, remat, schedule, n_agents)
+    _check_sharded(optimizer, mixing, schedule, n_agents)
     factored = None
     if len(rules["agent"]) > 1:
         factored = _agent_factors(mesh, rules["agent"])
@@ -270,8 +265,8 @@ def build_train_step(
     if schedule == "overlap":
         engine.check_overlap_support(optimizer, comm)
 
-    grad_phase = engine.make_grad_phase(lambda p, b: loss_fn(cfg, p, b),
-                                        microbatches, per_agent=False)
+    grad_phase = engine.make_grad_phase(
+        lambda p, b: loss_fn(cfg, p, b, remat=remat), microbatches, per_agent=False)
     update_phase = engine.make_update_phase(optimizer, comm, schedule)
     step_program = engine.StepProgram(
         optimizer=optimizer, comm=comm, grad_phase=grad_phase,

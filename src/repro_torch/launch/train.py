@@ -5,8 +5,9 @@ N agents (the stacked simulation, one device) train the architecture's
 next-token loss through :class:`~repro_torch.core.trainer.
 CollaborativeTrainer` with the reference's flags, defaults and "implies
 ``--fused``" rules; the fused consensus update is one kernel launch per
-parameter dtype bucket per step (the zoo's models are one bfloat16
-bucket).  ``--checkpoint-dir`` saves the whole train state after the run;
+parameter dtype bucket per step (the zoo's dense models are one bfloat16
+bucket; an MoE model adds its float32 routers' bucket).  A VLM's batch
+carries the reference's stub frontend, ones for every patch.  ``--checkpoint-dir`` saves the whole train state after the run;
 ``--resume`` restores it first and fast-forwards the batch stream, so a
 resumed run continues the uninterrupted one bit for bit.  Weights are drawn
 from ``--seed`` (:func:`~repro_torch.nn.param.init_params`).  Runs on the
@@ -23,6 +24,8 @@ Examples:
 from __future__ import annotations
 
 import argparse
+
+import torch
 
 from repro_torch.checkpoint import restore_train_state, save_train_state
 from repro_torch.configs import get_config
@@ -165,7 +168,13 @@ def main(argv=None) -> CollaborativeTrainer:
     topo = make_topology(args.topology, args.agents)
 
     def lm_loss(p, batch):
-        return loss_fn(cfg, p, batch)
+        extra = {}
+        if cfg.modality in ("audio", "vlm"):
+            # the frontend stub: ones for every patch / frame, as the reference
+            extra["frontend"] = torch.ones(
+                (batch["inputs"].shape[0], cfg.frontend_tokens, cfg.frontend_dim),
+                dtype=torch.float32, device=batch["inputs"].device)
+        return loss_fn(cfg, p, {**batch, **extra})
 
     trainer = CollaborativeTrainer(
         lm_loss, params, topo, opt, device=dev, exchange=args.exchange,

@@ -20,8 +20,15 @@ GQA part of :mod:`repro.nn.attention`.
   einsum pair as in the reference (no kernel there either).
 
 GQA groups query heads over KV heads; no KV repetition is materialized.
-MLA, cross-attention and context parallelism are not ported yet (ROADMAP
-A17).
+
+MLA (DeepSeek-V2's multi-head latent attention, :func:`mla_attention`)
+expands the compressed ``c_kv`` into per-head K/V and runs
+:func:`blockwise_attention` at qk width ``nope + rope`` and v width
+``v_head``, in prefill as in training: the reference runs it plain too, and
+the flash kernel takes one width for q, k and v.  Its decode
+(:func:`mla_decode`) caches ``c_kv`` and the rotated ``k_rope`` only and
+attends in the absorbed form, in float32.  Cross-attention and context
+parallelism are not ported yet (ROADMAP A17.3, A16.2).
 """
 
 from __future__ import annotations
@@ -73,16 +80,18 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
                         q_positions: Optional[torch.Tensor] = None,
                         k_positions: Optional[torch.Tensor] = None,
-                        chunk: int = 512) -> torch.Tensor:
+                        chunk: int = 512,
+                        scale: Optional[float] = None) -> torch.Tensor:
     """Online-softmax attention of ``q (b, sq, H, hd)`` over ``k (b, sk, KV,
     hd)`` / ``v (b, sk, KV, hdv)`` in KV chunks of ``chunk`` (the last
     padded; padded keys are masked out), float32 throughout, differentiable:
     the reference's ``blockwise_attention`` step by step (running max
-    ``m``, running sum ``l``, accumulator, chunks in order)."""
+    ``m``, running sum ``l``, accumulator, chunks in order).  ``scale``
+    defaults to ``1 / sqrt(hd)``."""
     b, sq, h, hd = q.shape
     sk, kv, hdv = k.shape[1], k.shape[2], v.shape[3]
     group = h // kv
-    scale = 1.0 / math.sqrt(hd)
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     dev = q.device
     q_pos = q_positions if q_positions is not None else torch.arange(sq, device=dev)
     k_pos = k_positions if k_positions is not None else torch.arange(sk, device=dev)
@@ -217,3 +226,105 @@ def gqa_decode(params, cache: Dict[str, torch.Tensor], x: torch.Tensor,
     cache["v"][:, cur_index] = v[:, 0].to(cache["v"].dtype)
     out = decode_attention(q, cache["k"], cache["v"], cur_index, window=window)
     return _out(out, params["wo"]), cache
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# --------------------------------------------------------------------------
+
+
+def mla_template(d: int, n_heads: int, *, kv_lora: int, q_lora: int, qk_nope: int,
+                 qk_rope: int, v_head: int, dtype=torch.float32) -> Dict[str, ParamDef]:
+    t: Dict[str, ParamDef] = {
+        "wdkv": ParamDef((d, kv_lora), ("fsdp", None), init="scaled", dtype=dtype),
+        "wkr": ParamDef((d, qk_rope), ("fsdp", None), init="scaled", dtype=dtype),
+        "wuk": ParamDef((kv_lora, n_heads, qk_nope), (None, "tp", None),
+                        init="scaled", dtype=dtype),
+        "wuv": ParamDef((kv_lora, n_heads, v_head), (None, "tp", None),
+                        init="scaled", dtype=dtype),
+        "wo": ParamDef((n_heads, v_head, d), ("tp", None, "fsdp"), init="scaled",
+                       dtype=dtype),
+    }
+    if q_lora:
+        t["wdq"] = ParamDef((d, q_lora), ("fsdp", None), init="scaled", dtype=dtype)
+        t["wuq"] = ParamDef((q_lora, n_heads, qk_nope + qk_rope), (None, "tp", None),
+                            init="scaled", dtype=dtype)
+    else:
+        t["wq"] = ParamDef((d, n_heads, qk_nope + qk_rope), ("fsdp", "tp", None),
+                           init="scaled", dtype=dtype)
+    return t
+
+
+def _mla_q(params, x: torch.Tensor, positions: torch.Tensor, qk_nope: int,
+           rope_theta: float):
+    """``(q_nope, q_rope)`` of ``x (b, s, d)``, through the low-rank query
+    path when the template has one; rope on the ``q_rope`` part."""
+    if "wdq" in params:
+        q = _project(torch.matmul(x, params["wdq"]), params["wuq"])
+    else:
+        q = _project(x, params["wq"])
+    q_nope, q_rope = q[..., :qk_nope], q[..., qk_nope:]
+    return q_nope, apply_rope(q_rope, positions, rope_theta)
+
+
+def _mla_k_rope(params, x: torch.Tensor, positions: torch.Tensor,
+                rope_theta: float) -> torch.Tensor:
+    """The shared rotated key part, ``(b, s, 1, qk_rope)``."""
+    return apply_rope(torch.matmul(x, params["wkr"])[:, :, None, :], positions,
+                      rope_theta)
+
+
+def mla_attention(params, x: torch.Tensor, positions: torch.Tensor, *, qk_nope: int,
+                  qk_rope: int, rope_theta: float = 1e4,
+                  chunk: int = 512) -> torch.Tensor:
+    """Causal MLA of ``x (b, s, d)`` (prefill and training): ``c_kv``
+    expanded to per-head K (nope part, plus the shared rope part) and V,
+    then :func:`blockwise_attention` with scale ``1 / sqrt(nope + rope)``."""
+    q_nope, q_rope = _mla_q(params, x, positions, qk_nope, rope_theta)
+    c = torch.matmul(x, params["wdkv"])                          # compressed kv
+    k_rope = _mla_k_rope(params, x, positions, rope_theta)
+    k_nope = _project(c, params["wuk"])
+    v = _project(c, params["wuv"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:3], qk_rope)], dim=-1)
+    out = blockwise_attention(q, k, v, causal=True, q_positions=positions,
+                              k_positions=positions, chunk=chunk,
+                              scale=1.0 / math.sqrt(qk_nope + qk_rope))
+    return _out(out, params["wo"])
+
+
+def mla_init_cache(batch: int, max_len: int, kv_lora: int, qk_rope: int,
+                   dtype=torch.float32, device=None) -> Dict[str, torch.Tensor]:
+    return {
+        "c": torch.zeros((batch, max_len, kv_lora), dtype=dtype, device=device),
+        "kr": torch.zeros((batch, max_len, qk_rope), dtype=dtype, device=device),
+    }
+
+
+def mla_decode(params, cache: Dict[str, torch.Tensor], x: torch.Tensor,
+               cur_index: int, *, qk_nope: int, qk_rope: int,
+               rope_theta: float = 1e4) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Absorbed decode of one token ``x (b, 1, d)`` at ``cur_index``: its
+    ``c_kv`` and rotated ``k_rope`` are written into ``cache`` in place, then
+    ``logits_h(s) = <q_nope_h W_uk_h, c_s> + <q_rope_h, k_rope_s>`` and
+    ``out_h = (sum_s p_h(s) c_s) W_uv_h``, in float32 (the reference's:
+    bf16 would round the reassociated product visibly off the prefill's)."""
+    pos = torch.full((1,), cur_index, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(params, x, pos, qk_nope, rope_theta)
+    c_new = torch.matmul(x, params["wdkv"])
+    kr_new = _mla_k_rope(params, x, pos, rope_theta)[:, :, 0, :]
+    cache["c"][:, cur_index] = c_new[:, 0].to(cache["c"].dtype)
+    cache["kr"][:, cur_index] = kr_new[:, 0].to(cache["kr"].dtype)
+
+    f32 = torch.float32
+    q_c = torch.einsum("bshk,rhk->bshr", q_nope.to(f32), params["wuk"].to(f32))
+    scale = 1.0 / math.sqrt(qk_nope + qk_rope)
+    c_all, kr_all = cache["c"].to(f32), cache["kr"].to(f32)
+    logits = (torch.einsum("bthr,bsr->bths", q_c, c_all)
+              + torch.einsum("bthk,bsk->bths", q_rope.to(f32), kr_all)) * scale
+    allowed = torch.arange(c_all.shape[1], device=x.device) <= cur_index
+    logits = torch.where(allowed[None, None, None, :], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    ctx = torch.einsum("bths,bsr->bthr", p, c_all)               # weighted c
+    out = torch.einsum("bthr,rhe->bthe", ctx, params["wuv"].to(f32))
+    return _out(out.to(x.dtype), params["wo"]), cache

@@ -2,23 +2,32 @@
 templates, prefill forward, loss, and cached decode.
 
 Ported: dense GQA transformers with local/global sliding windows
-(gemma3-1b) and RWKV6 (rwkv6-1.6b).  The parameter tree has the
-reference's layout exactly (so the JAX package's weights carry over):
-layers stacked on a leading ``layers`` axis per homogeneous group, gemma's
-local/global interleave regrouped into period-sized super-blocks
+(gemma3-1b and the other dense configs), RWKV6 (rwkv6-1.6b), MoE blocks
+with GQA (kimi-k2-1t-a32b) or MLA (deepseek-v2-236b) attention after
+``n_dense_layers`` dense blocks, and the VLM frontend (internvl2-2b: a
+projector over the batch's stub patch embeddings, prepended to the token
+embeddings).  The parameter tree has the reference's layout exactly (so the
+JAX package's weights carry over): layers stacked on a leading ``layers``
+axis per homogeneous group (``dense`` then ``moe`` for an MoE model),
+gemma's local/global interleave regrouped into period-sized super-blocks
 (``lg_super``, each holding ``period`` stacked layers with a static window
 per sub-layer) and a tail (``lg_tail``).  Where the reference scans over a
 stack (``lax.scan``) the port loops over its layer slices in Python.
 
 Prefill attention runs the flash kernel and the RWKV6 prefill the WKV6
-kernel (see :mod:`.attention`, :mod:`.ssm`); both are forward-only.  The
+kernel (see :mod:`.attention`, :mod:`.ssm`); both are forward-only.  MLA
+and the MoE layer are plain PyTorch, as they are XLA in the reference.  The
 loss is the training path: :func:`loss_fn` asks the layers for the
-reference's differentiable attention (banded / blockwise) and WKV
-(chunked / scan), in plain PyTorch.  Decode carries per-layer
-caches with the same stacked layout; the port writes them **in place**
-(views of the stacked tensors) and returns the same tree.  MoE, hybrid,
-encoder-decoder, MLA and frontend families raise ``NotImplementedError``
-(ROADMAP A17).
+reference's differentiable attention (banded / blockwise) and WKV (chunked
+/ scan), in plain PyTorch, and adds ``router_aux_weight`` times the MoE
+layers' load-balance term.  ``remat=True`` recomputes each block (a gemma
+super-block as one unit) in the backward pass instead of keeping its
+activations, as the reference's ``jax.checkpoint`` of each scanned block
+does; the gradients are the same bits.  Decode carries per-layer caches
+with the same stacked layout; the port writes them **in place** (views of
+the stacked tensors) and returns the same tree.  The hybrid and
+encoder-decoder families, the audio frontend and mamba raise
+``NotImplementedError`` (ROADMAP A17.3).
 
 Public API:
   model_template(cfg)                       -> ParamDef tree
@@ -30,11 +39,13 @@ Public API:
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.func import vjp
 
 from repro_torch.nn import attention as attn
+from repro_torch.nn import moe as moe_lib
 from repro_torch.nn import ssm as ssm_lib
 from repro_torch.nn.layers import (
     embed,
@@ -45,29 +56,26 @@ from repro_torch.nn.layers import (
     unembed,
     unembed_template,
 )
-from repro_torch.nn.param import stack_layers
-from repro_torch.utils.tree import tree_leaves, tree_map
+from repro_torch.nn.param import ParamDef, stack_layers
+from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 PyTree = Any
 
 
 def _unported(cfg, what: str):
     return NotImplementedError(
-        f"{cfg.name}: {what} is not ported yet (ROADMAP A17); the port runs "
-        "dense GQA (full / sliding-window / local-global) and RWKV6 models")
+        f"{cfg.name}: {what} is not ported yet (ROADMAP A17.3); the port runs "
+        "dense GQA (full / sliding-window / local-global), RWKV6, MoE, MLA and "
+        "the VLM frontend")
 
 
 def _check_family(cfg) -> None:
     if cfg.is_encoder_decoder:
         raise _unported(cfg, "the encoder-decoder family")
-    if cfg.is_moe:
-        raise _unported(cfg, "the MoE family")
     if cfg.hybrid:
         raise _unported(cfg, "the hybrid (attention + mamba) family")
-    if cfg.modality != "text":
+    if cfg.modality not in ("text", "vlm"):
         raise _unported(cfg, f"the {cfg.modality} frontend")
-    if cfg.attn_kind == "mla":
-        raise _unported(cfg, "MLA")
     if cfg.ssm_kind not in ("none", "rwkv6"):
         raise _unported(cfg, f"the {cfg.ssm_kind} SSM")
 
@@ -81,19 +89,44 @@ def _static_window(cfg) -> Optional[int]:
     return cfg.window if cfg.attn_kind == "swa" else None
 
 
+def _has_frontend(cfg) -> bool:
+    return cfg.modality in ("audio", "vlm") and not cfg.is_encoder_decoder
+
+
 # --------------------------------------------------------------------------
 # templates
 # --------------------------------------------------------------------------
+
+
+def _attn_template(cfg):
+    if cfg.attn_kind == "mla":
+        return attn.mla_template(
+            cfg.d_model, cfg.n_heads, kv_lora=cfg.kv_lora_rank,
+            q_lora=cfg.q_lora_rank, qk_nope=cfg.qk_nope_head_dim,
+            qk_rope=cfg.qk_rope_head_dim, v_head=cfg.v_head_dim, dtype=cfg.dtype)
+    return attn.gqa_template(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.head_dim_, dtype=cfg.dtype)
 
 
 def dense_block_template(cfg) -> Dict[str, Any]:
     nt, _ = _norm(cfg)
     return {
         "ln1": nt(cfg.d_model, cfg.dtype),
-        "attn": attn.gqa_template(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                                  cfg.head_dim_, dtype=cfg.dtype),
+        "attn": _attn_template(cfg),
         "ln2": nt(cfg.d_model, cfg.dtype),
         "mlp": mlp_template(cfg.d_model, cfg.d_ff, gated=cfg.mlp_gated, dtype=cfg.dtype),
+    }
+
+
+def moe_block_template(cfg) -> Dict[str, Any]:
+    nt, _ = _norm(cfg)
+    return {
+        "ln1": nt(cfg.d_model, cfg.dtype),
+        "attn": _attn_template(cfg),
+        "ln2": nt(cfg.d_model, cfg.dtype),
+        "moe": moe_lib.moe_template(cfg.d_model, cfg.d_ff_expert, cfg.n_experts,
+                                    n_shared=cfg.n_shared_experts,
+                                    gated=cfg.mlp_gated, dtype=cfg.dtype),
     }
 
 
@@ -109,7 +142,8 @@ def layer_groups(cfg):
 
     local_global archs are regrouped into period-sized super-blocks
     (``lg_super``: ``period`` stacked layers, the last global, the others
-    local) and a tail of local layers (``lg_tail``); layer order is kept.
+    local) and a tail of local layers (``lg_tail``); an MoE model is
+    ``n_dense_layers`` dense blocks then MoE blocks; layer order is kept.
     """
     _check_family(cfg)
     if cfg.attn_kind == "local_global" and cfg.local_global_period > 1:
@@ -121,6 +155,12 @@ def layer_groups(cfg):
                            lambda c: stack_layers(dense_block_template(c), p)))
         if tail:
             groups.append(("lg_tail", tail, dense_block_template))
+        return groups
+    if cfg.is_moe:
+        groups = []
+        if cfg.n_dense_layers:
+            groups.append(("dense", cfg.n_dense_layers, dense_block_template))
+        groups.append(("moe", cfg.n_layers - cfg.n_dense_layers, moe_block_template))
         return groups
     if cfg.ssm_kind == "rwkv6":
         return [("rwkv", cfg.n_layers, rwkv_block_template)]
@@ -135,8 +175,14 @@ def model_template(cfg) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         t["unembed"] = unembed_template(cfg.d_model, cfg.vocab_size, cfg.dtype)
+    groups = layer_groups(cfg)
+    if cfg.modality in ("audio", "vlm"):
+        # projector from the stub frontend's embeddings into d_model
+        t["frontend_proj"] = {
+            "w": ParamDef((cfg.frontend_dim, cfg.d_model), (None, "fsdp"),
+                          init="scaled", dtype=cfg.dtype)}
     t["groups"] = {name: stack_layers(tmpl_fn(cfg), count)
-                   for name, count, tmpl_fn in layer_groups(cfg) if count > 0}
+                   for name, count, tmpl_fn in groups if count > 0}
     return t
 
 
@@ -165,8 +211,20 @@ def _sublayers(cfg, name: str, stacked: PyTree):
 # --------------------------------------------------------------------------
 
 
+def _self_attention(cfg, params, x, positions, window, differentiable: bool):
+    if cfg.attn_kind == "mla":
+        return attn.mla_attention(params, x, positions, qk_nope=cfg.qk_nope_head_dim,
+                                  qk_rope=cfg.qk_rope_head_dim,
+                                  rope_theta=cfg.rope_theta, chunk=cfg.attn_chunk)
+    return attn.gqa_attention(params, x, positions, window=window,
+                              rope_theta=cfg.rope_theta, chunk=cfg.attn_chunk,
+                              differentiable=differentiable)
+
+
 def _block_apply(cfg, group: str, params, x, positions, window,
                  differentiable: bool):
+    """One block; returns ``(x, aux)``: an MoE block's load-balance term
+    (float32), ``None`` for the others."""
     _, norm = _norm(cfg)
     if group == "rwkv":
         y, _ = ssm_lib.rwkv6_time_mix(params["time_mix"], norm(params["ln1"], x),
@@ -174,12 +232,111 @@ def _block_apply(cfg, group: str, params, x, positions, window,
                                       differentiable=differentiable)
         x = x + y
         y, _ = ssm_lib.rwkv6_channel_mix(params["channel_mix"], norm(params["ln2"], x))
-        return x + y
+        return x + y, None
     h = norm(params["ln1"], x)
-    x = x + attn.gqa_attention(params["attn"], h, positions, window=window,
-                               rope_theta=cfg.rope_theta, chunk=cfg.attn_chunk,
-                               differentiable=differentiable)
-    return x + mlp(params["mlp"], norm(params["ln2"], x), act=cfg.act)
+    x = x + _self_attention(cfg, params["attn"], h, positions, window, differentiable)
+    if group == "moe":
+        y, aux = moe_lib.moe_apply(params["moe"], norm(params["ln2"], x),
+                                   top_k=cfg.top_k,
+                                   capacity_factor=cfg.capacity_factor, act=cfg.act)
+        return x + y, aux
+    return x + mlp(params["mlp"], norm(params["ln2"], x), act=cfg.act), None
+
+
+def _unit_fn(cfg, name: str, positions, differentiable: bool) -> Callable:
+    """``fn(x, unit) -> (x, aux)`` of one slice of group ``name``'s stack:
+    a block, or a gemma super-block (its ``period`` dense layers in order,
+    no aux).  ``positions`` None: ``0 .. s-1`` made inside ``fn`` (a
+    rematerialized unit closes over no tensor: one made outside the
+    autograd Function belongs to another functorch level)."""
+
+    def pos(x):
+        return positions if positions is not None else \
+            torch.arange(x.shape[1], device=x.device)
+
+    if name == "lg_super":
+        def super_block(x, unit):
+            positions_ = pos(x)
+            for i in range(cfg.local_global_period):
+                window = None if cfg.layer_is_global(i) else cfg.window
+                x, _ = _block_apply(cfg, "dense", _layer(unit, i), x, positions_,
+                                    window, differentiable)
+            return x, None
+        return super_block
+    group = "dense" if name.startswith("lg_") else name
+    window = cfg.window if name == "lg_tail" else _static_window(cfg)
+
+    def block(x, unit):
+        return _block_apply(cfg, group, unit, x, pos(x), window, differentiable)
+    return block
+
+
+class _Remat(torch.autograd.Function):
+    """``fn(x, unit)`` whose backward recomputes the forward (with
+    ``torch.func.vjp``) instead of keeping its activations: the port's
+    ``jax.checkpoint``.  Only the unit's inputs are saved.  The unit's
+    parameter leaves are explicit tensor arguments (flattened), so the
+    generated vmap rule sees them under the stacked trainer's ``vmap``;
+    ``fn`` closes over static settings only, no tensor.
+
+    ``torch.func.grad`` runs its backward with ``create_graph=True``, which
+    would record the recompute in the outer graph and keep every unit's
+    activations to the end: the recompute runs under ``no_grad`` (the
+    outer level records nothing), its pullback with the outer backward's
+    ``create_graph`` (the same backward formulas, so the same bits, as
+    without remat), and
+    the cotangents leave detached (nothing holds the recompute once the
+    unit's backward returns).  So remat does not support a second
+    derivative."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, treedef, x, *leaves):
+        return fn(x, tree_unflatten(treedef, leaves))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        fn, treedef, *tensors = inputs
+        ctx.fn, ctx.treedef = fn, treedef
+        ctx.save_for_backward(*tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        fn, treedef = ctx.fn, ctx.treedef
+
+        def recompute(x, *leaves):
+            return fn(x, tree_unflatten(treedef, leaves))
+
+        # the engine runs a backward in grad mode exactly when it creates a graph
+        create_graph = torch.is_grad_enabled()
+        with torch.no_grad():
+            _, pullback = vjp(recompute, *ctx.saved_tensors)
+            cots = pullback(grads[0] if len(grads) == 1 else grads,
+                            create_graph=create_graph)
+        return (None, None, *(c.detach() for c in cots))
+
+
+def _apply_unit(fn: Callable, x, unit, remat: bool, has_aux: bool):
+    """``fn(x, unit)``, through :class:`_Remat` when ``remat``; ``(x,
+    aux)`` (``aux`` None unless ``has_aux``)."""
+    if not remat:
+        return fn(x, unit)
+    leaves, treedef = tree_flatten(unit)
+    if has_aux:
+        return _Remat.apply(fn, treedef, x, *leaves)
+    return _Remat.apply(lambda h, u: fn(h, u)[0], treedef, x, *leaves), None
+
+
+def _embed_inputs(cfg, params, batch):
+    """Token embeddings, behind the projected frontend embeddings for a VLM
+    (``batch["frontend"] (b, frontend_tokens, frontend_dim)``).  Returns
+    ``(x, positions)``, positions over frontend plus text."""
+    x = embed(params["embed"], batch["inputs"])
+    if _has_frontend(cfg):
+        fe = torch.matmul(batch["frontend"].to(x.dtype), params["frontend_proj"]["w"])
+        x = torch.cat([fe, x], dim=1)
+    return x, torch.arange(x.shape[1], device=x.device)
 
 
 def _logits(cfg, params, x):
@@ -190,22 +347,26 @@ def _logits(cfg, params, x):
     return unembed(params["unembed"], x)
 
 
-def forward(cfg, params, batch, *, differentiable: bool = False):
-    """Forward of ``batch["inputs"] (b, s)`` tokens.  Returns ``(logits (b,
-    s, vocab), aux)``; ``aux["moe_aux"]`` is 0 (no MoE).  Prefill
-    (``differentiable=False``) runs the forward-only attention and WKV6
-    kernels; ``differentiable=True`` (the loss) their plain, differentiable
-    training forms."""
-    x = embed(params["embed"], batch["inputs"])
-    pos = torch.arange(x.shape[1], device=x.device)
+def forward(cfg, params, batch, *, differentiable: bool = False, remat: bool = False):
+    """Forward of ``batch["inputs"] (b, s)`` tokens (behind ``batch
+    ["frontend"]`` for a VLM).  Returns ``(logits (b, [frontend +] s,
+    vocab), aux)``; ``aux["moe_aux"]`` sums the MoE layers' load-balance
+    terms (0 without MoE).  Prefill (``differentiable=False``) runs the
+    forward-only attention and WKV6 kernels; ``differentiable=True`` (the
+    loss) their plain, differentiable training forms.  ``remat=True``
+    recomputes each block in the backward pass."""
+    x, pos = _embed_inputs(cfg, params, batch)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for name, count, _ in layer_groups(cfg):
         if count == 0:
             continue
-        group = "rwkv" if name == "rwkv" else "dense"
-        for p, window in _sublayers(cfg, name, params["groups"][name]):
-            x = _block_apply(cfg, group, p, x, pos, window, differentiable)
-    logits = _logits(cfg, params, x)
-    return logits, {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
+        fn = _unit_fn(cfg, name, None if remat else pos, differentiable)
+        stacked = params["groups"][name]
+        for j in range(tree_leaves(stacked)[0].shape[0]):
+            x, aux = _apply_unit(fn, x, _layer(stacked, j), remat, name == "moe")
+            if aux is not None:
+                aux_total = aux_total + aux
+    return _logits(cfg, params, x), {"moe_aux": aux_total}
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask=None) -> torch.Tensor:
@@ -219,12 +380,18 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask=None) -> tor
     return torch.mean(nll)
 
 
-def loss_fn(cfg, params, batch):
-    """``(loss, metrics)``: mean next-token cross entropy over the batch,
-    through the differentiable (training) forward."""
-    logits, aux = forward(cfg, params, batch, differentiable=True)
-    loss = cross_entropy(logits, batch["targets"], batch.get("mask"))
-    return loss, {"ce": loss, "moe_aux": aux["moe_aux"]}
+def loss_fn(cfg, params, batch, *, remat: bool = False):
+    """``(loss, metrics)``: the mean next-token cross entropy over the batch
+    (a VLM's text tail only: frontend positions carry no targets) plus
+    ``router_aux_weight`` times the MoE load-balance term, through the
+    differentiable (training) forward; ``remat`` as in :func:`forward`."""
+    logits, aux = forward(cfg, params, batch, differentiable=True, remat=remat)
+    tgt = batch["targets"]
+    if _has_frontend(cfg):
+        logits = logits[:, -tgt.shape[1]:, :]
+    ce = cross_entropy(logits, tgt, batch.get("mask"))
+    total = ce + cfg.router_aux_weight * aux["moe_aux"]
+    return total, {"ce": ce, "moe_aux": aux["moe_aux"]}
 
 
 # --------------------------------------------------------------------------
@@ -237,6 +404,9 @@ def _block_cache_init(cfg, group: str, batch: int, max_len: int, device):
     if group == "rwkv":
         return ssm_lib.rwkv6_init_state(batch, cfg.d_model, head_size=min(64, cfg.d_model),
                                         dtype=dt, device=device)
+    if cfg.attn_kind == "mla":
+        return attn.mla_init_cache(batch, max_len, cfg.kv_lora_rank,
+                                   cfg.qk_rope_head_dim, dtype=dt, device=device)
     single = attn.gqa_init_cache(batch, max_len, cfg.n_kv_heads, cfg.head_dim_,
                                  dtype=dt, device=device)
     if group == "lg_super":
@@ -248,6 +418,7 @@ def _block_cache_init(cfg, group: str, batch: int, max_len: int, device):
 def init_cache(cfg, batch: int, max_len: int, device=None):
     """Zeroed caches, stacked over each group's layers (the reference's
     layout): K/V ``(layers[, period], b, max_len, KV, hd)`` for attention,
+    ``{"c", "kr"}`` ``(layers, b, max_len, kv_lora | qk_rope)`` for MLA,
     ``{"tm": {"shift", "S"}, "cm"}`` for RWKV6."""
     cache: Dict[str, Any] = {}
     for name, count, _ in layer_groups(cfg):
@@ -273,20 +444,30 @@ def _block_decode(cfg, group: str, params, cache, x, cur_index: int, window):
             view.copy_(new)
         return x + y
     h = norm(params["ln1"], x)
-    a, _ = attn.gqa_decode(params["attn"], cache, h, cur_index, window=window,
-                           rope_theta=cfg.rope_theta)
+    if cfg.attn_kind == "mla":
+        a, _ = attn.mla_decode(params["attn"], cache, h, cur_index,
+                               qk_nope=cfg.qk_nope_head_dim,
+                               qk_rope=cfg.qk_rope_head_dim, rope_theta=cfg.rope_theta)
+    else:
+        a, _ = attn.gqa_decode(params["attn"], cache, h, cur_index, window=window,
+                               rope_theta=cfg.rope_theta)
     x = x + a
+    if group == "moe":
+        y, _ = moe_lib.moe_apply(params["moe"], norm(params["ln2"], x), top_k=cfg.top_k,
+                                 capacity_factor=cfg.capacity_factor, act=cfg.act)
+        return x + y
     return x + mlp(params["mlp"], norm(params["ln2"], x), act=cfg.act)
 
 
 def decode_step(cfg, params, cache, tokens: torch.Tensor, cur_index: int):
     """One decode step.  ``tokens (b, 1)``; returns ``(logits (b, vocab),
-    cache)``, the cache updated in place."""
+    cache)``, the cache updated in place.  A VLM decodes text tokens only,
+    without its frontend, as the reference does."""
     x = embed(params["embed"], tokens)
     for name, count, _ in layer_groups(cfg):
         if count == 0:
             continue
-        group = "rwkv" if name == "rwkv" else "dense"
+        group = "dense" if name.startswith("lg_") else name
         for (p, window), (c, _) in zip(_sublayers(cfg, name, params["groups"][name]),
                                        _sublayers(cfg, name, cache[name])):
             x = _block_decode(cfg, group, p, c, x, int(cur_index), window)

@@ -36,7 +36,10 @@ checks which ran on the per-kernel count, and covers D 64 / 120 / 128 / 256, GQA
 groups 1 / 2 / 4, ragged and unequal lengths (through the model path's
 any-length launch), both masks, b > 1 and the strided (b, s, heads, d)
 view; the float32 kernel also where its key splits fall (one, many and
-uneven splits, two calls giving the same bits).
+uneven splits, two calls giving the same bits); the MoE and VLM configs'
+4 x 2048 prefill shapes at D 128, GQA groups 8 and 2.  The MoE layer
+(plain PyTorch, no kernel) routes on the card as on the CPU, dropped pairs
+included, and its output agrees within 1e-5 of max |y| (float32).
 """
 
 import os
@@ -56,6 +59,9 @@ from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.rwkv_scan import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv_scan import rwkv_scan as rs  # noqa: E402
 from repro_torch.kernels.rwkv_scan.ref import wkv6_ref  # noqa: E402
+from repro_torch.nn import moe  # noqa: E402
+from repro_torch.nn.param import init_params  # noqa: E402
+from repro_torch.utils.tree import tree_map  # noqa: E402
 
 ATOL = 1e-6
 ALPHA, MU = 0.05, 0.9
@@ -618,6 +624,10 @@ FLASH_CASES = [   # b, h, kv, sq, sk, d, causal, window, dtype
     (1, 8, 2, 256, 256, 120, True, None, torch.float32),
     (2, 4, 1, 200, 200, 120, True, 64, torch.float32),
     (1, 4, 4, 64, 320, 120, True, None, torch.float32),     # sq < sk
+    # the MoE and VLM configs' prefill shapes at D 128: GQA group 8
+    # (kimi-k2-1t-a32b: 64 heads on 8) and group 2 (internvl2-2b: 16 on 8)
+    (1, 64, 8, 2048, 2048, 128, True, None, torch.bfloat16),
+    (1, 16, 8, 2048, 2048, 128, True, None, torch.bfloat16),
 ]
 
 
@@ -1182,3 +1192,26 @@ def test_staged_exchange_and_q_stencil_update_on_card():
         c = mine["census"]
         assert c["sends"] == 3 and c["messages"] == 8 + 2 + 1
         assert c["staged_bytes"] == 2 * (1001 * 128 * 5 + 1001 * 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor", [1.5, 0.5], ids=["kept", "dropped"])
+def test_moe_apply_on_card_matches_cpu(factor):
+    """The same routing on the card as on the CPU (the indices and the
+    dropped pairs), then the layer's output and aux term, float32."""
+    dev = _card()
+    d, ff, e, k, b, s = 256, 128, 8, 2, 4, 64
+    params = init_params(moe.moe_template(d, ff, e, n_shared=1), seed=0)
+    x = torch.randn((b, s, d), generator=torch.Generator().manual_seed(1))
+    card = tree_map(lambda t: t.to(dev), params)
+    routes = [moe.route(p["router"], xx.reshape(b * s, d), k)[2].cpu()
+              for p, xx in ((params, x), (card, x.to(dev)))]
+    assert torch.equal(*routes)
+    counts = torch.bincount(routes[0].reshape(-1), minlength=e)
+    drops = int((counts - moe.capacity(b * s, k, e, factor)).clamp(min=0).sum())
+    assert (drops > 0) == (factor < 1)
+    with torch.no_grad():
+        want_y, want_aux = moe.moe_apply(params, x, top_k=k, capacity_factor=factor)
+        got_y, got_aux = moe.moe_apply(card, x.to(dev), top_k=k, capacity_factor=factor)
+    gap = float((got_y.cpu() - want_y).abs().max() / want_y.abs().max())
+    assert gap <= 1e-5 and abs(float(got_aux) - float(want_aux)) <= 1e-6

@@ -4,7 +4,10 @@ attention's plain version at h2o-danube's head dim of 120.
 
 * The configs: every field the port's ``ArchConfig`` has equals the
   reference's (``source`` included), the template trees and parameter
-  counts are the reference's, reduced and at published size.
+  counts are the reference's, reduced and at published size; so too for
+  internvl2-2b, kimi-k2-1t-a32b and deepseek-v2-236b (their published
+  sizes also against the counts the JAX package gives: 1,891,244,032,
+  1,028,298,994,688 and 235,741,312,000).
 * The forward: reduced, on weights drawn with numpy for every leaf of the
   reference's template (``test_torch_lm_models._leaf_value``: matrices at
   variance 1 / (contraction size)), the JAX and the port's ``forward``
@@ -44,10 +47,14 @@ from repro_torch.nn.param import ParamDef, params_from_numpy  # noqa: E402
 from repro_torch.utils.tree import tree_leaves  # noqa: E402
 
 ARCHS = ["h2o-danube-3-4b", "granite-3-8b", "starcoder2-7b"]
+# the MoE / MLA / VLM configs (their forwards: test_torch_moe.py, test_torch_vlm.py)
+CONFIG_ARCHS = ARCHS + ["internvl2-2b", "kimi-k2-1t-a32b", "deepseek-v2-236b"]
+PUBLISHED = {"internvl2-2b": 1_891_244_032, "kimi-k2-1t-a32b": 1_028_298_994_688,
+             "deepseek-v2-236b": 235_741_312_000}
 B, S = 2, 32
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", CONFIG_ARCHS)
 def test_config_fields_are_the_references(name):
     jc, tc = j_get_config(name), get_config(name)
     for f in dataclasses.fields(tc):
@@ -55,7 +62,7 @@ def test_config_fields_are_the_references(name):
     assert tc.head_dim_ == jc.head_dim_
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", CONFIG_ARCHS)
 @pytest.mark.parametrize("reduced", [True, False], ids=["reduced", "full"])
 def test_template_tree_and_param_count_match(name, reduced):
     jc = j_get_config(name + ("-reduced" if reduced else ""))
@@ -70,6 +77,8 @@ def test_template_tree_and_param_count_match(name, reduced):
                                                           jd.scale), path
         assert str(td.dtype).removeprefix("torch.") == jnp.dtype(jd.dtype).name, path
     assert tc.param_count() == jc.param_count()
+    if not reduced and name in PUBLISHED:
+        assert tc.param_count() == PUBLISHED[name]
 
 
 def _carried(name, param_dtype, **changes):

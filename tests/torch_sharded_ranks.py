@@ -122,9 +122,9 @@ def run_configs(mesh, inputs_path: str) -> dict:
                        "train")
     census = mesh.census
 
-    def loss_fn(cfg, p, b):          # marks the grad phase in the event log
+    def loss_fn(cfg, p, b, **kw):    # marks the grad phase in the event log
         census.events.append(("grad",))
-        return tt.loss_fn(cfg, p, b)
+        return tt.loss_fn(cfg, p, b, **kw)
 
     steps_lib.loss_fn = loss_fn
     out = {}
@@ -132,7 +132,7 @@ def run_configs(mesh, inputs_path: str) -> dict:
         bundle = steps_lib.build_train_step(
             cfg, shape, mesh, make_opt(spec["optimizer"], spec["fused"],
                                        spec.get("opt_faults"), mesh.size),
-            topology_name=spec["topology"], mixing=spec["mixing"],
+            topology_name=spec["topology"], mixing=spec["mixing"], remat=False,
             **spec["knobs"])
         params = _to(tree_map(lambda x: x[mesh.rank].clone(), data["P0"]),
                      mesh.device)
@@ -181,7 +181,8 @@ def run_jax_configs(mesh, inputs_path: str) -> dict:
         bundle = steps_lib.build_train_step(
             cfg, shape, mesh, make_opt(spec["optimizer"], True,
                                        spec.get("opt_faults"), mesh.size),
-            topology_name=spec["topology"], mixing=mixing, **spec["knobs"])
+            topology_name=spec["topology"], mixing=mixing, remat=False,
+            **spec["knobs"])
         params = _to(tree_map(lambda x: x[mesh.rank].clone(), data["P0"]),
                      mesh.device)
         state = bundle.init_state(params)
@@ -259,7 +260,7 @@ def run_factored(mesh, inputs_path: str) -> dict:
                        "train")
     bundle = steps_lib.build_train_step(
         cfg, shape, mesh, make_opt("cdmsgd", True), mixing="ppermute_fused",
-        exchange="int8")
+        exchange="int8", remat=False)
     teacher = data["teacher"]
     p1, s1 = steps_lib.local_train_state(teacher["params"],
                                          teacher["opt_state"], mesh.rank)
@@ -279,3 +280,29 @@ def run_factored(mesh, inputs_path: str) -> dict:
             "loss": float(metrics["loss"]),
             "mixed": _cpu(mixed), "topology": bundle.topology.name,
             "senders": bundle.comm.flat.strategy.plans[0].senders}
+
+
+def run_remat_default(mesh, inputs_path: str) -> dict:
+    """The sharded step at its default ``remat=True`` on this rank: the grad
+    phase beside a ``remat=False`` build's on the same params and batch
+    (bit for bit), then whole fused CDMSGD int8 steps from row ``rank`` of
+    ``P0``; the params after them."""
+    data = torch.load(inputs_path, weights_only=False)
+    cfg = lm_config()
+    shape = InputShape("tiny_train", data["seq"], data["batch"] * mesh.size, "train")
+
+    def build(**kw):
+        return steps_lib.build_train_step(cfg, shape, mesh, make_opt("cdmsgd", True),
+                                          mixing="ppermute_fused", exchange="int8", **kw)
+
+    bundle, plain = build(), build(remat=False)
+    params = tree_map(lambda x: x[mesh.rank].clone(), data["P0"])
+    batch = local_batch(data["batches"][0], mesh)
+    (loss_on, _), g_on = bundle.grad_phase(params, batch)
+    (loss_off, _), g_off = plain.grad_phase(params, batch)
+    same = leaves_equal(g_on, g_off) and torch.equal(loss_on, loss_off)
+    state = bundle.init_state(params)
+    for b in data["batches"]:
+        params, state, _ = bundle.step_fn(params, state, local_batch(b, mesh))
+    return {"grads_bitwise": same, "params": _cpu(params),
+            "n_grads": len(tree_leaves(g_on))}
