@@ -309,6 +309,36 @@ remat and the router's aux term) adds:
     float32 parity at ``build_train_step``'s default ``remat=True``
     (``SHARDED_REMAT_PARITY``).
 
+The hybrid and encoder-decoder slice (hymba-1.5b: sliding-window attention
+beside mamba heads; seamless-m4t-medium: a non-causal encoder over stub
+audio frames, a decoder with cross-attention; the three LM examples) adds:
+
+3.  (``FAMILY_FLASH``) flash attention at hymba-1.5b's prefill layer (B 4,
+    H 25 on KV 5, S 2048, D 64, window 1024), seamless's encoder (B 4, 16
+    on 16, S 1024, non-causal; bf16 and float32, the serve loop's float32
+    encode), its decoder self-attention (S 2048, causal, no window, bf16)
+    and its cross-attention (Sq 2048 over Sk 1024, non-causal, no window,
+    bf16), against the plain version, SDPA beside each;
+6-7. (``FAMILY_ARCHS``) both at full width and depth, bf16 weights drawn on
+    the card: hymba-1.5b on 4 x 2048 tokens (exactly 32 flash launches; one
+    profiled forward's mamba share of the device time, ``mamba share``),
+    seamless on 4 x (1024 bf16 stub frames + 2048 tokens) (exactly 36: 12
+    encoder, 12 decoder self, 12 cross); the serve loop, seamless's with
+    its float32 encode before the timed loop (exactly 12 float32 flash
+    launches, none in decode);
+8.  both reduced in float32, card against CPU, and decode against the
+    forward on the card over 32 positions (hymba's reduced window of 8
+    exceeded; seamless's decode on ``encode_for_decode``'s ``enc_out``);
+10c. (``FAMILY_LM_RUNS``) both at full width on 2 agents (a ring), CDMSGD
+    int8 overlap, 3 steps: hymba-1.5b at b 1 x 1024 with remat (the
+    reckoned peak printed before the run), seamless at b 1 x 1024 text
+    behind its 1024 float32 frames; the update and quantize kernels timed
+    at each bf16 bucket beside the byte bound;
+13. both reduced, bf16, CDMSGD int8: the update phase card against CPU;
+15. the examples ``serve_batched``, ``topology_study`` and
+    ``collaborative_lm_pretrain`` at their tiny presets, a few steps, on
+    the card.
+
 Any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 float32 matmuls and convolutions run in full float32 (TF32 off).
@@ -320,6 +350,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import importlib
 import json
 import math
 import os
@@ -384,6 +415,7 @@ from repro_torch.launch.steps import (  # noqa: E402
 )
 from repro_torch.launch.serve import make_prompt, serve  # noqa: E402
 from repro_torch.nn import moe as moe_lib  # noqa: E402
+from repro_torch.nn import ssm as ssm_lib  # noqa: E402
 from repro_torch.nn import transformer as tt  # noqa: E402
 from repro_torch.nn.layers import _act, mlp  # noqa: E402
 from repro_torch.nn.param import count_params, init_params  # noqa: E402
@@ -765,7 +797,13 @@ SHARDED_JOIN_S = 600.0         # s, the whole phase
 # blockwise attention (qk width 192, v 128), as the reference's does: no
 # flash launch
 FAMILY_ARCHS = (("internvl2-2b", None, 24), ("kimi-k2-1t-a32b", 2, 2),
-                ("deepseek-v2-236b", 2, 0))
+                ("deepseek-v2-236b", 2, 0), ("hymba-1.5b", None, 32),
+                ("seamless-m4t-medium", None, 36))
+# the hybrid and encoder-decoder configs (their own phase walls): hymba's 32
+# layers each launch flash once (its mamba heads are plain, as the
+# reference's are XLA); seamless's 12 encoder, 12 decoder self and 12 cross
+# attentions
+NEW_FAMILIES = ("hymba-1.5b", "seamless-m4t-medium")
 FAMILY_CHECK = (2, 32)         # phase 8, reduced: batch, positions
 # phase 10c, the families trained through repro_torch.launch.train.main:
 # internvl2-2b at full width and depth on 2 agents (a ring), batch 1 x 1024
@@ -789,7 +827,34 @@ FAMILY_LM_RUNS = tuple(
     (f"{arch} reduced cdmsgd int8 sync", f"{arch}-reduced", 2, "fully_connected", 2,
      64, 3, ["--optimizer", "cdmsgd", "--exchange", "int8"], {},
      {"sr_quantize": 2, "cdmsgd_update_q": 2}, False)
-    for arch in ("kimi-k2-1t-a32b", "deepseek-v2-236b"))
+    for arch in ("kimi-k2-1t-a32b", "deepseek-v2-236b")) + tuple(
+    # the hybrid and encoder-decoder configs at full width on 2 agents:
+    # CDMSGD on the int8 overlap wire (_q kernel, a quantize a step and one
+    # at init); hymba with remat (its chunked scan's backward otherwise
+    # keeps about 0.9 GB a layer per agent), seamless's 1024 text tokens behind
+    # its 1024 float32 stub frames
+    (f"{arch} cdmsgd int8 overlap{' remat' if remat else ''}", arch, 2, "ring", 1, 1024,
+     3, ["--optimizer", "cdmsgd", "--exchange", "int8", "--schedule", "overlap"],
+     {"sr_quantize": 1}, {"sr_quantize": 1, "cdmsgd_update_q": 1}, remat)
+    for arch, remat in (("hymba-1.5b", True), ("seamless-m4t-medium", False)))
+# phase 3: flash attention at the hybrid and encoder-decoder prefill shapes:
+# (label, b, h, kv, sq, sk, d, causal, window, dtype)
+FAMILY_FLASH = (
+    ("hymba", PREFILL_BATCH, 25, 5, PREFILL_LEN, PREFILL_LEN, 64, True, 1024,
+     torch.bfloat16),
+    ("seamless-enc", PREFILL_BATCH, 16, 16, 1024, 1024, 64, False, None, torch.bfloat16),
+    ("seamless-enc-f32", PREFILL_BATCH, 16, 16, 1024, 1024, 64, False, None,
+     torch.float32),
+    ("seamless-dec-self", PREFILL_BATCH, 16, 16, PREFILL_LEN, PREFILL_LEN, 64, True, None,
+     torch.bfloat16),
+    ("seamless-cross", PREFILL_BATCH, 16, 16, PREFILL_LEN, 1024, 64, False, None,
+     torch.bfloat16))
+# phase 15: the examples at their tiny presets, a few steps each
+EXAMPLES = (("serve_batched", ["--train-steps", "3", "--new-tokens", "4",
+                               "--arch", "seamless-m4t-medium"]),
+            ("topology_study", ["--steps", "4"]),
+            ("collaborative_lm_pretrain", ["--steps", "3", "--arch", "hymba-1.5b",
+                                           "--exchange", "int8"]))
 RESUME_FLAGS = ["--agents", "2", "--topology", "fully_connected", "--batch", "1",
                 "--seq", "1024", "--optimizer", "cdmsgd", "--exchange", "int8",
                 "--schedule", "overlap", "--error-feedback"]
@@ -2308,6 +2373,66 @@ def check_flash(results: dict, gen) -> None:
           f"bound share {t['bound_ms'] / t['ms']:.3f}; not held")
 
 
+def check_flash_families(results: dict, gen) -> None:
+    """Phase 3, the flash kernels at the hybrid and encoder-decoder prefill
+    shapes (``FAMILY_FLASH``) against ``attention_ref``: hymba-1.5b's
+    causal GQA group of 5 with its 1024 window, seamless's non-causal
+    encoder (bf16 and float32), its causal decoder self-attention and its
+    cross-attention (Sq 2048 over Sk 1024); SDPA on the same operands (non-causal, or the band mask) as the
+    library yardstick, the bound over the pairs the mask keeps."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dev = torch.device("cuda")
+    for label, b, h, kv, sq, sk, d, causal, window, dtype in FAMILY_FLASH:
+        q = torch.randn((b, h, sq, d), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, kv, sk, d), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, kv, sk, d), generator=gen, device=dev).to(dtype)
+        variant = "tc" if dtype == torch.bfloat16 else "f32"
+        symbol, peak = FLASH_VARIANTS[variant]
+        before = dict(fa.flash_attention.launches_by_variant)
+        out = fa.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        before[variant] += 1
+        if fa.flash_attention.launches_by_variant != before:
+            raise AssertionError(f"flash_attention [{label}] ran "
+                                 f"{fa.flash_attention.launches_by_variant}, "
+                                 f"expected one more {variant}")
+        want = attention_ref(q, k, v, causal=causal, window=window)
+        err, ok = _close_err(out, want, FLASH_TOL[dtype])
+        if not ok or out.dtype != dtype:
+            raise AssertionError(f"flash_attention [{label}] differs from its "
+                                 f"plain version: max abs err {err}")
+        if window is not None:
+            rows = torch.arange(sq, device=dev)[:, None]
+            cols = torch.arange(sk, device=dev)[None, :]
+            band = (cols <= rows) & (cols > rows - window)
+            library = lambda: sdpa(q, k, v, attn_mask=band, enable_gqa=True)  # noqa: E731
+        else:
+            library = lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True)  # noqa: E731
+        lib_err, _ = _close_err(library(), want, FLASH_TOL[dtype])
+        print(f"  sdpa [{label}] against the plain version: max abs err {lib_err:.3e}")
+        if dtype == torch.bfloat16:
+            err_cap = FLASH_BF16_SDPA_ERR_RATIO * max(
+                lib_err, float(want.float().abs().max()) * 2.0 ** -8)
+            if err > err_cap:
+                raise AssertionError(
+                    f"flash_attention [{label}]: max abs err {err:.3e} above "
+                    f"{FLASH_BF16_SDPA_ERR_RATIO:g} x SDPA's {lib_err:.3e}")
+        pairs = _allowed_pairs(sq, sk, window) if causal else sq * sk
+        t = _report_serving(
+            results, "flash_attention", label,
+            f"q ({b},{h},{sq},{d}) k,v ({b},{kv},{sk},{d}) {str(dtype)[6:]} "
+            f"causal={causal} window={window} ({symbol})", err, FLASH_TOL[dtype],
+            lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
+            lambda: attention_ref(q, k, v, causal=causal, window=window), library,
+            4.0 * d * b * h * pairs, q.element_size() * (2 * q.numel() + k.numel()
+                                                         + v.numel()),
+            symbol=symbol, peak=peak)
+        print(f"flash [{label}] {t['ms']:.5f} ms, SDPA {t['library_ms']:.5f} (ratio "
+              f"{t['ms'] / t['library_ms']:.3f}), bound share {t['bound_ms'] / t['ms']:.3f} "
+              f"[{card_line()}]; not held")
+        del q, k, v, out, want
+
+
 def wkv_flops(bh: int, s: int, hs: int) -> float:
     """Operations of the WKV6 recurrence, per step and head: y_j = sum_i
     r_i S_ij + v_j sum_i r_i u_i k_i is 2 hs^2 + 5 hs (the bonus term is a
@@ -2451,6 +2576,9 @@ def prefill_path(params_by_arch: dict, archs=SERVE_ARCHS) -> dict:
         text = batch["inputs"].shape[1]
         split = "" if text == PREFILL_LEN else \
             f" ({PREFILL_LEN - text} patches + {text} text)"
+        if cfg.is_encoder_decoder:
+            split = (f" (text; {batch['frontend'].shape[1]} "
+                     f"{str(batch['frontend'].dtype)[6:]} stub frames into the encoder)")
         print(f"prefill {arch}: {cfg.param_count()} params bf16, {PREFILL_BATCH}x"
               f"{PREFILL_LEN} tokens{split}: first forward {first_ms:.2f} ms, wall median "
               f"{wall:.3f} ms over {len(walls)} ({[round(x, 3) for x in walls]}), "
@@ -2466,21 +2594,67 @@ def prefill_path(params_by_arch: dict, archs=SERVE_ARCHS) -> dict:
                   sorted(by_name.items(), key=lambda kv: -kv[1])[:6]))
         if cfg.is_moe:
             moe_dispatch(cfg, params, batch, busy)
+        if cfg.hybrid:
+            mamba_share(cfg, params, batch, busy)
     return counts
 
 
 def prefill_batch(cfg) -> dict:
     """The 4 x 2048 prefill batch (``make_prompt``, seed 0) on the card; a
-    VLM spends ``min(frontend_tokens, PREFILL_LEN // 2)`` positions on stub
-    patch embeddings (seeded normal draws) and the rest on text."""
-    front = min(cfg.frontend_tokens, PREFILL_LEN // 2) if cfg.modality == "vlm" else 0
+    frontend model gets ``min(frontend_tokens, PREFILL_LEN // 2)`` stub
+    embeddings (seeded normal draws), as ``prefill_batch_specs`` budgets
+    them: a VLM's patches take that many positions from its text, an
+    encoder-decoder's bf16 frames go to its encoder beside all 2048 text
+    tokens."""
+    front = 0
+    if cfg.modality in ("audio", "vlm"):
+        front = min(cfg.frontend_tokens, PREFILL_LEN // 2)
+    text = PREFILL_LEN if cfg.is_encoder_decoder else PREFILL_LEN - front
     batch = {"inputs": torch.as_tensor(
-        make_prompt(cfg, PREFILL_BATCH, PREFILL_LEN - front, 0), device="cuda")}
+        make_prompt(cfg, PREFILL_BATCH, text, 0), device="cuda")}
     if front:
         batch["frontend"] = torch.randn(
             (PREFILL_BATCH, front, cfg.frontend_dim), device="cuda",
             generator=torch.Generator(device="cuda").manual_seed(0))
+        if cfg.is_encoder_decoder:
+            batch["frontend"] = batch["frontend"].to(cfg.dtype)
     return batch
+
+
+def mamba_share(cfg, params, batch, forward_device_ms: float) -> None:
+    """One profiled prefill forward with every ``mamba_apply`` call inside a
+    ``record_function`` range: the device time of the kernels those calls
+    launched (the profiler's per-range device total), as a share of the
+    forward's device time."""
+    original = ssm_lib.mamba_apply
+
+    def traced(p, x, state=None):
+        with torch.profiler.record_function("mamba_apply"):
+            return original(p, x, state)
+
+    ssm_lib.mamba_apply = traced
+    try:
+        with torch.inference_mode(), \
+                profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            tt.forward(cfg, params, batch)
+            torch.cuda.synchronize()
+    finally:
+        ssm_lib.mamba_apply = original
+    ranges = [e for e in prof.events()
+              if e.name == "mamba_apply" and e.device_type == DeviceType.CPU]
+    total = "device_time_total" if ranges and hasattr(ranges[0], "device_time_total") \
+        else "cuda_time_total"
+    mamba_ms = sum(getattr(e, total) for e in ranges) / 1e3
+    # the ranges also show as device-side annotations: not kernels
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA and e.name != "mamba_apply") / 1e3
+    if len(ranges) != cfg.n_layers or not mamba_ms > 0:
+        raise AssertionError(f"mamba share {cfg.name}: {len(ranges)} mamba_apply ranges "
+                             f"of {cfg.n_layers}, {mamba_ms:.3f} ms of device time")
+    print(f"mamba share {cfg.name}: {len(ranges)} mamba_apply calls (plain PyTorch: "
+          f"the chunked scan) {mamba_ms:.3f} ms of the traced forward's {busy:.3f} ms "
+          f"device time ({mamba_ms / busy:.1%}; the counted forward's device time "
+          f"{forward_device_ms:.3f} ms) [{card_line()}]")
 
 
 def moe_dispatch(cfg, params, batch, forward_device_ms: float) -> None:
@@ -2540,8 +2714,15 @@ def serve_path(params_by_arch: dict, archs=SERVE_ARCHS, check_layers=None,
         prompt = make_prompt(cfg, SERVE_BATCH, SERVE_PROMPT, 0)
         _reset_serving_counts()
         seqs, stats = serve(cfg, params, prompt, SERVE_NEW, "cuda")
-        if _serving_counts() != {k: 0 for k in SERVE_KERNELS}:
-            raise AssertionError(f"serve {arch}: decode launched {_serving_counts()}")
+        # an encoder-decoder's encoder runs once before the loop, in float32
+        # (the reference's float32 ones): one float32 flash launch a layer
+        encode = cfg.enc_layers if cfg.is_encoder_decoder else 0
+        want = {k: encode if k == "flash_attention" else 0 for k in SERVE_KERNELS}
+        if _serving_counts() != want or \
+                fa.flash_attention.launches_by_variant["f32"] != encode:
+            raise AssertionError(f"serve {arch}: launched {_serving_counts()} "
+                                 f"({fa.flash_attention.launches_by_variant}), expected "
+                                 f"{want}: the encode's float32 launches, none in decode")
         if seqs.shape != (SERVE_BATCH, SERVE_PROMPT + SERVE_NEW) \
                 or not np.array_equal(seqs[:, :SERVE_PROMPT], prompt) \
                 or not ((seqs >= 0) & (seqs < cfg.vocab_size)).all():
@@ -2550,7 +2731,9 @@ def serve_path(params_by_arch: dict, archs=SERVE_ARCHS, check_layers=None,
               f"{SERVE_NEW} new tokens: {stats['decode_steps']} decode steps in "
               f"{stats['seconds'] * 1e3:.1f} ms, decode_tokens_per_s "
               f"{stats['decode_tokens_per_s']:.1f}, tokens_per_s (the reference's "
-              f"figure) {stats['tokens_per_s']:.1f}; first sequence {seqs[0].tolist()}")
+              f"figure) {stats['tokens_per_s']:.1f}; "
+              f"{f'the encode before the loop: {encode} float32 flash launches, ' if encode else ''}"
+              f"no kernel launch in decode; first sequence {seqs[0].tolist()}")
         if not decode_check:
             continue
         toks = torch.as_tensor(make_prompt(cfg, *DECODE_CHECK, 1), device="cuda")
@@ -2625,16 +2808,18 @@ def family_config(arch: str, layers):
     return dataclasses.replace(cfg, n_layers=layers, name=f"{arch}-{layers}layers")
 
 
-def family_serving_path() -> int:
-    """Phases 6-7 for the MoE, MLA and VLM configs at published width
-    (``FAMILY_ARCHS``), one at a time, bf16 weights drawn on the card (seed
-    0): the counted, timed and profiled 4 x 2048 prefill (internvl2-2b: 256
-    stub patches + 1792 tokens; exact flash launches, all on
-    ``flash_tc_kernel``; an MoE layer's dispatch share), its peak memory,
-    and the serve loop (no kernel launch in decode).  Returns the flash
+def family_serving_path(archs=FAMILY_ARCHS) -> int:
+    """Phases 6-7 for the MoE, MLA, VLM, hybrid and encoder-decoder configs
+    at published width (``archs``, of ``FAMILY_ARCHS``), one at a time, bf16
+    weights drawn on the card (seed 0): the counted, timed and profiled 4 x
+    2048 prefill (internvl2-2b: 256 stub patches + 1792 tokens; seamless:
+    1024 bf16 stub frames + 2048 tokens; exact flash launches, all on
+    ``flash_tc_kernel``; an MoE layer's dispatch share, hymba's mamba
+    share), its peak memory, and the serve loop (no kernel launch in
+    decode; seamless's float32 encode before it).  Returns the flash
     launches."""
     launches = 0
-    for arch, layers, per_forward in FAMILY_ARCHS:
+    for arch, layers, per_forward in archs:
         with registered(family_config(arch, layers)) as cfg:
             _free()
             t0 = time.perf_counter()
@@ -2644,7 +2829,8 @@ def family_serving_path() -> int:
             torch.cuda.synchronize()
             gib = sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 2**30
             print(f"{cfg.name}: full-width weights ({cfg.param_count():,} params, "
-                  f"{cfg.n_layers} layers, {gib:.2f} GiB: bf16, float32 routers) drawn "
+                  f"{cfg.n_layers} layers{f' + {cfg.enc_layers} encoder' if cfg.enc_layers else ''}, "
+                  f"{gib:.2f} GiB: bf16{', float32 routers' if cfg.is_moe else ''}) drawn "
                   f"on the card (seed 0): {time.perf_counter() - t0:.1f} s")
             spec = (cfg.name, "flash_attention", per_forward)
             launches += prefill_path({cfg.name: params}, (spec,))["flash_attention"]
@@ -2663,7 +2849,9 @@ def parity_families() -> None:
     forward over ``FAMILY_CHECK`` teacher-forced positions within
     ``DECODE_F32_TOL`` (an MoE model at a capacity factor of E / k, where
     the forward drops no pair, as decode's one token a step never does; a
-    VLM's decode, text only, against its text decoder's forward)."""
+    VLM's decode, text only, against its text decoder's forward; an
+    encoder-decoder's decode on ``encode_for_decode``'s output of the same
+    frames; hymba's over more positions than its reduced window)."""
     b, n = FAMILY_CHECK
     for arch, _, _ in FAMILY_ARCHS:
         cfg = dataclasses.replace(get_config(arch).reduced(), param_dtype="float32")
@@ -2671,7 +2859,7 @@ def parity_families() -> None:
                                   seed=4)
         toks = torch.as_tensor(make_prompt(cfg, b, n, 2))
         batch = {"inputs": toks}
-        if cfg.modality == "vlm":
+        if cfg.modality in ("audio", "vlm"):
             batch["frontend"] = torch.randn((b, cfg.frontend_tokens, cfg.frontend_dim),
                                             generator=torch.Generator().manual_seed(5))
         routes = []                  # per forward: the top-k indices of each layer
@@ -2711,13 +2899,21 @@ def parity_families() -> None:
         dcfg = cfg if cfg.modality == "vlm" else fcfg
         tc = toks.to(CARD)
         with torch.inference_mode():
-            fwd, _ = tt.forward(fcfg, card_params, {"inputs": tc})
-            cache = tt.init_cache(dcfg, b, n, device=CARD)
+            fbatch = {"inputs": tc}
+            enc_len = cfg.frontend_tokens if cfg.is_encoder_decoder else 0
+            cache = tt.init_cache(dcfg, b, n, enc_len=enc_len, device=CARD)
+            if cfg.is_encoder_decoder:
+                fbatch["frontend"] = batch["frontend"].to(CARD)
+                cache["enc_out"] = tt.encode_for_decode(cfg, card_params,
+                                                        fbatch["frontend"])
+            fwd, _ = tt.forward(fcfg, card_params, fbatch)
             dec = torch.stack([tt.decode_step(dcfg, card_params, cache, tc[:, t:t + 1],
                                               t)[0].float().cpu() for t in range(n)], 1)
         dgap = _rel_gap(dec, fwd)
-        print(f"parity {arch} reduced float32 b={b} s={n}"
+        window = f", window {cfg.window}" if cfg.window else ""
+        print(f"parity {arch} reduced float32 b={b} s={n}{window}"
               f"{f' (+ {cfg.frontend_tokens} stub patches)' if cfg.modality == 'vlm' else ''}"
+              f"{f' (+ {cfg.frontend_tokens} stub frames)' if cfg.modality == 'audio' else ''}"
               f" card vs cpu: {alike}; max |logit diff| / max |logit| {gap:.3e} (tol "
               f"{MODEL_TOL:g}); card launches {launched}; decode vs forward on the card "
               f"over {n} positions {dgap:.3e} (tol {DECODE_F32_TOL:g})")
@@ -2727,18 +2923,20 @@ def parity_families() -> None:
 
 
 def parity_moe_lm() -> None:
-    """Phase 13 for the MoE configs: kimi-k2 and deepseek-v2 reduced in
-    bf16 (a bf16 bucket and a float32 routers' bucket), CDMSGD on the int8
-    wire, 2 agents: one card step, then the update phase from its state
-    with the card's gradients on the card and on the CPU: the bf16 and int8
-    tensors bit for bit, the float32 ones within ``UPDATE_TOL``."""
+    """Phase 13 for the MoE, hybrid and encoder-decoder configs: kimi-k2 and
+    deepseek-v2 reduced in bf16 (a bf16 bucket and a float32 routers'
+    bucket), hymba-1.5b and seamless-m4t-medium reduced (one bf16 bucket;
+    seamless behind float32 stub frames), CDMSGD on the int8 wire, 2 agents:
+    one card step, then the update phase from its state with the card's
+    gradients on the card and on the CPU: the bf16 and int8 tensors bit for
+    bit, the float32 ones within ``UPDATE_TOL``."""
     stream = lm_agent_batches(make_lm_tokens(1 << 14, vocab=512, seed=1), 2, 2, 32,
                               seed=1)
     batches = [next(stream) for _ in range(2)]
-    for arch in ("kimi-k2-1t-a32b", "deepseek-v2-236b"):
+    for arch in ("kimi-k2-1t-a32b", "deepseek-v2-236b", *NEW_FAMILIES):
         cfg = get_config(arch).reduced()
         params = live_weights(cfg, init_params(tt.model_template(cfg), seed=5), seed=6)
-        trs = [CollaborativeTrainer(lambda p, bt, c=cfg: tt.loss_fn(c, p, bt), params,
+        trs = [CollaborativeTrainer(lm_train.lm_loss(cfg), params,
                                     make_topology("fully_connected", 2),
                                     make_optimizer("cdmsgd", LR, mu=MU, fused=True),
                                     exchange="int8", device=d) for d in ("cpu", CARD)]
@@ -2761,7 +2959,7 @@ def parity_moe_lm() -> None:
         # UPDATE_TOL, as phase 5 holds float32 update phases; the rest bit for bit
         f32 = [(x, y) for x, y in leaves if x.dtype == torch.float32]
         other = [(x, y) for x, y in leaves if x.dtype != torch.float32]
-        f32_gap = max(float((x - y).abs().max()) for x, y in f32)
+        f32_gap = max((float((x - y).abs().max()) for x, y in f32), default=0.0)
         f32_same = sum(_equal_bits(x, y) for x, y in f32)
         other_same = [_equal_bits(x, y) for x, y in other]
         dtypes = sorted({str(x.dtype)[6:] for x, _ in other})
@@ -2824,16 +3022,16 @@ def live_weights(cfg, params, seed: int):
     1152, so q and k entries have std ~17 and scores std ~290): attention
     is then an argmax that float32 summation order can flip, and the model
     is chaotic.  MLA's ``(rank, heads, k)`` up-projections are rescaled to
-    variance 1 / rank the same way.  Phases 7 and 8 print the template draw's gaps beside the
-    held ones."""
+    variance 1 / rank the same way, and a decoder's cross-attention
+    (``xattn``) as its self-attention.  Phases 7 and 8 print the template
+    draw's gaps beside the held ones."""
     gen = torch.Generator().manual_seed(seed)
 
     def draw(leaf, fn):
         leaf.copy_(fn(torch.empty(leaf.shape).normal_(generator=gen)))
 
     for group in params["groups"].values():
-        if "attn" in group:
-            a = group["attn"]
+        for a in [group[n] for n in ("attn", "xattn") if n in group]:
             for n in ("wq", "wk", "wv"):
                 if n in a:
                     a[n].mul_(math.sqrt(a[n].shape[-2] / cfg.d_model))
@@ -3433,19 +3631,27 @@ def _first_step(store: dict, key: str, remat: bool, tr) -> None:
           "optimizer state)")
 
 
-def family_train_path() -> dict:
-    """Phase 10c: ``FAMILY_LM_RUNS`` through ``repro_torch.launch.train.main``,
-    each checked as
+def family_train_path(runs=FAMILY_LM_RUNS) -> dict:
+    """Phase 10c: ``runs`` (of ``FAMILY_LM_RUNS``) through
+    ``repro_torch.launch.train.main``, each checked as
     ``lm_run`` checks (exact launches on each bucket, finite losses, an MoE
     model's aux term finite and above 0, wire bytes against the accounting);
     internvl2-2b's runs with remat against those without (the first step's
     update phase of agent 0 bit for bit; steady step, tokens/s and peak
-    memory of both, and for the CDMSGD pair one grad phase's own peak).
-    Returns the launches by kernel and bucket type."""
+    memory of both, and for the CDMSGD pair one grad phase's own peak); the
+    update and quantize kernels of the runs at full width timed at their
+    bf16 buckets.  Returns the launches by kernel and bucket type."""
     total = {k: {"float32": 0, "bfloat16": 0} for k in cu.KERNELS}
     first = {}
-    for *run, remat in FAMILY_LM_RUNS:
+    timed = []
+    for *run, remat in runs:
         label, arch = run[0], run[1]
+        if arch in NEW_FAMILIES:
+            reckon_train_peak(arch, agents=run[2], batch=run[4], seq=run[5], remat=remat)
+            timed.append((arch, run[2], tuple(run[9])))
+        elif arch == VLM_ARCH and not any(t[0] == VLM_ARCH for t in timed):
+            # the forms of its CDMSGD f32 and CDSGD int8 overlap runs
+            timed.append((VLM_ARCH, 2, ("cdmsgd_update", "cdsgd_update_q", "sr_quantize")))
         hook = None
         if arch == VLM_ARCH:
             hook = functools.partial(_first_step, first, label.removesuffix(" remat"),
@@ -3457,18 +3663,44 @@ def family_train_path() -> dict:
     _LIVE_DRAWS.clear()
     if first:
         raise AssertionError(f"runs without their remat twin: {sorted(first)}")
-    time_vlm_bucket()
+    for arch, a, forms in timed:
+        time_family_bucket(arch, a, forms)
     return total
 
 
-def time_vlm_bucket() -> None:
-    """The update and quantize kernels of internvl2-2b's runs timed at its
-    whole bf16 bucket on 2 agents (A = S = 2, a ring of 2): dense CDMSGD on
-    bf16 neighbours, CDSGD's ``_q`` form on an int8 payload, ``sr_quantize``
-    to int8; CUDA events and kernel-only beside the byte bound (phase 3c
-    holds these forms bit for bit on gemma3-1b's bucket)."""
+def reckon_train_peak(arch: str, agents: int, batch: int, seq: int, remat: bool) -> None:
+    """Print, before a full-width training run, the peak its memory is
+    reckoned at: per agent the bf16 parameters, their gradients, the
+    momentum and the int8 overlap wire (two payload generations, a scale per
+    128-wide row each), then the largest activation term: with remat one
+    block's recompute, where a hybrid's chunked mamba scan keeps about 9
+    ``(b, 32, d, ssm_state)`` float32 tensors a chunk for its backward
+    (``mamba_scan_bench.py`` measures one layer's peak), and the loss's
+    float32 logits and their gradient."""
+    cfg = get_config(arch)
+    n = cfg.param_count()
+    state = n * (2 + 2 + 2) + 2 * (n + 4 * n // 128)
+    chunk = batch * 32 * cfg.d_model * max(cfg.ssm_state, 1) * 4
+    block = 9 * (seq // 32) * chunk if cfg.hybrid else \
+        16 * batch * seq * max(cfg.d_ff, cfg.d_model) * 4
+    logits = 3 * batch * seq * cfg.vocab_size * 4
+    act = (block if remat else block * cfg.n_layers) + logits
+    print(f"train {arch}: reckoned peak {agents * (state + act) / 2**30:.1f} GiB on "
+          f"{agents} agents ({state / 2**30:.2f} GiB of params, gradients, momentum "
+          f"and wire per agent; {act / 2**30:.2f} GiB of activations per agent "
+          f"{'with' if remat else 'without'} remat at b {batch} x {seq}; "
+          f"one mamba chunk's float32 tensor {chunk / 2**20:.1f} MiB)")
+
+
+def time_family_bucket(arch: str, a: int, forms) -> None:
+    """The update and quantize kernels of a family's runs (the wrappers
+    named in ``forms``) timed at its whole bf16 bucket on ``a`` agents (A =
+    S = a, a ring): a dense form on bf16 neighbours, a ``_q`` form on an
+    int8 payload, ``sr_quantize`` to int8; CUDA events and kernel-only
+    beside the byte bound (phase 3c holds these forms bit for bit on
+    gemma3-1b's bucket)."""
     dev = torch.device(CARD)
-    a, rows = 2, lm_bucket_rows(VLM_ARCH)
+    rows = lm_bucket_rows(arch)
     gen = torch.Generator(device=dev).manual_seed(7)
     pi = make_topology("ring", a).pi
     o = {"w": torch.tensor(pi, dtype=torch.float32, device=dev),
@@ -3476,7 +3708,7 @@ def time_vlm_bucket() -> None:
     for k in ("x", "slf", "g", "v"):
         o[k] = torch.randn((a, rows, 128), generator=gen, device=dev, dtype=torch.bfloat16)
     o["q"], o["sc"] = cu.sr_quantize(o["x"], 11, "int8", agent_stride=104729)
-    for name in ("cdmsgd_update:bf16", "cdsgd_update_q:bf16", "sr_quantize:bf16"):
+    for name in (f"{form}:bf16" for form in forms):
         wrapper, symbol, _ = BF16_FORMS[name]
         kernel, _ = _bf16_form_calls(name, o, 11)
         ms = cuda_ms(kernel, iters=10, warmup=2)
@@ -3484,7 +3716,7 @@ def time_vlm_bucket() -> None:
         kind = torch.bfloat16 if wrapper == "cdmsgd_update" else torch.int8
         b_ms, b_by = bound(wrapper, a, 0 if wrapper == "sr_quantize" else a, rows,
                            kind, bucket=torch.bfloat16)
-        print(f"kernel {name} [{VLM_ARCH} bucket] A={a} rows={rows}: ms={ms:.5f} "
+        print(f"kernel {name} [{arch} bucket] A={a} rows={rows}: ms={ms:.5f} "
               f"bound_ms={b_ms:.5f} ({b_by}) bound_share={b_ms / ms:.3f} kernel_only_ms="
               f"{'not measured' if dev_ms is None else f'{dev_ms:.5f}'} [{card_line()}]")
     del o
@@ -3568,6 +3800,7 @@ def lm_run(label, arch, agents, topo, batch, seq, steps, flags, init,
           f"{count_params(tt.model_template(get_config(arch))):,} params x "
           f"{agents} agents on {topo}, batch {batch} x seq {seq} per agent"
           f"{f' (+ {cfg.frontend_tokens} stub patches)' if cfg.modality == 'vlm' else ''}"
+          f"{f' (+ {cfg.frontend_tokens} float32 stub frames)' if cfg.modality == 'audio' else ''}"
           f"{', remat' if remat else ''} (live_init weights): losses {losses}, "
           f"consensus_error {cons[0]:.3e} -> {cons[-1]:.3e}; first step "
           f"{record[0]['ms']:.1f} ms, steady median {med:.1f} ms "
@@ -3578,7 +3811,10 @@ def lm_run(label, arch, agents, topo, batch, seq, steps, flags, init,
           f"({'bf16 and float32 router buckets' if cfg.is_moe else 'bf16 bucket'}"
           f"{', sr_quantize on the float32 compact values' if on_f32 else ''}): "
           f"{launched}; flash / WKV6 launches 0; entry point wall {wall:.1f} s")
-    profiled = arch != GEMMA_2L or label.endswith(LM_PROFILED)
+    # a hybrid or encoder-decoder step's trace (hymba: over 10^5 launches
+    # under vmap and remat) takes the profiler most of a minute to read
+    profiled = (arch != GEMMA_2L or label.endswith(LM_PROFILED)) \
+        and arch not in NEW_FAMILIES
     if profiled or grad_peak:
         vocab = tr.state.params["embed"]["table"].shape[1]
         stream = lm_agent_batches(make_lm_tokens(1 << 15, vocab=vocab, seed=0),
@@ -3594,6 +3830,28 @@ def lm_run(label, arch, agents, topo, batch, seq, steps, flags, init,
     del tr
     _free()
     return out
+
+
+def examples_path() -> None:
+    """Phase 15: the port's examples (``EXAMPLES``) at their tiny presets on
+    the card, each through its ``main(argv)``, with the update, quantize and
+    serving kernels' launches while it ran (the LM pre-training example on
+    the int8 wire must launch the ``_q`` update and the quantize)."""
+    for name, argv in EXAMPLES:
+        module = importlib.import_module(f"repro_torch.examples.{name}")
+        cu.reset_launch_counts()
+        _reset_serving_counts()
+        t0 = time.perf_counter()
+        module.main(argv)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in cu.launch_counts().items() if v}
+        print(f"example {name} {' '.join(argv)}: {time.perf_counter() - t0:.1f} s on "
+              f"the card; update / quantize launches {launched or 'none'}, serving "
+              f"{_serving_counts()} [{card_line()}]")
+        if "--exchange" in argv and not {"sr_quantize", "cdmsgd_update_q"} <= set(launched):
+            raise AssertionError(f"example {name}: launched {launched}, expected the "
+                                 "int8 wire's quantize and _q update")
+        _free()
 
 
 def _cpu_like(tree):
@@ -4208,6 +4466,7 @@ def main() -> None:
         sparse_times = check_sparse(measured, gen)
         check_threshold(measured, gen)
         check_flash(measured, gen)
+        check_flash_families(measured, gen)
         check_wkv(measured, gen)
     with phase("3c bf16 buckets"):
         check_bf16_buckets(measured, gen)
@@ -4236,14 +4495,24 @@ def main() -> None:
         for k, n in dense_serving_path().items():
             counts[k] = counts.get(k, 0) + n
     with phase("6-7 MoE, MLA, VLM serving"):
-        counts["flash_attention"] += family_serving_path()
+        counts["flash_attention"] += family_serving_path(
+            [f for f in FAMILY_ARCHS if f[0] not in NEW_FAMILIES])
+    with phase("6-7 hymba, seamless serving"):
+        counts["flash_attention"] += family_serving_path(
+            [f for f in FAMILY_ARCHS if f[0] in NEW_FAMILIES])
     with phase("10-12 LM training and resume"):
         lm = lm_train_path()
         for k, by in lm_resume().items():
             for bucket, n in by.items():
                 lm[k][bucket] += n
     with phase("10c MoE, MLA, VLM training"):
-        for k, by in family_train_path().items():
+        for k, by in family_train_path(
+                [r for r in FAMILY_LM_RUNS if r[1] not in NEW_FAMILIES]).items():
+            for bucket, n in by.items():
+                lm[k][bucket] += n
+    with phase("10c hymba, seamless training"):
+        for k, by in family_train_path(
+                [r for r in FAMILY_LM_RUNS if r[1] in NEW_FAMILIES]).items():
             for bucket, n in by.items():
                 lm[k][bucket] += n
     for name, (wrapper, _, _) in BF16_FORMS.items():
@@ -4267,14 +4536,16 @@ def main() -> None:
 
     with phase("5, 8, 13 parity"):
         parities(params, train)
+    with phase("15 examples"):
+        examples_path()
     print("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
 
 
 def parities(params, train) -> None:
-    """Phases 5, 8 and 13: card against CPU (8 and 13 also for the MoE, MLA
-    and VLM configs)."""
+    """Phases 5, 8 and 13: card against CPU (8 and 13 also for the MoE, MLA,
+    VLM, hybrid and encoder-decoder configs)."""
     parity(params, train, 3)
     parity(params, train, 3, schedule="overlap")
     parity(params, train, 1, exchange="int8")

@@ -2,10 +2,10 @@
 
 The port's own copy of :class:`ArchConfig`, field for field the
 reference's (``compute_dtype`` aside, which nothing reads): dense GQA with
-local/global windows, RWKV6, MLA, MoE and the modality frontends, and the
-hybrid / encoder-decoder discriminators, on which the model raises (ROADMAP
-A17.3).  :attr:`ArchConfig.dtype` is a ``torch.dtype``.  :class:`InputShape`
-(the four assigned global input shapes, :data:`INPUT_SHAPES`) and
+local/global windows, RWKV6, MLA, MoE, the hybrid attention + mamba
+layers, the encoder-decoder and the modality frontends.
+:attr:`ArchConfig.dtype` is a ``torch.dtype``.  :class:`InputShape` (the
+four assigned global input shapes, :data:`INPUT_SHAPES`) and
 :class:`RunConfig` are the reference's.
 """
 
@@ -52,12 +52,12 @@ class ArchConfig:
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
 
-    # SSM / hybrid (hybrid and mamba: not ported yet, the model raises)
+    # SSM / hybrid
     ssm_kind: str = "none"           # rwkv6 | mamba | none
     ssm_state: int = 0
     hybrid: bool = False             # parallel attention + mamba heads
 
-    # encoder-decoder (not ported yet, the model raises)
+    # encoder-decoder (seamless)
     is_encoder_decoder: bool = False
     enc_layers: int = 0
 

@@ -2,7 +2,10 @@
 :mod:`repro.launch.serve`.
 
 The prompt is teacher-forced through :func:`decode_step` one token at a
-time, then each next token is the greedy argmax.  Weights are drawn from
+time, then each next token is the greedy argmax.  An encoder-decoder first
+runs its encoder once (:func:`encode_for_decode`, before the timed loop)
+on the reference's stub frames, float32 ones ``(batch, frontend_tokens,
+frontend_dim)``, into the cache's ``enc_out``.  Weights are drawn from
 ``--seed`` (:func:`init_params`); the prompt from ``np.random.default_rng
 (seed)``, as in the reference.  Runs on the CUDA card by default (raises
 without one); ``--device cpu`` runs on the CPU.
@@ -10,6 +13,7 @@ without one); ``--device cpu`` runs on the CPU.
 Examples:
   python -m repro_torch.launch.serve --arch gemma3-1b --preset full
   python -m repro_torch.launch.serve --arch rwkv6-1.6b --preset tiny --device cpu
+  python -m repro_torch.launch.serve --arch seamless-m4t-medium --preset tiny --device cpu
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.nn.param import init_params
-from repro_torch.nn.transformer import decode_step, init_cache, model_template
+from repro_torch.nn.transformer import (decode_step, encode_for_decode, init_cache,
+                                        model_template)
 
 
 def make_prompt(cfg, batch: int, prompt_len: int, seed: int) -> np.ndarray:
@@ -38,7 +43,8 @@ def serve(cfg, params, prompt: np.ndarray, new_tokens: int,
     """Greedy decode after a teacher-forced ``prompt (batch, prompt_len)``.
 
     Returns ``(tokens (batch, prompt_len + new_tokens), stats)``; stats has
-    the wall ``seconds`` of the loop (synchronized), its ``decode_steps``,
+    the wall ``seconds`` of the loop (synchronized; an encoder-decoder's
+    encode runs before it), its ``decode_steps``,
     ``tokens_per_s`` (``batch * max_len / seconds``, the figure the
     reference's loop prints: every token of the returned sequences) and
     ``decode_tokens_per_s`` (``batch * decode_steps / seconds``: tokens
@@ -48,7 +54,12 @@ def serve(cfg, params, prompt: np.ndarray, new_tokens: int,
     batch, prompt_len = prompt.shape
     max_len = prompt_len + new_tokens
     with torch.inference_mode():
-        cache = init_cache(cfg, batch, max_len, device=dev)
+        enc_len = cfg.frontend_tokens if cfg.is_encoder_decoder else 0
+        cache = init_cache(cfg, batch, max_len, enc_len=enc_len, device=dev)
+        if cfg.is_encoder_decoder:
+            frames = torch.ones((batch, cfg.frontend_tokens, cfg.frontend_dim),
+                                dtype=torch.float32, device=dev)
+            cache["enc_out"] = encode_for_decode(cfg, params, frames)
         prompt_t = torch.as_tensor(prompt, dtype=torch.long, device=dev)
         tok = prompt_t[:, :1]
         out = [tok]
@@ -74,7 +85,8 @@ def serve(cfg, params, prompt: np.ndarray, new_tokens: int,
                   "decode_tokens_per_s": rate(batch * steps)}
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    """Parse ``argv`` (``sys.argv[1:]`` when None) and serve."""
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", required=True)
@@ -85,7 +97,7 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)

@@ -119,6 +119,19 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
+def lm_loss(cfg):
+    """The next-token loss of ``cfg`` on a batch ``{"inputs", "targets"}``;
+    a frontend model's batch gets the reference's stub frontend, float32
+    ones for every patch / frame."""
+    def loss(p, batch):
+        if cfg.modality in ("audio", "vlm"):
+            batch = {**batch, "frontend": torch.ones(
+                (batch["inputs"].shape[0], cfg.frontend_tokens, cfg.frontend_dim),
+                dtype=torch.float32, device=batch["inputs"].device)}
+        return loss_fn(cfg, p, batch)
+    return loss
+
+
 def main(argv=None) -> CollaborativeTrainer:
     """Parse ``argv`` (``sys.argv[1:]`` when None), train, and return the
     trainer (its state, history and wire accounting)."""
@@ -167,17 +180,8 @@ def main(argv=None) -> CollaborativeTrainer:
     opt = make_optimizer(args.optimizer, sched, **kw)
     topo = make_topology(args.topology, args.agents)
 
-    def lm_loss(p, batch):
-        extra = {}
-        if cfg.modality in ("audio", "vlm"):
-            # the frontend stub: ones for every patch / frame, as the reference
-            extra["frontend"] = torch.ones(
-                (batch["inputs"].shape[0], cfg.frontend_tokens, cfg.frontend_dim),
-                dtype=torch.float32, device=batch["inputs"].device)
-        return loss_fn(cfg, p, {**batch, **extra})
-
     trainer = CollaborativeTrainer(
-        lm_loss, params, topo, opt, device=dev, exchange=args.exchange,
+        lm_loss(cfg), params, topo, opt, device=dev, exchange=args.exchange,
         schedule=args.schedule, microbatches=args.microbatch,
         mixing_strategy=args.mixing_strategy,
         consensus_rounds=args.consensus_rounds,

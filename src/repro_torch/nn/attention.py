@@ -1,20 +1,28 @@
 """Grouped-query attention for prefill, training and cached decode, as the
 GQA part of :mod:`repro.nn.attention`.
 
-* Prefill (:func:`gqa_attention`, causal self-attention) runs the flash
-  kernel (:func:`repro_torch.kernels.flash_attention.ops.
-  flash_attention_bshd`) with the layer's static window: a sliding-window
-  layer and a global one are the same kernel with and without ``window``.
+* Prefill (:func:`gqa_attention`) runs the flash kernel
+  (:func:`repro_torch.kernels.flash_attention.ops.flash_attention_bshd`)
+  with the layer's static window: a sliding-window layer and a global one
+  are the same kernel with and without ``window``; an encoder's
+  self-attention (``causal=False``) and cross-attention (``kv_x``: queries
+  over another sequence, Sq != Sk) are the kernel without the causal mask.
   Any length is taken: the kernel masks ragged tiles.  bfloat16 runs the
-  tensor-core kernel, float32 the float32 one; nothing falls back to plain
-  code.  The kernel is forward-only, as the reference's is.
+  tensor-core kernel, float32 the float32 one (a bfloat16 query over
+  float32 K/V, from seamless's float32 encoder, runs the float32 kernel
+  and casts the result back, as the reference's float32 attention does);
+  nothing falls back to plain code.  The kernel is forward-only, as the
+  reference's is.
 * Training (``gqa_attention(..., differentiable=True)``, which the LM
   loss asks for) computes the reference's own training attention in plain,
   differentiable PyTorch, with the reference's choice between them:
   :func:`banded_attention` when the window is static and below ``s`` and
-  ``s`` is a multiple of the chunk, :func:`blockwise_attention` (online
-  softmax over KV chunks, KV padded to a chunk multiple) otherwise.  Both
-  compute in float32 and cast to the query's dtype, as the reference does.
+  ``s`` is a multiple of the chunk (causal self-attention only),
+  :func:`blockwise_attention` (online softmax over KV chunks, KV padded to
+  a chunk multiple) otherwise.  Both compute in float32 and cast to the
+  query's dtype, as the reference does.  A decoder's cross-attention in
+  decode takes the same plain :func:`blockwise_attention` (decode launches
+  no kernel).
 * Decode (:func:`gqa_decode`) writes the new token's K/V into the cache
   **in place** and attends over it with :func:`decode_attention`, a plain
   einsum pair as in the reference (no kernel there either).
@@ -27,8 +35,8 @@ expands the compressed ``c_kv`` into per-head K/V and runs
 ``v_head``, in prefill as in training: the reference runs it plain too, and
 the flash kernel takes one width for q, k and v.  Its decode
 (:func:`mla_decode`) caches ``c_kv`` and the rotated ``k_rope`` only and
-attends in the absorbed form, in float32.  Cross-attention and context
-parallelism are not ported yet (ROADMAP A17.3, A16.2).
+attends in the absorbed form, in float32.  Context parallelism is not
+ported yet (ROADMAP A16.2).
 """
 
 from __future__ import annotations
@@ -39,7 +47,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.nn.layers import apply_rope
+from repro_torch.nn.layers import apply_rope, matmul
 from repro_torch.nn.param import ParamDef
 
 NEG_INF = -1e30
@@ -169,39 +177,63 @@ def gqa_template(d: int, n_heads: int, n_kv: int, head_dim: int,
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``einsum("bsd,dhk->bshk")`` as one matrix product."""
-    return torch.matmul(x, w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+    """``einsum("bsd,dhk->bshk")`` as one matrix product (promoting)."""
+    return matmul(x, w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
 
 
 def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """``einsum("bshk,hkd->bsd")`` as one matrix product."""
-    return torch.matmul(o.flatten(-2), wo.reshape(-1, wo.shape[-1]))
+    """``einsum("bshk,hkd->bsd")`` as one matrix product (promoting)."""
+    return matmul(o.flatten(-2), wo.reshape(-1, wo.shape[-1]))
+
+
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+           window: Optional[int]) -> torch.Tensor:
+    """The flash kernel on ``(b, s, heads, d)`` operands; mixed dtypes
+    (bfloat16 queries over float32 K/V) run the wider kernel on widened
+    operands, the result in the query's dtype."""
+    wide = torch.promote_types(q.dtype, k.dtype)
+    out = flash_ops.flash_attention_bshd(q.to(wide), k.to(wide), v.to(wide),
+                                         causal=causal, window=window)
+    return out.to(q.dtype)
 
 
 def gqa_attention(params, x: torch.Tensor, positions: torch.Tensor, *,
-                  window: Optional[int] = None, rope_theta: float = 1e4,
+                  causal: bool = True, window: Optional[int] = None,
+                  rope_theta: float = 1e4, kv_x: Optional[torch.Tensor] = None,
+                  kv_positions: Optional[torch.Tensor] = None, use_rope: bool = True,
                   chunk: int = 512, differentiable: bool = False) -> torch.Tensor:
-    """Causal self-attention of ``x (b, s, d)``; ``window`` None (global) or
-    a static int (sliding window); rope reads ``positions``.
+    """Attention of ``x (b, s, d)`` over itself (``kv_x`` None; ``causal``,
+    ``window`` None (global) or a static int (sliding window)) or over
+    ``kv_x (b, sk, d)`` (cross-attention: never causal); rope, when
+    ``use_rope``, reads ``positions`` for the queries and ``kv_positions``
+    (default: ``positions`` for self-attention, ``0 .. sk-1`` for
+    ``kv_x``) for the keys.
 
     ``differentiable=False`` (prefill) runs the forward-only flash kernel,
-    its mask built from position indices ``0 .. s-1``.
-    ``differentiable=True`` (training) computes the reference's plain
-    attention: :func:`banded_attention` for a window below ``s`` when ``s``
-    is a multiple of ``min(chunk, s)``, else :func:`blockwise_attention`
-    over ``positions``, both with ``chunk``."""
-    q = apply_rope(_project(x, params["wq"]), positions, rope_theta)
-    k = apply_rope(_project(x, params["wk"]), positions, rope_theta)
-    v = _project(x, params["wv"])
+    its mask built from position indices ``0 .. s-1`` (and ``0 .. sk-1``).
+    ``differentiable=True`` (training, and cross-attention in decode)
+    computes the reference's plain attention: :func:`banded_attention` for
+    causal self-attention with a window below ``s`` when ``s`` is a
+    multiple of ``min(chunk, s)``, else :func:`blockwise_attention` over
+    the positions, both with ``chunk``."""
+    src = x if kv_x is None else kv_x
+    q = _project(x, params["wq"])
+    k = _project(src, params["wk"])
+    v = _project(src, params["wv"])
+    kp = kv_positions if kv_positions is not None else (
+        positions if kv_x is None else torch.arange(src.shape[1], device=x.device))
+    if use_rope:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, kp, rope_theta)
+    causal = causal and kv_x is None
     s = x.shape[1]
     if not differentiable:
-        out = flash_ops.flash_attention_bshd(q, k, v, causal=True, window=window)
-    elif window and s % min(chunk, s) == 0 and window < s:
+        out = _flash(q, k, v, causal=causal, window=window)
+    elif kv_x is None and causal and window and s % min(chunk, s) == 0 and window < s:
         out = banded_attention(q, k, v, window=window, q_chunk=chunk)
     else:
-        out = blockwise_attention(q, k, v, causal=True, window=window,
-                                  q_positions=positions, k_positions=positions,
-                                  chunk=chunk)
+        out = blockwise_attention(q, k, v, causal=causal, window=window,
+                                  q_positions=positions, k_positions=kp, chunk=chunk)
     return _out(out, params["wo"])
 
 
@@ -226,6 +258,16 @@ def gqa_decode(params, cache: Dict[str, torch.Tensor], x: torch.Tensor,
     cache["v"][:, cur_index] = v[:, 0].to(cache["v"].dtype)
     out = decode_attention(q, cache["k"], cache["v"], cur_index, window=window)
     return _out(out, params["wo"]), cache
+
+
+def gqa_cross_decode(params, enc_kv: Dict[str, torch.Tensor],
+                     x: torch.Tensor) -> torch.Tensor:
+    """Cross-attention of one decode token ``x (b, 1, d)`` over precomputed
+    encoder K/V ``{"k", "v"} (b, sk, KV, hd)`` (every key allowed, no
+    rope), as the reference's ``gqa_cross_decode``."""
+    q = _project(x, params["wq"])
+    out = decode_attention(q, enc_kv["k"], enc_kv["v"], enc_kv["k"].shape[1] - 1)
+    return _out(out, params["wo"])
 
 
 # --------------------------------------------------------------------------

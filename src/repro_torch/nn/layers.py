@@ -1,7 +1,10 @@
 """Basic layers as functions on tensors + their parameter templates, as
 :mod:`repro.nn.layers`: norms, embedding / unembedding, the MLP and rotary
 position embeddings.  The float32 upcasts sit where the reference has
-them (norm statistics and affine, rope's rotation)."""
+them (norm statistics and affine, rope's rotation).  A matrix product of a
+float32 activation and bfloat16 weights (seamless's float32 encoder) takes
+JAX's promotion to float32 (:func:`matmul`): ``torch.matmul`` raises on
+mixed dtypes."""
 
 from __future__ import annotations
 
@@ -11,6 +14,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.nn.param import ParamDef
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.matmul`` with ``jnp.einsum``'s dtype promotion: operands of
+    different dtypes are both cast to the promoted one (bfloat16 against
+    float32 computes in float32)."""
+    if a.dtype != b.dtype:
+        t = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(t), b.to(t)
+    return torch.matmul(a, b)
 
 
 # --------------------------------------------------------------------------
@@ -101,12 +114,12 @@ def _act(name: str):
 
 
 def mlp(params, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
-    h = torch.matmul(x, params["wi"])
+    h = matmul(x, params["wi"])
     if "wg" in params:
-        h = _act(act)(torch.matmul(x, params["wg"])) * h
+        h = _act(act)(matmul(x, params["wg"])) * h
     else:
         h = _act(act)(h)
-    return torch.matmul(h, params["wo"])
+    return matmul(h, params["wo"])
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,7 @@
-"""RWKV6 ("Finch") time mix and channel mix, as the RWKV6 part of
-:mod:`repro.nn.ssm` (with the reference's simplifications: static
-token-shift coefficients, an RMS output norm; the data-dependent decay
-LoRA kept).
+"""RWKV6 ("Finch") time mix and channel mix, and the selective SSM
+(Mamba-style) of the Hymba hybrid heads, as :mod:`repro.nn.ssm` (with the
+reference's RWKV6 simplifications: static token-shift coefficients, an RMS
+output norm; the data-dependent decay LoRA kept).
 
 The WKV recurrence takes one of three forms:
 
@@ -15,7 +15,12 @@ The WKV recurrence takes one of three forms:
 * a carried state (decode) takes :func:`wkv6_scan`, as in the reference
   (it has no kernel there either).
 
-The Mamba layers are not ported yet (ROADMAP A17).
+Mamba (:func:`mamba_apply`) is plain PyTorch in prefill, training and
+decode, as it is XLA in the reference: :func:`mamba_chunked` (chunks of 32
+steps composed step by step, every chunk at once) when ``s >= 64`` and
+``s % 32 == 0``, the step recurrence :func:`mamba_scan` otherwise (decode:
+one step on the carried float32 state).  Both are out of place, so they run under the
+stacked trainer's ``vmap(grad_and_value(...))``.
 """
 
 from __future__ import annotations
@@ -199,3 +204,125 @@ def rwkv6_init_state(batch: int, d: int, *, head_size: int = 64,
                                 dtype=torch.float32, device=device)},
         "cm": torch.zeros((batch, d), dtype=dtype, device=device),
     }
+
+
+# --------------------------------------------------------------------------
+# Selective SSM (Mamba-style) for the Hymba hybrid heads
+# --------------------------------------------------------------------------
+
+
+def mamba_template(d: int, *, d_inner: Optional[int] = None, n_state: int = 16,
+                   dtype=torch.float32) -> Dict[str, ParamDef]:
+    di = d_inner or d
+    return {
+        "w_in": ParamDef((d, 2 * di), ("fsdp", "tp"), init="scaled", dtype=dtype),
+        "w_dt": ParamDef((d, di), ("fsdp", "tp"), init="scaled", scale=0.1, dtype=dtype),
+        "dt_bias": ParamDef((di,), ("tp",), init="zeros", dtype=dtype),
+        "w_b": ParamDef((d, n_state), ("fsdp", None), init="scaled", dtype=dtype),
+        "w_c": ParamDef((d, n_state), ("fsdp", None), init="scaled", dtype=dtype),
+        "a_log": ParamDef((di, n_state), ("tp", None), init="zeros", dtype=dtype),
+        "d_skip": ParamDef((di,), ("tp",), init="ones", dtype=dtype),
+        "w_out": ParamDef((di, d), ("tp", "fsdp"), init="scaled", dtype=dtype),
+    }
+
+
+def mamba_scan(u, dt, b_in, c_in, a, state0=None):
+    """``h_t = exp(dt_t A) h_{t-1} + dt_t (B_t outer u_t)``, ``y_t = h_t .
+    C_t``, step by step in float32.
+
+    u, dt ``(b, s, di)``; b_in, c_in ``(b, s, n)``; a ``(di, n)``; state
+    ``(b, di, n)``.  Returns ``(y (b, s, di), final state)``.
+    """
+    bsz, s, di = u.shape
+    u, dt, b_in, c_in = (t.float() for t in (u, dt, b_in, c_in))
+    a = a.float()
+    h = (torch.zeros((bsz, di, b_in.shape[-1]), dtype=torch.float32, device=u.device)
+         if state0 is None else state0.float())
+    ys = []                       # stacked, not written in place: vmap-able
+    for t in range(s):
+        decay = torch.exp(dt[:, t, :, None] * a[None])             # (b, di, n); a <= 0
+        h = decay * h + (dt[:, t] * u[:, t])[..., None] * b_in[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, c_in[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
+def _compose_steps(decay: torch.Tensor, g: torch.Tensor):
+    """Inclusive scan along dim 0 of the recurrence ``h' = a h + g``
+    composed (``(a1, g1) o (a2, g2) = (a1 a2, a2 g1 + g2)``, no division):
+    ``P_t = a_t P_{t-1}``, ``Z_t = a_t Z_{t-1} + g_t``, step by step on
+    contiguous slices; out of place.  The reference composes in
+    ``lax.associative_scan``'s tree order: the same products, rounded in
+    another order.  The steps are taken by ``unbind`` (its backward stacks
+    the slices' gradients once; indexing would zero-fill a whole-size
+    gradient for every step)."""
+    ds, gs = decay.unbind(0), g.unbind(0)
+    ps, zs = [ds[0]], [gs[0]]                            # stacked, not written in place
+    for t in range(1, len(gs)):
+        ps.append(ds[t] * ps[-1])
+        zs.append(torch.addcmul(gs[t], ds[t], zs[-1]))
+    return torch.stack(ps), torch.stack(zs)
+
+
+def mamba_chunked(u, dt, b_in, c_in, a, state0=None, *, chunk: int = 32):
+    """The selective scan in the reference's chunked form (float32,
+    differentiable): within a chunk, the per-step decays ``a_t = exp(dt_t
+    A)`` and drives ``g_t = dt_t u_t (x) B_t`` compose into ``(P_t, Z_t)``
+    (:func:`_compose_steps`, steps first, every chunk at once), and ``h_t =
+    P_t h_0 + Z_t`` from the state ``h_0`` the previous chunk carried.
+    ``s % chunk == 0``; returns ``(y (b, s, di), final state)``.
+    """
+    bsz, s, di = u.shape
+    n = b_in.shape[-1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"seq {s} must divide chunk {chunk}")
+    n_chunks = s // chunk
+    u, dt, b_in, c_in = (t.float() for t in (u, dt, b_in, c_in))
+    a = a.float()
+    h = (torch.zeros((bsz, di, n), dtype=torch.float32, device=u.device)
+         if state0 is None else state0.float())
+
+    def to_steps(t):                                     # (C, b, n_chunks, ...)
+        return t.reshape(bsz, n_chunks, chunk, *t.shape[2:]).movedim(2, 0).contiguous()
+
+    uc, dtc, bc, cc = (to_steps(t) for t in (u, dt, b_in, c_in))
+    decay = torch.exp(dtc[..., None] * a)                # (C, b, nc, di, n)
+    g = (dtc * uc)[..., None] * bc[..., None, :]         # (C, b, nc, di, n)
+    p_inc, z = _compose_steps(decay, g)
+    starts = []                                          # each chunk's h_0, in order
+    for p_c, z_c in zip(p_inc[-1].unbind(1), z[-1].unbind(1)):
+        starts.append(h)
+        h = torch.addcmul(z_c, p_c, h)
+    h_t = torch.addcmul(z, p_inc, torch.stack(starts, dim=1))
+    y = torch.einsum("cbkdn,cbkn->bkcd", h_t, cc)
+    return y.reshape(bsz, s, di), h
+
+
+def _softplus(v: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(v, 0)``."""
+    return torch.logaddexp(v, torch.zeros((), dtype=v.dtype, device=v.device))
+
+
+def mamba_apply(params, x: torch.Tensor, state: Optional[torch.Tensor] = None):
+    """Returns ``(y (b, s, d), new state (b, di, n) float32)``: the chunked
+    scan when ``s >= 64`` and ``s % 32 == 0``, else the step recurrence."""
+    xz = torch.matmul(x, params["w_in"])
+    u, z = torch.chunk(xz, 2, dim=-1)
+    u = F.silu(u)
+    dt = _softplus(torch.matmul(x, params["w_dt"]) + params["dt_bias"])
+    b_in = torch.matmul(x, params["w_b"])
+    c_in = torch.matmul(x, params["w_c"])
+    a = -torch.exp(params["a_log"].float())              # negative definite
+    s = x.shape[1]
+    if s >= 64 and s % 32 == 0:
+        y, h = mamba_chunked(u, dt, b_in, c_in, a, state, chunk=32)
+    else:
+        y, h = mamba_scan(u, dt, b_in, c_in, a, state)
+    y = (y.to(x.dtype) + params["d_skip"] * u) * F.silu(z)
+    return torch.matmul(y, params["w_out"]), h
+
+
+def mamba_init_state(batch: int, d_inner: int, n_state: int, device=None) -> torch.Tensor:
+    """The decode state ``(batch, d_inner, n_state)``, float32 whatever the
+    parameters' dtype (the reference's)."""
+    return torch.zeros((batch, d_inner, n_state), dtype=torch.float32, device=device)

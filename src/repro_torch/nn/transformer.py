@@ -1,40 +1,52 @@
 """Model assembly for the ported families, as :mod:`repro.nn.transformer`:
 templates, prefill forward, loss, and cached decode.
 
-Ported: dense GQA transformers with local/global sliding windows
-(gemma3-1b and the other dense configs), RWKV6 (rwkv6-1.6b), MoE blocks
-with GQA (kimi-k2-1t-a32b) or MLA (deepseek-v2-236b) attention after
-``n_dense_layers`` dense blocks, and the VLM frontend (internvl2-2b: a
-projector over the batch's stub patch embeddings, prepended to the token
-embeddings).  The parameter tree has the reference's layout exactly (so the
-JAX package's weights carry over): layers stacked on a leading ``layers``
-axis per homogeneous group (``dense`` then ``moe`` for an MoE model),
-gemma's local/global interleave regrouped into period-sized super-blocks
+Every family of the reference: dense GQA transformers with local/global
+sliding windows (gemma3-1b and the other dense configs), RWKV6
+(rwkv6-1.6b), MoE blocks with GQA (kimi-k2-1t-a32b) or MLA
+(deepseek-v2-236b) attention after ``n_dense_layers`` dense blocks, the VLM
+frontend (internvl2-2b: a projector over the batch's stub patch
+embeddings, prepended to the token embeddings), the hybrid (hymba-1.5b:
+sliding-window attention and a mamba head on the same normed input, each
+normed, averaged into the residual) and the encoder-decoder (seamless-m4t-
+medium: a non-causal encoder over the projected stub audio frames, a
+decoder of causal self-attention, cross-attention over the encoder's
+output without rope, and an MLP).  The parameter tree has the reference's
+layout exactly (so the JAX package's weights carry over): layers stacked on
+a leading ``layers`` axis per homogeneous group (``dense`` then ``moe`` for
+an MoE model, ``enc`` then ``dec`` for an encoder-decoder), gemma's
+local/global interleave regrouped into period-sized super-blocks
 (``lg_super``, each holding ``period`` stacked layers with a static window
 per sub-layer) and a tail (``lg_tail``).  Where the reference scans over a
 stack (``lax.scan``) the port loops over its layer slices in Python.
 
 Prefill attention runs the flash kernel and the RWKV6 prefill the WKV6
-kernel (see :mod:`.attention`, :mod:`.ssm`); both are forward-only.  MLA
-and the MoE layer are plain PyTorch, as they are XLA in the reference.  The
-loss is the training path: :func:`loss_fn` asks the layers for the
-reference's differentiable attention (banded / blockwise) and WKV (chunked
-/ scan), in plain PyTorch, and adds ``router_aux_weight`` times the MoE
-layers' load-balance term.  ``remat=True`` recomputes each block (a gemma
-super-block as one unit) in the backward pass instead of keeping its
+kernel (see :mod:`.attention`, :mod:`.ssm`); both are forward-only.  MLA,
+the MoE layer and mamba are plain PyTorch, as they are XLA in the
+reference.  The encoder follows its frontend's dtype: the reference's CLIs
+feed float32 frames, which promote the encoder to float32 against bfloat16
+weights (JAX's promotion, by hand: :func:`repro_torch.nn.layers.matmul`);
+the decoder stays in the weights' dtype.  The loss is the training path:
+:func:`loss_fn` asks the layers for the reference's differentiable
+attention (banded / blockwise) and WKV (chunked / scan), in plain PyTorch,
+and adds ``router_aux_weight`` times the MoE layers' load-balance term.
+``remat=True`` recomputes each block (a gemma super-block as one unit) in
+the backward pass instead of keeping its
 activations, as the reference's ``jax.checkpoint`` of each scanned block
-does; the gradients are the same bits.  Decode carries per-layer caches
-with the same stacked layout; the port writes them **in place** (views of
-the stacked tensors) and returns the same tree.  The hybrid and
-encoder-decoder families, the audio frontend and mamba raise
-``NotImplementedError`` (ROADMAP A17.3).
+does; the gradients are the same bits (a decoder block takes the encoder's
+output as an input of its unit, so its gradient reaches the encoder).
+Decode carries per-layer caches with the same stacked layout; the port
+writes them **in place** (views of the stacked tensors) and returns the
+same tree; an encoder-decoder's cache also holds ``enc_out``, the encoder's
+output (:func:`encode_for_decode`), which every cross-attention reads.
 
 Public API:
   model_template(cfg)                       -> ParamDef tree
   forward(cfg, params, batch)               -> (logits, aux)  [prefill]
   loss_fn(cfg, params, batch)               -> (scalar, metrics)  [training]
-  init_cache(cfg, batch, max_len)           -> cache tree
+  init_cache(cfg, batch, max_len[, enc_len]) -> cache tree
   decode_step(cfg, params, cache, tok, idx) -> (logits, cache)
+  encode_for_decode(cfg, params, frontend)  -> enc_out  [encoder-decoder]
 """
 
 from __future__ import annotations
@@ -51,6 +63,7 @@ from repro_torch.nn.layers import (
     embed,
     embedding_template,
     make_norm,
+    matmul,
     mlp,
     mlp_template,
     unembed,
@@ -62,22 +75,18 @@ from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_map, tree_unf
 PyTree = Any
 
 
-def _unported(cfg, what: str):
-    return NotImplementedError(
-        f"{cfg.name}: {what} is not ported yet (ROADMAP A17.3); the port runs "
-        "dense GQA (full / sliding-window / local-global), RWKV6, MoE, MLA and "
-        "the VLM frontend")
-
-
 def _check_family(cfg) -> None:
-    if cfg.is_encoder_decoder:
-        raise _unported(cfg, "the encoder-decoder family")
-    if cfg.hybrid:
-        raise _unported(cfg, "the hybrid (attention + mamba) family")
-    if cfg.modality not in ("text", "vlm"):
-        raise _unported(cfg, f"the {cfg.modality} frontend")
-    if cfg.ssm_kind not in ("none", "rwkv6"):
-        raise _unported(cfg, f"the {cfg.ssm_kind} SSM")
+    """Raise on a combination the reference's zoo has no model for: an
+    unknown modality or SSM kind, mamba outside the hybrid family, or a
+    hybrid without mamba."""
+    if cfg.modality not in ("text", "vlm", "audio"):
+        raise ValueError(f"{cfg.name}: no {cfg.modality!r} frontend in the zoo")
+    if cfg.ssm_kind not in ("none", "rwkv6", "mamba"):
+        raise ValueError(f"{cfg.name}: no {cfg.ssm_kind!r} SSM in the zoo")
+    if cfg.hybrid != (cfg.ssm_kind == "mamba"):
+        raise ValueError(f"{cfg.name}: the zoo runs mamba only as the hybrid "
+                         f"family's heads (hybrid={cfg.hybrid}, "
+                         f"ssm_kind={cfg.ssm_kind!r})")
 
 
 def _norm(cfg):
@@ -137,13 +146,45 @@ def rwkv_block_template(cfg) -> Dict[str, Any]:
     return {"ln1": nt(cfg.d_model, cfg.dtype), "ln2": nt(cfg.d_model, cfg.dtype), **t}
 
 
+def hymba_block_template(cfg) -> Dict[str, Any]:
+    nt, _ = _norm(cfg)
+    return {
+        "ln1": nt(cfg.d_model, cfg.dtype),
+        "attn": _attn_template(cfg),
+        "mamba": ssm_lib.mamba_template(cfg.d_model, n_state=cfg.ssm_state,
+                                        dtype=cfg.dtype),
+        "ln_a": nt(cfg.d_model, cfg.dtype),     # per-path output norms (the fusion)
+        "ln_s": nt(cfg.d_model, cfg.dtype),
+        "ln2": nt(cfg.d_model, cfg.dtype),
+        "mlp": mlp_template(cfg.d_model, cfg.d_ff, gated=cfg.mlp_gated, dtype=cfg.dtype),
+    }
+
+
+# an encoder block holds a dense block's leaves (the reference's own template)
+encoder_block_template = dense_block_template
+
+
+def decoder_xattn_block_template(cfg) -> Dict[str, Any]:
+    nt, _ = _norm(cfg)
+    return {
+        "ln1": nt(cfg.d_model, cfg.dtype),
+        "attn": _attn_template(cfg),
+        "ln_x": nt(cfg.d_model, cfg.dtype),
+        "xattn": attn.gqa_template(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.head_dim_, dtype=cfg.dtype),
+        "ln2": nt(cfg.d_model, cfg.dtype),
+        "mlp": mlp_template(cfg.d_model, cfg.d_ff, gated=cfg.mlp_gated, dtype=cfg.dtype),
+    }
+
+
 def layer_groups(cfg):
     """Ordered ``(name, count, template_fn)`` of the homogeneous stacks.
 
     local_global archs are regrouped into period-sized super-blocks
     (``lg_super``: ``period`` stacked layers, the last global, the others
-    local) and a tail of local layers (``lg_tail``); an MoE model is
-    ``n_dense_layers`` dense blocks then MoE blocks; layer order is kept.
+    local) and a tail of local layers (``lg_tail``); an encoder-decoder is
+    ``enc`` then ``dec``; an MoE model is ``n_dense_layers`` dense blocks
+    then MoE blocks; layer order is kept.
     """
     _check_family(cfg)
     if cfg.attn_kind == "local_global" and cfg.local_global_period > 1:
@@ -156,6 +197,9 @@ def layer_groups(cfg):
         if tail:
             groups.append(("lg_tail", tail, dense_block_template))
         return groups
+    if cfg.is_encoder_decoder:
+        return [("enc", cfg.enc_layers, encoder_block_template),
+                ("dec", cfg.n_layers, decoder_xattn_block_template)]
     if cfg.is_moe:
         groups = []
         if cfg.n_dense_layers:
@@ -164,6 +208,8 @@ def layer_groups(cfg):
         return groups
     if cfg.ssm_kind == "rwkv6":
         return [("rwkv", cfg.n_layers, rwkv_block_template)]
+    if cfg.hybrid:
+        return [("hymba", cfg.n_layers, hymba_block_template)]
     return [("dense", cfg.n_layers, dense_block_template)]
 
 
@@ -233,6 +279,18 @@ def _block_apply(cfg, group: str, params, x, positions, window,
         x = x + y
         y, _ = ssm_lib.rwkv6_channel_mix(params["channel_mix"], norm(params["ln2"], x))
         return x + y, None
+    if group == "hymba":
+        h = norm(params["ln1"], x)
+        a = _self_attention(cfg, params["attn"], h, positions, window, differentiable)
+        s, _ = ssm_lib.mamba_apply(params["mamba"], h)
+        x = x + 0.5 * (norm(params["ln_a"], a) + norm(params["ln_s"], s))
+        return x + mlp(params["mlp"], norm(params["ln2"], x), act=cfg.act), None
+    if group == "enc":
+        h = norm(params["ln1"], x)
+        x = x + attn.gqa_attention(params["attn"], h, positions, causal=False,
+                                   rope_theta=cfg.rope_theta, chunk=cfg.attn_chunk,
+                                   differentiable=differentiable)
+        return x + mlp(params["mlp"], norm(params["ln2"], x), act=cfg.act), None
     h = norm(params["ln1"], x)
     x = x + _self_attention(cfg, params["attn"], h, positions, window, differentiable)
     if group == "moe":
@@ -243,17 +301,40 @@ def _block_apply(cfg, group: str, params, x, positions, window,
     return x + mlp(params["mlp"], norm(params["ln2"], x), act=cfg.act), None
 
 
+def _dec_block_apply(cfg, params, x, positions, enc_out, enc_positions,
+                     differentiable: bool):
+    """A decoder block: causal self-attention with rope, cross-attention
+    over ``enc_out`` without rope, the MLP."""
+    _, norm = _norm(cfg)
+    h = norm(params["ln1"], x)
+    x = x + _self_attention(cfg, params["attn"], h, positions, None, differentiable)
+    h = norm(params["ln_x"], x)
+    x = x + attn.gqa_attention(params["xattn"], h, positions, kv_x=enc_out,
+                               kv_positions=enc_positions, use_rope=False,
+                               chunk=cfg.attn_chunk, differentiable=differentiable)
+    return x + mlp(params["mlp"], norm(params["ln2"], x), act=cfg.act)
+
+
 def _unit_fn(cfg, name: str, positions, differentiable: bool) -> Callable:
     """``fn(x, unit) -> (x, aux)`` of one slice of group ``name``'s stack:
     a block, or a gemma super-block (its ``period`` dense layers in order,
-    no aux).  ``positions`` None: ``0 .. s-1`` made inside ``fn`` (a
-    rematerialized unit closes over no tensor: one made outside the
-    autograd Function belongs to another functorch level)."""
+    no aux).  A decoder block's unit is ``{"p": block, "enc": enc_out}``:
+    the encoder's output is one of its inputs, so a rematerialized unit
+    returns its gradient.  ``positions`` None: ``0 .. s-1`` made inside
+    ``fn`` (a rematerialized unit closes over no tensor: one made outside
+    the autograd Function belongs to another functorch level)."""
 
     def pos(x):
         return positions if positions is not None else \
             torch.arange(x.shape[1], device=x.device)
 
+    if name == "dec":
+        def dec_block(x, unit):
+            enc = unit["enc"]
+            return _dec_block_apply(cfg, unit["p"], x, pos(x), enc,
+                                    torch.arange(enc.shape[1], device=enc.device),
+                                    differentiable), None
+        return dec_block
     if name == "lg_super":
         def super_block(x, unit):
             positions_ = pos(x)
@@ -328,6 +409,38 @@ def _apply_unit(fn: Callable, x, unit, remat: bool, has_aux: bool):
     return _Remat.apply(lambda h, u: fn(h, u)[0], treedef, x, *leaves), None
 
 
+def _run_group(cfg, name: str, stacked, x, pos, differentiable: bool, remat: bool,
+               enc_out=None):
+    """``x`` through every slice of group ``name``'s stack, in order
+    (``enc_out`` into each decoder block); returns ``(x, aux)``, the MoE
+    load-balance terms summed (None without MoE)."""
+    fn = _unit_fn(cfg, name, None if remat else pos, differentiable)
+    aux_total = None
+    for j in range(tree_leaves(stacked)[0].shape[0]):
+        unit = _layer(stacked, j)
+        if enc_out is not None:
+            # a view per block: the backward sums the block's own gradients
+            # to ``enc_out`` before adding them to the other blocks', as the
+            # rematerialized unit (which returns their sum) does: the same bits
+            unit = {"p": unit, "enc": enc_out.view_as(enc_out)}
+        x, aux = _apply_unit(fn, x, unit, remat, name == "moe")
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
+    return x, aux_total
+
+
+def _encode(cfg, params, frontend: torch.Tensor, differentiable: bool,
+            remat: bool) -> torch.Tensor:
+    """The encoder over the projected stub frames ``(b, frames,
+    frontend_dim)``, in the frames' dtype promoted against the weights'
+    (float32 frames: a float32 encoder), no final norm."""
+    fe = matmul(frontend, params["frontend_proj"]["w"])
+    pos = torch.arange(fe.shape[1], device=fe.device)
+    enc_out, _ = _run_group(cfg, "enc", params["groups"]["enc"], fe, pos,
+                            differentiable, remat)
+    return enc_out
+
+
 def _embed_inputs(cfg, params, batch):
     """Token embeddings, behind the projected frontend embeddings for a VLM
     (``batch["frontend"] (b, frontend_tokens, frontend_dim)``).  Returns
@@ -349,23 +462,27 @@ def _logits(cfg, params, x):
 
 def forward(cfg, params, batch, *, differentiable: bool = False, remat: bool = False):
     """Forward of ``batch["inputs"] (b, s)`` tokens (behind ``batch
-    ["frontend"]`` for a VLM).  Returns ``(logits (b, [frontend +] s,
-    vocab), aux)``; ``aux["moe_aux"]`` sums the MoE layers' load-balance
-    terms (0 without MoE).  Prefill (``differentiable=False``) runs the
-    forward-only attention and WKV6 kernels; ``differentiable=True`` (the
-    loss) their plain, differentiable training forms.  ``remat=True``
-    recomputes each block in the backward pass."""
-    x, pos = _embed_inputs(cfg, params, batch)
+    ["frontend"]`` for a VLM; an encoder-decoder's decoder over them, its
+    encoder over ``batch["frontend"]``).  Returns ``(logits (b, [frontend
+    +] s, vocab), aux)``; ``aux["moe_aux"]`` sums the MoE layers'
+    load-balance terms (0 without MoE).  Prefill (``differentiable=False``)
+    runs the forward-only attention and WKV6 kernels;
+    ``differentiable=True`` (the loss) their plain, differentiable training
+    forms.  ``remat=True`` recomputes each block in the backward pass."""
+    if cfg.is_encoder_decoder:
+        enc_out = _encode(cfg, params, batch["frontend"], differentiable, remat)
+        x = embed(params["embed"], batch["inputs"])
+        pos = torch.arange(x.shape[1], device=x.device)
+        groups = [("dec", enc_out)]
+    else:
+        x, pos = _embed_inputs(cfg, params, batch)
+        groups = [(name, None) for name, count, _ in layer_groups(cfg) if count]
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for name, count, _ in layer_groups(cfg):
-        if count == 0:
-            continue
-        fn = _unit_fn(cfg, name, None if remat else pos, differentiable)
-        stacked = params["groups"][name]
-        for j in range(tree_leaves(stacked)[0].shape[0]):
-            x, aux = _apply_unit(fn, x, _layer(stacked, j), remat, name == "moe")
-            if aux is not None:
-                aux_total = aux_total + aux
+    for name, enc_out in groups:
+        x, aux = _run_group(cfg, name, params["groups"][name], x, pos,
+                            differentiable, remat, enc_out)
+        if aux is not None:
+            aux_total = aux_total + aux
     return _logits(cfg, params, x), {"moe_aux": aux_total}
 
 
@@ -382,7 +499,8 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask=None) -> tor
 
 def loss_fn(cfg, params, batch, *, remat: bool = False):
     """``(loss, metrics)``: the mean next-token cross entropy over the batch
-    (a VLM's text tail only: frontend positions carry no targets) plus
+    (a VLM's text tail only: frontend positions carry no targets; every
+    position of an encoder-decoder's decoder) plus
     ``router_aux_weight`` times the MoE load-balance term, through the
     differentiable (training) forward; ``remat`` as in :func:`forward`."""
     logits, aux = forward(cfg, params, batch, differentiable=True, remat=remat)
@@ -404,6 +522,11 @@ def _block_cache_init(cfg, group: str, batch: int, max_len: int, device):
     if group == "rwkv":
         return ssm_lib.rwkv6_init_state(batch, cfg.d_model, head_size=min(64, cfg.d_model),
                                         dtype=dt, device=device)
+    if group == "hymba":
+        return {"attn": attn.gqa_init_cache(batch, max_len, cfg.n_kv_heads,
+                                            cfg.head_dim_, dtype=dt, device=device),
+                "mamba": ssm_lib.mamba_init_state(batch, cfg.d_model, cfg.ssm_state,
+                                                  device=device)}
     if cfg.attn_kind == "mla":
         return attn.mla_init_cache(batch, max_len, cfg.kv_lora_rank,
                                    cfg.qk_rope_head_dim, dtype=dt, device=device)
@@ -415,18 +538,24 @@ def _block_cache_init(cfg, group: str, batch: int, max_len: int, device):
     return single
 
 
-def init_cache(cfg, batch: int, max_len: int, device=None):
+def init_cache(cfg, batch: int, max_len: int, enc_len: int = 0, device=None):
     """Zeroed caches, stacked over each group's layers (the reference's
     layout): K/V ``(layers[, period], b, max_len, KV, hd)`` for attention,
     ``{"c", "kr"}`` ``(layers, b, max_len, kv_lora | qk_rope)`` for MLA,
-    ``{"tm": {"shift", "S"}, "cm"}`` for RWKV6."""
+    ``{"tm": {"shift", "S"}, "cm"}`` for RWKV6, ``{"attn": K/V, "mamba":
+    (layers, b, d, ssm_state) float32}`` for hymba; an encoder-decoder's
+    decoder K/V and ``enc_out (b, enc_len, d)`` (the encoder runs once,
+    :func:`encode_for_decode`, and keeps no cache)."""
     cache: Dict[str, Any] = {}
     for name, count, _ in layer_groups(cfg):
-        if count == 0:
+        if count == 0 or name == "enc":
             continue
         single = _block_cache_init(cfg, name, batch, max_len, device)
         cache[name] = tree_map(
             lambda t: t[None].repeat(count, *([1] * t.dim())), single)
+        if name == "dec":
+            cache["enc_out"] = torch.zeros((batch, enc_len, cfg.d_model),
+                                           dtype=cfg.dtype, device=device)
     return cache
 
 
@@ -443,6 +572,14 @@ def _block_decode(cfg, group: str, params, cache, x, cur_index: int, window):
         for view, new in zip(tree_leaves(cache), tree_leaves({"tm": tm, "cm": cm})):
             view.copy_(new)
         return x + y
+    if group == "hymba":
+        h = norm(params["ln1"], x)
+        a, _ = attn.gqa_decode(params["attn"], cache["attn"], h, cur_index,
+                               window=window, rope_theta=cfg.rope_theta)
+        s, state = ssm_lib.mamba_apply(params["mamba"], h, state=cache["mamba"])
+        cache["mamba"].copy_(state)
+        x = x + 0.5 * (norm(params["ln_a"], a) + norm(params["ln_s"], s))
+        return x + mlp(params["mlp"], norm(params["ln2"], x), act=cfg.act)
     h = norm(params["ln1"], x)
     if cfg.attn_kind == "mla":
         a, _ = attn.mla_decode(params["attn"], cache, h, cur_index,
@@ -459,11 +596,34 @@ def _block_decode(cfg, group: str, params, cache, x, cur_index: int, window):
     return x + mlp(params["mlp"], norm(params["ln2"], x), act=cfg.act)
 
 
+def _dec_block_decode(cfg, params, cache, x, cur_index: int, enc_out):
+    """One token through a decoder block: self-attention on the cache
+    (written in place), then cross-attention over ``enc_out`` in the
+    reference's plain blockwise form (no kernel in decode)."""
+    _, norm = _norm(cfg)
+    h = norm(params["ln1"], x)
+    a, _ = attn.gqa_decode(params["attn"], cache, h, cur_index, rope_theta=cfg.rope_theta)
+    x = x + a
+    h = norm(params["ln_x"], x)
+    x = x + attn.gqa_attention(
+        params["xattn"], h, torch.full((1,), cur_index, dtype=torch.int32, device=x.device),
+        causal=False, kv_x=enc_out,
+        kv_positions=torch.arange(enc_out.shape[1], device=x.device),
+        use_rope=False, chunk=cfg.attn_chunk, differentiable=True)
+    return x + mlp(params["mlp"], norm(params["ln2"], x), act=cfg.act)
+
+
 def decode_step(cfg, params, cache, tokens: torch.Tensor, cur_index: int):
     """One decode step.  ``tokens (b, 1)``; returns ``(logits (b, vocab),
     cache)``, the cache updated in place.  A VLM decodes text tokens only,
-    without its frontend, as the reference does."""
+    without its frontend, as the reference does; an encoder-decoder's
+    decoder reads ``cache["enc_out"]``."""
     x = embed(params["embed"], tokens)
+    if cfg.is_encoder_decoder:
+        for (p, _), (c, _) in zip(_sublayers(cfg, "dec", params["groups"]["dec"]),
+                                  _sublayers(cfg, "dec", cache["dec"])):
+            x = _dec_block_decode(cfg, p, c, x, int(cur_index), cache["enc_out"])
+        return _logits(cfg, params, x)[:, 0, :], cache
     for name, count, _ in layer_groups(cfg):
         if count == 0:
             continue
@@ -472,3 +632,11 @@ def decode_step(cfg, params, cache, tokens: torch.Tensor, cur_index: int):
                                        _sublayers(cfg, name, cache[name])):
             x = _block_decode(cfg, group, p, c, x, int(cur_index), window)
     return _logits(cfg, params, x)[:, 0, :], cache
+
+
+def encode_for_decode(cfg, params, frontend: torch.Tensor) -> torch.Tensor:
+    """Run the encoder once over ``frontend (b, frames, frontend_dim)``
+    (prefill: the flash kernel, non-causal); the result goes into the
+    decode cache as ``cache["enc_out"]`` (assigned, not copied: float32
+    frames give a float32 ``enc_out``, as in the reference)."""
+    return _encode(cfg, params, frontend, differentiable=False, remat=False)

@@ -37,9 +37,14 @@ groups 1 / 2 / 4, ragged and unequal lengths (through the model path's
 any-length launch), both masks, b > 1 and the strided (b, s, heads, d)
 view; the float32 kernel also where its key splits fall (one, many and
 uneven splits, two calls giving the same bits); the MoE and VLM configs'
-4 x 2048 prefill shapes at D 128, GQA groups 8 and 2.  The MoE layer
-(plain PyTorch, no kernel) routes on the card as on the CPU, dropped pairs
-included, and its output agrees within 1e-5 of max |y| (float32).
+4 x 2048 prefill shapes at D 128, GQA groups 8 and 2; hymba-1.5b's GQA
+group of 5 at D 64 with its window, and seamless-m4t-medium's non-causal
+encoder (S 1024, also float32) and cross-attention (Sq 2048 over Sk 1024,
+no window), both kernels.  The MoE layer (plain PyTorch, no kernel) routes
+on the card as on the CPU, dropped pairs included, and its output agrees
+within 1e-5 of max |y| (float32); mamba (plain PyTorch, no kernel) on the
+card agrees with the CPU within 1e-5 of max |y| on both of its branches
+(the chunked scan and the step recurrence with a carried state).
 """
 
 import os
@@ -59,7 +64,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.rwkv_scan import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv_scan import rwkv_scan as rs  # noqa: E402
 from repro_torch.kernels.rwkv_scan.ref import wkv6_ref  # noqa: E402
-from repro_torch.nn import moe  # noqa: E402
+from repro_torch.nn import moe, ssm  # noqa: E402
 from repro_torch.nn.param import init_params  # noqa: E402
 from repro_torch.utils.tree import tree_map  # noqa: E402
 
@@ -628,6 +633,21 @@ FLASH_CASES = [   # b, h, kv, sq, sk, d, causal, window, dtype
     # (kimi-k2-1t-a32b: 64 heads on 8) and group 2 (internvl2-2b: 16 on 8)
     (1, 64, 8, 2048, 2048, 128, True, None, torch.bfloat16),
     (1, 16, 8, 2048, 2048, 128, True, None, torch.bfloat16),
+    # hymba-1.5b: GQA group 5 (25 heads on 5) at D 64 with its 1024 window,
+    # and smaller groups of 5 with windows off the tiles, ragged, both kernels
+    (1, 25, 5, 2048, 2048, 64, True, 1024, torch.bfloat16),
+    (2, 10, 2, 300, 300, 64, True, 64, torch.bfloat16),
+    (2, 10, 2, 300, 300, 64, True, 64, torch.float32),
+    # seamless-m4t-medium: the encoder's non-causal self-attention at S 1024
+    # (16 heads on 16, D 64; float32 in the serve loop's encode), the
+    # cross-attention's 2048 decoder queries over 1024 frames (non-causal,
+    # no window, Sq > Sk), and a ragged Sq > Sk in both kernels
+    (1, 16, 16, 1024, 1024, 64, False, None, torch.bfloat16),
+    (1, 16, 16, 1024, 1024, 64, False, None, torch.float32),
+    (1, 16, 16, 2048, 1024, 64, False, None, torch.bfloat16),
+    (1, 16, 16, 2048, 1024, 64, False, None, torch.float32),
+    (2, 4, 4, 300, 130, 64, False, None, torch.bfloat16),
+    (2, 4, 4, 300, 130, 64, False, None, torch.float32),
 ]
 
 
@@ -1215,3 +1235,26 @@ def test_moe_apply_on_card_matches_cpu(factor):
         got_y, got_aux = moe.moe_apply(card, x.to(dev), top_k=k, capacity_factor=factor)
     gap = float((got_y.cpu() - want_y).abs().max() / want_y.abs().max())
     assert gap <= 1e-5 and abs(float(got_aux) - float(want_aux)) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,state", [(128, False), (40, True)], ids=["chunked", "scan"])
+def test_mamba_apply_on_card_matches_cpu(s, state):
+    """``mamba_apply`` (float32) on the card and on the CPU from the same
+    weights and input: the chunked scan at 128 steps, the step recurrence
+    at 40 from a carried state; output and final state."""
+    dev = _card()
+    d, b = 256, 2
+    params = init_params(ssm.mamba_template(d, n_state=16), seed=0)
+    gen = torch.Generator().manual_seed(2)
+    params["a_log"] = 0.3 * torch.randn(params["a_log"].shape, generator=gen)
+    params["dt_bias"] = 0.3 * torch.randn(params["dt_bias"].shape, generator=gen)
+    x = torch.randn((b, s, d), generator=gen)
+    h0 = torch.randn((b, d, 16), generator=gen) if state else None
+    card = tree_map(lambda t: t.to(dev), params)
+    with torch.no_grad():
+        want_y, want_h = ssm.mamba_apply(params, x, h0)
+        got_y, got_h = ssm.mamba_apply(card, x.to(dev), None if h0 is None else h0.to(dev))
+    for got, want in ((got_y, want_y), (got_h, want_h)):
+        assert got.device.type == "cuda" and got.dtype == torch.float32
+        assert float((got.cpu() - want).abs().max() / want.abs().max()) <= 1e-5

@@ -5,9 +5,11 @@ attention's plain version at h2o-danube's head dim of 120.
 * The configs: every field the port's ``ArchConfig`` has equals the
   reference's (``source`` included), the template trees and parameter
   counts are the reference's, reduced and at published size; so too for
-  internvl2-2b, kimi-k2-1t-a32b and deepseek-v2-236b (their published
-  sizes also against the counts the JAX package gives: 1,891,244,032,
-  1,028,298,994,688 and 235,741,312,000).
+  internvl2-2b, kimi-k2-1t-a32b, deepseek-v2-236b, hymba-1.5b and
+  seamless-m4t-medium (their published sizes also against the counts the
+  JAX package gives: 1,891,244,032, 1,028,298,994,688, 235,741,312,000,
+  1,474,872,000 and 878,204,928; hymba's and seamless's reduced sizes
+  2,125,056 and 2,905,600).
 * The forward: reduced, on weights drawn with numpy for every leaf of the
   reference's template (``test_torch_lm_models._leaf_value``: matrices at
   variance 1 / (contraction size)), the JAX and the port's ``forward``
@@ -47,10 +49,14 @@ from repro_torch.nn.param import ParamDef, params_from_numpy  # noqa: E402
 from repro_torch.utils.tree import tree_leaves  # noqa: E402
 
 ARCHS = ["h2o-danube-3-4b", "granite-3-8b", "starcoder2-7b"]
-# the MoE / MLA / VLM configs (their forwards: test_torch_moe.py, test_torch_vlm.py)
-CONFIG_ARCHS = ARCHS + ["internvl2-2b", "kimi-k2-1t-a32b", "deepseek-v2-236b"]
+# the MoE / MLA / VLM / hybrid / encoder-decoder configs (their forwards:
+# test_torch_moe.py, test_torch_vlm.py, test_torch_hymba.py, test_torch_seamless.py)
+CONFIG_ARCHS = ARCHS + ["internvl2-2b", "kimi-k2-1t-a32b", "deepseek-v2-236b",
+                        "hymba-1.5b", "seamless-m4t-medium"]
 PUBLISHED = {"internvl2-2b": 1_891_244_032, "kimi-k2-1t-a32b": 1_028_298_994_688,
-             "deepseek-v2-236b": 235_741_312_000}
+             "deepseek-v2-236b": 235_741_312_000, "hymba-1.5b": 1_474_872_000,
+             "seamless-m4t-medium": 878_204_928}
+REDUCED = {"hymba-1.5b": 2_125_056, "seamless-m4t-medium": 2_905_600}
 B, S = 2, 32
 
 
@@ -79,6 +85,8 @@ def test_template_tree_and_param_count_match(name, reduced):
     assert tc.param_count() == jc.param_count()
     if not reduced and name in PUBLISHED:
         assert tc.param_count() == PUBLISHED[name]
+    if reduced and name in REDUCED:
+        assert tc.param_count() == REDUCED[name]
 
 
 def _carried(name, param_dtype, **changes):

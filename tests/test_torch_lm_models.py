@@ -202,24 +202,30 @@ def test_lm_token_streams_are_identical():
 
 
 def test_registry_holds_the_ported_archs_only():
-    """The registry holds the ported configs; the unported ones (hymba-1.5b,
-    seamless-m4t-medium) raise their queue item, and a family the model
-    does not run (hybrid; MoE before ROADMAP A17.3 was ported, which now
-    builds) raises at its template."""
-    assert sorted(get_config(n).name for n in ARCHS) == ARCHS
-    dense = ["granite-3-8b", "h2o-danube-3-4b", "starcoder2-7b"]
-    assert [get_config(n).name for n in dense] == dense
-    assert get_config("rwkv6-1.6b-reduced").n_layers == 2
-    for name in ("hymba-1.5b", "seamless-m4t-medium"):
-        with pytest.raises(KeyError, match="A17"):
-            get_config(name)
+    """Every config of the JAX package's registry is registered in the port
+    under its name (and its ``-reduced`` form); an unknown name raises
+    ``KeyError``, and a family the zoo has no model for (mamba outside the
+    hybrid family, an unknown frontend) raises at its template."""
+    from repro.configs import ARCH_CONFIGS as J_ARCHS
+    from repro_torch.configs import ARCH_CONFIGS, list_archs
+    assert sorted(ARCH_CONFIGS) == list_archs() == sorted(J_ARCHS)
+    assert len(ARCH_CONFIGS) == 10
+    for name in J_ARCHS:
+        assert get_config(name).name == name
+        assert get_config(name + "-reduced").n_layers == 2
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-2")
     moe = ArchConfig(name="moe", family="moe", n_layers=2, d_model=64, n_heads=4,
                      n_kv_heads=4, d_ff=128, vocab_size=64, n_experts=4, top_k=2,
                      d_ff_expert=32)
     assert "moe" in tt.model_template(moe)["groups"]
-    hybrid = dataclasses.replace(moe, family="hybrid", n_experts=0, hybrid=True)
-    with pytest.raises(NotImplementedError, match="A17"):
-        tt.model_template(hybrid)
+    hybrid = dataclasses.replace(moe, family="hybrid", n_experts=0, hybrid=True,
+                                 ssm_kind="mamba", ssm_state=4)
+    assert list(tt.model_template(hybrid)["groups"]) == ["hymba"]
+    for bad in (dataclasses.replace(hybrid, hybrid=False),
+                dataclasses.replace(moe, modality="video")):
+        with pytest.raises(ValueError, match="zoo"):
+            tt.model_template(bad)
 
 
 def _j_decode_logits(jc, jp, toks):

@@ -25,7 +25,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
-from torch_zoo_carry import draw, rel  # noqa: E402
+from torch_zoo_carry import draw, one_torch_thread, rel  # noqa: E402, F401
 
 from repro.nn import attention as jattn  # noqa: E402
 from repro_torch.nn import attention as attn  # noqa: E402

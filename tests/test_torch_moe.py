@@ -36,7 +36,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
-from torch_zoo_carry import carried, draw, rel  # noqa: E402
+from torch_zoo_carry import carried, draw, one_torch_thread, rel  # noqa: E402, F401
 
 from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.nn import moe as jmoe  # noqa: E402

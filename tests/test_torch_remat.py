@@ -33,7 +33,7 @@ import numpy as np  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_sharded_ranks as ranks  # noqa: E402
-from torch_zoo_carry import carried  # noqa: E402
+from torch_zoo_carry import carried, one_torch_thread  # noqa: E402, F401
 
 from repro_torch.configs.base import InputShape  # noqa: E402
 from repro_torch.core import engine, make_topology  # noqa: E402

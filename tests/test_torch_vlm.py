@@ -27,7 +27,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
-from torch_zoo_carry import carried, rel  # noqa: E402
+from torch_zoo_carry import carried, one_torch_thread, rel  # noqa: E402, F401
 
 from repro.configs import INPUT_SHAPES as J_SHAPES  # noqa: E402
 from repro.configs import get_config as j_get_config  # noqa: E402

@@ -1,17 +1,24 @@
-"""Carried weights for the model-zoo parity tests of the MoE, MLA and VLM
-configs (``test_torch_moe.py``, ``test_torch_mla.py``,
-``test_torch_vlm.py``, ``test_torch_remat.py``).
+"""Carried weights for the model-zoo parity tests of the MoE, MLA, VLM,
+hybrid and encoder-decoder configs (``test_torch_moe.py``,
+``test_torch_mla.py``, ``test_torch_vlm.py``, ``test_torch_remat.py``,
+``test_torch_hymba.py``, ``test_torch_seamless.py``).
 
 Every leaf of the reference's template is drawn with numpy from a seed,
 the zero-initialised ones too; matrices at variance 1 / (contraction size):
 a ``(d, heads, k)`` projection contracts over ``d``, an output projection
 ``(heads, v, d)`` over ``heads x v``, an MLA up-projection ``(rank, heads,
-k)`` over the rank, every other matrix (experts, router, MLP, frontend
-projector) over its second-to-last axis.  The template's own ``scaled``
+k)`` over the rank (a cross-attention's projections as a self-attention's),
+every other matrix (experts, router, MLP, mamba, frontend projector) over
+its second-to-last axis.  The template's own ``scaled``
 init reads the head axis as the fan-in, which makes attention an argmax
 that summation order flips.  The weights go to JAX as arrays of the
 template's dtype and to the port with ``params_from_numpy`` (bfloat16 bit
 for bit).
+
+``one_torch_thread``, imported into a test module, runs that module's tests
+on one torch thread: under the suite's ``-n 6`` six workers share the
+host's cores, and torch's default of a thread per core stalls at every
+parallel region.
 """
 
 import dataclasses
@@ -21,6 +28,8 @@ import math
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from repro.configs import get_config as j_get_config
 from repro.nn import param as jparam
@@ -47,7 +56,7 @@ def leaf_value(rng, path, pd):
     if pd.init == "embed":
         return 0.05 * rng.normal(size=pd.shape)
     fan_in = pd.shape[-2]
-    if len(path) > 1 and _key(path[-2]) == "attn":
+    if len(path) > 1 and _key(path[-2]) in ("attn", "xattn"):
         if name in _HEADED:
             fan_in = pd.shape[-3]
         elif name == "wo":
@@ -81,3 +90,11 @@ def rel(got, want) -> float:
     """max |got - want| / max |want|."""
     got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
     return float(np.max(np.abs(got - want)) / (np.max(np.abs(want)) + 1e-6))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
