@@ -212,8 +212,8 @@ build_train_step``) adds:
 14. (run right after the build, while this process holds little of the
     card's memory) three ``gloo`` ranks, all on the one card, spawned through
     ``repro_torch.launch.mesh.spawn_agents`` (payloads staged through
-    pinned host buffers): gemma3-1b at full width and depth on a ring of 3
-    (``live_weights``, phase 10's draw; batch 1 x 1024 of each rank's
+    pinned host buffers): gemma3-1b at full width with ``SHARDED_RUN_LAYERS``
+    layers on a ring of 3 (``live_weights``; batch 1 x 1024 of each rank's
     token shard), CDMSGD on the f32 wire (sync) and CDSGD on the int8 wire
     (overlap), 3 steps each: per rank the step ms, the exchange's host ms
     (staging plus gloo), the bytes posted a step against
@@ -273,7 +273,10 @@ the compressors, factored ``pod x data`` meshes) adds:
     ``straggler:1:1,drop:0:1``, CDMSGD ``rank:4`` with error feedback
     (sync), and (``SHARDED_SPARSE_RUNS``) CDMSGD, Nesterov and CDAdam on
     ``topk:0.01`` with error feedback (sync: the other three sparse forms
-    at one output agent); each checked like the full-depth runs and
+    at one output agent); each checked like the 4-layer runs, and
+    certified by the wire-contract checker (phase 16's
+    ``staticcheck.check_bundle``, one more step on every rank, after the
+    launch counts), and
     printed against the baseline (``sharded 2 layers ...`` lines); the
     parity of all but ``SHARDED_SPARSE_RUNS`` at 2 float32 layers (rank-r
     within ``RANK_TOL``); then 4 ranks on ``pod 2 x data
@@ -305,9 +308,9 @@ remat and the router's aux term) adds:
     their two buckets (bf16 weights, float32 routers), ``moe_aux`` finite
     and above 0;
 13. their update phases card against CPU bit for bit;
-14. the timed runs and their parity pass ``remat=False``; one more 2-layer
-    float32 parity at ``build_train_step``'s default ``remat=True``
-    (``SHARDED_REMAT_PARITY``).
+14. the timed runs and their parity pass ``remat=False``, but for the
+    2-layer float32 parity of ``SHARDED_REMAT_PARITY`` (CDSGD int8
+    overlap), at ``build_train_step``'s default ``remat=True``.
 
 The hybrid and encoder-decoder slice (hymba-1.5b: sliding-window attention
 beside mamba heads; seamless-m4t-medium: a non-causal encoder over stub
@@ -338,6 +341,24 @@ audio frames, a decoder with cross-attention; the three LM examples) adds:
 15. the examples ``serve_batched``, ``topology_study`` and
     ``collaborative_lm_pretrain`` at their tiny presets, a few steps, on
     the card.
+
+The analysis slice (``repro_torch.analysis``: the op counter, the roofline
+on the card's peaks, the wire-contract checker; ``launch.check``,
+``launch.dryrun``, the kernel microbenchmark) adds:
+
+10. (``COUNTED_RUN``) one more step of gemma3-1b's CDMSGD f32 run under the
+    op counter on the card against the same step traced on ``meta``: equal
+    dot FLOPs (a gate); the steady step's MFU against the card's bf16 peak,
+    the useful-FLOPs ratio, and the meta trace's peak of live bytes beside
+    the measured peak (``analysis op counter`` line);
+14. the two ``SHARDED_RUNS`` at ``SHARDED_RUN_LAYERS`` layers instead of
+    the full depth, and the remat parity folded into the int8 overlap
+    parity; every 2-layer run certified by ``check_bundle`` on every rank
+    (``analysis sharded`` lines);
+16. ``launch.check`` over the stacked matrix on the card, the dry-run's
+    records of gemma3-1b ``train_4k`` (CDMSGD int8 overlap; CDSGD
+    ``topk:0.01``) with their roofline rows, and ``kernel_microbench
+    --smoke`` on the card.
 
 Any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -375,6 +396,14 @@ import torch.distributed as dist  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+from repro_torch.analysis import opcount  # noqa: E402
+from repro_torch.analysis import staticcheck  # noqa: E402
+from repro_torch.analysis.roofline import (  # noqa: E402
+    HW_H100,
+    kernel_family,
+    model_flops,
+)
+from repro_torch.analysis.roofline import kernel_bound as bound  # noqa: E402
 from repro_torch.benchmarks import common as bench  # noqa: E402
 from repro_torch.benchmarks import consensus_radius  # noqa: E402
 from repro_torch.benchmarks import fig1a_cdsgd_vs_sgd, fig1b_cdmsgd_vs_fedavg  # noqa: E402
@@ -426,10 +455,11 @@ from repro_torch.nn.paper_models import (  # noqa: E402
 )
 from repro_torch.utils.tree import tree_leaves, tree_map  # noqa: E402
 
-# H100 SXM published peaks (NVIDIA data sheet), at the full 700 W limit
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12        # float32 outside the tensor cores
-BF16_TC_FLOPS_PER_S = 989e12   # bf16 tensor cores, dense
+# H100 SXM published peaks (NVIDIA data sheet), at the full 700 W limit:
+# the package's one table of the card (repro_torch.analysis.roofline)
+HBM_BYTES_PER_S = HW_H100.hbm_bw
+F32_FLOPS_PER_S = HW_H100.f32_flops          # float32 outside the tensor cores
+BF16_TC_FLOPS_PER_S = HW_H100.peak_flops     # bf16 tensor cores, dense
 
 AGENTS = 5
 PATH_ROWS = 16941              # one f32 bucket of the full-width CNN
@@ -533,8 +563,10 @@ DECODE_F32_TOL = 1e-3          # of max |logit|: float32 decode vs forward, full
 # bf16 decode's distance from the float32 forward, at most this many times
 # the bf16 forward's own: decode rounds like the forward, no worse
 DECODE_BF16_RATIO = 2.0
-# the bf16 decode check's depths (layers of the full-width weights)
-DECODE_DEPTHS = {"gemma3-1b": (2, 7, 13, 26), "rwkv6-1.6b": (2, 6, 12, 24),
+# the bf16 decode check's depths (layers of the full-width weights): the
+# reference's 2 and the full depth (the depths between, 7 / 13 and 6 / 12,
+# ran until the analysis phase needed their wall time)
+DECODE_DEPTHS = {"gemma3-1b": (2, 26), "rwkv6-1.6b": (2, 24),
                  "h2o-danube-3-4b": (2,), "granite-3-8b": (2,), "starcoder2-7b": (2,)}
 # the other dense configs' decode checks run on their first layers
 DENSE_CHECK_LAYERS = 2
@@ -699,6 +731,8 @@ LM_RUNS = (
      5, ["--optimizer", "cdmsgd", "--exchange", "int8", "--momentum-mixing",
          "mixed"], {}, {"sr_quantize": 2, "cdmsgd_update_qm": 1}),
 )
+# phase 10's op-counter check runs on this run's trainer (counter_check)
+COUNTED_RUN = "gemma3-1b cdmsgd f32 sync"
 # phase 10b, the other fused forms on gemma3-1b's bf16 bucket at 2 layers,
 # 2 agents fully connected, batch 1 x 1024, 3 steps each: the top-k wire
 # through the sparse kernels (its exact selection, torch.topk over a float32
@@ -730,16 +764,23 @@ LM_SMALL_RUNS = tuple(
                                         "mixed"], {},
          {"sr_quantize": 2, "cdadam_update_qm": 1})))
 # the runs whose profiled step is printed (the others are checked the same
-# way, launches, losses and wire, without one)
+# way, launches, losses and wire, without one): the 2-layer runs ending so,
+# and of the full-size runs gemma3-1b's first (reading a full-size step's
+# trace took the profiler 10-60 s a run: rwkv6-1.6b's about 60)
 LM_PROFILED = ("cdsgd topk", "cdadam topk")
+PROFILED_RUNS = ("gemma3-1b cdmsgd f32 sync",)
 # phase 12, resume: gemma3-1b at full width with 2 layers (0.36 B
 # parameters), 2 agents, CDMSGD int8 overlap with error feedback; the
 # whole run's steps, and the split run's before its checkpoint
 RESUME_STEPS, RESUME_SPLIT = 4, 2
-# phase 14, the sharded mode: gemma3-1b at full width and depth, one gloo
-# rank per agent on a ring, all on the one card; (label, optimizer, knobs,
-# launches at init, launches per step), every launch on the bf16 bucket
+# phase 14, the sharded mode: gemma3-1b at full width, one gloo rank per
+# agent on a ring, all on the one card; (label, optimizer, knobs, launches
+# at init, launches per step), every launch on the bf16 bucket.  These two
+# runs took the full 26 layers until the analysis phase needed their wall
+# time: SHARDED_RUN_LAYERS now (the exchange's bytes scale with the depth,
+# the kernels' launches a step do not)
 SHARDED_AGENTS = 3
+SHARDED_RUN_LAYERS = 4
 SHARDED_RUNS = (
     ("cdmsgd f32 sync", "cdmsgd", {"exchange": "f32", "schedule": "sync"}, {},
      {"cdmsgd_update": 1}),
@@ -771,10 +812,10 @@ SHARDED_SPARSE_RUNS = tuple(
     (f"{name} {TOPK} EF sync", name, {"compressor": TOPK, "error_feedback": True},
      {}, {"sr_quantize": 1, f"{name}_update_sparse": 1})
     for name in ("cdmsgd", "cdmsgd_nesterov", "cdadam"))
-# the parity run at build_train_step's default remat=True (the runs above
-# pass remat=False, as before the loss had remat)
-SHARDED_REMAT_PARITY = ("cdsgd int8 overlap, remat (the default)", "cdsgd",
-                        {"exchange": "int8", "schedule": "overlap"})
+# the parity run at build_train_step's default remat=True (the timed runs
+# pass remat=False, as before the loss had remat, and so do the other
+# parities)
+SHARDED_REMAT_PARITY = "cdsgd int8 overlap"
 SHARDED_STEPS, SHARDED_SEQ = 3, 1024        # batch 1 x 1024 per rank
 SHARDED_PARITY_LAYERS, SHARDED_PARITY_SEQ = 2, 128
 SHARDED_TOL = 1e-5             # of max |param|: a whole step, sharded vs stacked
@@ -917,67 +958,6 @@ def device_ms(fn, symbol: str, iters: int = 20):
         return None
     per_call = max(1, round(len(spans) / iters))
     return sum(spans) / 1e3 / (len(spans) / per_call)
-
-
-# per update family: per-agent float32 streams read or written besides the
-# mix (G, out; + V, V'; + LOOK; Adam: G, M, V, out, M', V'), and the
-# float32 operations per element after the mix
-STATE = {"cdsgd": 2, "cdmsgd": 4, "nesterov": 5, "adam": 6}
-TAIL_FLOPS = {"cdsgd": 2, "cdmsgd": 4, "nesterov": 6, "adam": 14}
-
-
-def _family(name: str) -> str:
-    if name.startswith("cdadam"):
-        return "adam"
-    if "nesterov" in name:
-        return "nesterov"
-    return "cdmsgd" if name.startswith("cdmsgd") else "cdsgd"
-
-
-def bound(name: str, a_out: int, s: int, rows: int,
-          dtype: torch.dtype = torch.float32, k_rows: int = 0,
-          bucket: torch.dtype = torch.float32):
-    """(bound_ms, bound_by): least bytes over HBM rate vs float32 operations
-    over the f32 peak.  ``dtype`` is the neighbour / payload / code type;
-    ``bucket`` the type of the self, gradient, momentum and output buffers
-    (``sr_quantize``: of its input); weights and scales are float32.  The
-    ``_qm`` forms read two payloads.
-    For ``sr_quantize`` ``a_out`` is the agent count (Philox's integer work
-    is not counted: the table gives no int32 rate, and the float work alone
-    is far under the byte time).  Adam's divisions and square root count
-    one operation each.  The sparse forms read ``s`` compact stacks of
-    ``k_rows`` lane rows (int8 value, int32 index, f32 row scale) besides
-    the self buffer and the state, and do one multiply per compact element
-    and a multiply and an add per element and output agent.  For
-    ``topk_threshold`` ``a_out`` is the agent count; its compares count as
-    float32 operations, its integer adds not."""
-    n = rows * 128
-    esize = torch.empty((), dtype=dtype).element_size()
-    bsize = torch.empty((), dtype=bucket).element_size()
-    state = STATE[_family(name)]
-    tail = TAIL_FLOPS[_family(name)]
-    payloads = 2 if name.endswith("_qm") else 1
-    if name == "topk_threshold":
-        nbytes = a_out * (4 * n + 2 * 4 * 16)
-        flops = a_out * n * 16
-    elif name.endswith("_sparse"):
-        kk = k_rows * 128
-        nbytes = (4 * a_out * (s + 1) + s * (5 * kk + 4 * k_rows)
-                  + bsize * a_out * n + bsize * state * a_out * n)
-        flops = a_out * n * (1 + tail) + s * kk * (1 + 2 * a_out)
-    elif name == "sr_quantize":
-        nbytes = a_out * (bsize * n + esize * n + 4 * rows)
-        flops = a_out * n * 8      # |x|, max, divide, + u, floor, 2 clamps, cast
-    elif name.endswith(("_q", "_qm")):
-        nbytes = (4 * a_out * (s + 1) + bsize * a_out * n
-                  + payloads * (esize * s * n + 4 * s * rows)
-                  + bsize * state * a_out * n)
-        flops = a_out * n * (payloads * (1 + 3 * s) + tail)
-    else:
-        nbytes = 4 * a_out * s + esize * s * n + bsize * state * a_out * n
-        flops = a_out * n * (2 * s + tail)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def _bucket(gen, a: int, rows: int) -> torch.Tensor:
@@ -3012,6 +2992,14 @@ def decode_bf16_by_depth(arch: str, cfg, live, toks) -> None:
         del sub16, fwd32, dec16, fwd16
 
 
+def card_draw(template, seed: int, device):
+    """``init_params`` drawn on the card from a CUDA generator seeded with
+    ``seed``: the same bits in every process on the card (a host draw of a
+    billion parameters takes tens of seconds)."""
+    return init_params(template, torch.Generator(device=device).manual_seed(seed),
+                       device=device)
+
+
 def live_weights(cfg, params, seed: int):
     """Make a template draw well conditioned and fully live, in place, for
     the parity checks: the attention projections rescaled to variance 1 /
@@ -3190,7 +3178,7 @@ def _bf16_args(wrapper: str, o: dict) -> tuple:
     ``o["wq"]``, ``slf`` and the payload ``q``, ``sc``, the _qm form with the
     momentum's payload ``mq``, ``msc`` too, the sparse form over the compact
     stacks; CDAdam's first moment is ``v`` and its second ``v2``."""
-    fam = _family(wrapper)
+    fam = kernel_family(wrapper)
     if wrapper.endswith("_sparse"):
         mix = [o["wq"], o["slf"], *o["comp"]]
     elif wrapper.endswith("_qm"):
@@ -3735,6 +3723,7 @@ def lm_run(label, arch, agents, topo, batch, seq, steps, flags, init,
             "--topology", topo, "--batch", str(batch), "--seq", str(seq),
             "--steps", str(steps), "--log-every", "0", "--device", CARD, *flags]
     cfg = get_config(arch)
+    t_run = time.perf_counter()
     _free()
     torch.cuda.reset_peak_memory_stats()
     record = []
@@ -3811,10 +3800,13 @@ def lm_run(label, arch, agents, topo, batch, seq, steps, flags, init,
           f"({'bf16 and float32 router buckets' if cfg.is_moe else 'bf16 bucket'}"
           f"{', sr_quantize on the float32 compact values' if on_f32 else ''}): "
           f"{launched}; flash / WKV6 launches 0; entry point wall {wall:.1f} s")
+    if label == COUNTED_RUN:
+        counter_check(tr, cfg, agents, batch, seq, med, peak)
     # a hybrid or encoder-decoder step's trace (hymba: over 10^5 launches
     # under vmap and remat) takes the profiler most of a minute to read
-    profiled = (arch != GEMMA_2L or label.endswith(LM_PROFILED)) \
-        and arch not in NEW_FAMILIES
+    profiled = (label in PROFILED_RUNS
+                or (arch == GEMMA_2L and label.endswith(LM_PROFILED))) \
+        and arch not in NEW_FAMILIES and not remat
     if profiled or grad_peak:
         vocab = tr.state.params["embed"]["table"].shape[1]
         stream = lm_agent_batches(make_lm_tokens(1 << 15, vocab=vocab, seed=0),
@@ -3829,7 +3821,119 @@ def lm_run(label, arch, agents, topo, batch, seq, steps, flags, init,
         del stream
     del tr
     _free()
+    print(f"train {label}: run wall {time.perf_counter() - t_run:.1f} s (entry point, "
+          f"checks{', profiled step' if profiled else ''}"
+          f"{', op counter' if label == COUNTED_RUN else ''})")
     return out
+
+
+def counter_check(tr, cfg, agents: int, batch: int, seq: int, step_ms: float,
+                  peak_gib: float) -> None:
+    """Phase 10's op counter (``repro_torch.analysis.opcount``): one more
+    step of the trainer ``tr`` on the card under the counter (the kernels
+    report their work) against the same step traced on ``meta`` (the plain
+    versions, shapes only): equal dot FLOPs, a gate.  Prints the measured
+    steady step's MFU against the card's bf16 peak, the useful-FLOPs ratio,
+    and the meta trace's peak of live tensor bytes beside the allocator's
+    measured peak of the run (a finding, not a gate)."""
+    stream = lm_agent_batches(make_lm_tokens(1 << 15, vocab=cfg.vocab_size, seed=0),
+                              agents, batch, seq, seed=0)
+    host = next(stream)
+    st = tr.state
+    dev_batch = {k: torch.as_tensor(v, device=CARD) for k, v in host.items()}
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with opcount.OpCounter(track_live=True,
+                           roots=(st.params, st.opt_state, dev_batch)) as card:
+        tr._program.step_fn(st.params, st.opt_state, dev_batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    step_peak = torch.cuda.max_memory_allocated() / 2**30
+    del dev_batch
+    _free()
+    t0 = time.perf_counter()
+    single = tree_map(lambda t: torch.empty(t.shape[1:], dtype=t.dtype,
+                                            device="meta"), st.params)
+    mtr = CollaborativeTrainer(tr.loss_fn, single, tr.topology, tr.optimizer,
+                               device="meta", exchange=tr.exchange,
+                               schedule=tr.schedule)
+    mb = {k: torch.empty(v.shape, dtype=torch.as_tensor(v).dtype, device="meta")
+          for k, v in host.items()}
+    ms = mtr.state
+    with opcount.OpCounter(track_live=True, roots=(ms.params, ms.opt_state, mb)) as meta:
+        mtr._program.step_fn(ms.params, ms.opt_state, mb)
+    meta_s = time.perf_counter() - t0
+    if card.dot_flops != meta.dot_flops:
+        raise AssertionError(f"op counter: {card.dot_flops} dot FLOPs on the card, "
+                             f"{meta.dot_flops} on meta")
+    mf = model_flops(cfg, InputShape("phase10", seq, agents * batch, "train"))
+    mfu = mf / (step_ms / 1e3 * HW_H100.peak_flops)
+    print(f"analysis op counter gemma3-1b {COUNTED_RUN} ({agents} agents x batch "
+          f"{batch} x seq {seq}, stacked on one card): dot FLOPs {card.dot_flops:,} "
+          f"on the card (kernels report their work) = {meta.dot_flops:,} traced on "
+          f"meta (plain versions); traffic {card.traffic_bytes:,} B card, "
+          f"{meta.traffic_bytes:,} B meta (unfused upper bound); counted in "
+          f"{card_s:.1f} s / {meta_s:.1f} s; model_flops 6 N D {mf:.4e}, "
+          f"useful_flops_ratio {mf / card.dot_flops:.4f}; the steady step "
+          f"{step_ms:.1f} ms gives MFU {mfu:.4f} of {HW_H100.peak_flops:.3g} bf16 "
+          f"FLOP/s ({mfu * card.dot_flops / mf:.4f} counting every dot FLOP); "
+          f"peak live bytes of the meta trace {meta.peak_live_bytes / 2**30:.2f} GiB "
+          f"(op counter; {card.peak_live_bytes / 2**30:.2f} GiB counted on the card "
+          f"in the same step) against max_memory_allocated {step_peak:.2f} GiB in "
+          f"that step and {peak_gib:.2f} GiB over the run [{card_line()}]")
+
+
+def analysis_path() -> None:
+    """Phase 16, the analysis layer on the card: ``launch.check`` over the
+    stacked matrix (every rule passes); the dry-run's records of gemma3-1b
+    ``train_4k`` (16 agents, traced on ``meta``: CDMSGD on the int8 wire
+    under overlap, and CDSGD on the ``topk:0.01`` wire with error feedback)
+    with their roofline rows; and ``kernel_microbench --smoke`` on the card.
+    (Phase 14 ran ``check_bundle`` in its 2-layer rank runs.)"""
+    from repro_torch.benchmarks import kernel_microbench
+    from repro_torch.benchmarks import roofline as roofline_bench
+    from repro_torch.launch import check as check_lib
+    from repro_torch.launch import dryrun
+
+    card = card_line()
+    t0 = time.perf_counter()
+    reports = check_lib.stacked_reports(check_lib.MATRIX, device=CARD, verbose=False)
+    bad = [(r.label, f.rule, f.detail) for r in reports for f in r.failures()]
+    if bad:
+        raise AssertionError(f"launch.check on the card: {bad}")
+    n_rules = sum(len(r.results) for r in reports)
+    n_skip = sum(x.skipped for r in reports for x in r.results)
+    print(f"analysis launch.check --mode stacked on the card: {len(reports)} "
+          f"configs, {n_rules} rules ({n_skip} skipped), 0 failures, "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    out = str(ROOT / "results" / "dryrun_torch")
+    table = str(ROOT / "results" / "roofline_torch.md")
+    for tag, kw in (("_int8_overlap", dict(optimizer_name="cdmsgd", exchange="int8",
+                                           schedule="overlap")),
+                    ("_topk", dict(optimizer_name="cdsgd", compressor=TOPK,
+                                   error_feedback=True, schedule="overlap"))):
+        t0 = time.perf_counter()
+        rec = dryrun.run_pair("gemma3-1b", "train_4k", out_dir=out, tag=tag,
+                              verbose=False, **kw)
+        if rec["status"] != "ok" or not rec["verify"]["ok"]:
+            raise AssertionError(f"dry-run {tag}: {rec['status']} "
+                                 f"{rec.get('traceback', '')[-800:]}")
+        rl = rec["roofline"]
+        print(f"analysis dryrun gemma3-1b train_4k data16{tag} (meta, "
+              f"{time.perf_counter() - t0:.1f} s): compute {rl['compute_s']:.4e} s, "
+              f"memory {rl['memory_s']:.4e} s, collective {rl['collective_s']:.4e} s "
+              f"on H100 peaks, dominant {rl['dominant']}, useful_flops_ratio "
+              f"{rl['useful_flops_ratio']:.4f}, mfu_bound {rl['mfu_bound']:.4f}; "
+              f"peak {rec['peak_bytes_per_device'] / 2**30:.2f} GiB live (op "
+              f"counter), fits_h100_80gb {rec['fits_h100_80gb']}; wire "
+              f"{rec['exchange_bytes_per_step']['per_step_bytes']:,} B a step; "
+              f"verify {len(rec['verify']['rules'])} rules ok")
+    roofline_bench.run(results=out, table=table)
+    t0 = time.perf_counter()
+    rows = kernel_microbench.run(smoke=True, device=CARD)
+    print(f"analysis kernel_microbench --smoke on the card: {len(rows)} rows, "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
 
 
 def examples_path() -> None:
@@ -4114,8 +4218,21 @@ def _sharded_run(mesh, cfg, params, batches, label, opt_name, knobs, init,
         raise AssertionError(f"sharded {label} rank {mesh.rank}: reserved "
                              f"{peak_reserved / 2**30:.2f} GiB, over its cap "
                              f"{cap / 2**30:.2f} GiB")
+    check = None
+    if cfg.n_layers == SHARDED_SMALL_LAYERS:
+        # phase 16's wire-contract check of this rank, one more step (after
+        # the launch counts above, which it would add to)
+        rep = staticcheck.check_bundle(bundle, p, local_batch(batches[0], mesh),
+                                       opt_state=state, label=f"sharded/{label}")
+        check = {"ok": rep.ok, "rules": len(rep.results),
+                 "skipped": sum(r.skipped for r in rep.results),
+                 "failures": [(r.rule, r.detail) for r in rep.failures()],
+                 "seconds": rep.walltime_s}
+        if not rep.ok:
+            raise AssertionError(f"sharded {label} rank {mesh.rank}: the wire "
+                                 f"contract fails: {check['failures']}")
     out = {"label": label, "steps": steps, "want_bytes": want_bytes,
-           "layers": cfg.n_layers, "by_bucket": by_bucket,
+           "check": check, "layers": cfg.n_layers, "by_bucket": by_bucket,
            "params": count_params(tt.model_template(cfg)),
            "degree": degree, "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
            "peak_reserved_gib": peak_reserved / 2**30, "cap_gib": cap / 2**30,
@@ -4214,8 +4331,8 @@ def _sharded_parity(mesh, base, batch, label, opt_name, knobs,
 
 def sharded_rank(mesh, cap: int) -> dict:
     """Phase 14, one rank (agent ``mesh.rank`` of ``SHARDED_AGENTS``, all on
-    the one card over gloo): gemma3-1b at full width and depth on
-    ``live_weights`` (phase 10's draw), batch 1 x 1024 of its own token
+    the one card over gloo): gemma3-1b at full width with
+    ``SHARDED_RUN_LAYERS`` layers on ``live_weights``, batch 1 x 1024 of its own token
     shard, the runs of ``SHARDED_RUNS`` with the allocator capped at
     ``cap`` bytes; then the 2-layer parity."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4223,9 +4340,8 @@ def sharded_rank(mesh, cap: int) -> dict:
     total = torch.cuda.get_device_properties(mesh.device).total_memory
     torch.cuda.set_per_process_memory_fraction(cap / total, mesh.device)
     t0 = time.perf_counter()
-    cfg = get_config("gemma3-1b")
-    params = tree_map(lambda t: t.to(mesh.device),
-                      live_weights(cfg, init_params(tt.model_template(cfg), seed=0), 1))
+    cfg = dataclasses.replace(get_config("gemma3-1b"), n_layers=SHARDED_RUN_LAYERS)
+    params = live_weights(cfg, card_draw(tt.model_template(cfg), 0, mesh.device), 1)
     stream = lm_agent_batches(make_lm_tokens(1 << 15, vocab=cfg.vocab_size, seed=0),
                               mesh.size, 1, SHARDED_SEQ, seed=0)
     batches = [next(stream) for _ in range(SHARDED_STEPS)]
@@ -4236,9 +4352,7 @@ def sharded_rank(mesh, cap: int) -> dict:
     del params
     _free()
     cfg2 = dataclasses.replace(cfg, n_layers=SHARDED_SMALL_LAYERS)
-    params = tree_map(lambda t: t.to(mesh.device),
-                      live_weights(cfg2, init_params(tt.model_template(cfg2), seed=0),
-                                   1))
+    params = live_weights(cfg2, card_draw(tt.model_template(cfg2), 0, mesh.device), 1)
     for label, opt_name, knobs, init, per_step in (SHARDED_SMALL_RUNS
                                                    + SHARDED_SPARSE_RUNS):
         out["runs"].append(_sharded_run(mesh, cfg2, params, batches, label, opt_name,
@@ -4246,7 +4360,8 @@ def sharded_rank(mesh, cap: int) -> dict:
     del params
     _free()
     pcfg = _parity_config()
-    base = live_weights(pcfg, init_params(tt.model_template(pcfg), seed=2), 3)
+    base = tree_map(lambda t: t.cpu(), live_weights(
+        pcfg, card_draw(tt.model_template(pcfg), 2, mesh.device), 3))
     batch = next(lm_agent_batches(make_lm_tokens(1 << 14, vocab=pcfg.vocab_size,
                                                  seed=1),
                                   mesh.size, 1, SHARDED_PARITY_SEQ, seed=1))
@@ -4255,11 +4370,9 @@ def sharded_rank(mesh, cap: int) -> dict:
         if label in done:
             continue
         done.add(label)
+        remat = None if label == SHARDED_REMAT_PARITY else False
         out["parity"].append(_sharded_parity(mesh, base, batch, label, opt_name,
-                                             knobs, cap / total))
-    label, opt_name, knobs = SHARDED_REMAT_PARITY
-    out["parity"].append(_sharded_parity(mesh, base, batch, label, opt_name, knobs,
-                                         cap / total, remat=None))
+                                             knobs, cap / total, remat=remat))
     out["pinned_gib"] = sum(b.numel() for b in mesh.pinned.values()) / 2**30
     out["max_rss_gib"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
     return out
@@ -4274,7 +4387,8 @@ def sharded_factored_rank(mesh, cap: int) -> dict:
     total = torch.cuda.get_device_properties(mesh.device).total_memory
     torch.cuda.set_per_process_memory_fraction(cap / total, mesh.device)
     pcfg = _parity_config()
-    base = live_weights(pcfg, init_params(tt.model_template(pcfg), seed=2), 3)
+    base = tree_map(lambda t: t.cpu(), live_weights(
+        pcfg, card_draw(tt.model_template(pcfg), 2, mesh.device), 3))
     batch = next(lm_agent_batches(make_lm_tokens(1 << 14, vocab=pcfg.vocab_size,
                                                  seed=1),
                                   mesh.size, 1, SHARDED_PARITY_SEQ, seed=1))
@@ -4358,6 +4472,11 @@ def sharded_path() -> dict:
                   f"max_memory_allocated {run['peak_gib']:.2f} GiB, reserved "
                   f"{run['peak_reserved_gib']:.2f} of its cap {run['cap_gib']:.2f} GiB "
                   f"(margin {run['cap_gib'] - run['peak_reserved_gib']:.2f} GiB) [{card}]")
+            if run["check"] is not None:
+                ch = run["check"]
+                print(f"analysis sharded rank {r} {run['label']}: check_bundle "
+                      f"{'OK' if ch['ok'] else 'FAIL'}, {ch['rules']} rules "
+                      f"({ch['skipped']} skipped) in {ch['seconds']:.2f} s [{card}]")
         for par in res["parity"]:
             _print_parity(r, par, "a ring")
         print(f"sharded rank {r}: weights drawn and moved in {res['init_s']:.1f} s; "
@@ -4365,7 +4484,7 @@ def sharded_path() -> dict:
               f"{res['max_rss_gib']:.2f} GiB")
     _compare_small_runs(results[0]["runs"], card)
     print(f"sharded phase: {SHARDED_AGENTS} gloo ranks on one card, wall {wall:.1f} s "
-          f"(spawn, build check, the {len(SHARDED_RUNS)} full-depth and "
+          f"(spawn, build check, the {len(SHARDED_RUNS)} {SHARDED_RUN_LAYERS}-layer and "
           f"{len(SHARDED_SMALL_RUNS + SHARDED_SPARSE_RUNS)} {SHARDED_SMALL_LAYERS}-layer "
           "runs and the "
           f"parity); host {_host_available_gib():.1f} GiB available after [{card}]",
@@ -4483,10 +4602,10 @@ def main() -> None:
 
     with phase("6-7 gemma3-1b, rwkv6-1.6b serving"):
         t0 = time.perf_counter()
-        serving = {arch: init_params(tt.model_template(get_config(arch)), seed=0,
-                                     device="cuda") for arch, _, _ in SERVE_ARCHS}
-        print(f"full-width bf16 weights of {', '.join(serving)} drawn (seed 0) and "
-              f"moved to the card: {time.perf_counter() - t0:.1f} s")
+        serving = {arch: card_draw(tt.model_template(get_config(arch)), 0, CARD)
+                   for arch, _, _ in SERVE_ARCHS}
+        print(f"full-width bf16 weights of {', '.join(serving)} drawn on the card "
+              f"(seed 0): {time.perf_counter() - t0:.1f} s")
         counts.update(prefill_path(serving))
         serve_path(serving)
         del serving
@@ -4538,6 +4657,8 @@ def main() -> None:
         parities(params, train)
     with phase("15 examples"):
         examples_path()
+    with phase("16 analysis"):
+        analysis_path()
     print("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -3,11 +3,14 @@
     python -m repro_torch.benchmarks.run                 # everything, on the card
     python -m repro_torch.benchmarks.run fig1b           # one benchmark
     python -m repro_torch.benchmarks.run fig1b --device cpu
+    python -m repro_torch.benchmarks.run kernels roofline
 
 Prints ``name,us_per_call,derived`` CSV rows (see
-:mod:`repro_torch.benchmarks.common`).  Runs on the CUDA card unless
-``--device`` names another device; without a card and without
-``--device cpu`` it raises.
+:mod:`repro_torch.benchmarks.common`).  ``kernels`` is the kernel
+microbenchmark (:mod:`.kernel_microbench`), ``roofline`` the table of the
+dry-run records (:mod:`.roofline`, which reads ``results/dryrun_torch/``).
+Runs on the CUDA card unless ``--device`` names another device; without a
+card and without ``--device cpu`` it raises.
 """
 
 import argparse
@@ -21,7 +24,9 @@ from repro_torch.benchmarks import (
     fig2b_topology,
     fig4_datasets,
     fig5_step_size,
+    kernel_microbench,
     noniid_ablation,
+    roofline,
     table1_methods,
     table1_rates,
 )
@@ -37,6 +42,8 @@ BENCHES = {
     "table1_methods": table1_methods.run,
     "prop1": consensus_radius.run,
     "noniid": noniid_ablation.run,
+    "kernels": kernel_microbench.run,
+    "roofline": roofline.run,
 }
 
 

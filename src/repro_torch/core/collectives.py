@@ -32,7 +32,8 @@ tensors always do.
 
 :class:`Census` counts what the calls posted (logical sends and receives,
 wire messages, bytes, staging copies, host seconds) and logs the source
-tensors of each post, for the tests and ``chip_smoke.py``.
+tensors of each post, for the tests, the wire-contract checker
+(:mod:`repro_torch.analysis.staticcheck`) and ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -43,6 +44,8 @@ from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.analysis import opcount
 
 #: bytes per wire message of a staged payload (each chunk one message)
 CHUNK_BYTES = 256 << 20
@@ -129,6 +132,12 @@ class Pending:
     def wait(self) -> List[List[torch.Tensor]]:
         if self.done:
             return self.out
+        if opcount.counting():      # the staging copies are the transfer's
+            with opcount.reported():
+                return self._wait()
+        return self._wait()
+
+    def _wait(self) -> List[List[torch.Tensor]]:
         t0 = time.perf_counter()
         census = self.mesh.census
         for w in self.works:
@@ -160,7 +169,21 @@ def ppermute(mesh, tensors: Sequence[torch.Tensor], shifts: Sequence, *,
     (allocated like ``x_i`` when ``out`` is None) from ``(rank + s_k) mod
     n``.  A shift is an int along ``axis`` (None: the mesh's one axis) or
     a tuple with one offset per agent axis.  The tensors must be
-    contiguous and must not change until :meth:`Pending.wait` returns."""
+    contiguous and must not change until :meth:`Pending.wait` returns.
+
+    ``meta`` tensors (a dry-run's trace) carry no data: the census counts
+    the transfers and nothing is posted.  Under an open op counter
+    (:mod:`repro_torch.analysis.opcount`) the call reports its transfers
+    as ``collective-permute`` bytes, one per tensor per shift."""
+    if not opcount.counting():
+        return _ppermute(mesh, tensors, shifts, out, axis)
+    nbytes = sum(x.numel() * x.element_size() for x in tensors) * len(shifts)
+    with opcount.reported(collective=("collective-permute", nbytes,
+                                      len(tensors) * len(shifts))):
+        return _ppermute(mesh, tensors, shifts, out, axis)
+
+
+def _ppermute(mesh, tensors, shifts, out, axis) -> Pending:
     t0 = time.perf_counter()
     n = mesh.size
     census = mesh.census
@@ -176,6 +199,18 @@ def ppermute(mesh, tensors: Sequence[torch.Tensor], shifts: Sequence, *,
     if mesh.landed is not None:
         mesh.landed.synchronize()
         mesh.landed = None
+    if any(x.device.type == "meta" for x in tensors):
+        transfers = len(tensors) * len(shifts)
+        nbytes = sum(x.numel() * x.element_size() for x in tensors) * len(shifts)
+        census.sends += transfers
+        census.recvs += transfers
+        census.messages += transfers
+        census.bytes_sent += nbytes
+        census.bytes_received += nbytes
+        census.events.append(("post", [x.data_ptr() for x in tensors]))
+        census.posts += 1
+        mesh.pending = Pending(mesh=mesh, works=[], out=out, landing=[])
+        return mesh.pending
     ops, landing = [], []
     for i, x in enumerate(tensors):
         src = _bytes_view(x)
@@ -236,6 +271,14 @@ def all_gather(mesh, x: torch.Tensor) -> torch.Tensor:
     """``(n, *x.shape)``: every rank's ``x`` in rank order (the general
     mixing's ``lax.all_gather``).  Under gloo a CUDA tensor is staged
     through host memory."""
+    if opcount.counting():
+        with opcount.reported(collective=("all-gather",
+                                          x.numel() * x.element_size(), 1)):
+            return _all_gather(mesh, x)
+    return _all_gather(mesh, x)
+
+
+def _all_gather(mesh, x: torch.Tensor) -> torch.Tensor:
     t0 = time.perf_counter()
     staged = _staged(mesh, x)
     src = _bytes_view(x.cpu() if staged else x)
@@ -255,6 +298,14 @@ def all_reduce_mean(mesh, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]
     """The exact mean over ranks of each tensor (the reference's
     ``lax.pmean``): one float32 all-reduce (sum) of the tensors laid end to
     end, divided by the rank count, each result in its tensor's dtype."""
+    if opcount.counting() and tensors:
+        nbytes = 4 * sum(t.numel() for t in tensors)
+        with opcount.reported(collective=("all-reduce", nbytes, 1)):
+            return _all_reduce_mean(mesh, tensors)
+    return _all_reduce_mean(mesh, tensors)
+
+
+def _all_reduce_mean(mesh, tensors) -> List[torch.Tensor]:
     t0 = time.perf_counter()
     if not tensors:
         return []

@@ -169,6 +169,15 @@ class DistributedOptimizer:
     baselines) runs :meth:`apply` either way.
     """
 
+    #: declared in-place contract of the fused path: how many per-agent
+    #: buffers every fused bucket launch updates in place (the packed
+    #: gradient, which becomes the new params, always; the momentum-family
+    #: optimizers' momentum or moments too), the reference's count of
+    #: ``input_output_aliases`` pairs.  ``None``: no fused in-place contract
+    #: (the baselines).  :mod:`repro_torch.analysis.staticcheck` holds every
+    #: executed launch to it.
+    fused_alias_pairs = None
+
     def __init__(self, schedule: Schedule | float, *, fused: bool = False):
         self.schedule: Schedule = fixed(schedule) if isinstance(schedule, (int, float)) else schedule
         self.fused = fused
@@ -275,6 +284,8 @@ def _mom_operands(exchanged: Optional[ExchangeResult], n: int):
 class CDSGD(DistributedOptimizer):
     """Algorithm 1: ``x_{k+1} = Pi x_k - alpha g(x_k)``."""
 
+    fused_alias_pairs = 1   # params in place
+
     def apply(self, params, grads, inner, alpha, comm, step):
         mixed = comm.mix(params)
         new_params = tree_map(
@@ -299,6 +310,8 @@ class CDMSGD(DistributedOptimizer):
     With ``momentum_mixing="mixed"`` the momentum rides the wire and is
     mixed with the same ``Pi``: ``v' = mu (Pi v) - alpha g``.
     """
+
+    fused_alias_pairs = 2   # params + momentum v in place
 
     def __init__(self, schedule, mu: float = 0.9, **kw):
         super().__init__(schedule, **kw)
@@ -352,6 +365,8 @@ class CDMSGDNesterov(CDMSGD):
     update, so :meth:`grad_params` is a state lookup.
     """
 
+    fused_alias_pairs = 2   # params + momentum v in place (lookahead is new)
+
     def init_inner(self, params):
         if self.fused:
             # lookahead_0 = x_0 + mu * 0 = x_0, cloned: the packed views the
@@ -399,6 +414,8 @@ class CDAdam(DistributedOptimizer):
     (``m' = b1 (Pi m) + (1-b1) g``); the second moment stays local, a
     positive per-coordinate scale rather than a direction.
     """
+
+    fused_alias_pairs = 3   # params + both Adam moments in place
 
     def __init__(self, schedule, b1=0.9, b2=0.999, eps=1e-8, **kw):
         super().__init__(schedule, **kw)

@@ -61,10 +61,10 @@ wrappers return those same tensors.  Nesterov's lookahead is the one new
 output, allocated by the wrapper.
 
 Dispatch is by the tensors' device: CUDA tensors launch the kernel (a
-launch error raises), CPU tensors run the plain version in :mod:`.ref`.
-Each wrapper counts its kernel launches in its ``launches`` attribute, and
-by bucket type in ``launches_by_bucket``; the CPU path launches nothing and
-counts nothing.
+launch error raises), CPU tensors run the plain version in :mod:`.ref`
+(so do ``meta`` tensors, shapes only).  Each wrapper counts its kernel
+launches in its ``launches`` attribute, and by bucket type in
+``launches_by_bucket``; the CPU path launches nothing and counts nothing.
 """
 
 from __future__ import annotations
@@ -75,6 +75,8 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.analysis import opcount
+from repro_torch.analysis.roofline import kernel_work
 from repro_torch.kernels import build
 from repro_torch.kernels.consensus_update import ref
 
@@ -90,6 +92,9 @@ NEIGHBOR_DTYPES = (torch.float32, torch.bfloat16)
 F32 = (torch.float32,)
 #: parameter bucket types
 BUCKET_DTYPES = (torch.float32, torch.bfloat16)
+#: devices whose tensors take the plain versions: the CPU, and ``meta``
+#: (shapes only: the op counter's and the dry-run's traces)
+PLAIN_DEVICES = ("cpu", "meta")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -200,7 +205,10 @@ def _span(t: torch.Tensor):
 
 def _check_placement(reads, outs, device: torch.device) -> None:
     """No output overlaps any operand (the outputs are written in place
-    while every operand is read); 16-byte alignment on the card."""
+    while every operand is read); 16-byte alignment on the card.  Meta
+    tensors have no memory to overlap."""
+    if device.type == "meta":
+        return
     for j, (n_out, t_out) in enumerate(outs):
         for n, t in [*reads, *outs[:j]]:
             (a0, a1), (b0, b1) = _span(t), _span(t_out)
@@ -277,7 +285,7 @@ def cdsgd_update(weights: torch.Tensor, neighbors: torch.Tensor,
     a_out, s, rows, device = _check_operands(weights, neighbors,
                                              [("grad", grad)])
     alpha = _f32(alpha)
-    if device.type == "cpu":
+    if device.type in PLAIN_DEVICES:
         grad.copy_(ref.cdsgd_update_ref(weights, neighbors, grad, alpha))
         return grad
     if a_out == 0 or rows == 0:
@@ -301,7 +309,7 @@ def cdmsgd_update(weights: torch.Tensor, neighbors: torch.Tensor,
     a_out, s, rows, device = _check_operands(
         weights, neighbors, [("grad", grad), ("momentum", momentum)])
     alpha, mu = _f32(alpha), _f32(mu)
-    if device.type == "cpu":
+    if device.type in PLAIN_DEVICES:
         out, new_v = ref.cdmsgd_update_ref(weights, neighbors, grad, momentum,
                                            alpha, mu)
         grad.copy_(out)
@@ -326,7 +334,7 @@ def cdsgd_update_q(weights: torch.Tensor, self_buf: torch.Tensor,
     a_out, s, rows, device = _check_q_operands(
         weights, self_buf, payload, scales, [("grad", grad)])
     alpha = _f32(alpha)
-    if device.type == "cpu":
+    if device.type in PLAIN_DEVICES:
         grad.copy_(ref.cdsgd_update_q_ref(weights, self_buf, payload, scales,
                                           grad, alpha))
         return grad
@@ -353,7 +361,7 @@ def cdmsgd_update_q(weights: torch.Tensor, self_buf: torch.Tensor,
         weights, self_buf, payload, scales,
         [("grad", grad), ("momentum", momentum)])
     alpha, mu = _f32(alpha), _f32(mu)
-    if device.type == "cpu":
+    if device.type in PLAIN_DEVICES:
         out, new_v = ref.cdmsgd_update_q_ref(weights, self_buf, payload,
                                              scales, grad, momentum, alpha, mu)
         grad.copy_(out)
@@ -384,7 +392,7 @@ def cdmsgd_update_qm(weights: torch.Tensor, self_buf: torch.Tensor,
         weights, self_buf, payload, scales,
         [("grad", grad), ("momentum", momentum)], mom_payload, mom_scales)
     alpha, mu = _f32(alpha), _f32(mu)
-    if device.type == "cpu":
+    if device.type in PLAIN_DEVICES:
         out, new_v = ref.cdmsgd_update_qm_ref(
             weights, self_buf, payload, scales, mom_payload, mom_scales,
             grad, momentum, alpha, mu)
@@ -426,7 +434,7 @@ def cdmsgd_nesterov_update(weights: torch.Tensor, neighbors: torch.Tensor,
     a_out, s, rows, device = _check_operands(
         weights, neighbors, [("grad", grad), ("momentum", momentum)])
     alpha, mu = _f32(alpha), _f32(mu)
-    if device.type == "cpu":
+    if device.type in PLAIN_DEVICES:
         return _finish([grad, momentum], ref.cdmsgd_nesterov_update_ref(
             weights, neighbors, grad, momentum, alpha, mu))
     look = torch.empty_like(grad)
@@ -452,7 +460,7 @@ def cdmsgd_nesterov_update_q(weights: torch.Tensor, self_buf: torch.Tensor,
         weights, self_buf, payload, scales,
         [("grad", grad), ("momentum", momentum)])
     alpha, mu = _f32(alpha), _f32(mu)
-    if device.type == "cpu":
+    if device.type in PLAIN_DEVICES:
         return _finish([grad, momentum], ref.cdmsgd_nesterov_update_q_ref(
             weights, self_buf, payload, scales, grad, momentum, alpha, mu))
     look = torch.empty_like(grad)
@@ -479,7 +487,7 @@ def cdmsgd_nesterov_update_qm(weights: torch.Tensor, self_buf: torch.Tensor,
         weights, self_buf, payload, scales,
         [("grad", grad), ("momentum", momentum)], mom_payload, mom_scales)
     alpha, mu = _f32(alpha), _f32(mu)
-    if device.type == "cpu":
+    if device.type in PLAIN_DEVICES:
         return _finish([grad, momentum], ref.cdmsgd_nesterov_update_qm_ref(
             weights, self_buf, payload, scales, mom_payload, mom_scales, grad,
             momentum, alpha, mu))
@@ -510,7 +518,7 @@ def cdadam_update(weights: torch.Tensor, neighbors: torch.Tensor,
     a_out, s, rows, device = _check_operands(
         weights, neighbors, [("grad", grad), ("m", m), ("v", v)])
     scal = _adam_scalars(alpha, b1, b2, eps, bc1, bc2)
-    if device.type == "cpu":
+    if device.type in PLAIN_DEVICES:
         return _finish([grad, m, v], ref.cdadam_update_ref(
             weights, neighbors, grad, m, v, *scal))
     if a_out == 0 or rows == 0:
@@ -533,7 +541,7 @@ def cdadam_update_q(weights: torch.Tensor, self_buf: torch.Tensor,
         weights, self_buf, payload, scales,
         [("grad", grad), ("m", m), ("v", v)])
     scal = _adam_scalars(alpha, b1, b2, eps, bc1, bc2)
-    if device.type == "cpu":
+    if device.type in PLAIN_DEVICES:
         return _finish([grad, m, v], ref.cdadam_update_q_ref(
             weights, self_buf, payload, scales, grad, m, v, *scal))
     if a_out == 0 or rows == 0:
@@ -560,7 +568,7 @@ def cdadam_update_qm(weights: torch.Tensor, self_buf: torch.Tensor,
         weights, self_buf, payload, scales,
         [("grad", grad), ("m", m), ("v", v)], mom_payload, mom_scales)
     scal = _adam_scalars(alpha, b1, b2, eps, bc1, bc2)
-    if device.type == "cpu":
+    if device.type in PLAIN_DEVICES:
         return _finish([grad, m, v], ref.cdadam_update_qm_ref(
             weights, self_buf, payload, scales, mom_payload, mom_scales, grad,
             m, v, *scal))
@@ -622,7 +630,7 @@ def cdsgd_update_sparse(weights: torch.Tensor, self_buf: torch.Tensor,
     a_out, s, k_rows, rows, device = _check_sparse_operands(
         weights, self_buf, values, indices, scales, [("grad", grad)])
     alpha = _f32(alpha)
-    if device.type == "cpu":
+    if device.type in PLAIN_DEVICES:
         grad.copy_(ref.cdsgd_update_sparse_ref(weights, self_buf, values,
                                                indices, scales, grad, alpha))
         return grad
@@ -647,7 +655,7 @@ def cdmsgd_update_sparse(weights: torch.Tensor, self_buf: torch.Tensor,
         weights, self_buf, values, indices, scales,
         [("grad", grad), ("momentum", momentum)])
     alpha, mu = _f32(alpha), _f32(mu)
-    if device.type == "cpu":
+    if device.type in PLAIN_DEVICES:
         return _finish([grad, momentum], ref.cdmsgd_update_sparse_ref(
             weights, self_buf, values, indices, scales, grad, momentum,
             alpha, mu))
@@ -673,7 +681,7 @@ def cdmsgd_nesterov_update_sparse(weights: torch.Tensor,
         weights, self_buf, values, indices, scales,
         [("grad", grad), ("momentum", momentum)])
     alpha, mu = _f32(alpha), _f32(mu)
-    if device.type == "cpu":
+    if device.type in PLAIN_DEVICES:
         return _finish([grad, momentum], ref.cdmsgd_nesterov_update_sparse_ref(
             weights, self_buf, values, indices, scales, grad, momentum,
             alpha, mu))
@@ -701,7 +709,7 @@ def cdadam_update_sparse(weights: torch.Tensor, self_buf: torch.Tensor,
         weights, self_buf, values, indices, scales,
         [("grad", grad), ("m", m), ("v", v)])
     scal = _adam_scalars(alpha, b1, b2, eps, bc1, bc2)
-    if device.type == "cpu":
+    if device.type in PLAIN_DEVICES:
         return _finish([grad, m, v], ref.cdadam_update_sparse_ref(
             weights, self_buf, values, indices, scales, grad, m, v, *scal))
     if a_out == 0 or rows == 0:
@@ -732,8 +740,20 @@ def sr_quantize(x: torch.Tensor, seed: int, exchange: str, *,
     the launch: the C function is resolved once (:func:`_sr_quantize_fn`),
     the outputs are allocated ``like`` ``x`` (cheaper than ``torch.empty``
     with a device), and the library selects the device only when it is not
-    current.
+    current.  Under an open op counter the call reports the bytes its
+    kernel moves (:mod:`repro_torch.analysis.opcount`).
     """
+    if opcount.counting():
+        a_count, rows = _stack("x", x)
+        nbytes, _ = kernel_work("sr_quantize", a_count, 0, rows,
+                                ref.QDTYPE.get(exchange, torch.int8),
+                                bucket=x.dtype)
+        with opcount.reported(traffic_bytes=nbytes):
+            return _sr_quantize(x, seed, exchange, agent_stride)
+    return _sr_quantize(x, seed, exchange, agent_stride)
+
+
+def _sr_quantize(x, seed, exchange, agent_stride):
     qdtype = ref.QDTYPE.get(exchange)
     if qdtype is None:
         raise ValueError(f"sr_quantize takes exchange 'int8' or 'fp8', got "
@@ -744,7 +764,7 @@ def sr_quantize(x: torch.Tensor, seed: int, exchange: str, *,
     if a_count * rows > MAX_QUANTIZE_ROWS:
         raise ValueError(f"sr_quantize takes at most {MAX_QUANTIZE_ROWS} rows "
                          f"per launch, got {a_count * rows}")
-    if device.type == "cpu":
+    if device.type in PLAIN_DEVICES:
         return ref.sr_quantize_ref(x, seed, exchange, agent_stride)
     _check_placement([("x", x)], [], device)
     q = torch.empty_like(x, dtype=qdtype)

@@ -31,7 +31,10 @@ tuple).
 The updated parameters are written into ``grad``'s storage and the new
 momentum (moments) into ``momentum``'s (``m``'s, ``v``'s); Nesterov's
 lookahead is returned in a new buffer.  CUDA tensors launch the kernel,
-CPU tensors run the plain version (see :mod:`.consensus_update`).
+CPU tensors run the plain version (see :mod:`.consensus_update`).  Under
+an open op counter (:mod:`repro_torch.analysis.opcount`) each launch
+reports the bytes its kernel moves, and the ops of the plain version are
+not counted again.
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.analysis import opcount
+from repro_torch.analysis.roofline import kernel_work
 from repro_torch.kernels.consensus_update import consensus_update as cu
 
 
@@ -55,11 +60,23 @@ class SparseNeighbors(NamedTuple):
     scales: torch.Tensor
 
 
+def _work(kernel, weights, neighbors, grad) -> int:
+    """The bytes one launch of ``kernel`` moves
+    (:func:`repro_torch.analysis.roofline.kernel_work`)."""
+    sparse = isinstance(neighbors, SparseNeighbors)
+    payload = neighbors.values if sparse else neighbors
+    nbytes, _ = kernel_work(
+        kernel.__name__, weights.shape[0], payload.shape[0], grad.shape[-2],
+        payload.dtype, payload.shape[-2] if sparse else 0, grad.dtype)
+    return nbytes
+
+
 def _dispatch(dense, q, qm, sparse, neighbors, weights, per_agent, scalars, *,
               scales, self_buf, mom_neighbors, mom_scales):
     """Call the dense, ``_q``, ``_qm`` or sparse kernel with the per-agent
     buffers ``per_agent`` (grad first); strip the stencil form's leading
-    axis."""
+    axis.  Under an open op counter the launch reports its kernel's bytes
+    (the same on the card and in the plain version)."""
     stencil = weights.dim() == 1
     if stencil:
         weights = weights[None]
@@ -71,14 +88,20 @@ def _dispatch(dense, q, qm, sparse, neighbors, weights, per_agent, scalars, *,
                              "SparseNeighbors and mixes no momentum payload")
         if self_buf is None:
             raise ValueError("the sparse operand form needs self_buf")
-        out = sparse(weights, self_buf, *neighbors, *per_agent, *scalars)
+        kernel, args = sparse, (weights, self_buf, *neighbors)
     elif mom_neighbors is not None:
-        out = qm(weights, self_buf, neighbors, scales, mom_neighbors,
-                 mom_scales, *per_agent, *scalars)
+        kernel, args = qm, (weights, self_buf, neighbors, scales,
+                            mom_neighbors, mom_scales)
     elif scales is not None:
-        out = q(weights, self_buf, neighbors, scales, *per_agent, *scalars)
+        kernel, args = q, (weights, self_buf, neighbors, scales)
     else:
-        out = dense(weights, neighbors, *per_agent, *scalars)
+        kernel, args = dense, (weights, neighbors)
+    if opcount.counting():
+        with opcount.reported(traffic_bytes=_work(kernel, weights, neighbors,
+                                                  per_agent[0])):
+            out = kernel(*args, *per_agent, *scalars)
+    else:
+        out = kernel(*args, *per_agent, *scalars)
     if isinstance(out, tuple):
         return tuple(t[0] for t in out) if stencil else out
     return out[0] if stencil else out

@@ -56,6 +56,8 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.analysis import opcount
+from repro_torch.analysis.roofline import kernel_work
 from repro_torch.kernels.consensus_update import consensus_update as cu
 from repro_torch.kernels.consensus_update import ref
 
@@ -182,6 +184,8 @@ def topk_threshold(x: torch.Tensor, k: int, *, n_bins: int = 16,
     ``x`` a scalar and ``(n_bins,)``.  CUDA tensors run the whole function
     on the device (one call: a memset and two launches, counted once, no
     copy to the device and no wait); CPU tensors run the plain version.
+    Under an open op counter the call reports the bytes its kernel moves
+    (:mod:`repro_torch.analysis.opcount`).
     """
     if not isinstance(x, torch.Tensor) or x.dim() not in (2, 3) \
             or x.shape[-1] != LANE:
@@ -197,6 +201,14 @@ def topk_threshold(x: torch.Tensor, k: int, *, n_bins: int = 16,
     rows = x.shape[-2]
     if rows == 0:
         raise ValueError("x has no rows")
+    if opcount.counting():
+        nbytes, _ = kernel_work("topk_threshold", a_count, 0, rows)
+        with opcount.reported(traffic_bytes=nbytes):
+            return _topk_threshold(x, k, n_bins, span, a_count, rows)
+    return _topk_threshold(x, k, n_bins, span, a_count, rows)
+
+
+def _topk_threshold(x, k, n_bins, span, a_count, rows):
     device = x.device
     if device.type == "cuda":
         if x.data_ptr() % 16:
@@ -213,7 +225,7 @@ def topk_threshold(x: torch.Tensor, k: int, *, n_bins: int = 16,
         topk_threshold.launches += 1
         topk_threshold.launches_by_bucket["float32"] += 1
         return tau, counts
-    if device.type != "cpu":
+    if device.type not in cu.PLAIN_DEVICES:
         raise ValueError(f"no top-k threshold kernel for device {device}")
     xs = _agents(x)
     taus = threshold_taus(xs, n_bins, span)

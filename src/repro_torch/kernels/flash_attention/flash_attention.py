@@ -28,7 +28,8 @@ on ``flash_attention.launches`` and, by kernel, on
 
 CUDA tensors launch a kernel (a launch error raises; a bfloat16 operand
 the tensor-core kernel cannot take raises and never reaches the float32
-kernel); CPU tensors run the plain version :func:`.ref.attention_ref`.
+kernel); CPU (and ``meta``) tensors run the plain version
+:func:`.ref.attention_ref`.
 There is no backward pass (the reference has none): an operand that
 requires grad raises.
 """
@@ -117,7 +118,7 @@ def flash_attention_any_length(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     device = q.device
     if k.device != device or v.device != device:
         raise ValueError("q, k and v must be on one device")
-    if device.type == "cpu":
+    if device.type in ("cpu", "meta"):
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  scale=scale)
     if device.type != "cuda":

@@ -17,8 +17,8 @@ rows of r, k, v and w into shared memory 16 bytes at a time; an operand
 whose rows do not start on 16 bytes is first copied to a contiguous tensor
 (:func:`_aligned16`; never on the model's path).
 
-CUDA tensors launch the kernel (a launch error raises); CPU tensors run
-the plain version :func:`.ref.wkv6_ref`.  There is no backward pass (the
+CUDA tensors launch the kernel (a launch error raises); CPU (and
+``meta``) tensors run the plain version :func:`.ref.wkv6_ref`.  There is no backward pass (the
 reference has none): an operand that requires grad raises.
 """
 
@@ -117,7 +117,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     device = r.device
     if any(t.device != device for t in (k, v, w, u)):
         raise ValueError("r, k, v, w and u must be on one device")
-    if device.type == "cpu":
+    if device.type in ("cpu", "meta"):
         if folded:
             y, state = ref.wkv6_ref(r, k, v, w, u)
             return y.to(r.dtype), state

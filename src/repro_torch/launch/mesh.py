@@ -27,10 +27,12 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import faulthandler
 import math
 import multiprocessing
 import multiprocessing.connection
 import os
+import signal
 import tempfile
 import time
 import traceback
@@ -189,7 +191,9 @@ def init_agent_mesh(rank: int, n_agents: int, *, backend: str,
 def _agent_main(fn, rank, n_agents, backend, init_method, device, timeout,
                 threads, axes, args, out_path):
     """One rank: join, run ``fn(mesh, *args)``, save its result (or the
-    traceback) next to ``out_path``, leave the group."""
+    traceback) next to ``out_path``, leave the group.  A rank stopped by the
+    parent (its time limit) prints every thread's stack first."""
+    faulthandler.register(signal.SIGTERM, all_threads=True, chain=True)
     try:
         torch.set_num_threads(threads)
         mesh = init_agent_mesh(rank, n_agents, backend=backend,

@@ -156,8 +156,11 @@ def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dev = q.device
     q_pos = (torch.arange(n_ch, device=dev) * q_chunk)[:, None] \
         + torch.arange(q_chunk, device=dev)[None]
-    k_pos = torch.tensor(starts, device=dev)[:, None] \
-        + torch.arange(span, device=dev)[None]
+    # the window starts, made on the device (a tensor built from a list
+    # cannot be made on ``meta`` inside a grad transform)
+    k_start = torch.clamp(torch.arange(n_ch, device=dev) * q_chunk
+                          + (q_chunk - span), min=0)
+    k_pos = k_start[:, None] + torch.arange(span, device=dev)[None]
     allowed = (k_pos[:, None, :] <= q_pos[:, :, None]) \
         & (k_pos[:, None, :] > q_pos[:, :, None] - window)
     logits = torch.where(allowed[None, :, None, None], logits, NEG_INF)

@@ -128,9 +128,12 @@ def test_runner_device_and_names(capsys):
     assert out[-1].startswith("benchmarks/total,") and out[-1].endswith("count=1")
     assert len([o for o in out if o.startswith("prop1/")]) == 9
     with pytest.raises(SystemExit, match="unknown benchmark"):
-        trun.main(["kernels", "--device", "cpu"])
+        trun.main(["no_such_benchmark", "--device", "cpu"])
+    # the reference runner's names, the kernel microbenchmark and the
+    # roofline table among them
     assert set(trun.BENCHES) == {"fig1a", "fig1b", "fig2a", "fig2b", "fig4", "fig5",
-                                 "table1", "table1_methods", "prop1", "noniid"}
+                                 "table1", "table1_methods", "prop1", "noniid",
+                                 "kernels", "roofline"}
 
 
 def test_benchmarks_need_a_device_without_cuda(monkeypatch):

@@ -1258,3 +1258,80 @@ def test_mamba_apply_on_card_matches_cpu(s, state):
     for got, want in ((got_y, want_y), (got_h, want_h)):
         assert got.device.type == "cuda" and got.dtype == torch.float32
         assert float((got.cpu() - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_kernel_microbench_smoke_on_card(capsys):
+    """``kernel_microbench --smoke`` on the card: every row timed with CUDA
+    events, the kernel rows beside their bounds, no row marked as a CPU
+    time."""
+    _card()
+    from repro_torch.benchmarks import kernel_microbench as kmb
+
+    rows = kmb.run(smoke=True, device="cuda")
+    assert len(rows) == 12
+    for name, us, derived in rows:
+        assert "device=cpu" not in derived, name
+    for name in ("kernel/consensus_update", "kernel/consensus_update_momentum",
+                 "kernel/consensus_update_momentum_int8", "kernel/sparse_update"):
+        (_, us, derived), = [r for r in rows if r[0] == name]
+        assert us > 0 and "bound_ms=" in derived, (name, derived)
+    assert "JSON," in capsys.readouterr().out
+
+
+def _counts_on(fn, dev, *tensors):
+    from repro_torch.analysis import opcount
+
+    args = [t.to(dev) for t in tensors]
+    with opcount.OpCounter() as c:
+        fn(*args)
+    return c.dot_flops, c.traffic_bytes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["dense", "q", "sparse"])
+def test_op_counter_agrees_between_card_and_meta_for_the_updates(form):
+    """The op counter's dot FLOPs and traffic of one update launch are the
+    same on the card (the kernel reports its work) as on ``meta`` (the
+    plain version, its ops not counted again)."""
+    dev = _card()
+    w, x, g, v = _operands(dev, 5, 5, 1001, seed=3)
+    if form == "dense":
+        def fn(w, x, g, v):
+            ops.cdmsgd_update_flat(x, w, g.clone(), v.clone(), ALPHA, MU)
+        args = (w, x, g, v)
+    elif form == "q":
+        q, sc = cu.sr_quantize(x, 7, "int8")
+        wq = torch.cat([w, w[:, :1]], dim=1).contiguous()
+
+        def fn(wq, sf, q, sc, g, v):
+            ops.cdmsgd_update_flat(q, wq, g.clone(), v.clone(), ALPHA, MU,
+                                   scales=sc, self_buf=sf)
+        args = (wq, g.clone(), q, sc, g, v)
+    else:
+        vals, idx, scs = topk.topk_compress_2d(x, 20, 11, agent_stride=1)
+        wq = torch.cat([w, w[:, :1]], dim=1).contiguous()
+
+        def fn(wq, sf, vals, idx, scs, g):
+            ops.cdsgd_update_flat(ops.SparseNeighbors(vals, idx, scs), wq,
+                                  g.clone(), ALPHA, self_buf=sf)
+        args = (wq, g.clone(), vals, idx, scs, g)
+    card = _counts_on(fn, dev, *args)
+    meta = _counts_on(fn, torch.device("meta"), *args)
+    assert card == meta and card[1] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_op_counter_agrees_between_card_and_meta_for_flash(dtype):
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((2, 300, 8, 128), generator=gen, device=dev).to(dtype)
+    k = torch.randn((2, 300, 2, 128), generator=gen, device=dev).to(dtype)
+
+    def fn(q, k):
+        fa_ops.flash_attention_bshd(q, k, k, causal=True, window=128)
+
+    card = _counts_on(fn, dev, q, k)
+    meta = _counts_on(fn, torch.device("meta"), q, k)
+    assert card == meta and card[0] > 0

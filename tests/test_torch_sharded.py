@@ -284,6 +284,40 @@ def test_overlap_posts_the_carried_wire_before_the_grad_phase(runs, name):
             assert waits and waits[0] > max(grads)
 
 
+@pytest.mark.parametrize("name", FUSED)
+def test_every_rank_certifies_the_wire_contract(runs, name):
+    """``check_bundle`` over one more step (a period of a time-varying
+    schedule) on every rank: every rule passes, the census equals its
+    closed form, the in-place contract holds launch by launch."""
+    _, got = runs
+    for r in range(AGENTS):
+        rep = got[r][name]["check"]
+        bad = [(x["rule"], x["detail"]) for x in rep["rules"] if not x["ok"]]
+        assert rep["ok"], (name, r, bad)
+        rules = {x["rule"]: x for x in rep["rules"]}
+        assert not rules["census.ppermute_count"]["skipped"]
+        assert not rules["bytes.hlo_collective_permute"]["skipped"]
+        assert not rules["alias.fused_coverage"]["skipped"]
+        assert rules["census.critical_path"]["evidence"]["actual_carried"] == (
+            rules["census.critical_path"]["evidence"]["predicted_carried"])
+
+
+def test_a_sync_program_claimed_as_overlap_fails_the_critical_path(runs):
+    """The deliberate breakage of the sharded census: the sync step's
+    transfers follow the grad phase and send fresh buckets, so the carried
+    transfers the overlap claim predicts are missing."""
+    _, got = runs
+    for r in range(AGENTS):
+        rep = got[r][ranks.CLAIMED_OVERLAP]["claimed_overlap"]
+        rules = {x["rule"]: x for x in rep["rules"]}
+        cp = rules["census.critical_path"]
+        assert not rep["ok"] and not cp["ok"], cp
+        assert cp["evidence"]["actual_carried"] == 0
+        assert cp["evidence"]["predicted_carried"] > 0
+        assert "critical path" in cp["detail"]
+        assert rules["census.ppermute_count"]["ok"]
+
+
 def test_sync_exchange_follows_the_grad_phase(runs):
     _, got = runs
     events = got[0]["cdmsgd-int8-sync"]["steps"][1]["events"]

@@ -197,10 +197,29 @@ def test_sr_quantize_refuses_more_rows_than_a_launch_counts(a, rows):
         cu.sr_quantize(x, 0, "int8")
 
 
+class _Elsewhere(torch.Tensor):
+    """Shapes on a device with no kernel and no plain version (no data)."""
+
+    @staticmethod
+    def __new__(cls, shape, device):
+        return torch.Tensor._make_wrapper_subclass(cls, shape, dtype=torch.float32,
+                                                   device=device)
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise NotImplementedError(func)
+
+
 def test_sr_quantize_has_no_kernel_for_other_devices():
-    x = torch.empty((2, 3, 128), device="meta")
-    with pytest.raises(ValueError, match="no consensus-update kernel for device meta"):
+    """A device other than the card raises, but ``meta``, which takes the
+    plain version (the op counter's and the dry-run's traces: shapes
+    only)."""
+    x = _Elsewhere((2, 3, 128), torch.device("xpu"))
+    with pytest.raises(ValueError, match="no consensus-update kernel for device xpu"):
         cu.sr_quantize(x, 0, "fp8")
+    q, sc = cu.sr_quantize(torch.empty((2, 3, 128), device="meta"), 0, "fp8")
+    assert q.device.type == "meta" and q.dtype == torch.float8_e4m3fn
+    assert sc.shape == (2, 3, 1)
 
 
 def test_launch_helpers_resolve_once_and_read_the_raw_stream(monkeypatch):

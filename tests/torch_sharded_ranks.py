@@ -16,6 +16,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.analysis import staticcheck
 from repro_torch.configs import get_config
 from repro_torch.configs.base import InputShape
 from repro_torch.core import engine, make_optimizer
@@ -28,6 +29,8 @@ from repro_torch.nn import transformer as tt
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 LR, MU, ADAM_LR = 0.01, 0.9, 1e-3
+# the sync configuration run_configs also checks as if it claimed overlap
+CLAIMED_OVERLAP = "cdmsgd-int8-sync"
 
 
 def lm_config():
@@ -92,30 +95,13 @@ def _to(tree, device):
                     tree)
 
 
-def wire_ptrs(wire, quantized: bool):
-    """The ``data_ptr`` of every tensor a carried wire puts on the wire: a
-    ring's selected slot ``min(send_age, S - 1)``, every compact field of
-    a compressed entry, a dense pair's payload (and int8 / fp8 scales)."""
-    if isinstance(wire, consensus_lib.WireRing):
-        sel = min(int(wire.send_age[0]), wire.slots[0][0].shape[1] - 1)
-        wire = tuple((p[:, sel], sc[:, sel]) for p, sc in wire.slots)
-    out = []
-    for e in wire:
-        if isinstance(e, (consensus_lib.TopKWire, consensus_lib.RankWire)):
-            out.extend(f.data_ptr() for f in e)
-            continue
-        p, sc = e
-        out.append(p.data_ptr())
-        if quantized:
-            out.append(sc.data_ptr())
-    return out
-
-
 def run_configs(mesh, inputs_path: str) -> dict:
     """Every configuration of the inputs file, on this rank: whole steps
     from the shared initial state (``P0``) with the census and event log of
-    each step, and (where given) the update phase teacher-forced from the
-    stacked trainer's state and gradients."""
+    each step, the wire-contract checker's report of each fused
+    configuration (:func:`repro_torch.analysis.staticcheck.check_bundle`),
+    and (where given) the update phase teacher-forced from the stacked
+    trainer's state and gradients."""
     data = torch.load(inputs_path, weights_only=False)
     cfg = lm_config()
     shape = InputShape("tiny_train", data["seq"], data["batch"] * mesh.size,
@@ -142,7 +128,8 @@ def run_configs(mesh, inputs_path: str) -> dict:
         for batch in data["batches"]:
             census.reset()
             overlap = bundle.schedule == "overlap"
-            posted = wire_ptrs(state.wire, quantized) if overlap else None
+            posted = (staticcheck.carried_wire_ptrs(state.wire, quantized)
+                      if overlap else None)
             wire_bytes = (engine.wire_bytes_per_neighbor(state.wire)
                           if overlap else None)
             params, state, metrics = bundle.step_fn(
@@ -152,6 +139,17 @@ def run_configs(mesh, inputs_path: str) -> dict:
                           "wire_bytes": wire_bytes,
                           "loss": float(metrics["loss"])})
         res = {"params": _cpu(params), "steps": steps}
+        if spec["mixing"] == "ppermute_fused":
+            # the wire-contract checker over one more step (a period of a
+            # time-varying schedule) from here; a sync program claimed as
+            # overlap must fail its critical-path rule
+            batch = local_batch(data["batches"][0], mesh)
+            res["check"] = staticcheck.check_bundle(
+                bundle, params, batch, opt_state=state).as_dict()
+            if bundle.schedule == "sync" and name == CLAIMED_OVERLAP:
+                res["claimed_overlap"] = staticcheck.check_bundle(
+                    bundle, params, batch, opt_state=state,
+                    schedule="overlap").as_dict()
         teacher = data["teacher"].get(name)
         if teacher is not None:
             p1, s1 = steps_lib.local_train_state(teacher["params"],
