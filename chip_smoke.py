@@ -221,7 +221,7 @@ build_train_step``) adds:
     update a step, one ``sr_quantize`` more on int8 and one at overlap
     init, no flash / WKV6), peak memory, finite losses; then at full width
     with 2 layers in float32, each rank's update phase against the
-    stacked trainer's (one rank at a time builds it) from one seeded state,
+    stacked trainer's (built once, see below) from one seeded state,
     bit for bit, and one whole step within 1e-5 of max |param|.  A rank
     that fails or hangs past its limit fails the phase.
 
@@ -360,6 +360,39 @@ on the card's peaks, the wire-contract checker; ``launch.check``,
     ``topk:0.01``) with their roofline rows, and ``kernel_microbench
     --smoke`` on the card.
 
+The sharded serve slice (the ``model`` mesh axis, ``build_prefill_step`` /
+``build_serve_step`` with ``tp`` over ``model``, ``fsdp`` over ``data``
+and sharded KV caches, the dense family) adds:
+
+3.  flash attention at one rank's prefill heads on ``data 2 x model 2``:
+    gemma3-1b's 2 of 4 heads on its one KV head at D 256 (bf16, both
+    masks) and granite-3-8b's 16 of 32 on 4 KV heads at D 128 (float32),
+    2 of the 4 sequences each, against the plain version, SDPA beside each;
+14. the parity's stacked reference computed once a configuration (rank 0,
+    uncapped) and each rank's share handed over through CUDA IPC (a device
+    to device copy out of rank 0's memory) instead of one stacked run a
+    rank;
+17. (run right after phase 14, while this process holds little of the
+    card) four ``gloo`` ranks on ``SERVE_AXES`` (``data 2 x model 2``), all
+    on the one card: (``SHARDED_SERVE_RUNS``) gemma3-1b bf16 at full width
+    and depth (its one KV head: the cache's sequence over ``model``; its
+    vocabulary over ``model``; ``d_model`` over ``data``) and granite-3-8b
+    float32 at full width with 2 layers (its KV heads over ``model``, its
+    odd vocabulary replicated), each rank's blocks of the weights drawn on
+    the card leaf by leaf: the 4 x 2048 prefill through
+    ``build_prefill_step`` (each rank's 2 sequences; exactly one flash
+    launch a layer a rank, nothing else), then the prompt and greedy
+    tokens through ``build_serve_step`` from an empty cache (no launch);
+    per rank the prefill wall, the decode ms a step, the Census's
+    collectives by axis (calls, bytes, seconds) and the peak memory; held
+    here against the port's unsharded path on the card from the same
+    weights: the prefill's last logits against ``forward``, each decode
+    step's logits against ``decode_step`` on the ranks' tokens (granite
+    within 1e-4 of max |logit| and its tokens equal to ``serve``'s;
+    gemma's bf16 within ``SERVE_BF16_TOL`` and no farther from the float32
+    forward than ``SERVE_BF16_RATIO`` times the unsharded bf16 forward).
+    The ranks' flash launches join the ``kernels`` line.
+
 Any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 float32 matmuls and convolutions run in full float32 (TF32 off).
@@ -439,6 +472,8 @@ from repro_torch.launch.mesh import spawn_agents  # noqa: E402
 from repro_torch.launch.sharding import local_batch  # noqa: E402
 from repro_torch.launch.steps import (  # noqa: E402
     _agent_factors,
+    build_prefill_step,
+    build_serve_step,
     build_train_step,
     local_train_state,
 )
@@ -447,13 +482,19 @@ from repro_torch.nn import moe as moe_lib  # noqa: E402
 from repro_torch.nn import ssm as ssm_lib  # noqa: E402
 from repro_torch.nn import transformer as tt  # noqa: E402
 from repro_torch.nn.layers import _act, mlp  # noqa: E402
-from repro_torch.nn.param import count_params, init_params  # noqa: E402
+from repro_torch.nn.param import count_params, init_params, local_shard  # noqa: E402
 from repro_torch.nn.paper_models import (  # noqa: E402
     classifier_loss,
     cnn_classifier_apply,
     cnn_classifier_template,
 )
-from repro_torch.utils.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.utils.tree import (  # noqa: E402
+    tree_flatten,
+    tree_flatten_with_path,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 
 # H100 SXM published peaks (NVIDIA data sheet), at the full 700 W limit:
 # the package's one table of the card (repro_torch.analysis.roofline)
@@ -830,6 +871,32 @@ FACTORED_RUN = ("cdmsgd int8 sync pod 2 x data 2", "cdmsgd", {"exchange": "int8"
 SHARDED_HEADROOM = 512 << 20   # B per rank beyond a CUDA context
 SHARDED_PG_TIMEOUT = 120.0     # s, each collective in the ranks
 SHARDED_JOIN_S = 600.0         # s, the whole phase
+# phase 17, the sharded serve mode: 4 gloo ranks on data 2 x model 2 on the
+# one card (fsdp over data, tp over model; build_prefill_step /
+# build_serve_step); (label, arch, layers (None: the full depth), dtype,
+# prompt tokens, greedy tokens, tolerance of max |logit| for the prefill's
+# last logits and each decode step's against the unsharded path, tokens
+# held equal to the unsharded serve's).  gemma3-1b's one KV head shards its
+# cache's sequence over model, its vocabulary over model, d_model over
+# data; granite-3-8b's 8 KV heads shard over model, its 49155-token
+# vocabulary replicates.  bf16 at 26 layers: the two bf16 forwards' own
+# distance from the float32 forward of the same weights is 2.2e-2 (sharded)
+# and 2.5e-2 (unsharded) of max |logit| on an H100, so another summation
+# order alone moves the logits that far and the bf16 flash gate's 2e-2
+# cannot hold them to each other (they read 2.007e-2 apart).  The gate that
+# sees a fault is the float32 one: the sharded prefill's distance from
+# float32 at most SERVE_BF16_RATIO times the unsharded one's (a fault that
+# doubles the sharded error fails it); beside it the prefill's and each
+# decode step's logits within SERVE_BF16_TOL of the unsharded path's.  Its
+# greedy tokens are reported (a near tie flips with bf16 rounding)
+SERVE_BF16_TOL = 3e-2          # of max |logit|, sharded against unsharded bf16
+SERVE_BF16_RATIO = 1.25        # sharded / unsharded distance from float32
+SERVE_AXES = {"data": 2, "model": 2}
+SHARDED_SERVE_RUNS = (
+    ("gemma3-1b bf16", "gemma3-1b", None, "bfloat16", 8, 4, SERVE_BF16_TOL, False),
+    ("granite-3-8b f32 2 layers", "granite-3-8b", 2, "float32", 4, 4, MODEL_TOL, True),
+)
+SHARDED_SERVE_SEED = 7
 # the MoE, MLA and VLM families at published width (phases 6-7): (arch,
 # layers or None for the full depth, flash launches per 4 x 2048 prefill:
 # its GQA layers).  kimi-k2-1t-a32b's and deepseek-v2-236b's full depths
@@ -2243,8 +2310,11 @@ def check_flash(results: dict, gen) -> None:
     other dense configs' prefill shapes (h2o-danube-3-4b's head dim 120,
     bf16 and float32; granite-3-8b's and starcoder2-7b's bf16 GQA groups of
     4 and 9 at D 128; kimi-k2-1t-a32b's and internvl2-2b's, groups of 8 and
-    2 at D 128); ``scaled_dot_product_attention`` on the same operands (GQA, causal or a
-    boolean band mask) as the library yardstick.  Then the bf16 speed
+    2 at D 128); one rank's shapes of the sharded serve mode's prefill
+    (phase 17: gemma3-1b's 2 of 4 heads, bf16, both masks; granite-3-8b's
+    16 of 32 on 4 KV heads, float32); ``scaled_dot_product_attention`` on
+    the same operands (GQA, causal or a boolean band mask) as the library
+    yardstick.  Then the bf16 speed
     criteria, printed (met or not), not held."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = torch.device("cuda")
@@ -2259,6 +2329,11 @@ def check_flash(results: dict, gen) -> None:
     # of 8 (64 heads on 8) and 2 (16 on 8)
     kimi, internvl = (("flash_attention", c.n_heads, c.n_kv_heads, c.head_dim_)
                       for c in map(get_config, ("kimi-k2-1t-a32b", "internvl2-2b")))
+    # the sharded serve mode's (phase 17): one rank's query heads on model 2
+    # (gemma3-1b's one KV head replicated, granite-3-8b's 8 split)
+    m = SERVE_AXES["model"]
+    gemma_tp = ("flash_attention", 4 // m, 1, 256)
+    granite_tp = ("flash_attention", granite[1] // m, granite[2] // m, granite[3])
     for (name, h, kv, d), label, b, s, dtype, window in (
             (gemma, "path", PREFILL_BATCH, PREFILL_LEN, torch.bfloat16, 512),
             (gemma, "path-global", PREFILL_BATCH, PREFILL_LEN, torch.bfloat16, None),
@@ -2275,7 +2350,14 @@ def check_flash(results: dict, gen) -> None:
             (granite, "granite", PREFILL_BATCH, PREFILL_LEN, torch.bfloat16, None),
             (starcoder, "starcoder2", PREFILL_BATCH, PREFILL_LEN, torch.bfloat16, None),
             (kimi, "kimi-k2", PREFILL_BATCH, PREFILL_LEN, torch.bfloat16, None),
-            (internvl, "internvl2", PREFILL_BATCH, PREFILL_LEN, torch.bfloat16, None)):
+            (internvl, "internvl2", PREFILL_BATCH, PREFILL_LEN, torch.bfloat16, None),
+            # the sharded serve mode's prefill (phase 17): one rank's heads
+            (gemma_tp, "sharded-path", PREFILL_BATCH // 2, PREFILL_LEN,
+             torch.bfloat16, 512),
+            (gemma_tp, "sharded-path-global", PREFILL_BATCH // 2, PREFILL_LEN,
+             torch.bfloat16, None),
+            (granite_tp, "sharded-granite-f32", PREFILL_BATCH // 2, PREFILL_LEN,
+             torch.float32, None)):
         q = torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
         k = torch.randn((b, kv, s, d), generator=gen, device=dev).to(dtype)
         v = torch.randn((b, kv, s, d), generator=gen, device=dev).to(dtype)
@@ -4107,12 +4189,30 @@ def _seeded_like(tree, device, agent: int, salt: int, scale: float):
                                                   device=device), tree)
 
 
-def _stacked_rows(tr, base, batch, n: int, rank: int, momentum: bool) -> dict:
+@contextlib.contextmanager
+def _shareable():
+    """Allocations in plain ``cudaMalloc`` segments, whose memory CUDA IPC
+    exports (an expandable segment's export passes a file descriptor
+    between processes).  Restores the setting the process started with
+    (``PYTORCH_CUDA_ALLOC_CONF``'s, the allocator's default False
+    without one)."""
+    conf = dict(kv.split(":", 1) for kv in
+                os.environ.get("PYTORCH_CUDA_ALLOC_CONF", "").split(",") if ":" in kv)
+    prior = conf.get("expandable_segments", "False")
+    torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    try:
+        yield
+    finally:
+        torch.cuda.memory._set_allocator_settings(f"expandable_segments:{prior}")
+
+
+def _stacked_rows(tr, base, batch, n: int, momentum: bool) -> list:
     """The stacked trainer ``tr`` (on the card) from a seeded state past
     init: params ``base + 0.01 N`` per agent, the overlap wire quantized
     from another such draw, a seeded momentum and gradients (the same bits
-    in every rank).  Returns agent ``rank``'s share of that state and of
-    the trainer's update phase and whole step from it (on the card)."""
+    in every rank).  Returns every agent's share of that state and of the
+    trainer's update phase and whole step from it, one dict a rank, on the
+    card in shareable segments (:func:`_hand_over`)."""
     dev = tr.device
     stack = lambda rows: tree_map(lambda *xs: torch.stack(xs), *rows)  # noqa: E731
     base_d = tree_map(lambda t: t.to(dev), base)
@@ -4131,16 +4231,64 @@ def _stacked_rows(tr, base, batch, n: int, rank: int, momentum: bool) -> dict:
     grads = stack([_seeded_like(one, dev, a, 4, 0.1) for a in range(n)])
     clone = lambda tree: tree_map(  # noqa: E731
         lambda t: t.clone() if isinstance(t, torch.Tensor) else t, tree)
-    rows = {"state": local_train_state(params, state, rank),
-            "grads": tree_map(lambda x: x[rank].clone(), grads)}
+    with _shareable():
+        rows = [{"state": local_train_state(params, state, r),
+                 "grads": tree_map(lambda x: x[r].clone(), grads)} for r in range(n)]
     with torch.no_grad():
         up, us = prog.update_phase(clone(params), grads, clone(state))
-    rows["update"] = local_train_state(up, us, rank)
+    with _shareable():
+        for r in range(n):
+            rows[r]["update"] = local_train_state(up, us, r)
     del up, us, grads
     wp, _, _ = prog.step_fn(params, state, {k: torch.as_tensor(v, device=dev)
                                             for k, v in batch.items()})
-    rows["step"] = tree_map(lambda x: x[rank].clone(), wp)
+    with _shareable():
+        for r in range(n):
+            rows[r]["step"] = tree_map(lambda x: x[r].clone(), wp)
     return rows
+
+
+def _ipc_handles(tree):
+    """A tree's CUDA tensors as CUDA IPC handles (picklable), the rest as
+    is."""
+    from torch.multiprocessing.reductions import reduce_tensor
+
+    leaves, treedef = tree_flatten(tree)
+    return treedef, [("t", reduce_tensor(x)) if isinstance(x, torch.Tensor)
+                     else ("o", x) for x in leaves]
+
+
+def _ipc_clone(handles):
+    """The tree of :func:`_ipc_handles`, each tensor opened in this process
+    and copied into its own memory (device to device)."""
+    treedef, leaves = handles
+    out = []
+    for kind, v in leaves:
+        if kind == "t":
+            fn, args = v
+            shared = fn(*args)
+            out.append(shared.clone())
+            del shared
+        else:
+            out.append(v)
+    return tree_unflatten(treedef, out)
+
+
+def _hand_over(mesh, per_rank):
+    """This rank's tree of ``per_rank`` (rank 0: one tree a rank, on the
+    card; the others: None): rank 0 keeps its own, every other rank copies
+    its own out of rank 0's memory through CUDA IPC, so one stacked
+    reference serves every rank; rank 0 drops the others' after."""
+    obj = [None]
+    if mesh.rank == 0:
+        torch.cuda.synchronize(mesh.device)
+        obj = [[None] + [_ipc_handles(t) for t in per_rank[1:]]]
+    dist.broadcast_object_list(obj, src=0)
+    mine = per_rank[0] if mesh.rank == 0 else _ipc_clone(obj[0][mesh.rank])
+    del obj
+    torch.cuda.synchronize(mesh.device)
+    dist.barrier()
+    return mine
 
 
 def _sharded_optimizer(name: str):
@@ -4251,8 +4399,9 @@ def _sharded_parity(mesh, base, batch, label, opt_name, knobs,
                     fraction: float, topology=None, remat=False) -> dict:
     """Phase 14's parity on this rank: gemma3-1b at full width with
     ``SHARDED_PARITY_LAYERS`` layers in float32, the stacked trainer on
-    ``topology`` (the ring by default; one rank at a time builds it for
-    every agent, its allocator uncapped: about 30 GiB) against this rank's
+    ``topology`` (the ring by default; rank 0 builds it once for every
+    agent, its allocator uncapped: about 30 GiB, and hands each rank its
+    share through CUDA IPC) against this rank's
     sharded step from the same seeded state (all ranks at once, each capped
     at ``fraction`` of the card): the update phase with the same gradients
     and wire bit for bit (a rank-r wire within ``RANK_TOL``: its float64
@@ -4264,26 +4413,25 @@ def _sharded_parity(mesh, base, batch, label, opt_name, knobs,
     n, dev = mesh.size, mesh.device
     topology = topology or make_topology("ring", n)
     t0 = time.perf_counter()
-    rows = None
-    for r in range(n):
-        dist.barrier()
-        if mesh.rank == r:
-            _free()
-            torch.cuda.set_per_process_memory_fraction(1.0, dev)
-            tr = CollaborativeTrainer(lambda p, b: tt.loss_fn(cfg, p, b), base,
-                                      topology, _sharded_optimizer(opt_name),
-                                      device=dev, **knobs)
-            tr.state = None
-            # this rank's rows wait on the host: the next rank's stacked
-            # trainer needs the card (with two ranks' 2-layer float32 rows on
-            # it, a rank-r stacked update ran out of its memory), and this
-            # rank's capped sharded step its share (a rank-r step beside its
-            # rows ran out of it)
-            rows = _to(_stacked_rows(tr, base, batch, n, r, opt_name == "cdmsgd"),
-                       "cpu")
-            del tr
-            _free()
-            torch.cuda.set_per_process_memory_fraction(fraction, dev)
+    _free()
+    dist.barrier()
+    per_rank = None
+    if mesh.rank == 0:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        tr = CollaborativeTrainer(lambda p, b: tt.loss_fn(cfg, p, b), base,
+                                  topology, _sharded_optimizer(opt_name),
+                                  device=dev, **knobs)
+        tr.state = None
+        per_rank = _stacked_rows(tr, base, batch, n, opt_name == "cdmsgd")
+        del tr
+        _free()                 # the stacked run's cache: the others' copies need it
+    # this rank's rows wait on the host: its capped sharded step needs its
+    # share of the card (a rank-r step beside its rows ran out of it)
+    rows = _to(_hand_over(mesh, per_rank), "cpu")
+    del per_rank
+    _free()
+    if mesh.rank == 0:
+        torch.cuda.set_per_process_memory_fraction(fraction, dev)
     dist.barrier()
     stacked_s = time.perf_counter() - t0
     bundle = build_train_step(cfg, InputShape("phase14-parity", SHARDED_PARITY_SEQ, n,
@@ -4514,7 +4662,8 @@ def _print_parity(r: int, par: dict, topology: str) -> None:
           f"update phase {held} against the stacked trainer ({par['tensors']} "
           f"tensors: params and optimizer state), whole step max |diff| "
           f"{par['gap']:.3e} (max |param| {par['max_param']:.3e}, tol "
-          f"{SHARDED_TOL:g} of it); stacked references {par['stacked_s']:.1f} s")
+          f"{SHARDED_TOL:g} of it); the stacked reference, computed once and handed to "
+          f"every rank, {par['stacked_s']:.1f} s")
 
 
 def _compare_small_runs(runs: list, card: str) -> None:
@@ -4533,6 +4682,214 @@ def _compare_small_runs(runs: list, card: str) -> None:
               f"against {med(base, 'exchange_ms'):.1f} ms, posted "
               f"{run['want_bytes']:,} against {base['want_bytes']:,} B a step "
               f"({run['want_bytes'] / base['want_bytes']:.4f}) [{card}]")
+
+
+def _serve_config(arch: str, layers, dtype: str):
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=layers or cfg.n_layers,
+                               param_dtype=dtype)
+
+
+def sharded_draw(cfg, bundle, mesh, seed: int):
+    """This rank's blocks of ``live_weights(cfg, card_draw(template, seed))``
+    drawn leaf by leaf on the card (the same generator, the same order, the
+    same bits as the whole draw) and each leaf sliced to this rank's block
+    at once: the whole model is never held."""
+    gen = torch.Generator(device=mesh.device).manual_seed(seed)
+    defs = tree_flatten_with_path(bundle.param_template)
+    _, treedef = tree_flatten(bundle.param_template)
+    leaves = []
+    for (path, pd), sp in zip(defs, tree_leaves(bundle.param_specs)):
+        x = init_params(pd, gen, device=mesh.device)
+        if len(path) > 1 and path[-2] == "attn":       # live_weights' rescaling
+            if path[-1] in ("wq", "wk", "wv"):
+                x.mul_(math.sqrt(x.shape[-2] / cfg.d_model))
+            elif path[-1] == "wo":
+                x.mul_(1 / math.sqrt(cfg.n_heads))
+        leaves.append(local_shard(x, sp, mesh))
+        del x
+    return tree_unflatten(treedef, leaves)
+
+
+def _axis_census(by_axis: dict) -> str:
+    return "; ".join(f"{a}: {c['calls']} calls, {c['bytes']:,} B, {c['seconds']:.3f} s"
+                     for a, c in sorted(by_axis.items())) or "none"
+
+
+def sharded_serve_rank(mesh, cap: int) -> list:
+    """Phase 17, one rank of ``data 2 x model 2``: each run of
+    ``SHARDED_SERVE_RUNS`` through ``build_prefill_step`` (the 4 x 2048
+    prefill batch, this rank's 2 sequences, counted: one flash launch a
+    layer and nothing else) and ``build_serve_step`` (the prompt
+    teacher-forced from an empty cache, then greedy tokens; no kernel
+    launch), on this rank's blocks of the weights drawn on the card.
+    Returns the last logits, each step's logits and the tokens of this
+    rank's rows (on the CPU), the walls, the Census by axis and the peak
+    memory."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    total = torch.cuda.get_device_properties(dev).total_memory
+    torch.cuda.set_per_process_memory_fraction(cap / total, dev)
+    out = []
+    for label, arch, layers, dtype, prompt_len, new, _, _ in SHARDED_SERVE_RUNS:
+        cfg = _serve_config(arch, layers, dtype)
+        _free()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        pb = build_prefill_step(cfg, InputShape("phase17-prefill", PREFILL_LEN,
+                                                PREFILL_BATCH, "prefill"), mesh)
+        params = sharded_draw(cfg, pb, mesh, SHARDED_SERVE_SEED)
+        batch = pb.local(prefill_batch(cfg))
+        torch.cuda.synchronize(dev)
+        draw_s = time.perf_counter() - t0
+        mesh.census.reset()
+        _reset_serving_counts()
+        cu.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = pb.step_fn(params, batch)
+        torch.cuda.synchronize(dev)
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        launched = {"serving": _serving_counts(),
+                    "flash_by_variant": dict(fa.flash_attention.launches_by_variant),
+                    "update": {k: n for k, n in cu.launch_counts().items() if n}}
+        prefill_census = mesh.census.snapshot()["by_axis"]
+        variant = "tc" if cfg.dtype == torch.bfloat16 else "f32"
+        want = {"flash_attention": cfg.n_layers, "wkv6": 0}
+        if launched["serving"] != want or launched["update"] \
+                or launched["flash_by_variant"][variant] != cfg.n_layers:
+            raise AssertionError(f"sharded serve {label} rank {mesh.rank}: the "
+                                 f"prefill launched {launched}, expected {want} "
+                                 f"on the {variant} kernel")
+        sb = build_serve_step(cfg, InputShape("phase17-decode", prompt_len + new,
+                                              PREFILL_BATCH, "decode"), mesh)
+        prompt = sb.local(torch.as_tensor(make_prompt(cfg, PREFILL_BATCH, prompt_len, 0),
+                                          device=dev))
+        mesh.census.reset()
+        _reset_serving_counts()
+        t0 = time.perf_counter()
+        tokens, step_logits, cache = sb.generate(params, prompt, new)
+        torch.cuda.synchronize(dev)
+        decode_s = time.perf_counter() - t0
+        if any(_serving_counts().values()) or any(cu.launch_counts().values()):
+            raise AssertionError(f"sharded serve {label} rank {mesh.rank}: decode "
+                                 f"launched {_serving_counts()}")
+        out.append({"label": label, "prefill": logits.float().cpu(),
+                    "tokens": tokens.cpu(), "step_logits": step_logits.float().cpu(),
+                    "draw_s": draw_s, "prefill_ms": prefill_ms,
+                    "decode_ms": 1e3 * decode_s / step_logits.shape[0],
+                    "steps": step_logits.shape[0], "launched": launched,
+                    "prefill_census": prefill_census,
+                    "decode_census": mesh.census.snapshot()["by_axis"],
+                    "cache_gib": sum(t.numel() * t.element_size()
+                                     for t in tree_leaves(cache)) / 2**30,
+                    "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                    "params_gib": sum(t.numel() * t.element_size()
+                                      for t in tree_leaves(params)) / 2**30})
+        del params, logits, cache, batch, pb, sb
+    return out
+
+
+def _rows_of(rank: int, b: int) -> slice:
+    """A rank's rows of a batch of ``b`` on ``SERVE_AXES`` (over data)."""
+    n = b // SERVE_AXES["data"]
+    d = rank // SERVE_AXES["model"]
+    return slice(d * n, (d + 1) * n)
+
+
+def sharded_serve_path() -> int:
+    """Phase 17: the sharded serve mode on the card, 4 gloo ranks on
+    ``SERVE_AXES`` through ``spawn_agents`` (each rank's checks in the
+    rank), then each run held here against the port's unsharded path on
+    the card from the same weights: the prefill's last logits against
+    ``forward``, each decode step's logits against ``decode_step``
+    teacher-forced on the ranks' tokens, the tokens against ``serve``'s.
+    Returns the flash launches of the ranks' prefills."""
+    _free()
+    n = math.prod(SERVE_AXES.values())
+    cap, free, total, _ = _rank_cap(n)
+    card = card_line()
+    t0 = time.perf_counter()
+    results = spawn_agents(sharded_serve_rank, n, args=(cap,), backend="gloo",
+                           device="cuda", timeout=SHARDED_PG_TIMEOUT,
+                           join_timeout=SHARDED_JOIN_S, threads=2, axes=SERVE_AXES)
+    wall = time.perf_counter() - t0
+    flash = 0
+    for i, (label, arch, layers, dtype, prompt_len, new, tol,
+            exact) in enumerate(SHARDED_SERVE_RUNS):
+        cfg = _serve_config(arch, layers, dtype)
+        runs = [res[i] for res in results]
+        for r, run in enumerate(runs):
+            flash += run["launched"]["serving"]["flash_attention"]
+            print(f"sharded serve rank {r} ({dict(zip(SERVE_AXES, divmod(r, 2)))}) "
+                  f"{label} ({cfg.param_count():,} params, {run['params_gib']:.3f} GiB "
+                  f"on this rank): prefill {PREFILL_BATCH // 2}x{PREFILL_LEN} of "
+                  f"{PREFILL_BATCH}x{PREFILL_LEN} wall {run['prefill_ms']:.1f} ms, "
+                  f"flash launches {run['launched']['serving']['flash_attention']} "
+                  f"({run['launched']['flash_by_variant']}); collectives by axis "
+                  f"{_axis_census(run['prefill_census'])}; decode {run['steps']} "
+                  f"steps, {run['decode_ms']:.1f} ms a step, collectives by axis "
+                  f"{_axis_census(run['decode_census'])}; cache block "
+                  f"{run['cache_gib']:.4f} GiB; max_memory_allocated "
+                  f"{run['peak_gib']:.2f} GiB of its cap {cap / 2**30:.2f}; weights "
+                  f"drawn in {run['draw_s']:.1f} s [{card}]")
+        params = live_weights(cfg, card_draw(tt.model_template(cfg), SHARDED_SERVE_SEED,
+                                             CARD), 1)
+        with torch.inference_mode():
+            want = tt.forward(cfg, params, prefill_batch(cfg))[0][:, -1].float().cpu()
+        got = torch.cat([runs[r]["prefill"] for r in range(0, n, SERVE_AXES["model"])])
+        for r in range(n):                  # the model ranks of a row agree
+            if not torch.equal(runs[r]["prefill"], got[_rows_of(r, PREFILL_BATCH)]):
+                raise AssertionError(f"sharded serve {label}: rank {r}'s last "
+                                     "logits differ from its data row's first rank")
+        top = float(want.abs().max())
+        gap = float((got - want).abs().max())
+        tokens = torch.cat([runs[r]["tokens"] for r in range(0, n, SERVE_AXES["model"])])
+        steps = torch.cat([runs[r]["step_logits"]
+                           for r in range(0, n, SERVE_AXES["model"])], dim=1)
+        prompt = make_prompt(cfg, PREFILL_BATCH, prompt_len, 0)
+        seqs, _ = serve(cfg, params, prompt, new, "cuda")
+        dec_gap, dec_top = 0.0, 0.0
+        with torch.inference_mode():
+            cache = tt.init_cache(cfg, PREFILL_BATCH, prompt_len + new, device=CARD)
+            for t in range(steps.shape[0]):
+                lg, cache = tt.decode_step(cfg, params, cache,
+                                           tokens[:, t:t + 1].to(CARD), t)
+                lg = lg.float().cpu()
+                dec_top = max(dec_top, float(lg.abs().max()))
+                dec_gap = max(dec_gap, float((steps[t] - lg).abs().max()))
+        same = bool(np.array_equal(tokens.numpy(), seqs))
+        f32, e_sharded, e_plain = "", 0.0, 1.0
+        if cfg.dtype != torch.float32:      # both bf16 forwards' distance from float32
+            cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+            with torch.inference_mode():
+                want32 = tt.forward(cfg32, tree_map(lambda t: t.float(), params),
+                                    prefill_batch(cfg))[0][:, -1].float().cpu()
+            top32 = float(want32.abs().max())
+            e_sharded = float((got - want32).abs().max()) / top32
+            e_plain = float((want - want32).abs().max()) / top32
+            f32 = (f"; against the float32 forward of the same weights: sharded "
+                   f"{e_sharded:.3e}, unsharded {e_plain:.3e} (ratio "
+                   f"{e_sharded / e_plain:.3f}, at most {SERVE_BF16_RATIO:g})")
+            del want32
+        print(f"sharded serve {label}: prefill last logits against the unsharded "
+              f"forward on the card, max |diff| {gap:.3e} of max |logit| {top:.3e} "
+              f"({gap / top:.3e}, tol {tol:g}); decode logits of {steps.shape[0]} steps "
+              f"against the unsharded decode_step on the same tokens {dec_gap:.3e} of "
+              f"{dec_top:.3e} ({dec_gap / dec_top:.3e}, tol {tol:g}); greedy tokens "
+              f"{'equal to' if same else 'differ from'} the unsharded serve's"
+              f"{' (held)' if exact else ' (reported)'}{f32} [{card}]")
+        if not gap <= tol * top or not dec_gap <= tol * dec_top or \
+                not e_sharded <= SERVE_BF16_RATIO * e_plain or \
+                (exact and not same) or not torch.isfinite(got).all():
+            raise AssertionError(f"sharded serve {label}: prefill {gap} / {top}, "
+                                 f"decode {dec_gap} / {dec_top}, tokens equal {same}")
+        del params, cache
+        _free()
+    print(f"sharded serve phase: {n} gloo ranks on data {SERVE_AXES['data']} x model "
+          f"{SERVE_AXES['model']}, each capped at {cap / 2**30:.2f} GiB of "
+          f"{free / 2**30:.2f} free, ranks' wall {wall:.1f} s [{card}]", flush=True)
+    return flash
 
 
 def main() -> None:
@@ -4570,10 +4927,12 @@ def main() -> None:
         yield
         walls[name] = time.perf_counter() - t
 
-    # phase 14 first: its three ranks need the card's memory, which the
+    # phases 14 and 17 first: their ranks need the card's memory, which the
     # later phases' caches in this process would hold
     with phase("14 sharded"):
         sharded_launches = sharded_path()
+    with phase("17 sharded serve"):
+        sharded_serve_flash = sharded_serve_path()
 
     measured = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -4634,6 +4993,7 @@ def main() -> None:
                 [r for r in FAMILY_LM_RUNS if r[1] in NEW_FAMILIES]).items():
             for bucket, n in by.items():
                 lm[k][bucket] += n
+    counts["flash_attention"] += sharded_serve_flash
     for name, (wrapper, _, _) in BF16_FORMS.items():
         counts[name] = lm[wrapper]["bfloat16"] + sharded_launches[wrapper]["bfloat16"]
     for k, by in lm.items():

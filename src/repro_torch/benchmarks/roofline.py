@@ -9,8 +9,9 @@ MODEL_FLOPS / counted-FLOPs ratio and whether the op counter's peak of
 live bytes fits the card's 80 GB.  A record with an ``update_cost`` block
 (a top-k compressor) adds a ``roofline/update_cost/...`` row pricing the
 fused update's dense and sparse operand forms.  The markdown table goes
-to ``results/roofline_torch.md``.  Skipped records (prefill and decode
-shapes, ROADMAP A16.2) are listed in the table as skipped.
+to ``results/roofline_torch.md``.  Skipped records (the serving shapes
+of a family whose serve mode is ROADMAP A16.2.3) are listed in the table
+as skipped.
 """
 
 from __future__ import annotations

@@ -85,6 +85,12 @@ class ArchConfig:
         return torch_dtype(self.param_dtype)
 
     @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic per-token decode (long_500k eligibility)."""
+        return (self.ssm_kind != "none" or self.attn_kind in ("swa", "local_global")
+                or self.hybrid)
+
+    @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
 

@@ -18,6 +18,14 @@ The counterparts of the reference's ``lax.ppermute`` / ``lax.all_gather`` /
 * :func:`all_gather` and :func:`all_reduce_mean` — the general
   (all-gather) mixing of the unfused path and the exact mean of the
   baselines, over every agent axis.
+* :func:`all_gather` with ``axis`` and :func:`all_reduce_sum` — the
+  collectives over one named mesh axis (or a spec entry's axes) of the
+  sharded serve mode: the ``fsdp`` weight gathers over ``data``, the
+  tensor-parallel partial sums, vocabulary and partial-softmax gathers
+  over ``model`` (:mod:`repro_torch.nn.tensor_parallel`), each over the
+  group of this rank's axis line
+  (:meth:`~repro_torch.launch.mesh.AgentMesh.axis_group`).  An axis of one
+  rank moves nothing.
 
 Every payload crosses as a flat ``uint8`` view of its bytes, so every wire
 type (float32, bfloat16, int8, float8_e4m3fn) takes the same route.  Under
@@ -26,14 +34,16 @@ one per sent tensor and one per (tensor, shift) received, allocated on
 first use and kept on the :class:`~repro_torch.launch.mesh.AgentMesh` for
 the next step (so pinned memory holds one step's payloads, never more), and
 moved in chunks of :data:`CHUNK_BYTES`; the received chunks are copied to
-the device as they land, while later ones are still on the wire.  Under
-``nccl`` (one card per rank) CUDA tensors go to the backend directly; CPU
-tensors always do.
+the device as they land, while later ones are still on the wire.  The
+collectives over one axis stage through pinned buffers of their own (one
+to send, one to receive), kept likewise.  Under ``nccl`` (one card per
+rank) CUDA tensors go to the backend directly; CPU tensors always do.
 
 :class:`Census` counts what the calls posted (logical sends and receives,
 wire messages, bytes, staging copies, host seconds) and logs the source
 tensors of each post, for the tests, the wire-contract checker
-(:mod:`repro_torch.analysis.staticcheck`) and ``chip_smoke.py``.
+(:mod:`repro_torch.analysis.staticcheck`) and ``chip_smoke.py``; the
+collectives over named axes are also counted by axis.
 """
 
 from __future__ import annotations
@@ -62,7 +72,11 @@ class Census:
     chunks is ``c`` of them), ``bytes_sent`` / ``bytes_received`` their
     payload bytes, ``staged_bytes`` the host staging copies both ways,
     ``collectives`` the all-gathers and all-reduces, ``seconds`` the host
-    time spent posting and waiting.  ``events`` logs ``("post",
+    time spent posting and waiting.  ``by_axis`` counts the collectives
+    over named axes by their axes (``"model"``, ``"data"``, or names
+    joined by ``+``): ``{"calls", "bytes", "seconds"}``, where ``bytes``
+    is the payload each call hands the backend (an all-gather's input, an
+    all-reduce's float32 buffer).  ``events`` logs ``("post",
     [data_ptr of each sent tensor])`` and ``("wait",)`` in call order;
     callers may append their own markers."""
 
@@ -75,6 +89,7 @@ class Census:
     collectives: int = 0
     posts: int = 0
     seconds: float = 0.0
+    by_axis: dict = dataclasses.field(default_factory=dict)
     events: list = dataclasses.field(default_factory=list)
 
     def reset(self) -> None:
@@ -87,8 +102,20 @@ class Census:
 
     def snapshot(self) -> dict:
         """The counters (not the event log) as a plain dict."""
-        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
-                if f.name != "events"}
+        out = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+               if f.name != "events"}
+        out["by_axis"] = {k: dict(v) for k, v in self.by_axis.items()}
+        return out
+
+    def count_axis(self, key: str, nbytes: int, seconds: float) -> None:
+        """One collective over the axes ``key``."""
+        c = self.by_axis.setdefault(key, {"calls": 0, "bytes": 0,
+                                          "seconds": 0.0})
+        c["calls"] += 1
+        c["bytes"] += nbytes
+        c["seconds"] += seconds
+        self.collectives += 1
+        self.seconds += seconds
 
 
 def _bytes_view(x: torch.Tensor) -> torch.Tensor:
@@ -196,9 +223,7 @@ def _ppermute(mesh, tensors, shifts, out, axis) -> Pending:
     if mesh.pending is not None and not mesh.pending.done:
         raise RuntimeError("a posted exchange has not been waited on: its "
                            "buffers are still in use")
-    if mesh.landed is not None:
-        mesh.landed.synchronize()
-        mesh.landed = None
+    _land_done(mesh)
     if any(x.device.type == "meta" for x in tensors):
         transfers = len(tensors) * len(shifts)
         nbytes = sum(x.numel() * x.element_size() for x in tensors) * len(shifts)
@@ -267,15 +292,87 @@ def _ppermute(mesh, tensors, shifts, out, axis) -> Pending:
     return mesh.pending
 
 
-def all_gather(mesh, x: torch.Tensor) -> torch.Tensor:
-    """``(n, *x.shape)``: every rank's ``x`` in rank order (the general
-    mixing's ``lax.all_gather``).  Under gloo a CUDA tensor is staged
-    through host memory."""
+def all_gather(mesh, x: torch.Tensor, axis=None, *,
+               dim: Optional[int] = None) -> torch.Tensor:
+    """Every rank's ``x`` in rank order.
+
+    ``axis`` None: ``(n, *x.shape)`` over every agent axis (the general
+    mixing's ``lax.all_gather``; under gloo a CUDA tensor is staged through
+    host memory).  ``axis`` a mesh axis name (or a spec entry's tuple of
+    them): over the group of this rank's line along it
+    (:meth:`~repro_torch.launch.mesh.AgentMesh.axis_group`), stacked on a
+    new leading dimension (``dim`` None) or concatenated along ``dim``, in
+    the order of the line's coordinates; under gloo a CUDA tensor is
+    staged through the pinned buffers."""
+    if axis is None and dim is not None:
+        raise ValueError("dim needs an axis: the agent all-gather stacks")
     if opcount.counting():
         with opcount.reported(collective=("all-gather",
                                           x.numel() * x.element_size(), 1)):
-            return _all_gather(mesh, x)
-    return _all_gather(mesh, x)
+            return _all_gather(mesh, x) if axis is None else \
+                _axis_gather(mesh, x, axis, dim)
+    return _all_gather(mesh, x) if axis is None else \
+        _axis_gather(mesh, x, axis, dim)
+
+
+def _axis_key(mesh, axis) -> str:
+    return "+".join(mesh.axes_of(axis))
+
+
+def _land_done(mesh) -> None:
+    """Wait for the last staged copy out of a pinned buffer before a new
+    payload overwrites it."""
+    if mesh.landed is not None:
+        mesh.landed.synchronize()
+        mesh.landed = None
+
+
+def _to_device(mesh, host: torch.Tensor, device) -> torch.Tensor:
+    """A pinned buffer's bytes copied to ``device``; the copy's event kept
+    on the mesh (:func:`_land_done`)."""
+    out = host.to(device, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record()
+    mesh.landed = ev
+    return out
+
+
+def _axis_gather(mesh, x: torch.Tensor, axis, dim) -> torch.Tensor:
+    t0 = time.perf_counter()
+    group, n = mesh.axis_group(axis)
+
+    def shaped(parts):                    # (n, *x.shape) -> the result
+        if dim is None:
+            return parts
+        return torch.cat(list(parts.unbind(0)), dim=dim)
+
+    if n == 1:
+        return shaped(x.unsqueeze(0))
+    nbytes = x.numel() * x.element_size()
+    if x.device.type == "meta":
+        out = shaped(torch.empty((n, *x.shape), dtype=x.dtype, device="meta"))
+        mesh.census.count_axis(_axis_key(mesh, axis), nbytes,
+                               time.perf_counter() - t0)
+        return out
+    src = _bytes_view(x.contiguous())
+    staged = _staged(mesh, x)
+    if staged:
+        _land_done(mesh)
+        send = _pinned(mesh, ("axis", "send"), nbytes)
+        send.copy_(src)
+        land = _pinned(mesh, ("axis", "recv"), n * nbytes)
+        src = send
+    else:
+        land = torch.empty((n * nbytes,), dtype=torch.uint8, device=x.device)
+    dist.all_gather([land[i * nbytes:(i + 1) * nbytes] for i in range(n)], src,
+                    group=group)
+    if staged:
+        land = _to_device(mesh, land, x.device)
+        mesh.census.staged_bytes += (1 + n) * nbytes
+    out = shaped(land.view(x.dtype).reshape(n, *x.shape))
+    mesh.census.count_axis(_axis_key(mesh, axis), nbytes,
+                           time.perf_counter() - t0)
+    return out
 
 
 def _all_gather(mesh, x: torch.Tensor) -> torch.Tensor:
@@ -325,4 +422,48 @@ def _all_reduce_mean(mesh, tensors) -> List[torch.Tensor]:
     if staged:
         census.staged_bytes += 2 * flat.numel() * 4
     census.seconds += time.perf_counter() - t0
+    return out
+
+
+def all_reduce_sum(mesh, tensors: Sequence[torch.Tensor], axis) -> List[torch.Tensor]:
+    """The sum of each tensor over the ranks of this rank's line along
+    ``axis`` (a mesh axis, or a spec entry's axes): one float32 all-reduce
+    of the tensors laid end to end, each result cast once to its tensor's
+    dtype.  Under gloo a CUDA payload is staged through the pinned
+    buffers; an axis of one rank returns the tensors."""
+    if opcount.counting() and tensors:
+        nbytes = 4 * sum(t.numel() for t in tensors)
+        with opcount.reported(collective=("all-reduce", nbytes, 1)):
+            return _all_reduce_sum(mesh, tensors, axis)
+    return _all_reduce_sum(mesh, tensors, axis)
+
+
+def _all_reduce_sum(mesh, tensors, axis) -> List[torch.Tensor]:
+    t0 = time.perf_counter()
+    group, n = mesh.axis_group(axis)
+    if n == 1 or not tensors:
+        return list(tensors)
+    device = tensors[0].device
+    numel = sum(t.numel() for t in tensors)
+    if device.type == "meta":
+        mesh.census.count_axis(_axis_key(mesh, axis), 4 * numel,
+                               time.perf_counter() - t0)
+        return [torch.empty_like(t) for t in tensors]
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    staged = _staged(mesh, flat)
+    if staged:
+        _land_done(mesh)
+        host = _pinned(mesh, ("axis", "reduce"), 4 * numel).view(torch.float32)
+        host.copy_(flat)
+        dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
+        flat = _to_device(mesh, host, device)
+        mesh.census.staged_bytes += 2 * 4 * numel
+    else:
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    out, lo = [], 0
+    for t in tensors:
+        out.append(flat[lo:lo + t.numel()].reshape(t.shape).to(t.dtype))
+        lo += t.numel()
+    mesh.census.count_axis(_axis_key(mesh, axis), 4 * numel,
+                           time.perf_counter() - t0)
     return out

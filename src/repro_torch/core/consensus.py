@@ -1137,10 +1137,6 @@ def initial_qwarm_state(fl: FlatComm, params: PyTree) -> tuple:
 # the sharded mode: one agent per process
 # --------------------------------------------------------------------------
 
-#: where the sharded mode's non-agent model axes and serving steps are queued
-SHARDED_LATER = "ROADMAP A16.2"
-
-
 class _StencilPlan(NamedTuple):
     """One schedule entry's exchange, seen from one agent ``a``:
 

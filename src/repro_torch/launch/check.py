@@ -14,8 +14,8 @@ modes and runs the wire-contract checker
   ``gloo`` process per agent on a 4-agent ring
   (:func:`~repro_torch.launch.mesh.spawn_agents`), the checker run in
   every rank.  Every sharded entry runs on an agent-only mesh: the
-  reference's 4-agent x 2-way model split waits for the non-agent model
-  axes (ROADMAP A16.2).
+  reference's 4-agent x 2-way model split waits for training over the
+  model axis (ROADMAP A16.2.1).
 
 The steps run on the card unless ``--device cpu`` is given.  The exit
 status is non-zero if and only if a rule fails.  ``--json-out`` writes a

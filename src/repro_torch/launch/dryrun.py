@@ -31,12 +31,19 @@ with the reference's schema-2 keys:
   Census, ``seeds.*``, ``sparse.shape_contract`` / ``k_rows_clamp``); the
   value rules are marked skipped, with "run `launch.check`".
 
-Prefill and decode shapes write a record whose ``status`` is a skip: the
-port's sharded prefill and serve steps wait for the non-agent mesh axes
-(ROADMAP A16.2), as the reference records its own skips.  Only the fused
-flat-buffer mixing (``ppermute_fused``) traces: the per-leaf mixings
-gather or permute every leaf through a process group, which a trace has
-none of.
+Prefill and decode shapes trace one rank of the serve mode
+(:func:`~repro_torch.launch.steps.build_prefill_step` /
+:func:`~repro_torch.launch.steps.build_serve_step`) on the reference's
+production serve mesh, ``data 16 x model 16`` (``mesh: "16x16"``, 256
+ranks): its blocks of the params, the batch and the cache on ``meta``,
+one prefill or one decode step under the op counter, the collectives over
+``data`` and ``model`` counted, not made.  That record has no ``verify``
+block (the wire-contract rules read the agent exchange).  A family other
+than the dense one writes a skip naming its ROADMAP item (A16.2.3), and
+``long_500k`` on a full-attention config the reference's skip.  Only the
+fused flat-buffer mixing (``ppermute_fused``) traces a training step: the
+per-leaf mixings gather or permute every leaf through a process group,
+which a trace has none of.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k
@@ -56,8 +63,8 @@ import traceback
 
 RESULTS = "results/dryrun_torch"
 AGENTS = 16                    # the reference's production data axis
-A16_2 = ("skip: the sharded {kind} step waits for the non-agent mesh axes "
-         "(ROADMAP A16.2)")
+SERVE_MESH = {"data": 16, "model": 16}    # the reference's production serve mesh
+LONG_SKIP = "skip: full-attention arch at 500k decode (DESIGN.md)"
 
 
 def meta_tree(template):
@@ -70,15 +77,75 @@ def meta_tree(template):
                                            device="meta"), template)
 
 
-def meta_mesh(agents: int):
-    """Rank 0 of an agent-only mesh of ``agents`` ranks, on ``meta``: no
-    process group (the trace posts no transfer)."""
+def meta_mesh(agents: int, axes=None):
+    """Rank 0 of a mesh of ``agents`` ranks (agent-only, or ``axes``), on
+    ``meta``: no process group (the trace posts no transfer)."""
     import torch
 
     from repro_torch.launch.mesh import AgentMesh
 
     return AgentMesh(rank=0, size=agents, backend="gloo", group=None,
-                     device=torch.device("meta"))
+                     device=torch.device("meta"), axes=axes)
+
+
+def _serve_pair(cfg, shape, record: dict, t0: float) -> dict:
+    """Trace rank 0's prefill or decode step of the serve mode on
+    :data:`SERVE_MESH` into ``record`` (see the module docstring)."""
+    import math
+
+    import torch
+
+    from repro_torch.analysis import opcount
+    from repro_torch.analysis.roofline import (HW_H100, model_flops,
+                                               roofline_from_stats)
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.nn.param import local_shape
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    chips = math.prod(SERVE_MESH.values())
+    mesh = meta_mesh(chips, SERVE_MESH)
+
+    def meta(t):                     # a TensorSpec's block on meta
+        return torch.empty(local_shape(t.shape, t.spec, mesh), dtype=t.dtype,
+                           device="meta")
+
+    if shape.kind == "prefill":
+        bundle = steps_lib.build_prefill_step(cfg, shape, mesh)
+        args = (tree_map(meta, bundle.input_structs[0]),)
+    else:
+        bundle = steps_lib.build_serve_step(cfg, shape, mesh)
+        cache, tokens, _ = bundle.input_structs
+        args = (tree_map(meta, cache), meta(tokens), 0)
+    params = tree_map(lambda pd, sp: torch.empty(local_shape(pd.shape, sp, mesh),
+                                                 dtype=pd.dtype, device="meta"),
+                      bundle.param_template, bundle.param_specs)
+    roots = (params,) + args[:2]
+    counter = opcount.OpCounter(track_live=True, roots=roots)
+    with counter:
+        bundle.step_fn(params, *args)
+    stats = counter.stats()
+    peak = stats.peak_live_bytes
+    record.update({
+        "status": "ok", "mode": "serve", "mixing": None,
+        "trace_s": round(time.time() - t0, 1), "chips": chips,
+        "argument_bytes_per_device": sum(
+            t.numel() * t.element_size() for t in tree_leaves(roots)
+            if isinstance(t, torch.Tensor)),
+        "peak_bytes_per_device": peak,
+        "peak_bytes_source": "op counter: peak of live tensor storage bytes "
+                             "over the meta trace (not the allocator's peak)",
+        "fits_h100_80gb": bool(peak < HW_H100.hbm_bytes),
+        "collective_bytes": stats.collective_bytes,
+        "collective_count": stats.collective_count,
+        "census_by_axis": mesh.census.snapshot()["by_axis"],
+    })
+    terms = roofline_from_stats(
+        arch=cfg.name, shape=shape.name, mesh=record["mesh"], chips=chips,
+        stats=stats, model_flops_total=model_flops(cfg, shape),
+        peak_memory_bytes=peak)
+    record["roofline"] = terms.as_dict()
+    record["roofline"]["mfu_bound"] = terms.mfu_bound
+    return record
 
 
 def _optimizer(name: str):
@@ -124,8 +191,18 @@ def run_pair(arch: str, shape_name: str, *, agents: int = AGENTS,
               "staleness": staleness, "compressor": compressor,
               "tag": tag, "verify": None}
     if shape.kind != "train":
-        record["status"] = A16_2.format(kind="prefill" if shape.kind == "prefill"
-                                        else "serve")
+        record.update({"mode": "serve", "mixing": None, "mesh": "16x16"})
+        label = f"{arch}__{shape_name}__16x16__serve{tag}"
+        try:
+            if shape.name == "long_500k" and not cfg.supports_long_context:
+                record["status"] = LONG_SKIP
+            else:
+                _serve_pair(cfg, shape, record, t0)
+        except NotImplementedError as e:
+            record["status"] = f"skip: {e}"
+        except Exception as e:
+            record["status"] = f"FAIL: {type(e).__name__}: {e}"
+            record["traceback"] = traceback.format_exc()[-4000:]
         _dump(out_dir, label, record)
         if verbose:
             print(f"[dryrun] {label}: {record['status']}")

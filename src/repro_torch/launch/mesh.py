@@ -4,11 +4,18 @@ The counterpart of :mod:`repro.launch.mesh`.  Where the reference lays the
 agents along the ``data`` axis of a device mesh and runs the step under
 ``shard_map``, the port runs one process per agent on ``torch.distributed``:
 
-* :class:`AgentMesh` — this process's rank (its agent index), the world
-  size, the agent axes (``data``, or the reference's factored ``pod x
-  data``: rank ``pod * n_data + data``), the backend, the process group,
-  its device, the exchange's :class:`~repro_torch.core.collectives.Census`
-  and its pinned staging buffers;
+* :class:`AgentMesh` — this process's rank, the world size, the mesh
+  axes, the backend, the process group, its device, the exchange's
+  :class:`~repro_torch.core.collectives.Census` and its pinned staging
+  buffers.  The axes are the reference's (:mod:`repro.launch.mesh`):
+  ``data``, or the factored ``pod x data`` (rank ``pod * n_data +
+  data``), each optionally followed by the non-agent ``model`` axis
+  (``{"data": d, "model": m}``, ``{"pod": p, "data": d, "model": m}``),
+  ranks laid out row-major with ``model`` innermost, as
+  ``make_debug_mesh`` / ``make_production_mesh`` order their devices.  A
+  mesh with a ``model`` axis also has one process group per axis line (the
+  ranks that differ only along that axis; :meth:`AgentMesh.axis_group`),
+  which the collectives over one named axis use;
 * :func:`init_agent_mesh` — joins the process group (explicit backend,
   init method and time limit);
 * :func:`spawn_agents` — builds the kernels once in the parent, starts one
@@ -28,6 +35,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import faulthandler
+import itertools
 import math
 import multiprocessing
 import multiprocessing.connection
@@ -49,21 +57,47 @@ BACKENDS = ("gloo", "nccl")
 AGENT_AXIS = "data"
 #: the outer agent axis of a factored mesh, as the reference's "pod"
 POD_AXIS = "pod"
+#: the non-agent axis (tensor / expert parallel), as the reference's "model"
+MODEL_AXIS = "model"
+#: the axis names a mesh may have, in order
+MESH_AXES = ((AGENT_AXIS,), (POD_AXIS, AGENT_AXIS), (AGENT_AXIS, MODEL_AXIS),
+             (POD_AXIS, AGENT_AXIS, MODEL_AXIS))
 
 
-def _check_axes(axes, n_agents: int) -> dict:
-    """``axes`` (None: one ``data`` axis of ``n_agents``) as an ordered
-    ``{name: size}``: ``{"data": n}`` or ``{"pod": p, "data": d}`` with
-    ``p * d == n_agents``."""
+def _check_axes(axes, n_ranks: int) -> dict:
+    """``axes`` (None: one ``data`` axis of ``n_ranks``) as an ordered
+    ``{name: size}``, one of :data:`MESH_AXES`, whose sizes multiply to
+    ``n_ranks``."""
     if axes is None:
-        return {AGENT_AXIS: n_agents}
+        return {AGENT_AXIS: n_ranks}
     axes = dict(axes)
-    if tuple(axes) not in ((AGENT_AXIS,), (POD_AXIS, AGENT_AXIS)):
-        raise ValueError(f"agent axes must be ('data',) or ('pod', 'data'), "
-                         f"got {tuple(axes)}")
-    if math.prod(axes.values()) != n_agents or min(axes.values()) < 1:
-        raise ValueError(f"agent axes {axes} do not cover {n_agents} agents")
+    if tuple(axes) not in MESH_AXES:
+        raise ValueError(f"mesh axes must be one of {MESH_AXES}, got "
+                         f"{tuple(axes)}")
+    if math.prod(axes.values()) != n_ranks or min(axes.values()) < 1:
+        raise ValueError(f"mesh axes {axes} do not cover {n_ranks} ranks")
     return axes
+
+
+def axis_lines(axes: dict, axis: str) -> list:
+    """Every line of ``axis`` on a mesh of ``axes``: the ranks that differ
+    only along ``axis``, in coordinate order, lines in the order of the
+    other coordinates (row-major)."""
+    names = list(axes)
+    k = names.index(axis)
+    others = [range(axes[a]) for a in names if a != axis]
+    lines = []
+    for rest in itertools.product(*others):
+        line = []
+        for c in range(axes[axis]):
+            coords = list(rest)
+            coords.insert(k, c)
+            r = 0
+            for x, a in zip(coords, names):
+                r = r * axes[a] + x
+            line.append(r)
+        lines.append(line)
+    return lines
 
 
 @dataclasses.dataclass
@@ -82,29 +116,82 @@ class AgentMesh:
     landed: Any = None
     # the exchange in flight, if any (collectives)
     pending: Any = None
-    # the agent axes, ordered: None for one ``data`` axis of ``size``
+    # the mesh axes, ordered: None for one ``data`` axis of ``size``
     axes: Any = None
+    # this rank's process group along each axis of a mesh with a ``model``
+    # axis (init_agent_mesh; None: the axis has one rank)
+    groups: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         self.axes = _check_axes(self.axes, self.size)
 
     @property
     def shape(self) -> dict:
-        """``{axis: size}`` of every agent axis, outermost first."""
+        """``{axis: size}`` of every mesh axis, outermost first."""
         return dict(self.axes)
 
     @property
     def axis_names(self) -> tuple:
         return tuple(self.axes)
 
+    @property
+    def agent_axes(self) -> tuple:
+        """The agent axes (every axis but ``model``)."""
+        return tuple(a for a in self.axes if a != MODEL_AXIS)
+
     def coords(self, rank: int) -> tuple:
-        """Agent ``rank``'s index along each axis (row-major, the
-        reference's linearized agent index)."""
+        """Rank ``rank``'s index along each axis (row-major, ``model``
+        innermost: the reference's linearized device index)."""
         out = []
         for size in reversed(list(self.axes.values())):
             out.append(rank % size)
             rank //= size
         return tuple(reversed(out))
+
+    def coord(self, axis: str) -> int:
+        """This rank's index along ``axis`` (0 on an axis the mesh lacks)."""
+        if axis not in self.axes:
+            return 0
+        return self.coords(self.rank)[self.axis_names.index(axis)]
+
+    def axes_of(self, entry) -> tuple:
+        """A spec entry (an axis name, a tuple of them, or None) as a tuple
+        of axis names."""
+        if entry is None:
+            return ()
+        return (entry,) if isinstance(entry, str) else tuple(entry)
+
+    def entry_size(self, entry) -> int:
+        """The rank count of a spec entry's axes (1 for None)."""
+        return math.prod(self.axes[a] for a in self.axes_of(entry))
+
+    def entry_index(self, entry, rank: Optional[int] = None) -> int:
+        """Rank ``rank``'s (default: this rank's) block index along a spec
+        entry's axes, row-major in the entry's order."""
+        c = dict(zip(self.axis_names,
+                     self.coords(self.rank if rank is None else rank)))
+        i = 0
+        for a in self.axes_of(entry):
+            i = i * self.axes[a] + c[a]
+        return i
+
+    def axis_group(self, entry):
+        """``(group, ranks)`` of the collectives over a spec entry's axes:
+        the group of this rank's line along one axis, or the whole mesh's
+        group for every axis of more than one rank; ``(None, 1)`` when the
+        axes hold one rank, ``(None, n)`` on a mesh that joined no group (a
+        ``meta`` trace)."""
+        names = tuple(a for a in self.axes_of(entry) if self.axes[a] > 1)
+        n = math.prod(self.axes[a] for a in names)
+        if n == 1:
+            return None, 1
+        if self.group is None or \
+                set(names) == {a for a, s in self.axes.items() if s > 1}:
+            return self.group, n
+        if len(names) == 1 and names[0] in self.groups:
+            return self.groups[names[0]], n
+        raise ValueError(f"no process group over {names} on the mesh "
+                         f"{self.shape}: one axis, or every axis")
 
     def rank_of(self, coords) -> int:
         """The rank at ``coords``, each taken modulo its axis size."""
@@ -114,19 +201,22 @@ class AgentMesh:
         return r
 
     def full_shift(self, shift, axis: Optional[str] = None) -> tuple:
-        """A shift as one offset per agent axis: a tuple as is, an int
-        along ``axis`` (None: the only axis of a one-axis mesh)."""
+        """A shift as one offset per mesh axis: a tuple (one offset per
+        agent axis) as is, an int along ``axis`` (None: the only agent
+        axis); the ``model`` offset is 0."""
+        agent = self.agent_axes
         if isinstance(shift, tuple):
-            if len(shift) != len(self.axes):
-                raise ValueError(f"shift {shift} for agent axes "
-                                 f"{self.axis_names}")
-            return shift
-        if axis is None:
-            if len(self.axes) != 1:
-                raise ValueError(f"an int shift on the factored mesh "
-                                 f"{self.axis_names} needs its axis")
-            axis = self.axis_names[0]
-        return tuple(shift if a == axis else 0 for a in self.axes)
+            if len(shift) != len(agent):
+                raise ValueError(f"shift {shift} for agent axes {agent}")
+            by_axis = dict(zip(agent, shift))
+        else:
+            if axis is None:
+                if len(agent) != 1:
+                    raise ValueError(f"an int shift on the factored mesh "
+                                     f"{agent} needs its axis")
+                axis = agent[0]
+            by_axis = {axis: shift}
+        return tuple(by_axis.get(a, 0) for a in self.axes)
 
     def peers(self, shift, axis: Optional[str] = None) -> tuple:
         """``(send_to, receive_from)`` of this rank along ``shift``: agent
@@ -165,8 +255,9 @@ def init_agent_mesh(rank: int, n_agents: int, *, backend: str,
     ``init_method`` is a ``torch.distributed`` URL (``file://...`` for a
     ``FileStore``, ``tcp://localhost:<port>``); ``timeout`` (seconds) bounds
     every collective, so a dead or hung peer fails the rank instead of
-    blocking it.  ``axes`` lays the agents out on ``{"data": n}`` (the
-    default) or the factored ``{"pod": p, "data": d}``."""
+    blocking it.  ``axes`` lays the ranks out on ``{"data": n}`` (the
+    default), the factored ``{"pod": p, "data": d}``, or either with a
+    ``model`` axis innermost (then every axis line gets its group)."""
     axes = _check_axes(axes, n_agents)
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
@@ -185,7 +276,31 @@ def init_agent_mesh(rank: int, n_agents: int, *, backend: str,
                             world_size=n_agents, rank=rank,
                             timeout=datetime.timedelta(seconds=timeout))
     return AgentMesh(rank=rank, size=n_agents, backend=backend,
-                     group=dist.group.WORLD, device=dev, axes=axes)
+                     group=dist.group.WORLD, device=dev, axes=axes,
+                     groups=_line_groups(axes, rank, backend, timeout))
+
+
+def _line_groups(axes: dict, rank: int, backend: str, timeout: float) -> dict:
+    """This rank's process group along each axis of a mesh with a
+    ``model`` axis (none on an agent-only mesh, whose collectives run over
+    the whole group).  Every rank creates every line's group, in the same
+    order; an axis of one rank has none, and a line that is the whole mesh
+    takes the world group."""
+    groups = {}
+    if MODEL_AXIS not in axes:
+        return groups
+    n = math.prod(axes.values())
+    for axis, size in axes.items():
+        if size == 1:
+            groups[axis] = None
+            continue
+        for line in axis_lines(axes, axis):
+            g = (dist.group.WORLD if len(line) == n else
+                 dist.new_group(line, backend=backend,
+                                timeout=datetime.timedelta(seconds=timeout)))
+            if rank in line:
+                groups[axis] = g
+    return groups
 
 
 def _agent_main(fn, rank, n_agents, backend, init_method, device, timeout,
@@ -231,20 +346,22 @@ def spawn_agents(fn: Callable, n_agents: int, *, args: tuple = (),
 
     ``fn`` and ``args`` are pickled (``fn`` by its module path, so it must
     live in an importable module); each result is saved with
-    ``torch.save`` and loaded here.  On ``device="cuda"`` the update and
-    quantize kernels' libraries are built here first, once, so the ranks
-    load them instead of each running ``nvcc`` on the same sources.
+    ``torch.save`` and loaded here.  On ``device="cuda"`` the update,
+    quantize and flash kernels' libraries are built here first, once, so
+    the ranks load them instead of each running ``nvcc`` on the same
+    sources.
     ``timeout`` bounds each collective inside the ranks, ``join_timeout``
     the whole run; ``threads`` sets each rank's ``torch.set_num_threads``;
-    ``axes`` (e.g. ``{"pod": 2, "data": 2}``) factors the agents as
-    :func:`init_agent_mesh` does.  A rank that fails, or a run past its
+    ``axes`` (e.g. ``{"pod": 2, "data": 2}``, ``{"data": 2, "model": 2}``)
+    lays the ranks out as :func:`init_agent_mesh` does.  A rank that fails, or a run past its
     limit, stops every rank and raises here with the rank's traceback."""
     axes = _check_axes(axes, n_agents)
     if device == "cuda":
         from repro_torch.kernels import build
         from repro_torch.kernels.consensus_update import consensus_update as cu
 
-        build.build_all(cu.LIBRARIES)
+        # the flash kernel too: the sharded prefill runs it in every rank
+        build.build_all([*cu.LIBRARIES, "flash_attention"])
     ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="agents_") as d:
         init_method = "file://" + os.path.join(d, "store")

@@ -1,6 +1,10 @@
-"""The sharded production step: one agent per process.
+"""The sharded production steps: one process per device.
 
-The port of :func:`repro.launch.steps.build_train_step`.  The reference
+The port of :mod:`repro.launch.steps`: :func:`build_train_step` (one agent
+per process), :func:`build_prefill_step` and :func:`build_serve_step` (the
+serve mode: the dense family's weights over ``data`` and ``model``).
+
+Training is the port of :func:`repro.launch.steps.build_train_step`.  The reference
 runs every agent on its own slice of a device mesh under ``shard_map``;
 the port runs every agent in its own process on ``torch.distributed``
 (:mod:`repro_torch.launch.mesh`), and :func:`build_train_step` builds ONE
@@ -39,9 +43,26 @@ agents, fully connected otherwise), ``topology_name`` aside, as the
 reference does.  ``remat`` (the reference's default, on) recomputes each
 block of the loss in the backward pass (:func:`repro_torch.nn.transformer.
 forward`).  What the sharded mode does not run yet raises at build time,
-before any work: a fused optimizer outside ``ppermute_fused``, and the
-non-agent model axes (``train_hier`` / ``serve``, ROADMAP A16.2);
-``build_prefill_step`` and ``build_serve_step`` wait for A16.2.
+before any work: a fused optimizer outside ``ppermute_fused``, a mesh
+whose ``model`` axis holds more than one rank (ROADMAP A16.2.1) and
+``train_hier`` (ROADMAP A16.2.2).
+
+Serving runs on a mesh with a ``model`` axis (``{"data": d, "model":
+m}``, or with ``pod``), under the serve rules (``fsdp`` over ``data``,
+``tp`` over ``model``; :mod:`repro_torch.launch.sharding`).  Each rank
+holds its blocks of the params (:func:`repro_torch.nn.param.local_shard`
+of the global tree, by :attr:`ServeStepBundle.param_specs`), of the batch
+(its rows along :func:`~repro_torch.launch.sharding.serve_batch_count`'s
+axes) and of the cache (:meth:`ServeStepBundle.init_cache`), and its
+forward and decode run under a
+:class:`~repro_torch.nn.tensor_parallel.TensorParallel` context:
+``prefill_step(params, batch)`` returns the last position's logits ``(b
+local, vocab)``; ``serve_step(params, cache, tokens, cur_index)`` returns
+``(next_tok (b local, 1) int32, cache)``, the cache updated in place.
+The dense family only (ROADMAP A16.2.3 for the others);
+``context_parallel=True`` raises (ROADMAP A16.2.4: the flash kernel takes
+no query offset, so a sequence-sharded causal query block needs a kernel
+change).
 
 Usage, in each rank (see :func:`repro_torch.launch.mesh.spawn_agents`)::
 
@@ -52,6 +73,15 @@ Usage, in each rank (see :func:`repro_torch.launch.mesh.spawn_agents`)::
     for batch in lm_agent_batches(...):
         params, opt_state, metrics = bundle.step_fn(
             params, opt_state, local_batch(batch, mesh))
+
+and for serving, in each rank of ``spawn_agents(fn, 4, axes={"data": 2,
+"model": 2})``::
+
+    bundle = build_serve_step(cfg, InputShape("d", max_len, batch, "decode"),
+                              mesh)
+    params = local_shard(global_params, bundle.param_specs, mesh)
+    cache = bundle.init_cache()
+    tok, cache = bundle.step_fn(params, cache, bundle.local(tokens), 0)
 """
 
 from __future__ import annotations
@@ -59,6 +89,8 @@ from __future__ import annotations
 import dataclasses
 import warnings
 from typing import Any, Callable, Dict, Optional
+
+import torch
 
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.core import consensus as consensus_lib
@@ -70,7 +102,12 @@ from repro_torch.core.optim import (CommOps, DistributedOptimizer, FedAvg,
 from repro_torch.core.topology import (Topology, make_topology,
                                        make_topology_schedule)
 from repro_torch.launch import sharding as shlib
-from repro_torch.nn.param import ParamDef, stack_agent_axis
+from repro_torch.launch.mesh import MODEL_AXIS
+from repro_torch.nn import transformer as tt
+from repro_torch.nn.param import (CONTEXT_PARALLEL_ITEM, TRAIN_HIER_ITEM,
+                                  TRAIN_TP_ITEM, ParamDef, PartitionSpec,
+                                  local_shard, stack_agent_axis)
+from repro_torch.nn.tensor_parallel import TensorParallel
 from repro_torch.nn.transformer import loss_fn, model_template
 from repro_torch.utils.tree import tree_map
 
@@ -205,6 +242,15 @@ def build_train_step(
 ) -> TrainStepBundle:
     """One rank's training step of the sharded mode (see the module
     docstring)."""
+    if mode == "serve":
+        raise ValueError("mode 'serve' has no agent axis to train over: "
+                         "build_prefill_step / build_serve_step serve")
+    if mesh.shape.get(MODEL_AXIS, 1) > 1:
+        raise NotImplementedError(
+            f"training on a model axis of {mesh.shape[MODEL_AXIS]} ranks (tp / "
+            f"expert over model): {TRAIN_TP_ITEM}")
+    if mode == "train_hier":
+        raise NotImplementedError(f"mode 'train_hier': {TRAIN_HIER_ITEM}")
     rules = shlib.rules_for_mode(mode, mesh)
     n_agents = shlib.agent_count(mesh, mode)
     _check_sharded(optimizer, mixing, schedule, n_agents)
@@ -300,13 +346,119 @@ def local_train_state(params: PyTree, opt_state: OptState, agent: int):
         qwarm=tree_map(lead, opt_state.qwarm))
 
 
-def build_prefill_step(*args, **kwargs):
-    raise NotImplementedError("the sharded prefill step waits for the "
-                              "non-agent mesh axes, "
-                              f"{consensus_lib.SHARDED_LATER}")
+@dataclasses.dataclass
+class ServeStepBundle:
+    """One rank's serve step (see the module docstring)."""
+
+    step_fn: Callable
+    param_template: PyTree        # ParamDef tree (global shapes)
+    param_specs: PyTree           # PartitionSpec tree (the serve rules)
+    input_structs: tuple          # (batch,) or (cache, tokens, cur_index) TensorSpecs
+    kind: str                     # "prefill" | "decode"
+    mesh: Any
+    cfg: ArchConfig
+    shape: InputShape
+    tp: TensorParallel
+    # decode: (params, cache, tokens, cur_index) -> (logits (b local, vocab), cache)
+    logits_fn: Optional[Callable] = None
+
+    def local(self, x, spec: Optional[PartitionSpec] = None):
+        """This rank's block of a global input (the prefill batch's dict,
+        or the decode's ``tokens``), by its spec in
+        :attr:`input_structs`."""
+        if spec is None:
+            if self.kind == "prefill":
+                return {k: self.local(v, self.input_structs[0][k].spec)
+                        for k, v in x.items()}
+            spec = self.input_structs[1].spec
+        return local_shard(x, spec, self.mesh)
+
+    def local_params(self, params: PyTree) -> PyTree:
+        """This rank's blocks of the global ``params``."""
+        return local_shard(params, self.param_specs, self.mesh)
+
+    def init_cache(self, device=None):
+        """This rank's blocks of the zeroed cache of :attr:`shape`."""
+        return shlib.local_cache(self.cfg, self.shape, self.mesh,
+                                 self.mesh.device if device is None else device)
+
+    def generate(self, params, prompt, new_tokens: int, cache=None):
+        """Greedy decoding through :attr:`logits_fn` from an empty cache (or
+        ``cache``): ``prompt (b local, p)`` teacher-forced one token a step,
+        then ``new_tokens`` argmax tokens.  Returns ``(tokens (b local, p +
+        new_tokens), logits of every step (steps, b local, vocab), cache)``,
+        as :func:`repro_torch.launch.serve.serve` decodes."""
+        cache = self.init_cache() if cache is None else cache
+        tok, out, logits = prompt[:, :1], [prompt[:, :1]], []
+        for i in range(prompt.shape[1] + new_tokens - 1):
+            lg, cache = self.logits_fn(params, cache, tok, i)
+            logits.append(lg)
+            tok = (prompt[:, i + 1:i + 2] if i + 1 < prompt.shape[1]
+                   else torch.argmax(lg, dim=-1)[:, None].to(prompt.dtype))
+            out.append(tok)
+        return torch.cat(out, dim=1), torch.stack(logits), cache
 
 
-def build_serve_step(*args, **kwargs):
-    raise NotImplementedError("the sharded serve step waits for the "
-                              "non-agent mesh axes, "
-                              f"{consensus_lib.SHARDED_LATER}")
+def _check_serve(cfg: ArchConfig, mesh) -> None:
+    """Raise for a mesh without a ``model`` axis and for a family the serve
+    mode does not run."""
+    if MODEL_AXIS not in mesh.shape:
+        raise ValueError(f"the serve mode shards over a 'model' axis; the mesh "
+                         f"has {mesh.axis_names}")
+    tt._check_family(cfg, sharded=True)
+
+
+def _serve_context(cfg: ArchConfig, mesh, cache_specs=None):
+    """The serve rules' param specs and this rank's tensor-parallel
+    context."""
+    template = model_template(cfg)
+    pspecs = shlib.safe_partition_specs(template,
+                                        shlib.rules_for_mode("serve", mesh), mesh)
+    return template, pspecs, TensorParallel(mesh, pspecs, cache_specs)
+
+
+def build_prefill_step(cfg: ArchConfig, shape: InputShape, mesh, *,
+                       context_parallel: bool = False) -> ServeStepBundle:
+    """One rank's prefill step: ``prefill_step(params, batch)`` -> the last
+    position's logits ``(b local, vocab)``, the full-sequence forward on
+    this rank's blocks (the flash kernel on its query heads)."""
+    if context_parallel:
+        raise NotImplementedError(
+            "context_parallel=True shards the prefill's query sequence over "
+            "model: the flash kernel takes no query offset for a causal "
+            f"block; {CONTEXT_PARALLEL_ITEM}")
+    _check_serve(cfg, mesh)
+    template, pspecs, tp = _serve_context(cfg, mesh)
+    batch_specs = shlib.prefill_batch_specs(cfg, shape, mesh)
+
+    def prefill_step(params, batch):
+        with torch.no_grad():
+            logits, _ = tt.forward(cfg, params, batch, tp=tp, last_only=True)
+        return logits[:, -1, :]
+
+    return ServeStepBundle(step_fn=prefill_step, param_template=template,
+                           param_specs=pspecs, input_structs=(batch_specs,),
+                           kind="prefill", mesh=mesh, cfg=cfg, shape=shape, tp=tp)
+
+
+def build_serve_step(cfg: ArchConfig, shape: InputShape, mesh) -> ServeStepBundle:
+    """One rank's decode step: ``serve_step(params, cache, tokens,
+    cur_index)`` -> ``(next_tok (b local, 1) int32, cache)``, one token
+    against this rank's block of the cache (updated in place)."""
+    _check_serve(cfg, mesh)
+    cache, tokens, cur = shlib.decode_input_specs(cfg, shape, mesh)
+    template, pspecs, tp = _serve_context(
+        cfg, mesh, tree_map(lambda t: t.spec, cache))
+
+    def decode_logits(params, cache, tokens, cur_index):
+        with torch.no_grad():
+            return tt.decode_step(cfg, params, cache, tokens, int(cur_index), tp=tp)
+
+    def serve_step(params, cache, tokens, cur_index):
+        logits, cache = decode_logits(params, cache, tokens, cur_index)
+        return torch.argmax(logits, dim=-1)[:, None].to(torch.int32), cache
+
+    return ServeStepBundle(step_fn=serve_step, param_template=template,
+                           param_specs=pspecs, input_structs=(cache, tokens, cur),
+                           kind="decode", mesh=mesh, cfg=cfg, shape=shape, tp=tp,
+                           logits_fn=decode_logits)

@@ -35,8 +35,25 @@ expands the compressed ``c_kv`` into per-head K/V and runs
 ``v_head``, in prefill as in training: the reference runs it plain too, and
 the flash kernel takes one width for q, k and v.  Its decode
 (:func:`mla_decode`) caches ``c_kv`` and the rotated ``k_rope`` only and
-attends in the absorbed form, in float32.  Context parallelism is not
-ported yet (ROADMAP A16.2).
+attends in the absorbed form, in float32.
+
+Under a tensor-parallel context (``tp``,
+:class:`repro_torch.nn.tensor_parallel.TensorParallel`; the dense family's
+sharded serve mode) :func:`gqa_attention` and :func:`gqa_decode` project
+to this rank's query heads (all of them when the heads replicate) and take
+the KV heads those queries read: the local ones when KV divides ``model``,
+else the needed ones of the replicated K/V
+(:func:`~repro_torch.nn.tensor_parallel.kv_for_heads`).  Prefill runs the
+flash kernel on the local heads; the output projection's partial sums are
+reduced over ``model``.  Decode over a cache whose KV heads are sharded
+(or that is not sequence-sharded) needs no combine.  Over a
+sequence-sharded cache the owner of ``cur_index`` writes the new K/V in
+place, every rank computes the softmax partials (max, sum, output) of
+every query head (the query heads gathered over ``model``) over its
+positions (:func:`decode_attention_partial`, honouring ``window`` and
+``cur_index``), and the partials, gathered over the axes that shard the
+sequence, are combined in float32 for the local heads.  Context
+parallelism (a sequence-sharded prefill) is ROADMAP A16.2.4.
 """
 
 from __future__ import annotations
@@ -49,6 +66,7 @@ import torch
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.nn.layers import apply_rope, matmul
 from repro_torch.nn.param import ParamDef
+from repro_torch.nn.tensor_parallel import combine_partials, kv_for_heads
 
 NEG_INF = -1e30
 
@@ -70,6 +88,33 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bngs,bsne->bnge", p, v_cache.float())
     return out.reshape(b, 1, h, hdv).to(q.dtype)
+
+
+def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, cur_index: int, *,
+                             window: Optional[int] = None,
+                             offset: int = 0) -> torch.Tensor:
+    """The softmax partials of ``q (b, 1, H, hd)`` over a block of caches
+    ``(b, S, KV, hd)`` holding positions ``offset .. offset + S - 1``
+    (:func:`decode_attention`'s mask): ``(b, H, hd + 2)`` float32, the
+    unnormalized output, the max logit and the sum of ``exp(logit - max)``
+    of each head (:func:`~repro_torch.nn.tensor_parallel.combine_partials`
+    combines blocks)."""
+    b, _, h, hd = q.shape
+    s, kv, hdv = k_cache.shape[1], k_cache.shape[2], v_cache.shape[3]
+    group = h // kv
+    qg = q.reshape(b, kv, group, hd).float() * (1.0 / math.sqrt(hd))
+    logits = torch.einsum("bngd,bsnd->bngs", qg, k_cache.float())
+    k_pos = offset + torch.arange(s, device=q.device)
+    allowed = k_pos <= cur_index
+    if window is not None:
+        allowed &= k_pos > (cur_index - window)
+    logits = torch.where(allowed[None, None, None, :], logits, NEG_INF)
+    m = torch.amax(logits, dim=-1)
+    p = torch.exp(logits - m[..., None])
+    o = torch.einsum("bngs,bsne->bnge", p, v_cache.float())
+    out = torch.cat([o, m[..., None], torch.sum(p, dim=-1)[..., None]], dim=-1)
+    return out.reshape(b, h, hdv + 2)
 
 
 def _allowed_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
@@ -204,7 +249,8 @@ def gqa_attention(params, x: torch.Tensor, positions: torch.Tensor, *,
                   causal: bool = True, window: Optional[int] = None,
                   rope_theta: float = 1e4, kv_x: Optional[torch.Tensor] = None,
                   kv_positions: Optional[torch.Tensor] = None, use_rope: bool = True,
-                  chunk: int = 512, differentiable: bool = False) -> torch.Tensor:
+                  chunk: int = 512, differentiable: bool = False,
+                  tp=None) -> torch.Tensor:
     """Attention of ``x (b, s, d)`` over itself (``kv_x`` None; ``causal``,
     ``window`` None (global) or a static int (sliding window)) or over
     ``kv_x (b, sk, d)`` (cross-attention: never causal); rope, when
@@ -218,7 +264,8 @@ def gqa_attention(params, x: torch.Tensor, positions: torch.Tensor, *,
     computes the reference's plain attention: :func:`banded_attention` for
     causal self-attention with a window below ``s`` when ``s`` is a
     multiple of ``min(chunk, s)``, else :func:`blockwise_attention` over
-    the positions, both with ``chunk``."""
+    the positions, both with ``chunk``.  ``tp``: this rank's query heads
+    (see the module docstring), prefill only."""
     src = x if kv_x is None else kv_x
     q = _project(x, params["wq"])
     k = _project(src, params["wk"])
@@ -228,6 +275,13 @@ def gqa_attention(params, x: torch.Tensor, positions: torch.Tensor, *,
     if use_rope:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, kp, rope_theta)
+    if tp is not None:
+        if differentiable:
+            raise ValueError("the sharded attention serves only (prefill)")
+        if tp.heads and not tp.kv:
+            k, v = kv_for_heads(k, v, *tp.head_range(q.shape[2]))
+        return _tp_out(_flash(q, k, v, causal=causal and kv_x is None,
+                              window=window), params["wo"], tp)
     causal = causal and kv_x is None
     s = x.shape[1]
     if not differentiable:
@@ -250,17 +304,61 @@ def gqa_init_cache(batch: int, max_len: int, n_kv: int, head_dim: int,
 
 def gqa_decode(params, cache: Dict[str, torch.Tensor], x: torch.Tensor,
                cur_index: int, *, window: Optional[int] = None,
-               rope_theta: float = 1e4) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+               rope_theta: float = 1e4,
+               tp=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One new token ``x (b, 1, d)`` at position ``cur_index``.  Its K/V are
-    written into ``cache`` in place; returns ``(y (b, 1, d), cache)``."""
+    written into ``cache`` in place; returns ``(y (b, 1, d), cache)``.
+    ``tp``: this rank's query heads over its block of the cache (see the
+    module docstring)."""
     pos = torch.full((1,), cur_index, dtype=torch.int32, device=x.device)
     q = apply_rope(_project(x, params["wq"]), pos, rope_theta)
     k = apply_rope(_project(x, params["wk"]), pos, rope_theta)
     v = _project(x, params["wv"])
+    if tp is not None:
+        return _sharded_decode(params, cache, q, k, v, cur_index, window, tp), cache
     cache["k"][:, cur_index] = k[:, 0].to(cache["k"].dtype)
     cache["v"][:, cur_index] = v[:, 0].to(cache["v"].dtype)
     out = decode_attention(q, cache["k"], cache["v"], cur_index, window=window)
     return _out(out, params["wo"]), cache
+
+
+def _sharded_decode(params, cache, q, k, v, cur_index: int, window, tp):
+    """:func:`gqa_decode`'s attention on this rank's query heads ``q`` over
+    its block of ``cache``, with the new token's ``k``, ``v`` (its local
+    KV heads when the weights split them)."""
+    h0, h1, n_heads = tp.head_range(q.shape[2])
+    if tp.seq_axes is None:
+        # whole sequences: the local KV heads, or a replica of every one
+        cache["k"][:, cur_index] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, cur_index] = v[:, 0].to(cache["v"].dtype)
+        kc, vc = cache["k"], cache["v"]
+        if tp.heads and not tp.kv_cache:
+            kc, vc = kv_for_heads(kc, vc, h0, h1, n_heads)
+        out = decode_attention(q, kc, vc, cur_index, window=window)
+    else:
+        # a block of positions of every KV head: the owner of cur_index
+        # writes, every rank's partials over every query head combine
+        if tp.kv:
+            k, v = tp.gather_model(k, dim=2), tp.gather_model(v, dim=2)
+        s_loc = cache["k"].shape[1]
+        off = tp.seq_offset(s_loc)
+        if off <= cur_index < off + s_loc:
+            cache["k"][:, cur_index - off] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][:, cur_index - off] = v[:, 0].to(cache["v"].dtype)
+        q_all = tp.gather_model(q, dim=2) if tp.heads else q
+        part = decode_attention_partial(q_all, cache["k"], cache["v"], cur_index,
+                                        window=window, offset=off)
+        parts = tp.gather_over(part, tp.seq_axes)[:, :, h0:h1]
+        out = combine_partials(parts)[:, None].to(q.dtype)
+    return _tp_out(out, params["wo"], tp)
+
+
+def _tp_out(o: torch.Tensor, wo: torch.Tensor, tp) -> torch.Tensor:
+    """:func:`_out` on this rank's heads: row-parallel over ``model`` when
+    the heads are split."""
+    if not tp.heads:
+        return _out(o, wo)
+    return tp.row_parallel(o.flatten(-2), wo.reshape(-1, wo.shape[-1]))
 
 
 def gqa_cross_decode(params, enc_kv: Dict[str, torch.Tensor],

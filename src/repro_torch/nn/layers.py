@@ -4,7 +4,15 @@ position embeddings.  The float32 upcasts sit where the reference has
 them (norm statistics and affine, rope's rotation).  A matrix product of a
 float32 activation and bfloat16 weights (seamless's float32 encoder) takes
 JAX's promotion to float32 (:func:`matmul`): ``torch.matmul`` raises on
-mixed dtypes."""
+mixed dtypes.
+
+Under a tensor-parallel context (``tp``,
+:class:`repro_torch.nn.tensor_parallel.TensorParallel`) the embedding,
+the logits and the MLP run on this rank's blocks: a vocabulary-sharded
+table looks up the tokens it holds and sums over ``model``; the logits of
+a sharded vocabulary are gathered along it, so the argmax and the logits
+are the unsharded ones; the MLP is column-parallel in ``wi`` / ``wg`` and
+row-parallel in ``wo`` when ``d_ff`` is split."""
 
 from __future__ import annotations
 
@@ -75,16 +83,33 @@ def embedding_template(vocab: int, d: int, dtype=torch.float32) -> Dict[str, Par
     return {"table": ParamDef((vocab, d), ("tp", "fsdp"), init="embed", dtype=dtype)}
 
 
-def embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+def embed(params, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+    table = params["table"]
+    if tp is None or not tp.vocab:
+        return table[tokens]
+    n = table.shape[0]                   # this rank's rows of the vocabulary
+    local = tokens - tp.model_rank * n
+    hit = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    return tp.psum(torch.where(hit[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                                  device=rows.device)))
+
+
+def vocab_logits(x: torch.Tensor, w: torch.Tensor, tp=None) -> torch.Tensor:
+    """``x @ w`` over a ``(d, vocab)`` head; a vocabulary sharded over
+    ``model`` is gathered along it."""
+    logits = torch.matmul(x, w)
+    if tp is not None and tp.vocab:
+        logits = tp.gather_model(logits, dim=-1)
+    return logits
 
 
 def unembed_template(d: int, vocab: int, dtype=torch.float32) -> Dict[str, ParamDef]:
     return {"w": ParamDef((d, vocab), ("fsdp", "tp"), init="scaled", dtype=dtype)}
 
 
-def unembed(params, x: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(x, params["w"])
+def unembed(params, x: torch.Tensor, tp=None) -> torch.Tensor:
+    return vocab_logits(x, params["w"], tp)
 
 
 # --------------------------------------------------------------------------
@@ -113,12 +138,14 @@ def _act(name: str):
     }[name]
 
 
-def mlp(params, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
+def mlp(params, x: torch.Tensor, *, act: str = "silu", tp=None) -> torch.Tensor:
     h = matmul(x, params["wi"])
     if "wg" in params:
         h = _act(act)(matmul(x, params["wg"])) * h
     else:
         h = _act(act)(h)
+    if tp is not None and tp.ff:
+        return tp.row_parallel(h, params["wo"])
     return matmul(h, params["wo"])
 
 

@@ -10,10 +10,12 @@ keeps JAX's layouts, HWIO conv kernels and ``(in, out)`` dense weights).
 
 :func:`stack_agent_axis` and :func:`partition_specs` serve the sharded mode
 (:mod:`repro_torch.launch.steps`): a :class:`PartitionSpec` names, per
-dimension, the mesh axes it shards over or ``None``.  The port's mesh has the agent
-axis alone; a rule that maps another logical axis to a mesh axis (the
-reference's tensor / expert parallel ``model`` axis, or ``fsdp``) raises
-``NotImplementedError`` (ROADMAP A16.2).
+dimension, the mesh axes it shards over or ``None``, resolved from the
+template's logical axes (``agent``, ``tp``, ``expert``, ``fsdp``) by a
+mode's rules, as the reference's.  :func:`local_shard` slices a global tree
+to one rank's blocks, :func:`local_shape` gives a block's shape,
+:func:`local_zeros` allocates one rank's blocks and
+:func:`global_from_shards` puts the ranks' blocks back together.
 """
 
 from __future__ import annotations
@@ -117,31 +119,95 @@ class PartitionSpec:
     axes: tuple = ()
 
 
-#: where the sharded mode's non-agent mesh axes are queued
-MODEL_AXIS_ITEM = "ROADMAP A16.2"
+#: where the rest of the sharded mode is queued (ROADMAP A16.2, in order)
+TRAIN_TP_ITEM = "ROADMAP A16.2.1 (tp / expert over model in training)"
+TRAIN_HIER_ITEM = "ROADMAP A16.2.2 (train_hier)"
+SERVE_FAMILIES_ITEM = "ROADMAP A16.2.3 (the other families' serve mode)"
+CONTEXT_PARALLEL_ITEM = "ROADMAP A16.2.4 (context_parallel)"
 
 
 def partition_specs(template: PyTree, rules) -> PyTree:
     """Resolve logical axes to mesh axes via ``rules`` (logical name ->
-    mesh axis name, tuple of names, or None); missing names replicate.
-    Returns one :class:`PartitionSpec` per leaf.  Only the ``agent`` axis
-    may shard."""
+    mesh axis name, tuple of names, or None); missing names replicate
+    (the reference's ``partition_specs``).  Returns one
+    :class:`PartitionSpec` per leaf, trailing replicated dimensions
+    dropped."""
 
     def leaf(pd: ParamDef) -> PartitionSpec:
-        resolved = []
-        for ax in pd.axes:
-            m = rules.get(ax) if ax is not None else None
-            if m is not None and ax != "agent":
-                raise NotImplementedError(
-                    f"logical axis {ax!r} sharded over mesh axis {m!r}: the "
-                    "sharded mode shards the agent axis only; model-parallel "
-                    f"and fsdp axes are {MODEL_AXIS_ITEM}")
-            resolved.append(m)
+        resolved = [rules.get(ax) if ax is not None else None for ax in pd.axes]
         while resolved and resolved[-1] is None:
             resolved.pop()
         return PartitionSpec(tuple(resolved))
 
     return tree_map(leaf, template)
+
+
+def _entries(spec: PartitionSpec, ndim: int) -> tuple:
+    if len(spec.axes) > ndim:
+        raise ValueError(f"spec {spec.axes} for a {ndim}-d tensor")
+    return tuple(spec.axes) + (None,) * (ndim - len(spec.axes))
+
+
+def local_shape(shape, spec: PartitionSpec, mesh) -> tuple:
+    """The shape of one rank's block of a ``shape`` tensor sharded by
+    ``spec`` on ``mesh`` (each sharded dimension divided by its axes'
+    rank count)."""
+    out = []
+    for n, e in zip(shape, _entries(spec, len(shape))):
+        k = mesh.entry_size(e)
+        if n % k:
+            raise ValueError(f"dimension {n} does not divide over {e} ({k})")
+        out.append(n // k)
+    return tuple(out)
+
+
+def local_zeros(structure: PyTree, specs: PyTree, mesh, device=None) -> PyTree:
+    """Zeroed blocks of this rank of a global tree ``structure`` (tensors,
+    e.g. on ``meta``: shapes and dtypes only), sharded by ``specs``, each
+    allocated at its block's size."""
+    return tree_map(lambda t, sp: torch.zeros(local_shape(t.shape, sp, mesh),
+                                              dtype=t.dtype, device=device),
+                    structure, specs)
+
+
+def _block(shape, spec: PartitionSpec, mesh, rank: int) -> tuple:
+    """The slices of rank ``rank``'s block."""
+    out = []
+    for n, e in zip(local_shape(shape, spec, mesh), _entries(spec, len(shape))):
+        i = mesh.entry_index(e, rank)
+        out.append(slice(i * n, (i + 1) * n))
+    return tuple(out)
+
+
+def local_shard(tree: PyTree, specs: PyTree, mesh) -> PyTree:
+    """This rank's block of every leaf of the global ``tree`` (tensors),
+    sharded by ``specs`` (one :class:`PartitionSpec` per leaf) on ``mesh``
+    (a :class:`~repro_torch.launch.mesh.AgentMesh`), each a contiguous
+    copy."""
+    return tree_map(lambda x, sp: x[_block(x.shape, sp, mesh, mesh.rank)]
+                    .contiguous(), tree, specs)
+
+
+def global_from_shards(shards, specs: PyTree, mesh) -> PyTree:
+    """The inverse of :func:`local_shard`: the global tree from every
+    rank's blocks (``shards``, in rank order, on the CPU); a block held by
+    several ranks is taken from the first of them."""
+
+    def leaf(sp, *blocks):
+        local = blocks[0].shape
+        shape = tuple(n * mesh.entry_size(e)
+                      for n, e in zip(local, _entries(sp, len(local))))
+        out = torch.empty(shape, dtype=blocks[0].dtype)
+        filled = set()
+        for r, b in enumerate(blocks):
+            sl = _block(shape, sp, mesh, r)
+            key = tuple((x.start, x.stop) for x in sl)
+            if key not in filled:
+                out[sl] = b
+                filled.add(key)
+        return out
+
+    return tree_map(leaf, specs, *shards)
 
 
 def count_params(template: PyTree) -> int:

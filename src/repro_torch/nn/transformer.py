@@ -40,6 +40,16 @@ writes them **in place** (views of the stacked tensors) and returns the
 same tree; an encoder-decoder's cache also holds ``enc_out``, the encoder's
 output (:func:`encode_for_decode`), which every cross-attention reads.
 
+:func:`forward` and :func:`decode_step` take a
+tensor-parallel context (``tp``,
+:class:`repro_torch.nn.tensor_parallel.TensorParallel`) for the dense
+family's sharded serve mode: ``params`` and the cache are then this rank's
+blocks, each block's ``fsdp`` shards are gathered just before it runs and
+dropped after, and the layers run on the rank's heads, ``d_ff`` and
+vocabulary (:func:`repro_torch.launch.sharding.local_cache` allocates a
+rank's block of the cache).  Without a context they run as before.  A sharded call for any
+other family raises (ROADMAP A16.2.3).
+
 Public API:
   model_template(cfg)                       -> ParamDef tree
   forward(cfg, params, batch)               -> (logits, aux)  [prefill]
@@ -68,17 +78,33 @@ from repro_torch.nn.layers import (
     mlp_template,
     unembed,
     unembed_template,
+    vocab_logits,
 )
-from repro_torch.nn.param import ParamDef, stack_layers
+from repro_torch.nn.param import (SERVE_FAMILIES_ITEM, TRAIN_TP_ITEM, ParamDef,
+                                  stack_layers)
 from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 PyTree = Any
 
 
-def _check_family(cfg) -> None:
+def is_dense_family(cfg) -> bool:
+    """A text-only stack of GQA blocks with dense MLPs (gemma3-1b,
+    granite-3-8b, h2o-danube-3-4b, starcoder2-7b)."""
+    return (cfg.modality == "text" and not cfg.is_moe and cfg.attn_kind != "mla"
+            and cfg.ssm_kind == "none" and not cfg.hybrid
+            and not cfg.is_encoder_decoder)
+
+
+def _check_family(cfg, sharded: bool = False) -> None:
     """Raise on a combination the reference's zoo has no model for: an
     unknown modality or SSM kind, mamba outside the hybrid family, or a
-    hybrid without mamba."""
+    hybrid without mamba; ``sharded``: on any family but the dense one
+    (its serve mode over the model axis is ROADMAP A16.2.3)."""
+    if sharded and not is_dense_family(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the sharded serve mode runs the dense family (GQA "
+            "blocks, dense MLPs, text only); rwkv6, MoE, MLA, hymba, "
+            f"seamless and internvl2's frontend are {SERVE_FAMILIES_ITEM}")
     if cfg.modality not in ("text", "vlm", "audio"):
         raise ValueError(f"{cfg.name}: no {cfg.modality!r} frontend in the zoo")
     if cfg.ssm_kind not in ("none", "rwkv6", "mamba"):
@@ -257,21 +283,25 @@ def _sublayers(cfg, name: str, stacked: PyTree):
 # --------------------------------------------------------------------------
 
 
-def _self_attention(cfg, params, x, positions, window, differentiable: bool):
+def _self_attention(cfg, params, x, positions, window, differentiable: bool,
+                    tp=None):
     if cfg.attn_kind == "mla":
         return attn.mla_attention(params, x, positions, qk_nope=cfg.qk_nope_head_dim,
                                   qk_rope=cfg.qk_rope_head_dim,
                                   rope_theta=cfg.rope_theta, chunk=cfg.attn_chunk)
     return attn.gqa_attention(params, x, positions, window=window,
                               rope_theta=cfg.rope_theta, chunk=cfg.attn_chunk,
-                              differentiable=differentiable)
+                              differentiable=differentiable, tp=tp)
 
 
 def _block_apply(cfg, group: str, params, x, positions, window,
-                 differentiable: bool):
+                 differentiable: bool, tp=None):
     """One block; returns ``(x, aux)``: an MoE block's load-balance term
-    (float32), ``None`` for the others."""
+    (float32), ``None`` for the others.  ``tp``: a dense block on this
+    rank's blocks, its ``fsdp`` shards gathered here."""
     _, norm = _norm(cfg)
+    if tp is not None:
+        params = tp.gather_block(params)
     if group == "rwkv":
         y, _ = ssm_lib.rwkv6_time_mix(params["time_mix"], norm(params["ln1"], x),
                                       head_size=min(64, cfg.d_model),
@@ -292,13 +322,14 @@ def _block_apply(cfg, group: str, params, x, positions, window,
                                    differentiable=differentiable)
         return x + mlp(params["mlp"], norm(params["ln2"], x), act=cfg.act), None
     h = norm(params["ln1"], x)
-    x = x + _self_attention(cfg, params["attn"], h, positions, window, differentiable)
+    x = x + _self_attention(cfg, params["attn"], h, positions, window, differentiable,
+                            tp)
     if group == "moe":
         y, aux = moe_lib.moe_apply(params["moe"], norm(params["ln2"], x),
                                    top_k=cfg.top_k,
                                    capacity_factor=cfg.capacity_factor, act=cfg.act)
         return x + y, aux
-    return x + mlp(params["mlp"], norm(params["ln2"], x), act=cfg.act), None
+    return x + mlp(params["mlp"], norm(params["ln2"], x), act=cfg.act, tp=tp), None
 
 
 def _dec_block_apply(cfg, params, x, positions, enc_out, enc_positions,
@@ -315,7 +346,7 @@ def _dec_block_apply(cfg, params, x, positions, enc_out, enc_positions,
     return x + mlp(params["mlp"], norm(params["ln2"], x), act=cfg.act)
 
 
-def _unit_fn(cfg, name: str, positions, differentiable: bool) -> Callable:
+def _unit_fn(cfg, name: str, positions, differentiable: bool, tp=None) -> Callable:
     """``fn(x, unit) -> (x, aux)`` of one slice of group ``name``'s stack:
     a block, or a gemma super-block (its ``period`` dense layers in order,
     no aux).  A decoder block's unit is ``{"p": block, "enc": enc_out}``:
@@ -341,14 +372,14 @@ def _unit_fn(cfg, name: str, positions, differentiable: bool) -> Callable:
             for i in range(cfg.local_global_period):
                 window = None if cfg.layer_is_global(i) else cfg.window
                 x, _ = _block_apply(cfg, "dense", _layer(unit, i), x, positions_,
-                                    window, differentiable)
+                                    window, differentiable, tp)
             return x, None
         return super_block
     group = "dense" if name.startswith("lg_") else name
     window = cfg.window if name == "lg_tail" else _static_window(cfg)
 
     def block(x, unit):
-        return _block_apply(cfg, group, unit, x, pos(x), window, differentiable)
+        return _block_apply(cfg, group, unit, x, pos(x), window, differentiable, tp)
     return block
 
 
@@ -410,11 +441,11 @@ def _apply_unit(fn: Callable, x, unit, remat: bool, has_aux: bool):
 
 
 def _run_group(cfg, name: str, stacked, x, pos, differentiable: bool, remat: bool,
-               enc_out=None):
+               enc_out=None, tp=None):
     """``x`` through every slice of group ``name``'s stack, in order
     (``enc_out`` into each decoder block); returns ``(x, aux)``, the MoE
     load-balance terms summed (None without MoE)."""
-    fn = _unit_fn(cfg, name, None if remat else pos, differentiable)
+    fn = _unit_fn(cfg, name, None if remat else pos, differentiable, tp)
     aux_total = None
     for j in range(tree_leaves(stacked)[0].shape[0]):
         unit = _layer(stacked, j)
@@ -441,26 +472,37 @@ def _encode(cfg, params, frontend: torch.Tensor, differentiable: bool,
     return enc_out
 
 
-def _embed_inputs(cfg, params, batch):
-    """Token embeddings, behind the projected frontend embeddings for a VLM
-    (``batch["frontend"] (b, frontend_tokens, frontend_dim)``).  Returns
-    ``(x, positions)``, positions over frontend plus text."""
-    x = embed(params["embed"], batch["inputs"])
+def _embed_inputs(cfg, params, batch, embedding, tp=None):
+    """Token embeddings (``embedding``: the embedding's params), behind the
+    projected frontend embeddings for a VLM (``batch["frontend"] (b,
+    frontend_tokens, frontend_dim)``).  Returns ``(x, positions)``,
+    positions over frontend plus text."""
+    x = embed(embedding, batch["inputs"], tp)
     if _has_frontend(cfg):
         fe = torch.matmul(batch["frontend"].to(x.dtype), params["frontend_proj"]["w"])
         x = torch.cat([fe, x], dim=1)
     return x, torch.arange(x.shape[1], device=x.device)
 
 
-def _logits(cfg, params, x):
+def _embedding(params, tp=None):
+    """The embedding's params: under ``tp`` gathered over ``fsdp`` once a
+    step, for the embedding and a tied head."""
+    return params["embed"] if tp is None else tp.gather_top(params["embed"], "embed")
+
+
+def _logits(cfg, params, x, embedding, tp=None):
+    """The final norm and the head: tied (on ``embedding``) or untied."""
     _, norm = _norm(cfg)
-    x = norm(params["final_norm"], x)
+    top = (lambda name: params[name]) if tp is None else \
+        (lambda name: tp.gather_top(params[name], name))
+    x = norm(top("final_norm"), x)
     if cfg.tie_embeddings:
-        return torch.matmul(x, params["embed"]["table"].t())
-    return unembed(params["unembed"], x)
+        return vocab_logits(x, embedding["table"].t(), tp)
+    return unembed(top("unembed"), x, tp)
 
 
-def forward(cfg, params, batch, *, differentiable: bool = False, remat: bool = False):
+def forward(cfg, params, batch, *, differentiable: bool = False, remat: bool = False,
+            tp=None, last_only: bool = False):
     """Forward of ``batch["inputs"] (b, s)`` tokens (behind ``batch
     ["frontend"]`` for a VLM; an encoder-decoder's decoder over them, its
     encoder over ``batch["frontend"]``).  Returns ``(logits (b, [frontend
@@ -468,22 +510,34 @@ def forward(cfg, params, batch, *, differentiable: bool = False, remat: bool = F
     load-balance terms (0 without MoE).  Prefill (``differentiable=False``)
     runs the forward-only attention and WKV6 kernels;
     ``differentiable=True`` (the loss) their plain, differentiable training
-    forms.  ``remat=True`` recomputes each block in the backward pass."""
+    forms.  ``remat=True`` recomputes each block in the backward pass.
+    ``tp``: the dense family's sharded prefill on this rank's blocks
+    (see the module docstring).  ``last_only``: the logits of the last
+    position only, ``(b, 1, vocab)`` (a prefill's)."""
+    if tp is not None:
+        _check_family(cfg, sharded=True)
+        if differentiable or remat:
+            raise NotImplementedError("the tensor-parallel context serves "
+                                      "(prefill and decode); training over the "
+                                      f"model axis is {TRAIN_TP_ITEM}")
+    emb = _embedding(params, tp)
     if cfg.is_encoder_decoder:
         enc_out = _encode(cfg, params, batch["frontend"], differentiable, remat)
-        x = embed(params["embed"], batch["inputs"])
+        x = embed(emb, batch["inputs"])
         pos = torch.arange(x.shape[1], device=x.device)
         groups = [("dec", enc_out)]
     else:
-        x, pos = _embed_inputs(cfg, params, batch)
+        x, pos = _embed_inputs(cfg, params, batch, emb, tp)
         groups = [(name, None) for name, count, _ in layer_groups(cfg) if count]
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for name, enc_out in groups:
         x, aux = _run_group(cfg, name, params["groups"][name], x, pos,
-                            differentiable, remat, enc_out)
+                            differentiable, remat, enc_out, tp)
         if aux is not None:
             aux_total = aux_total + aux
-    return _logits(cfg, params, x), {"moe_aux": aux_total}
+    if last_only:
+        x = x[:, -1:]
+    return _logits(cfg, params, x, emb, tp), {"moe_aux": aux_total}
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask=None) -> torch.Tensor:
@@ -559,9 +613,14 @@ def init_cache(cfg, batch: int, max_len: int, enc_len: int = 0, device=None):
     return cache
 
 
-def _block_decode(cfg, group: str, params, cache, x, cur_index: int, window):
-    """One token through one block; ``cache`` (views) updated in place."""
+def _block_decode(cfg, group: str, params, cache, x, cur_index: int, window,
+                  tp=None):
+    """One token through one block; ``cache`` (views) updated in place.
+    ``tp``: a dense block on this rank's blocks, its ``fsdp`` shards
+    gathered here."""
     _, norm = _norm(cfg)
+    if tp is not None:
+        params = tp.gather_block(params)
     if group == "rwkv":
         h = norm(params["ln1"], x)
         y, tm = ssm_lib.rwkv6_time_mix(params["time_mix"], h,
@@ -587,13 +646,13 @@ def _block_decode(cfg, group: str, params, cache, x, cur_index: int, window):
                                qk_rope=cfg.qk_rope_head_dim, rope_theta=cfg.rope_theta)
     else:
         a, _ = attn.gqa_decode(params["attn"], cache, h, cur_index, window=window,
-                               rope_theta=cfg.rope_theta)
+                               rope_theta=cfg.rope_theta, tp=tp)
     x = x + a
     if group == "moe":
         y, _ = moe_lib.moe_apply(params["moe"], norm(params["ln2"], x), top_k=cfg.top_k,
                                  capacity_factor=cfg.capacity_factor, act=cfg.act)
         return x + y
-    return x + mlp(params["mlp"], norm(params["ln2"], x), act=cfg.act)
+    return x + mlp(params["mlp"], norm(params["ln2"], x), act=cfg.act, tp=tp)
 
 
 def _dec_block_decode(cfg, params, cache, x, cur_index: int, enc_out):
@@ -613,25 +672,30 @@ def _dec_block_decode(cfg, params, cache, x, cur_index: int, enc_out):
     return x + mlp(params["mlp"], norm(params["ln2"], x), act=cfg.act)
 
 
-def decode_step(cfg, params, cache, tokens: torch.Tensor, cur_index: int):
+def decode_step(cfg, params, cache, tokens: torch.Tensor, cur_index: int, tp=None):
     """One decode step.  ``tokens (b, 1)``; returns ``(logits (b, vocab),
     cache)``, the cache updated in place.  A VLM decodes text tokens only,
     without its frontend, as the reference does; an encoder-decoder's
-    decoder reads ``cache["enc_out"]``."""
-    x = embed(params["embed"], tokens)
+    decoder reads ``cache["enc_out"]``.  ``tp``: the dense family's sharded
+    decode on this rank's blocks of the params and the cache (its batch
+    rows of ``tokens``; the logits of the whole vocabulary)."""
+    if tp is not None:
+        _check_family(cfg, sharded=True)
+    emb = _embedding(params, tp)
+    x = embed(emb, tokens, tp)
     if cfg.is_encoder_decoder:
         for (p, _), (c, _) in zip(_sublayers(cfg, "dec", params["groups"]["dec"]),
                                   _sublayers(cfg, "dec", cache["dec"])):
             x = _dec_block_decode(cfg, p, c, x, int(cur_index), cache["enc_out"])
-        return _logits(cfg, params, x)[:, 0, :], cache
+        return _logits(cfg, params, x, emb)[:, 0, :], cache
     for name, count, _ in layer_groups(cfg):
         if count == 0:
             continue
         group = "dense" if name.startswith("lg_") else name
         for (p, window), (c, _) in zip(_sublayers(cfg, name, params["groups"][name]),
                                        _sublayers(cfg, name, cache[name])):
-            x = _block_decode(cfg, group, p, c, x, int(cur_index), window)
-    return _logits(cfg, params, x)[:, 0, :], cache
+            x = _block_decode(cfg, group, p, c, x, int(cur_index), window, tp)
+    return _logits(cfg, params, x, emb, tp)[:, 0, :], cache
 
 
 def encode_for_decode(cfg, params, frontend: torch.Tensor) -> torch.Tensor:

@@ -1215,6 +1215,24 @@ def test_staged_exchange_and_q_stencil_update_on_card():
 
 
 @pytest.mark.cuda
+def test_axis_collectives_staged_on_card():
+    """Four ``gloo`` ranks on the card on ``data 2 x model 2`` (the serve
+    mode's one-card layout): the collectives over named axes, staged
+    through pinned host buffers, gather each line's values bit for bit and
+    sum over ``model`` in float32, cast once."""
+    _card()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_sharded_ranks as ranks
+
+    from repro_torch.launch.mesh import spawn_agents
+
+    axes = {"data": 2, "model": 2}
+    got = spawn_agents(ranks.axis_collectives, 4, backend="gloo", device="cuda",
+                       timeout=60, join_timeout=300, axes=axes)
+    ranks.check_axis_collectives(got, axes)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("factor", [1.5, 0.5], ids=["kept", "dropped"])
 def test_moe_apply_on_card_matches_cpu(factor):
     """The same routing on the card as on the CPU (the indices and the

@@ -12,7 +12,13 @@ under overlap), nothing allocated:
   1,024 keys on the 22 local layers, all 4,096 on the 4 global ones) of
   the forward, twice that for the backward, and the blocks' forward again
   for remat's recompute;
-* prefill and decode shapes write the ROADMAP A16.2 skip.
+* a dense config's decode shape traces one rank of the serve mode on the
+  reference's production serve mesh (16 x 16): an ``ok`` record whose
+  collectives are the tensor-parallel context's (the ``fsdp`` gathers over
+  ``data``, the partial sums and gathers over ``model``), counted by the
+  Census by axis;
+* the prefill and decode shapes of another family write the skip naming
+  its ROADMAP item (A16.2.3).
 """
 
 import os
@@ -115,9 +121,37 @@ def test_dot_flops_equal_the_closed_form(record):
 
 @pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "long_500k"])
 def test_serving_shapes_record_the_skip(record, shape):
+    """A family the serve mode does not run (rwkv6) records its skip."""
     _, out = record
-    rec = dryrun.run_pair("gemma3-1b", shape, out_dir=str(out), verbose=False)
-    assert rec["status"].startswith("skip") and "A16.2" in rec["status"]
-    got = load_dryrun_record(str(out / f"gemma3-1b__{shape}__data16__"
-                                       "train_ppermute_fused.json"))
+    rec = dryrun.run_pair("rwkv6-1.6b", shape, out_dir=str(out), verbose=False)
+    assert rec["status"].startswith("skip") and "A16.2.3" in rec["status"]
+    got = load_dryrun_record(str(out / f"rwkv6-1.6b__{shape}__16x16__serve.json"))
     assert got["verify"] is None and got["version"] == 2
+
+
+def test_a_dense_decode_record_at_the_serve_mesh(record):
+    """gemma3-1b's ``decode_32k`` on 16 x 16: 128 requests, 8 a rank.  Its
+    one KV head does not divide ``model``, so the cache's sequence does
+    (2,048 of the 32,768 positions a rank), and its 4 query heads
+    replicate; ``d_ff`` and the vocabulary split over ``model``."""
+    _, out = record
+    rec = dryrun.run_pair("gemma3-1b", "decode_32k", out_dir=str(out),
+                          verbose=False)
+    assert rec["status"] == "ok", rec.get("traceback")
+    got = load_dryrun_record(str(out / "gemma3-1b__decode_32k__16x16__serve.json"))
+    assert got["mesh"] == "16x16" and got["chips"] == 256 and got["mode"] == "serve"
+    c = get_config("gemma3-1b")
+    layers = c.n_layers
+    by = got["census_by_axis"]
+    # one fsdp gather a block, the table's once (the embedding and the tied
+    # head read it)
+    assert by["data"]["calls"] == layers + 1
+    # each layer's softmax partials and MLP partial sums, the embedding's
+    # partial sum and the logits' gather
+    assert by["model"]["calls"] == 2 * layers + 2
+    # the MLP's partial sums and the embedding's (the heads replicate)
+    assert got["collective_count"]["all-reduce"] == layers + 1
+    cache = 2 * layers * (128 // 16) * (32768 // 16) * c.n_kv_heads * c.head_dim_ * 2
+    assert got["argument_bytes_per_device"] > cache
+    assert got["peak_bytes_per_device"] >= got["argument_bytes_per_device"]
+    assert got["roofline"]["dominant"] in ("compute", "memory", "collective")

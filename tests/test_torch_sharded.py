@@ -48,6 +48,7 @@ import numpy as np  # noqa: E402
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_sharded_ranks as ranks  # noqa: E402
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import INPUT_SHAPES, InputShape, RunConfig  # noqa: E402
 from repro_torch.core import consensus as consensus_lib  # noqa: E402
 from repro_torch.core import engine, make_topology, make_topology_schedule  # noqa: E402
@@ -339,13 +340,16 @@ def _build(**kw):
 
 @pytest.mark.parametrize("kw,err,item", [
     ({"remat": True}, None, "A17.3"),
-    ({"mode": "train_hier"}, NotImplementedError, "A16.2"),
-    ({"mode": "serve"}, NotImplementedError, "A16.2"),
+    ({"mode": "train_hier"}, NotImplementedError, "A16.2.2"),
+    ({"mode": "serve"}, ValueError, "no agent axis"),
 ], ids=["remat", "train_hier", "serve"])
 def test_later_knobs_raise_at_build(kw, err, item):
     """What the sharded mode does not run raises its queue item at build
     time; ``remat=True`` (ROADMAP A17.3, refused before it was ported) now
-    builds, and is the default (``test_torch_remat.py`` holds its steps)."""
+    builds, and is the default (``test_torch_remat.py`` holds its steps).
+    ``mode="serve"`` has no agent axis to train over: it serves through
+    ``build_prefill_step`` / ``build_serve_step``
+    (``test_torch_sharded_serve.py``)."""
     if err is None:
         assert _build(**kw).grad_phase is not None
         return
@@ -353,18 +357,29 @@ def test_later_knobs_raise_at_build(kw, err, item):
         _build(**kw)
 
 
+_MODEL_MESH = {"data": 2, "model": 2}
+
+
 def _serve_step():
-    steps_lib.build_serve_step()
+    """A family whose serve mode over the model axis is queued."""
+    steps_lib.build_serve_step(get_config("rwkv6-1.6b").reduced(),
+                               InputShape("d", SEQ, 4, "decode"),
+                               _mesh(axes=_MODEL_MESH))
 
 
 def _prefill_step():
-    steps_lib.build_prefill_step()
+    """``context_parallel``: the flash kernel takes no query offset."""
+    steps_lib.build_prefill_step(ranks.lm_config(),
+                                 InputShape("p", SEQ, 4, "prefill"),
+                                 _mesh(axes=_MODEL_MESH), context_parallel=True)
 
 
 def _model_axes():
-    partition_specs(stack_agent_axis(tt.model_template(ranks.lm_config()),
-                                     AGENTS),
-                    {"agent": "data", "tp": "model", "heads": "model"})
+    """Training with tp / expert over a model axis of more than one rank."""
+    steps_lib.build_train_step(
+        ranks.lm_config(), InputShape("t", SEQ, BATCH * AGENTS, "train"),
+        _mesh(axes=_MODEL_MESH), ranks.make_opt("cdmsgd", True),
+        mixing="ppermute_fused")
 
 
 @pytest.mark.parametrize("kw,want", [
@@ -378,18 +393,25 @@ def _model_axes():
     ({"opt": ranks.make_opt("fedavg", False, "straggler:1:1", AGENTS),
       "mixing": "dense"}, "fedavg"),
     ({"mode": "train_hier"}, None),
-    ({"mode": "serve"}, None),
+    ({"mode": "serve"}, "no agent axis"),
     (_model_axes, None),
     (_serve_step, None),
     (_prefill_step, None),
 ], ids=["staleness", "faults", "topk", "topk-dense", "rank", "fedavg-faults",
         "train_hier", "serve", "model-axes", "serve-step", "prefill-step"])
 def test_agent_axis_knobs_build_and_model_axes_raise(kw, want):
-    """The agent-axis knobs of ROADMAP A16.2 build; what stays A16.2 (the
-    non-agent model axes, the serve and prefill steps) still raises it."""
+    """The agent-axis knobs of ROADMAP A16.2 build; what stays A16.2's
+    (training over the model axis, ``train_hier``, the other families'
+    serve steps, ``context_parallel``) still raises it; a training step in
+    serve mode is refused (the serve steps are in
+    ``test_torch_sharded_serve.py``)."""
     if want is None:
         with pytest.raises(NotImplementedError, match="A16.2"):
             kw() if callable(kw) else _build(**kw)
+        return
+    if want == "no agent axis":
+        with pytest.raises(ValueError, match=want):
+            _build(**kw)
         return
     b = _build(**kw)
     p = b.mixing_program
@@ -402,16 +424,23 @@ def test_agent_axis_knobs_build_and_model_axes_raise(kw, want):
 
 
 def test_model_axis_raises():
+    """The logical model axes resolve (as the reference's
+    ``partition_specs``); training over a model axis of more than one rank
+    raises its queue item (ROADMAP A16.2.1), and the serve steps need a
+    mesh with a model axis."""
     tmpl = stack_agent_axis(tt.model_template(ranks.lm_config()), AGENTS)
-    with pytest.raises(NotImplementedError, match="A16.2"):
-        partition_specs(tmpl, {"agent": "data", "embed": "model", "tp": "model",
-                               "vocab": "model", "heads": "model", "ff": "model"})
+    specs = partition_specs(tmpl, {"agent": "data", "tp": "model", "fsdp": None})
+    assert specs["embed"]["table"].axes == ("data", "model")
     specs = partition_specs(tmpl, {"agent": "data"})
     assert all(s.axes == ("data",) for s in tree_leaves(specs))
-    with pytest.raises(NotImplementedError, match="A16.2"):
-        steps_lib.build_serve_step()
-    with pytest.raises(NotImplementedError, match="A16.2"):
-        steps_lib.build_prefill_step()
+    with pytest.raises(NotImplementedError, match="A16.2.1"):
+        _model_axes()
+    with pytest.raises(ValueError, match="model"):
+        steps_lib.build_serve_step(ranks.lm_config(),
+                                   InputShape("d", SEQ, 4, "decode"), _mesh())
+    with pytest.raises(ValueError, match="model"):
+        steps_lib.build_prefill_step(ranks.lm_config(),
+                                     InputShape("p", SEQ, 4, "prefill"), _mesh())
 
 
 @pytest.mark.parametrize("kw,msg", [

@@ -304,3 +304,98 @@ def run_remat_default(mesh, inputs_path: str) -> dict:
         params, state, _ = bundle.step_fn(params, state, local_batch(b, mesh))
     return {"grads_bitwise": same, "params": _cpu(params),
             "n_grads": len(tree_leaves(g_on))}
+
+
+def serve_config(arch: str, vocab: int = 0):
+    """A reduced dense config in float32 (``vocab``: another vocabulary)."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), param_dtype="float32")
+    return dataclasses.replace(cfg, vocab_size=vocab) if vocab else cfg
+
+
+def _axis_value(rank: int, dtype) -> torch.Tensor:
+    g = torch.Generator().manual_seed(100 + rank)
+    return torch.randn((3, 5), generator=g).to(dtype)
+
+
+AXIS_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def axis_collectives(mesh) -> dict:
+    """The collectives over named axes on this rank's seeded ``(3, 5)``
+    value of each dtype: stacked over ``data``, concatenated over
+    ``model`` along dimension 1, stacked over every axis, and the sum over
+    ``model`` of the value and its double (on the CPU)."""
+    from repro_torch.core import collectives
+
+    out = {}
+    for dt in AXIS_DTYPES:
+        x = _axis_value(mesh.rank, dt).to(mesh.device)
+        out[f"data/{dt}"] = collectives.all_gather(mesh, x, "data").cpu()
+        out[f"model/{dt}"] = collectives.all_gather(mesh, x, "model", dim=1).cpu()
+        out[f"all/{dt}"] = collectives.all_gather(mesh, x, ("data", "model")).cpu()
+        out[f"sum/{dt}"] = [t.cpu() for t in collectives.all_reduce_sum(
+            mesh, [x, 2 * x], "model")]
+    return out
+
+
+def check_axis_collectives(results: list, axes: dict) -> None:
+    """Each rank's :func:`axis_collectives` against the values of the
+    ranks of its lines (:func:`repro_torch.launch.mesh.axis_lines`):
+    gathers bit for bit, the sums as one float32 sum cast once."""
+    from repro_torch.launch.mesh import axis_lines
+
+    def line(axis, r):
+        return next(ln for ln in axis_lines(axes, axis) if r in ln)
+
+    for r, got in enumerate(results):
+        for dt in AXIS_DTYPES:
+            v = {q: _axis_value(q, dt) for q in range(len(results))}
+            assert torch.equal(got[f"data/{dt}"],
+                               torch.stack([v[q] for q in line("data", r)])), (r, dt)
+            assert torch.equal(got[f"model/{dt}"],
+                               torch.cat([v[q] for q in line("model", r)], dim=1))
+            assert torch.equal(got[f"all/{dt}"], torch.stack(list(v.values())))
+            total = sum(v[q].float() for q in line("model", r))
+            for k, t in enumerate(got[f"sum/{dt}"]):
+                assert t.dtype == dt and torch.equal(t, ((k + 1) * total).to(dt))
+
+
+def run_serve(mesh, inputs_path: str) -> dict:
+    """The sharded serve steps of every configuration of the inputs file,
+    on this rank of a ``data x model`` mesh: the prefill's last logits of
+    this rank's batch rows, and greedy decode steps from an empty cache
+    (the config's ``steps``, from the first token of each row) at each decode
+    batch, with the tokens and this rank's blocks of the final cache.  Also
+    the ranks of this rank's process group along each axis."""
+    import torch.distributed as dist
+
+    from repro_torch.nn.param import params_from_numpy
+
+    data = torch.load(inputs_path, weights_only=False)
+    out = {"groups": {a: (dist.get_process_group_ranks(g) if g is not None
+                          else [mesh.rank])
+                      for a, g in mesh.groups.items()},
+           "collectives": axis_collectives(mesh)}
+    for name, spec in data["configs"].items():
+        cfg = serve_config(spec["arch"], spec["vocab"])
+        params = params_from_numpy(data["params"][name], mesh.device)
+        toks = torch.as_tensor(data["tokens"][name], device=mesh.device)
+        pb = steps_lib.build_prefill_step(
+            cfg, InputShape("p", data["seq"], toks.shape[0], "prefill"), mesh)
+        local = pb.local_params(params)
+        res = {"prefill": _cpu(pb.step_fn(local, pb.local({"inputs": toks,
+                                                            "targets": toks})))}
+        for b in spec["decode_batches"]:
+            sb = steps_lib.build_serve_step(
+                cfg, InputShape("d", data["seq"], b, "decode"), mesh)
+            cache = sb.init_cache()
+            tok = sb.local(toks[:b, :1].to(torch.int32).contiguous())
+            got = []
+            for i in range(spec["steps"]):
+                tok, cache = sb.step_fn(local, cache, tok, i)
+                got.append(tok)
+            res[f"decode{b}"] = {"tokens": _cpu(torch.cat(got, dim=1)),
+                                 "cache": _cpu(cache)}
+        out[name] = res
+    out["census"] = mesh.census.snapshot()
+    return out
