@@ -393,6 +393,31 @@ and sharded KV caches, the dense family) adds:
     forward than ``SERVE_BF16_RATIO`` times the unsharded bf16 forward).
     The ranks' flash launches join the ``kernels`` line.
 
+The model-axis training slice (``build_train_step`` with ``tp`` over
+``model`` for the dense family, the agent exchange between the ranks of
+one ``model`` coordinate) adds:
+
+18. (run right after phase 17) four ``gloo`` ranks on ``SERVE_AXES``, 2
+    agents (fully connected) each split over ``model`` 2, all on the one
+    card: ``TP_RUN``, gemma3-1b bf16 at full width and depth (its 4 query
+    heads, ``d_ff`` and vocabulary over ``model``, its one KV head and the
+    norms whole), b 1 x ``TP_SEQ`` an agent, CDMSGD int8 overlap at the
+    default remat, ``TP_STEPS`` timed steps on each rank's blocks of live
+    weights drawn on the card: exact launches (one ``sr_quantize`` and one
+    ``cdmsgd_update_q`` a step on the bf16 bucket of the local shard), the
+    agent wire's bytes against the accounting of the local shard, the
+    collectives over ``model`` against their closed form (forward and
+    backward apart: no logits gathered), finite losses equal within each
+    model pair; per rank the step ms, the agent exchange's host ms, the
+    Census by axis and the peak.  Then the parity (``TP_PARITY``, float32,
+    ``TP_PARITY_LAYERS`` layers, seq ``TP_PARITY_SEQ``): each rank's
+    gradient blocks within ``TP_GRAD_TOL`` of max |g| of the agent's
+    unsharded gradient computed in the rank, the update phase bit for bit
+    against the stacked trainer's blocks (the stacked reference computed
+    once by rank 0, each agent's row handed over through CUDA IPC), one
+    whole step within ``SHARDED_TOL``.  The timed run's launches join the
+    ``kernels`` line.
+
 Any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 float32 matmuls and convolutions run in full float32 (TF32 off).
@@ -442,7 +467,7 @@ from repro_torch.benchmarks import consensus_radius  # noqa: E402
 from repro_torch.benchmarks import fig1a_cdsgd_vs_sgd, fig1b_cdmsgd_vs_fedavg  # noqa: E402
 from repro_torch.checkpoint import restore_train_state  # noqa: E402
 from repro_torch.configs import ARCH_CONFIGS, InputShape, get_config  # noqa: E402
-from repro_torch.core import make_optimizer, make_topology  # noqa: E402
+from repro_torch.core import engine, make_optimizer, make_topology  # noqa: E402
 from repro_torch.core.consensus import (  # noqa: E402
     WireRing,
     _self_separated_weights,
@@ -470,6 +495,7 @@ from repro_torch.kernels.rwkv_scan.ref import wkv6_ref  # noqa: E402
 from repro_torch.launch import train as lm_train  # noqa: E402
 from repro_torch.launch.mesh import spawn_agents  # noqa: E402
 from repro_torch.launch.sharding import local_batch  # noqa: E402
+from repro_torch.launch import steps as steps_lib  # noqa: E402
 from repro_torch.launch.steps import (  # noqa: E402
     _agent_factors,
     build_prefill_step,
@@ -821,7 +847,7 @@ RESUME_STEPS, RESUME_SPLIT = 4, 2
 # time: SHARDED_RUN_LAYERS now (the exchange's bytes scale with the depth,
 # the kernels' launches a step do not)
 SHARDED_AGENTS = 3
-SHARDED_RUN_LAYERS = 4
+SHARDED_RUN_LAYERS = 3
 SHARDED_RUNS = (
     ("cdmsgd f32 sync", "cdmsgd", {"exchange": "f32", "schedule": "sync"}, {},
      {"cdmsgd_update": 1}),
@@ -893,10 +919,25 @@ SERVE_BF16_TOL = 3e-2          # of max |logit|, sharded against unsharded bf16
 SERVE_BF16_RATIO = 1.25        # sharded / unsharded distance from float32
 SERVE_AXES = {"data": 2, "model": 2}
 SHARDED_SERVE_RUNS = (
-    ("gemma3-1b bf16", "gemma3-1b", None, "bfloat16", 8, 4, SERVE_BF16_TOL, False),
-    ("granite-3-8b f32 2 layers", "granite-3-8b", 2, "float32", 4, 4, MODEL_TOL, True),
+    ("gemma3-1b bf16", "gemma3-1b", None, "bfloat16", 4, 4, SERVE_BF16_TOL, False),
+    ("granite-3-8b f32 2 layers", "granite-3-8b", 2, "float32", 2, 2, MODEL_TOL, True),
 )
 SHARDED_SERVE_SEED = 7
+# phase 18, training over the model axis: 4 gloo ranks on SERVE_AXES (2
+# agents, fully connected, each agent's tp dims over model 2: gemma3-1b's 4
+# query heads, d_ff and vocabulary split, its one KV head replicated) on the
+# one card, build_train_step at its default remat.  The timed run: (label,
+# optimizer, knobs, launches at init, launches per step) at full width and
+# depth in bf16, b 1 x TP_SEQ an agent; the parity run in float32 at
+# TP_PARITY_LAYERS layers, seq TP_PARITY_SEQ, against the agent's unsharded
+# gradient (in the rank) and the stacked trainer (rank 0, by CUDA IPC)
+TP_RUN = ("gemma3-1b bf16 cdmsgd int8 overlap", "cdmsgd",
+          {"exchange": "int8", "schedule": "overlap"}, {"sr_quantize": 1},
+          {"sr_quantize": 1, "cdmsgd_update_q": 1})
+TP_STEPS, TP_SEQ, TP_SEED = 3, 1024, 11
+TP_PARITY = ("cdmsgd f32 sync", "cdmsgd", {})
+TP_PARITY_LAYERS, TP_PARITY_SEQ = 2, 128
+TP_GRAD_TOL = 1e-5             # of max |g|: gradient blocks against the unsharded
 # the MoE, MLA and VLM families at published width (phases 6-7): (arch,
 # layers or None for the full depth, flash launches per 4 x 2048 prefill:
 # its GQA layers).  kimi-k2-1t-a32b's and deepseek-v2-236b's full depths
@@ -3969,9 +4010,11 @@ def counter_check(tr, cfg, agents: int, batch: int, seq: int, step_ms: float,
 def analysis_path() -> None:
     """Phase 16, the analysis layer on the card: ``launch.check`` over the
     stacked matrix (every rule passes); the dry-run's records of gemma3-1b
-    ``train_4k`` (16 agents, traced on ``meta``: CDMSGD on the int8 wire
-    under overlap, and CDSGD on the ``topk:0.01`` wire with error feedback)
-    with their roofline rows; and ``kernel_microbench --smoke`` on the card.
+    ``train_4k`` (traced on ``meta``: CDMSGD on the int8 wire under overlap
+    on the production mesh, data 16 x model 16, and CDSGD on the
+    ``topk:0.01`` wire with error feedback on 16 agent-only ranks: a
+    compressor does not shard over ``model``) with their roofline rows; and
+    ``kernel_microbench --smoke`` on the card.
     (Phase 14 ran ``check_bundle`` in its 2-layer rank runs.)"""
     from repro_torch.benchmarks import kernel_microbench
     from repro_torch.benchmarks import roofline as roofline_bench
@@ -3994,7 +4037,8 @@ def analysis_path() -> None:
     for tag, kw in (("_int8_overlap", dict(optimizer_name="cdmsgd", exchange="int8",
                                            schedule="overlap")),
                     ("_topk", dict(optimizer_name="cdsgd", compressor=TOPK,
-                                   error_feedback=True, schedule="overlap"))):
+                                   error_feedback=True, schedule="overlap",
+                                   agents=16))):
         t0 = time.perf_counter()
         rec = dryrun.run_pair("gemma3-1b", "train_4k", out_dir=out, tag=tag,
                               verbose=False, **kw)
@@ -4002,7 +4046,7 @@ def analysis_path() -> None:
             raise AssertionError(f"dry-run {tag}: {rec['status']} "
                                  f"{rec.get('traceback', '')[-800:]}")
         rl = rec["roofline"]
-        print(f"analysis dryrun gemma3-1b train_4k data16{tag} (meta, "
+        print(f"analysis dryrun gemma3-1b train_4k {rec['mesh']}{tag} (meta, "
               f"{time.perf_counter() - t0:.1f} s): compute {rl['compute_s']:.4e} s, "
               f"memory {rl['memory_s']:.4e} s, collective {rl['collective_s']:.4e} s "
               f"on H100 peaks, dominant {rl['dominant']}, useful_flops_ratio "
@@ -4274,17 +4318,22 @@ def _ipc_clone(handles):
     return tree_unflatten(treedef, out)
 
 
-def _hand_over(mesh, per_rank):
-    """This rank's tree of ``per_rank`` (rank 0: one tree a rank, on the
-    card; the others: None): rank 0 keeps its own, every other rank copies
-    its own out of rank 0's memory through CUDA IPC, so one stacked
-    reference serves every rank; rank 0 drops the others' after."""
+def _hand_over(mesh, per_rank, index=None):
+    """This rank's tree of ``per_rank`` (rank 0: one tree a rank, or an
+    agent with ``index`` its agent, on the card; the others: None): rank 0
+    keeps its own, every other rank copies its own out of rank 0's memory
+    through CUDA IPC, so one stacked reference serves every rank; rank 0
+    drops the others' after."""
     obj = [None]
     if mesh.rank == 0:
         torch.cuda.synchronize(mesh.device)
-        obj = [[None] + [_ipc_handles(t) for t in per_rank[1:]]]
+        # a tree no other rank opens is not exported: CUDA IPC keeps an
+        # exported block alive until a consumer has released it
+        obj = [[_ipc_handles(t) if i or index is not None else None
+                for i, t in enumerate(per_rank)]]
     dist.broadcast_object_list(obj, src=0)
-    mine = per_rank[0] if mesh.rank == 0 else _ipc_clone(obj[0][mesh.rank])
+    index = mesh.rank if index is None else index
+    mine = per_rank[0] if mesh.rank == 0 else _ipc_clone(obj[0][index])
     del obj
     torch.cuda.synchronize(mesh.device)
     dist.barrier()
@@ -4690,16 +4739,17 @@ def _serve_config(arch: str, layers, dtype: str):
                                param_dtype=dtype)
 
 
-def sharded_draw(cfg, bundle, mesh, seed: int):
-    """This rank's blocks of ``live_weights(cfg, card_draw(template, seed))``
-    drawn leaf by leaf on the card (the same generator, the same order, the
-    same bits as the whole draw) and each leaf sliced to this rank's block
-    at once: the whole model is never held."""
+def sharded_draw(cfg, template, specs, mesh, seed: int):
+    """This rank's blocks (by ``specs``) of ``live_weights(cfg,
+    card_draw(template, seed))`` drawn leaf by leaf on the card (the same
+    generator, the same order, the same bits as the whole draw) and each
+    leaf sliced to this rank's block at once: the whole model is never
+    held."""
     gen = torch.Generator(device=mesh.device).manual_seed(seed)
-    defs = tree_flatten_with_path(bundle.param_template)
-    _, treedef = tree_flatten(bundle.param_template)
+    defs = tree_flatten_with_path(template)
+    _, treedef = tree_flatten(template)
     leaves = []
-    for (path, pd), sp in zip(defs, tree_leaves(bundle.param_specs)):
+    for (path, pd), sp in zip(defs, tree_leaves(specs)):
         x = init_params(pd, gen, device=mesh.device)
         if len(path) > 1 and path[-2] == "attn":       # live_weights' rescaling
             if path[-1] in ("wq", "wk", "wv"):
@@ -4739,7 +4789,8 @@ def sharded_serve_rank(mesh, cap: int) -> list:
         t0 = time.perf_counter()
         pb = build_prefill_step(cfg, InputShape("phase17-prefill", PREFILL_LEN,
                                                 PREFILL_BATCH, "prefill"), mesh)
-        params = sharded_draw(cfg, pb, mesh, SHARDED_SERVE_SEED)
+        params = sharded_draw(cfg, pb.param_template, pb.param_specs, mesh,
+                              SHARDED_SERVE_SEED)
         batch = pb.local(prefill_batch(cfg))
         torch.cuda.synchronize(dev)
         draw_s = time.perf_counter() - t0
@@ -4892,6 +4943,267 @@ def sharded_serve_path() -> int:
     return flash
 
 
+def tp_collectives(cfg, tp, remat: bool) -> dict:
+    """The closed form of one grad phase's collectives over ``model``:
+    forward, each block's row-parallel sums (the attention's when the heads
+    split, the MLP's when ``d_ff`` does; twice under remat), the
+    embedding's sum and the cross entropy's maximum and sums (a split
+    vocabulary); backward, each block's input copies and the head's."""
+    blocks = int(tp.heads) + int(tp.ff)
+    return {"model": cfg.n_layers * blocks * (2 if remat else 1) + 3 * int(tp.vocab),
+            "model:grad": cfg.n_layers * blocks + int(tp.vocab)}
+
+
+def tp_train_rank(mesh, cap: int) -> dict:
+    """Phase 18, one rank of ``SERVE_AXES`` (agent ``mesh.agent`` of 2, its
+    ``model`` coordinate of 2; gloo, the one card): the timed ``TP_RUN``,
+    gemma3-1b bf16 at full width and depth through ``build_train_step`` at
+    its default remat on this rank's blocks of live weights drawn on the
+    card (every agent alike), ``TP_STEPS`` steps of b 1 x ``TP_SEQ``, each
+    timed, with its launches, its exchange census and its collectives over
+    ``model`` checked here (exact launches, bytes against the accounting
+    of the local shard, the closed form of the collectives, finite losses,
+    no flash / WKV6 launch, the allocator's peak within ``cap``); then
+    ``_tp_parity``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    total = torch.cuda.get_device_properties(dev).total_memory
+    torch.cuda.set_per_process_memory_fraction(cap / total, dev)
+    label, opt_name, knobs, init, per_step = TP_RUN
+    cfg = get_config("gemma3-1b")
+    census = mesh.census
+    _free()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cu.reset_launch_counts()
+    _reset_serving_counts()
+    t0 = time.perf_counter()
+    bundle = build_train_step(cfg, InputShape("phase18", TP_SEQ, mesh.n_agents, "train"),
+                              mesh, _sharded_optimizer(opt_name),
+                              topology_name="fully_connected", mixing="ppermute_fused",
+                              **knobs)
+    params = sharded_draw(cfg, tt.model_template(cfg), bundle.local_specs, mesh, TP_SEED)
+    state = bundle.init_state(params)
+    torch.cuda.synchronize(dev)
+    draw_s = time.perf_counter() - t0
+    what = f"sharded tp {label} rank {mesh.rank}"
+    if cu.launch_counts() != _want_counts(init, per_step, 0):
+        raise AssertionError(f"{what}: init launched {cu.launch_counts()}, "
+                             f"expected {init}")
+    spec = make_flat_spec(params)
+    degree = bundle.topology.degree()
+    want_bytes = program_bytes_per_neighbor(spec, bundle.mixing_program) * degree
+    want_axis = tp_collectives(cfg, bundle.tp, remat=True)
+    stream = lm_agent_batches(make_lm_tokens(1 << 15, vocab=cfg.vocab_size, seed=0),
+                              mesh.n_agents, 1, TP_SEQ, seed=0)
+    steps, p = [], params
+    for i in range(TP_STEPS):
+        batch = local_batch(next(stream), mesh)
+        census.reset()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        p, state, metrics = bundle.step_fn(p, state, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize(dev)
+        c = census.snapshot()
+        axis_s = sum(v["seconds"] for v in c["by_axis"].values())
+        steps.append({"ms": 1e3 * (time.perf_counter() - t0), "loss": loss,
+                      "exchange_ms": 1e3 * (c["seconds"] - axis_s),
+                      "axis_ms": 1e3 * axis_s, "census": c,
+                      "counts": cu.launch_counts()})
+        got_axis = {k: v["calls"] for k, v in c["by_axis"].items()}
+        if steps[-1]["counts"] != _want_counts(init, per_step, i + 1):
+            raise AssertionError(f"{what} step {i}: launched {steps[-1]['counts']}, "
+                                 f"expected {_want_counts(init, per_step, i + 1)}")
+        if c["bytes_sent"] != want_bytes or c["bytes_received"] != want_bytes:
+            raise AssertionError(f"{what} step {i}: posted {c['bytes_sent']} B, the "
+                                 f"accounting of the local shard {want_bytes} B")
+        if got_axis != want_axis:
+            raise AssertionError(f"{what} step {i}: collectives over model "
+                                 f"{got_axis}, the closed form {want_axis}")
+        if not np.isfinite(loss):
+            raise AssertionError(f"{what} step {i}: loss {loss}")
+    if any(_serving_counts().values()):
+        raise AssertionError(f"{what}: flash / WKV6 launched in training")
+    peak_reserved = torch.cuda.max_memory_reserved(dev)
+    if peak_reserved > cap:
+        raise AssertionError(f"{what}: reserved {peak_reserved / 2**30:.2f} GiB, over "
+                             f"its cap {cap / 2**30:.2f} GiB")
+    out = {"label": label, "steps": steps, "want_bytes": want_bytes, "draw_s": draw_s,
+           "by_bucket": cu.bucket_launch_counts(), "degree": degree,
+           "local_params": sum(t.numel() for t in tree_leaves(params)),
+           "params": count_params(tt.model_template(cfg)),
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "peak_reserved_gib": peak_reserved / 2**30, "cap_gib": cap / 2**30,
+           "per_step": dict(per_step), "init": dict(init),
+           "flags": {k: bool(getattr(bundle.tp, k)) for k in ("heads", "kv", "ff",
+                                                               "vocab")}}
+    del bundle, state, p, params
+    _free()
+    print(f"{what}: step ms {', '.join(f'{x:.1f}' for x in (s['ms'] for s in steps))}, "
+          f"peak {out['peak_gib']:.2f} GiB (the parity next)", flush=True)
+    out["parity"] = _tp_parity(mesh, cap / total)
+    return out
+
+
+def _tp_parity(mesh, fraction: float) -> dict:
+    """Phase 18's parity on this rank: gemma3-1b at full width with
+    ``TP_PARITY_LAYERS`` layers in float32, CDMSGD on the f32 wire, sync,
+    at the default remat.  The stacked trainer (rank 0, its allocator
+    uncapped, once for both agents) from a seeded state past init, each
+    agent's row handed to the ranks of that agent through CUDA IPC; in the
+    rank: this rank's gradient blocks against the agent's unsharded
+    gradient (the agent-only grad phase on its whole row, here) within
+    ``TP_GRAD_TOL`` of max |g|, the update phase from the row's blocks bit
+    for bit against the blocks of the stacked update, one whole step within
+    ``SHARDED_TOL`` of max |param| of the stacked step's blocks."""
+    label, opt_name, knobs = TP_PARITY
+    cfg = dataclasses.replace(_parity_config(), n_layers=TP_PARITY_LAYERS)
+    n, dev = mesh.n_agents, mesh.device
+    t0 = time.perf_counter()
+    base = tree_map(lambda t: t.cpu(), live_weights(
+        cfg, card_draw(tt.model_template(cfg), 2, dev), 3))
+    batch = next(lm_agent_batches(make_lm_tokens(1 << 14, vocab=cfg.vocab_size, seed=1),
+                                  n, 1, TP_PARITY_SEQ, seed=1))
+    _free()
+    dist.barrier()
+    per_agent = None
+    if mesh.rank == 0:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        tr = CollaborativeTrainer(lambda p, b: tt.loss_fn(cfg, p, b), base,
+                                  make_topology("fully_connected", n),
+                                  _sharded_optimizer(opt_name), device=dev, **knobs)
+        tr.state = None
+        per_agent = _stacked_rows(tr, base, batch, n, True)
+        del tr
+        _free()
+    rows = _to(_hand_over(mesh, per_agent, index=mesh.agent), "cpu")
+    del per_agent
+    _free()
+    torch.cuda.ipc_collect()        # rank 0: the blocks the others copied out
+    if mesh.rank == 0:
+        torch.cuda.set_per_process_memory_fraction(fraction, dev)
+    dist.barrier()
+    stacked_s = time.perf_counter() - t0
+    bundle = build_train_step(cfg, InputShape("phase18-parity", TP_PARITY_SEQ, n, "train"),
+                              mesh, _sharded_optimizer(opt_name),
+                              topology_name="fully_connected", mixing="ppermute_fused",
+                              **knobs)
+    held = torch.cuda.memory_allocated(dev)
+
+    def blocks(tree):               # this rank's blocks of its agent's row, cut on the host
+        return steps_lib.local_blocks(tree, bundle, stacked=False)
+
+    row_p, row_s = rows["state"]
+    params = _to(blocks(row_p), dev)
+    state = bundle.init_state(params)._replace(step=row_s.step,
+                                               inner=_to(blocks(row_s.inner), dev))
+    b = local_batch(batch, mesh)
+    (_, _), g_tp = bundle.grad_phase(params, b)
+    g_tp = _to(g_tp, "cpu")
+    plain = engine.make_grad_phase(lambda p, bb: tt.loss_fn(cfg, p, bb), per_agent=False)
+    (_, _), g_full = plain(_to(row_p, dev), b)
+    g_blk = blocks(_to(g_full, "cpu"))
+    del g_full
+    _free()
+    top_g = max(float(y.abs().max()) for y in tree_leaves(g_blk))
+    grad_gap = max(float((x - y).abs().max())
+                   for x, y in zip(tree_leaves(g_tp), tree_leaves(g_blk)))
+    del g_tp, g_blk
+    if not grad_gap <= TP_GRAD_TOL * top_g:
+        raise AssertionError(f"sharded tp parity rank {mesh.rank}: gradient blocks "
+                             f"{grad_gap} from the unsharded gradient's, max |g| {top_g}")
+    with torch.no_grad():
+        got_p, got_s = bundle.update_phase(tree_map(torch.clone, params),
+                                           _to(blocks(rows["grads"]), dev),
+                                           state._replace(inner=tree_map(torch.clone,
+                                                                         state.inner)))
+    got = _to((got_p, got_s.inner), "cpu")
+    del got_p, got_s
+    want = (blocks(rows["update"][0]), blocks(rows["update"][1].inner))
+    pairs = list(zip(tree_leaves(got), tree_leaves(want)))
+    if len(tree_leaves(got)) != len(tree_leaves(want)) or \
+            not all(_equal_bits(x, y) for x, y in pairs):
+        raise AssertionError(f"sharded tp parity rank {mesh.rank}: the update phase "
+                             "differs from the stacked trainer's blocks")
+    del got, want
+    wp, _, _ = bundle.step_fn(params, state, b)
+    wp = _to(wp, "cpu")
+    step = blocks(rows["step"])
+    top = max(float(y.abs().max()) for y in tree_leaves(step))
+    gap = max(float((x - y).abs().max())
+              for x, y in zip(tree_leaves(wp), tree_leaves(step)))
+    if not gap <= SHARDED_TOL * top:
+        raise AssertionError(f"sharded tp parity rank {mesh.rank}: whole step {gap} "
+                             f"from the stacked trainer's, max |param| {top}")
+    del wp, bundle, params, state, rows, step
+    _free()
+    return {"label": label, "grad_gap": grad_gap, "max_g": top_g, "tensors": len(pairs),
+            "gap": gap, "max_param": top, "stacked_s": stacked_s,
+            "held_gib": held / 2**30, "params": count_params(tt.model_template(cfg))}
+
+
+def sharded_tp_path() -> dict:
+    """Phase 18: training over the model axis on the card, 4 gloo ranks on
+    ``SERVE_AXES`` through ``spawn_agents`` (every check in the ranks; a
+    failing or hung rank fails the phase), then per rank its steps, the
+    Census by axis, its peak and its parity printed here, and the model
+    pairs' losses held equal.  Returns the update and quantize kernels'
+    launches of the ranks' timed runs, by bucket."""
+    _free()
+    n = math.prod(SERVE_AXES.values())
+    cap, free, total, _ = _rank_cap(n)
+    card = card_line()
+    t0 = time.perf_counter()
+    results = spawn_agents(tp_train_rank, n, args=(cap,), backend="gloo", device="cuda",
+                           timeout=SHARDED_PG_TIMEOUT, join_timeout=SHARDED_JOIN_S,
+                           threads=2, axes=SERVE_AXES)
+    wall = time.perf_counter() - t0
+    launches = {k: {"float32": 0, "bfloat16": 0} for k in cu.KERNELS}
+    for r, run in enumerate(results):
+        for k, by in run["by_bucket"].items():
+            for b, c in by.items():
+                launches[k][b] += c
+        steps = run["steps"]
+        c = steps[-1]["census"]["by_axis"]
+        losses = ", ".join(f"{s['loss']:.4f}" for s in steps)
+        step_ms = ", ".join(f"{s['ms']:.1f}" for s in steps)
+        xch_ms = ", ".join(f"{s['exchange_ms']:.1f}" for s in steps)
+        axis_ms = ", ".join(f"{s['axis_ms']:.1f}" for s in steps)
+        print(f"sharded tp rank {r} ({dict(zip(SERVE_AXES, divmod(r, 2)))}) "
+              f"{run['label']} gemma3-1b full width and depth ({run['params']:,} "
+              f"params, {run['local_params']:,} on this rank; split over model: "
+              f"{', '.join(k for k, v in run['flags'].items() if v)}), b 1 x {TP_SEQ}, "
+              f"default remat, fully connected: losses {losses}; step ms {step_ms}; agent "
+              f"exchange host ms {xch_ms}; model-axis host ms {axis_ms}; collectives by axis (a step) {_axis_census(c)}; posted "
+              f"{steps[-1]['census']['bytes_sent']:,} B a step = program_bytes_per_"
+              f"neighbor of the local shard x {run['degree']}; launches a step "
+              f"{', '.join(f'{k} {v}' for k, v in run['per_step'].items())}; "
+              f"max_memory_allocated {run['peak_gib']:.2f} GiB, reserved "
+              f"{run['peak_reserved_gib']:.2f} of its cap {run['cap_gib']:.2f}; weights "
+              f"drawn in {run['draw_s']:.1f} s [{card}]")
+        par = run["parity"]
+        print(f"sharded tp parity rank {r} gemma3-1b full width {TP_PARITY_LAYERS} "
+              f"layers float32 ({par['params']:,} params) {par['label']}, default "
+              f"remat: gradient blocks max |diff| {par['grad_gap']:.3e} from the "
+              f"agent's unsharded gradient (max |g| {par['max_g']:.3e}, tol "
+              f"{TP_GRAD_TOL:g} of it); update phase bit for bit against the stacked "
+              f"trainer's blocks ({par['tensors']} tensors); whole step max |diff| "
+              f"{par['gap']:.3e} (max |param| {par['max_param']:.3e}, tol "
+              f"{SHARDED_TOL:g} of it); the stacked reference {par['stacked_s']:.1f} s; "
+              f"{par['held_gib']:.2f} GiB held before it")
+    for r in range(0, n, SERVE_AXES["model"]):
+        a = [s["loss"] for s in results[r]["steps"]]
+        b = [s["loss"] for s in results[r + 1]["steps"]]
+        if a != b:
+            raise AssertionError(f"sharded tp: ranks {r} and {r + 1} (one agent) "
+                                 f"computed losses {a} and {b}")
+    print(f"sharded tp phase: {n} gloo ranks on data {SERVE_AXES['data']} x model "
+          f"{SERVE_AXES['model']}, each capped at {cap / 2**30:.2f} GiB of "
+          f"{free / 2**30:.2f} free, ranks' wall {wall:.1f} s [{card}]", flush=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -4933,6 +5245,10 @@ def main() -> None:
         sharded_launches = sharded_path()
     with phase("17 sharded serve"):
         sharded_serve_flash = sharded_serve_path()
+    with phase("18 sharded tp training"):
+        for k, by in sharded_tp_path().items():
+            for b, n in by.items():
+                sharded_launches[k][b] += n
 
     measured = {}
     gen = torch.Generator(device="cuda").manual_seed(0)

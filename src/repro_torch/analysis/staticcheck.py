@@ -21,8 +21,11 @@ Rule catalog (the reference's ids)::
     census.critical_path       under overlap a step's first post sends
                                only the carried wire (by data_ptr), before
                                the grad phase; the rest are fresh
-    census.clean_collectives   no all-gather / all-reduce in the step
-                               (the fused path's only callers mix params)
+    census.clean_collectives   no all-gather / all-reduce over the agents
+                               in the step (the fused path's only callers
+                               mix params); a model mesh's collectives
+                               over ``model`` (the tensor-parallel forward
+                               and backward) are counted apart, by axis
     alias.fused_coverage       every fused launch updates
                                ``optimizer.fused_alias_pairs`` buffers in
                                place: data_ptr unchanged, values changed
@@ -59,7 +62,9 @@ stop at 3)::
 summed over one period of a time-varying schedule (one step a schedule
 entry); staleness never changes the count.  :func:`check_trainer`
 certifies a stacked :class:`~repro_torch.core.trainer.
-CollaborativeTrainer`, :func:`check_bundle` one rank of the sharded step.
+CollaborativeTrainer`, :func:`check_bundle` one rank of the sharded step
+(on a mesh with a ``model`` axis: its local shard, so the byte rules read
+the per-shard padding of its flat buckets).
 """
 
 from __future__ import annotations
@@ -454,14 +459,21 @@ def pass_collective_census(ctx: CheckContext) -> List[RuleResult]:
             out.append(RuleResult("census.critical_path", ok=ok,
                                   detail=detail, evidence=ev))
     kinds = [o["kind"] for o in ctx.others]
+    # the tensor-parallel collectives over the non-agent axes (activations
+    # and their gradients, counted apart by axis) are not over param data
+    by_axis = {} if ctx.census is None else {
+        k: v["calls"] for k, v in ctx.census.get("by_axis", {}).items()}
     if ctx.census is not None and ctx.census.get("collectives"):
-        kinds += ["census"] * (ctx.census["collectives"] - len(kinds))
+        kinds += ["census"] * (ctx.census["collectives"] - sum(by_axis.values())
+                               - len(kinds))
     out.append(RuleResult(
         "census.clean_collectives", ok=not kinds,
-        detail=("no all-gather / all-reduce in the step" if not kinds else
+        detail=("no all-gather / all-reduce over the agents in the step"
+                + (f" (over the other axes, by axis: {by_axis})" if by_axis
+                   else "") if not kinds else
                 f"{len(kinds)} collective(s) over param data in a fused "
                 f"step: {kinds}"),
-        evidence={"collectives": kinds}))
+        evidence={"collectives": kinds, "by_axis": by_axis}))
     return out
 
 
@@ -960,4 +972,4 @@ def check_bundle(bundle, params, batch, *, opt_state=None, label: str = "",
         schedule=schedule or bundle.schedule, mode="sharded",
         n_agents=bundle.n_agents, mesh=mesh,
         label=label or f"sharded/{bundle.schedule}",
-        factored=len(mesh.axis_names) > 1, counter=counter, passes=passes)
+        factored=len(mesh.agent_axes) > 1, counter=counter, passes=passes)

@@ -20,12 +20,13 @@ The counterparts of the reference's ``lax.ppermute`` / ``lax.all_gather`` /
   baselines, over every agent axis.
 * :func:`all_gather` with ``axis`` and :func:`all_reduce_sum` — the
   collectives over one named mesh axis (or a spec entry's axes) of the
-  sharded serve mode: the ``fsdp`` weight gathers over ``data``, the
-  tensor-parallel partial sums, vocabulary and partial-softmax gathers
-  over ``model`` (:mod:`repro_torch.nn.tensor_parallel`), each over the
-  group of this rank's axis line
-  (:meth:`~repro_torch.launch.mesh.AgentMesh.axis_group`).  An axis of one
-  rank moves nothing.
+  sharded serve and training modes: the ``fsdp`` weight gathers over
+  ``data``, the tensor-parallel partial sums (and, in training, their
+  backward passes and the vocabulary-parallel cross entropy's maximum),
+  vocabulary and partial-softmax gathers over ``model``
+  (:mod:`repro_torch.nn.tensor_parallel`), each over the group of this
+  rank's axis line (:meth:`~repro_torch.launch.mesh.AgentMesh.
+  axis_group`).  An axis of one rank moves nothing.
 
 Every payload crosses as a flat ``uint8`` view of its bytes, so every wire
 type (float32, bfloat16, int8, float8_e4m3fn) takes the same route.  Under
@@ -74,7 +75,8 @@ class Census:
     ``collectives`` the all-gathers and all-reduces, ``seconds`` the host
     time spent posting and waiting.  ``by_axis`` counts the collectives
     over named axes by their axes (``"model"``, ``"data"``, or names
-    joined by ``+``): ``{"calls", "bytes", "seconds"}``, where ``bytes``
+    joined by ``+``; a backward pass's under the key plus ``":grad"``):
+    ``{"calls", "bytes", "seconds"}``, where ``bytes``
     is the payload each call hands the backend (an all-gather's input, an
     all-reduce's float32 buffer).  ``events`` logs ``("post",
     [data_ptr of each sent tensor])`` and ``("wait",)`` in call order;
@@ -296,9 +298,10 @@ def all_gather(mesh, x: torch.Tensor, axis=None, *,
                dim: Optional[int] = None) -> torch.Tensor:
     """Every rank's ``x`` in rank order.
 
-    ``axis`` None: ``(n, *x.shape)`` over every agent axis (the general
-    mixing's ``lax.all_gather``; under gloo a CUDA tensor is staged through
-    host memory).  ``axis`` a mesh axis name (or a spec entry's tuple of
+    ``axis`` None: ``(n, *x.shape)`` over every agent axis, the ranks of
+    this rank's agent plane in agent order (the general mixing's
+    ``lax.all_gather``; under gloo a CUDA tensor is staged through host
+    memory).  ``axis`` a mesh axis name (or a spec entry's tuple of
     them): over the group of this rank's line along it
     (:meth:`~repro_torch.launch.mesh.AgentMesh.axis_group`), stacked on a
     new leading dimension (``dim`` None) or concatenated along ``dim``, in
@@ -377,24 +380,31 @@ def _axis_gather(mesh, x: torch.Tensor, axis, dim) -> torch.Tensor:
 
 def _all_gather(mesh, x: torch.Tensor) -> torch.Tensor:
     t0 = time.perf_counter()
+    # the agent plane of this rank's model coordinate (the whole mesh on an
+    # agent-only one): the ranks holding the same shard of every agent
+    group, n = mesh.axis_group(mesh.agent_axes)
     staged = _staged(mesh, x)
-    src = _bytes_view(x.cpu() if staged else x)
-    parts = [torch.empty_like(src) for _ in range(mesh.size)]
-    dist.all_gather(parts, src, group=mesh.group)
-    out = torch.stack([p.view(x.dtype).reshape(x.shape) for p in parts])
     census = mesh.census
     census.collectives += 1
+    if n == 1:
+        census.seconds += time.perf_counter() - t0
+        return x.unsqueeze(0).clone()
+    src = _bytes_view(x.cpu() if staged else x)
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    out = torch.stack([p.view(x.dtype).reshape(x.shape) for p in parts])
     if staged:
-        census.staged_bytes += src.numel() * (1 + mesh.size)
+        census.staged_bytes += src.numel() * (1 + n)
         out = out.to(x.device)
     census.seconds += time.perf_counter() - t0
     return out
 
 
 def all_reduce_mean(mesh, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """The exact mean over ranks of each tensor (the reference's
-    ``lax.pmean``): one float32 all-reduce (sum) of the tensors laid end to
-    end, divided by the rank count, each result in its tensor's dtype."""
+    """The exact mean over the agents of each tensor (the reference's
+    ``lax.pmean`` over the agent axes): one float32 all-reduce (sum) of the
+    tensors laid end to end over this rank's agent plane, divided by the
+    agent count, each result in its tensor's dtype."""
     if opcount.counting() and tensors:
         nbytes = 4 * sum(t.numel() for t in tensors)
         with opcount.reported(collective=("all-reduce", nbytes, 1)):
@@ -406,13 +416,15 @@ def _all_reduce_mean(mesh, tensors) -> List[torch.Tensor]:
     t0 = time.perf_counter()
     if not tensors:
         return []
+    group, n = mesh.axis_group(mesh.agent_axes)
     device = tensors[0].device
     staged = device.type == "cuda" and mesh.backend == "gloo"
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
     if staged:
         flat = flat.cpu()
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.group)
-    flat = (flat / mesh.size).to(device)
+    if n > 1:
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    flat = (flat / n).to(device)
     out, lo = [], 0
     for t in tensors:
         out.append(flat[lo:lo + t.numel()].reshape(t.shape).to(t.dtype))
@@ -425,29 +437,40 @@ def _all_reduce_mean(mesh, tensors) -> List[torch.Tensor]:
     return out
 
 
-def all_reduce_sum(mesh, tensors: Sequence[torch.Tensor], axis) -> List[torch.Tensor]:
-    """The sum of each tensor over the ranks of this rank's line along
-    ``axis`` (a mesh axis, or a spec entry's axes): one float32 all-reduce
-    of the tensors laid end to end, each result cast once to its tensor's
-    dtype.  Under gloo a CUDA payload is staged through the pinned
-    buffers; an axis of one rank returns the tensors."""
+#: the reductions of :func:`all_reduce_sum`'s family, by name
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+#: the Census key suffix of the collectives a backward pass makes
+GRAD_KEY = ":grad"
+
+
+def all_reduce_sum(mesh, tensors: Sequence[torch.Tensor], axis, *,
+                   op: str = "sum", grad: bool = False) -> List[torch.Tensor]:
+    """The sum (``op="max"``: the maximum) of each tensor over the ranks of
+    this rank's line along ``axis`` (a mesh axis, or a spec entry's axes):
+    one float32 all-reduce of the tensors laid end to end, each result cast
+    once to its tensor's dtype.  Under gloo a CUDA payload is staged
+    through the pinned buffers; an axis of one rank returns the tensors.
+    ``grad``: a backward pass's collective, counted under the axes' key
+    plus :data:`GRAD_KEY`."""
+    if op not in _OPS:
+        raise ValueError(f"op must be one of {sorted(_OPS)}, got {op!r}")
     if opcount.counting() and tensors:
         nbytes = 4 * sum(t.numel() for t in tensors)
         with opcount.reported(collective=("all-reduce", nbytes, 1)):
-            return _all_reduce_sum(mesh, tensors, axis)
-    return _all_reduce_sum(mesh, tensors, axis)
+            return _all_reduce_sum(mesh, tensors, axis, op, grad)
+    return _all_reduce_sum(mesh, tensors, axis, op, grad)
 
 
-def _all_reduce_sum(mesh, tensors, axis) -> List[torch.Tensor]:
+def _all_reduce_sum(mesh, tensors, axis, op="sum", grad=False) -> List[torch.Tensor]:
     t0 = time.perf_counter()
     group, n = mesh.axis_group(axis)
     if n == 1 or not tensors:
         return list(tensors)
     device = tensors[0].device
     numel = sum(t.numel() for t in tensors)
+    key = _axis_key(mesh, axis) + (GRAD_KEY if grad else "")
     if device.type == "meta":
-        mesh.census.count_axis(_axis_key(mesh, axis), 4 * numel,
-                               time.perf_counter() - t0)
+        mesh.census.count_axis(key, 4 * numel, time.perf_counter() - t0)
         return [torch.empty_like(t) for t in tensors]
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
     staged = _staged(mesh, flat)
@@ -455,15 +478,14 @@ def _all_reduce_sum(mesh, tensors, axis) -> List[torch.Tensor]:
         _land_done(mesh)
         host = _pinned(mesh, ("axis", "reduce"), 4 * numel).view(torch.float32)
         host.copy_(flat)
-        dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
+        dist.all_reduce(host, op=_OPS[op], group=group)
         flat = _to_device(mesh, host, device)
         mesh.census.staged_bytes += 2 * 4 * numel
     else:
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        dist.all_reduce(flat, op=_OPS[op], group=group)
     out, lo = [], 0
     for t in tensors:
         out.append(flat[lo:lo + t.numel()].reshape(t.shape).to(t.dtype))
         lo += t.numel()
-    mesh.census.count_axis(_axis_key(mesh, axis), 4 * numel,
-                           time.perf_counter() - t0)
+    mesh.census.count_axis(key, 4 * numel, time.perf_counter() - t0)
     return out

@@ -1162,8 +1162,9 @@ class _StencilPlan(NamedTuple):
 def _factor_shifts(factors, mesh) -> list:
     """``[(shift, sender)]`` of this agent for every non-identity
     combination of the factors' circulant shifts (the reference's
-    ``_combos``), ordered by sender: an int shift on a one-axis mesh, else
-    one offset per mesh axis.  A factor of one agent moves nothing."""
+    ``_combos``), ordered by sender (an agent index): an int shift on a
+    mesh of one agent axis, else one offset per agent axis.  A factor of
+    one agent moves nothing; a ``model`` axis never shifts."""
     names, per_axis = [], []
     for axis, topo in factors:
         if topo.n_agents == 1:
@@ -1181,14 +1182,14 @@ def _factor_shifts(factors, mesh) -> list:
         if not any(combo):
             continue
         by_axis = dict(zip(names, combo))
-        full = tuple(by_axis.get(a, 0) for a in mesh.axis_names)
+        full = tuple(by_axis.get(a, 0) for a in mesh.agent_axes)
         shift = full[0] if len(full) == 1 else full
-        out.append((shift, mesh.peers(shift)[1]))
+        out.append((shift, mesh.agent_of(mesh.peers(shift)[1])))
     return sorted(out, key=lambda x: x[1])
 
 
 def _stencil_plan(pi: np.ndarray, factors, mesh, name: str) -> _StencilPlan:
-    agent = mesh.rank
+    agent = mesh.agent
     wire = _factor_shifts(factors, mesh)
     if not wire:
         raise ValueError(f"topology {name!r} has no neighbours: the "
@@ -1237,7 +1238,9 @@ def _wire_fields(entry, quantized: bool) -> list:
 
 
 class ShardedMixing(MixingStrategy):
-    """The mixing strategy of one agent (``mesh.rank``) of the sharded mode.
+    """The mixing strategy of one agent (``mesh.agent``) of the sharded
+    mode: on a mesh with a ``model`` axis, this rank's shard of the agent,
+    exchanged with the ranks of its ``model`` coordinate.
 
     The stages of :class:`MixingStrategy` over this agent's packed buckets
     ``(rows, 128)``; the wire state keeps a leading agent axis of 1 (one
@@ -1291,7 +1294,7 @@ class ShardedMixing(MixingStrategy):
 
     def _quantize_payloads(self, bufs, seed: int, rnd: int = 0):
         exchange = self.program.exchange
-        agent = self.mesh.rank
+        agent = self.mesh.agent
 
         def quantize(bs, payload):
             out = []
@@ -1316,7 +1319,7 @@ class ShardedMixing(MixingStrategy):
     def _compress(self, bufs, seed: int, qwarm):
         return _compress_wire_stacked([_as_lead(b) for b in bufs], seed,
                                       self.program, qwarm,
-                                      agent=self.mesh.rank)
+                                      agent=self.mesh.agent)
 
     def _qwarm_init(self, bufs) -> tuple:
         return _qwarm_init_stacked([_as_lead(b) for b in bufs], self.program)
@@ -1389,7 +1392,7 @@ class ShardedMixing(MixingStrategy):
                 self.program.is_trivial and exchange in ("f32", "bf16")):
             return super().gather(bufs, seed)
         plan = self.plans[0]
-        me = plan.stencil.index(self.mesh.rank)
+        me = plan.stencil.index(self.mesh.agent)
         where = [plan.stencil.index(j) for j in plan.senders]
         items, outs, stencils = [], [], []
         for b in bufs:
@@ -1437,8 +1440,10 @@ def sharded_flat_comm(topology: Topology, mesh, *, exchange: str = "f32",
                       program: Optional[MixingProgram] = None,
                       factors: Optional[Sequence[Tuple[str, Topology]]] = None
                       ) -> FlatComm:
-    """FlatComm of agent ``mesh.rank`` of the sharded mode, circulant
-    topologies only (the reference's ``sharded_flat_comm``).
+    """FlatComm of agent ``mesh.agent`` of the sharded mode, circulant
+    topologies only (the reference's ``sharded_flat_comm``): on a mesh with
+    a ``model`` axis this rank packs its shard of the agent's params and
+    exchanges it with the ranks of its ``model`` coordinate.
 
     ``factors`` (``[(axis, Topology)]``, one per agent axis of a factored
     mesh, :class:`FactoredMix`) replaces ``topology``'s one circulant
@@ -1451,9 +1456,9 @@ def sharded_flat_comm(topology: Topology, mesh, *, exchange: str = "f32",
     arrival-masked table.  Both need a single agent mesh axis."""
     if program is None:
         program = make_mixing_program(topology, exchange=exchange)
-    if program.schedule.n_agents != mesh.size:
+    if program.schedule.n_agents != mesh.n_agents:
         raise ValueError(f"the topology spans {program.schedule.n_agents} "
-                         f"agents, the mesh {mesh.size} ranks")
+                         f"agents, the mesh {mesh.n_agents}")
     live = [a for a, t in (factors or ()) if t.n_agents > 1]
     if len(live) > 1:
         axes = [a for a, _ in factors]
@@ -1468,16 +1473,16 @@ def sharded_flat_comm(topology: Topology, mesh, *, exchange: str = "f32",
                 f"(got {axes}); factored multi-axis meshes need per-axis "
                 "fault schedules, not implemented")
     if factors is None:
-        if len(mesh.axis_names) != 1:
-            raise ValueError(f"the factored mesh {mesh.axis_names} needs the "
+        if len(mesh.agent_axes) != 1:
+            raise ValueError(f"the factored mesh {mesh.agent_axes} needs the "
                              "per-axis factors (FactoredMix)")
-        plans = tuple(_stencil_plan(t.pi, [(mesh.axis_names[0], t)], mesh,
+        plans = tuple(_stencil_plan(t.pi, [(mesh.agent_axes[0], t)], mesh,
                                     t.name)
                       for t in program.schedule.topologies)
     else:
         plans = (_stencil_plan(program.schedule.topologies[0].pi, factors,
                                mesh, topology.name),)
-    fault_ops = (_sharded_fault_ops(program, plans, mesh.rank, mesh.device)
+    fault_ops = (_sharded_fault_ops(program, plans, mesh.agent, mesh.device)
                  if program.fault_tolerant else None)
     strategy = ShardedMixing(program, mesh, plans, fault_ops)
     return FlatComm(lead=0, gather=strategy.gather, strategy=strategy,
@@ -1486,7 +1491,7 @@ def sharded_flat_comm(topology: Topology, mesh, *, exchange: str = "f32",
 
 def make_sharded_mix_fn(topology: Topology, mesh,
                         axis: Optional[str] = None) -> Callable:
-    """Per-leaf mixing of agent ``mesh.rank``'s tree, for the unfused
+    """Per-leaf mixing of agent ``mesh.agent``'s tree, for the unfused
     optimizers, along the agent axis ``axis`` (None: the mesh's one axis).
     A circulant ``Pi``: ``sum_s w_s * shift_s(x)`` in shift order, in the
     leaf's dtype (the reference's ``_circulant_mix_leaf``), every leaf and
@@ -1519,17 +1524,18 @@ def make_sharded_mix_fn(topology: Topology, mesh,
             return tree_unflatten(treedef, out)
 
         return mix
-    if len(mesh.axis_names) != 1:
+    if len(mesh.agent_axes) != 1:
         raise ValueError(f"topology {topology.name!r} on axis {axis!r} is not "
                          "circulant: a factored mesh mixes circulant factors")
     return make_gathered_mix_fn(topology, mesh)
 
 
 def make_gathered_mix_fn(topology: Topology, mesh) -> Callable:
-    """Per-leaf mixing of agent ``mesh.rank``'s tree for any ``Pi``: an
-    all-gather of the leaf and this agent's row of ``Pi`` in float32 (the
-    reference's ``_general_mix_leaf``; ``mixing="dense"``)."""
-    row = torch.tensor(topology.pi[mesh.rank], dtype=torch.float32,
+    """Per-leaf mixing of agent ``mesh.agent``'s tree for any ``Pi``: an
+    all-gather of the leaf over the agent plane and this agent's row of
+    ``Pi`` in float32 (the reference's ``_general_mix_leaf``;
+    ``mixing="dense"``)."""
+    row = torch.tensor(topology.pi[mesh.agent], dtype=torch.float32,
                        device=mesh.device)
 
     def mix(tree):

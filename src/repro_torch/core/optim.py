@@ -81,23 +81,23 @@ def stacked_comm_ops(topology, *, exchange: str = "f32",
 
 
 def sharded_comm_ops(topology, mesh) -> CommOps:
-    """CommOps of agent ``mesh.rank`` in the sharded mode (one agent per
+    """CommOps of agent ``mesh.agent`` in the sharded mode (one agent per
     process): the per-leaf permutation (circulant ``Pi``) or all-gather
     mixing and the all-reduce mean, without flat-buffer support (the
     fused path's comm is :func:`repro_torch.launch.steps.
     make_local_fused_comm`)."""
     return CommOps(mix=consensus.make_sharded_mix_fn(topology, mesh),
                    mean=consensus.make_sharded_mean_fn(mesh), flat=None,
-                   agent=mesh.rank)
+                   agent=mesh.agent)
 
 
 def factored_comm_ops(factored: consensus.FactoredMix, mesh) -> CommOps:
-    """CommOps of agent ``mesh.rank`` on a factored ``pod x data`` mesh:
+    """CommOps of agent ``mesh.agent`` on a factored ``pod x data`` mesh:
     the per-leaf mixing one factor (axis) after the other and the mean
     over every agent axis."""
     return CommOps(mix=factored.make_mix_fn(mesh),
                    mean=consensus.make_sharded_mean_fn(mesh), flat=None,
-                   agent=mesh.rank)
+                   agent=mesh.agent)
 
 
 class OptState(NamedTuple):

@@ -11,11 +11,14 @@ modes and runs the wire-contract checker
   4-agent ring;
 * ``sharded`` — :func:`~repro_torch.launch.steps.build_train_step` on
   reduced granite-3-8b in float32 (seq 16, 2 sequences an agent), one
-  ``gloo`` process per agent on a 4-agent ring
-  (:func:`~repro_torch.launch.mesh.spawn_agents`), the checker run in
-  every rank.  Every sharded entry runs on an agent-only mesh: the
-  reference's 4-agent x 2-way model split waits for training over the
-  model axis (ROADMAP A16.2.1).
+  ``gloo`` process per rank (:func:`~repro_torch.launch.mesh.
+  spawn_agents`), the checker run in every rank, on the reference's
+  meshes: the dense entries on ``data 4 x model 2`` (a 4-agent ring, each
+  agent's ``tp`` dims split over 2 ranks, so the byte rules read the
+  per-shard padding of the local flat buckets and the collectives over
+  ``model`` are counted apart by axis), the :data:`COMPRESSED` entries on
+  the agent-only ``8 x 1`` (an 8-agent ring: top-k's index payload and
+  rank-r's bases do not shard over ``model``).
 
 The steps run on the card unless ``--device cpu`` is given.  The exit
 status is non-zero if and only if a rule fails.  ``--json-out`` writes a
@@ -39,6 +42,7 @@ import dataclasses
 import faulthandler
 import functools
 import json
+import math
 import sys
 import time
 
@@ -82,6 +86,14 @@ MATRIX = [
     ("overlap_ef_rank", "cdmsgd_nesterov",
      dict(schedule="overlap", error_feedback=True, compressor="rank:2")),
 ]
+
+# compressed wires need every bucket row on one shard: those sharded
+# entries run on the agent-only 8 x 1 mesh, the dense ones on 4 x 2 (the
+# reference's split)
+COMPRESSED = {"sync_ef_topk", "overlap_ef_topk", "overlap_ef_topk_auto",
+              "overlap_ef_rank"}
+MODEL_MESH = {"data": 4, "model": 2}
+AGENT_MESH = {"data": 8}
 
 N_AGENTS = 4
 SHARDED_SEQ, SHARDED_BATCH = 16, 2          # per agent
@@ -149,16 +161,17 @@ def sharded_rank(mesh, entries) -> list:
     from repro_torch.data import lm_agent_batches, make_lm_tokens
     from repro_torch.launch import steps as steps_lib
     from repro_torch.launch.sharding import local_batch
-    from repro_torch.nn.param import init_params
+    from repro_torch.nn.param import init_params, local_shard
     from repro_torch.nn.transformer import model_template
 
     cfg = sharded_config()
-    shape = InputShape("tiny_train", SHARDED_SEQ, SHARDED_BATCH * mesh.size,
-                       "train")
+    n = mesh.n_agents
+    shape = InputShape("tiny_train", SHARDED_SEQ, SHARDED_BATCH * n, "train")
     params = init_params(model_template(cfg), 0, device=mesh.device)
     batch = local_batch(next(lm_agent_batches(
-        make_lm_tokens(1 << 12, vocab=cfg.vocab_size, seed=0), mesh.size,
+        make_lm_tokens(1 << 12, vocab=cfg.vocab_size, seed=0), n,
         SHARDED_BATCH, SHARDED_SEQ, seed=0)), mesh)
+    where = " x ".join(f"{a}{s}" for a, s in mesh.shape.items())
     # a rank that stalls prints where it waits (the parent's time limit
     # then stops every rank)
     faulthandler.dump_traceback_later(STALL_S, repeat=True)
@@ -170,8 +183,8 @@ def sharded_rank(mesh, entries) -> list:
                 topology_name="ring", mixing="ppermute_fused", remat=False,
                 **kw)
             rep = staticcheck.check_bundle(
-                bundle, params, batch,
-                label=f"sharded/{label} data{mesh.size} rank {mesh.rank}")
+                bundle, local_shard(params, bundle.local_specs, mesh), batch,
+                label=f"sharded/{label} {where} rank {mesh.rank}")
             out.append(rep.as_dict())
     finally:
         faulthandler.cancel_dump_traceback_later()
@@ -179,15 +192,21 @@ def sharded_rank(mesh, entries) -> list:
 
 
 def sharded_reports(entries, *, device=None, verbose=True):
-    """The sharded matrix: ``N_AGENTS`` gloo ranks (on the card unless
-    ``device`` is ``"cpu"``), every rank's reports."""
+    """The sharded matrix: 8 gloo ranks (on the card unless ``device`` is
+    ``"cpu"``) on :data:`MODEL_MESH` for the dense entries and on
+    :data:`AGENT_MESH` for the compressed ones, every rank's reports."""
     from repro_torch.analysis import staticcheck
     from repro_torch.launch.mesh import spawn_agents
 
     dev = "cpu" if device == "cpu" else "cuda"
-    per_rank = spawn_agents(sharded_rank, N_AGENTS, args=(entries,),
-                            backend="gloo", device=dev, timeout=120,
-                            join_timeout=JOIN_S)
+    per_rank = []
+    for axes, part in ((MODEL_MESH, [e for e in entries if e[0] not in COMPRESSED]),
+                       (AGENT_MESH, [e for e in entries if e[0] in COMPRESSED])):
+        if part:
+            per_rank += spawn_agents(sharded_rank, math.prod(axes.values()),
+                                     args=(part,), backend="gloo", device=dev,
+                                     timeout=120, join_timeout=JOIN_S,
+                                     axes=axes)
     reports = []
     for rank_reports in per_rank:
         for d in rank_reports:

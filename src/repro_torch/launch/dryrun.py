@@ -4,11 +4,18 @@ write its record (the port of :mod:`repro.launch.dryrun`).
 The reference lowers and compiles every (arch x input shape x mesh) for
 placeholder TPU devices and reads the compiled HLO.  The port traces: it
 builds one rank's sharded step (:func:`~repro_torch.launch.steps.
-build_train_step`) on an agent-only mesh of ``--agents`` ranks (16: the
-reference's production data axis, recorded as ``mesh: "data16"``, one
-card a rank), gives it ``meta`` params, optimizer state and the rank's
-``global_batch / agents`` sequences at full width and depth, and runs the
-step once under the op counter (:mod:`repro_torch.analysis.opcount`).
+build_train_step`) on the reference's production mesh, ``data 16 x model
+16`` (recorded as ``mesh: "16x16"``, 256 ranks, one card a rank: 16
+agents, each agent's ``tp`` dims over 16 ranks), or with ``--agents N`` on
+an agent-only mesh of ``N`` ranks (``mesh: "dataN"``), gives it ``meta``
+blocks of the params and optimizer state and the rank's ``global_batch /
+agents`` sequences at full width and depth, and runs the step once under
+the op counter (:mod:`repro_torch.analysis.opcount`).  On the production
+mesh the collectives over ``model`` (the tensor-parallel forward's and
+backward's) are counted by the Census by axis, not made; a family other
+than the dense one writes a skip naming its ROADMAP item (A16.2.3), and so
+does a compressor (the reference's skip: top-k's index payload and
+rank-r's bases do not shard over ``model``).
 ``meta`` tensors carry shapes only: nothing is allocated, no kernel runs
 (each kernel's dispatcher reports its work and the plain version traces
 its shapes) and no exchange is made (the Census counts the transfers the
@@ -49,6 +56,8 @@ Usage:
   python -m repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k
   python -m repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k \\
       --exchange int8 --schedule overlap
+  python -m repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k \\
+      --agents 16 --compressor topk:0.01 --error-feedback   # agent-only
   python -m repro_torch.launch.dryrun --all
 """
 
@@ -56,13 +65,16 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import sys
 import time
 import traceback
+from typing import Optional
 
 RESULTS = "results/dryrun_torch"
 AGENTS = 16                    # the reference's production data axis
+TRAIN_MESH = {"data": 16, "model": 16}    # the reference's production mesh
 SERVE_MESH = {"data": 16, "model": 16}    # the reference's production serve mesh
 LONG_SKIP = "skip: full-attention arch at 500k decode (DESIGN.md)"
 
@@ -91,8 +103,6 @@ def meta_mesh(agents: int, axes=None):
 def _serve_pair(cfg, shape, record: dict, t0: float) -> dict:
     """Trace rank 0's prefill or decode step of the serve mode on
     :data:`SERVE_MESH` into ``record`` (see the module docstring)."""
-    import math
-
     import torch
 
     from repro_torch.analysis import opcount
@@ -155,7 +165,7 @@ def _optimizer(name: str):
     return make_optimizer(name, 0.01, fused=True, **kw)
 
 
-def run_pair(arch: str, shape_name: str, *, agents: int = AGENTS,
+def run_pair(arch: str, shape_name: str, *, agents: Optional[int] = None,
              mode: str = "train", optimizer_name: str = "cdmsgd",
              topology: str = "ring", out_dir: str = RESULTS, tag: str = "",
              verbose: bool = True, microbatches: int = 1,
@@ -165,7 +175,9 @@ def run_pair(arch: str, shape_name: str, *, agents: int = AGENTS,
              momentum_mixing: str = "none", staleness: int = 1,
              fault_schedule=None, compressor: str = "none",
              remat: bool = True) -> dict:
-    """Trace one pair and write its record; returns the record."""
+    """Trace one pair and write its record; returns the record.
+    ``agents`` None: a training shape on :data:`TRAIN_MESH`; an int: on an
+    agent-only mesh of that many ranks."""
     from repro_torch.analysis import opcount, staticcheck
     from repro_torch.analysis.records import DRYRUN_SCHEMA_VERSION
     from repro_torch.analysis.roofline import (HW_H100, consensus_update_cost,
@@ -178,7 +190,9 @@ def run_pair(arch: str, shape_name: str, *, agents: int = AGENTS,
     from repro_torch.utils.tree import tree_leaves
 
     mixing = "ppermute_fused"
-    mesh_name = f"data{agents}"
+    axes = TRAIN_MESH if agents is None else None
+    chips = math.prod(TRAIN_MESH.values()) if agents is None else agents
+    mesh_name = "16x16" if agents is None else f"data{agents}"
     label = f"{arch}__{shape_name}__{mesh_name}__{mode}_{mixing}{tag}"
     t0 = time.time()
     cfg = get_config(arch)
@@ -208,7 +222,7 @@ def run_pair(arch: str, shape_name: str, *, agents: int = AGENTS,
             print(f"[dryrun] {label}: {record['status']}")
         return record
     try:
-        mesh = meta_mesh(agents)
+        mesh = meta_mesh(chips, axes)
         bundle = steps_lib.build_train_step(
             cfg, shape, mesh, _optimizer(optimizer_name), mode=mode,
             topology_name=topology, mixing=mixing, remat=remat,
@@ -217,7 +231,9 @@ def run_pair(arch: str, shape_name: str, *, agents: int = AGENTS,
             topology_schedule=topology_schedule, error_feedback=error_feedback,
             momentum_mixing=momentum_mixing, staleness=staleness,
             fault_schedule=fault_schedule, compressor=compressor)
-    except NotImplementedError as e:
+    except (NotImplementedError, ValueError) as e:
+        if isinstance(e, ValueError) and "agent-only sharding" not in str(e):
+            raise
         record["status"] = f"skip: {e}"
         _dump(out_dir, label, record)
         if verbose:
@@ -282,7 +298,7 @@ def run_pair(arch: str, shape_name: str, *, agents: int = AGENTS,
         record.update({
             "status": "ok",
             "trace_s": round(time.time() - t0, 1),
-            "chips": agents,
+            "chips": chips,
             "argument_bytes_per_device": arg_bytes,
             "peak_bytes_per_device": peak,
             "peak_bytes_source": "op counter: peak of live tensor storage "
@@ -291,7 +307,7 @@ def run_pair(arch: str, shape_name: str, *, agents: int = AGENTS,
             "fits_h100_80gb": bool(peak < HW_H100.hbm_bytes),
         })
         terms = roofline_from_stats(
-            arch=arch, shape=shape_name, mesh=mesh_name, chips=agents,
+            arch=arch, shape=shape_name, mesh=mesh_name, chips=chips,
             stats=per_step, model_flops_total=model_flops(cfg, shape),
             peak_memory_bytes=peak)
         record["roofline"] = terms.as_dict()
@@ -299,6 +315,7 @@ def run_pair(arch: str, shape_name: str, *, agents: int = AGENTS,
         record["collective_bytes"] = per_step.collective_bytes
         record["collective_count"] = per_step.collective_count
         record["while_trip_counts"] = per_step.trip_counts
+        record["census_by_axis"] = mesh.census.snapshot()["by_axis"]
         record["verify"] = rep.as_dict()
         if verbose:
             print(f"[dryrun] {label} roofline: compute "
@@ -331,8 +348,10 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None, choices=sorted(INPUT_SHAPES))
     ap.add_argument("--all", action="store_true")
-    ap.add_argument("--agents", type=int, default=AGENTS,
-                    help="ranks of the agent-only mesh (one card each)")
+    ap.add_argument("--agents", type=int, default=None,
+                    help="trace on an agent-only mesh of this many ranks (one "
+                         "card each; the reference's data axis is 16) instead "
+                         "of the production data 16 x model 16")
     ap.add_argument("--mode", default="train", choices=["train", "train_hier"])
     ap.add_argument("--optimizer", default="cdmsgd")
     ap.add_argument("--exchange", default="f32",

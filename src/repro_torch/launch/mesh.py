@@ -15,7 +15,12 @@ agents along the ``data`` axis of a device mesh and runs the step under
   ``make_debug_mesh`` / ``make_production_mesh`` order their devices.  A
   mesh with a ``model`` axis also has one process group per axis line (the
   ranks that differ only along that axis; :meth:`AgentMesh.axis_group`),
-  which the collectives over one named axis use;
+  which the collectives over one named axis use, and one per model
+  coordinate over the whole agent plane (every agent axis), which the
+  agent collectives use.  A rank's agent is its index over the agent axes
+  (:attr:`AgentMesh.agent` of :attr:`AgentMesh.n_agents`): on an
+  agent-only mesh its rank, on a mesh with ``model`` the agent whose
+  ``model`` shard it holds;
 * :func:`init_agent_mesh` — joins the process group (explicit backend,
   init method and time limit);
 * :func:`spawn_agents` — builds the kernels once in the parent, starts one
@@ -121,6 +126,9 @@ class AgentMesh:
     # this rank's process group along each axis of a mesh with a ``model``
     # axis (init_agent_mesh; None: the axis has one rank)
     groups: dict = dataclasses.field(default_factory=dict)
+    # this rank's process group over the agent plane of its model
+    # coordinate, on a mesh with a ``model`` axis (None: not joined)
+    agent_group: Any = None
 
     def __post_init__(self):
         self.axes = _check_axes(self.axes, self.size)
@@ -138,6 +146,22 @@ class AgentMesh:
     def agent_axes(self) -> tuple:
         """The agent axes (every axis but ``model``)."""
         return tuple(a for a in self.axes if a != MODEL_AXIS)
+
+    @property
+    def agent(self) -> int:
+        """This rank's agent: its index over the agent axes (the rank on
+        an agent-only mesh)."""
+        return self.entry_index(self.agent_axes)
+
+    @property
+    def n_agents(self) -> int:
+        """The agents of the mesh: the ranks of the agent plane (the size
+        on an agent-only mesh)."""
+        return self.entry_size(self.agent_axes)
+
+    def agent_of(self, rank: int) -> int:
+        """Rank ``rank``'s agent."""
+        return self.entry_index(self.agent_axes, rank)
 
     def coords(self, rank: int) -> tuple:
         """Rank ``rank``'s index along each axis (row-major, ``model``
@@ -177,10 +201,10 @@ class AgentMesh:
 
     def axis_group(self, entry):
         """``(group, ranks)`` of the collectives over a spec entry's axes:
-        the group of this rank's line along one axis, or the whole mesh's
-        group for every axis of more than one rank; ``(None, 1)`` when the
-        axes hold one rank, ``(None, n)`` on a mesh that joined no group (a
-        ``meta`` trace)."""
+        the group of this rank's line along one axis, of its agent plane
+        for every agent axis, or the whole mesh's group for every axis of
+        more than one rank; ``(None, 1)`` when the axes hold one rank,
+        ``(None, n)`` on a mesh that joined no group (a ``meta`` trace)."""
         names = tuple(a for a in self.axes_of(entry) if self.axes[a] > 1)
         n = math.prod(self.axes[a] for a in names)
         if n == 1:
@@ -190,8 +214,12 @@ class AgentMesh:
             return self.group, n
         if len(names) == 1 and names[0] in self.groups:
             return self.groups[names[0]], n
+        if set(names) == {a for a in self.agent_axes if self.axes[a] > 1} \
+                and self.agent_group is not None:
+            return self.agent_group, n
         raise ValueError(f"no process group over {names} on the mesh "
-                         f"{self.shape}: one axis, or every axis")
+                         f"{self.shape}: one axis, the agent axes, or every "
+                         "axis")
 
     def rank_of(self, coords) -> int:
         """The rank at ``coords``, each taken modulo its axis size."""
@@ -275,9 +303,12 @@ def init_agent_mesh(rank: int, n_agents: int, *, backend: str,
     dist.init_process_group(backend, init_method=init_method,
                             world_size=n_agents, rank=rank,
                             timeout=datetime.timedelta(seconds=timeout))
+    groups = _line_groups(axes, rank, backend, timeout)
     return AgentMesh(rank=rank, size=n_agents, backend=backend,
                      group=dist.group.WORLD, device=dev, axes=axes,
-                     groups=_line_groups(axes, rank, backend, timeout))
+                     groups=groups,
+                     agent_group=_plane_group(axes, rank, backend, timeout,
+                                              groups))
 
 
 def _line_groups(axes: dict, rank: int, backend: str, timeout: float) -> dict:
@@ -301,6 +332,41 @@ def _line_groups(axes: dict, rank: int, backend: str, timeout: float) -> dict:
             if rank in line:
                 groups[axis] = g
     return groups
+
+
+def agent_planes(axes: dict) -> list:
+    """The agent plane of every ``model`` coordinate: the ranks that share
+    it, in agent order, planes in coordinate order."""
+    if list(axes)[-1] != MODEL_AXIS:
+        raise ValueError(f"the model axis is innermost, got {list(axes)}")
+    planes = [[] for _ in range(axes[MODEL_AXIS])]
+    for r in range(math.prod(axes.values())):
+        planes[r % axes[MODEL_AXIS]].append(r)
+    return planes
+
+
+def _plane_group(axes: dict, rank: int, backend: str, timeout: float,
+                 lines: dict):
+    """This rank's process group over its agent plane, on a mesh with a
+    ``model`` axis (None on an agent-only mesh).  One agent axis: its line
+    group (the plane is the line); ``pod x data``: every rank creates one
+    group per plane, in the same order; a plane that is the whole mesh
+    takes the world group."""
+    if MODEL_AXIS not in axes:
+        return None
+    agent = [a for a in axes if a != MODEL_AXIS]
+    live = [a for a in agent if axes[a] > 1]
+    if len(live) <= 1:
+        return lines.get(live[0]) if live else None
+    if axes[MODEL_AXIS] == 1:
+        return dist.group.WORLD
+    mine = None
+    for plane in agent_planes(axes):
+        g = dist.new_group(plane, backend=backend,
+                           timeout=datetime.timedelta(seconds=timeout))
+        if rank in plane:
+            mine = g
+    return mine
 
 
 def _agent_main(fn, rank, n_agents, backend, init_method, device, timeout,

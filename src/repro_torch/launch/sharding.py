@@ -7,9 +7,10 @@ Rules by execution mode (axis names are the process mesh's,
 * ``train`` (paper-faithful CDSGD): every agent is one slice of the agent
   axes (``data``, or ``pod x data``); params carry a leading ``agent``
   axis sharded there; ``tp`` and ``expert`` dims shard over ``model``,
-  ``fsdp`` dims replicate.  The port trains on meshes whose ``model`` axis
-  holds one rank (:func:`repro_torch.launch.steps.build_train_step` raises
-  otherwise, ROADMAP A16.2.1).
+  ``fsdp`` dims replicate.  The port trains the dense family's ``tp`` dims
+  over ``model`` (:func:`repro_torch.launch.steps.build_train_step`); the
+  other families and MoE's ``expert`` split raise on a ``model`` axis of
+  more than one rank (ROADMAP A16.2.3).
 * ``train_hier``: agents on ``pod`` only, ``fsdp`` over ``data`` (on a
   single pod the agents stay on ``data`` and ``fsdp`` replicates).  Its
   step raises (ROADMAP A16.2.2).
@@ -20,9 +21,11 @@ A logical dim is sharded only if its size divides its mesh axes' rank
 count, and only over axes the mesh has; otherwise it replicates (e.g.
 granite's 49155-token vocabulary on the ``model`` axis).
 
-A rank holds slice ``rank`` of every agent-stacked tensor in training
+A rank holds its agent's slice of every agent-stacked tensor in training
 (:func:`local_batch` of what :func:`repro_torch.data.lm_agent_batches`
-makes, plus a frontend model's stub embeddings), and in serving its block
+makes, plus a frontend model's stub embeddings; the agent's blocks of its
+params, :func:`repro_torch.nn.param.local_shard` with ``stacked=True``),
+and in serving its block
 of every param, cache and input leaf
 (:func:`repro_torch.nn.param.local_shard`, :func:`local_cache`).  A
 frontend model's sequence budget goes first to its stub embeddings (the
@@ -255,14 +258,15 @@ def local_cache(cfg: ArchConfig, shape: InputShape, mesh, device=None):
 
 
 def local_batch(batch: Dict[str, Any], mesh) -> Dict[str, torch.Tensor]:
-    """This rank's slice of an agent-stacked batch (numpy or tensors), on
-    the rank's device."""
+    """This rank's agent's slice of an agent-stacked batch (numpy or
+    tensors), on the rank's device: the batch is replicated over
+    ``model``."""
     out = {}
     for k, v in batch.items():
-        if v.shape[0] != mesh.size:
+        if v.shape[0] != mesh.n_agents:
             raise ValueError(f"batch leaf {k!r} has {v.shape[0]} agents, the "
-                             f"mesh {mesh.size}")
-        row = v[mesh.rank]
+                             f"mesh {mesh.n_agents}")
+        row = v[mesh.agent]
         out[k] = torch.as_tensor(np.ascontiguousarray(row)
                                  if isinstance(row, np.ndarray) else row,
                                  device=mesh.device)

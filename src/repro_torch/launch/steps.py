@@ -42,10 +42,30 @@ factor per axis (:func:`_agent_factors`: a ring on an axis of more than 2
 agents, fully connected otherwise), ``topology_name`` aside, as the
 reference does.  ``remat`` (the reference's default, on) recomputes each
 block of the loss in the backward pass (:func:`repro_torch.nn.transformer.
-forward`).  What the sharded mode does not run yet raises at build time,
-before any work: a fused optimizer outside ``ppermute_fused``, a mesh
-whose ``model`` axis holds more than one rank (ROADMAP A16.2.1) and
-``train_hier`` (ROADMAP A16.2.2).
+forward`).
+
+On a mesh with a ``model`` axis (``{"data": d, "model": m}``, or with
+``pod``) each rank holds its agent's blocks under the ``train`` rules:
+the ``tp`` dims over ``model``, ``fsdp`` replicated
+(:func:`local_train_state`, :func:`repro_torch.nn.param.local_shard`
+with ``stacked=True``, :attr:`TrainStepBundle.local_template`).  The
+grad phase runs the dense family's tensor-parallel forward and backward
+(:meth:`~repro_torch.nn.tensor_parallel.TensorParallel.for_training`:
+Megatron's collectives over ``model`` with their backward passes, a
+vocabulary-parallel cross entropy); the update phase packs the rank's
+shard into the flat buckets, exchanges them with the ranks of the same
+``model`` coordinate (the wire holds the local shard's rows, as the
+reference's shard-local layout does) and runs the fused kernel at one
+output agent, as on an agent-only mesh.  The means and the dense mixing
+run over the agent plane of the rank's ``model`` coordinate.
+
+What the sharded mode does not run yet raises at build time, before any
+work: a fused optimizer outside ``ppermute_fused``, ``train_hier``
+(ROADMAP A16.2.2), a family other than the dense one on a ``model`` axis
+of more than one rank (MoE's expert split and the other families' ``tp``
+training, ROADMAP A16.2.3), and a compressor there (the reference's
+``ValueError``: top-k's index payload and rank-r's bases do not shard
+over ``model``).
 
 Serving runs on a mesh with a ``model`` axis (``{"data": d, "model":
 m}``, or with ``pod``), under the serve rules (``fsdp`` over ``data``,
@@ -105,7 +125,7 @@ from repro_torch.launch import sharding as shlib
 from repro_torch.launch.mesh import MODEL_AXIS
 from repro_torch.nn import transformer as tt
 from repro_torch.nn.param import (CONTEXT_PARALLEL_ITEM, TRAIN_HIER_ITEM,
-                                  TRAIN_TP_ITEM, ParamDef, PartitionSpec,
+                                  ParamDef, PartitionSpec, local_shape,
                                   local_shard, stack_agent_axis)
 from repro_torch.nn.tensor_parallel import TensorParallel
 from repro_torch.nn.transformer import loss_fn, model_template
@@ -136,14 +156,25 @@ class TrainStepBundle:
     # the phases, for callers that drive them apart (teacher forcing)
     grad_phase: Optional[Callable] = None
     update_phase: Optional[Callable] = None
+    # the tensor-parallel context of the grad phase (a model axis of more
+    # than one rank), else None
+    tp: Optional[TensorParallel] = None
+
+    @property
+    def local_specs(self) -> PyTree:
+        """The specs of this rank's blocks: :attr:`param_specs` without
+        the agent dimension."""
+        return tree_map(lambda sp: PartitionSpec(tuple(sp.axes[1:])),
+                        self.param_specs)
 
     @property
     def local_template(self) -> PyTree:
-        """One agent's ParamDef tree (the agent axis dropped)."""
-        return tree_map(lambda pd: ParamDef(pd.shape[1:], pd.axes[1:],
-                                            init=pd.init, scale=pd.scale,
-                                            dtype=pd.dtype),
-                        self.param_template)
+        """This rank's ParamDef tree: one agent's (the agent axis dropped),
+        its ``tp`` dims cut to this rank's block on a ``model`` axis."""
+        return tree_map(lambda pd, sp: ParamDef(
+            local_shape(pd.shape[1:], sp, self.mesh), pd.axes[1:],
+            init=pd.init, scale=pd.scale, dtype=pd.dtype),
+            self.param_template, self.local_specs)
 
 
 def _agent_factors(mesh, agent_axes) -> consensus_lib.FactoredMix:
@@ -183,7 +214,7 @@ def make_mix_comm(topology: Topology, mesh, mixing: str,
     if mixing == "dense":
         return CommOps(mix=consensus_lib.make_gathered_mix_fn(topology, mesh),
                        mean=consensus_lib.make_sharded_mean_fn(mesh),
-                       flat=None, agent=mesh.rank)
+                       flat=None, agent=mesh.agent)
     if mixing != "ppermute":
         raise ValueError(f"unknown mixing {mixing!r}; expected one of {MIXINGS}")
     if factored is not None:
@@ -245,12 +276,11 @@ def build_train_step(
     if mode == "serve":
         raise ValueError("mode 'serve' has no agent axis to train over: "
                          "build_prefill_step / build_serve_step serve")
-    if mesh.shape.get(MODEL_AXIS, 1) > 1:
-        raise NotImplementedError(
-            f"training on a model axis of {mesh.shape[MODEL_AXIS]} ranks (tp / "
-            f"expert over model): {TRAIN_TP_ITEM}")
     if mode == "train_hier":
         raise NotImplementedError(f"mode 'train_hier': {TRAIN_HIER_ITEM}")
+    split = mesh.shape.get(MODEL_AXIS, 1) > 1
+    if split:
+        tt._check_family(cfg, sharded=True)
     rules = shlib.rules_for_mode(mode, mesh)
     n_agents = shlib.agent_count(mesh, mode)
     _check_sharded(optimizer, mixing, schedule, n_agents)
@@ -275,6 +305,14 @@ def build_train_step(
         faults=fault_schedule, compressor=compressor,
         sparse_update=sparse_update)
     exchange = program.exchange
+    other_axes = tuple(a for a in mesh.axis_names if a not in rules["agent"])
+    if program.compressed and any(mesh.shape[a] > 1 for a in other_axes):
+        raise ValueError(
+            f"compressor={program.compressor!r} supports agent-only sharding: "
+            f"the rank factors / warm-start bases ((r, 128) and (128, r)) and "
+            f"the top-k index payload do not shard over the non-agent mesh "
+            f"axes {other_axes}; use an agent-only mesh or a dense "
+            f"compressor (int8/fp8)")
     if not program.is_trivial and mixing != "ppermute_fused":
         raise ValueError(
             f"mixing strategy {program.strategy!r} (rounds={program.rounds}, "
@@ -311,8 +349,10 @@ def build_train_step(
     if schedule == "overlap":
         engine.check_overlap_support(optimizer, comm)
 
+    tp = TensorParallel.for_training(mesh, pspecs) if split else None
     grad_phase = engine.make_grad_phase(
-        lambda p, b: loss_fn(cfg, p, b, remat=remat), microbatches, per_agent=False)
+        lambda p, b: loss_fn(cfg, p, b, remat=remat, tp=tp), microbatches,
+        per_agent=False)
     update_phase = engine.make_update_phase(optimizer, comm, schedule)
     step_program = engine.StepProgram(
         optimizer=optimizer, comm=comm, grad_phase=grad_phase,
@@ -323,15 +363,44 @@ def build_train_step(
         topology=topology, mesh=mesh, exchange=exchange, schedule=schedule,
         mixing_program=program if mixing == "ppermute_fused" else None,
         init_state=step_program.init_state, optimizer=optimizer, comm=comm,
-        grad_phase=grad_phase, update_phase=update_phase)
+        grad_phase=grad_phase, update_phase=update_phase, tp=tp)
 
 
-def local_train_state(params: PyTree, opt_state: OptState, agent: int):
-    """Agent ``agent``'s share of a stacked trainer's state, in the sharded
-    mode's layout: each param and optimizer-state leaf's row ``agent``; the
-    wire pairs and residuals keep a leading agent axis of 1.  The step
-    count carries over."""
-    from repro_torch.utils.tree import tree_map
+def local_blocks(tree: PyTree, bundle: TrainStepBundle, stacked: bool = True) -> PyTree:
+    """This rank's blocks of an agent-stacked tree of param-shaped leaves
+    (``stacked=False``: of its agent's row) — the params, their gradients,
+    or an optimizer state of one or more param trees laid end to end: each
+    leaf takes the spec of the param it mirrors."""
+    from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_unflatten
+
+    specs = tree_leaves(bundle.param_specs if stacked else bundle.local_specs)
+    leaves, treedef = tree_flatten(tree)
+    if len(leaves) % len(specs):
+        raise ValueError(f"{len(leaves)} state leaves for {len(specs)} params")
+    return tree_unflatten(treedef, [
+        local_shard(x, specs[i % len(specs)], bundle.mesh, stacked=stacked)
+        for i, x in enumerate(leaves)])
+
+
+def local_train_state(params: PyTree, opt_state: OptState, agent,
+                      bundle: Optional[TrainStepBundle] = None):
+    """A rank's share of a stacked trainer's state, in the sharded mode's
+    layout; the step count carries over.
+
+    ``agent`` an int (an agent-only mesh): each param and optimizer-state
+    leaf's row ``agent``; the wire pairs and residuals keep a leading
+    agent axis of 1.  ``agent`` the rank's mesh (with ``bundle``, the
+    rank's step): this rank's blocks of the params, the momentum and the
+    Adam moments (:func:`local_blocks`: the agent's, cut at the ``model``
+    coordinate); the wire pairs, residuals and warm-start bases are no
+    blocks of a global tensor (each rank packs its own shard), so they are
+    made anew by ``bundle.init_state`` on the rank's blocks of the
+    params."""
+    if not isinstance(agent, int):
+        local = local_blocks(params, bundle)
+        fresh = bundle.init_state(local)
+        return local, fresh._replace(step=opt_state.step,
+                                     inner=local_blocks(opt_state.inner, bundle))
 
     def row(x):
         return x[agent].clone()

@@ -39,13 +39,16 @@ attends in the absorbed form, in float32.
 
 Under a tensor-parallel context (``tp``,
 :class:`repro_torch.nn.tensor_parallel.TensorParallel`; the dense family's
-sharded serve mode) :func:`gqa_attention` and :func:`gqa_decode` project
-to this rank's query heads (all of them when the heads replicate) and take
-the KV heads those queries read: the local ones when KV divides ``model``,
-else the needed ones of the replicated K/V
+sharded serve and training modes) :func:`gqa_attention` and
+:func:`gqa_decode` project to this rank's query heads (all of them when
+the heads replicate) and take the KV heads those queries read: the local
+ones when KV divides ``model``, else the needed ones of the replicated K/V
 (:func:`~repro_torch.nn.tensor_parallel.kv_for_heads`).  Prefill runs the
-flash kernel on the local heads; the output projection's partial sums are
-reduced over ``model``.  Decode over a cache whose KV heads are sharded
+flash kernel on the local heads, training the plain training attention;
+the output projection's partial sums are reduced over ``model``.  In
+training the replicated input's gradient is summed over ``model``, and so
+is a replicated ``wk`` / ``wv``'s: each rank's ``dK``, ``dV`` come from
+its own query heads only.  Decode over a cache whose KV heads are sharded
 (or that is not sequence-sharded) needs no combine.  Over a
 sequence-sharded cache the owner of ``cur_index`` writes the new K/V in
 place, every rank computes the softmax partials (max, sum, output) of
@@ -265,23 +268,26 @@ def gqa_attention(params, x: torch.Tensor, positions: torch.Tensor, *,
     causal self-attention with a window below ``s`` when ``s`` is a
     multiple of ``min(chunk, s)``, else :func:`blockwise_attention` over
     the positions, both with ``chunk``.  ``tp``: this rank's query heads
-    (see the module docstring), prefill only."""
+    (see the module docstring), self-attention only."""
+    wk, wv = params["wk"], params["wv"]
+    if tp is not None and differentiable and tp.heads:
+        # the gradients of the replicated input (and K/V projections) are
+        # partial on each rank: summed over model in the backward pass
+        if tp.kv:
+            x = tp.copy(x)
+        else:
+            x, wk, wv = tp.copy(x, wk, wv)
     src = x if kv_x is None else kv_x
     q = _project(x, params["wq"])
-    k = _project(src, params["wk"])
-    v = _project(src, params["wv"])
+    k = _project(src, wk)
+    v = _project(src, wv)
     kp = kv_positions if kv_positions is not None else (
         positions if kv_x is None else torch.arange(src.shape[1], device=x.device))
     if use_rope:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, kp, rope_theta)
-    if tp is not None:
-        if differentiable:
-            raise ValueError("the sharded attention serves only (prefill)")
-        if tp.heads and not tp.kv:
-            k, v = kv_for_heads(k, v, *tp.head_range(q.shape[2]))
-        return _tp_out(_flash(q, k, v, causal=causal and kv_x is None,
-                              window=window), params["wo"], tp)
+    if tp is not None and tp.heads and not tp.kv:
+        k, v = kv_for_heads(k, v, *tp.head_range(q.shape[2]))
     causal = causal and kv_x is None
     s = x.shape[1]
     if not differentiable:
@@ -291,6 +297,8 @@ def gqa_attention(params, x: torch.Tensor, positions: torch.Tensor, *,
     else:
         out = blockwise_attention(q, k, v, causal=causal, window=window,
                                   q_positions=positions, k_positions=kp, chunk=chunk)
+    if tp is not None:
+        return _tp_out(out, params["wo"], tp)
     return _out(out, params["wo"])
 
 

@@ -11,8 +11,12 @@ Under a tensor-parallel context (``tp``,
 the logits and the MLP run on this rank's blocks: a vocabulary-sharded
 table looks up the tokens it holds and sums over ``model``; the logits of
 a sharded vocabulary are gathered along it, so the argmax and the logits
-are the unsharded ones; the MLP is column-parallel in ``wi`` / ``wg`` and
-row-parallel in ``wo`` when ``d_ff`` is split."""
+are the unsharded ones (the loss takes this rank's block, ``gather=False``,
+and a vocabulary-parallel cross entropy); the MLP is column-parallel in
+``wi`` / ``wg`` and row-parallel in ``wo`` when ``d_ff`` is split.  A
+column-parallel product's replicated input goes through
+:meth:`~repro_torch.nn.tensor_parallel.TensorParallel.copy`, whose
+backward sums its gradient over ``model``."""
 
 from __future__ import annotations
 
@@ -95,21 +99,22 @@ def embed(params, tokens: torch.Tensor, tp=None) -> torch.Tensor:
                                                                   device=rows.device)))
 
 
-def vocab_logits(x: torch.Tensor, w: torch.Tensor, tp=None) -> torch.Tensor:
+def vocab_logits(x: torch.Tensor, w: torch.Tensor, tp=None,
+                 gather: bool = True) -> torch.Tensor:
     """``x @ w`` over a ``(d, vocab)`` head; a vocabulary sharded over
-    ``model`` is gathered along it."""
-    logits = torch.matmul(x, w)
+    ``model`` is gathered along it (``gather=False``: this rank's block)."""
     if tp is not None and tp.vocab:
-        logits = tp.gather_model(logits, dim=-1)
-    return logits
+        logits = torch.matmul(tp.copy(x), w)
+        return tp.gather_model(logits, dim=-1) if gather else logits
+    return torch.matmul(x, w)
 
 
 def unembed_template(d: int, vocab: int, dtype=torch.float32) -> Dict[str, ParamDef]:
     return {"w": ParamDef((d, vocab), ("fsdp", "tp"), init="scaled", dtype=dtype)}
 
 
-def unembed(params, x: torch.Tensor, tp=None) -> torch.Tensor:
-    return vocab_logits(x, params["w"], tp)
+def unembed(params, x: torch.Tensor, tp=None, gather: bool = True) -> torch.Tensor:
+    return vocab_logits(x, params["w"], tp, gather)
 
 
 # --------------------------------------------------------------------------
@@ -139,6 +144,8 @@ def _act(name: str):
 
 
 def mlp(params, x: torch.Tensor, *, act: str = "silu", tp=None) -> torch.Tensor:
+    if tp is not None and tp.ff:
+        x = tp.copy(x)
     h = matmul(x, params["wi"])
     if "wg" in params:
         h = _act(act)(matmul(x, params["wg"])) * h

@@ -120,9 +120,9 @@ class PartitionSpec:
 
 
 #: where the rest of the sharded mode is queued (ROADMAP A16.2, in order)
-TRAIN_TP_ITEM = "ROADMAP A16.2.1 (tp / expert over model in training)"
 TRAIN_HIER_ITEM = "ROADMAP A16.2.2 (train_hier)"
-SERVE_FAMILIES_ITEM = "ROADMAP A16.2.3 (the other families' serve mode)"
+SERVE_FAMILIES_ITEM = ("ROADMAP A16.2.3 (the other families' serve mode and "
+                       "tp training, MoE's expert split)")
 CONTEXT_PARALLEL_ITEM = "ROADMAP A16.2.4 (context_parallel)"
 
 
@@ -179,13 +179,26 @@ def _block(shape, spec: PartitionSpec, mesh, rank: int) -> tuple:
     return tuple(out)
 
 
-def local_shard(tree: PyTree, specs: PyTree, mesh) -> PyTree:
+def local_shard(tree: PyTree, specs: PyTree, mesh, *,
+                stacked: bool = False) -> PyTree:
     """This rank's block of every leaf of the global ``tree`` (tensors),
     sharded by ``specs`` (one :class:`PartitionSpec` per leaf) on ``mesh``
     (a :class:`~repro_torch.launch.mesh.AgentMesh`), each a contiguous
-    copy."""
-    return tree_map(lambda x, sp: x[_block(x.shape, sp, mesh, mesh.rank)]
-                    .contiguous(), tree, specs)
+    copy.  ``stacked``: an agent-stacked tree under the ``train`` rules
+    (the agent dimension first, over the agent axes): the block of this
+    rank's ``(agent, model coordinate)`` with the agent dimension
+    dropped."""
+    def leaf(x, sp):
+        block = x[_block(x.shape, sp, mesh, mesh.rank)]
+        if stacked:
+            if block.shape[0] != 1:
+                raise ValueError(f"spec {sp.axes} does not split the agent "
+                                 f"dimension of {tuple(x.shape)} one agent "
+                                 "a rank")
+            block = block[0]
+        return block.contiguous()
+
+    return tree_map(leaf, tree, specs)
 
 
 def global_from_shards(shards, specs: PyTree, mesh) -> PyTree:

@@ -32,10 +32,38 @@ would.  The layers read the flags :attr:`~TensorParallel.heads`,
 :attr:`~TensorParallel.kv`, :attr:`~TensorParallel.ff` and
 :attr:`~TensorParallel.vocab`, and a decode the cache's
 :attr:`~TensorParallel.seq_axes`.
+
+Training (the ``train`` rules: ``tp`` over ``model``, no ``fsdp``; the
+context built from the agent-stacked specs with the agent dimension
+dropped, :meth:`TensorParallel.for_training`) runs the same layers
+through ``torch.func.grad_and_value``, so every collective over ``model``
+is a ``torch.autograd.Function`` (Megatron's pair, each an identity where
+it moves nothing):
+
+* :meth:`TensorParallel.copy` — identity forward, the gradients summed
+  over ``model`` backward: a replicated activation entering a
+  column-parallel product (the attention's and the MLP's input, the
+  head's), and replicated K/V projections read by a rank's query heads
+  only (gemma3-1b's one KV head on ``model`` 2), whose gradient each rank
+  holds a part of;
+* :meth:`TensorParallel.psum` / :meth:`TensorParallel.row_parallel` — the
+  float32 all-reduce forward, identity backward;
+* :meth:`TensorParallel.gather_model` — the gather forward, this rank's
+  slice backward.
+
+The cross entropy of a vocabulary sharded over ``model`` never gathers
+the logits (:func:`vocab_parallel_cross_entropy`: the maximum, the sum of
+exponentials and the gold logit, each ``(b, s)`` float32, reduced over
+``model``).  A collective runs on plain tensors outside the function
+transforms (:func:`_outside`): the backward pass hands a
+``torch.autograd.Function`` the transform's wrapped tensors, and staging
+them through the pinned buffers would mutate a tensor the transform
+captured.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
 import torch
@@ -56,6 +84,83 @@ def _at(spec: PartitionSpec, i: int):
 def _drop(specs: PyTree, lead: int) -> PyTree:
     """A stacked group's specs without their ``lead`` layer dimensions."""
     return tree_map(lambda sp: PartitionSpec(tuple(sp.axes[lead:])), specs)
+
+
+def _plain(t: torch.Tensor) -> torch.Tensor:
+    """``t`` without the function transforms' wrappers."""
+    while torch._C._functorch.is_functorch_wrapped_tensor(t):
+        t = torch._C._functorch.get_unwrapped(t)
+    return t
+
+
+@contextlib.contextmanager
+def _outside():
+    """No gradient recording and no function transform: a collective's
+    staging copies run on plain tensors."""
+    with torch._C._DisableFuncTorch(), torch.no_grad():
+        yield
+
+
+def _reduce(mesh, xs, *, op: str = "sum", grad: bool = False) -> list:
+    """:func:`~repro_torch.core.collectives.all_reduce_sum` over ``model``
+    of plain copies of ``xs``."""
+    with _outside():
+        return collectives.all_reduce_sum(
+            mesh, [_plain(x).contiguous() for x in xs], MODEL, op=op, grad=grad)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's ``f``: identity forward, each gradient summed over
+    ``model`` backward (one float32 all-reduce for every input)."""
+
+    @staticmethod
+    def forward(mesh, *xs):
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh = inputs[0]
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *_reduce(ctx.mesh, grads, grad=True))
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's ``g``: the float32 sum over ``model`` forward (cast once
+    to each input's dtype), identity backward."""
+
+    @staticmethod
+    def forward(mesh, *xs):
+        return tuple(_reduce(mesh, xs))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *grads)
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """The ranks' ``x`` over ``model`` concatenated along ``dim`` forward,
+    this rank's slice of the gradient backward."""
+
+    @staticmethod
+    def forward(mesh, x, dim):
+        with _outside():
+            return collectives.all_gather(mesh, _plain(x).contiguous(), MODEL,
+                                          dim=dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        mesh, x, dim = inputs
+        ctx.dim, ctx.n, ctx.i = dim, x.shape[dim], mesh.coord(MODEL)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g.narrow(ctx.dim, ctx.i * ctx.n, ctx.n), None
 
 
 class TensorParallel:
@@ -91,6 +196,13 @@ class TensorParallel:
             lead = len(k.axes) - 4
             self.seq_axes = k.axes[lead + 1]
             self.kv_cache = k.axes[lead + 2] is not None
+
+    @classmethod
+    def for_training(cls, mesh, param_specs: PyTree) -> "TensorParallel":
+        """The context of one rank's training step from the agent-stacked
+        specs of the ``train`` rules (the agent dimension first, dropped
+        here: read as serve specs, ``data`` would be taken for ``fsdp``)."""
+        return cls(mesh, _drop(param_specs, 1))
 
     def _model(self, entry) -> bool:
         return MODEL in self.mesh.axes_of(entry)
@@ -132,10 +244,23 @@ class TensorParallel:
 
     # ---- model ---------------------------------------------------------
 
-    def psum(self, y: torch.Tensor) -> torch.Tensor:
-        """The sum of the ranks' partial ``y`` over ``model``: one float32
-        all-reduce, cast once to ``y``'s dtype."""
-        return collectives.all_reduce_sum(self.mesh, [y], MODEL)[0]
+    def copy(self, *xs: torch.Tensor):
+        """``xs`` as they are, their gradients summed over ``model`` in the
+        backward pass (:class:`_CopyToModel`; one tensor, or a tuple)."""
+        out = _CopyToModel.apply(self.mesh, *xs)
+        return out[0] if len(xs) == 1 else out
+
+    def psum(self, *ys: torch.Tensor):
+        """The sum of the ranks' partial ``ys`` over ``model``: one float32
+        all-reduce, each cast once to its dtype; identity backward (one
+        tensor, or a tuple)."""
+        out = _ReduceFromModel.apply(self.mesh, *ys)
+        return out[0] if len(ys) == 1 else out
+
+    def reduce_max(self, y: torch.Tensor) -> torch.Tensor:
+        """The maximum of the ranks' ``y`` over ``model``, a constant to
+        the gradient (a softmax's shift)."""
+        return _reduce(self.mesh, [y.detach()], op="max")[0]
 
     def row_parallel(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """``x @ w`` with the contraction split over ``model`` (this rank's
@@ -143,11 +268,12 @@ class TensorParallel:
         cast once to the operands' promoted dtype."""
         out = torch.promote_types(x.dtype, w.dtype)
         part = torch.matmul(x.float(), w.float())
-        return collectives.all_reduce_sum(self.mesh, [part], MODEL)[0].to(out)
+        return self.psum(part).to(out)
 
     def gather_model(self, y: torch.Tensor, dim: int) -> torch.Tensor:
-        """The ranks' ``y`` over ``model``, concatenated along ``dim``."""
-        return collectives.all_gather(self.mesh, y.contiguous(), MODEL, dim=dim)
+        """The ranks' ``y`` over ``model``, concatenated along ``dim``
+        (this rank's slice of the gradient backward)."""
+        return _GatherFromModel.apply(self.mesh, y, dim)
 
     def gather_over(self, y: torch.Tensor, entry) -> torch.Tensor:
         """The ranks' ``y`` over a spec entry's axes, stacked on a new
@@ -184,6 +310,32 @@ def kv_for_heads(k: torch.Tensor, v: torch.Tensor, h0: int, h1: int,
     raise NotImplementedError(
         f"query heads [{h0}, {h1}) of {n_heads} span {n_kv}-head KV groups "
         f"of {g} while the KV heads replicate")
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                                 tp: TensorParallel, mask=None) -> torch.Tensor:
+    """The mean next-token cross entropy of this rank's vocabulary block
+    of the logits ``(b, s, vocab / model)`` (block ``tp.model_rank``),
+    without gathering them: ``logsumexp`` from the maximum over ``model``
+    (a constant to the gradient) and the sum of exponentials, the gold
+    logit from the rank that holds it, both summed over ``model`` in one
+    float32 all-reduce whose backward is the identity, so each rank's
+    gradient stays its own block's.  ``mask`` as in the plain cross
+    entropy."""
+    lf = logits.float()
+    n = lf.shape[-1]
+    m = tp.reduce_max(torch.amax(lf, dim=-1))
+    local = targets.long() - tp.model_rank * n
+    hit = (local >= 0) & (local < n)
+    gold = torch.gather(lf, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = torch.where(hit, gold, torch.zeros((), dtype=lf.dtype, device=lf.device))
+    sums = tp.psum(torch.stack([torch.sum(torch.exp(lf - m[..., None]), dim=-1),
+                                gold]))
+    nll = (m + torch.log(sums[0])) - sums[1]
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
 
 
 def combine_partials(parts: torch.Tensor) -> torch.Tensor:

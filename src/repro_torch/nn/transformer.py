@@ -40,15 +40,18 @@ writes them **in place** (views of the stacked tensors) and returns the
 same tree; an encoder-decoder's cache also holds ``enc_out``, the encoder's
 output (:func:`encode_for_decode`), which every cross-attention reads.
 
-:func:`forward` and :func:`decode_step` take a
+:func:`forward`, :func:`loss_fn` and :func:`decode_step` take a
 tensor-parallel context (``tp``,
 :class:`repro_torch.nn.tensor_parallel.TensorParallel`) for the dense
-family's sharded serve mode: ``params`` and the cache are then this rank's
-blocks, each block's ``fsdp`` shards are gathered just before it runs and
-dropped after, and the layers run on the rank's heads, ``d_ff`` and
-vocabulary (:func:`repro_torch.launch.sharding.local_cache` allocates a
-rank's block of the cache).  Without a context they run as before.  A sharded call for any
-other family raises (ROADMAP A16.2.3).
+family's sharded serve and training modes: ``params`` and the cache are
+then this rank's blocks, each block's ``fsdp`` shards are gathered just
+before it runs and dropped after (serving; training has none), and the
+layers run on the rank's heads, ``d_ff`` and vocabulary
+(:func:`repro_torch.launch.sharding.local_cache` allocates a rank's block
+of the cache); the loss's collectives over ``model`` have their backward
+passes, also under remat (every rank reruns a block's forward collectives
+in the same order).  Without a context they run as before.  A sharded call
+for any other family raises (ROADMAP A16.2.3).
 
 Public API:
   model_template(cfg)                       -> ParamDef tree
@@ -80,8 +83,8 @@ from repro_torch.nn.layers import (
     unembed_template,
     vocab_logits,
 )
-from repro_torch.nn.param import (SERVE_FAMILIES_ITEM, TRAIN_TP_ITEM, ParamDef,
-                                  stack_layers)
+from repro_torch.nn.param import SERVE_FAMILIES_ITEM, ParamDef, stack_layers
+from repro_torch.nn.tensor_parallel import vocab_parallel_cross_entropy
 from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 PyTree = Any
@@ -99,12 +102,15 @@ def _check_family(cfg, sharded: bool = False) -> None:
     """Raise on a combination the reference's zoo has no model for: an
     unknown modality or SSM kind, mamba outside the hybrid family, or a
     hybrid without mamba; ``sharded``: on any family but the dense one
-    (its serve mode over the model axis is ROADMAP A16.2.3)."""
+    (its serve mode and training over the model axis, and MoE's expert
+    split, are ROADMAP A16.2.3)."""
     if sharded and not is_dense_family(cfg):
         raise NotImplementedError(
-            f"{cfg.name}: the sharded serve mode runs the dense family (GQA "
-            "blocks, dense MLPs, text only); rwkv6, MoE, MLA, hymba, "
-            f"seamless and internvl2's frontend are {SERVE_FAMILIES_ITEM}")
+            f"{cfg.name}: the sharded mode over a model axis (serving, and "
+            "training with tp / expert over model) runs the dense family "
+            "(GQA blocks, dense MLPs, text only); rwkv6, MoE's expert split, "
+            f"MLA, hymba, seamless and internvl2's frontend are "
+            f"{SERVE_FAMILIES_ITEM}")
     if cfg.modality not in ("text", "vlm", "audio"):
         raise ValueError(f"{cfg.name}: no {cfg.modality!r} frontend in the zoo")
     if cfg.ssm_kind not in ("none", "rwkv6", "mamba"):
@@ -490,19 +496,20 @@ def _embedding(params, tp=None):
     return params["embed"] if tp is None else tp.gather_top(params["embed"], "embed")
 
 
-def _logits(cfg, params, x, embedding, tp=None):
-    """The final norm and the head: tied (on ``embedding``) or untied."""
+def _logits(cfg, params, x, embedding, tp=None, gather: bool = True):
+    """The final norm and the head: tied (on ``embedding``) or untied
+    (``gather=False``: this rank's block of a sharded vocabulary)."""
     _, norm = _norm(cfg)
     top = (lambda name: params[name]) if tp is None else \
         (lambda name: tp.gather_top(params[name], name))
     x = norm(top("final_norm"), x)
     if cfg.tie_embeddings:
-        return vocab_logits(x, embedding["table"].t(), tp)
-    return unembed(top("unembed"), x, tp)
+        return vocab_logits(x, embedding["table"].t(), tp, gather)
+    return unembed(top("unembed"), x, tp, gather)
 
 
 def forward(cfg, params, batch, *, differentiable: bool = False, remat: bool = False,
-            tp=None, last_only: bool = False):
+            tp=None, last_only: bool = False, gather: bool = True):
     """Forward of ``batch["inputs"] (b, s)`` tokens (behind ``batch
     ["frontend"]`` for a VLM; an encoder-decoder's decoder over them, its
     encoder over ``batch["frontend"]``).  Returns ``(logits (b, [frontend
@@ -511,15 +518,12 @@ def forward(cfg, params, batch, *, differentiable: bool = False, remat: bool = F
     runs the forward-only attention and WKV6 kernels;
     ``differentiable=True`` (the loss) their plain, differentiable training
     forms.  ``remat=True`` recomputes each block in the backward pass.
-    ``tp``: the dense family's sharded prefill on this rank's blocks
-    (see the module docstring).  ``last_only``: the logits of the last
-    position only, ``(b, 1, vocab)`` (a prefill's)."""
+    ``tp``: the dense family's sharded prefill or training forward on this
+    rank's blocks (see the module docstring; ``gather=False``: this rank's
+    block of a vocabulary sharded over ``model``).  ``last_only``: the
+    logits of the last position only, ``(b, 1, vocab)`` (a prefill's)."""
     if tp is not None:
         _check_family(cfg, sharded=True)
-        if differentiable or remat:
-            raise NotImplementedError("the tensor-parallel context serves "
-                                      "(prefill and decode); training over the "
-                                      f"model axis is {TRAIN_TP_ITEM}")
     emb = _embedding(params, tp)
     if cfg.is_encoder_decoder:
         enc_out = _encode(cfg, params, batch["frontend"], differentiable, remat)
@@ -537,10 +541,17 @@ def forward(cfg, params, batch, *, differentiable: bool = False, remat: bool = F
             aux_total = aux_total + aux
     if last_only:
         x = x[:, -1:]
-    return _logits(cfg, params, x, emb, tp), {"moe_aux": aux_total}
+    return _logits(cfg, params, x, emb, tp, gather), {"moe_aux": aux_total}
 
 
-def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask=None) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask=None,
+                  tp=None) -> torch.Tensor:
+    """The mean (masked) next-token cross entropy in float32; ``tp`` with a
+    vocabulary sharded over ``model``: ``logits`` are this rank's block,
+    reduced without a gather
+    (:func:`~repro_torch.nn.tensor_parallel.vocab_parallel_cross_entropy`)."""
+    if tp is not None and tp.vocab:
+        return vocab_parallel_cross_entropy(logits, targets, tp, mask)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
@@ -551,17 +562,21 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask=None) -> tor
     return torch.mean(nll)
 
 
-def loss_fn(cfg, params, batch, *, remat: bool = False):
+def loss_fn(cfg, params, batch, *, remat: bool = False, tp=None):
     """``(loss, metrics)``: the mean next-token cross entropy over the batch
     (a VLM's text tail only: frontend positions carry no targets; every
     position of an encoder-decoder's decoder) plus
     ``router_aux_weight`` times the MoE load-balance term, through the
-    differentiable (training) forward; ``remat`` as in :func:`forward`."""
-    logits, aux = forward(cfg, params, batch, differentiable=True, remat=remat)
+    differentiable (training) forward; ``remat`` as in :func:`forward`.
+    ``tp``: the dense family's training on this rank's blocks over
+    ``model`` (the logits never gathered: a vocabulary-parallel cross
+    entropy)."""
+    logits, aux = forward(cfg, params, batch, differentiable=True, remat=remat,
+                          tp=tp, gather=False)
     tgt = batch["targets"]
     if _has_frontend(cfg):
         logits = logits[:, -tgt.shape[1]:, :]
-    ce = cross_entropy(logits, tgt, batch.get("mask"))
+    ce = cross_entropy(logits, tgt, batch.get("mask"), tp)
     total = ce + cfg.router_aux_weight * aux["moe_aux"]
     return total, {"ce": ce, "moe_aux": aux["moe_aux"]}
 

@@ -1233,6 +1233,30 @@ def test_axis_collectives_staged_on_card():
 
 
 @pytest.mark.cuda
+def test_tp_training_staged_on_card():
+    """Four ``gloo`` ranks on the card on ``data 2 x model 2`` (training
+    over the model axis): reduced granite-3-8b's tensor-parallel grad phase
+    at remat, its collectives over ``model`` staged through pinned host
+    buffers inside ``torch.func``, each rank's gradient blocks within 1e-5
+    of max |g| of the agent's unsharded gradient on the card; a whole fused
+    step counts its forward and backward collectives apart."""
+    _card()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_sharded_tp_ranks as tp_ranks
+
+    from repro_torch.launch.mesh import spawn_agents
+
+    got = spawn_agents(tp_ranks.card_tp_grads, 4, backend="gloo", device="cuda",
+                       timeout=60, join_timeout=300, axes={"data": 2, "model": 2})
+    for r, res in enumerate(got):
+        for leaf, (gap, top) in res["gaps"].items():
+            assert gap <= 1e-5 * top, (r, leaf, gap, top)
+        by = res["census"]["by_axis"]
+        assert by["model"]["calls"] > 0 and by["model:grad"]["calls"] > 0
+        assert res["census"]["staged_bytes"] > 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("factor", [1.5, 0.5], ids=["kept", "dropped"])
 def test_moe_apply_on_card_matches_cpu(factor):
     """The same routing on the card as on the CPU (the indices and the

@@ -1,7 +1,8 @@
 """The dry-run (``repro_torch.launch.dryrun``): one rank's gemma3-1b
-``train_4k`` step at full width and depth traced on ``meta`` (16 agents,
-16 sequences of 4,096 a rank, CDMSGD on a top-k wire with error feedback
-under overlap), nothing allocated:
+``train_4k`` step at full width and depth traced on ``meta`` on the
+agent-only mesh of ``--agents 16`` (16 sequences of 4,096 a rank, CDMSGD
+on a top-k wire with error feedback under overlap: a compressor does not
+shard over ``model``), nothing allocated:
 
 * a schema-2 record that ``load_dryrun_record`` reads, with the roofline
   on the H100 and the verify block's value rules skipped;
@@ -18,7 +19,12 @@ under overlap), nothing allocated:
   ``data``, the partial sums and gathers over ``model``), counted by the
   Census by axis;
 * the prefill and decode shapes of another family write the skip naming
-  its ROADMAP item (A16.2.3).
+  its ROADMAP item (A16.2.3);
+* by default a training shape traces one rank of the reference's
+  production mesh, ``data 16 x model 16`` (``mesh: "16x16"``): the rank's
+  blocks, the collectives over ``model`` by axis, forward and backward,
+  and the agent exchange of the local shard; a compressor there records
+  the reference's skip.
 """
 
 import os
@@ -53,6 +59,7 @@ TOPK = "topk:0.01"
 def record(tmp_path_factory):
     out = tmp_path_factory.mktemp("dryrun")
     assert dryrun.main(["--arch", "gemma3-1b", "--shape", "train_4k",
+                        "--agents", str(AGENTS),
                         "--exchange", "int8", "--schedule", "overlap",
                         "--compressor", TOPK, "--error-feedback",
                         "--out", str(out)]) == 0
@@ -155,3 +162,50 @@ def test_a_dense_decode_record_at_the_serve_mesh(record):
     assert got["argument_bytes_per_device"] > cache
     assert got["peak_bytes_per_device"] >= got["argument_bytes_per_device"]
     assert got["roofline"]["dominant"] in ("compute", "memory", "collective")
+
+
+def test_a_train_record_at_the_production_mesh(record):
+    """gemma3-1b's ``train_4k`` on 16 x 16 (int8 overlap): 16 sequences a
+    rank; its 4 query heads and one KV head replicate on ``model`` 16,
+    ``d_ff`` and the vocabulary split.  A compressor there skips with the
+    reference's words."""
+    _, out = record
+    rec = dryrun.run_pair("gemma3-1b", "train_4k", out_dir=str(out),
+                          verbose=False, exchange="int8", schedule="overlap")
+    assert rec["status"] == "ok", rec.get("traceback")
+    got = load_dryrun_record(str(out / "gemma3-1b__train_4k__16x16__train_"
+                                       "ppermute_fused.json"))
+    assert got["mesh"] == "16x16" and got["chips"] == 256
+    c = get_config("gemma3-1b")
+    layers, m = c.n_layers, 16
+    by = got["census_by_axis"]
+    # forward: each layer's MLP partial sum, twice (remat reruns it), the
+    # embedding's sum and the cross entropy's maximum and sums; backward:
+    # each layer's MLP input copy and the head's
+    assert by["model"]["calls"] == 2 * layers + 3
+    assert by["model:grad"]["calls"] == layers + 1
+    act = 4 * B * S * c.d_model
+    assert by["model:grad"]["bytes"] == (layers + 1) * act
+    v = {r["rule"]: r for r in got["verify"]["rules"]}
+    assert got["verify"]["ok"], [r for r in v.values() if not r["ok"]]
+    assert not v["census.ppermute_count"]["skipped"]
+    assert v["census.clean_collectives"]["ok"]
+    # the agent exchange moves the local shard: d_ff's and the vocabulary's
+    # 1/16 of their leaves, every replicated leaf whole
+    tmpl = jt.model_template(jget("gemma3-1b"))
+    local = 0
+    for path, pd in jax.tree_util.tree_flatten_with_path(
+            tmpl, is_leaf=lambda x: isinstance(x, jparam.ParamDef))[0]:
+        n = 1
+        for d in pd.shape:
+            n *= d
+        names = [getattr(k, "key", "") for k in path]
+        split = names[-1] == "table" or (names[-2:-1] == ["mlp"])
+        local += n // m if split else n
+    xb = got["exchange_bytes_per_step"]
+    rows = -(-local // 128)
+    assert xb["per_neighbor_bytes"] == rows * 128 + 4 * rows
+    skip = dryrun.run_pair("gemma3-1b", "train_4k", out_dir=str(out),
+                           verbose=False, compressor=TOPK, error_feedback=True)
+    assert skip["status"].startswith("skip") and \
+        "agent-only sharding" in skip["status"]

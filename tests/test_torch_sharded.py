@@ -375,11 +375,17 @@ def _prefill_step():
 
 
 def _model_axes():
-    """Training with tp / expert over a model axis of more than one rank."""
-    steps_lib.build_train_step(
-        ranks.lm_config(), InputShape("t", SEQ, BATCH * AGENTS, "train"),
-        _mesh(axes=_MODEL_MESH), ranks.make_opt("cdmsgd", True),
-        mixing="ppermute_fused")
+    """Training over a model axis of more than one rank: the dense family
+    builds (``tp`` over ``model``); MoE's ``expert`` split raises its item
+    (ROADMAP A16.2.3)."""
+    shape = InputShape("t", SEQ, BATCH * AGENTS, "train")
+    b = steps_lib.build_train_step(ranks.lm_config(), shape, _mesh(axes=_MODEL_MESH),
+                                   ranks.make_opt("cdmsgd", True),
+                                   mixing="ppermute_fused")
+    assert b.tp is not None and b.tp.heads and b.n_agents == 2
+    steps_lib.build_train_step(get_config("kimi-k2-1t-a32b").reduced(), shape,
+                               _mesh(axes=_MODEL_MESH), ranks.make_opt("cdmsgd", True),
+                               mixing="ppermute_fused")
 
 
 @pytest.mark.parametrize("kw,want", [
@@ -401,10 +407,12 @@ def _model_axes():
         "train_hier", "serve", "model-axes", "serve-step", "prefill-step"])
 def test_agent_axis_knobs_build_and_model_axes_raise(kw, want):
     """The agent-axis knobs of ROADMAP A16.2 build; what stays A16.2's
-    (training over the model axis, ``train_hier``, the other families'
+    (MoE's expert split and the other families on the model axis, which
+    the dense family trains over, ``train_hier``, the other families'
     serve steps, ``context_parallel``) still raises it; a training step in
     serve mode is refused (the serve steps are in
-    ``test_torch_sharded_serve.py``)."""
+    ``test_torch_sharded_serve.py``, training over ``model`` in
+    ``test_torch_sharded_tp.py``)."""
     if want is None:
         with pytest.raises(NotImplementedError, match="A16.2"):
             kw() if callable(kw) else _build(**kw)
@@ -426,14 +434,14 @@ def test_agent_axis_knobs_build_and_model_axes_raise(kw, want):
 def test_model_axis_raises():
     """The logical model axes resolve (as the reference's
     ``partition_specs``); training over a model axis of more than one rank
-    raises its queue item (ROADMAP A16.2.1), and the serve steps need a
-    mesh with a model axis."""
+    builds for the dense family and raises MoE's queue item (ROADMAP
+    A16.2.3), and the serve steps need a mesh with a model axis."""
     tmpl = stack_agent_axis(tt.model_template(ranks.lm_config()), AGENTS)
     specs = partition_specs(tmpl, {"agent": "data", "tp": "model", "fsdp": None})
     assert specs["embed"]["table"].axes == ("data", "model")
     specs = partition_specs(tmpl, {"agent": "data"})
     assert all(s.axes == ("data",) for s in tree_leaves(specs))
-    with pytest.raises(NotImplementedError, match="A16.2.1"):
+    with pytest.raises(NotImplementedError, match="A16.2.3"):
         _model_axes()
     with pytest.raises(ValueError, match="model"):
         steps_lib.build_serve_step(ranks.lm_config(),
